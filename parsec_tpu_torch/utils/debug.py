@@ -1,0 +1,118 @@
+"""Leveled debug output with an in-memory history ring.
+
+Mirrors the shape of the reference's debug subsystem
+(``parsec/utils/debug.{c,h}``, ``output.c``): per-subsystem
+leveled verbosity streams, a process-wide ring buffer of recent debug
+messages dumpable on fatal error (reference ``parsec_debug_history_add`` /
+``parsec_debug_history_dump``, ``debug.h:58-61``), and optional ANSI colors.
+
+Verbosity convention (matches the reference's output levels):
+  0 silent, 1 errors, 2 warnings, 3 info, 4.. increasingly noisy debug.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import sys
+import threading
+import time
+from typing import Deque, Dict, Optional, Tuple
+
+from . import mca_param
+
+_HISTORY_LEN = mca_param.register(
+    "debug", "history_size", 4096, help="entries kept in the debug history ring"
+)
+_COLOR = mca_param.register(
+    "debug", "color", sys.stderr.isatty(), help="colorize debug output"
+)
+
+_global_verbose = mca_param.register(
+    "debug", "verbose", int(os.environ.get("PARSEC_DEBUG_VERBOSE", "2")),
+    help="global verbosity: 0 silent, 1 err, 2 warn, 3 info, 4+ debug",
+)
+
+_lock = threading.Lock()
+_history: Deque[Tuple[float, str, int, str]] = collections.deque(maxlen=_HISTORY_LEN)
+_stream_verbosity: Dict[str, int] = {}
+
+_COLORS = {1: "\x1b[31m", 2: "\x1b[33m", 3: "\x1b[36m"}
+_RESET = "\x1b[0m"
+
+
+def set_verbose(level: int, subsystem: Optional[str] = None) -> None:
+    global _global_verbose
+    if subsystem is None:
+        _global_verbose = level
+        mca_param.set_param("debug", "verbose", level)
+    else:
+        _stream_verbosity[subsystem] = level
+        mca_param.set_param(subsystem, "verbose", level)
+
+
+def get_verbose(subsystem: Optional[str] = None) -> int:
+    if subsystem is not None and subsystem in _stream_verbosity:
+        return _stream_verbosity[subsystem]
+    try:
+        return mca_param.get("debug", "verbose")
+    except KeyError:
+        return _global_verbose
+
+
+def verbose(level: int, subsystem: str, fmt: str, *args) -> None:
+    """parsec_debug_verbose equivalent: emit if subsystem verbosity >= level."""
+    msg = (fmt % args) if args else fmt
+    now = time.time()
+    with _lock:
+        _history.append((now, subsystem, level, msg))
+    if level <= get_verbose(subsystem):
+        tname = threading.current_thread().name
+        prefix = f"[parsec:{subsystem}:{tname}] "
+        if _COLOR and level in _COLORS:
+            line = f"{_COLORS[level]}{prefix}{msg}{_RESET}"
+        else:
+            line = prefix + msg
+        print(line, file=sys.stderr)
+
+
+def error(fmt: str, *args) -> None:
+    verbose(1, "core", fmt, *args)
+
+
+def warning(fmt: str, *args) -> None:
+    verbose(2, "core", fmt, *args)
+
+
+def info(fmt: str, *args) -> None:
+    verbose(3, "core", fmt, *args)
+
+
+def debug(fmt: str, *args) -> None:
+    verbose(4, "core", fmt, *args)
+
+
+def history_dump(file=None) -> None:
+    """Dump the in-memory ring (reference parsec_debug_history_dump)."""
+    file = file or sys.stderr
+    with _lock:
+        entries = list(_history)
+    for ts, subsystem, level, msg in entries:
+        print(f"{ts:.6f} [{subsystem}:{level}] {msg}", file=file)
+
+
+def history_clear() -> None:
+    with _lock:
+        _history.clear()
+
+
+class FatalError(RuntimeError):
+    """Raised on unrecoverable runtime errors (reference parsec_fatal)."""
+
+
+def fatal(fmt: str, *args) -> "None":
+    msg = (fmt % args) if args else fmt
+    verbose(1, "core", "FATAL: %s", msg)
+    if get_verbose() >= 4:
+        history_dump()
+    raise FatalError(msg)

@@ -1,0 +1,324 @@
+"""Typed runtime-parameter registry (the framework's single config mechanism).
+
+Re-imagines the reference's MCA parameter system
+(``parsec/utils/mca_param.c``, ``mca_param.h``): every tunable
+in the framework is a *registered, typed, documented* parameter resolved from
+layered sources.  Precedence (lowest to highest), mirroring the reference's
+``defaults < files < env < cmdline`` (``mca_param.c`` sources):
+
+    registered default  <  param file  <  environment  <  programmatic set
+
+Environment variables use the ``PARSEC_MCA_<framework>_<name>`` convention
+(reference: ``PARSEC_MCA_`` prefix in ``mca_param.c``).  Param files are
+simple ``framework_name = value`` lines (reference: ``mca_parse_paramfile.c``
+/ ``keyval_lex.l``).
+
+Unlike the reference there is no C-level string/int union; values are typed
+Python objects validated at registration time.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+_ENV_PREFIX = "PARSEC_MCA_"
+
+
+@dataclass
+class _Param:
+    framework: str
+    name: str
+    default: Any
+    type: type
+    help: str = ""
+    level: int = 9  # 1=user-basic .. 9=developer, like MCA info levels
+    choices: Optional[List[Any]] = None
+    # resolved layers
+    file_value: Any = None
+    env_value: Any = None
+    set_value: Any = None
+    has_file: bool = False
+    has_env: bool = False
+    has_set: bool = False
+    deprecated: bool = False
+    #: created by set()/load_file() before registration; upgraded on register
+    auto: bool = False
+
+    @property
+    def full_name(self) -> str:
+        return f"{self.framework}_{self.name}"
+
+    def current(self) -> Any:
+        if self.has_set:
+            return self.set_value
+        if self.has_env:
+            return self.env_value
+        if self.has_file:
+            return self.file_value
+        return self.default
+
+    def source(self) -> str:
+        if self.has_set:
+            return "api"
+        if self.has_env:
+            return "env"
+        if self.has_file:
+            return "file"
+        return "default"
+
+
+def _coerce(value: Any, typ: type) -> Any:
+    if typ is bool:
+        if isinstance(value, bool):
+            return value
+        if isinstance(value, (int, float)):
+            return bool(value)
+        s = str(value).strip().lower()
+        if s in ("1", "true", "yes", "on", "enabled"):
+            return True
+        if s in ("0", "false", "no", "off", "disabled"):
+            return False
+        raise ValueError(f"cannot interpret {value!r} as bool")
+    if typ is int:
+        return int(str(value), 0) if isinstance(value, str) else int(value)
+    if typ is float:
+        return float(value)
+    if typ is str:
+        return str(value)
+    return value
+
+
+class ParamRegistry:
+    """Process-wide registry of typed parameters."""
+
+    def __init__(self) -> None:
+        self._params: Dict[str, _Param] = {}
+        self._lock = threading.RLock()
+        self._watchers: Dict[str, List[Callable[[Any], None]]] = {}
+
+    # -- registration -----------------------------------------------------
+    def register(
+        self,
+        framework: str,
+        name: str,
+        default: Any,
+        *,
+        type: Optional[type] = None,
+        help: str = "",
+        level: int = 9,
+        choices: Optional[List[Any]] = None,
+    ) -> Any:
+        """Register a parameter and return its resolved current value.
+
+        Idempotent: re-registering an existing param returns its current
+        value without clobbering values already set (reference allows
+        repeated ``parsec_mca_param_reg_*`` lookups).
+        """
+        typ = type
+        if typ is None:
+            typ = bool if isinstance(default, bool) else default.__class__
+        with self._lock:
+            key = f"{framework}_{name}"
+            p = self._params.get(key)
+            if p is None:
+                p = _Param(framework, name, default, typ, help, level, choices)
+                self._params[key] = p
+                self._resolve_env(p)
+            elif p.auto:
+                # typed registration arriving after an early set()/file load:
+                # adopt the real type/metadata and coerce stashed raw values
+                p.default, p.type, p.help, p.level, p.choices = default, typ, help, level, choices
+                p.auto = False
+                for attr in ("set_value", "file_value"):
+                    if getattr(p, "has_" + attr.split("_")[0]):
+                        try:
+                            setattr(p, attr, _coerce(getattr(p, attr), typ))
+                        except (ValueError, TypeError):
+                            pass
+                self._resolve_env(p)
+            return p.current()
+
+    def _resolve_env(self, p: _Param) -> None:
+        env_key = _ENV_PREFIX + p.full_name
+        if env_key in os.environ:
+            try:
+                p.env_value = _coerce(os.environ[env_key], p.type)
+                p.has_env = True
+            except (ValueError, TypeError):
+                from . import debug
+
+                debug.warning(
+                    "mca_param: ignoring env %s=%r (not a %s)",
+                    env_key,
+                    os.environ[env_key],
+                    p.type.__name__,
+                )
+        if p.choices is not None and p.has_env and p.env_value not in p.choices:
+            p.has_env = False
+
+    # -- lookup / set -----------------------------------------------------
+    def get(self, framework: str, name: str, default: Any = None) -> Any:
+        with self._lock:
+            p = self._params.get(f"{framework}_{name}")
+            if p is None:
+                if default is not None:
+                    return self.register(framework, name, default)
+                raise KeyError(f"unregistered mca param {framework}_{name}")
+            return p.current()
+
+    def set(self, framework: str, name: str, value: Any) -> None:
+        with self._lock:
+            key = f"{framework}_{name}"
+            p = self._params.get(key)
+            if p is None:
+                # allow ahead-of-registration sets (cmdline before module load)
+                p = _Param(framework, name, value, bool if isinstance(value, bool) else value.__class__)
+                p.auto = True
+                self._params[key] = p
+            p.set_value = _coerce(value, p.type)
+            p.has_set = True
+            for cb in self._watchers.get(key, ()):
+                cb(p.set_value)
+
+    def source(self, framework: str, name: str) -> str:
+        """Where the current value came from: ``api`` | ``env`` | ``file``
+        | ``default`` (KeyError for unregistered params).  Lets callers
+        honor an *explicitly configured* legacy parameter over a newer
+        one's default (reference: deprecated-synonym resolution in
+        ``mca_param.c``)."""
+        with self._lock:
+            p = self._params.get(f"{framework}_{name}")
+            if p is None:
+                raise KeyError(f"unregistered mca param {framework}_{name}")
+            return p.source()
+
+    def unset(self, framework: str, name: str) -> None:
+        with self._lock:
+            p = self._params.get(f"{framework}_{name}")
+            if p is not None:
+                p.has_set = False
+                p.set_value = None
+
+    def watch(self, framework: str, name: str, cb: Callable[[Any], None]) -> None:
+        with self._lock:
+            self._watchers.setdefault(f"{framework}_{name}", []).append(cb)
+
+    # -- files ------------------------------------------------------------
+    def load_file(self, path: str) -> int:
+        """Parse a ``framework_name = value`` param file. Returns #params set."""
+        n = 0
+        with open(path) as f:
+            for line in f:
+                line = line.split("#", 1)[0].strip()
+                if not line or "=" not in line:
+                    continue
+                key, _, val = line.partition("=")
+                key, val = key.strip(), val.strip().strip('"')
+                with self._lock:
+                    p = self._params.get(key)
+                    if p is not None:
+                        try:
+                            p.file_value = _coerce(val, p.type)
+                            p.has_file = True
+                            n += 1
+                        except (ValueError, TypeError):
+                            pass
+                    else:
+                        # stash raw; typed on later registration
+                        fw, _, nm = key.partition("_")
+                        if nm:
+                            p = _Param(fw, nm, val, str)
+                            p.file_value, p.has_file = val, True
+                            p.auto = True
+                            self._params[key] = p
+                            n += 1
+        return n
+
+    # -- cmdline ----------------------------------------------------------
+    def parse_cmdline(self, argv: List[str]) -> List[str]:
+        """Consume ``--mca <name> <value>`` / ``--parsec <name> <value>``
+        pairs (reference: ``utils/mca_param_cmd_line.c``); returns leftover
+        argv."""
+        out: List[str] = []
+        i = 0
+        while i < len(argv):
+            a = argv[i]
+            if a == "--parsec-help" or a.startswith("--parsec-help="):
+                # reference: ``parsec.c:413-417`` prints the registered
+                # parameter catalog and continues
+                _, _, lvl = a.partition("=")
+                try:
+                    max_level = int(lvl) if lvl else 9
+                except ValueError:
+                    print(f"--parsec-help: ignoring non-numeric level {lvl!r}")
+                    max_level = 9
+                self.print_help(max_level=max_level)
+                i += 1
+                continue
+            if a in ("--mca", "--parsec") and i + 2 < len(argv):
+                key, val = argv[i + 1], argv[i + 2]
+                fw, _, nm = key.partition("_")
+                if nm:
+                    self.set(fw, nm, val)
+                else:
+                    # bare framework name = component selection, e.g.
+                    # ``--mca sched lfq`` (reference semantics)
+                    self.set("mca", key, val)
+                i += 3
+                continue
+            out.append(a)
+            i += 1
+        return out
+
+    # -- introspection ----------------------------------------------------
+    def print_help(self, max_level: int = 9, file=None) -> None:
+        """Human-readable parameter catalog (``--parsec-help``)."""
+        import sys
+
+        f = file or sys.stdout
+        rows = self.dump(max_level=max_level)
+        print(f"{len(rows)} registered MCA parameters "
+              f"(set via --mca/--parsec pairs, PARSEC_MCA_* env, or files):",
+              file=f)
+        for r in rows:
+            print(f"  {r['name']:<40} = {r['value']!r:<16} "
+                  f"[{r['type']}, {r['source']}] {r['help']}", file=f)
+
+    def dump(self, max_level: int = 9) -> List[Dict[str, Any]]:
+        with self._lock:
+            return [
+                {
+                    "name": p.full_name,
+                    "value": p.current(),
+                    "default": p.default,
+                    "type": p.type.__name__,
+                    "source": p.source(),
+                    "help": p.help,
+                    "level": p.level,
+                }
+                for p in sorted(self._params.values(), key=lambda p: p.full_name)
+                if p.level <= max_level
+            ]
+
+    def reset(self) -> None:
+        """Drop all registrations (test isolation helper)."""
+        with self._lock:
+            self._params.clear()
+            self._watchers.clear()
+
+
+#: process-wide registry instance
+params = ParamRegistry()
+
+# convenience module-level API mirroring parsec_mca_param_reg_*_name
+register = params.register
+get = params.get
+source = params.source
+set_param = params.set
+unset = params.unset
+load_file = params.load_file
+parse_cmdline = params.parse_cmdline
+dump = params.dump
