@@ -7,11 +7,15 @@
 2. builds the hand-written CUDA kernels from ``parsec_tpu_torch/csrc``;
 3. kernel phase: runs every mode of ``matmul_update`` (B1) and ``matmul``
    (B2) at the dpotrf tile shape (512 x 512 x 512) and at a ragged shape,
-   holds each against its plain PyTorch version on the card (float32
-   1e-4 relative, bf16 operands 1e-3: only the summation order differs),
-   and times kernel, plain version and the one-call PyTorch yardstick
-   (``torch.addmm``; with ``out_dtype=float32`` for bf16 operands);
-4. main path: tiled dpotrf at N=8192 nb=512 float32 through
+   ``flash_attention_block`` (B5) at the attention path's blocks,
+   ``stencil_5pt`` (B3) at its tile and ``stencil_5pt_fused`` (B4), holds
+   each against its plain PyTorch version on the card at the tolerances of
+   tests/runtime/test_pallas_kernels.py (B1/B2 float32 1e-4 relative, bf16
+   operands 1e-3: only the summation order differs; B3 1e-6, B4 1e-5,
+   B5 1e-4, and B5's masked-at-init update exactly), and times kernel,
+   plain version and, for B1/B2, the one-call PyTorch yardstick
+   (``torch.addmm``, ``torch.matmul``);
+4. dpotrf path: tiled dpotrf at N=8192 nb=512 float32 through
    ``Context`` / ``add_taskpool`` / ``wait`` with every task on the CUDA
    device module — hand kernels for the updates, then the ``use_trtri``
    variant (trsm as a B2 product), then ``bf16_updates`` — checking the
@@ -19,10 +23,24 @@
 5. device-module phase: a 2048 x 2048 dpotrf with event-polled
    completion and one under an 8 MB residency budget (eviction
    write-back), each checked against a float64 Cholesky;
-6. with ``--profile``, runs the two f32 variants once more under
-   ``torch.profiler`` and prints the device busy time and idle share;
-7. prints the kernel table as one JSON line, the card line, and last
+6. attention path: ``run_flash_attention`` at Llama-2-7B's attention
+   geometry (32 heads x 128, B=1), causal prefill of 4096 tokens in
+   512-blocks in float32 and in bfloat16, and a 96-token decode against
+   4000 keys, each checked against ``attention_reference`` in float64, with
+   its task and B5 launch counts; ``scaled_dot_product_attention`` on the
+   prefill problem is timed beside it as the yardstick;
+7. stencil path: ``stencil_ptg(use_kernels=True)`` on an 8192^2 float32
+   grid in 1024^2 tiles for 20 steps (B3 launches counted), then B4 on the
+   leading 2048^2 block for 100 steps, both against a float64 reference;
+8. with ``--profile``, runs the two f32 dpotrf variants, the f32 prefill
+   and the stencil run once more under ``torch.profiler`` and prints the
+   device busy time and idle share;
+9. prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
+
+Kernel times are device times: the timed launches are queued behind a
+spin kernel sized to outlast their enqueue, so the CUDA events measure
+back-to-back execution, not the host's launch rate.
 
 Any failed check raises, and the script exits non-zero.  Without a GPU, or
 without the port beside it, it exits non-zero before printing a result.
@@ -39,13 +57,31 @@ N, NB = 8192, 512          # bench.py's accelerator configuration
 TILE = (512, 512, 512)     # (m, n, k) of every update on the main path
 RAGGED = (500, 300, 200)
 TOL_F32, TOL_BF16, TOL_SPLIT_F64 = 1e-4, 1e-3, 1e-5
+# the kernels of the other two paths, tests/runtime/test_pallas_kernels.py's
+# tolerances
+TOL_STENCIL, TOL_FUSED, TOL_ATTN = 1e-6, 1e-5, 1e-4
 
-#: dense peaks from NVIDIA's data sheets: FP32 on the CUDA cores, BF16 on
-#: the tensor cores, and device-memory bandwidth.  The SXM row is the
-#: default; a card whose name says PCIe takes the PCIe row.
+# attention path: Llama-2-7B's attention layer (Hugging Face
+# meta-llama/Llama-2-7b-hf config.json: 32 heads, hidden 4096 -> head_dim
+# 128, 4096 positions), B=1, in the kernel's own default 512-row blocks;
+# the decode step puts 96 queries at the tail of 4000 keys
+ATTN_B, ATTN_S, ATTN_H, ATTN_D, ATTN_BLOCK = 1, 4096, 32, 128, 512
+DEC_SQ, DEC_SK = 96, 4000
+# tests/runtime/test_attention_graph.py's bounds (allclose form: atol and
+# rtol both the bound)
+TOL_ATTN_F32, TOL_ATTN_BF16 = 2e-5, 5e-2
+# stencil path: an 8192^2 float32 grid in 8 x 8 tiles of 1024^2, 20 steps;
+# the fused kernel on the leading 2048^2 block for 100 steps
+ST_N, ST_TILES, ST_T = 8192, 8, 20
+FUSED_N, FUSED_ITERS = 2048, 100
+TOL_STENCIL_PATH = 1e-5
+
+#: dense peaks from NVIDIA's data sheets: FP32 and FP64 on the CUDA cores,
+#: BF16 on the tensor cores, and device-memory bandwidth.  The SXM row is
+#: the default; a card whose name says PCIe takes the PCIe row.
 PEAKS = {
-    "sxm": {"f32": 67e12, "bf16": 989e12, "bytes": 3.35e12},
-    "pcie": {"f32": 51e12, "bf16": 756e12, "bytes": 2.0e12},
+    "sxm": {"f32": 67e12, "f64": 34e12, "bf16": 989e12, "bytes": 3.35e12},
+    "pcie": {"f32": 51e12, "f64": 26e12, "bf16": 756e12, "bytes": 2.0e12},
 }
 
 
@@ -76,7 +112,16 @@ def main() -> int:
     try:
         from parsec_tpu_torch import Context, mca_param
         from parsec_tpu_torch.datadist import TiledMatrix
-        from parsec_tpu_torch.ops import cholesky_ptg, dpotrf_task_count, kernels
+        from parsec_tpu_torch.ops import (
+            StencilBuffers,
+            attention_task_count,
+            cholesky_ptg,
+            dpotrf_task_count,
+            kernels,
+            run_flash_attention,
+            stencil_ptg,
+        )
+        from parsec_tpu_torch.parallel import attention_reference
     except ImportError as e:
         print(f"chip_smoke: the parsec_tpu_torch package is not importable "
               f"({e}); run from the root of a checkout", file=sys.stderr)
@@ -93,7 +138,8 @@ def main() -> int:
     # -- build --------------------------------------------------------------
     t0 = time.perf_counter()
     lib = kernels.build()
-    say("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name)
+    say("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name,
+        torch=torch.__version__, cuda=torch.version.cuda)
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas " + line.strip(), file=sys.stderr)
@@ -105,12 +151,33 @@ def main() -> int:
         gen.manual_seed(seed)
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    # spin-kernel calibration: device clock cycles per millisecond
+    s, e = events()
+    torch.cuda._sleep(1 << 20)
+    s.record()
+    torch.cuda._sleep(1 << 24)
+    e.record()
+    e.synchronize()
+    cycles_per_ms = (1 << 24) / s.elapsed_time(e)
+
     def time_ms(fn, reps=50):
+        """Device milliseconds per call: warm up, then queue ``reps`` calls
+        behind a spin kernel that outlasts their enqueue (twice the
+        measured host time of one call, per call, plus 2 ms), so the
+        events time the calls back to back on the device."""
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        s, e = events()
+        torch.cuda._sleep(int(cycles_per_ms * (2e3 * host_s * reps + 2.0)))
         s.record()
         for _ in range(reps):
             fn()
@@ -201,6 +268,115 @@ def main() -> int:
                     2 * m * n * k, (m * k + n * k + m * n) * 4, "f32")
             results[("matmul", mode, (m, n, k))] = row
             say("kernel", name="matmul", mode=mode, **row)
+
+    # -- B5 flash_attention_block at the attention path's blocks ----------------
+    def attn_pairs(sq, sk, q_off, k_off, causal):
+        """(query, key) pairs the update needs: all of them, or under the
+        causal mask those with q_off + row >= k_off + col."""
+        if not causal:
+            return sq * sk
+        rows = torch.arange(sq, dtype=torch.int64)
+        return int((q_off + rows - k_off + 1).clamp(0, sk).sum())
+
+    attn_cases = [  # (label, Sq, Sk, dtype, causal, q_off, k_off)
+        ("f32", ATTN_BLOCK, ATTN_BLOCK, torch.float32, False, 0, 0),
+        ("f32_causal_diag", ATTN_BLOCK, ATTN_BLOCK, torch.float32, True, 0, 0),
+        ("bf16", ATTN_BLOCK, ATTN_BLOCK, torch.bfloat16, True, ATTN_BLOCK, 0),
+        ("f32_ragged", DEC_SQ, DEC_SK - 7 * ATTN_BLOCK, torch.float32, True,
+         DEC_SK - DEC_SQ, 7 * ATTN_BLOCK),
+    ]
+    for label, sq, sk, dt, causal, q_off, k_off in attn_cases:
+        seed += 1
+        d = ATTN_D
+        q, k, v = (rand((n, d), seed + off, dt)
+                   for n, off in ((sq, 0), (sk, 1000), (sk, 2000)))
+        acc = rand((sq, d), seed + 3000)
+        m = rand((sq, 1), seed + 4000)
+        l = rand((sq, 1), seed + 5000).abs()
+        kw = dict(causal=causal, scale=d ** -0.5)
+        args = (q, k, v, acc, m, l, q_off, k_off)
+        out = kernels.flash_attention_block(*args, **kw)
+        ref = kernels.flash_attention_block_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+        check(all(bool(torch.isfinite(o).all()) for o in out) and err < TOL_ATTN,
+              f"flash_attention_block[{label}]: max abs err {err} >= {TOL_ATTN}")
+        isz = 2 if dt == torch.bfloat16 else 4
+        row = {"shape": [sq, sk, d], "causal": causal, "q_off": q_off,
+               "k_off": k_off, "max_abs_err": err, "tol": TOL_ATTN,
+               "ms": time_ms(lambda: kernels.flash_attention_block(*args, **kw)),
+               "plain_ms": time_ms(lambda: kernels.flash_attention_block_plain(*args, **kw)),
+               "library_ms": None, "library_call": "none"}
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * d * attn_pairs(sq, sk, q_off, k_off, causal),
+            (sq + 2 * sk) * d * isz + 2 * sq * d * 4 + 4 * sq * 4,
+            "bf16" if dt == torch.bfloat16 else "f32")
+        results[("flash_attention_block", label)] = row
+        say("kernel", name="flash_attention_block", mode=label, **row)
+
+    # the exact no-op: a fully masked block met while the carry is still at
+    # its -1e30/0/0 init leaves acc = 0, l = 0 and m bit-identical
+    q, k, v = (rand((ATTN_BLOCK, ATTN_D), seed + off) for off in (6000, 7000, 8000))
+    acc0 = torch.zeros((ATTN_BLOCK, ATTN_D), device=dev)
+    m0 = torch.full((ATTN_BLOCK, 1), -1e30, device=dev)
+    l0 = torch.zeros((ATTN_BLOCK, 1), device=dev)
+    acc1, m1, l1 = kernels.flash_attention_block(q, k, v, acc0, m0, l0, 0, ATTN_BLOCK,
+                                                 causal=True, scale=0.1)
+    torch.cuda.synchronize()
+    check(acc1.abs().max().item() == 0.0 and l1.abs().max().item() == 0.0
+          and torch.equal(m1, m0), "flash_attention_block: a masked block at the "
+                                   "init carry changed the carry")
+    say("kernel", name="flash_attention_block", mode="masked_at_init", exact=True)
+
+    # -- B3 stencil_5pt at the stencil path's tile, ragged, f64 --------------
+    st_tile = ST_N // ST_TILES
+    for label, (h, w), dt in (("f32", (st_tile, st_tile), torch.float32),
+                              ("f32_ragged", (1000, 600), torch.float32),
+                              ("f64", (st_tile, st_tile), torch.float64)):
+        seed += 1
+        old = rand((h, w), seed, dt)
+        up, down = rand((1, w), seed + 1000, dt), rand((1, w), seed + 2000, dt)
+        # halo columns as the path passes them: edge columns of neighbour
+        # tiles, strided views
+        left = rand((h, 8), seed + 3000, dt)[:, -1:]
+        right = rand((h, 8), seed + 4000, dt)[:, :1]
+        args = (old, up, down, left, right)
+        out = kernels.stencil_5pt(*args)
+        ref = kernels.stencil_5pt_plain(*args)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and err < TOL_STENCIL,
+              f"stencil_5pt[{label}]: max abs err {err} >= {TOL_STENCIL}")
+        isz = old.element_size()
+        row = {"shape": [h, w], "max_abs_err": err, "tol": TOL_STENCIL,
+               "ms": time_ms(lambda: kernels.stencil_5pt(*args)),
+               "plain_ms": time_ms(lambda: kernels.stencil_5pt_plain(*args)),
+               "library_ms": None, "library_call": "none"}
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * h * w, (2 * h * w + 2 * (h + w)) * isz,
+            "f64" if dt == torch.float64 else "f32")
+        results[("stencil_5pt", label)] = row
+        say("kernel", name="stencil_5pt", mode=label, **row)
+
+    # -- B4 stencil_5pt_fused ---------------------------------------------
+    for n in (512, FUSED_N):
+        seed += 1
+        grid = rand((n, n), seed)
+        out = kernels.stencil_5pt_fused(grid, FUSED_ITERS)
+        ref = kernels.stencil_5pt_fused_plain(grid, FUSED_ITERS)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and err < TOL_FUSED,
+              f"stencil_5pt_fused[{n}^2 x {FUSED_ITERS}]: max abs err {err} >= {TOL_FUSED}")
+        row = {"shape": [n, n], "iters": FUSED_ITERS, "max_abs_err": err,
+               "tol": TOL_FUSED,
+               "ms": time_ms(lambda: kernels.stencil_5pt_fused(grid, FUSED_ITERS), 10),
+               "plain_ms": time_ms(lambda: kernels.stencil_5pt_fused_plain(grid, FUSED_ITERS), 3),
+               "library_ms": None, "library_call": "none"}
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * n * n * FUSED_ITERS, 2 * n * n * 4, "f32")
+        results[("stencil_5pt_fused", n)] = row
+        say("kernel", name="stencil_5pt_fused", mode=f"{n}x{n}x{FUSED_ITERS}", **row)
 
     # -- main path: dpotrf N=8192 nb=512 on the CUDA device module ----------
     # SPD input made from a numpy seed as bench.py makes it (M M^T + N I),
@@ -309,15 +485,186 @@ def main() -> int:
             factor_err=err, evictions=stats["evictions"],
             bytes_in=stats["bytes_in"], bytes_out=stats["bytes_out"])
 
+    # -- attention path: run_flash_attention on the CUDA device module -------
+    # q/k/v from numpy seed 9 as bench.py makes them; the decode step's
+    # queries are the last DEC_SQ rows of a DEC_SK-row q, so its oracle is
+    # the tail of the full causal attention
+    rng = np.random.default_rng(9)
+    mk = lambda s_len: rng.standard_normal(  # noqa: E731
+        (ATTN_B, s_len, ATTN_H, ATTN_D)).astype(np.float32)
+    pre_q, pre_k, pre_v = mk(ATTN_S), mk(ATTN_S), mk(ATTN_S)
+    dec_q, dec_k, dec_v = mk(DEC_SK), mk(DEC_SK), mk(DEC_SK)
+
+    def on_card(*arrays, dtype=torch.float32):
+        return [torch.from_numpy(a).to(dev).to(dtype) for a in arrays]
+
+    def allclose_gate(out, ref, tol):
+        """max(|out - ref| - tol*|ref|): <= tol is allclose(rtol=tol, atol=tol)."""
+        diff = (out.to(dev).double() - ref).abs()
+        return (diff - tol * ref.abs()).max().item(), diff.max().item()
+
+    def run_attention(q, k, v, **kw):
+        """One run_flash_attention through Context/add_taskpool/wait with
+        every task on the CUDA device module; returns the output, wall
+        seconds, B5 launches and the CUDA module's stats."""
+        ctx = Context()
+        try:
+            cuda_dev = next(d for d in ctx.devices if d.mca_name == "cuda")
+            check(cuda_dev.tdev.type == "cuda", f"CUDA module bound to {cuda_dev.tdev}")
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            out = run_flash_attention(ctx, q, k, v, use_cpu=False, **kw)
+            wall = time.perf_counter() - t0
+            n_launch = kernels.flash_attention_block.launches
+        finally:
+            ctx.fini()
+        return out, wall, n_launch, dict(cuda_dev.stats)
+
+    attn_runs = [  # (name, q, k, v, dtype, kwargs, tolerance)
+        ("attn_prefill_f32", (pre_q, pre_k, pre_v), torch.float32,
+         dict(causal=True, q_block=ATTN_BLOCK, kv_block=ATTN_BLOCK), TOL_ATTN_F32),
+        ("attn_prefill_bf16", (pre_q, pre_k, pre_v), torch.bfloat16,
+         dict(causal=True, q_block=ATTN_BLOCK, kv_block=ATTN_BLOCK), TOL_ATTN_BF16),
+        ("attn_decode", (dec_q[:, -DEC_SQ:], dec_k, dec_v), torch.float32,
+         dict(causal=True, q_block="auto", kv_block=ATTN_BLOCK), TOL_ATTN_F32),
+    ]
+    attn_launches = {}
+    for name, (q_np, k_np, v_np), dt, kw, tol in attn_runs:
+        q_in, k_in, v_in = (torch.from_numpy(a).to(dt) for a in (q_np, k_np, v_np))
+        sq, sk = q_in.shape[1], k_in.shape[1]
+        qb = ATTN_BLOCK if kw["q_block"] != "auto" else min(128, sq)
+        ntasks = attention_task_count(ATTN_B, sq, sk, ATTN_H, qb, kw["kv_block"],
+                                      causal=True)
+        n_steps = ntasks - ATTN_B * ATTN_H * (-(-sq // qb))
+        out, wall, n_launch, stats = run_attention(q_in, k_in, v_in, **kw)
+        check(tuple(out.shape) == tuple(q_in.shape) and out.dtype == dt,
+              f"{name}: output {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        check(stats["executed_tasks"] == ntasks,
+              f"{name}: {stats['executed_tasks']} tasks on the CUDA device, expected {ntasks}")
+        check(n_launch == n_steps,
+              f"{name}: {n_launch} flash_attention_block launches, expected {n_steps}")
+        # float64 oracle on the inputs the run saw (bf16-rounded for bf16)
+        if name == "attn_decode":
+            q64, k64, v64 = on_card(dec_q, dec_k, dec_v, dtype=torch.float64)
+            ref = attention_reference(q64, k64, v64, causal=True)[:, -DEC_SQ:]
+        else:
+            q64, k64, v64 = (t.to(dev).double() for t in (q_in, k_in, v_in))
+            ref = attention_reference(q64, k64, v64, causal=True)
+        del q64, k64, v64
+        gate, max_err = allclose_gate(out, ref, tol)
+        del ref
+        check(gate <= tol, f"{name}: |out - ref| - {tol}|ref| reaches {gate} > {tol}")
+        flops = 4.0 * ATTN_B * ATTN_H * sq * sk * ATTN_D
+        attn_launches[name] = n_launch
+        say("attention", run=name, B=ATTN_B, Sq=sq, Sk=sk, H=ATTN_H, D=ATTN_D,
+            dtype=str(dt), q_block=qb, kv_block=kw["kv_block"], tasks=ntasks,
+            launches=n_launch, wall_s=wall, nominal_gflops=flops / wall / 1e9,
+            tasks_per_s=ntasks / wall, max_abs_err=max_err, gate=gate, tol=tol,
+            bytes_in=stats["bytes_in"])
+        torch.cuda.empty_cache()
+
+    # the yardstick users would otherwise call: PyTorch's fused attention on
+    # the whole f32 prefill problem ([B, H, S, D] layout), timed only
+    qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous()
+                  for t in on_card(pre_q, pre_k, pre_v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, is_causal=True)
+    sdpa_out = sdpa().permute(0, 2, 1, 3)
+    ref = attention_reference(*on_card(pre_q, pre_k, pre_v, dtype=torch.float64),
+                              causal=True)
+    sdpa_rel = ((sdpa_out.double() - ref).abs().max() / ref.abs().max()).item()
+    del ref, sdpa_out
+    check(sdpa_rel < 1e-3, f"scaled_dot_product_attention disagrees with the "
+                           f"reference: {sdpa_rel}")
+    sdpa_ms = time_ms(sdpa, 10)
+    say("attention_yardstick", call="torch.nn.functional.scaled_dot_product_attention"
+        "(is_causal=True)", shape=[ATTN_B, ATTN_H, ATTN_S, ATTN_D], dtype="float32",
+        ms=sdpa_ms, rel_err=sdpa_rel,
+        nominal_gflops=4.0 * ATTN_B * ATTN_H * ATTN_S ** 2 * ATTN_D / sdpa_ms / 1e6)
+    del qh, kh, vh
+    torch.cuda.empty_cache()
+
+    # -- stencil path: the stencil PTG with the B3 chore, then B4 ----------
+    grid = np.random.default_rng(0).standard_normal((ST_N, ST_N)).astype(np.float32)
+    g64 = torch.from_numpy(grid).to(dev).double()
+    zr = torch.zeros((1, ST_N), dtype=torch.float64, device=dev)
+    zc = torch.zeros((ST_N, 1), dtype=torch.float64, device=dev)
+    st_ref = g64
+    for _ in range(ST_T):
+        st_ref = kernels.stencil_5pt_plain(st_ref, zr, zr, zc, zc)
+    n_tasks_st = ST_T * ST_TILES * ST_TILES
+
+    def run_stencil():
+        """One stencil PTG run (B3 chores, every task on the CUDA device
+        module); returns the buffers, wall seconds, B3 launches, stats."""
+        A = StencilBuffers(grid, ST_TILES, ST_TILES)
+        ctx = Context()
+        try:
+            cuda_dev = next(d for d in ctx.devices if d.mca_name == "cuda")
+            tp = stencil_ptg(use_kernels=True, use_cpu=False).taskpool(
+                T=ST_T, MT=ST_TILES, NT=ST_TILES, A=A)
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            ctx.add_taskpool(tp)
+            ok = tp.wait(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = kernels.stencil_5pt.launches
+        finally:
+            ctx.fini()
+        check(ok, f"stencil: taskpool failed ({tp.fail_reason})")
+        return A, wall, n_launch, dict(cuda_dev.stats)
+
+    A, st_wall, st_launches, stats = run_stencil()
+    check(stats["executed_tasks"] == n_tasks_st,
+          f"stencil: {stats['executed_tasks']} tasks on the CUDA device, expected {n_tasks_st}")
+    check(st_launches == n_tasks_st,
+          f"stencil: {st_launches} stencil_5pt launches, expected {n_tasks_st}")
+    got = torch.from_numpy(A.to_array(ST_T % 2)).to(dev).double()
+    st_gate, st_err = allclose_gate(got, st_ref, TOL_STENCIL_PATH)
+    del got
+    check(st_gate <= TOL_STENCIL_PATH,
+          f"stencil: |out - ref| - tol|ref| reaches {st_gate} > {TOL_STENCIL_PATH}")
+    say("stencil", N=ST_N, tile=ST_N // ST_TILES, T=ST_T, tasks=n_tasks_st,
+        launches=st_launches, wall_s=st_wall,
+        gcells_per_s=ST_N * ST_N * ST_T / st_wall / 1e9, max_abs_err=st_err,
+        gate=st_gate, tol=TOL_STENCIL_PATH)
+    del st_ref, zr, zc
+
+    g_lead = torch.from_numpy(np.ascontiguousarray(grid[:FUSED_N, :FUSED_N])).to(dev)
+    f_ref = g_lead.double()
+    zr = torch.zeros((1, FUSED_N), dtype=torch.float64, device=dev)
+    zc = torch.zeros((FUSED_N, 1), dtype=torch.float64, device=dev)
+    for _ in range(FUSED_ITERS):
+        f_ref = kernels.stencil_5pt_plain(f_ref, zr, zr, zc, zc)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    f_out = kernels.stencil_5pt_fused(g_lead, FUSED_ITERS)
+    torch.cuda.synchronize()
+    f_wall = time.perf_counter() - t0
+    fused_launches = kernels.stencil_5pt_fused.launches
+    check(fused_launches == 1, f"stencil fused: {fused_launches} launches, expected 1")
+    f_gate, f_err = allclose_gate(f_out, f_ref, TOL_STENCIL_PATH)
+    check(f_gate <= TOL_STENCIL_PATH,
+          f"stencil fused: |out - ref| - tol|ref| reaches {f_gate} > {TOL_STENCIL_PATH}")
+    say("stencil_fused", N=FUSED_N, iters=FUSED_ITERS, launches=fused_launches,
+        wall_s=f_wall, gcells_per_s=FUSED_N * FUSED_N * FUSED_ITERS / f_wall / 1e9,
+        max_abs_err=f_err, gate=f_gate, tol=TOL_STENCIL_PATH)
+    del g64, f_ref, f_out, g_lead
+    torch.cuda.empty_cache()
+
     if "--profile" in sys.argv[1:]:
-        # where the time goes: one extra run of each f32 variant under
-        # torch.profiler; device busy = the summed device time of every
-        # kernel and copy (all on one stream, so they never overlap)
+        # where the time goes: one extra run of each f32 dpotrf variant, the
+        # f32 prefill and the stencil under torch.profiler; device busy =
+        # the summed device time of every kernel and copy (all on one
+        # stream, so they never overlap)
         from torch.profiler import ProfilerActivity, profile
 
-        for name, kw, _tol in variants[:2]:
+        def profiled(label, run):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                _A, wall, _c, _e = run_dpotrf(kw)
+                wall = run()
             rows = []
             for ev in prof.key_averages():
                 if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -328,27 +675,45 @@ def main() -> int:
                 rows.append((us, ev.count, ev.key))
             busy_ms = sum(r[0] for r in rows) / 1e3
             rows.sort(reverse=True)
-            say("profile", variant=name, wall_s=wall, device_busy_ms=busy_ms,
+            say("profile", variant=label, wall_s=wall, device_busy_ms=busy_ms,
                 device_idle_share=1.0 - busy_ms / 1e3 / wall,
                 top=[{"kernel": k[:90], "count": c, "ms": us / 1e3}
                      for us, c, k in rows[:8]])
 
-    def entry(name, mode, n_launch):
-        row = results[(name, mode, TILE)]
-        return {"name": f"{name}[{mode}]", "route": "cuda",
-                "source": "parsec_tpu_torch/csrc/matmul.cu",
-                "replaces": "parsec_tpu/ops/pallas_kernels.py:"
-                            + ("70" if name == "matmul_update" else "158"),
-                "launches": n_launch, "max_abs_err": row["max_abs_err"],
-                "ms": row["ms"], "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
+        for name, kw, _tol in variants[:2]:
+            profiled(name, lambda: run_dpotrf(kw)[1])
+        name, arrays, dt, kw, _tol = attn_runs[0]
+        profiled(name, lambda: run_attention(
+            *(torch.from_numpy(a).to(dt) for a in arrays), **kw)[1])
+        profiled("stencil", lambda: run_stencil()[1])
+
+    def entry(name, mode, n_launch, source="matmul.cu", line="70", key=None):
+        row = results[key or (name, mode, TILE)]
+        out = {"name": f"{name}[{mode}]", "route": "cuda",
+               "source": f"parsec_tpu_torch/csrc/{source}",
+               "replaces": f"parsec_tpu/ops/pallas_kernels.py:{line}",
+               "launches": n_launch, "max_abs_err": row["max_abs_err"],
+               "ms": row["ms"], "plain_ms": row["plain_ms"],
+               "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+               "library_ms": row["library_ms"]}
+        if "library_call" in row:
+            out["library_call"] = row["library_call"]
+        return out
 
     table = [
         entry("matmul_update", "f32", launches["kernels"]["matmul_update"]
               + launches["kernels_trtri"]["matmul_update"]),
         entry("matmul_update", "bf16", launches["kernels_bf16"]["matmul_update"]),
-        entry("matmul", "f32", launches["kernels_trtri"]["matmul"]),
+        entry("matmul", "f32", launches["kernels_trtri"]["matmul"], line="158"),
+        entry("stencil_5pt", "f32", st_launches, "stencil.cu", "219",
+              ("stencil_5pt", "f32")),
+        entry("stencil_5pt_fused", "f32", fused_launches, "stencil.cu", "239",
+              ("stencil_5pt_fused", FUSED_N)),
+        entry("flash_attention_block", "f32", attn_launches["attn_prefill_f32"]
+              + attn_launches["attn_decode"], "attention.cu", "283",
+              ("flash_attention_block", "f32")),
+        entry("flash_attention_block", "bf16", attn_launches["attn_prefill_bf16"],
+              "attention.cu", "283", ("flash_attention_block", "bf16")),
     ]
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -4,7 +4,10 @@ A task-based runtime in the PaRSEC mould — DAGs of micro-tasks with
 data-dependency edges, expressed as a Parameterized Task Graph (PTG) and
 executed by a work-stealing multi-threaded scheduler — whose accelerator
 bodies are torch on an NVIDIA GPU, with the hot tile kernels written by
-hand in CUDA C++ for Hopper (``csrc/``).
+hand in CUDA C++ for Hopper (``csrc/``).  Its user-facing paths: tiled
+Cholesky (:func:`parsec_tpu_torch.ops.run_cholesky`), blockwise flash
+attention (:func:`parsec_tpu_torch.ops.run_flash_attention`) and the 2D
+5-point stencil (:func:`parsec_tpu_torch.ops.stencil_ptg`).
 
 This package never imports JAX or :mod:`parsec_tpu`: it keeps its own copy
 of every framework-neutral layer it needs.  Its entry points run on the

@@ -207,8 +207,9 @@ class Data:
         return f"Data(key={self.key}, copies={list(self.copies)})"
 
 
-def host_array(payload) -> np.ndarray:
-    """A private, writable host ndarray holding ``payload``'s value.
+def host_array(payload):
+    """A private, writable host copy of ``payload``'s value: an ndarray, or a
+    torch CPU tensor for a bfloat16 tensor (numpy has no bfloat16).
 
     A CUDA tensor is copied device->host with ``.cpu()`` after a device
     synchronize: every device computation of the port is enqueued on the
@@ -222,7 +223,10 @@ def host_array(payload) -> np.ndarray:
         t = payload.detach()
         if t.is_cuda:
             torch.cuda.synchronize(t.device)
-        return np.array(t.cpu().numpy(), copy=True)
+            t = t.cpu()
+        else:
+            t = t.clone()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
     return np.array(payload, copy=True)
 
 

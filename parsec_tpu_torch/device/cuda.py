@@ -412,10 +412,14 @@ class CudaDevice(Device):
             # re-staging over a stale device copy replaces it: account the delta
             old = mine.nbytes if (mine is not None and mine.payload is not None) else 0
             if isinstance(newest.payload, torch.Tensor):
-                # a tensor at another device index: device-to-device copy
-                self._mem_realloc(data, old, newest.payload.nbytes)
-                arr = newest.payload.to(self.tdev, copy=True)
-                self.stats["bytes_d2d"] += newest.payload.nbytes
+                # a tensor at another device index (device-to-device), or
+                # a torch CPU host tile (host-to-device: bfloat16 host
+                # tiles are torch tensors, numpy has no bfloat16)
+                src = newest.payload
+                self._mem_realloc(data, old, src.nbytes)
+                arr = src.to(self.tdev, copy=True)
+                self.stats["bytes_in" if src.device.type == "cpu"
+                           else "bytes_d2d"] += src.nbytes
             else:
                 host = np.asarray(newest.payload)
                 self._mem_realloc(data, old, host.nbytes)

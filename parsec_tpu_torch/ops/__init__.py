@@ -1,9 +1,29 @@
-"""Operations: the dpotrf taskpool, its tile bodies and hand-written kernels.
+"""Operations: the dpotrf, flash-attention and 5-point-stencil taskpools,
+their tile bodies and hand-written kernels.
 
-The other taskpools of :mod:`parsec_tpu.ops` (LU, QR, stencil, attention,
-panel and segmented factorizations) are not ported yet (ROADMAP A.8-A.9).
+The other taskpools of :mod:`parsec_tpu.ops` (LU, QR, panel and segmented
+factorizations) are not ported yet (ROADMAP A.8-A.9), nor are the native
+flash path (A.4) and the ring-attention graphs (A.10).
 """
 
+from .attention import (
+    attention_task_count,
+    build_flash_attention,
+    flash_attention_ptg,
+    run_flash_attention,
+)
 from .cholesky import cholesky_ptg, dpotrf_task_count, run_cholesky
+from .stencil import StencilBuffers, reference_stencil, stencil_ptg
 
-__all__ = ["cholesky_ptg", "dpotrf_task_count", "run_cholesky"]
+__all__ = [
+    "attention_task_count",
+    "build_flash_attention",
+    "flash_attention_ptg",
+    "run_flash_attention",
+    "cholesky_ptg",
+    "dpotrf_task_count",
+    "run_cholesky",
+    "StencilBuffers",
+    "reference_stencil",
+    "stencil_ptg",
+]

@@ -1,18 +1,28 @@
 """Hand-written CUDA kernels for the hot tile ops, each beside its plain
 PyTorch version.
 
-The port of :mod:`parsec_tpu.ops.pallas_kernels` for the kernels on the
-dpotrf path (the source, ``csrc/matmul.cu``, notes what bounds them on an
-H100 and what the design does about it):
+The port of :mod:`parsec_tpu.ops.pallas_kernels` (each source under
+``csrc/`` notes what bounds its kernels on an H100 and what the design does
+about it):
 
 * :func:`matmul_update` (B1) replaces ``pallas_kernels.matmul_update``:
   ``C + alpha * A @ op(B)`` — the syrk/gemm tile updates, with f32,
-  bf16-operand and ``split_f32`` modes;
+  bf16-operand and ``split_f32`` modes (``csrc/matmul.cu``);
 * :func:`matmul` (B2) replaces ``pallas_kernels.matmul``: ``A @ op(B)`` —
-  trsm as one product against the trtri inverse.
+  trsm as one product against the trtri inverse (``csrc/matmul.cu``);
+* :func:`stencil_5pt` (B3) replaces ``pallas_kernels.stencil_5pt``: one
+  5-point Jacobi step of a tile with halo rows and columns spliced in at
+  its edges — the stencil PTG's device chore (``csrc/stencil.cu``);
+* :func:`stencil_5pt_fused` (B4) replaces
+  ``pallas_kernels.stencil_5pt_fused``: ``iters`` zero-boundary steps of a
+  whole grid in one launch (``csrc/stencil.cu``);
+* :func:`flash_attention_block` (B5) replaces
+  ``pallas_kernels.flash_attention_block``: one online-softmax update of
+  the carry ``(acc, m, l)`` — the flash-attention PTG's device chore
+  (``csrc/attention.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-output with ``torch.empty`` and, for CUDA tensors, launches the kernel on
+outputs with ``torch.empty`` and, for CUDA tensors, launches the kernel on
 ``torch.cuda.current_stream()`` — or raises.  Tensors on the CPU take the
 plain version (the CPU tests' path; no GPU kernel can run there).  There
 is no fallback from a failed launch to the plain version.
@@ -21,8 +31,9 @@ is no fallback from a failed launch to the plain version.
 ``wrapper.calls`` counts every call, CPU ones included.
 
 The kernels build at first use, from the sources in this checkout, with
-``nvcc`` into ``parsec_tpu_torch/_build/`` (one shared library with a
-plain C interface, bound with ctypes).
+``nvcc`` into ``parsec_tpu_torch/_build/``: one object per source, all
+compiled at once, linked into one shared library with a plain C
+interface, bound with ctypes.
 """
 
 from __future__ import annotations
@@ -43,14 +54,24 @@ __all__ = [
     "matmul_update_plain",
     "matmul",
     "matmul_plain",
+    "stencil_5pt",
+    "stencil_5pt_plain",
+    "stencil_5pt_fused",
+    "stencil_5pt_fused_plain",
+    "flash_attention_block",
+    "flash_attention_block_plain",
+    "ATTENTION_D_LIMIT",
     "build",
+    "reset_counts",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "matmul.cu",)
+_SOURCES = tuple(_PKG / "csrc" / name
+                 for name in ("matmul.cu", "attention.cu", "stencil.cu"))
 _BUILD_DIR = _PKG / "_build"
+#: compile flags of every source; the objects are linked with -shared
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -73,23 +94,46 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernel sources into a shared library (once per source
-    content; reused while the sources are unchanged) and return its
-    path."""
+    content; reused while the sources are unchanged) and return its path.
+    One ``nvcc`` per source, all started together, then one link."""
     global build_log
     digest = hashlib.sha256()
     for src in _SOURCES:
+        digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
-    lib = _BUILD_DIR / f"libparsec_tpu_torch_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    lib = _BUILD_DIR / f"libparsec_tpu_torch_kernels_{tag}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    nvcc = _nvcc()
+    pid = os.getpid()
+    objs = [_BUILD_DIR / f"{src.stem}_{tag}.{pid}.o" for src in _SOURCES]
+    procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(_SOURCES, objs)]
+    logs, failed = [], []
+    for src, proc in zip(_SOURCES, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    tmp = lib.with_suffix(f".{pid}.tmp")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "".join(logs))
+        link = subprocess.run([nvcc, *_NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               + link.stdout + link.stderr)
+    finally:
+        build_log = "".join(logs)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
     return lib
 
@@ -105,6 +149,14 @@ def _library() -> ctypes.CDLL:
             lib.ptt_matmul_update.restype = i
             lib.ptt_matmul.argtypes = [i, i, i, i, i, p, p, p, p]
             lib.ptt_matmul.restype = i
+            ll, f = ctypes.c_longlong, ctypes.c_float
+            lib.ptt_flash_attention_block.argtypes = [i, i, i, i, p, p, p, p, p, p,
+                                                      p, p, p, ll, ll, i, f, p]
+            lib.ptt_flash_attention_block.restype = i
+            lib.ptt_stencil_5pt.argtypes = [i, i, i, p, p, p, p, ll, p, ll, p, p]
+            lib.ptt_stencil_5pt.restype = i
+            lib.ptt_stencil_5pt_fused.argtypes = [i, i, i, i, p, p, p, p]
+            lib.ptt_stencil_5pt_fused.restype = i
             _lib = lib
         return _lib
 
@@ -249,9 +301,249 @@ matmul.calls = 0
 matmul.launches = 0
 
 
+# -- B3: stencil_5pt --------------------------------------------------------
+
+_STENCIL_DTYPES = (torch.float32, torch.float64)
+#: cudaErrorNotSupported: the fused stencil's answer on a card without
+#: cooperative launches
+_CUDA_ERROR_NOT_SUPPORTED = 801
+
+
+def _check_grid(name: str, grid: torch.Tensor) -> None:
+    if not isinstance(grid, torch.Tensor):
+        raise TypeError(f"{name}: expected tensors, got {type(grid).__name__}")
+    if grid.dim() != 2 or grid.shape[0] == 0 or grid.shape[1] == 0:
+        raise ValueError(f"{name}: expected a non-empty 2-D grid, got shape "
+                         f"{tuple(grid.shape)}")
+    if not grid.is_contiguous():
+        raise ValueError(f"{name}: the grid must be contiguous (row-major)")
+    if grid.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {grid.device}")
+    if grid.dtype not in _STENCIL_DTYPES:
+        raise TypeError(f"{name}: grid must be float32 or float64, got {grid.dtype}")
+    if grid.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: grid of {grid.numel()} elements exceeds the "
+                         "kernel's 32-bit indexing")
+
+
+def stencil_5pt_plain(old: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
+                      left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`stencil_5pt`: the Pallas kernel's
+    shifted copies with the halos spliced in, summed in its order."""
+    u = torch.cat([up, old[:-1, :]], dim=0)
+    d = torch.cat([old[1:, :], down], dim=0)
+    lf = torch.cat([left, old[:, :-1]], dim=1)
+    rt = torch.cat([old[:, 1:], right], dim=1)
+    return 0.25 * (u + d + lf + rt)
+
+
+def stencil_5pt(old: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
+                left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """One 5-point Jacobi step of an ``(h, w)`` tile as one kernel: one read
+    of ``old``, one write of the result.
+
+    ``up``/``down`` are contiguous ``(1, w)`` halo rows and ``left``/
+    ``right`` ``(h, 1)`` halo columns (zeros at physical boundaries), all in
+    ``old``'s dtype, float32 or float64.  A halo column may be a strided
+    view — the edge column of a neighbour tile, ``LEFT[:, -1:]`` — and is
+    read through its row stride, not copied; any other non-contiguous input
+    is rejected."""
+    _check_grid("stencil_5pt", old)
+    h, w = old.shape
+    for label, t, shape in (("up", up, (1, w)), ("down", down, (1, w)),
+                            ("left", left, (h, 1)), ("right", right, (h, 1))):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"stencil_5pt: {label} must be a tensor, got "
+                            f"{type(t).__name__}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"stencil_5pt: {label} must have shape {shape}, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != old.dtype:
+            raise TypeError(f"stencil_5pt: {label} is {t.dtype}, old is {old.dtype}")
+        if t.device != old.device:
+            raise ValueError(f"stencil_5pt: {label} on {t.device}, old on {old.device}")
+        if shape[0] == 1 and not t.is_contiguous():
+            raise ValueError(f"stencil_5pt: halo row {label} must be contiguous")
+    _count(stencil_5pt, "calls")
+    if old.device.type == "cpu":
+        return stencil_5pt_plain(old, up, down, left, right)
+    out = torch.empty_like(old)
+    lib = _library()
+    with torch.cuda.device(old.device):
+        stream = torch.cuda.current_stream(old.device).cuda_stream
+        rc = lib.ptt_stencil_5pt(int(old.dtype == torch.float64), h, w,
+                                 old.data_ptr(), up.data_ptr(), down.data_ptr(),
+                                 left.data_ptr(), left.stride(0),
+                                 right.data_ptr(), right.stride(0),
+                                 out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"stencil_5pt kernel launch failed: cudaError {rc}")
+    _count(stencil_5pt, "launches")
+    return out
+
+
+stencil_5pt.calls = 0
+stencil_5pt.launches = 0
+
+
+# -- B4: stencil_5pt_fused --------------------------------------------------
+
+def stencil_5pt_fused_plain(grid: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`stencil_5pt_fused`: ``iters`` plain
+    steps with zero halos."""
+    h, w = grid.shape
+    zr = torch.zeros((1, w), dtype=grid.dtype, device=grid.device)
+    zc = torch.zeros((h, 1), dtype=grid.dtype, device=grid.device)
+    g = grid.clone()
+    for _ in range(iters):
+        g = stencil_5pt_plain(g, zr, zr, zc, zc)
+    return g
+
+
+def stencil_5pt_fused(grid: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` 5-point Jacobi steps of a whole ``(h, w)`` grid with zero
+    boundaries, in one cooperative launch (float32 or float64).  The input
+    is not written; ``iters=0`` returns a copy.  Raises if the card does
+    not support cooperative launches."""
+    _check_grid("stencil_5pt_fused", grid)
+    if int(iters) != iters or iters < 0:
+        raise ValueError(f"stencil_5pt_fused: iters must be a non-negative "
+                         f"integer, got {iters!r}")
+    iters = int(iters)
+    _count(stencil_5pt_fused, "calls")
+    if grid.device.type == "cpu":
+        return stencil_5pt_fused_plain(grid, iters)
+    if iters == 0:
+        return grid.clone()
+    h, w = grid.shape
+    out = torch.empty_like(grid)
+    tmp = torch.empty_like(grid) if iters > 1 else out
+    lib = _library()
+    with torch.cuda.device(grid.device):
+        stream = torch.cuda.current_stream(grid.device).cuda_stream
+        rc = lib.ptt_stencil_5pt_fused(int(grid.dtype == torch.float64), h, w,
+                                       iters, grid.data_ptr(), out.data_ptr(),
+                                       tmp.data_ptr(), stream)
+    if rc == _CUDA_ERROR_NOT_SUPPORTED:
+        raise RuntimeError("stencil_5pt_fused: this device does not support "
+                           "cooperative launches (cudaDevAttrCooperativeLaunch)")
+    if rc != 0:
+        raise RuntimeError(f"stencil_5pt_fused kernel launch failed: cudaError {rc}")
+    _count(stencil_5pt_fused, "launches")
+    return out
+
+
+stencil_5pt_fused.calls = 0
+stencil_5pt_fused.launches = 0
+
+
+# -- B5: flash_attention_block ----------------------------------------------
+
+#: largest head dimension the attention kernel takes (its per-thread
+#: accumulator tile is sized for it)
+ATTENTION_D_LIMIT = 256
+
+
+def _check_attention(q, k, v, acc, m, l):
+    """Validation of one flash-attention block update; returns
+    ``(sq, sk, d)``."""
+    name = "flash_attention_block"
+    tensors = dict(q=q, k=k, v=v, acc=acc, m=m, l=l)
+    for label, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {label} must be a tensor, got {type(t).__name__}")
+        if t.dim() != 2:
+            raise ValueError(f"{name}: {label} must be 2-D, got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous (row-major)")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {label} on {t.device}, q on {q.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in _OPERAND_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k and v must all be float32 or all bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    sq, d = q.shape
+    sk = k.shape[0]
+    if d < 1 or d > ATTENTION_D_LIMIT:
+        raise ValueError(f"{name}: head dimension {d} outside the kernel's "
+                         f"limit 1..{ATTENTION_D_LIMIT}")
+    if tuple(k.shape) != (sk, d) or tuple(v.shape) != (sk, d):
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         f"must both be ({sk}, {d})")
+    for label, t, shape in (("acc", acc, (sq, d)), ("m", m, (sq, 1)),
+                            ("l", l, (sq, 1))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {label} must be float32 of shape {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    return int(sq), int(sk), int(d)
+
+
+def flash_attention_block_plain(q, k, v, acc, m, l, q_off: int, k_off: int, *,
+                                causal: bool = False, scale: float = 1.0):
+    """Plain PyTorch version of :func:`flash_attention_block`: the Pallas
+    kernel's arithmetic on the whole block at once, in f32."""
+    sq, sk = q.shape[0], k.shape[0]
+    if sk == 0:
+        return acc.clone(), m.clone(), l.clone()
+    logits = (q.float() @ k.float().mT) * scale
+    if causal:
+        qpos = q_off + torch.arange(sq, device=q.device)[:, None]
+        kpos = k_off + torch.arange(sk, device=q.device)[None, :]
+        logits = logits.masked_fill(qpos < kpos, float("-inf"))
+    m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+    p = torch.exp(logits - m_new)
+    corr = torch.exp(m - m_new)
+    return (acc * corr + p @ v.float(), m_new,
+            l * corr + p.sum(dim=-1, keepdim=True))
+
+
+def flash_attention_block(q, k, v, acc, m, l, q_off: int, k_off: int, *,
+                          causal: bool = False, scale: float = 1.0):
+    """One online-softmax block update ``(q, k, v, acc, m, l) -> (acc, m,
+    l)`` as one kernel.
+
+    ``q`` is ``(Sq, D)``, ``k``/``v`` are ``(Sk, D)``, all float32 or all
+    bfloat16 (widened to f32); the carry ``acc`` is ``(Sq, D)`` and ``m``/
+    ``l`` ``(Sq, 1)``, float32.  ``q_off``/``k_off`` are the global
+    sequence positions of the two blocks' first rows, for the causal mask
+    (masked logits are ``-inf``).  Logits are true FP32.  ``D`` may be at
+    most :data:`ATTENTION_D_LIMIT`.  Returns fresh tensors."""
+    sq, sk, d = _check_attention(q, k, v, acc, m, l)
+    q_off, k_off = int(q_off), int(k_off)
+    _count(flash_attention_block, "calls")
+    if q.device.type == "cpu":
+        return flash_attention_block_plain(q, k, v, acc, m, l, q_off, k_off,
+                                           causal=causal, scale=scale)
+    acc_o = torch.empty_like(acc)
+    m_o = torch.empty_like(m)
+    l_o = torch.empty_like(l)
+    if sq == 0:
+        return acc_o, m_o, l_o
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.ptt_flash_attention_block(
+            int(q.dtype == torch.bfloat16), sq, sk, d, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            acc_o.data_ptr(), m_o.data_ptr(), l_o.data_ptr(), q_off, k_off,
+            int(bool(causal)), float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_block kernel launch failed: cudaError {rc}")
+    _count(flash_attention_block, "launches")
+    return acc_o, m_o, l_o
+
+
+flash_attention_block.calls = 0
+flash_attention_block.launches = 0
+
+_WRAPPERS = (matmul_update, matmul, stencil_5pt, stencil_5pt_fused,
+             flash_attention_block)
+
+
 def reset_counts() -> None:
     """Zero every wrapper's ``calls`` and ``launches``."""
     with _count_lock:
-        for fn in (matmul_update, matmul):
+        for fn in _WRAPPERS:
             fn.calls = 0
             fn.launches = 0

@@ -1,4 +1,5 @@
-"""Tile-level compute bodies for tiled Cholesky (dpotrf).
+"""Tile-level compute bodies for tiled Cholesky (dpotrf), and the shared
+tiling check.
 
 Each op comes in two incarnations, matching the multi-chore model
 (reference: BODY [type=CUDA] blocks):
@@ -25,6 +26,33 @@ import numpy as np
 import torch
 
 from . import kernels
+
+
+# -- tiling validation ------------------------------------------------------
+
+def check_tiling(n: int, nb: int, *, what: str = "N", op: str = "op",
+                 allow_ragged: bool = False) -> int:
+    """Validate a 1-D tiling and return the tile count.
+
+    ONE shared check for every builder that cuts a size-``n`` extent into
+    ``nb``-sized tiles (the port's copy of
+    ``parsec_tpu.ops.tiles.check_tiling``): ``nb`` must be a positive tile
+    size and — unless ``allow_ragged`` — divide ``n`` exactly."""
+    if int(nb) != nb or int(n) != n:
+        raise ValueError(f"{op}: {what}={n!r} / tile size {nb!r} must be "
+                         "integers")
+    n, nb = int(n), int(nb)
+    if nb <= 0:
+        raise ValueError(f"{op}: tile size {nb} for {what} must be positive")
+    if n <= 0:
+        raise ValueError(f"{op}: {what}={n} must be positive")
+    if not allow_ragged and n % nb:
+        raise ValueError(
+            f"{op}: {what}={n} is not divisible by {nb} "
+            f"(the tile cut would leave a ragged remainder of {n % nb}; "
+            f"pick a value dividing {what}, or an op that supports "
+            "ragged tiles)")
+    return (n + nb - 1) // nb
 
 
 # -- Cholesky kernels (lower, right-looking) --------------------------------

@@ -1,0 +1,392 @@
+"""The port's flash attention (parsec_tpu_torch.ops.attention and the B5
+kernel wrapper) against the JAX package's.
+
+The B5 wrapper runs its plain PyTorch version here (a CUDA kernel cannot
+run on the CPU) against ``pallas_kernels.flash_attention_block`` in
+interpret mode, on the cases of tests/runtime/test_pallas_kernels.py.  The
+graph runs on the port's CUDA device module bound to the torch CPU device
+(``Context(cuda_device="cpu")``, so every step goes through the B5
+wrapper) and on host chores, against the JAX package's graph on its own
+Context and against both packages' ``attention_reference``.  Inputs come
+from numpy seeds; bfloat16 inputs cross as float32 numpy arrays already
+rounded to bfloat16, so both packages see identical values.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+import parsec_tpu  # noqa: E402
+import parsec_tpu_torch  # noqa: E402
+from parsec_tpu.ops import attention as ref_attention  # noqa: E402
+from parsec_tpu.ops import pallas_kernels as pk  # noqa: E402
+from parsec_tpu.parallel import attention_reference as jax_attention_reference  # noqa: E402
+from parsec_tpu_torch.ops import attention, kernels  # noqa: E402
+from parsec_tpu_torch.parallel import attention_reference  # noqa: E402
+
+B, S, H, D = 1, 48, 2, 16
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _bf16(x):
+    """float32 values rounded to bfloat16 (round to nearest even), as numpy
+    float32."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _qkv(seed, dtype="float32", s=S, b=B, h=H, d=D):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(3):
+        a = rng.standard_normal((b, s, h, d)).astype(np.float32)
+        out.append(_bf16(a) if dtype == "bfloat16" else a)
+    return out
+
+
+def _jax_in(a, dtype):
+    return np.asarray(jnp.asarray(a, dtype=jnp.bfloat16)) if dtype == "bfloat16" else a
+
+
+def _port_in(a, dtype):
+    t = _t(a)
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _dense(q, k, v, causal):
+    return np.asarray(jax_attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                              jnp.asarray(v), causal=causal))
+
+
+@pytest.fixture(scope="module")
+def ref_ctx():
+    c = parsec_tpu.Context(nb_cores=4)
+    yield c
+    c.fini()
+
+
+@pytest.fixture(scope="module")
+def port_ctx():
+    """The port's CUDA device module bound to the torch CPU device."""
+    c = parsec_tpu_torch.Context(nb_cores=3, cuda_device="cpu")
+    assert [d.mca_name for d in c.devices] == ["cpu", "cuda"]
+    yield c
+    c.fini()
+
+
+@pytest.fixture(scope="module")
+def host_ctx():
+    c = parsec_tpu_torch.Context(nb_cores=3, devices=["cpu"])
+    yield c
+    c.fini()
+
+
+# -- B5: the kernel wrapper against the Pallas kernel ------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_block_accumulates_to_dense_like_pallas(causal):
+    """Feeding four K/V blocks through the online update gives dense
+    softmax attention, and each carry matches the Pallas kernel's."""
+    rng = np.random.default_rng(5)
+    Sq, Sk, d, R = 128, 128, 64, 4
+    scale = 1.0 / np.sqrt(d)
+    q = rng.standard_normal((Sq, d)).astype(np.float32)
+    ks = [rng.standard_normal((Sk, d)).astype(np.float32) for _ in range(R)]
+    vs = [rng.standard_normal((Sk, d)).astype(np.float32) for _ in range(R)]
+    q_off = (R - 1) * Sk
+    carry = (torch.zeros(Sq, d), torch.full((Sq, 1), -1e30), torch.zeros(Sq, 1))
+    jcarry = (jnp.zeros((Sq, d), jnp.float32), jnp.full((Sq, 1), -1e30, jnp.float32),
+              jnp.zeros((Sq, 1), jnp.float32))
+    for r in range(R):
+        carry = kernels.flash_attention_block(_t(q), _t(ks[r]), _t(vs[r]), *carry,
+                                              q_off, r * Sk, causal=causal,
+                                              scale=float(scale))
+        jcarry = pk.flash_attention_block(jnp.asarray(q), jnp.asarray(ks[r]),
+                                          jnp.asarray(vs[r]), *jcarry, q_off, r * Sk,
+                                          causal=causal, scale=float(scale))
+        for mine, theirs in zip(carry, jcarry):
+            np.testing.assert_allclose(mine.numpy(), np.asarray(theirs),
+                                       rtol=1e-4, atol=1e-4)
+    out = (carry[0] / carry[2]).numpy()
+    K, V = np.concatenate(ks, 0), np.concatenate(vs, 0)
+    logits = (q @ K.T) * scale
+    if causal:
+        qpos = q_off + np.arange(Sq)[:, None]
+        logits = np.where(qpos >= np.arange(R * Sk)[None, :], logits, -np.inf)
+    w = np.exp(logits - logits.max(-1, keepdims=True))
+    w /= w.sum(-1, keepdims=True)
+    np.testing.assert_allclose(out, w @ V, rtol=1e-4, atol=1e-4)
+
+
+def _block_inputs(seed, Sq, Sk, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((Sq, d), (Sk, d), (Sk, d))]
+
+
+def test_flash_block_future_block_leaves_carry_exactly():
+    """A K/V block entirely in the future must not change a (m=0, l=1)
+    carry: exactly, on both sides."""
+    q, k, v = _block_inputs(6, 128, 128, 32)
+    acc0 = np.random.default_rng(60).standard_normal((128, 32)).astype(np.float32)
+    m0, l0 = np.zeros((128, 1), np.float32), np.ones((128, 1), np.float32)
+    acc, m, l = kernels.flash_attention_block(_t(q), _t(k), _t(v), _t(acc0), _t(m0),
+                                              _t(l0), 0, 128, causal=True, scale=0.1)
+    ja, jm, jl = pk.flash_attention_block(*map(jnp.asarray, (q, k, v, acc0, m0, l0)),
+                                          0, 128, causal=True, scale=0.1)
+    for mine, theirs, init in ((acc, ja, acc0), (m, jm, m0), (l, jl, l0)):
+        np.testing.assert_array_equal(mine.numpy(), init)
+        np.testing.assert_array_equal(np.asarray(theirs), init)
+
+
+def test_flash_block_masked_block_at_init_carry_is_exact():
+    """A fully masked block met while the carry is at its -1e30/0/0 init
+    leaves acc = 0, l = 0 and m bit-identical."""
+    q, k, v = _block_inputs(7, 128, 128, 32)
+    acc0 = torch.zeros(128, 32)
+    m0 = torch.full((128, 1), attention.NEG_BIG)
+    l0 = torch.zeros(128, 1)
+    acc, m, l = kernels.flash_attention_block(_t(q), _t(k), _t(v), acc0, m0, l0,
+                                              0, 128, causal=True, scale=0.1)
+    assert float(acc.abs().max()) == 0.0
+    assert float(l.abs().max()) == 0.0
+    assert torch.equal(m, m0)
+    _, jm, _ = pk.flash_attention_block(
+        *map(jnp.asarray, (q, k, v, acc0.numpy(), m0.numpy(), l0.numpy())),
+        0, 128, causal=True, scale=0.1)
+    np.testing.assert_array_equal(np.asarray(jm), m.numpy())
+
+
+@pytest.mark.parametrize("case", ["ragged_decode_tail", "bf16"])
+def test_flash_block_matches_pallas(case):
+    """The decode path's ragged tail (96 queries against a 416-key block,
+    at the offsets the path gives it) and bfloat16 operands."""
+    rng = np.random.default_rng(8)
+    if case == "ragged_decode_tail":
+        Sq, Sk, d, q_off, k_off, dtype = 96, 416, 32, 3904, 3584, "float32"
+    else:
+        Sq, Sk, d, q_off, k_off, dtype = 128, 96, 64, 0, 0, "bfloat16"
+    q, k, v = _block_inputs(80, Sq, Sk, d)
+    if dtype == "bfloat16":
+        q, k, v = _bf16(q), _bf16(k), _bf16(v)
+    acc0 = rng.standard_normal((Sq, d)).astype(np.float32)
+    m0 = rng.standard_normal((Sq, 1)).astype(np.float32)
+    l0 = np.abs(rng.standard_normal((Sq, 1))).astype(np.float32)
+    scale = 1.0 / math.sqrt(d)
+    mine = kernels.flash_attention_block(
+        *(_port_in(x, dtype) for x in (q, k, v)), _t(acc0), _t(m0), _t(l0),
+        q_off, k_off, causal=True, scale=scale)
+    theirs = pk.flash_attention_block(
+        *(jnp.asarray(_jax_in(x, dtype)) for x in (q, k, v)),
+        *map(jnp.asarray, (acc0, m0, l0)), q_off, k_off, causal=True, scale=scale)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4)
+
+
+def _ok_block():
+    return [torch.zeros(s) for s in ((4, 8), (6, 8), (6, 8), (4, 8), (4, 1), (4, 1))]
+
+
+@pytest.mark.parametrize("bad", [
+    "q_f64", "mixed_qkv", "acc_bf16", "k_width", "v_rows", "acc_shape", "m_shape",
+    "noncontiguous", "not_2d", "d_over_limit", "meta_device",
+])
+def test_flash_block_rejects_bad_input(bad):
+    args = _ok_block()
+    err = ValueError
+    if bad == "q_f64":
+        args[:3], err = [a.double() for a in args[:3]], TypeError
+    elif bad == "mixed_qkv":
+        args[1], err = args[1].to(torch.bfloat16), TypeError
+    elif bad == "acc_bf16":
+        args[3] = args[3].to(torch.bfloat16)
+    elif bad == "k_width":
+        args[1] = torch.zeros(6, 9)
+    elif bad == "v_rows":
+        args[2] = torch.zeros(5, 8)
+    elif bad == "acc_shape":
+        args[3] = torch.zeros(4, 9)
+    elif bad == "m_shape":
+        args[4] = torch.zeros(4)
+    elif bad == "noncontiguous":
+        args[1] = torch.zeros(8, 6).mT
+    elif bad == "not_2d":
+        args[0] = torch.zeros(4, 8, 1)
+    elif bad == "d_over_limit":
+        d = kernels.ATTENTION_D_LIMIT + 1
+        args[:4] = [torch.zeros(n, d) for n in (4, 6, 6, 4)]
+    elif bad == "meta_device":
+        args = [a.to("meta") for a in args]
+    with pytest.raises(err, match="limit" if bad == "d_over_limit" else None):
+        kernels.flash_attention_block(*args, 0, 0)
+
+
+def test_flash_block_counts_calls_not_launches_on_cpu():
+    kernels.reset_counts()
+    kernels.flash_attention_block(*_ok_block(), 0, 0)
+    assert (kernels.flash_attention_block.calls,
+            kernels.flash_attention_block.launches) == (1, 0)
+    kernels.reset_counts()
+    assert kernels.flash_attention_block.calls == 0
+
+
+# -- the graph against the JAX package's ------------------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("qb,kvb", [(16, 16), (20, 28)])
+def test_flash_graph_matches_reference_package(ref_ctx, port_ctx, causal, dtype,
+                                               tol, qb, kvb):
+    """tests/runtime/test_attention_graph.py's matrix (dividing and ragged
+    blocks): the port's graph on its CUDA module (every step through the
+    B5 wrapper) against the JAX package's graph and the dense oracle of
+    both packages."""
+    q, k, v = _qkv(1, dtype)
+    kernels.reset_counts()
+    out = attention.run_flash_attention(
+        port_ctx, *(_port_in(x, dtype) for x in (q, k, v)), causal=causal,
+        q_block=qb, kv_block=kvb, use_cpu=False)
+    steps = attention.attention_task_count(B, S, S, H, qb, kvb, causal=causal) \
+        - B * H * (-(-S // qb))
+    assert kernels.flash_attention_block.calls == steps
+    assert out.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    assert tuple(out.shape) == (B, S, H, D)
+    got = out.float().numpy()
+    theirs = ref_attention.run_flash_attention(
+        ref_ctx, *(_jax_in(x, dtype) for x in (q, k, v)), causal=causal,
+        q_block=qb, kv_block=kvb)
+    np.testing.assert_allclose(got, np.asarray(theirs, dtype=np.float32),
+                               rtol=tol, atol=tol)
+    dense = _dense(q, k, v, causal)
+    np.testing.assert_allclose(got, dense, rtol=tol, atol=tol)
+    mine = attention_reference(_t(q), _t(k), _t(v), causal=causal).numpy()
+    np.testing.assert_allclose(mine, dense, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_graph_host_bodies_bit_identical_to_reference(ref_ctx, host_ctx,
+                                                            dtype, causal):
+    """Host chores on both sides run the same numpy arithmetic in the same
+    order: the outputs are bit-identical (bfloat16 outputs round to
+    nearest even on both sides)."""
+    q, k, v = _qkv(2, dtype)
+    kw = dict(causal=causal, q_block=20, kv_block=28)
+    mine = attention.run_flash_attention(
+        host_ctx, *(_port_in(x, dtype) for x in (q, k, v)), use_cuda=False, **kw)
+    theirs = ref_attention.run_flash_attention(
+        ref_ctx, *(_jax_in(x, dtype) for x in (q, k, v)), use_tpu=False, **kw)
+    np.testing.assert_array_equal(mine.float().numpy(),
+                                  np.asarray(theirs, dtype=np.float32))
+
+
+def test_flash_graph_decode_tail(ref_ctx, port_ctx):
+    """Decode: a short q block at the END of the KV sequence (q_offset
+    defaults to Sk - Sq), with a ragged KV tail and the "auto" q block,
+    equals the tail rows of full causal attention and the JAX package."""
+    q, k, v = _qkv(2, s=52)
+    kw = dict(causal=True, q_block="auto", kv_block=16)
+    out = attention.run_flash_attention(port_ctx, _t(q[:, -8:]), _t(k), _t(v),
+                                        use_cpu=False, **kw).numpy()
+    np.testing.assert_allclose(out, _dense(q, k, v, True)[:, -8:],
+                               rtol=2e-5, atol=2e-5)
+    theirs = ref_attention.run_flash_attention(ref_ctx, q[:, -8:], k, v, **kw)
+    np.testing.assert_allclose(out, theirs, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("cfg", [
+    (1, 48, 48, 2, 16, 16, False), (1, 48, 48, 2, 16, 16, True),
+    (2, 48, 48, 3, 20, 28, True), (1, 8, 48, 2, 8, 16, True),
+    (1, 96, 4000, 32, 96, 512, True), (1, 4096, 4096, 32, 512, 512, True),
+])
+def test_task_counts_match_reference(cfg):
+    b, sq, sk, h, qb, kvb, causal = cfg
+    assert attention.attention_task_count(b, sq, sk, h, qb, kvb, causal=causal) \
+        == ref_attention.attention_task_count(b, sq, sk, h, qb, kvb, causal=causal)
+
+
+def test_the_path_shapes_count_as_planned():
+    """The chip run's attention shapes: 1408 tasks / 1152 steps for the
+    4096-token prefill in 512-blocks, 288 / 256 for the decode step."""
+    count = attention.attention_task_count
+    assert count(1, 4096, 4096, 32, 512, 512, causal=True) == 1408
+    assert count(1, 96, 4000, 32, 96, 512, causal=True) == 288
+    assert attention.block_splits(4000, 512)[-1] == (3584, 416)
+
+
+def test_executed_tasks_equal_task_count(port_ctx):
+    q, k, v = _qkv(3)
+    dev = port_ctx.devices[1]
+    before = dev.stats["executed_tasks"]
+    attention.run_flash_attention(port_ctx, q, k, v, causal=True, q_block=16,
+                                  kv_block=20, use_cpu=False)
+    assert dev.stats["executed_tasks"] - before == attention.attention_task_count(
+        B, S, S, H, 16, 20, causal=True)
+
+
+def test_build_rejects_bad_shapes():
+    q, k, v = _qkv(4)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        attention.build_flash_attention(q, k[:, :, :1], v)
+    with pytest.raises(ValueError, match="q_offset"):
+        attention.build_flash_attention(q, k[:, :24], v[:, :24], causal=True)
+    with pytest.raises(ValueError, match="share a dtype"):
+        attention.build_flash_attention(_t(q), _t(k).to(torch.bfloat16), _t(v))
+    with pytest.raises(ValueError, match="no BODY"):
+        attention.flash_attention_ptg(use_cuda=False, use_cpu=False)
+    # the Sq > Sk shape is fine non-causal
+    attention.build_flash_attention(q, k[:, :24], v[:, :24], causal=False,
+                                    q_block=16, kv_block=16)
+
+
+def test_auto_blocks_take_the_empty_store_default():
+    assert attention._resolve_block("auto", 48) == 48
+    assert attention._resolve_block("auto", 4096) == 128
+    assert attention._resolve_block(20, 4096) == 20
+    with pytest.raises(ValueError, match="positive"):
+        attention.block_splits(10, 0)
+
+
+def test_ptg_definitions_are_memoised_and_bounded():
+    attention._PTG_MEMO.clear()
+    a = attention._flash_ptg_cached(causal=True, scale=0.5, q_block=8, kv_block=8,
+                                    q_offset=0, use_cuda=True, use_cpu=True)
+    b = attention._flash_ptg_cached(causal=True, scale=0.5, q_block=8, kv_block=8,
+                                    q_offset=0, use_cuda=True, use_cpu=True)
+    assert a is b
+    for off in range(attention._PTG_MEMO_MAX + 5):
+        attention._flash_ptg_cached(causal=True, scale=0.5, q_block=8, kv_block=8,
+                                    q_offset=off + 1, use_cuda=True, use_cpu=True)
+    assert len(attention._PTG_MEMO) == attention._PTG_MEMO_MAX
+
+
+@pytest.mark.parametrize("name,item", [
+    ("run_flash_attention_native", "A.4"), ("ring_attention_ptg", "A.10"),
+    ("ring_attention_builder", "A.10"), ("run_ring_attention_graph", "A.10"),
+])
+def test_unported_entry_points_raise(name, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        getattr(attention, name)(2, None, None, None)
+
+
+def test_attention_reference_float64_and_bf16_inputs():
+    """The port's oracle keeps float64 in float64 and takes bfloat16 logits
+    to float32, as the reference does."""
+    q, k, v = _qkv(5)
+    out64 = attention_reference(*(_t(x).double() for x in (q, k, v)), causal=True)
+    assert out64.dtype == torch.float64
+    np.testing.assert_allclose(out64.numpy(), _dense(q, k, v, True), rtol=1e-5, atol=1e-5)
+    qb, kb, vb = (_port_in(_bf16(x), "bfloat16") for x in (q, k, v))
+    out = attention_reference(qb, kb, vb)
+    assert out.dtype == torch.bfloat16
+    theirs = jax_attention_reference(*(jnp.asarray(_jax_in(_bf16(x), "bfloat16"))
+                                       for x in (q, k, v)))
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(theirs, np.float32),
+                               rtol=2e-2, atol=2e-2)

@@ -187,8 +187,13 @@ def test_kernel_sources_and_build_flags():
     srcs = [pathlib.Path(p) for p in kernels._SOURCES]
     assert all(p.exists() and p.suffix == ".cu" for p in srcs)
     text = "".join(p.read_text() for p in srcs)
-    for sym in ("ptt_matmul_update", "ptt_matmul", "cudaGetLastError"):
+    assert sorted(p.name for p in srcs) == ["attention.cu", "matmul.cu", "stencil.cu"]
+    for sym in ("ptt_matmul_update", "ptt_matmul", "ptt_flash_attention_block",
+                "ptt_stencil_5pt", "ptt_stencil_5pt_fused", "cudaGetLastError",
+                "cudaLaunchCooperativeKernel", "cudaDevAttrCooperativeLaunch"):
         assert sym in text
+    # exp(0) must be exactly 1 for the attention kernel's exact no-op cases
+    assert "use_fast_math" not in " ".join(kernels._NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in kernels._NVCC_FLAGS
     root = pathlib.Path(__file__).resolve().parent.parent
     ignored = (root / ".gitignore").read_text().split()
