@@ -4,22 +4,31 @@
     python3 chip_smoke.py [--profile]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the hand-written CUDA kernels from ``parsec_tpu_torch/csrc``;
-3. kernel phase: runs every mode of ``matmul_update`` (B1) and ``matmul``
-   (B2) at the dpotrf tile shape (512 x 512 x 512) and at a ragged shape,
+2. builds the hand-written CUDA kernels from ``parsec_tpu_torch/csrc`` and
+   prints ptxas's registers and spills per kernel (stderr);
+3. kernel phase: runs every mode of ``matmul_update`` (B1: f32, bf16,
+   split_f32) and ``matmul`` (B2: f32, bf16), each with and without
+   ``transpose_b``, at the dpotrf tile shape (512 x 512 x 512), a ragged
+   shape, one 64 x 64 x 16 slab and a shape whose row pitches are not
+   16-byte multiples;
    ``flash_attention_block`` (B5) at the attention path's blocks,
-   ``stencil_5pt`` (B3) at its tile and ``stencil_5pt_fused`` (B4), holds
+   ``stencil_5pt`` (B3) at its tile and ``stencil_5pt_fused`` (B4).  Holds
    each against its plain PyTorch version on the card at the tolerances of
    tests/runtime/test_pallas_kernels.py (B1/B2 float32 1e-4 relative, bf16
-   operands 1e-3: only the summation order differs; B3 1e-6, B4 1e-5,
-   B5 1e-4, and B5's masked-at-init update exactly), and times kernel,
-   plain version and, for B1/B2, the one-call PyTorch yardstick
-   (``torch.addmm``, ``torch.matmul``);
+   operands 1e-3: only the summation order differs; B2 with bf16 output
+   one bf16 ulp; B3 1e-6, B4 1e-5, B5 1e-4, and B5's masked-at-init update
+   exactly); holds every f32-class B1/B2 mode against a float64 product
+   (< 1e-5, and the f32 modes at the tile within 2x of the plain
+   version's, cuBLAS FP32, error); checks that two launches on the same
+   inputs are bit-identical; and times kernel, plain version and, for
+   B1/B2, the one-call PyTorch yardstick (``torch.addmm``,
+   ``torch.matmul``);
 4. dpotrf path: tiled dpotrf at N=8192 nb=512 float32 through
    ``Context`` / ``add_taskpool`` / ``wait`` with every task on the CUDA
    device module — hand kernels for the updates, then the ``use_trtri``
    variant (trsm as a B2 product), then ``bf16_updates`` — checking the
-   factor, the task counts and the kernel launch counts of each run;
+   factor, the task counts and the kernel launch counts of each run, per
+   operand mode;
 5. device-module phase: a 2048 x 2048 dpotrf with event-polled
    completion and one under an 8 MB residency budget (eviction
    write-back), each checked against a float64 Cholesky;
@@ -56,7 +65,16 @@ import time
 N, NB = 8192, 512          # bench.py's accelerator configuration
 TILE = (512, 512, 512)     # (m, n, k) of every update on the main path
 RAGGED = (500, 300, 200)
+TINY = (64, 64, 16)        # one slab of one output tile
+UNALIGNED = (130, 70, 37)  # row pitches that are not 16-byte multiples
+SHAPES = (TILE, RAGGED, TINY, UNALIGNED)
 TOL_F32, TOL_BF16, TOL_SPLIT_F64 = 1e-4, 1e-3, 1e-5
+# B2 with bfloat16 output rounds the f32 sum once: one bf16 ulp at the
+# largest element
+TOL_BF16_OUT = 2.0 ** -7
+# the f32 modes against float64 at the tile: at most this many times the
+# plain version's (cuBLAS FP32) error
+F64_GATE_FACTOR = 2.0
 # the kernels of the other two paths, tests/runtime/test_pallas_kernels.py's
 # tolerances
 TOL_STENCIL, TOL_FUSED, TOL_ATTN = 1e-6, 1e-5, 1e-4
@@ -77,11 +95,13 @@ FUSED_N, FUSED_ITERS = 2048, 100
 TOL_STENCIL_PATH = 1e-5
 
 #: dense peaks from NVIDIA's data sheets: FP32 and FP64 on the CUDA cores,
-#: BF16 on the tensor cores, and device-memory bandwidth.  The SXM row is
+#: BF16 and TF32 on the tensor cores, and device-memory bandwidth.  The SXM row is
 #: the default; a card whose name says PCIe takes the PCIe row.
 PEAKS = {
-    "sxm": {"f32": 67e12, "f64": 34e12, "bf16": 989e12, "bytes": 3.35e12},
-    "pcie": {"f32": 51e12, "f64": 26e12, "bf16": 756e12, "bytes": 2.0e12},
+    "sxm": {"f32": 67e12, "f64": 34e12, "bf16": 989e12, "tf32": 495e12,
+            "bytes": 3.35e12},
+    "pcie": {"f32": 51e12, "f64": 26e12, "bf16": 756e12, "tf32": 378e12,
+             "bytes": 2.0e12},
 }
 
 
@@ -201,73 +221,98 @@ def main() -> int:
         return ((lambda: torch.addmm(C, A, b, out_dtype=torch.float32, alpha=alpha)),
                 "torch.addmm(out_dtype=float32)")
 
+    def rel_err(out, ref):
+        return ((out.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
+
+    # B1/B2: every mode at every shape; a failed gate is recorded and the
+    # phase raises once every row is printed
     results = {}
+    failures = []
     seed = 100
-    for (m, n, k) in (TILE, RAGGED):
-        for mode in ("f32", "f32_nt", "bf16", "split", "split_nt"):
-            seed += 1
-            tb = not mode.endswith("_nt")
-            op_dtype = torch.bfloat16 if mode == "bf16" else torch.float32
-            split = mode.startswith("split")
-            alpha = -1.0 if tb else 1.0
-            C = rand((m, n), seed)
-            A = rand((m, k), seed + 1000, op_dtype)
-            B = rand((n, k) if tb else (k, n), seed + 2000, op_dtype)
-            kw = dict(alpha=alpha, transpose_b=tb, split_f32=split)
-            out = kernels.matmul_update(C, A, B, **kw)
-            ref = kernels.matmul_update_plain(C, A, B, **kw)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
-            tol = TOL_BF16 if mode == "bf16" else TOL_F32
-            check(bool(torch.isfinite(out).all()) and rel < tol,
-                  f"matmul_update[{mode}] {m}x{n}x{k}: rel err {rel} >= {tol}")
-            row = {"shape": [m, n, k], "max_abs_err": err, "rel_err": rel, "tol": tol}
-            if split:
-                b64 = B.double().mT if tb else B.double()
-                r64 = C.double() + alpha * (A.double() @ b64)
-                rel64 = ((out.double() - r64).abs().max() / r64.abs().max()).item()
-                check(rel64 < TOL_SPLIT_F64,
-                      f"matmul_update[{mode}] vs f64: {rel64} >= {TOL_SPLIT_F64}")
-                row["rel_err_vs_f64"] = rel64
-            if (m, n, k) == TILE:
-                row["ms"] = time_ms(lambda: kernels.matmul_update(C, A, B, **kw))
-                row["plain_ms"] = time_ms(lambda: kernels.matmul_update_plain(C, A, B, **kw))
-                lib_fn, row["library_call"] = library_update(C, A, B, alpha, tb)
-                lib_rel = ((lib_fn() - ref).abs().max() / ref.abs().max()).item()
-                check(lib_rel < tol, f"library {row['library_call']} disagrees "
-                                     f"with matmul_update_plain[{mode}]: {lib_rel}")
-                row["library_ms"] = time_ms(lib_fn)
-                isz = 2 if op_dtype == torch.bfloat16 else 4
-                passes = 3 if split else 1
-                row["bound_ms"], row["bound_by"] = bound(
-                    passes * 2 * m * n * k + 2 * m * n,
-                    (m * k + n * k) * isz + 2 * m * n * 4,
-                    "bf16" if (op_dtype == torch.bfloat16 or split) else "f32")
-            results[("matmul_update", mode, (m, n, k))] = row
-            say("kernel", name="matmul_update", mode=mode, **row)
-        for mode in ("f32", "f32_nt"):
-            seed += 1
-            tb = mode == "f32"
-            A = rand((m, k), seed + 3000)
-            B = rand((n, k) if tb else (k, n), seed + 4000)
-            out = kernels.matmul(A, B, transpose_b=tb)
-            ref = kernels.matmul_plain(A, B, transpose_b=tb)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
-            check(bool(torch.isfinite(out).all()) and rel < TOL_F32,
-                  f"matmul[{mode}] {m}x{n}x{k}: rel err {rel} >= {TOL_F32}")
-            row = {"shape": [m, n, k], "max_abs_err": err, "rel_err": rel, "tol": TOL_F32}
-            if (m, n, k) == TILE:
+    for (m, n, k) in SHAPES:
+        for name in ("matmul_update", "matmul"):
+            modes = (("f32", "f32_nt", "bf16", "bf16_nt", "split", "split_nt")
+                     if name == "matmul_update" else ("f32", "f32_nt", "bf16", "bf16_nt"))
+            for mode in modes:
+                seed += 1
+                tb = not mode.endswith("_nt")
+                op_dtype = torch.bfloat16 if mode.startswith("bf16") else torch.float32
+                split = mode.startswith("split")
+                alpha = -1.0 if tb else 1.0
+                A = rand((m, k), seed + 1000, op_dtype)
+                B = rand((n, k) if tb else (k, n), seed + 2000, op_dtype)
                 b = B.mT if tb else B
-                row["ms"] = time_ms(lambda: kernels.matmul(A, B, transpose_b=tb))
-                row["plain_ms"] = time_ms(lambda: kernels.matmul_plain(A, B, transpose_b=tb))
-                row["library_ms"] = time_ms(lambda: torch.matmul(A, b))
-                row["bound_ms"], row["bound_by"] = bound(
-                    2 * m * n * k, (m * k + n * k + m * n) * 4, "f32")
-            results[("matmul", mode, (m, n, k))] = row
-            say("kernel", name="matmul", mode=mode, **row)
+                if name == "matmul_update":
+                    C = rand((m, n), seed)
+                    kw = dict(alpha=alpha, transpose_b=tb, split_f32=split)
+                    run = lambda: kernels.matmul_update(C, A, B, **kw)  # noqa: E731
+                    plain = lambda: kernels.matmul_update_plain(C, A, B, **kw)  # noqa: E731
+                    lib_fn, lib_call = library_update(C, A, B, alpha, tb)
+                    tol = TOL_BF16 if op_dtype == torch.bfloat16 else TOL_F32
+                else:
+                    C, alpha = None, 1.0
+                    run = lambda: kernels.matmul(A, B, transpose_b=tb)  # noqa: E731
+                    plain = lambda: kernels.matmul_plain(A, B, transpose_b=tb)  # noqa: E731
+                    lib_fn, lib_call = (lambda: torch.matmul(A, b)), "torch.matmul"
+                    tol = TOL_BF16_OUT if op_dtype == torch.bfloat16 else TOL_F32
+                label = f"{name}[{mode}] {m}x{n}x{k}"
+                out, out2, ref = run(), run(), plain()
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = rel_err(out, ref)
+                row = {"shape": [m, n, k], "max_abs_err": err, "rel_err": rel, "tol": tol,
+                       "bit_identical": bool(torch.equal(out, out2))}
+                if not (bool(torch.isfinite(out).all()) and rel < tol):
+                    failures.append(f"{label}: rel err {rel} >= {tol}")
+                if not row["bit_identical"]:
+                    failures.append(f"{label}: two launches on the same inputs differ")
+                if op_dtype == torch.float32:
+                    # f32-class modes against a float64 product: < 1e-5 at
+                    # every shape; the f32 modes at the tile also within 2x
+                    # of the plain version's (cuBLAS FP32, TF32 off) error
+                    r64 = A.double() @ b.double()
+                    if C is not None:
+                        r64 = C.double() + alpha * r64
+                    row["rel_err_vs_f64"] = rel_err(out, r64)
+                    row["plain_rel_err_vs_f64"] = rel_err(ref, r64)
+                    if row["rel_err_vs_f64"] >= TOL_SPLIT_F64:
+                        failures.append(f"{label} vs f64: {row['rel_err_vs_f64']} "
+                                        f">= {TOL_SPLIT_F64}")
+                    if (not split and (m, n, k) == TILE and row["rel_err_vs_f64"]
+                            > F64_GATE_FACTOR * row["plain_rel_err_vs_f64"]):
+                        failures.append(f"{label} vs f64: {row['rel_err_vs_f64']} > "
+                                        f"{F64_GATE_FACTOR} x the plain version's "
+                                        f"{row['plain_rel_err_vs_f64']}")
+                if (m, n, k) == TILE:
+                    row["config"] = kernels._mm_config(
+                        m, n, k, operand_dtype=A.dtype, out_dtype=out.dtype,
+                        transpose_b=tb, split_f32=split, a_ptr=A.data_ptr(),
+                        b_ptr=B.data_ptr(), o_ptr=out.data_ptr(),
+                        c_ptr=None if C is None else C.data_ptr())._asdict()
+                    row["ms"] = time_ms(run)
+                    row["plain_ms"] = time_ms(plain)
+                    lib_rel = rel_err(lib_fn(), ref)
+                    if lib_rel >= tol:
+                        failures.append(f"library {lib_call} disagrees with the plain "
+                                        f"{label}: {lib_rel}")
+                    row["library_call"] = lib_call
+                    row["library_ms"] = time_ms(lib_fn)
+                    isz = A.element_size()
+                    c_bytes = 2 * m * n * 4 if C is not None else m * n * out.element_size()
+                    nbytes = (m * k + n * k) * isz + c_bytes
+                    flops = 2 * m * n * k + (2 * m * n if C is not None else 0)
+                    if op_dtype == torch.bfloat16:
+                        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "bf16")
+                    elif split:
+                        row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, "bf16")
+                    else:
+                        # f32: three TF32 tensor-core passes (this design);
+                        # true FP32 on the CUDA cores printed beside it
+                        row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, "tf32")
+                        row["bound_fp32_ms"], _ = bound(flops, nbytes, "f32")
+                results[(name, mode, (m, n, k))] = row
+                say("kernel", name=name, mode=mode, **row)
+    check(not failures, "B1/B2 kernel phase:\n  " + "\n  ".join(failures))
 
     # -- B5 flash_attention_block at the attention path's blocks ----------------
     def attn_pairs(sq, sk, q_off, k_off, causal):
@@ -408,8 +453,8 @@ def main() -> int:
 
     def run_dpotrf(kw, S_in=S):
         """One dpotrf through Context/add_taskpool/wait; returns the
-        factored matrix, wall seconds, kernel launches and the CUDA device
-        module's stats."""
+        factored matrix, wall seconds, kernel launches per operand mode and
+        the CUDA device module's stats."""
         n_in = S_in.shape[0]
         A = TiledMatrix(n_in, n_in, NB, NB, name="A", dtype=np.float32).from_array(S_in)
         ctx = Context()
@@ -423,8 +468,8 @@ def main() -> int:
             ok = tp.wait(timeout=600)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = {"matmul_update": kernels.matmul_update.launches,
-                      "matmul": kernels.matmul.launches}
+            counts = {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+                      for fn in (kernels.matmul_update, kernels.matmul)}
         finally:
             ctx.fini()
         check(ok, f"dpotrf {kw}: taskpool failed ({tp.fail_reason})")
@@ -438,11 +483,12 @@ def main() -> int:
         executed = stats["executed_tasks"]
         check(executed == ntasks, f"{name}: {executed} tasks on the CUDA device, expected {ntasks}")
         n_upd = nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
-        check(counts["matmul_update"] == n_upd,
-              f"{name}: {counts['matmul_update']} matmul_update launches, expected {n_upd}")
         n_mm = nt * (nt - 1) // 2 if trtri else 0
-        check(counts["matmul"] == n_mm,
-              f"{name}: {counts['matmul']} matmul launches, expected {n_mm}")
+        upd_mode = "bf16" if kw.get("bf16_updates") else "f32"
+        expected = {"matmul_update": dict(f32=0, bf16=0, split=0, total=n_upd),
+                    "matmul": dict(f32=n_mm, bf16=0, total=n_mm)}
+        expected["matmul_update"][upd_mode] = n_upd
+        check(counts == expected, f"{name}: launches {counts}, expected {expected}")
         launches[name] = counts
         L = torch.from_numpy(A.to_array()).to(dev).double().tril()
         check(bool(torch.isfinite(L).all()), f"{name}: non-finite factor")
@@ -695,16 +741,21 @@ def main() -> int:
                "launches": n_launch, "max_abs_err": row["max_abs_err"],
                "ms": row["ms"], "plain_ms": row["plain_ms"],
                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-               "library_ms": row["library_ms"]}
-        if "library_call" in row:
-            out["library_call"] = row["library_call"]
+               "library_ms": row["library_ms"], "library_call": row["library_call"]}
         return out
 
+    def mm_launches(name, mode):
+        """launches of one B1/B2 mode over the three dpotrf runs; split_f32
+        and B2 with bf16 operands run on no ported path (the reference's
+        callers of them, segmented LU and QR, are not ported yet)"""
+        return sum(counts[name][mode] for counts in launches.values())
+
     table = [
-        entry("matmul_update", "f32", launches["kernels"]["matmul_update"]
-              + launches["kernels_trtri"]["matmul_update"]),
-        entry("matmul_update", "bf16", launches["kernels_bf16"]["matmul_update"]),
-        entry("matmul", "f32", launches["kernels_trtri"]["matmul"], line="158"),
+        entry("matmul_update", "f32", mm_launches("matmul_update", "f32")),
+        entry("matmul_update", "bf16", mm_launches("matmul_update", "bf16")),
+        entry("matmul_update", "split", mm_launches("matmul_update", "split")),
+        entry("matmul", "f32", mm_launches("matmul", "f32"), line="158"),
+        entry("matmul", "bf16", mm_launches("matmul", "bf16"), line="158"),
         entry("stencil_5pt", "f32", st_launches, "stencil.cu", "219",
               ("stencil_5pt", "f32")),
         entry("stencil_5pt_fused", "f32", fused_launches, "stencil.cu", "239",

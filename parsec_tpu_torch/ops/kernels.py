@@ -28,7 +28,9 @@ plain version (the CPU tests' path; no GPU kernel can run there).  There
 is no fallback from a failed launch to the plain version.
 
 ``wrapper.launches`` counts kernel launches and nothing else;
-``wrapper.calls`` counts every call, CPU ones included.
+``wrapper.calls`` counts every call, CPU ones included.  B1 and B2 also
+count their launches per operand mode, ``wrapper.launches_by_mode``
+(``f32``, ``bf16``, ``split``).
 
 The kernels build at first use, from the sources in this checkout, with
 ``nvcc`` into ``parsec_tpu_torch/_build/``: one object per source, all
@@ -45,7 +47,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -144,10 +146,11 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
+            mm_cfg = [i] * 3  # vec_a, vec_b, vec_c
             lib.ptt_matmul_update.argtypes = [i, i, i, i, i, i, p, p, p, p,
-                                              ctypes.c_float, p]
+                                              ctypes.c_float, *mm_cfg, p]
             lib.ptt_matmul_update.restype = i
-            lib.ptt_matmul.argtypes = [i, i, i, i, i, p, p, p, p]
+            lib.ptt_matmul.argtypes = [i, i, i, i, i, p, p, p, *mm_cfg, p]
             lib.ptt_matmul.restype = i
             ll, f = ctypes.c_longlong, ctypes.c_float
             lib.ptt_flash_attention_block.argtypes = [i, i, i, i, p, p, p, p, p, p,
@@ -205,6 +208,78 @@ def _split(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
+# -- B1/B2 launch configuration ----------------------------------------------
+
+class MMConfig(NamedTuple):
+    """What one B1/B2 launch runs: operand mode (``bf16``; ``split``, three
+    bf16 passes; ``f32``, three TF32 passes), 16-byte operand loads
+    (``vec_a``, ``vec_b``) and paired C/O accesses (``vec_c``).  The tile
+    (64 x 64) and its shared memory are fixed by the kernel."""
+    mode: str
+    vec_a: bool
+    vec_b: bool
+    vec_c: bool
+
+
+def _mm_config(m: int, n: int, k: int, *, operand_dtype: torch.dtype,
+               out_dtype: torch.dtype, transpose_b: bool, split_f32: bool,
+               a_ptr: int, b_ptr: int, o_ptr: int,
+               c_ptr: Optional[int] = None) -> MMConfig:
+    """The launch configuration of one B1/B2 call, a pure function of the
+    shapes, dtypes and base addresses (so the CPU tests can check it).
+
+    Operand loads are 16-byte vectors only where the operand's row pitch
+    and base address are 16-byte multiples (a vector then lies wholly in or
+    out of range); else predicated scalar loads.  C and O are accessed in
+    pairs where ``n`` is even and their bases are aligned to a pair."""
+    bf16 = operand_dtype == torch.bfloat16
+    mode = "bf16" if bf16 else "split" if split_f32 else "f32"
+    isz = 2 if bf16 else 4
+    osz = 2 if out_dtype == torch.bfloat16 else 4
+    b_pitch = (k if transpose_b else n) * isz
+    pair = [o_ptr % (2 * osz) == 0] + ([c_ptr % 8 == 0] if c_ptr is not None else [])
+    return MMConfig(mode=mode,
+                    vec_a=(k * isz) % 16 == 0 and a_ptr % 16 == 0,
+                    vec_b=b_pitch % 16 == 0 and b_ptr % 16 == 0,
+                    vec_c=n % 2 == 0 and all(pair))
+
+
+def _mm_launch(out: torch.Tensor, C: Optional[torch.Tensor], A: torch.Tensor,
+               B: torch.Tensor, *, alpha: float, transpose_b: bool,
+               split_f32: bool) -> str:
+    """Launch the B1 (``C`` given) or B2 kernel into ``out`` on the current
+    stream and return its mode; raises if the launch fails.  Counts
+    nothing: the wrappers do."""
+    m, k = A.shape
+    n = out.shape[1]
+    cfg = _mm_config(m, n, k, operand_dtype=A.dtype, out_dtype=out.dtype,
+                     transpose_b=transpose_b, split_f32=split_f32,
+                     a_ptr=A.data_ptr(), b_ptr=B.data_ptr(), o_ptr=out.data_ptr(),
+                     c_ptr=None if C is None else C.data_ptr())
+    lib = _library()
+    vecs = (int(cfg.vec_a), int(cfg.vec_b), int(cfg.vec_c))
+    bf16 = int(A.dtype == torch.bfloat16)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        if C is not None:
+            rc = lib.ptt_matmul_update(bf16, int(transpose_b), int(split_f32), m, n, k,
+                                       C.data_ptr(), A.data_ptr(), B.data_ptr(),
+                                       out.data_ptr(), float(alpha), *vecs, stream)
+        else:
+            rc = lib.ptt_matmul(bf16, int(transpose_b), m, n, k, A.data_ptr(),
+                                B.data_ptr(), out.data_ptr(), *vecs, stream)
+    if rc != 0:
+        name = "matmul_update" if C is not None else "matmul"
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} ({cfg})")
+    return cfg.mode
+
+
+def _count_mode(fn, mode: str) -> None:
+    with _count_lock:
+        fn.launches += 1
+        fn.launches_by_mode[mode] += 1
+
+
 # -- B1: matmul_update ------------------------------------------------------
 
 def matmul_update_plain(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
@@ -247,21 +322,15 @@ def matmul_update(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
     out = torch.empty_like(C)
     if m == 0 or n == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(C.device):
-        stream = torch.cuda.current_stream(C.device).cuda_stream
-        rc = lib.ptt_matmul_update(
-            int(A.dtype == torch.bfloat16), int(transpose_b), int(split_f32),
-            m, n, k, C.data_ptr(), A.data_ptr(), B.data_ptr(), out.data_ptr(),
-            float(alpha), stream)
-    if rc != 0:
-        raise RuntimeError(f"matmul_update kernel launch failed: cudaError {rc}")
-    _count(matmul_update, "launches")
+    mode = _mm_launch(out, C, A, B, alpha=alpha, transpose_b=transpose_b,
+                      split_f32=split_f32)
+    _count_mode(matmul_update, mode)
     return out
 
 
 matmul_update.calls = 0
 matmul_update.launches = 0
+matmul_update.launches_by_mode = dict.fromkeys(("f32", "bf16", "split"), 0)
 
 
 # -- B2: matmul -------------------------------------------------------------
@@ -285,20 +354,15 @@ def matmul(A: torch.Tensor, B: torch.Tensor, *,
     out = torch.empty((m, n), dtype=A.dtype, device=A.device)
     if m == 0 or n == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = lib.ptt_matmul(int(A.dtype == torch.bfloat16), int(transpose_b),
-                            m, n, k, A.data_ptr(), B.data_ptr(),
-                            out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"matmul kernel launch failed: cudaError {rc}")
-    _count(matmul, "launches")
+    mode = _mm_launch(out, None, A, B, alpha=1.0, transpose_b=transpose_b,
+                      split_f32=False)
+    _count_mode(matmul, mode)
     return out
 
 
 matmul.calls = 0
 matmul.launches = 0
+matmul.launches_by_mode = dict.fromkeys(("f32", "bf16"), 0)
 
 
 # -- B3: stencil_5pt --------------------------------------------------------
@@ -542,8 +606,10 @@ _WRAPPERS = (matmul_update, matmul, stencil_5pt, stencil_5pt_fused,
 
 
 def reset_counts() -> None:
-    """Zero every wrapper's ``calls`` and ``launches``."""
+    """Zero every wrapper's ``calls`` and ``launches`` (per mode too)."""
     with _count_lock:
         for fn in _WRAPPERS:
             fn.calls = 0
             fn.launches = 0
+            for mode in getattr(fn, "launches_by_mode", ()):
+                fn.launches_by_mode[mode] = 0

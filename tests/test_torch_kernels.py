@@ -96,6 +96,92 @@ def test_matmul_update_split_f32_f32_class(transpose_b):
     np.testing.assert_allclose(out, pal, rtol=1e-5, atol=1e-5)
 
 
+def _tf32(x):
+    """float32 -> TF32 as the kernel's loader rounds it (cvt.rna.tf32.f32,
+    low 13 bits cleared), emulated with integer bit operations: adding half
+    a TF32 ulp to the magnitude bits and truncating rounds to nearest with
+    ties away from zero."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32x3(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+@pytest.mark.parametrize("transpose_b", [False, True])
+def test_matmul_update_tf32x3_f32_class(transpose_b):
+    """The f32 modes' arithmetic: each operand splits into TF32 (hi, lo)
+    with hi exact and x - hi exact in f32, and hi*hi + hi*lo + lo*hi (each
+    product exact in f32, summed here in float64) lands within 1e-5 of
+    float64 and of the Pallas kernel in interpret mode (max error over the
+    largest magnitude, as the float64 gates on the card)."""
+    rng = np.random.default_rng(13)
+    m = n = k = 256
+    A = rng.standard_normal((m, k)).astype(np.float32)
+    B = rng.standard_normal((n, k) if transpose_b else (k, n)).astype(np.float32)
+    C = rng.standard_normal((m, n)).astype(np.float32)
+    a_hi, a_lo = _tf32x3(_t(A))
+    b = _t(B).mT if transpose_b else _t(B)
+    b_hi, b_lo = _tf32x3(b.contiguous())
+    for x, hi, lo in ((_t(A), a_hi, a_lo), (b, b_hi, b_lo)):
+        assert not (hi.view(torch.int32) & 0x1FFF).any()
+        assert not (lo.view(torch.int32) & 0x1FFF).any()
+        assert torch.equal(hi + (x - hi), x)   # x - hi is exact
+        resid = (x.double() - hi.double() - lo.double()).abs()
+        assert (resid <= 2.0 ** -22 * x.double().abs()).all()
+    prod = (a_hi.double() @ b_hi.double() + a_hi.double() @ b_lo.double()
+            + a_lo.double() @ b_hi.double())
+    out = (_t(C).double() - prod).float().numpy()
+    b64 = B.astype(np.float64)
+    ref64 = C.astype(np.float64) - A.astype(np.float64) @ (b64.T if transpose_b else b64)
+    err = np.abs(out - ref64).max() / np.abs(ref64).max()
+    assert err < 1e-5, err
+    pal = np.asarray(pk.matmul_update(C, A, B, alpha=-1.0, transpose_b=transpose_b,
+                                      bm=128, bn=128, bk=128))
+    err_pal = np.abs(out - pal).max() / np.abs(pal).max()
+    assert err_pal < 1e-5, err_pal
+
+
+# (m, n, k): the dpotrf tile, a ragged shape, one slab of one output tile,
+# and row pitches that are not 16-byte multiples
+_CONFIG_SHAPES = {"tile": (512, 512, 512), "ragged": (500, 300, 200),
+                  "tiny": (64, 64, 16), "unaligned": (130, 70, 37)}
+# (operand dtype, output dtype, split_f32, has C): the B1 and B2 modes
+_CONFIG_MODES = {
+    "update_f32": (torch.float32, torch.float32, False, True),
+    "update_bf16": (torch.bfloat16, torch.float32, False, True),
+    "update_split": (torch.float32, torch.float32, True, True),
+    "matmul_f32": (torch.float32, torch.float32, False, False),
+    "matmul_bf16": (torch.bfloat16, torch.bfloat16, False, False),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_CONFIG_SHAPES))
+@pytest.mark.parametrize("transpose_b", [True, False])
+@pytest.mark.parametrize("mode", sorted(_CONFIG_MODES))
+def test_mm_config(mode, transpose_b, shape):
+    """The operand mode follows the dtypes, and a 16-byte vector (or a C/O
+    pair) is chosen exactly where the row pitch and the base address allow
+    it."""
+    m, n, k = _CONFIG_SHAPES[shape]
+    op, out, split, has_c = _CONFIG_MODES[mode]
+    isz, osz = torch.tensor([], dtype=op).element_size(), torch.tensor([], dtype=out).element_size()
+    b_pitch = (k if transpose_b else n) * isz
+    for shift in (0, isz):  # 16-byte aligned bases, then bases one element off
+        ptrs = dict(a_ptr=4096 + shift, b_ptr=8192 + shift, o_ptr=12288 + shift,
+                    c_ptr=16384 + shift if has_c else None)
+        cfg = kernels._mm_config(m, n, k, operand_dtype=op, out_dtype=out,
+                                 transpose_b=transpose_b, split_f32=split, **ptrs)
+        assert cfg.mode == ("bf16" if op == torch.bfloat16 else "split" if split else "f32")
+        assert cfg.mode in kernels.matmul_update.launches_by_mode
+        assert cfg.vec_a == (shift == 0 and (k * isz) % 16 == 0)
+        assert cfg.vec_b == (shift == 0 and b_pitch % 16 == 0)
+        pairs = shift % (2 * osz) == 0 and (not has_c or shift % 8 == 0)
+        assert cfg.vec_c == (n % 2 == 0 and pairs)
+
+
 @pytest.mark.parametrize("case", ["blocked_t", "no_transpose", "ragged"])
 def test_matmul_matches_pallas(case):
     rng = np.random.default_rng(8)
@@ -174,8 +260,26 @@ def test_counters_count_calls_but_no_launch_on_cpu():
     kernels.matmul(A, B, transpose_b=False)
     assert (kernels.matmul_update.calls, kernels.matmul.calls) == (1, 2)
     assert (kernels.matmul_update.launches, kernels.matmul.launches) == (0, 0)
+    assert not any(kernels.matmul_update.launches_by_mode.values())
+    assert not any(kernels.matmul.launches_by_mode.values())
     kernels.reset_counts()
     assert kernels.matmul.calls == 0
+
+
+@pytest.mark.parametrize("name, mode", [("matmul_update", "f32"), ("matmul_update", "bf16"),
+                                        ("matmul_update", "split"), ("matmul", "f32"),
+                                        ("matmul", "bf16")])
+def test_launch_counts_by_mode(name, mode):
+    """A B1/B2 launch adds one to the wrapper's total and to its mode's
+    count, and reset_counts zeroes both."""
+    fn = getattr(kernels, name)
+    kernels.reset_counts()
+    kernels._count_mode(fn, mode)
+    kernels._count_mode(fn, mode)
+    assert fn.launches == 2
+    assert fn.launches_by_mode == {mo: 2 if mo == mode else 0 for mo in fn.launches_by_mode}
+    kernels.reset_counts()
+    assert fn.launches == 0 and not any(fn.launches_by_mode.values())
 
 
 def test_kernel_sources_and_build_flags():
@@ -192,6 +296,15 @@ def test_kernel_sources_and_build_flags():
                 "ptt_stencil_5pt", "ptt_stencil_5pt_fused", "cudaGetLastError",
                 "cudaLaunchCooperativeKernel", "cudaDevAttrCooperativeLaunch"):
         assert sym in text
+    # B1/B2 run on the tensor cores, with no atomics and no library GEMM
+    mm = (kernels._PKG / "csrc" / "matmul.cu").read_text()
+    assert "wgmma.mma_async" in mm and "cvt.rna.tf32.f32" in mm
+    for banned in ("atomicadd", "atomiccas", "cublas", "cutlass", "fmaf("):
+        assert banned not in mm.lower()
+    # the kernel sizes its shared memory from the mode and refuses to build
+    # a stage layout above the 227 KB one block may opt in to on an H100
+    assert "SMEM_LIMIT = 232448;" in mm
+    assert "static_assert(SMEM <= SMEM_LIMIT" in mm
     # exp(0) must be exactly 1 for the attention kernel's exact no-op cases
     assert "use_fast_math" not in " ".join(kernels._NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in kernels._NVCC_FLAGS
