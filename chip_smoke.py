@@ -11,17 +11,24 @@
    ``transpose_b``, at the dpotrf tile shape (512 x 512 x 512), a ragged
    shape, one 64 x 64 x 16 slab and a shape whose row pitches are not
    16-byte multiples;
-   ``flash_attention_block`` (B5) at the attention path's blocks,
-   ``stencil_5pt`` (B3) at its tile and ``stencil_5pt_fused`` (B4).  Holds
-   each against its plain PyTorch version on the card at the tolerances of
+   ``flash_attention_block`` (B5) in f32 and bf16 at the attention path's
+   blocks (the prefill's full and diagonal blocks, the decode step's
+   ragged 96 x 416 tail) and at a ragged (100, 300) with head dimensions
+   37, 64 and 256, causal and not (every head-dimension template and the
+   predicated copies), ``stencil_5pt`` (B3) at its tile and
+   ``stencil_5pt_fused`` (B4).  Holds each against its plain PyTorch
+   version on the card at the tolerances of
    tests/runtime/test_pallas_kernels.py (B1/B2 float32 1e-4 relative, bf16
    operands 1e-3: only the summation order differs; B2 with bf16 output
-   one bf16 ulp; B3 1e-6, B4 1e-5, B5 1e-4, and B5's masked-at-init update
-   exactly); holds every f32-class B1/B2 mode against a float64 product
-   (< 1e-5, and the f32 modes at the tile within 2x of the plain
-   version's, cuBLAS FP32, error); checks that two launches on the same
-   inputs are bit-identical; and times kernel, plain version and, for
-   B1/B2, the one-call PyTorch yardstick (``torch.addmm``,
+   one bf16 ulp; B3 1e-6, B4 1e-5; B5 1e-4 for its carry taken to the
+   plain version's running max, and B5's masked-at-init update exactly, in
+   both dtypes); holds every f32-class B1/B2 mode against a float64
+   product (< 1e-5, and the f32 modes at the tile within 2x of the plain
+   version's, cuBLAS FP32, error) and every B5 case against the update in
+   float64 (< 1e-4; the f32 mode at the full and diagonal blocks also
+   within 2x of the plain version's error); checks that two launches on
+   the same inputs are bit-identical; and times kernel, plain version and,
+   for B1/B2, the one-call PyTorch yardstick (``torch.addmm``,
    ``torch.matmul``);
 4. dpotrf path: tiled dpotrf at N=8192 nb=512 float32 through
    ``Context`` / ``add_taskpool`` / ``wait`` with every task on the CUDA
@@ -323,16 +330,46 @@ def main() -> int:
         rows = torch.arange(sq, dtype=torch.int64)
         return int((q_off + rows - k_off + 1).clamp(0, sk).sum())
 
-    attn_cases = [  # (label, Sq, Sk, dtype, causal, q_off, k_off)
-        ("f32", ATTN_BLOCK, ATTN_BLOCK, torch.float32, False, 0, 0),
-        ("f32_causal_diag", ATTN_BLOCK, ATTN_BLOCK, torch.float32, True, 0, 0),
-        ("bf16", ATTN_BLOCK, ATTN_BLOCK, torch.bfloat16, True, ATTN_BLOCK, 0),
-        ("f32_ragged", DEC_SQ, DEC_SK - 7 * ATTN_BLOCK, torch.float32, True,
-         DEC_SK - DEC_SQ, 7 * ATTN_BLOCK),
-    ]
-    for label, sq, sk, dt, causal, q_off, k_off in attn_cases:
+    # (label, Sq, Sk, D, dtype, causal, q_off, k_off): the path's blocks
+    # (the prefill's full and diagonal blocks, the decode step's ragged
+    # tail), then every head-dimension template and the predicated copies
+    # (D = 37: f32 row pitches that are not 16-byte multiples) at a ragged
+    # (100, 300)
+    f32, bf16 = torch.float32, torch.bfloat16
+    dec_k_off = (DEC_SK - 1) // ATTN_BLOCK * ATTN_BLOCK
+    attn_cases = [
+        ("f32", ATTN_BLOCK, ATTN_BLOCK, ATTN_D, f32, False, 0, 0),
+        ("f32_causal_diag", ATTN_BLOCK, ATTN_BLOCK, ATTN_D, f32, True, 0, 0),
+        ("f32_ragged", DEC_SQ, DEC_SK - dec_k_off, ATTN_D, f32, True,
+         DEC_SK - DEC_SQ, dec_k_off),
+        ("bf16", ATTN_BLOCK, ATTN_BLOCK, ATTN_D, bf16, True, ATTN_BLOCK, 0),
+        ("bf16_causal_diag", ATTN_BLOCK, ATTN_BLOCK, ATTN_D, bf16, True, 0, 0),
+        ("bf16_ragged", DEC_SQ, DEC_SK - dec_k_off, ATTN_D, bf16, True,
+         DEC_SK - DEC_SQ, dec_k_off),
+    ] + [(f"{name}_d{d}{'_causal' if causal else ''}", 100, 300, d, dt, causal,
+          250 if causal else 0, 0)
+         for d in (37, 64, 256) for name, dt in (("f32", f32), ("bf16", bf16))
+         for causal in (False, True)]
+    f64_gated = ("f32", "f32_causal_diag")
+
+    def max_err(out, ref):
+        return max((o.double() - r.double()).abs().max().item() for o, r in zip(out, ref))
+
+    def carry_err(out, ref):
+        """Distance of the kernel's carry from the plain version's as the
+        carries they are: (acc, m, l) and (acc e^-d, m + d, l e^-d) are the
+        same carry, so acc and l are taken to the plain version's running
+        max first (m is compared as it is).  Two f32 versions disagree on
+        the largest logit of a row by ~1e-6, which moves an l of ~100 by
+        ~1e-4 without changing what the carry holds."""
+        acc_k, m_k, l_k = (t.double() for t in out)
+        acc_p, m_p, l_p = (t.double() for t in ref)
+        shift = torch.exp(m_k - m_p)
+        return max_err((acc_k * shift, m_k, l_k * shift), (acc_p, m_p, l_p))
+
+    failures = []
+    for label, sq, sk, d, dt, causal, q_off, k_off in attn_cases:
         seed += 1
-        d = ATTN_D
         q, k, v = (rand((n, d), seed + off, dt)
                    for n, off in ((sq, 0), (sk, 1000), (sk, 2000)))
         acc = rand((sq, d), seed + 3000)
@@ -340,38 +377,69 @@ def main() -> int:
         l = rand((sq, 1), seed + 5000).abs()
         kw = dict(causal=causal, scale=d ** -0.5)
         args = (q, k, v, acc, m, l, q_off, k_off)
-        out = kernels.flash_attention_block(*args, **kw)
-        ref = kernels.flash_attention_block_plain(*args, **kw)
+        run = lambda: kernels.flash_attention_block(*args, **kw)  # noqa: E731
+        plain = lambda: kernels.flash_attention_block_plain(*args, **kw)  # noqa: E731
+        out, out2, ref = run(), run(), plain()
+        r64 = kernels.flash_attention_block_plain(*args, **kw, compute_dtype=torch.float64)
         torch.cuda.synchronize()
-        err = max((o - r).abs().max().item() for o, r in zip(out, ref))
-        check(all(bool(torch.isfinite(o).all()) for o in out) and err < TOL_ATTN,
-              f"flash_attention_block[{label}]: max abs err {err} >= {TOL_ATTN}")
-        isz = 2 if dt == torch.bfloat16 else 4
         row = {"shape": [sq, sk, d], "causal": causal, "q_off": q_off,
-               "k_off": k_off, "max_abs_err": err, "tol": TOL_ATTN,
-               "ms": time_ms(lambda: kernels.flash_attention_block(*args, **kw)),
-               "plain_ms": time_ms(lambda: kernels.flash_attention_block_plain(*args, **kw)),
-               "library_ms": None, "library_call": "none"}
-        row["bound_ms"], row["bound_by"] = bound(
-            4 * d * attn_pairs(sq, sk, q_off, k_off, causal),
-            (sq + 2 * sk) * d * isz + 2 * sq * d * 4 + 4 * sq * 4,
-            "bf16" if dt == torch.bfloat16 else "f32")
+               "k_off": k_off, "tol": TOL_ATTN,
+               "max_abs_err": max((o - r).abs().max().item() for o, r in zip(out, ref)),
+               "carry_err": carry_err(out, ref),
+               "err_vs_f64": max_err(out, r64), "plain_err_vs_f64": max_err(ref, r64),
+               "bit_identical": all(torch.equal(a, b) for a, b in zip(out, out2))}
+        if not all(bool(torch.isfinite(o).all()) for o in out):
+            failures.append(f"{label}: non-finite output")
+        if row["err_vs_f64"] >= TOL_ATTN:
+            failures.append(f"{label}: max abs err vs the update in float64 "
+                            f"{row['err_vs_f64']} >= {TOL_ATTN}")
+        if row["carry_err"] >= TOL_ATTN:
+            failures.append(f"{label}: carry differs from the plain version's by "
+                            f"{row['carry_err']} >= {TOL_ATTN}")
+        if not row["bit_identical"]:
+            failures.append(f"{label}: two launches on the same inputs differ")
+        if label in f64_gated:
+            # the f32 mode against the update in float64: at most
+            # F64_GATE_FACTOR x the plain version's (cuBLAS FP32) error
+            if row["err_vs_f64"] > F64_GATE_FACTOR * row["plain_err_vs_f64"]:
+                failures.append(f"{label} vs f64: {row['err_vs_f64']} > "
+                                f"{F64_GATE_FACTOR} x the plain version's "
+                                f"{row['plain_err_vs_f64']}")
+        row["ms"] = time_ms(run)
+        row["plain_ms"] = time_ms(plain)
+        row["library_ms"], row["library_call"] = None, "none"
+        # the bound of this design: f32 as three TF32 passes of each
+        # product; bf16 one pass of q.k and two (p's hi and lo) of p.v;
+        # f32 on the CUDA cores (PR 2's design) beside it
+        pairs = attn_pairs(sq, sk, q_off, k_off, causal)
+        isz = 2 if dt == bf16 else 4
+        nbytes = (sq + 2 * sk) * d * isz + 2 * sq * d * 4 + 4 * sq * 4
+        if dt == bf16:
+            row["bound_ms"], row["bound_by"] = bound(6 * d * pairs, nbytes, "bf16")
+        else:
+            row["bound_ms"], row["bound_by"] = bound(3 * 4 * d * pairs, nbytes, "tf32")
+            row["bound_fp32_ms"], _ = bound(4 * d * pairs, nbytes, "f32")
         results[("flash_attention_block", label)] = row
         say("kernel", name="flash_attention_block", mode=label, **row)
 
-    # the exact no-op: a fully masked block met while the carry is still at
-    # its -1e30/0/0 init leaves acc = 0, l = 0 and m bit-identical
-    q, k, v = (rand((ATTN_BLOCK, ATTN_D), seed + off) for off in (6000, 7000, 8000))
-    acc0 = torch.zeros((ATTN_BLOCK, ATTN_D), device=dev)
-    m0 = torch.full((ATTN_BLOCK, 1), -1e30, device=dev)
-    l0 = torch.zeros((ATTN_BLOCK, 1), device=dev)
-    acc1, m1, l1 = kernels.flash_attention_block(q, k, v, acc0, m0, l0, 0, ATTN_BLOCK,
-                                                 causal=True, scale=0.1)
-    torch.cuda.synchronize()
-    check(acc1.abs().max().item() == 0.0 and l1.abs().max().item() == 0.0
-          and torch.equal(m1, m0), "flash_attention_block: a masked block at the "
-                                   "init carry changed the carry")
-    say("kernel", name="flash_attention_block", mode="masked_at_init", exact=True)
+    # the exact no-op, in both dtypes: a fully masked block met while the
+    # carry is still at its -1e30/0/0 init leaves acc = 0, l = 0 and m
+    # bit-identical
+    for name, dt in (("f32", f32), ("bf16", bf16)):
+        q, k, v = (rand((ATTN_BLOCK, ATTN_D), seed + off, dt) for off in (6000, 7000, 8000))
+        acc0 = torch.zeros((ATTN_BLOCK, ATTN_D), device=dev)
+        m0 = torch.full((ATTN_BLOCK, 1), -1e30, device=dev)
+        l0 = torch.zeros((ATTN_BLOCK, 1), device=dev)
+        acc1, m1, l1 = kernels.flash_attention_block(q, k, v, acc0, m0, l0, 0,
+                                                     ATTN_BLOCK, causal=True, scale=0.1)
+        torch.cuda.synchronize()
+        exact = (acc1.abs().max().item() == 0.0 and l1.abs().max().item() == 0.0
+                 and torch.equal(m1, m0))
+        if not exact:
+            failures.append(f"masked_at_init_{name}: the carry changed")
+        say("kernel", name="flash_attention_block", mode=f"masked_at_init_{name}",
+            exact=exact)
+    check(not failures, "B5 kernel phase:\n  " + "\n  ".join(failures))
 
     # -- B3 stencil_5pt at the stencil path's tile, ragged, f64 --------------
     st_tile = ST_N // ST_TILES

@@ -544,13 +544,17 @@ def _check_attention(q, k, v, acc, m, l):
 
 
 def flash_attention_block_plain(q, k, v, acc, m, l, q_off: int, k_off: int, *,
-                                causal: bool = False, scale: float = 1.0):
+                                causal: bool = False, scale: float = 1.0,
+                                compute_dtype: torch.dtype = torch.float32):
     """Plain PyTorch version of :func:`flash_attention_block`: the Pallas
-    kernel's arithmetic on the whole block at once, in f32."""
+    kernel's arithmetic on the whole block at once, in f32
+    (``compute_dtype=torch.float64`` gives the float64 update the f32
+    kernel's accuracy is held against)."""
     sq, sk = q.shape[0], k.shape[0]
+    q, k, v, acc, m, l = (t.to(compute_dtype) for t in (q, k, v, acc, m, l))
     if sk == 0:
         return acc.clone(), m.clone(), l.clone()
-    logits = (q.float() @ k.float().mT) * scale
+    logits = (q @ k.mT) * scale
     if causal:
         qpos = q_off + torch.arange(sq, device=q.device)[:, None]
         kpos = k_off + torch.arange(sk, device=q.device)[None, :]
@@ -558,7 +562,7 @@ def flash_attention_block_plain(q, k, v, acc, m, l, q_off: int, k_off: int, *,
     m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
     p = torch.exp(logits - m_new)
     corr = torch.exp(m - m_new)
-    return (acc * corr + p @ v.float(), m_new,
+    return (acc * corr + p @ v, m_new,
             l * corr + p.sum(dim=-1, keepdim=True))
 
 
@@ -568,10 +572,13 @@ def flash_attention_block(q, k, v, acc, m, l, q_off: int, k_off: int, *,
     l)`` as one kernel.
 
     ``q`` is ``(Sq, D)``, ``k``/``v`` are ``(Sk, D)``, all float32 or all
-    bfloat16 (widened to f32); the carry ``acc`` is ``(Sq, D)`` and ``m``/
-    ``l`` ``(Sq, 1)``, float32.  ``q_off``/``k_off`` are the global
-    sequence positions of the two blocks' first rows, for the causal mask
-    (masked logits are ``-inf``).  Logits are true FP32.  ``D`` may be at
+    bfloat16; the carry ``acc`` is ``(Sq, D)`` and ``m``/``l`` ``(Sq,
+    1)``, float32.  ``q_off``/``k_off`` are the global sequence positions
+    of the two blocks' first rows, for the causal mask (masked logits are
+    ``-inf``).  Both products run on the tensor cores with f32
+    accumulation: float32 operands as three TF32 passes (f32-class, held
+    against float64 on the card), bfloat16 ``q @ k.T`` exactly and ``p @
+    v`` with the f32 ``p`` split into bf16 hi and lo.  ``D`` may be at
     most :data:`ATTENTION_D_LIMIT`.  Returns fresh tensors."""
     sq, sk, d = _check_attention(q, k, v, acc, m, l)
     q_off, k_off = int(q_off), int(k_off)

@@ -28,6 +28,7 @@ from parsec_tpu.ops import pallas_kernels as pk  # noqa: E402
 from parsec_tpu.parallel import attention_reference as jax_attention_reference  # noqa: E402
 from parsec_tpu_torch.ops import attention, kernels  # noqa: E402
 from parsec_tpu_torch.parallel import attention_reference  # noqa: E402
+from tf32_emulation import tf32, tf32x3  # noqa: E402
 
 B, S, H, D = 1, 48, 2, 16
 
@@ -188,6 +189,188 @@ def test_flash_block_matches_pallas(case):
         *map(jnp.asarray, (acc0, m0, l0)), q_off, k_off, causal=True, scale=scale)
     for a, b in zip(mine, theirs):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4)
+
+
+# -- the CUDA kernel's arithmetic, emulated in plain torch ---------------------
+#
+# csrc/attention.cu cannot run here.  These tests emulate what it does -- the
+# keys of each 64-key chunk split over four warps' partial carries, combined
+# in warp order; 3xTF32 products in f32; p split into bf16 hi and lo in bf16
+# -- and hold that arithmetic against the Pallas kernel and float64.
+
+_CHUNK, _WARPS = 64, 4
+
+
+def _f32_dot(a, b):
+    """a @ b.T with products and sums in float64, rounded to float32 once."""
+    return (a.double() @ b.double().mT).float()
+
+
+def _tf32x3_dot(a, b):
+    """a @ b.T as the f32 kernel computes it: each operand split into TF32
+    hi and lo; per k step of 8, hi*lo + lo*hi and hi*hi as two fresh tiles
+    (each product exact, summed here in float64) whose sum is added to the
+    f32 total."""
+    a_hi, a_lo = tf32x3(a.contiguous())
+    b_hi, b_lo = tf32x3(b.contiguous())
+    out = torch.zeros(a.shape[0], b.shape[0])
+    for kk in range(0, a.shape[1], 8):
+        s = slice(kk, kk + 8)
+        lo = (a_hi[:, s].double() @ b_lo[:, s].double().mT
+              + a_lo[:, s].double() @ b_hi[:, s].double().mT).float()
+        hi = (a_hi[:, s].double() @ b_hi[:, s].double().mT).float()
+        out = out + (lo + hi)
+    return out
+
+
+def _pv_f32(p, v):
+    return _f32_dot(p, v.mT.contiguous())
+
+
+def _pv_tf32x3(p, v):
+    return _tf32x3_dot(p, v.mT.contiguous())
+
+
+def _pv_bf16_split(p, v):
+    """p @ v with p split into bf16 hi and lo (round to nearest even), lo.v
+    then hi.v: the bf16 kernel's two passes."""
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    return (lo.double() @ v.double() + hi.double() @ v.double()).float()
+
+
+def _pv_bf16_single(p, v):
+    return (p.to(torch.bfloat16).double() @ v.double()).float()
+
+
+def _warp_split_update(q, k, v, acc, m, l, q_off, k_off, *, causal, scale,
+                       qk=_f32_dot, pv=_pv_f32):
+    """The kernel's update: warp w of 4 takes keys [16w, 16w + 16) of every
+    64-key chunk and keeps a partial carry (m_w from the incoming m, l_w and
+    acc_w from 0); the partials are combined in warp order.  A key slice
+    masked for every row is visited here and skipped by the kernel: the same
+    identity step either way."""
+    sq, sk = q.shape[0], k.shape[0]
+    kw = _CHUNK // _WARPS
+    m_w = [m.clone() for _ in range(_WARPS)]
+    l_w = [torch.zeros_like(l) for _ in range(_WARPS)]
+    acc_w = [torch.zeros_like(acc) for _ in range(_WARPS)]
+    qpos = q_off + torch.arange(sq)[:, None]
+    for kc in range(0, sk, _CHUNK):
+        for w in range(_WARPS):
+            k0 = kc + kw * w
+            if k0 >= sk:
+                continue
+            k1 = min(k0 + kw, sk)
+            s = qk(q, k[k0:k1]) * scale
+            if causal:
+                s = s.masked_fill(qpos < k_off + torch.arange(k0, k1)[None, :],
+                                  float("-inf"))
+            m_new = torch.maximum(m_w[w], s.amax(dim=-1, keepdim=True))
+            corr = torch.exp(m_w[w] - m_new)
+            p = torch.exp(s - m_new)
+            l_w[w] = l_w[w] * corr + p.sum(dim=-1, keepdim=True)
+            acc_w[w] = acc_w[w] * corr + pv(p, v[k0:k1])
+            m_w[w] = m_new
+    m_out = m
+    for w in range(_WARPS):
+        m_out = torch.maximum(m_out, m_w[w])
+    e = torch.exp(m - m_out)
+    l_out, acc_out = l * e, acc * e
+    for w in range(_WARPS):
+        e = torch.exp(m_w[w] - m_out)
+        l_out = l_out + l_w[w] * e
+        acc_out = acc_out + acc_w[w] * e
+    return acc_out, m_out, l_out
+
+
+def _carry_inputs(seed, sq, sk, d):
+    q, k, v = _block_inputs(seed, sq, sk, d)
+    rng = np.random.default_rng(seed + 100)
+    acc = rng.standard_normal((sq, d)).astype(np.float32)
+    m = rng.standard_normal((sq, 1)).astype(np.float32)
+    l = np.abs(rng.standard_normal((sq, 1))).astype(np.float32)
+    return q, k, v, acc, m, l
+
+
+def _rel_errs(out, ref):
+    """Per output, the max error over the largest magnitude (the float64
+    gates' measure)."""
+    return [float((o.double() - r.double()).abs().max() / r.double().abs().max())
+            for o, r in zip(out, ref)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_warp_split_combine_matches_pallas(seed, causal):
+    """Four warps' partial carries over a ragged 200-key block (three whole
+    chunks and a partial one; the causal mask cuts through a slice),
+    combined in warp order, give the Pallas kernel's update."""
+    q, k, v, acc, m, l = _carry_inputs(seed, 48, 200, 32)
+    kw = dict(causal=causal, scale=32 ** -0.5)
+    mine = _warp_split_update(*map(_t, (q, k, v, acc, m, l)), 150, 0, **kw)
+    theirs = pk.flash_attention_block(*map(jnp.asarray, (q, k, v, acc, m, l)),
+                                      150, 0, **kw)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5, atol=2e-5)
+
+
+def test_warp_split_masked_block_at_init_carry_is_exact():
+    """Every slice masked while the carry is at its -1e30/0/0 init: every
+    m_w stays at m_in, every factor is exp(0) = 1 and every partial 0, so
+    the combine returns the carry bit for bit, as the Pallas kernel does."""
+    q, k, v = _block_inputs(7, 48, 128, 32)
+    acc0, m0, l0 = (torch.zeros(48, 32), torch.full((48, 1), attention.NEG_BIG),
+                    torch.zeros(48, 1))
+    acc, m, l = _warp_split_update(_t(q), _t(k), _t(v), acc0, m0, l0, 0, 48,
+                                   causal=True, scale=0.1)
+    assert torch.equal(acc, acc0) and torch.equal(m, m0) and torch.equal(l, l0)
+    ja, jm, jl = pk.flash_attention_block(
+        *map(jnp.asarray, (q, k, v, acc0.numpy(), m0.numpy(), l0.numpy())),
+        0, 48, causal=True, scale=0.1)
+    for mine, theirs in ((acc, ja), (m, jm), (l, jl)):
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(theirs))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_warp_split_tf32x3_f32_class(causal):
+    """The f32 mode's arithmetic: both products as three TF32 passes land
+    within 1e-5 of the update in float64 (max error over the largest
+    magnitude), no worse than twice the plain f32 version's error (the
+    card's float64 gate), while a single TF32 pass misses 1e-5."""
+    q, k, v, acc, m, l = map(_t, _carry_inputs(20, 64, 256, 64))
+    kw = dict(causal=causal, scale=64 ** -0.5)
+    ref64 = kernels.flash_attention_block_plain(q, k, v, acc, m, l, 192, 0,
+                                                compute_dtype=torch.float64, **kw)
+    mine = _warp_split_update(q, k, v, acc, m, l, 192, 0, qk=_tf32x3_dot,
+                              pv=_pv_tf32x3, **kw)
+    plain = kernels.flash_attention_block_plain(q, k, v, acc, m, l, 192, 0, **kw)
+    errs, plain_errs = _rel_errs(mine, ref64), _rel_errs(plain, ref64)
+    assert max(errs) < 1e-5, errs
+    assert max(errs) <= 2 * max(plain_errs), (errs, plain_errs)
+
+    def tf32_dot(a, b):
+        return _f32_dot(tf32(a.contiguous()), tf32(b.contiguous()))
+
+    one_pass = _warp_split_update(q, k, v, acc, m, l, 192, 0, qk=tf32_dot,
+                                  pv=lambda p, vv: tf32_dot(p, vv.mT), **kw)
+    assert max(_rel_errs(one_pass, ref64)) > 1e-5
+
+
+@pytest.mark.parametrize("seed", [30, 31])
+def test_warp_split_bf16_p_needs_two_passes(seed):
+    """bf16 q, k, v: p is f32, so the kernel splits it into bf16 hi and lo
+    and runs p.v twice.  That lands within 1e-5 of the update with f32 p
+    (max error over the largest magnitude); a single bf16 p, rounded by up
+    to 2^-9, misses 1e-4."""
+    q, k, v, acc, m, l = (_t(x) for x in _carry_inputs(seed, 48, 200, 64))
+    q, k, v = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    kw = dict(causal=True, scale=64 ** -0.5)
+    ref = _warp_split_update(q, k, v, acc, m, l, 150, 0, **kw)
+    split = _warp_split_update(q, k, v, acc, m, l, 150, 0, pv=_pv_bf16_split, **kw)
+    single = _warp_split_update(q, k, v, acc, m, l, 150, 0, pv=_pv_bf16_single, **kw)
+    assert max(_rel_errs(split, ref)) < 1e-5
+    assert max(_rel_errs(single, ref)) > 1e-4
 
 
 def _ok_block():

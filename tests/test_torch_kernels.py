@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from parsec_tpu.ops import pallas_kernels as pk  # noqa: E402
 from parsec_tpu_torch.ops import kernels  # noqa: E402
+from tf32_emulation import tf32x3  # noqa: E402
 
 
 def _t(x):
@@ -96,20 +97,6 @@ def test_matmul_update_split_f32_f32_class(transpose_b):
     np.testing.assert_allclose(out, pal, rtol=1e-5, atol=1e-5)
 
 
-def _tf32(x):
-    """float32 -> TF32 as the kernel's loader rounds it (cvt.rna.tf32.f32,
-    low 13 bits cleared), emulated with integer bit operations: adding half
-    a TF32 ulp to the magnitude bits and truncating rounds to nearest with
-    ties away from zero."""
-    bits = x.view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32x3(x):
-    hi = _tf32(x)
-    return hi, _tf32(x - hi)
-
-
 @pytest.mark.parametrize("transpose_b", [False, True])
 def test_matmul_update_tf32x3_f32_class(transpose_b):
     """The f32 modes' arithmetic: each operand splits into TF32 (hi, lo)
@@ -122,9 +109,9 @@ def test_matmul_update_tf32x3_f32_class(transpose_b):
     A = rng.standard_normal((m, k)).astype(np.float32)
     B = rng.standard_normal((n, k) if transpose_b else (k, n)).astype(np.float32)
     C = rng.standard_normal((m, n)).astype(np.float32)
-    a_hi, a_lo = _tf32x3(_t(A))
+    a_hi, a_lo = tf32x3(_t(A))
     b = _t(B).mT if transpose_b else _t(B)
-    b_hi, b_lo = _tf32x3(b.contiguous())
+    b_hi, b_lo = tf32x3(b.contiguous())
     for x, hi, lo in ((_t(A), a_hi, a_lo), (b, b_hi, b_lo)):
         assert not (hi.view(torch.int32) & 0x1FFF).any()
         assert not (lo.view(torch.int32) & 0x1FFF).any()
@@ -311,3 +298,22 @@ def test_kernel_sources_and_build_flags():
     root = pathlib.Path(__file__).resolve().parent.parent
     ignored = (root / ".gitignore").read_text().split()
     assert kernels._BUILD_DIR.relative_to(root).as_posix() + "/" in ignored
+
+
+def test_attention_kernel_source():
+    """B5 runs both products on the tensor cores in both modes (mma.sync:
+    bf16 m16n8k16, three TF32 passes of m16n8k8), streams K/V with
+    cp.async, uses no atomics, no library and no FP32-FMA product loop,
+    keeps expf for the exact no-op cases, and refuses to build a tile
+    layout above the 227 KB one block may opt in to."""
+    src = (kernels._PKG / "csrc" / "attention.cu").read_text()
+    for needed in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                   "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                   "cp.async.cg.shared.global", "expf(", "SMEM_LIMIT = 232448;",
+                   "static_assert(SMEM <= SMEM_LIMIT"):
+        assert needed in src, needed
+    for banned in ("atomicadd", "atomiccas", "atom.", "cublas", "cudnn", "cutlass",
+                   "fmaf(", "__expf("):
+        assert banned not in src.lower(), banned
+
