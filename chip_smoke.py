@@ -15,14 +15,21 @@
    blocks (the prefill's full and diagonal blocks, the decode step's
    ragged 96 x 416 tail) and at a ragged (100, 300) with head dimensions
    37, 64 and 256, causal and not (every head-dimension template and the
-   predicated copies), ``stencil_5pt`` (B3) at its tile and
-   ``stencil_5pt_fused`` (B4).  Holds each against its plain PyTorch
+   predicated copies), the wide kernel at (100, 300) and (512, 512) with
+   D = 320 and 512, a float16 and a mixed-dtype case (the f32 engine on
+   float32 copies); ``stencil_5pt`` (B3) in f32, f64, f16 and bf16 at its
+   tile, ragged and at an unaligned shape (the scalar variant), timed
+   L2-warm and L2-cold; ``stencil_5pt_fused`` (B4) in each mode (smem:
+   512^2, 999^2 (a ragged last strip) and 2048^2 f32, 1024^2 f64 and f16;
+   global: 2048^2 f64), timed at
+   100 steps and at one.  Holds each against its plain PyTorch
    version on the card at the tolerances of
    tests/runtime/test_pallas_kernels.py (B1/B2 float32 1e-4 relative, bf16
    operands 1e-3: only the summation order differs; B2 with bf16 output
-   one bf16 ulp; B3 1e-6, B4 1e-5; B5 1e-4 for its carry taken to the
+   one bf16 ulp; B5 1e-4 for its carry taken to the
    plain version's running max, and B5's masked-at-init update exactly, in
-   both dtypes); holds every f32-class B1/B2 mode against a float64
+   both dtypes and at D = 512), B3 and B4 bit for bit
+   (``torch.equal``); holds every f32-class B1/B2 mode against a float64
    product (< 1e-5, and the f32 modes at the tile within 2x of the plain
    version's, cuBLAS FP32, error) and every B5 case against the update in
    float64 (< 1e-4; the f32 mode at the full and diagonal blocks also
@@ -47,7 +54,8 @@
    prefill problem is timed beside it as the yardstick;
 7. stencil path: ``stencil_ptg(use_kernels=True)`` on an 8192^2 float32
    grid in 1024^2 tiles for 20 steps (B3 launches counted), then B4 on the
-   leading 2048^2 block for 100 steps, both against a float64 reference;
+   leading 2048^2 block for 100 steps (one smem-mode launch), both against
+   a float64 reference;
 8. with ``--profile``, runs the two f32 dpotrf variants, the f32 prefill
    and the stencil run once more under ``torch.profiler`` and prints the
    device busy time and idle share;
@@ -82,9 +90,9 @@ TOL_BF16_OUT = 2.0 ** -7
 # the f32 modes against float64 at the tile: at most this many times the
 # plain version's (cuBLAS FP32) error
 F64_GATE_FACTOR = 2.0
-# the kernels of the other two paths, tests/runtime/test_pallas_kernels.py's
-# tolerances
-TOL_STENCIL, TOL_FUSED, TOL_ATTN = 1e-6, 1e-5, 1e-4
+# B5, tests/runtime/test_pallas_kernels.py's tolerance (B3/B4 are held
+# bit-identical to their plain versions)
+TOL_ATTN = 1e-4
 
 # attention path: Llama-2-7B's attention layer (Hugging Face
 # meta-llama/Llama-2-7b-hf config.json: 32 heads, hidden 4096 -> head_dim
@@ -193,18 +201,20 @@ def main() -> int:
 
     def time_ms(fn, reps=50):
         """Device milliseconds per call: warm up, then queue ``reps`` calls
-        behind a spin kernel that outlasts their enqueue (twice the
-        measured host time of one call, per call, plus 2 ms), so the
-        events time the calls back to back on the device."""
+        behind a spin kernel that outlasts their enqueue (three times the
+        slowest of three measured host times of one call, per call, plus
+        2 ms), so the events time the calls back to back on the device."""
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        host_s = time.perf_counter() - t0
+        host_s = 0.0
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            host_s = max(host_s, time.perf_counter() - t0)
         torch.cuda.synchronize()
         s, e = events()
-        torch.cuda._sleep(int(cycles_per_ms * (2e3 * host_s * reps + 2.0)))
+        torch.cuda._sleep(int(cycles_per_ms * (3e3 * host_s * reps + 2.0)))
         s.record()
         for _ in range(reps):
             fn()
@@ -350,6 +360,18 @@ def main() -> int:
           250 if causal else 0, 0)
          for d in (37, 64, 256) for name, dt in (("f32", f32), ("bf16", bf16))
          for causal in (False, True)]
+    # the wide kernel (D > 256): the ragged (100, 300) and the path's block
+    # size, causal (the diagonal) and not, in both engine dtypes
+    attn_cases += [(f"{name}_{sq}x{sk}_d{d}{'_causal' if causal else ''}", sq, sk, d, dt,
+                    causal, (250 if sq == 100 else 0) if causal else 0, 0)
+                   for sq, sk in ((100, 300), (ATTN_BLOCK, ATTN_BLOCK)) for d in (320, 512)
+                   for name, dt in (("f32", f32), ("bf16", bf16)) for causal in (False, True)]
+    # operands the f32 engine takes as float32 copies: float16 at the
+    # path's block, and mixed q/k/v on the wide kernel
+    attn_cases += [("f16_causal_diag", ATTN_BLOCK, ATTN_BLOCK, ATTN_D, torch.float16, True,
+                    0, 0),
+                   ("mixed_d320_causal", 100, 300, 320, (f32, bf16, torch.float16), True,
+                    250, 0)]
     f64_gated = ("f32", "f32_causal_diag")
 
     def max_err(out, ref):
@@ -370,8 +392,10 @@ def main() -> int:
     failures = []
     for label, sq, sk, d, dt, causal, q_off, k_off in attn_cases:
         seed += 1
-        q, k, v = (rand((n, d), seed + off, dt)
-                   for n, off in ((sq, 0), (sk, 1000), (sk, 2000)))
+        dts = dt if isinstance(dt, tuple) else (dt,) * 3
+        q, k, v = (rand((n, d), seed + off, t)
+                   for n, off, t in zip((sq, sk, sk), (0, 1000, 2000), dts))
+        mode = kernels._attention_mode(*dts, d)
         acc = rand((sq, d), seed + 3000)
         m = rand((sq, 1), seed + 4000)
         l = rand((sq, 1), seed + 5000).abs()
@@ -382,7 +406,7 @@ def main() -> int:
         out, out2, ref = run(), run(), plain()
         r64 = kernels.flash_attention_block_plain(*args, **kw, compute_dtype=torch.float64)
         torch.cuda.synchronize()
-        row = {"shape": [sq, sk, d], "causal": causal, "q_off": q_off,
+        row = {"shape": [sq, sk, d], "causal": causal, "q_off": q_off, "kernel": mode,
                "k_off": k_off, "tol": TOL_ATTN,
                "max_abs_err": max((o - r).abs().max().item() for o, r in zip(out, ref)),
                "carry_err": carry_err(out, ref),
@@ -410,11 +434,16 @@ def main() -> int:
         row["library_ms"], row["library_call"] = None, "none"
         # the bound of this design: f32 as three TF32 passes of each
         # product; bf16 one pass of q.k and two (p's hi and lo) of p.v;
-        # f32 on the CUDA cores (PR 2's design) beside it
+        # f32 on the CUDA cores (the FP32-FMA design) beside it; the wide kernel
+        # on the CUDA cores, its logits once per 128-column slab beside it
         pairs = attn_pairs(sq, sk, q_off, k_off, causal)
-        isz = 2 if dt == bf16 else 4
-        nbytes = (sq + 2 * sk) * d * isz + 2 * sq * d * 4 + 4 * sq * 4
-        if dt == bf16:
+        nbytes = (q.numel() * q.element_size() + k.numel() * k.element_size()
+                  + v.numel() * v.element_size() + 2 * sq * d * 4 + 4 * sq * 4)
+        if mode.endswith("_wide"):
+            row["bound_ms"], row["bound_by"] = bound(4 * d * pairs, nbytes, "f32")
+            row["bound_design_ms"], _ = bound(
+                2 * d * pairs * (1 + -(-d // 128)), nbytes, "f32")
+        elif mode == "bf16":
             row["bound_ms"], row["bound_by"] = bound(6 * d * pairs, nbytes, "bf16")
         else:
             row["bound_ms"], row["bound_by"] = bound(3 * 4 * d * pairs, nbytes, "tf32")
@@ -425,9 +454,10 @@ def main() -> int:
     # the exact no-op, in both dtypes: a fully masked block met while the
     # carry is still at its -1e30/0/0 init leaves acc = 0, l = 0 and m
     # bit-identical
-    for name, dt in (("f32", f32), ("bf16", bf16)):
-        q, k, v = (rand((ATTN_BLOCK, ATTN_D), seed + off, dt) for off in (6000, 7000, 8000))
-        acc0 = torch.zeros((ATTN_BLOCK, ATTN_D), device=dev)
+    for name, dt, d in (("f32", f32, ATTN_D), ("bf16", bf16, ATTN_D), ("f32_d512", f32, 512),
+                        ("bf16_d512", bf16, 512)):
+        q, k, v = (rand((ATTN_BLOCK, d), seed + off, dt) for off in (6000, 7000, 8000))
+        acc0 = torch.zeros((ATTN_BLOCK, d), device=dev)
         m0 = torch.full((ATTN_BLOCK, 1), -1e30, device=dev)
         l0 = torch.zeros((ATTN_BLOCK, 1), device=dev)
         acc1, m1, l1 = kernels.flash_attention_block(q, k, v, acc0, m0, l0, 0,
@@ -441,55 +471,117 @@ def main() -> int:
             exact=exact)
     check(not failures, "B5 kernel phase:\n  " + "\n  ".join(failures))
 
-    # -- B3 stencil_5pt at the stencil path's tile, ragged, f64 --------------
+    # -- B3 stencil_5pt: every dtype at the path's tile, ragged, unaligned --
+    # each output torch.equal to the plain version's and to a second launch
+    # (the same additions in the same order, in the grid's dtype)
     st_tile = ST_N // ST_TILES
-    for label, (h, w), dt in (("f32", (st_tile, st_tile), torch.float32),
-                              ("f32_ragged", (1000, 600), torch.float32),
-                              ("f64", (st_tile, st_tile), torch.float64)):
-        seed += 1
+    dtypes = {"f32": torch.float32, "f64": torch.float64, "f16": torch.float16,
+              "bf16": torch.bfloat16}
+    st_cases = [(name, (st_tile, st_tile), dt) for name, dt in dtypes.items()] + [
+        ("f32_ragged", (1000, 600), torch.float32),
+        ("f32_unaligned", (37, 130), torch.float32),     # a 520-byte row pitch
+        ("f16_unaligned", (37, 130), torch.float16)]
+
+    def halo_args(h, w, dt, seed):
         old = rand((h, w), seed, dt)
         up, down = rand((1, w), seed + 1000, dt), rand((1, w), seed + 2000, dt)
         # halo columns as the path passes them: edge columns of neighbour
         # tiles, strided views
         left = rand((h, 8), seed + 3000, dt)[:, -1:]
         right = rand((h, 8), seed + 4000, dt)[:, :1]
-        args = (old, up, down, left, right)
-        out = kernels.stencil_5pt(*args)
+        return old, up, down, left, right
+
+    failures = []
+    for label, (h, w), dt in st_cases:
+        seed += 1
+        args = halo_args(h, w, dt, seed)
+        out, out2 = kernels.stencil_5pt(*args), kernels.stencil_5pt(*args)
         ref = kernels.stencil_5pt_plain(*args)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        check(bool(torch.isfinite(out).all()) and err < TOL_STENCIL,
-              f"stencil_5pt[{label}]: max abs err {err} >= {TOL_STENCIL}")
-        isz = old.element_size()
-        row = {"shape": [h, w], "max_abs_err": err, "tol": TOL_STENCIL,
+        err = (out.double() - ref.double()).abs().max().item()
+        vec = kernels._stencil_vec(w, args[0].element_size(), args[0].data_ptr(),
+                                   args[1].data_ptr(), args[2].data_ptr(), out.data_ptr())
+        row = {"shape": [h, w], "vec": vec, "max_abs_err": err,
+               "equal_plain": bool(torch.equal(out, ref)),
+               "bit_identical": bool(torch.equal(out, out2)),
                "ms": time_ms(lambda: kernels.stencil_5pt(*args)),
                "plain_ms": time_ms(lambda: kernels.stencil_5pt_plain(*args)),
                "library_ms": None, "library_call": "none"}
+        if not (row["equal_plain"] and row["bit_identical"]):
+            failures.append(f"stencil_5pt[{label}]: equal to plain {row['equal_plain']}, "
+                            f"two launches equal {row['bit_identical']}")
+        isz = args[0].element_size()
+        nbytes = (2 * h * w + 2 * (h + w)) * isz
         row["bound_ms"], row["bound_by"] = bound(
-            4 * h * w, (2 * h * w + 2 * (h + w)) * isz,
-            "f64" if dt == torch.float64 else "f32")
+            4 * h * w, nbytes, "f64" if dt == torch.float64 else "f32")
+        if (h, w) == (st_tile, st_tile):
+            # cold L2: rotate over enough distinct inputs and outputs (each
+            # output kept alive until its slot comes round again) to exceed
+            # twice the 50 MB L2
+            n_sets = -(-2 * 50 * 2 ** 20 // (2 * h * w * isz)) + 1
+            sets = [halo_args(h, w, dt, seed + 10000 * (i + 1)) for i in range(n_sets)]
+            outs = [None] * n_sets
+            turn = [0]
+
+            def cold():
+                i = turn[0] = (turn[0] + 1) % n_sets
+                outs[i] = None
+                outs[i] = kernels.stencil_5pt(*sets[i])
+
+            row["cold_ms"] = time_ms(cold, 4 * n_sets)
+            row["cold_sets"] = n_sets
+            del sets, outs
         results[("stencil_5pt", label)] = row
         say("kernel", name="stencil_5pt", mode=label, **row)
+    check(not failures, "B3 kernel phase:\n  " + "\n  ".join(failures))
 
-    # -- B4 stencil_5pt_fused ---------------------------------------------
-    for n in (512, FUSED_N):
+    # -- B4 stencil_5pt_fused: each mode, dtype by dtype ---------------------
+    # (label, n, dtype, expected mode); each torch.equal to the plain
+    # version; iters = 1 timed too, so one step costs (t(100) - t(1)) / 99
+    sms, smem_optin = kernels._stencil_device_limits(dev)
+    fused_cases = [("smem_f32_512", 512, torch.float32, "smem"),
+                   ("smem_f32", FUSED_N, torch.float32, "smem"),
+                   ("smem_f32_999", 999, torch.float32, "smem"),  # a ragged last strip
+                   ("smem_f64_1024", 1024, torch.float64, "smem"),
+                   ("smem_f16_1024", 1024, torch.float16, "smem"),
+                   ("global_f64", FUSED_N, torch.float64, "global")]
+    for label, n, dt, want in fused_cases:
         seed += 1
-        grid = rand((n, n), seed)
+        grid = rand((n, n), seed, dt)
+        cfg = kernels._fused_mode(n, n, grid.element_size(), sms, smem_optin)
+        check(cfg.mode == want, f"stencil_5pt_fused[{label}]: mode {cfg}, expected {want}")
+        kernels.reset_counts()
         out = kernels.stencil_5pt_fused(grid, FUSED_ITERS)
+        out2 = kernels.stencil_5pt_fused(grid, FUSED_ITERS)
+        by_mode = dict(kernels.stencil_5pt_fused.launches_by_mode)
         ref = kernels.stencil_5pt_fused_plain(grid, FUSED_ITERS)
+        one = kernels.stencil_5pt_fused(grid, 1)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        check(bool(torch.isfinite(out).all()) and err < TOL_FUSED,
-              f"stencil_5pt_fused[{n}^2 x {FUSED_ITERS}]: max abs err {err} >= {TOL_FUSED}")
-        row = {"shape": [n, n], "iters": FUSED_ITERS, "max_abs_err": err,
-               "tol": TOL_FUSED,
+        err = (out.double() - ref.double()).abs().max().item()
+        vec = cfg.mode == "smem" and kernels._stencil_vec(n, grid.element_size(),
+                                                          out.data_ptr())
+        row = {"shape": [n, n], "iters": FUSED_ITERS, "config": cfg._asdict(), "vec": vec,
+               "max_abs_err": err, "equal_plain": bool(torch.equal(out, ref)),
+               "bit_identical": bool(torch.equal(out, out2)),
+               "iters1_equal_plain": bool(torch.equal(
+                   one, kernels.stencil_5pt_fused_plain(grid, 1))),
                "ms": time_ms(lambda: kernels.stencil_5pt_fused(grid, FUSED_ITERS), 10),
+               "iters1_ms": time_ms(lambda: kernels.stencil_5pt_fused(grid, 1), 20),
                "plain_ms": time_ms(lambda: kernels.stencil_5pt_fused_plain(grid, FUSED_ITERS), 3),
                "library_ms": None, "library_call": "none"}
+        row["step_ms"] = (row["ms"] - row["iters1_ms"]) / (FUSED_ITERS - 1)
+        check(by_mode[want] == 2 and sum(by_mode.values()) == 2,
+              f"stencil_5pt_fused[{label}]: launches by mode {by_mode}")
+        check(row["equal_plain"] and row["bit_identical"] and row["iters1_equal_plain"],
+              f"stencil_5pt_fused[{label}]: equal to plain {row['equal_plain']}, two "
+              f"launches equal {row['bit_identical']}, one step equal "
+              f"{row['iters1_equal_plain']} (max abs err {err})")
         row["bound_ms"], row["bound_by"] = bound(
-            4 * n * n * FUSED_ITERS, 2 * n * n * 4, "f32")
-        results[("stencil_5pt_fused", n)] = row
-        say("kernel", name="stencil_5pt_fused", mode=f"{n}x{n}x{FUSED_ITERS}", **row)
+            4 * n * n * FUSED_ITERS, 2 * n * n * grid.element_size(),
+            "f64" if dt == torch.float64 else "f32")
+        results[("stencil_5pt_fused", label)] = row
+        say("kernel", name="stencil_5pt_fused", mode=label, **row)
+        del grid, out, out2, ref, one
 
     # -- main path: dpotrf N=8192 nb=512 on the CUDA device module ----------
     # SPD input made from a numpy seed as bench.py makes it (M M^T + N I),
@@ -629,7 +721,8 @@ def main() -> int:
             t0 = time.perf_counter()
             out = run_flash_attention(ctx, q, k, v, use_cpu=False, **kw)
             wall = time.perf_counter() - t0
-            n_launch = kernels.flash_attention_block.launches
+            n_launch = dict(kernels.flash_attention_block.launches_by_mode,
+                            total=kernels.flash_attention_block.launches)
         finally:
             ctx.fini()
         return out, wall, n_launch, dict(cuda_dev.stats)
@@ -656,8 +749,10 @@ def main() -> int:
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
         check(stats["executed_tasks"] == ntasks,
               f"{name}: {stats['executed_tasks']} tasks on the CUDA device, expected {ntasks}")
-        check(n_launch == n_steps,
-              f"{name}: {n_launch} flash_attention_block launches, expected {n_steps}")
+        expected = dict.fromkeys(kernels.flash_attention_block.launches_by_mode, 0)
+        expected.update({"bf16" if dt == torch.bfloat16 else "f32": n_steps, "total": n_steps})
+        check(n_launch == expected,
+              f"{name}: flash_attention_block launches {n_launch}, expected {expected}")
         # float64 oracle on the inputs the run saw (bf16-rounded for bf16)
         if name == "attn_decode":
             q64, k64, v64 = on_card(dec_q, dec_k, dec_v, dtype=torch.float64)
@@ -673,7 +768,7 @@ def main() -> int:
         attn_launches[name] = n_launch
         say("attention", run=name, B=ATTN_B, Sq=sq, Sk=sk, H=ATTN_H, D=ATTN_D,
             dtype=str(dt), q_block=qb, kv_block=kw["kv_block"], tasks=ntasks,
-            launches=n_launch, wall_s=wall, nominal_gflops=flops / wall / 1e9,
+            launches=n_launch["total"], wall_s=wall, nominal_gflops=flops / wall / 1e9,
             tasks_per_s=ntasks / wall, max_abs_err=max_err, gate=gate, tol=tol,
             bytes_in=stats["bytes_in"])
         torch.cuda.empty_cache()
@@ -758,12 +853,13 @@ def main() -> int:
     f_out = kernels.stencil_5pt_fused(g_lead, FUSED_ITERS)
     torch.cuda.synchronize()
     f_wall = time.perf_counter() - t0
-    fused_launches = kernels.stencil_5pt_fused.launches
-    check(fused_launches == 1, f"stencil fused: {fused_launches} launches, expected 1")
+    fused_launches = dict(kernels.stencil_5pt_fused.launches_by_mode)
+    check(fused_launches == {"smem": 1, "global": 0},
+          f"stencil fused: launches by mode {fused_launches}, expected one smem launch")
     f_gate, f_err = allclose_gate(f_out, f_ref, TOL_STENCIL_PATH)
     check(f_gate <= TOL_STENCIL_PATH,
           f"stencil fused: |out - ref| - tol|ref| reaches {f_gate} > {TOL_STENCIL_PATH}")
-    say("stencil_fused", N=FUSED_N, iters=FUSED_ITERS, launches=fused_launches,
+    say("stencil_fused", N=FUSED_N, iters=FUSED_ITERS, launches=fused_launches["smem"],
         wall_s=f_wall, gcells_per_s=FUSED_N * FUSED_N * FUSED_ITERS / f_wall / 1e9,
         max_abs_err=f_err, gate=f_gate, tol=TOL_STENCIL_PATH)
     del g64, f_ref, f_out, g_lead
@@ -826,13 +922,15 @@ def main() -> int:
         entry("matmul", "bf16", mm_launches("matmul", "bf16"), line="158"),
         entry("stencil_5pt", "f32", st_launches, "stencil.cu", "219",
               ("stencil_5pt", "f32")),
-        entry("stencil_5pt_fused", "f32", fused_launches, "stencil.cu", "239",
-              ("stencil_5pt_fused", FUSED_N)),
-        entry("flash_attention_block", "f32", attn_launches["attn_prefill_f32"]
-              + attn_launches["attn_decode"], "attention.cu", "283",
-              ("flash_attention_block", "f32")),
-        entry("flash_attention_block", "bf16", attn_launches["attn_prefill_bf16"],
-              "attention.cu", "283", ("flash_attention_block", "bf16")),
+        entry("stencil_5pt_fused", "smem", fused_launches["smem"], "stencil.cu", "239",
+              ("stencil_5pt_fused", "smem_f32")),
+        entry("stencil_5pt_fused", "global", fused_launches["global"], "stencil.cu", "239",
+              ("stencil_5pt_fused", "global_f64")),
+    ] + [
+        entry("flash_attention_block", mode, sum(n[mode] for n in attn_launches.values()),
+              "attention.cu", "283", ("flash_attention_block", case))
+        for mode, case in (("f32", "f32"), ("bf16", "bf16"), ("f32_wide", "f32_512x512_d512"),
+                           ("bf16_wide", "bf16_512x512_d512"))
     ]
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

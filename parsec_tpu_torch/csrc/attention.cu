@@ -73,6 +73,11 @@
 // a rate of the card.  A split over keys across blocks (more warps to hide
 // that latency), TMA and wgmma are the next steps.
 //
+// Heads wider than 256 (D > D_ENGINE) take the wide kernel below, chosen
+// by dispatch_d before launch: the mma.sync engine keeps a 16 x D f32
+// accumulator per warp in registers and a K/V chunk per stage in shared
+// memory, and neither fits at D = 512.
+//
 // Interface: a plain C entry point bound with ctypes; it launches on the
 // given stream, does not synchronise, allocates nothing, and returns the
 // launch's cudaError_t (0 = launched).
@@ -89,7 +94,7 @@ namespace {
 constexpr int BQ = 16;                 // query rows per block: one mma row tile
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int D_LIMIT = 256;
+constexpr int D_ENGINE = 256;        // widest head of the mma.sync engine
 constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory a block may opt in to
 
 template <typename T, int DMAX>
@@ -565,6 +570,233 @@ cudaError_t launch(int sq, int sk, int d, const void* q, const void* k, const vo
   return cudaGetLastError();
 }
 
+// -- the wide kernel (D > D_ENGINE) -----------------------------------------
+//
+// A simple FP32 design, for heads the mma.sync engine cannot hold.  The
+// grid is (query blocks of WBQ rows) x (output column slabs of WCW): each
+// block forms its rows' logits over the full D with FP32 FMA, looping over
+// D in slabs of WDS columns staged (transposed) in shared memory, then
+// applies the online softmax chunk by chunk and accumulates p.v for its
+// own WCW columns only.  Every slab block of a row block runs the same
+// logits arithmetic in the same order on the same data, so m and l agree
+// bit for bit across the slabs; slab 0 writes them.  The logits are
+// computed once per slab block (D / WCW times in all): at D = 512 that
+// multiplies the q.k work by four, which is what keeps the design simple.
+// Sums are blocked as a library GEMM's are: each D slab's logits and each
+// chunk's p.v go into fresh registers that are then added to the totals,
+// so no FMA chain is longer than 64 (one chain of 512 puts the logits
+// ~3x further from float64).  Each thread issues all of its loads of a
+// tile before it waits on any.  No atomics: two launches agree bit for
+// bit.  The exact no-op cases hold as in the engine: -inf masking, m_run
+// from m_in, expf, and the chunk loop ends at the first chunk in the
+// future of the block's last row.  Rows past sq, keys past sk and columns
+// past d are zero-filled in shared memory and never stored.  What bounds
+// it: the FP32 rate of the CUDA cores (4 * Sq * Sk * D operations, times
+// D / WCW for the logits).
+
+constexpr int WBQ = 16;   // query rows per block
+constexpr int WBKC = 64;  // keys per chunk
+constexpr int WDS = 64;   // D slab of the logits loop
+constexpr int WCW = 128;  // output columns per block
+constexpr int WTX = 16, WTY = 8, WTHREADS = WTX * WTY;
+constexpr int WRPT = WBQ / WTY;   // rows per thread: ty + WTY * r
+constexpr int WCPT = WBKC / WTX;  // keys per thread: tx + WTX * j
+constexpr int WDPT = WCW / WTX;   // output columns per thread: tx + WTX * c
+// shared memory (f32): qt [WDS][WBQ + 1] and kt [WDS][WBKC + 1], transposed
+// and padded so the transposing stores hit distinct banks; vs [WBKC][WCW];
+// ps [WBQ][WBKC + 1]
+constexpr int WQP = WBQ + 1, WKP = WBKC + 1, WPP = WBKC + 1;
+constexpr int WIDE_SMEM = (WDS * WQP + WDS * WKP + WBKC * WCW + WBQ * WPP) * 4;
+static_assert(WIDE_SMEM <= SMEM_LIMIT, "the wide kernel's tiles fit one block");
+static_assert(WBQ * WDS % WTHREADS == 0 && WBKC * WDS % WTHREADS == 0 &&
+                  WBKC * WCW % WTHREADS == 0,
+              "every tile's elements divide among the threads");
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// max / sum over the 16 lanes that share a query row (xor offsets below 16
+// stay in a half warp)
+__device__ __forceinline__ float half_max(float x) {
+#pragma unroll
+  for (int o = WTX / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int o = WTX / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WTHREADS)
+flash_wide_kernel(int sq, int sk, int d, const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ acc_in,
+                  const float* __restrict__ m_in, const float* __restrict__ l_in,
+                  float* __restrict__ acc_out, float* __restrict__ m_out,
+                  float* __restrict__ l_out, long long q_off, long long k_off, int causal,
+                  float scale) {
+  extern __shared__ __align__(16) float wsm[];
+  float* qt = wsm;
+  float* kt = qt + WDS * WQP;
+  float* vs = kt + WDS * WKP;
+  float* ps = vs + WBKC * WCW;
+
+  const int tid = threadIdx.x, tx = tid % WTX, ty = tid / WTX;
+  const int row0 = blockIdx.x * WBQ, c0 = blockIdx.y * WCW;
+
+  // the carry of this thread's rows and columns; rows past sq compute on
+  // zeros and are never stored
+  float acc[WRPT][WDPT], m_run[WRPT], l_run[WRPT];
+#pragma unroll
+  for (int r = 0; r < WRPT; ++r) {
+    const int gr = row0 + ty + WTY * r;
+    const bool ok = gr < sq;
+    m_run[r] = ok ? m_in[gr] : 0.f;
+    l_run[r] = ok ? l_in[gr] : 0.f;
+#pragma unroll
+    for (int c = 0; c < WDPT; ++c) {
+      const int col = c0 + tx + WTX * c;
+      acc[r][c] = ok && col < d ? acc_in[int64_t(gr) * d + col] : 0.f;
+    }
+  }
+
+  const long long q_last = q_off + (long long)min(row0 + WBQ, sq) - 1;
+  for (int kc = 0; kc < sk; kc += WBKC) {
+    if (causal && q_last < k_off + kc) break;
+    const int nk = min(WBKC, sk - kc);
+    __syncthreads();  // the previous chunk's readers of vs and ps are done
+#pragma unroll
+    for (int it = 0; it < WBKC * WCW / WTHREADS; ++it) {
+      const int i = tid + it * WTHREADS, j = i / WCW, col = c0 + i % WCW;
+      vs[i] = j < nk && col < d ? to_f32(v[int64_t(kc + j) * d + col]) : 0.f;
+    }
+
+    float s[WRPT][WCPT];
+#pragma unroll
+    for (int r = 0; r < WRPT; ++r)
+#pragma unroll
+      for (int j = 0; j < WCPT; ++j) s[r][j] = 0.f;
+    for (int d0 = 0; d0 < d; d0 += WDS) {
+      __syncthreads();  // the previous slab's readers of qt and kt are done
+#pragma unroll
+      for (int it = 0; it < WBQ * WDS / WTHREADS; ++it) {
+        const int i = tid + it * WTHREADS, r = i / WDS, c = i % WDS;
+        const int gr = row0 + r, col = d0 + c;
+        qt[c * WQP + r] = gr < sq && col < d ? to_f32(q[int64_t(gr) * d + col]) : 0.f;
+      }
+#pragma unroll
+      for (int it = 0; it < WBKC * WDS / WTHREADS; ++it) {
+        const int i = tid + it * WTHREADS, j = i / WDS, c = i % WDS, col = d0 + c;
+        kt[c * WKP + j] = j < nk && col < d ? to_f32(k[int64_t(kc + j) * d + col]) : 0.f;
+      }
+      __syncthreads();
+      float sp[WRPT][WCPT];  // this slab's partial logits
+#pragma unroll
+      for (int r = 0; r < WRPT; ++r)
+#pragma unroll
+        for (int j = 0; j < WCPT; ++j) sp[r][j] = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < WDS; ++c) {
+        float a[WRPT], b[WCPT];
+#pragma unroll
+        for (int r = 0; r < WRPT; ++r) a[r] = qt[c * WQP + ty + WTY * r];
+#pragma unroll
+        for (int j = 0; j < WCPT; ++j) b[j] = kt[c * WKP + tx + WTX * j];
+#pragma unroll
+        for (int r = 0; r < WRPT; ++r)
+#pragma unroll
+          for (int j = 0; j < WCPT; ++j) sp[r][j] = fmaf(a[r], b[j], sp[r][j]);
+      }
+#pragma unroll
+      for (int r = 0; r < WRPT; ++r)
+#pragma unroll
+        for (int j = 0; j < WCPT; ++j) s[r][j] += sp[r][j];
+    }
+
+#pragma unroll
+    for (int r = 0; r < WRPT; ++r) {
+      const long long qpos = q_off + row0 + ty + WTY * r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < WCPT; ++j) {
+        const int key = tx + WTX * j;
+        const bool keep = key < nk && (!causal || qpos >= k_off + kc + key);
+        s[r][j] = keep ? s[r][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[r][j]);
+      }
+      const float m_new = fmaxf(m_run[r], half_max(mx));
+      const float corr = expf(m_run[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < WCPT; ++j) {
+        const float p = expf(s[r][j] - m_new);
+        sum += p;
+        ps[(ty + WTY * r) * WPP + tx + WTX * j] = p;
+      }
+      l_run[r] = l_run[r] * corr + half_sum(sum);
+      m_run[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < WDPT; ++c) acc[r][c] *= corr;
+    }
+    __syncthreads();  // ps and vs are complete
+
+    float pv[WRPT][WDPT];  // this chunk's p.v
+#pragma unroll
+    for (int r = 0; r < WRPT; ++r)
+#pragma unroll
+      for (int c = 0; c < WDPT; ++c) pv[r][c] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < nk; ++j) {
+      float p[WRPT];
+#pragma unroll
+      for (int r = 0; r < WRPT; ++r) p[r] = ps[(ty + WTY * r) * WPP + j];
+#pragma unroll
+      for (int c = 0; c < WDPT; ++c) {
+        const float vv = vs[j * WCW + tx + WTX * c];
+#pragma unroll
+        for (int r = 0; r < WRPT; ++r) pv[r][c] = fmaf(p[r], vv, pv[r][c]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < WRPT; ++r)
+#pragma unroll
+      for (int c = 0; c < WDPT; ++c) acc[r][c] += pv[r][c];
+  }
+
+#pragma unroll
+  for (int r = 0; r < WRPT; ++r) {
+    const int gr = row0 + ty + WTY * r;
+    if (gr >= sq) continue;
+#pragma unroll
+    for (int c = 0; c < WDPT; ++c) {
+      const int col = c0 + tx + WTX * c;
+      if (col < d) acc_out[int64_t(gr) * d + col] = acc[r][c];
+    }
+    if (blockIdx.y == 0 && tx == 0) {
+      m_out[gr] = m_run[r];
+      l_out[gr] = l_run[r];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(int sq, int sk, int d, const void* q, const void* k, const void* v,
+                        const float* acc, const float* m, const float* l, float* acc_o,
+                        float* m_o, float* l_o, long long q_off, long long k_off, int causal,
+                        float scale, cudaStream_t stream) {
+  auto kern = flash_wide_kernel<T>;
+  static const cudaError_t opted =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_SMEM);
+  if (opted != cudaSuccess) return opted;
+  const dim3 grid((sq + WBQ - 1) / WBQ, (d + WCW - 1) / WCW);
+  kern<<<grid, WTHREADS, WIDE_SMEM, stream>>>(sq, sk, d, static_cast<const T*>(q),
+                                              static_cast<const T*>(k), static_cast<const T*>(v),
+                                              acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
+                                              scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch_d(int sq, int sk, int d, const void* q, const void* k, const void* v,
                        const float* acc, const float* m, const float* l, float* acc_o,
@@ -576,7 +808,10 @@ cudaError_t dispatch_d(int sq, int sk, int d, const void* q, const void* k, cons
   if (d <= 128)
     return launch<T, 128>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
                           scale, stream);
-  return launch<T, 256>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
+  if (d <= D_ENGINE)
+    return launch<T, 256>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
+                          scale, stream);
+  return launch_wide<T>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
                         scale, stream);
 }
 
@@ -587,7 +822,7 @@ extern "C" int ptt_flash_attention_block(int bf16, int sq, int sk, int d, const 
                                          const void* m, const void* l, void* acc_o, void* m_o,
                                          void* l_o, long long q_off, long long k_off, int causal,
                                          float scale, void* stream) {
-  if (sq < 0 || sk < 0 || d <= 0 || d > D_LIMIT) return (int)cudaErrorInvalidValue;
+  if (sq < 0 || sk < 0 || d <= 0) return (int)cudaErrorInvalidValue;
   if (sq == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   auto a = static_cast<const float*>(acc);

@@ -302,17 +302,15 @@ def build_flash_attention(q, k, v, *, causal: bool = False,
 
     ``q_offset`` is the global position of query row 0 for the causal
     mask; it defaults to ``Sk - Sq`` (decode semantics: the queries are
-    the tail of the KV sequence).  ``out_dtype`` (a torch dtype) defaults
-    to q's."""
+    the tail of the KV sequence).  q, k and v may differ in dtype; the
+    steps compute in float32 unless all three are bfloat16.
+    ``out_dtype`` (a torch dtype) defaults to q's."""
     q, k, v = _host_tensor(q), _host_tensor(k), _host_tensor(v)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     if tuple(k.shape) != (B, Sk, H, D) or tuple(v.shape) != (B, Sk, H, D):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k and v must share a dtype: {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
     scale_v = scale if scale is not None else 1.0 / math.sqrt(D)
     if q_offset is None:
         q_offset = Sk - Sq

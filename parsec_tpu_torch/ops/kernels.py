@@ -15,7 +15,8 @@ about it):
   its edges — the stencil PTG's device chore (``csrc/stencil.cu``);
 * :func:`stencil_5pt_fused` (B4) replaces
   ``pallas_kernels.stencil_5pt_fused``: ``iters`` zero-boundary steps of a
-  whole grid in one launch (``csrc/stencil.cu``);
+  whole grid in one launch, the grid resident in shared memory where it
+  fits (``csrc/stencil.cu``);
 * :func:`flash_attention_block` (B5) replaces
   ``pallas_kernels.flash_attention_block``: one online-softmax update of
   the carry ``(acc, m, l)`` — the flash-attention PTG's device chore
@@ -30,7 +31,8 @@ is no fallback from a failed launch to the plain version.
 ``wrapper.launches`` counts kernel launches and nothing else;
 ``wrapper.calls`` counts every call, CPU ones included.  B1 and B2 also
 count their launches per operand mode, ``wrapper.launches_by_mode``
-(``f32``, ``bf16``, ``split``).
+(``f32``, ``bf16``, ``split``); B4 per mode (``smem``, ``global``), B5 per
+kernel (``f32``, ``bf16``, ``f32_wide``, ``bf16_wide``).
 
 The kernels build at first use, from the sources in this checkout, with
 ``nvcc`` into ``parsec_tpu_torch/_build/``: one object per source, all
@@ -62,7 +64,7 @@ __all__ = [
     "stencil_5pt_fused_plain",
     "flash_attention_block",
     "flash_attention_block_plain",
-    "ATTENTION_D_LIMIT",
+    "ATTENTION_ENGINE_D",
     "build",
     "reset_counts",
 ]
@@ -156,10 +158,12 @@ def _library() -> ctypes.CDLL:
             lib.ptt_flash_attention_block.argtypes = [i, i, i, i, p, p, p, p, p, p,
                                                       p, p, p, ll, ll, i, f, p]
             lib.ptt_flash_attention_block.restype = i
-            lib.ptt_stencil_5pt.argtypes = [i, i, i, p, p, p, p, ll, p, ll, p, p]
+            lib.ptt_stencil_5pt.argtypes = [i, i, i, i, p, p, p, p, ll, p, ll, p, p]
             lib.ptt_stencil_5pt.restype = i
-            lib.ptt_stencil_5pt_fused.argtypes = [i, i, i, i, p, p, p, p]
+            lib.ptt_stencil_5pt_fused.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p]
             lib.ptt_stencil_5pt_fused.restype = i
+            lib.ptt_stencil_device.argtypes = [ctypes.POINTER(i)] * 2
+            lib.ptt_stencil_device.restype = i
             _lib = lib
         return _lib
 
@@ -367,7 +371,9 @@ matmul.launches_by_mode = dict.fromkeys(("f32", "bf16"), 0)
 
 # -- B3: stencil_5pt --------------------------------------------------------
 
-_STENCIL_DTYPES = (torch.float32, torch.float64)
+#: the grid dtypes of B3/B4 and their codes in the C entry points; the
+#: kernels compute in the grid's own dtype, as the reference's do
+_STENCIL_DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
 #: cudaErrorNotSupported: the fused stencil's answer on a card without
 #: cooperative launches
 _CUDA_ERROR_NOT_SUPPORTED = 801
@@ -384,16 +390,28 @@ def _check_grid(name: str, grid: torch.Tensor) -> None:
     if grid.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {grid.device}")
     if grid.dtype not in _STENCIL_DTYPES:
-        raise TypeError(f"{name}: grid must be float32 or float64, got {grid.dtype}")
+        raise TypeError(f"{name}: grid must be float32, float64, float16 or "
+                        f"bfloat16, got {grid.dtype}")
     if grid.numel() >= 2 ** 31:
         raise ValueError(f"{name}: grid of {grid.numel()} elements exceeds the "
                          "kernel's 32-bit indexing")
 
 
+def _stencil_vec(w: int, itemsize: int, *ptrs: int) -> bool:
+    """Whether one B3 launch takes 16-byte column groups: the row pitch
+    and the bases of ``old``, ``up``, ``down`` and the output are 16-byte
+    multiples (so a group lies wholly inside a row); else one element a
+    thread with scalar accesses.  B4's smem mode asks the same of its
+    output (its shared rows are aligned).  A pure function, checked on the
+    CPU."""
+    return (w * itemsize) % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
 def stencil_5pt_plain(old: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
                       left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`stencil_5pt`: the Pallas kernel's
-    shifted copies with the halos spliced in, summed in its order."""
+    shifted copies with the halos spliced in, summed in its order (each
+    partial sum rounded to the grid's dtype)."""
     u = torch.cat([up, old[:-1, :]], dim=0)
     d = torch.cat([old[1:, :], down], dim=0)
     lf = torch.cat([left, old[:, :-1]], dim=1)
@@ -408,10 +426,10 @@ def stencil_5pt(old: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
 
     ``up``/``down`` are contiguous ``(1, w)`` halo rows and ``left``/
     ``right`` ``(h, 1)`` halo columns (zeros at physical boundaries), all in
-    ``old``'s dtype, float32 or float64.  A halo column may be a strided
-    view — the edge column of a neighbour tile, ``LEFT[:, -1:]`` — and is
-    read through its row stride, not copied; any other non-contiguous input
-    is rejected."""
+    ``old``'s dtype: float32, float64, float16 or bfloat16, computed in that
+    dtype.  A halo column may be a strided view — the edge column of a
+    neighbour tile, ``LEFT[:, -1:]`` — and is read through its row stride,
+    not copied; any other non-contiguous input is rejected."""
     _check_grid("stencil_5pt", old)
     h, w = old.shape
     for label, t, shape in (("up", up, (1, w)), ("down", down, (1, w)),
@@ -432,10 +450,12 @@ def stencil_5pt(old: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
     if old.device.type == "cpu":
         return stencil_5pt_plain(old, up, down, left, right)
     out = torch.empty_like(old)
+    vec = _stencil_vec(w, old.element_size(), old.data_ptr(), up.data_ptr(),
+                       down.data_ptr(), out.data_ptr())
     lib = _library()
     with torch.cuda.device(old.device):
         stream = torch.cuda.current_stream(old.device).cuda_stream
-        rc = lib.ptt_stencil_5pt(int(old.dtype == torch.float64), h, w,
+        rc = lib.ptt_stencil_5pt(_STENCIL_DTYPES[old.dtype], int(vec), h, w,
                                  old.data_ptr(), up.data_ptr(), down.data_ptr(),
                                  left.data_ptr(), left.stride(0),
                                  right.data_ptr(), right.stride(0),
@@ -452,6 +472,58 @@ stencil_5pt.launches = 0
 
 # -- B4: stencil_5pt_fused --------------------------------------------------
 
+#: B4's smem mode: threads of a block and columns per thread at most by
+#: itemsize (``csrc/stencil.cu``'s ``FUSED_SMEM_THREADS`` and
+#: ``fused_slots``)
+_FUSED_SMEM_THREADS = 512
+_FUSED_SLOTS = {8: 2, 4: 4, 2: 4}
+
+
+class FusedConfig(NamedTuple):
+    """What one B4 launch runs: ``smem`` (the grid resident in shared
+    memory, ``rows`` grid rows on each of ``blocks`` persistent blocks) or
+    ``global`` (grid-stride passes over L2 with a grid barrier a step;
+    ``rows`` and ``blocks`` 0)."""
+    mode: str
+    rows: int
+    blocks: int
+
+
+def _fused_mode(h: int, w: int, itemsize: int, sms: int,
+                smem_per_block: int) -> FusedConfig:
+    """The B4 mode for an ``(h, w)`` grid, a pure function (so the CPU
+    tests can check it): ``smem`` when the grid split into ``sms`` strips
+    of ``ceil(h / sms)`` rows fits a block's opt-in shared memory (the
+    strip, two halo rows, and two copies of each 32-column span's two
+    edge columns) and its threads' column slots (``512 * slots``
+    columns); ``global`` otherwise."""
+    rows = -(-h // sms)
+    spans = -(-w // 32)
+    fits = (w <= _FUSED_SMEM_THREADS * _FUSED_SLOTS[itemsize]
+            and ((rows + 2) * w + 4 * spans * rows) * itemsize <= smem_per_block)
+    if not fits:
+        return FusedConfig("global", 0, 0)
+    return FusedConfig("smem", rows, -(-h // rows))
+
+
+_device_limits: dict = {}
+
+
+def _stencil_device_limits(device: torch.device):
+    """(SM count, opt-in shared memory per block) of a CUDA device, asked
+    of the runtime once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _device_limits:
+        lib = _library()
+        sms, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            rc = lib.ptt_stencil_device(ctypes.byref(sms), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"stencil_5pt_fused: device query failed: cudaError {rc}")
+        _device_limits[index] = (sms.value, smem.value)
+    return _device_limits[index]
+
+
 def stencil_5pt_fused_plain(grid: torch.Tensor, iters: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`stencil_5pt_fused`: ``iters`` plain
     steps with zero halos."""
@@ -466,9 +538,11 @@ def stencil_5pt_fused_plain(grid: torch.Tensor, iters: int) -> torch.Tensor:
 
 def stencil_5pt_fused(grid: torch.Tensor, iters: int) -> torch.Tensor:
     """``iters`` 5-point Jacobi steps of a whole ``(h, w)`` grid with zero
-    boundaries, in one cooperative launch (float32 or float64).  The input
-    is not written; ``iters=0`` returns a copy.  Raises if the card does
-    not support cooperative launches."""
+    boundaries, in one cooperative launch, in the grid's dtype (float32,
+    float64, float16 or bfloat16).  The grid stays in shared memory on one
+    persistent block per SM where it fits (:func:`_fused_mode`), else each
+    step is a pass over L2.  The input is not written; ``iters=0`` returns
+    a copy.  Raises if the card does not support cooperative launches."""
     _check_grid("stencil_5pt_fused", grid)
     if int(iters) != iters or iters < 0:
         raise ValueError(f"stencil_5pt_fused: iters must be a non-negative "
@@ -480,32 +554,59 @@ def stencil_5pt_fused(grid: torch.Tensor, iters: int) -> torch.Tensor:
     if iters == 0:
         return grid.clone()
     h, w = grid.shape
+    cfg = _fused_mode(h, w, grid.element_size(), *_stencil_device_limits(grid.device))
     out = torch.empty_like(grid)
-    tmp = torch.empty_like(grid) if iters > 1 else out
+    # smem mode takes 16-byte column groups where B3 would
+    vec = cfg.mode == "smem" and _stencil_vec(w, grid.element_size(), out.data_ptr())
+    tmp = xbuf = out
+    if cfg.mode == "global" and iters > 1:
+        tmp = torch.empty_like(grid)
+    if cfg.mode == "smem" and iters > 1:
+        # the edge-row exchange: 8-byte words (two per float64 value), zero
+        # so that no word carries a step's tag before that step writes it
+        words = 2 if grid.element_size() == 8 else 1
+        xbuf = torch.zeros((2, cfg.blocks, 2, w * words), dtype=torch.int64,
+                           device=grid.device)
     lib = _library()
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream(grid.device).cuda_stream
-        rc = lib.ptt_stencil_5pt_fused(int(grid.dtype == torch.float64), h, w,
-                                       iters, grid.data_ptr(), out.data_ptr(),
-                                       tmp.data_ptr(), stream)
+        rc = lib.ptt_stencil_5pt_fused(_STENCIL_DTYPES[grid.dtype],
+                                       int(cfg.mode == "smem"), int(vec), h, w, iters, cfg.rows,
+                                       grid.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                                       xbuf.data_ptr(), stream)
     if rc == _CUDA_ERROR_NOT_SUPPORTED:
         raise RuntimeError("stencil_5pt_fused: this device does not support "
                            "cooperative launches (cudaDevAttrCooperativeLaunch)")
     if rc != 0:
-        raise RuntimeError(f"stencil_5pt_fused kernel launch failed: cudaError {rc}")
-    _count(stencil_5pt_fused, "launches")
+        raise RuntimeError(f"stencil_5pt_fused kernel launch failed: cudaError {rc} ({cfg})")
+    _count_mode(stencil_5pt_fused, cfg.mode)
     return out
 
 
 stencil_5pt_fused.calls = 0
 stencil_5pt_fused.launches = 0
+stencil_5pt_fused.launches_by_mode = dict.fromkeys(("smem", "global"), 0)
 
 
 # -- B5: flash_attention_block ----------------------------------------------
 
-#: largest head dimension the attention kernel takes (its per-thread
-#: accumulator tile is sized for it)
-ATTENTION_D_LIMIT = 256
+#: head dimensions above this run on the wide kernel (FP32 FMA over D in
+#: slabs, one block per 128 output columns); up to it, on the mma.sync
+#: engine, whose per-thread accumulator tile is sized for it
+ATTENTION_ENGINE_D = 256
+_ATTENTION_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+
+
+def _attention_mode(q_dtype: torch.dtype, k_dtype: torch.dtype,
+                    v_dtype: torch.dtype, d: int) -> str:
+    """The kernel one B5 launch runs, a pure function of the operand
+    dtypes and the head dimension (so the CPU tests can check it):
+    ``bf16`` when q, k and v are all bfloat16, else ``f32`` (float16,
+    float64 and mixed operands are widened or narrowed to float32 copies
+    first, the reference's ``astype(float32)``); ``_wide`` for ``d`` above
+    :data:`ATTENTION_ENGINE_D`."""
+    bf16 = q_dtype == k_dtype == v_dtype == torch.bfloat16
+    return ("bf16" if bf16 else "f32") + ("_wide" if d > ATTENTION_ENGINE_D else "")
 
 
 def _check_attention(q, k, v, acc, m, l):
@@ -524,14 +625,14 @@ def _check_attention(q, k, v, acc, m, l):
             raise ValueError(f"{name}: {label} on {t.device}, q on {q.device}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {q.device}")
-    if q.dtype not in _OPERAND_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q, k and v must all be float32 or all bfloat16, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _ATTENTION_DTYPES:
+            raise TypeError(f"{name}: {label} must be a float16, bfloat16, float32 "
+                            f"or float64 tensor, got {t.dtype}")
     sq, d = q.shape
     sk = k.shape[0]
-    if d < 1 or d > ATTENTION_D_LIMIT:
-        raise ValueError(f"{name}: head dimension {d} outside the kernel's "
-                         f"limit 1..{ATTENTION_D_LIMIT}")
+    if d < 1:
+        raise ValueError(f"{name}: head dimension must be positive, got {d}")
     if tuple(k.shape) != (sk, d) or tuple(v.shape) != (sk, d):
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} "
                          f"must both be ({sk}, {d})")
@@ -571,21 +672,27 @@ def flash_attention_block(q, k, v, acc, m, l, q_off: int, k_off: int, *,
     """One online-softmax block update ``(q, k, v, acc, m, l) -> (acc, m,
     l)`` as one kernel.
 
-    ``q`` is ``(Sq, D)``, ``k``/``v`` are ``(Sk, D)``, all float32 or all
-    bfloat16; the carry ``acc`` is ``(Sq, D)`` and ``m``/``l`` ``(Sq,
-    1)``, float32.  ``q_off``/``k_off`` are the global sequence positions
-    of the two blocks' first rows, for the causal mask (masked logits are
-    ``-inf``).  Both products run on the tensor cores with f32
-    accumulation: float32 operands as three TF32 passes (f32-class, held
+    ``q`` is ``(Sq, D)``, ``k``/``v`` are ``(Sk, D)``, each float16,
+    bfloat16, float32 or float64; the carry ``acc`` is ``(Sq, D)`` and
+    ``m``/``l`` ``(Sq, 1)``, float32.  ``q_off``/``k_off`` are the global
+    sequence positions of the two blocks' first rows, for the causal mask
+    (masked logits are ``-inf``).  All-bfloat16 operands run the bf16
+    engine; any other operands run the f32 engine, on float32 copies where
+    they are not float32 already (:func:`_attention_mode`).  Up to
+    :data:`ATTENTION_ENGINE_D` both products run on the tensor cores with
+    f32 accumulation: float32 as three TF32 passes (f32-class, held
     against float64 on the card), bfloat16 ``q @ k.T`` exactly and ``p @
-    v`` with the f32 ``p`` split into bf16 hi and lo.  ``D`` may be at
-    most :data:`ATTENTION_D_LIMIT`.  Returns fresh tensors."""
+    v`` with the f32 ``p`` split into bf16 hi and lo.  A wider head runs
+    the wide kernel: FP32 FMA on the CUDA cores.  Returns fresh tensors."""
     sq, sk, d = _check_attention(q, k, v, acc, m, l)
     q_off, k_off = int(q_off), int(k_off)
     _count(flash_attention_block, "calls")
     if q.device.type == "cpu":
         return flash_attention_block_plain(q, k, v, acc, m, l, q_off, k_off,
                                            causal=causal, scale=scale)
+    mode = _attention_mode(q.dtype, k.dtype, v.dtype, d)
+    if not mode.startswith("bf16"):
+        q, k, v = q.float(), k.float(), v.float()  # no copy for float32
     acc_o = torch.empty_like(acc)
     m_o = torch.empty_like(m)
     l_o = torch.empty_like(l)
@@ -595,18 +702,21 @@ def flash_attention_block(q, k, v, acc, m, l, q_off: int, k_off: int, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.ptt_flash_attention_block(
-            int(q.dtype == torch.bfloat16), sq, sk, d, q.data_ptr(), k.data_ptr(),
+            int(mode.startswith("bf16")), sq, sk, d, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             acc_o.data_ptr(), m_o.data_ptr(), l_o.data_ptr(), q_off, k_off,
             int(bool(causal)), float(scale), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_block kernel launch failed: cudaError {rc}")
-    _count(flash_attention_block, "launches")
+        raise RuntimeError(f"flash_attention_block kernel launch failed: "
+                           f"cudaError {rc} ({mode})")
+    _count_mode(flash_attention_block, mode)
     return acc_o, m_o, l_o
 
 
 flash_attention_block.calls = 0
 flash_attention_block.launches = 0
+flash_attention_block.launches_by_mode = dict.fromkeys(
+    ("f32", "bf16", "f32_wide", "bf16_wide"), 0)
 
 _WRAPPERS = (matmul_update, matmul, stencil_5pt, stencil_5pt_fused,
              flash_attention_block)

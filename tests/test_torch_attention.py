@@ -357,6 +357,50 @@ def test_warp_split_tf32x3_f32_class(causal):
     assert max(_rel_errs(one_pass, ref64)) > 1e-5
 
 
+def _fma_chain(a, b, block):
+    """a @ b.T as the wide kernel's FP32 FMA: one chain per ``block``
+    columns of the shared dimension (each FMA rounded to f32, emulated in
+    float64), each chain's sum added to the f32 total."""
+    total = torch.zeros(a.shape[0], b.shape[0])
+    for c0 in range(0, a.shape[1], block):
+        part = torch.zeros_like(total)
+        for c in range(c0, min(c0 + block, a.shape[1])):
+            part = (a[:, c, None].double() * b[None, :, c].double() + part.double()).float()
+        total = total + part
+    return total
+
+
+def _wide_update(q, k, v, acc, m, l, *, scale, block):
+    """The wide kernel's update (non-causal): 64-key chunks, logits and each
+    chunk's p.v as FMA chains of ``block``."""
+    for kc in range(0, k.shape[0], 64):
+        s = _fma_chain(q, k[kc:kc + 64], block) * scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + _fma_chain(p, v[kc:kc + 64].mT.contiguous(), 64)
+        m = m_new
+    return acc, m, l
+
+
+def test_wide_kernel_blocked_sums_f32_class():
+    """The wide kernel (D > 256) sums in FMA chains of 64, as a library
+    GEMM blocks its sums: at D = 512 that lands within 1e-4 of the update
+    in float64, more than twice as close as one chain over all 512 columns
+    (at the card's 512 x 512 block the single chain missed 1e-4)."""
+    q, k, v, acc, m, l = map(_t, _carry_inputs(40, 128, 512, 512))
+    kw = dict(scale=512 ** -0.5)
+    ref64 = kernels.flash_attention_block_plain(q, k, v, acc, m, l, 0, 0,
+                                                compute_dtype=torch.float64, **kw)
+
+    def err(out):
+        return max(float((o.double() - r).abs().max()) for o, r in zip(out, ref64))
+
+    blocked = err(_wide_update(q, k, v, acc, m, l, block=64, **kw))
+    chain = err(_wide_update(q, k, v, acc, m, l, block=512, **kw))
+    assert blocked < 1e-4 and chain > 2 * blocked, (blocked, chain)
+
+
 @pytest.mark.parametrize("seed", [30, 31])
 def test_warp_split_bf16_p_needs_two_passes(seed):
     """bf16 q, k, v: p is f32, so the kernel splits it into bf16 hi and lo
@@ -378,16 +422,16 @@ def _ok_block():
 
 
 @pytest.mark.parametrize("bad", [
-    "q_f64", "mixed_qkv", "acc_bf16", "k_width", "v_rows", "acc_shape", "m_shape",
-    "noncontiguous", "not_2d", "d_over_limit", "meta_device",
+    "q_int", "v_complex", "acc_bf16", "k_width", "v_rows", "acc_shape", "m_shape",
+    "noncontiguous", "not_2d", "d_zero", "meta_device",
 ])
 def test_flash_block_rejects_bad_input(bad):
     args = _ok_block()
     err = ValueError
-    if bad == "q_f64":
-        args[:3], err = [a.double() for a in args[:3]], TypeError
-    elif bad == "mixed_qkv":
-        args[1], err = args[1].to(torch.bfloat16), TypeError
+    if bad == "q_int":
+        args[0], err = args[0].int(), TypeError
+    elif bad == "v_complex":
+        args[2], err = args[2].to(torch.complex64), TypeError
     elif bad == "acc_bf16":
         args[3] = args[3].to(torch.bfloat16)
     elif bad == "k_width":
@@ -402,13 +446,58 @@ def test_flash_block_rejects_bad_input(bad):
         args[1] = torch.zeros(8, 6).mT
     elif bad == "not_2d":
         args[0] = torch.zeros(4, 8, 1)
-    elif bad == "d_over_limit":
-        d = kernels.ATTENTION_D_LIMIT + 1
-        args[:4] = [torch.zeros(n, d) for n in (4, 6, 6, 4)]
+    elif bad == "d_zero":
+        args[:4] = [torch.zeros(n, 0) for n in (4, 6, 6, 4)]
     elif bad == "meta_device":
         args = [a.to("meta") for a in args]
-    with pytest.raises(err, match="limit" if bad == "d_over_limit" else None):
+    with pytest.raises(err):
         kernels.flash_attention_block(*args, 0, 0)
+
+
+_F16, _BF16, _F32, _F64 = torch.float16, torch.bfloat16, torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("case,d,dtypes", [
+    ("q_f64", 64, (_F64,) * 3), ("mixed_qkv", 64, (_F32, _BF16, _F32)),
+    ("f16", 64, (_F16,) * 3), ("d_over_limit", 257, (_F32,) * 3),
+    ("d320_f16", 320, (_F16,) * 3), ("d320_f64", 320, (_F64,) * 3),
+    ("d512", 512, (_F32,) * 3), ("d512_bf16", 512, (_BF16,) * 3),
+    ("d512_mixed", 512, (_F16, _F32, _BF16)),
+])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_block_any_dtype_and_width_matches_pallas(case, d, dtypes, causal):
+    """Operands the reference takes and the port once refused -- float16,
+    float64, mixed q/k/v and heads wider than 256 -- give the Pallas
+    kernel's carry within 1e-4 (it casts q, k and v to float32, as the
+    port's f32 engine does)."""
+    Sq, Sk, q_off = 40, 70, 50
+    q, k, v, acc, m, l = _carry_inputs(90 + d, Sq, Sk, d)
+    ops = [_t(x).to(dt) for x, dt in zip((q, k, v), dtypes)]
+    scale = 1.0 / math.sqrt(d)
+    mine = kernels.flash_attention_block(*ops, _t(acc), _t(m), _t(l), q_off, 0,
+                                         causal=causal, scale=scale)
+    jax_dt = {_F16: jnp.float16, _BF16: jnp.bfloat16, _F32: jnp.float32,
+              _F64: jnp.float32}  # JAX without x64 holds float64 as float32
+    theirs = pk.flash_attention_block(
+        *(jnp.asarray(o.float().numpy(), dtype=jax_dt[dt]) for o, dt in zip(ops, dtypes)),
+        *map(jnp.asarray, (acc, m, l)), q_off, 0, causal=causal, scale=scale)
+    for a, b in zip(mine, theirs):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtypes,d,mode", [
+    ((_F32,) * 3, 128, "f32"), ((_BF16,) * 3, 128, "bf16"), ((_F16,) * 3, 64, "f32"),
+    ((_F64,) * 3, 256, "f32"), ((_F32, _BF16, _BF16), 64, "f32"),
+    ((_F32,) * 3, 257, "f32_wide"), ((_BF16,) * 3, 512, "bf16_wide"),
+    ((_BF16, _BF16, _F16), 320, "f32_wide"),
+])
+def test_attention_mode(dtypes, d, mode):
+    """The kernel a B5 launch runs: the bf16 engine only for all-bfloat16
+    operands, the f32 one (on float32 copies) for the rest, and the wide
+    kernel above ATTENTION_ENGINE_D."""
+    assert kernels._attention_mode(*dtypes, d) == mode
+    assert mode in kernels.flash_attention_block.launches_by_mode
 
 
 def test_flash_block_counts_calls_not_launches_on_cpu():
@@ -416,7 +505,11 @@ def test_flash_block_counts_calls_not_launches_on_cpu():
     kernels.flash_attention_block(*_ok_block(), 0, 0)
     assert (kernels.flash_attention_block.calls,
             kernels.flash_attention_block.launches) == (1, 0)
+    assert not any(kernels.flash_attention_block.launches_by_mode.values())
+    kernels._count_mode(kernels.flash_attention_block, "f32_wide")
+    assert kernels.flash_attention_block.launches_by_mode["f32_wide"] == 1
     kernels.reset_counts()
+    assert not any(kernels.flash_attention_block.launches_by_mode.values())
     assert kernels.flash_attention_block.calls == 0
 
 
@@ -470,6 +563,41 @@ def test_flash_graph_host_bodies_bit_identical_to_reference(ref_ctx, host_ctx,
                                   np.asarray(theirs, dtype=np.float32))
 
 
+@pytest.mark.parametrize("case", ["d512", "float16", "mixed"])
+def test_flash_graph_wide_head_and_narrow_planes_match_reference_package(
+        ref_ctx, port_ctx, case):
+    """run_flash_attention with a head of 512 and with float16 (or mixed)
+    planes, every step through the B5 wrapper on the CUDA module, against
+    the JAX package's graph within the f32 tolerance 2e-5 (float32
+    output); the default output takes q's dtype, as the reference's does."""
+    d = 512 if case == "d512" else D
+    q, k, v = _qkv(6, s=40, d=d)
+    if case == "d512":
+        mine_in, theirs_in = [_t(x) for x in (q, k, v)], [q, k, v]
+    else:
+        q, k, v = (x.astype(np.float16).astype(np.float32) for x in (q, k, v))
+        theirs_in = [q.astype(np.float16), k.astype(np.float16), v]
+        if case == "float16":
+            theirs_in[2] = v.astype(np.float16)
+        mine_in = [_t(x) for x in theirs_in]
+    kw = dict(causal=True, q_block=16, kv_block=24)
+    kernels.reset_counts()
+    out = attention.run_flash_attention(port_ctx, *mine_in, use_cpu=False,
+                                        out_dtype=torch.float32, **kw)
+    assert kernels.flash_attention_block.calls == attention.attention_task_count(
+        B, 40, 40, H, 16, 24, causal=True) - B * H * 3
+    theirs = ref_attention.run_flash_attention(ref_ctx, *theirs_in, out_dtype=np.float32,
+                                               **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(theirs), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out.numpy(), _dense(q, k, v, True), rtol=2e-5, atol=2e-5)
+    if case != "d512":
+        narrow = attention.run_flash_attention(port_ctx, *mine_in, use_cpu=False, **kw)
+        assert narrow.dtype == torch.float16
+        # one float16 rounding of values that agree within 2e-5
+        np.testing.assert_allclose(narrow.float().numpy(), out.numpy(), rtol=1e-3,
+                                   atol=1e-3)
+
+
 def test_flash_graph_decode_tail(ref_ctx, port_ctx):
     """Decode: a short q block at the END of the KV sequence (q_offset
     defaults to Sk - Sq), with a ragged KV tail and the "auto" q block,
@@ -520,8 +648,10 @@ def test_build_rejects_bad_shapes():
         attention.build_flash_attention(q, k[:, :, :1], v)
     with pytest.raises(ValueError, match="q_offset"):
         attention.build_flash_attention(q, k[:, :24], v[:, :24], causal=True)
-    with pytest.raises(ValueError, match="share a dtype"):
-        attention.build_flash_attention(_t(q), _t(k).to(torch.bfloat16), _t(v))
+    # mixed q/k/v dtypes build, as in the reference; the output takes q's
+    _, assemble = attention.build_flash_attention(_t(q).half(), _t(k).to(torch.bfloat16),
+                                                  _t(v), q_block=16, kv_block=16)
+    assert assemble().dtype == torch.float16
     with pytest.raises(ValueError, match="no BODY"):
         attention.flash_attention_ptg(use_cuda=False, use_cpu=False)
     # the Sq > Sk shape is fine non-causal

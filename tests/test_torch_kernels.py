@@ -301,12 +301,18 @@ def test_kernel_sources_and_build_flags():
 
 
 def test_attention_kernel_source():
-    """B5 runs both products on the tensor cores in both modes (mma.sync:
-    bf16 m16n8k16, three TF32 passes of m16n8k8), streams K/V with
-    cp.async, uses no atomics, no library and no FP32-FMA product loop,
-    keeps expf for the exact no-op cases, and refuses to build a tile
-    layout above the 227 KB one block may opt in to."""
-    src = (kernels._PKG / "csrc" / "attention.cu").read_text()
+    """B5's engine runs both products on the tensor cores in both modes
+    (mma.sync: bf16 m16n8k16, three TF32 passes of m16n8k8), streams K/V
+    with cp.async, uses no atomics, no library and no FP32-FMA product
+    loop, keeps expf for the exact no-op cases, and refuses to build a
+    tile layout above the 227 KB one block may opt in to; the wide kernel
+    for D > 256 is FP32 FMA with expf and no atomics."""
+    full = (kernels._PKG / "csrc" / "attention.cu").read_text()
+    # the wide kernel (D > 256) is FP32 FMA by design; the engine is not
+    src, wide = full.split("// -- the wide kernel (D > D_ENGINE)")
+    assert "fmaf(" in wide and "expf(" in wide and "__syncthreads" in wide
+    for banned in ("atomicadd", "atomiccas", "atom.", "__expf("):
+        assert banned not in wide.lower(), banned
     for needed in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
                    "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
                    "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
@@ -317,3 +323,22 @@ def test_attention_kernel_source():
                    "fmaf(", "__expf("):
         assert banned not in src.lower(), banned
 
+
+
+def test_stencil_kernel_source():
+    """B3 takes 16-byte groups with neighbours through shuffles and
+    streaming stores; B4's smem mode exchanges edge rows as step-tagged
+    words read and written at gpu scope, under a cooperative launch;
+    neither uses atomics or an FMA, nor reads a library."""
+    src = (kernels._PKG / "csrc" / "stencil.cu").read_text()
+    for needed in ("__shfl_up_sync", "__shfl_down_sync", "__stcs(", "__ldg(",
+                   "st.relaxed.gpu.global.b64", "ld.relaxed.gpu.global.b64",
+                   "cudaLaunchCooperativeKernel", "cudaDevAttrMaxSharedMemoryPerBlockOptin",
+                   "__float2half_rn", "__float2bfloat16_rn", "grid.sync()"):
+        assert needed in src, needed
+    for banned in ("atomicadd", "atomiccas", "atom.", "fmaf(", "fma(", "__fmul_rn",
+                   "cublas", "cudnn", "cutlass"):
+        assert banned not in src.lower(), banned
+    # the smem mode's limits are the ones _fused_mode plans with
+    assert f"FUSED_SMEM_THREADS = {kernels._FUSED_SMEM_THREADS};" in src
+    assert "sizeof(T) == 8 ? 2 : 4" in src and kernels._FUSED_SLOTS == {8: 2, 4: 4, 2: 4}
