@@ -41,13 +41,13 @@ from .taskpool import Taskpool
 #: environment switches of reference features the port has not ported yet
 #: (env var -> ROADMAP item); a set switch raises instead of being ignored
 _UNPORTED_ENV = {
-    "PARSEC_TPU_HBCHECK": "A.11 (analysis: hb race checker)",
-    "PARSEC_TPU_LOCKDEP": "A.11 (analysis: lockdep)",
-    "PARSEC_TPU_ABI_CHECK": "A.4 (native engine ABI check)",
-    "PARSEC_TPU_FLIGHT": "A.11 (profiling: flight recorder)",
-    "PARSEC_TPU_HEALTH": "A.11 (profiling: health exporter)",
-    "PARSEC_TPU_WATCHDOG": "A.11 (profiling: watchdog)",
-    "PARSEC_TPU_SLO": "A.11 (profiling: SLO plane)",
+    "PARSEC_TPU_HBCHECK": "A.9 (analysis: hb race checker)",
+    "PARSEC_TPU_LOCKDEP": "A.9 (analysis: lockdep)",
+    "PARSEC_TPU_ABI_CHECK": "A.9 (analysis: engine-verify ABI lint)",
+    "PARSEC_TPU_FLIGHT": "A.9 (profiling: flight recorder)",
+    "PARSEC_TPU_HEALTH": "A.9 (profiling: health exporter)",
+    "PARSEC_TPU_WATCHDOG": "A.9 (profiling: watchdog)",
+    "PARSEC_TPU_SLO": "A.9 (profiling: SLO plane)",
 }
 
 
@@ -93,7 +93,7 @@ class Context:
         if comm is not None or nranks != 1:
             raise NotImplementedError(
                 "multi-rank contexts (comm engines) are not ported yet "
-                "(ROADMAP A.10)")
+                "(ROADMAP A.8)")
         if nb_cores is None:
             nb_cores = mca_param.register(
                 "runtime", "num_cores", min(os.cpu_count() or 1, 8),

@@ -7,7 +7,9 @@ Mirrors ``parsec/scheduling.c``:
 * ``task_progress``         ≙ ``__parsec_task_progress`` (:474),
 * ``execute``               ≙ ``__parsec_execute`` (:126) incl. device
   selection (:137) and chore hook dispatch (:150-153),
-* ``complete_execution``    ≙ ``__parsec_complete_execution`` (:436).
+* ``complete_execution``    ≙ ``__parsec_complete_execution`` (:436),
+* ``retire_native``         ≙ the same accounting for a batch the native
+  engine already released (the pump, :mod:`..dsl.native_exec`).
 """
 
 from __future__ import annotations
@@ -100,6 +102,29 @@ def complete_execution(context: "Context", es: Optional["ExecutionStream"], task
     task.retired = True
     schedule_ready(context, es, ready)
     tp.task_done(task)
+
+
+def retire_native(tasks: Iterable["Task"], device=None) -> None:
+    """Pump-mode retirement: COMPLETE_EXEC accounting for a batch of
+    native-scheduled device tasks whose successor release already
+    happened inside the native engine (``pz_graph_done_batch``).  Fires
+    the COMPLETE_EXEC pins (gated, with ``es=None``), marks the tasks
+    retired and bulk-updates the device's executed count — no
+    ``release_deps``, no ``schedule_ready``: the Python scheduling core
+    never touches these tasks."""
+    begin = pins.active(pins.COMPLETE_EXEC_BEGIN)
+    end = pins.active(pins.COMPLETE_EXEC_END)
+    n = 0
+    for task in tasks:
+        n += 1
+        if begin:
+            pins.fire(pins.COMPLETE_EXEC_BEGIN, None, task)
+        task.status = TaskStatus.COMPLETE
+        task.retired = True
+        if end:
+            pins.fire(pins.COMPLETE_EXEC_END, None, task)
+    if device is not None and n:
+        device.count_executed(n)
 
 
 def task_progress(context: "Context", es: "ExecutionStream", task: "Task") -> HookReturn:

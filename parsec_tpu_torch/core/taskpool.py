@@ -136,6 +136,17 @@ class Taskpool:
             self.nb_retired += 1
         self.tdm.taskpool_addto_nb_tasks(self, -1)
 
+    def task_done_batch(self, n: int) -> None:
+        """Retire ``n`` tasks in one call — the same as ``n``
+        :meth:`task_done` calls, at O(1) interpreter cost.  The native
+        pump (:mod:`parsec_tpu_torch.dsl.native_exec`) retires whole
+        batches per pop/done cycle and publishes the count here."""
+        if n <= 0:
+            return
+        with self._retire_lock:
+            self.nb_retired += n
+        self.tdm.taskpool_addto_nb_tasks(self, -n)
+
     def is_done(self) -> bool:
         return self._terminated.is_set()
 

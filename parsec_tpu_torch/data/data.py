@@ -230,6 +230,24 @@ def host_array(payload):
     return np.array(payload, copy=True)
 
 
+def land_into_home(home: "Data", payload) -> None:
+    """Store a flow's final value into its home tile's host copy and bump
+    the version (the write-back of a flow whose chain ends away from its
+    home tile).  The value goes through :func:`host_array`: the
+    reference's ``np.asarray`` would fail on a CUDA tensor."""
+    if payload is None:
+        return
+    buf = host_array(payload)
+    dst = home.get_copy(0)
+    if dst is None or dst.payload is None:
+        home.attach_copy(0, buf)
+    elif isinstance(dst.payload, torch.Tensor):
+        dst.payload.copy_(torch.as_tensor(buf))
+    else:
+        np.copyto(dst.payload, buf)
+    home.version_bump(0)
+
+
 def data_create(key: Any, collection=None, payload=None, device_index: int = 0, **kw) -> Data:
     """Reference ``parsec_data_create``: make a Data with an initial
     device-0 (CPU) copy."""

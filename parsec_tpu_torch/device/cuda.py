@@ -28,9 +28,11 @@ threads make (:func:`..data.data.host_array`).
 
 Device bodies are functional torch, called directly: tensors in, fresh
 tensors out for the writable flows (a device copy is never mutated in
-place).  There is no jit and no compile cache (ROADMAP A.7), no wave
+place).  There is no jit and no compile cache (ROADMAP A.5), no wave
 batching, no native zone allocator and no async staging pipeline
-(ROADMAP A.4: this slice's transfers are synchronous, stage depth 1).
+(ROADMAP A.3: this slice's transfers are synchronous, stage depth 1).
+:meth:`CudaDevice.submit_batch` is the native pump's entry (no manager,
+completion left to the engine).
 
 Binding: ``cuda:<rank % device_count>`` by default.  The torch CPU device
 is used only when asked for (``Context(cuda_device="cpu")`` or
@@ -228,10 +230,12 @@ class CudaDevice(Device):
                 # nothing completed this spin: block on the oldest event
                 self._inflight[0].wait()
 
-    def _submit_one(self, task: Task, es) -> None:
-        """Per-task submit with the retry/fail-loudly discipline."""
+    def _submit_one(self, task: Task, es, complete: bool = True) -> None:
+        """Per-task submit with the retry/fail-loudly discipline.
+        ``complete=False`` runs the epilog but leaves completion (successor
+        release) to the caller: the native pump's ``done_batch``."""
         try:
-            self._submit(task, es)
+            self._submit(task, es, complete)
         except Exception as e:
             debug.error("cuda submit of %r failed: %s", task, e)
             traceback.print_exc()
@@ -253,6 +257,44 @@ class CudaDevice(Device):
             # completing the task anyway would hand successors garbage and
             # quiesce "successfully" with wrong numerics: fail the pool
             task.taskpool.fail(f"device submit failed after retry: {e!r}")
+
+    # ------------------------------------------------------------------
+    # pump-mode batch dispatch (native scheduler, zero-entry lifecycle)
+    # ------------------------------------------------------------------
+    def submit_batch(self, tasks: List[Task], es=None) -> None:
+        """Dispatch one native-popped ready batch at stage depth 1, WITHOUT
+        per-task completion: the pump (:mod:`..dsl.native_exec`) retires
+        the whole batch afterwards with one ``done_batch`` call, so
+        successor release happens in the native engine, not here.
+        Staging, dispatch, epilog and the failure discipline are the
+        manager loop's (``_submit_one(complete=False)``); a task whose
+        submit failed fails its pool, which the pump reads after the
+        batch.  Runs on the caller's thread — the pump's, which never
+        went through :meth:`kernel_scheduler` — so it enters the device's
+        stream itself: eager completion is sound only because everything
+        stays on that one stream."""
+        exec_pins = pins.active(pins.EXEC_BEGIN) or pins.active(pins.EXEC_END)
+        with self._stream_ctx():
+            for task in tasks:
+                if task.taskpool.failed:
+                    continue
+                if exec_pins:
+                    pins.fire(pins.EXEC_BEGIN, es, task)
+                self._submit_one(task, es, complete=False)
+                if exec_pins:
+                    pins.fire(pins.EXEC_END, es, task)
+            # a transient-submit retry re-queues through ``_pending`` (the
+            # manager loop's channel); there is no manager in pump mode,
+            # so drain the retries here before the batch is retired
+            while True:
+                with self._lock:
+                    if not self._pending:
+                        return
+                    retry = list(self._pending)
+                    self._pending.clear()
+                for task in retry:
+                    if not task._dev_completed and not task.taskpool.failed:
+                        self._submit_one(task, es, complete=False)
 
     # ------------------------------------------------------------------
     # stage_in / submit
@@ -302,8 +344,10 @@ class CudaDevice(Device):
             # other kinds (e.g. "ctl") contribute no argument
         return dev_args, out_specs, out_hooks
 
-    def _submit(self, task: Task, es=None) -> None:
-        """Stage + body dispatch (reference device_gpu.c:2015-2164)."""
+    def _submit(self, task: Task, es=None, complete: bool = True) -> None:
+        """Stage + body dispatch (reference device_gpu.c:2015-2164).  With
+        ``complete=False`` the epilog runs at dispatch, as in eager mode,
+        and the task is not completed here."""
         from ..core import scheduling
 
         body = task.selected_chore.body_fn
@@ -318,18 +362,20 @@ class CudaDevice(Device):
             raise ValueError(
                 f"device body of {task!r} returned {len(outputs)} outputs "
                 f"for {len(out_specs)} writable flows")
+        eager = self._eager or not complete
         event = None
-        if self.is_cuda and not self._eager:
+        if self.is_cuda and not eager:
             event = torch.cuda.Event()
             event.record(self.stream)
         inflight = _InFlight(task, outputs, out_specs, out_hooks, event)
-        if self._eager:
+        if eager:
             # the epilog mutates output tiles one by one (rebind + version
             # bump): once entered, a retry would double-apply
             task._dev_effects = True
             self._epilog(inflight)
             task._dev_completed = True
-            scheduling.complete_execution(self.context, es, task)
+            if complete:
+                scheduling.complete_execution(self.context, es, task)
             return
         self._inflight.append(inflight)
 

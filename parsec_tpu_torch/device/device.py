@@ -88,11 +88,11 @@ class Device(Component):
         with self._load_lock:
             self.device_load = max(0.0, self.device_load - dt)
 
-    def count_executed(self) -> None:
-        """One task retired here.  Locked: CPU-device completions arrive
+    def count_executed(self, n: int = 1) -> None:
+        """``n`` tasks retired here.  Locked: CPU-device completions arrive
         from every worker at once, and a bare ``+=`` loses updates."""
         with self._load_lock:
-            self.stats["executed_tasks"] += 1
+            self.stats["executed_tasks"] += n
 
     def resident_data(self, task: "Task") -> int:
         """Bytes of this task's input data already resident here (affinity)."""

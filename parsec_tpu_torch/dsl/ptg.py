@@ -36,11 +36,14 @@ flow data (per-class, usage-counted repos); completion deposits outputs,
 enumerates the guard-true output task refs and decrements each successor's
 counter — successors reaching their goal are scheduled.
 
-What this slice leaves out, each raising ``NotImplementedError`` naming
-its ROADMAP item when reached: graph capture and whole-DAG lowering
-(A.6), the native engine (A.4), supertask fusion (A.6), the ahead-of-time
-verifier and lint (A.11), remote successors and write-backs (A.10), and
-reshape property blocks (A.10).
+Whole-DAG capture (:meth:`PTGTaskpool.capture`, :mod:`.graph`) and the
+native engine (:meth:`PTGTaskpool.run_native`, :mod:`.native_exec`) run
+the same definitions outside the dynamic path.
+
+What the port leaves out, each raising ``NotImplementedError`` naming its
+ROADMAP item when reached: whole-DAG lowering and supertask fusion (A.4),
+the ahead-of-time verifier and lint (A.9), remote successors and
+write-backs (A.8), and reshape property blocks (A.8).
 """
 
 from __future__ import annotations
@@ -588,7 +591,7 @@ class PTG:
     def verify(self, *args: Any, **kw: Any):
         """Ahead-of-time graph verification is not ported yet."""
         raise NotImplementedError(
-            "PTG.verify (the graph linter) is not ported yet (ROADMAP A.11)")
+            "PTG.verify (the graph linter) is not ported yet (ROADMAP A.9)")
 
 
 def _reshape_requested(props: Dict[str, str], constants: Dict[str, Any]) -> bool:
@@ -635,16 +638,24 @@ class PTGTaskpool(Taskpool):
         self.auto_count = False
 
     def capture(self, ranks: Optional[Sequence[int]] = None):
-        """Whole-DAG capture is not ported yet."""
-        raise NotImplementedError(
-            "PTGTaskpool.capture (whole-DAG capture) is not ported yet "
-            "(ROADMAP A.6)")
+        """Materialize this taskpool's full DAG (see
+        :func:`parsec_tpu_torch.dsl.graph.capture`): the entry point of the
+        native executor."""
+        from .graph import capture as _capture
 
-    def run_native(self, *args: Any, **kw: Any) -> int:
-        """The native engine is not ported yet."""
-        raise NotImplementedError(
-            "PTGTaskpool.run_native (the native pump) is not ported yet "
-            "(ROADMAP A.4)")
+        return _capture(self, ranks)
+
+    def run_native(self, *, nthreads: int = 4, native_device: bool = False,
+                   device=None) -> int:
+        """Execute this (unstarted) taskpool on the native C++ engine —
+        dependency counting, scheduling and termination never enter the
+        interpreter.  CPU bodies by default; ``native_device=True`` runs
+        every task through the CUDA device module driven by the native
+        pump.  See :class:`parsec_tpu_torch.dsl.native_exec.NativeExecutor`."""
+        from .native_exec import run_native as _run_native
+
+        return _run_native(self, nthreads=nthreads,
+                           native_device=native_device, device=device)
 
     def attached(self, context) -> None:
         # no pre-scan: the chunked startup pass counts local tasks
@@ -701,7 +712,7 @@ class PTGTaskpool(Taskpool):
                     raise NotImplementedError(
                         f"{pc.name}{loc} is placed on rank "
                         f"{pc.rank_of(loc, self.constants)}: distributed "
-                        "taskpools are not ported yet (ROADMAP A.10)")
+                        "taskpools are not ported yet (ROADMAP A.8)")
                 cached.append(loc)
                 pending += 1
                 if pc.goal_of(loc, self.constants, self._exists_memo) == 0:
@@ -791,7 +802,7 @@ class PTGTaskpool(Taskpool):
                         and _reshape_requested(dep.props, self.constants)):
                     raise NotImplementedError(
                         f"{pc.name}.{f.name}: dep {dep.src!r} asks for a "
-                        "reshape, which is not ported yet (ROADMAP A.10)")
+                        "reshape, which is not ported yet (ROADMAP A.8)")
                 data = self._resolve_input(pc, f, target, env, task)
                 specs.append(("data", data, f.mode))
                 task.data_in[f.index] = data.newest_copy() if data is not None else None
@@ -850,7 +861,7 @@ class PTGTaskpool(Taskpool):
                     raise NotImplementedError(
                         f"{pc_name}.{flow_name}: NEW dep {dep.src!r} asks "
                         "for a reshape, which is not ported yet "
-                        "(ROADMAP A.10)")
+                        "(ROADMAP A.8)")
         shape = self.constants.get("TILE_SHAPE", (1,))
         dtype = self.constants.get("TILE_DTYPE", np.float64)
         return tuple(shape), dtype
@@ -911,7 +922,7 @@ class PTGTaskpool(Taskpool):
                             f"{pc.name}{locals_}: successor "
                             f"{t.class_name}{locs} lives on another rank; "
                             "remote activations are not ported yet "
-                            "(ROADMAP A.10)")
+                            "(ROADMAP A.8)")
                     if f.mode != CTL:
                         if entry is None:
                             entry = repo.lookup_and_create(locals_)

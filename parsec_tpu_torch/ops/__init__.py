@@ -2,8 +2,8 @@
 their tile bodies and hand-written kernels.
 
 The other taskpools of :mod:`parsec_tpu.ops` (LU, QR, panel and segmented
-factorizations) are not ported yet (ROADMAP A.8-A.9), nor are the native
-flash path (A.4) and the ring-attention graphs (A.10).
+factorizations) are not ported yet (ROADMAP A.6-A.7), nor are the
+ring-attention graphs (A.8).
 """
 
 from .attention import (
@@ -11,6 +11,7 @@ from .attention import (
     build_flash_attention,
     flash_attention_ptg,
     run_flash_attention,
+    run_flash_attention_native,
 )
 from .cholesky import cholesky_ptg, dpotrf_task_count, run_cholesky
 from .stencil import StencilBuffers, reference_stencil, stencil_ptg
@@ -20,6 +21,7 @@ __all__ = [
     "build_flash_attention",
     "flash_attention_ptg",
     "run_flash_attention",
+    "run_flash_attention_native",
     "cholesky_ptg",
     "dpotrf_task_count",
     "run_cholesky",

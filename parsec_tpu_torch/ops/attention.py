@@ -13,12 +13,13 @@ Host planes are torch CPU tensors, so bfloat16 q/k/v need no numpy
 bfloat16: the CUDA module stages torch host tiles as they are, and a CPU
 chore widens them to float32 numpy.  The carries are float32 numpy tiles.
 
-Not ported yet, each raising ``NotImplementedError``:
-:func:`run_flash_attention_native` (the native engine, ROADMAP A.4) and the
+:func:`run_flash_attention` drives the graph through a live context's
+dynamic runtime, :func:`run_flash_attention_native` through the native
+engine's pump.  Not ported yet, each raising ``NotImplementedError``: the
 distributed ring-attention graphs (:func:`ring_attention_ptg`,
 :func:`ring_attention_builder`, :func:`run_ring_attention_graph`, ROADMAP
-A.10).  ``"auto"`` block sizes take the value the reference falls back to
-on an empty tuning store; the store itself is ROADMAP A.7.
+A.8).  ``"auto"`` block sizes take the value the reference falls back to
+on an empty tuning store; the store itself is ROADMAP A.5.
 
 The numerics oracle is
 :func:`parsec_tpu_torch.parallel.attention_reference`.
@@ -65,7 +66,7 @@ class PlaneCollection(DataCollection):
     (batch, head) pair, ``j`` a sequence-block index.  ``init(g, j)``
     builds the tile (a torch CPU tensor is kept as it is, anything else
     becomes an ndarray).  Single rank: the reference's ``rank_of``
-    placement serves the ring graphs (ROADMAP A.10)."""
+    placement serves the ring graphs (ROADMAP A.8)."""
 
     def __init__(self, name: str, init: Callable[[int, int], object]):
         super().__init__(name)
@@ -237,7 +238,7 @@ def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
 
 def _resolve_block(value, seq: int) -> int:
     """``"auto"`` resolves to ``min(128, seq)``: the reference's value on
-    an empty tuning store (the store is ROADMAP A.7); explicit values
+    an empty tuning store (the store is ROADMAP A.5); explicit values
     pass through."""
     if value != "auto":
         return int(value)
@@ -399,27 +400,36 @@ def run_flash_attention(context, q, k, v, *, timeout: float = 600,
     return assemble()
 
 
-def run_flash_attention_native(*args, **kw):
-    """Not ported yet: the native C++ engine with ASYNC device chores is
-    ROADMAP A.4."""
-    raise NotImplementedError("run_flash_attention_native: the native engine "
-                              "is not ported yet (ROADMAP A.4); use "
-                              "run_flash_attention")
+def run_flash_attention_native(q, k, v, *, device=None, **kw) -> torch.Tensor:
+    """The same graph through the native C++ engine's pump: every step on
+    the CUDA device module (the GPU, unless ``device=`` or
+    ``PARSEC_MCA_device_cuda_torch_device=cpu`` says otherwise), with
+    scheduling and successor release never entering the interpreter.
+    Returns the ``[B, Sq, H, D]`` output as a torch CPU tensor."""
+    for bad in ("use_cpu", "timeout"):
+        if bad in kw:
+            raise ValueError(
+                f"run_flash_attention_native does not take {bad!r} "
+                "(device chores only, runs to quiescence); use "
+                "run_flash_attention for CPU bodies or timeouts")
+    tp, assemble = build_flash_attention(q, k, v, use_cpu=False, **kw)
+    tp.run_native(native_device=True, device=device)
+    return assemble()
 
 
 def ring_attention_ptg(*args, **kw):
-    """Not ported yet: distributed ring attention is ROADMAP A.10."""
+    """Not ported yet: distributed ring attention is ROADMAP A.8."""
     raise NotImplementedError("ring_attention_ptg: remote dependencies are "
-                              "not ported yet (ROADMAP A.10)")
+                              "not ported yet (ROADMAP A.8)")
 
 
 def ring_attention_builder(*args, **kw):
-    """Not ported yet: distributed ring attention is ROADMAP A.10."""
+    """Not ported yet: distributed ring attention is ROADMAP A.8."""
     raise NotImplementedError("ring_attention_builder: remote dependencies "
-                              "are not ported yet (ROADMAP A.10)")
+                              "are not ported yet (ROADMAP A.8)")
 
 
 def run_ring_attention_graph(*args, **kw):
-    """Not ported yet: distributed ring attention is ROADMAP A.10."""
+    """Not ported yet: distributed ring attention is ROADMAP A.8."""
     raise NotImplementedError("run_ring_attention_graph: multi-rank runs are "
-                              "not ported yet (ROADMAP A.10)")
+                              "not ported yet (ROADMAP A.8)")

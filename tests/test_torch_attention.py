@@ -681,8 +681,8 @@ def test_ptg_definitions_are_memoised_and_bounded():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("run_flash_attention_native", "A.4"), ("ring_attention_ptg", "A.10"),
-    ("ring_attention_builder", "A.10"), ("run_ring_attention_graph", "A.10"),
+    ("ring_attention_ptg", "A.8"),
+    ("ring_attention_builder", "A.8"), ("run_ring_attention_graph", "A.8"),
 ])
 def test_unported_entry_points_raise(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -158,8 +158,7 @@ def test_raising_body_fails_the_pool():
         assert ctx.test()  # the pool left the active set
 
 
-@pytest.mark.parametrize("feature", ["capture", "run_native", "verify", "reshape",
-                                     "comm", "env"])
+@pytest.mark.parametrize("feature", ["verify", "reshape", "comm", "env"])
 def test_unported_features_raise(feature, monkeypatch):
     from parsec_tpu_torch.data import LocalCollection
 
@@ -169,7 +168,8 @@ def test_unported_features_raise(feature, monkeypatch):
             kw = {}
         else:
             kw = dict(nranks=2, rank=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP A.9" if feature == "env" else "ROADMAP A.8"):
             parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"], **kw)
         return
     ptg = PTG("p")
@@ -178,18 +178,14 @@ def test_unported_features_raise(feature, monkeypatch):
     s.flow("X", AccessMode.IN, dep)
     s.body(cpu=lambda X, k: None)
     if feature == "verify":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             ptg.verify()
         return
     tp = ptg.taskpool(D=LocalCollection("D", shape=(2,)), F32=np.float32)
-    if feature in ("capture", "run_native"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A."):
-            getattr(tp, feature)()
-        return
     with parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"]) as ctx:
         ctx.add_taskpool(tp)
         assert tp.wait(timeout=30) is False  # the raising prepare_input fails it
-    assert "reshape" in tp.fail_reason and "A.10" in tp.fail_reason
+    assert "reshape" in tp.fail_reason and "A.8" in tp.fail_reason
 
 
 # ml_dtypes: the card's machine lacks it (bfloat16 host tiles are torch
