@@ -43,13 +43,21 @@
    device module — hand kernels for the updates, then the ``use_trtri``
    variant (trsm as a B2 product), then ``bf16_updates`` — checking the
    factor, the task counts and the kernel launch counts of each run, per
-   operand mode;
+   operand mode; ``kernels`` and ``kernels_trtri`` at
+   ``runtime_stage_depth`` 1 (the default: no committer) and 2 (the
+   write-back committer) in turns (1, 2, 2, 1, 1, 2), the factors
+   ``torch.equal``; ``kernels_bf16`` at depth 2;
    then, through the native pump (``NativeExecutor(tp, native_device=True)``:
    the captured DAG on the C++ engine built by g++ from ``native/src``,
    one ``pop_batch`` and one ``done_batch`` per batch, no per-task
-   interpreter entry), ``kernels`` and ``kernels_trtri`` again, each
-   factor ``torch.equal`` to the dynamic run's and its B1/B2 launches per
-   mode equal to the dynamic run's;
+   interpreter entry), ``kernels`` and ``kernels_trtri`` at stage depth 1
+   and 2 (the prefetch window) in turns (1, 2, 2, 1, 1, 2), each factor
+   ``torch.equal`` to the dynamic run's and its B1/B2 launches per mode
+   equal to the dynamic run's; then the pump's ``kernels`` under a 96 MB
+   device budget (below
+   the 256 MiB matrix: eviction and write-back under the pipeline), its
+   factor ``torch.equal`` too, with evictions and no synchronous
+   write-back fallback;
 5. device-module phase: a 2048 x 2048 dpotrf with event-polled
    completion and one under an 8 MB residency budget (eviction
    write-back), each checked against a float64 Cholesky;
@@ -57,21 +65,39 @@
    geometry (32 heads x 128, B=1), causal prefill of 4096 tokens in
    512-blocks in float32 and in bfloat16, and a 96-token decode against
    4000 keys, each checked against ``attention_reference`` in float64, with
-   its task and B5 launch counts; ``scaled_dot_product_attention`` on the
-   prefill problem is timed beside it as the yardstick; then the f32
-   prefill through ``run_flash_attention_native`` (and once more through
-   its pieces, to time capture and build apart), each output
-   ``torch.equal`` to ``run_flash_attention``'s;
+   its task and B5 launch counts (the bf16 prefill and the decode at
+   stage depth 2), the f32 prefill at stage depth 1 and 2 in turns, each
+   output ``torch.equal`` to the first;
+   ``scaled_dot_product_attention`` on the prefill problem is timed beside
+   it as the yardstick; then the f32 prefill through
+   ``run_flash_attention_native`` at stage depth 1 and 2 in turns (and
+   once more through its pieces, to time capture and build apart), each
+   output ``torch.equal`` to ``run_flash_attention``'s;
 7. stencil path: ``stencil_ptg(use_kernels=True)`` on an 8192^2 float32
-   grid in 1024^2 tiles for 20 steps (B3 launches counted), then B4 on the
-   leading 2048^2 block for 100 steps (one smem-mode launch), both against
-   a float64 reference;
-8. with ``--profile``, runs the two f32 dpotrf variants, the f32 prefill
-   and the stencil run once more under ``torch.profiler``, and the pump's
-   dpotrf ``kernels`` and f32 prefill, and prints the device busy time and
-   idle share;
-9. prints the kernel table as one JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   grid in 1024^2 tiles for 20 steps (B3 launches counted), through
+   ``Context`` at stage depth 1 and 2 in turns and then through the native
+   pump at stage depth 1 and 2 in turns (and at 2 with the reference's
+   32 MB write-back watermark: the committer draining mid-run beside the
+   kernels), each grid ``torch.equal`` to the first; then B4 on the leading 2048^2
+   block for 100 steps (one smem-mode launch), all against a float64
+   reference;
+8. transfer phase: the stencil's 64 tiles of 4 MiB, twice, host->device
+   and back through the device module's copy engine (pinned buffers, copy
+   streams) and through pageable ``.to()`` / ``.cpu()``, in turns, each
+   direction's GB/s printed;
+9. with ``--profile``, runs the two f32 dpotrf variants, the f32 prefill
+   and the stencil (through ``Context`` and through the pump, each at
+   stage depth 1 and 2) once more under ``torch.profiler``, and the
+   pump's dpotrf ``kernels`` (at stage depth 1 and 2) and f32 prefill,
+   and prints the device busy time (the union of the kernels' and
+   copies' intervals, beside their sum), the idle share, H2D/D2H device
+   ms and GB/s, and how much of the copy time overlaps kernel time;
+10. prints each path's walls at stage depth 1 and 2 (``stage_depth_walls``,
+   with the ratio of their medians), the kernel table as one JSON line, the
+   card line, and last ``{"ok": true, "device": {...}}``.
+
+Every run of the CUDA device module must end with no synchronous
+write-back fallback (``wb_sync_fallbacks == 0``).
 
 Kernel times are device times: the timed launches are queued behind a
 spin kernel sized to outlast their enqueue, so the CUDA events measure
@@ -83,10 +109,14 @@ without the port beside it, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
+import types
 
 N, NB = 8192, 512          # bench.py's accelerator configuration
 TILE = (512, 512, 512)     # (m, n, k) of every update on the main path
@@ -119,6 +149,10 @@ TOL_ATTN_F32, TOL_ATTN_BF16 = 2e-5, 5e-2
 ST_N, ST_TILES, ST_T = 8192, 8, 20
 FUSED_N, FUSED_ITERS = 2048, 100
 TOL_STENCIL_PATH = 1e-5
+# the stage depths each path runs at, in this order: three runs a depth in
+# turns (A B B A A B) so that a drift over the run weighs on both depths
+# alike, compared by their medians; the first at the default depth 1
+STAGE_DEPTHS = (1, 2, 2, 1, 1, 2)
 
 #: dense peaks from NVIDIA's data sheets: FP32 and FP64 on the CUDA cores,
 #: BF16 and TF32 on the tensor cores, and device-memory bandwidth.  The SXM row is
@@ -138,6 +172,52 @@ def say(tag: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+@contextlib.contextmanager
+def stage_depth(mca_param, depth: int):
+    """Run the block at ``runtime_stage_depth`` ``depth`` (read when a
+    device module is built: a Context, or a NativeExecutor's own)."""
+    mca_param.set_param("runtime", "stage_depth", depth)
+    try:
+        yield
+    finally:
+        mca_param.unset("runtime", "stage_depth")
+
+
+class DepthWalls:
+    """Each path's walls at stage depth 1 and 2, from this run; printed as
+    one ``stage_depth_walls`` line a path, with the ratio of the medians."""
+
+    def __init__(self):
+        self.walls = {}
+
+    def add(self, path: str, depth: int, wall: float) -> None:
+        self.walls.setdefault(path, {1: [], 2: []})[depth].append(wall)
+
+    def report(self) -> None:
+        for path, by_depth in self.walls.items():
+            med = {d: statistics.median(w) for d, w in by_depth.items()}
+            say("stage_depth_walls", path=path, depth1_s=by_depth[1],
+                depth2_s=by_depth[2], median1_s=med[1], median2_s=med[2],
+                depth2_over_depth1=med[2] / med[1])
+
+
+def device_stats(dev, **extra) -> dict:
+    """A CUDA device module's counters after a run, with its pinned bytes."""
+    stats = dict(dev.stats, **extra)
+    stats["pinned_bytes"], stats["pinned_peak_bytes"] = dev.pinned_bytes
+    return stats
+
+
+def pipeline_fields(stats) -> dict:
+    """The staging counters of a run's :func:`device_stats`."""
+    keys = ("bytes_in", "bytes_out", "h2d_copies", "d2h_copies", "prefetched_tiles",
+            "stage_batched_tiles", "wb_batches", "wb_sync_fallbacks", "wb_committed",
+            "wb_dropped_stale", "wb_capacity_waits", "wb_drains", "wb_drain_s",
+            "prestage_s", "evictions", "pinned_bytes", "pinned_peak_bytes", "flush_s",
+            "detach_s", "lane_wait_s", "submit_s", "retire_s")
+    return {k: stats[k] for k in keys if k in stats}
 
 
 def card_line() -> str:
@@ -644,6 +724,7 @@ def main() -> int:
             check(cuda_dev.tdev.type == "cuda", f"CUDA module bound to {cuda_dev.tdev}")
             tp = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(NT=A.mt, A=A)
             kernels.reset_counts()
+            gc.collect()  # each timed window starts with no garbage pending
             t0 = time.perf_counter()
             ctx.add_taskpool(tp)
             ok = tp.wait(timeout=600)
@@ -652,44 +733,68 @@ def main() -> int:
             counts = {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
                       for fn in (kernels.matmul_update, kernels.matmul)}
         finally:
+            # the write-back home (committer flush + batched D2H), timed
+            # apart from fini's teardown; fini's own detach finds it done
             t0 = time.perf_counter()
+            cuda_dev.detach()
+            detach_s = time.perf_counter() - t0
             ctx.fini()
             flush = time.perf_counter() - t0
         check(ok, f"dpotrf {kw}: taskpool failed ({tp.fail_reason})")
-        return A, wall, counts, dict(cuda_dev.stats, flush_s=flush)
+        stats = device_stats(cuda_dev, flush_s=flush, detach_s=detach_s)
+        check(stats["wb_sync_fallbacks"] == 0, f"dpotrf {kw}: synchronous write-back "
+              f"fallbacks {stats['wb_sync_fallbacks']}")
+        return A, wall, counts, stats
 
     launches = {}
     dyn_factor, dyn_wall = {}, {}
+    depth_walls = DepthWalls()
     for name, kw, recon_tol in variants:
         trtri = kw.get("use_trtri", False)
         ntasks = dpotrf_task_count(nt, use_trtri=trtri)
-        A, wall, counts, stats = run_dpotrf(kw)
-        dyn_wall[name] = wall
-        executed = stats["executed_tasks"]
-        check(executed == ntasks, f"{name}: {executed} tasks on the CUDA device, expected {ntasks}")
-        n_upd = nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
-        n_mm = nt * (nt - 1) // 2 if trtri else 0
-        upd_mode = "bf16" if kw.get("bf16_updates") else "f32"
-        expected = {"matmul_update": dict(f32=0, bf16=0, split=0, total=n_upd),
-                    "matmul": dict(f32=n_mm, bf16=0, total=n_mm)}
-        expected["matmul_update"][upd_mode] = n_upd
-        check(counts == expected, f"{name}: launches {counts}, expected {expected}")
-        launches[name] = counts
-        factor = A.to_array()
-        if name in ("kernels", "kernels_trtri"):
-            dyn_factor[name] = factor  # the pump's factor must equal it
-        L = torch.from_numpy(factor).to(dev).double().tril()
-        check(bool(torch.isfinite(L).all()), f"{name}: non-finite factor")
-        recon = ((L @ L.mT - S64).abs().max() / s_max).item()
-        last = ((L[-NB:, -NB:] - L_ref_last).abs().max() / scale).item()
-        del L
-        check(last < 1e-3, f"{name}: last-tile error {last} >= 1e-3")
-        check(recon < recon_tol, f"{name}: ||LL^T-S||max/||S||max {recon} >= {recon_tol}")
-        say("dpotrf", variant=name, N=N, nb=NB, tasks=ntasks, wall_s=wall,
-            gflops=N ** 3 / 3 / wall / 1e9, tasks_per_s=ntasks / wall,
-            launches=counts, last_tile_err=last, recon_err=recon,
-            recon_tol=recon_tol)
-        del factor
+        # the f32 variants at the default stage depth 1 (no committer) and
+        # at depth 2 (the write-back committer), in turns
+        depths = STAGE_DEPTHS if name in ("kernels", "kernels_trtri") else (2,)
+        for rep, depth in enumerate(depths):
+            with stage_depth(mca_param, depth):
+                A, wall, counts, stats = run_dpotrf(kw)
+            if rep == 0:
+                dyn_wall[name] = wall
+            if len(depths) > 1:
+                depth_walls.add(f"dpotrf {name}", depth, wall)
+            executed = stats["executed_tasks"]
+            check(executed == ntasks,
+                  f"{name}: {executed} tasks on the CUDA device, expected {ntasks}")
+            n_upd = nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
+            n_mm = nt * (nt - 1) // 2 if trtri else 0
+            upd_mode = "bf16" if kw.get("bf16_updates") else "f32"
+            expected = {"matmul_update": dict(f32=0, bf16=0, split=0, total=n_upd),
+                        "matmul": dict(f32=n_mm, bf16=0, total=n_mm)}
+            expected["matmul_update"][upd_mode] = n_upd
+            check(counts == expected, f"{name}: launches {counts}, expected {expected}")
+            launches[name if rep == 0 else f"{name}_{rep}"] = counts
+            factor = A.to_array()
+            if name in ("kernels", "kernels_trtri"):
+                if rep == 0:
+                    dyn_factor[name] = factor  # every other run must equal it
+                else:
+                    check(np.array_equal(factor, dyn_factor[name]),
+                          f"{name} at depth {depth}: the factor differs from the "
+                          "first run's")
+            L = torch.from_numpy(factor).to(dev).double().tril()
+            check(bool(torch.isfinite(L).all()), f"{name}: non-finite factor")
+            recon = ((L @ L.mT - S64).abs().max() / s_max).item()
+            last = ((L[-NB:, -NB:] - L_ref_last).abs().max() / scale).item()
+            del L
+            check(last < 1e-3, f"{name}: last-tile error {last} >= 1e-3")
+            check(recon < recon_tol,
+                  f"{name}: ||LL^T-S||max/||S||max {recon} >= {recon_tol}")
+            say("dpotrf", variant=name, stage_depth=depth, rep=rep, N=N, nb=NB,
+                tasks=ntasks, wall_s=wall, gflops=N ** 3 / 3 / wall / 1e9,
+                tasks_per_s=ntasks / wall, launches=counts, last_tile_err=last,
+                recon_err=recon, recon_tol=recon_tol, equal_first_run=True,
+                **pipeline_fields(stats))
+            del factor
 
     # -- native phase: the same dpotrf through the native pump ---------------
     def run_dpotrf_native(kw):
@@ -701,9 +806,11 @@ def main() -> int:
         that capture + build replace, so set-up + wall is what compares
         with the dynamic wall.  Returns the matrix, tasks run, wall and
         set-up seconds, launches per operand mode and the executor's stats
-        with ``flush_s``, the seconds of close()."""
+        merged with its device module's (:func:`device_stats`, ``flush_s``
+        the seconds of close())."""
         A = TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32).from_array(S)
         tp = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(NT=A.mt, A=A)
+        gc.collect()  # each timed window starts with no garbage pending
         t0 = time.perf_counter()
         ex = NativeExecutor(tp, native_device=True)
         setup = time.perf_counter() - t0
@@ -720,7 +827,10 @@ def main() -> int:
         finally:
             t0 = time.perf_counter()
             ex.close()
-            stats["flush_s"] = time.perf_counter() - t0
+            flush = time.perf_counter() - t0
+        stats.update(device_stats(ex.device, flush_s=flush))
+        check(stats["wb_sync_fallbacks"] == 0, f"native dpotrf {kw}: synchronous "
+              f"write-back fallbacks {stats['wb_sync_fallbacks']}")
         return A, ran, wall, setup, counts, stats
 
     def pump_gates(label, ran, ntasks, stats):
@@ -730,33 +840,68 @@ def main() -> int:
         check(stats["pop_batches"] > 0 and stats["pumped_tasks"] == ntasks,
               f"{label}: pump stats {stats}")
 
-    for name, kw, recon_tol in variants[:2]:
-        ntasks = dpotrf_task_count(nt, use_trtri=kw.get("use_trtri", False))
-        A, ran, wall, setup, counts, stats = run_dpotrf_native(kw)
-        pump_gates(f"native {name}", ran, ntasks, stats)
-        check(counts == launches[name],
-              f"native {name}: launches {counts}, dynamic path {launches[name]}")
-        launches[f"native_{name}"] = counts
+    def native_dpotrf_checks(label, kw, recon_tol, A, ran, counts, stats, dyn_name):
+        """The pump run's gates: tasks, launches and factor equal to the
+        dynamic run's; returns the factor's errors."""
+        pump_gates(label, ran, dpotrf_task_count(nt, use_trtri=kw.get("use_trtri", False)),
+                   stats)
+        check(counts == launches[dyn_name],
+              f"{label}: launches {counts}, dynamic path {launches[dyn_name]}")
         factor = A.to_array()
-        check(torch.equal(torch.from_numpy(factor), torch.from_numpy(dyn_factor[name])),
-              f"native {name}: factor differs from the dynamic path's")
+        check(np.array_equal(factor, dyn_factor[dyn_name]),
+              f"{label}: factor differs from the dynamic path's")
         L = torch.from_numpy(factor).to(dev).double().tril()
         recon = ((L @ L.mT - S64).abs().max() / s_max).item()
         last = ((L[-NB:, -NB:] - L_ref_last).abs().max() / scale).item()
         del L, factor
-        check(last < 1e-3, f"native {name}: last-tile error {last} >= 1e-3")
-        check(recon < recon_tol,
-              f"native {name}: ||LL^T-S||max/||S||max {recon} >= {recon_tol}")
-        # wall_s is ex.run() alone; the dynamic wall also holds its startup
-        # enumeration, so set-up + run is the window that compares with it
-        say("native", path="dpotrf", variant=name, N=N, nb=NB, tasks=ran, wall_s=wall,
-            capture_build_s=setup, tasks_per_s=ran / wall,
-            host_ms_per_task=wall / ran * 1e3, pop_batches=stats["pop_batches"],
-            setup_plus_wall_s=setup + wall, dynamic_wall_s=dyn_wall[name],
-            same_window_ratio=(setup + wall) / dyn_wall[name],
-            same_window_host_ms_per_task=(setup + wall) / ran * 1e3,
-            dynamic_host_ms_per_task=dyn_wall[name] / ran * 1e3,
-            launches=counts, equal_dynamic=True, last_tile_err=last, recon_err=recon)
+        check(last < 1e-3, f"{label}: last-tile error {last} >= 1e-3")
+        check(recon < recon_tol, f"{label}: ||LL^T-S||max/||S||max {recon} >= {recon_tol}")
+        return last, recon
+
+    for name, kw, recon_tol in variants[:2]:
+        for rep, depth in enumerate(STAGE_DEPTHS):
+            with stage_depth(mca_param, depth):
+                A, ran, wall, setup, counts, stats = run_dpotrf_native(kw)
+            label = f"native {name} depth {depth}"
+            last, recon = native_dpotrf_checks(label, kw, recon_tol, A, ran, counts,
+                                               stats, name)
+            check((stats["prefetched_batches"] > 0) == (depth > 1),
+                  f"{label}: {stats['prefetched_batches']} prefetched batches")
+            launches[f"native_{name}_{rep}"] = counts
+            depth_walls.add(f"dpotrf {name} pump", depth, wall)
+            # wall_s is ex.run() alone; the dynamic wall also holds its
+            # startup enumeration, so set-up + run is the window that
+            # compares with it (the dynamic run at the default depth 1)
+            say("native", path="dpotrf", variant=name, stage_depth=depth, rep=rep,
+                N=N, nb=NB, tasks=ran, wall_s=wall, capture_build_s=setup,
+                tasks_per_s=ran / wall,
+                host_ms_per_task=wall / ran * 1e3, pop_batches=stats["pop_batches"],
+                prefetched_batches=stats["prefetched_batches"],
+                setup_plus_wall_s=setup + wall, dynamic_wall_s=dyn_wall[name],
+                same_window_ratio=(setup + wall) / dyn_wall[name],
+                same_window_host_ms_per_task=(setup + wall) / ran * 1e3,
+                dynamic_host_ms_per_task=dyn_wall[name] / ran * 1e3,
+                launches=counts, equal_dynamic=True, last_tile_err=last, recon_err=recon,
+                **pipeline_fields(stats))
+
+    # eviction under pressure: a 96 MB device budget, below the 256 MiB
+    # matrix, so the pump's device evicts and commits under the pipeline
+    name, kw, recon_tol = variants[0]
+    mca_param.set_param("device", "cuda_mem_budget_mb", 96)
+    try:
+        with stage_depth(mca_param, 2):
+            A, ran, wall, setup, counts, stats = run_dpotrf_native(kw)
+    finally:
+        mca_param.unset("device", "cuda_mem_budget_mb")
+    last, recon = native_dpotrf_checks(f"native {name} under 96 MB", kw, recon_tol,
+                                       A, ran, counts, stats, name)
+    check(stats["evictions"] > 0, f"native {name} under 96 MB: no eviction ({stats})")
+    launches[f"native_{name}_pressure"] = counts
+    say("native", path="dpotrf", variant=name, stage_depth=2, budget_mb=96, N=N, nb=NB,
+        tasks=ran, wall_s=wall, capture_build_s=setup, setup_plus_wall_s=setup + wall,
+        pop_batches=stats["pop_batches"], prefetched_batches=stats["prefetched_batches"],
+        launches=counts, equal_dynamic=True, last_tile_err=last, recon_err=recon,
+        **pipeline_fields(stats))
     del dyn_factor
 
     # -- device-module phase: the CUDA module's GPU-only paths ----------------
@@ -785,8 +930,7 @@ def main() -> int:
             check(stats["evictions"] > 0 and stats["bytes_out"] > 0,
                   f"device module [eviction]: no eviction write-back ({stats})")
         say("device_module", check=label, N=n_small, nb=NB, wall_s=wall,
-            factor_err=err, evictions=stats["evictions"],
-            bytes_in=stats["bytes_in"], bytes_out=stats["bytes_out"])
+            factor_err=err, **pipeline_fields(stats))
 
     # -- attention path: run_flash_attention on the CUDA device module -------
     # q/k/v from numpy seed 9 as bench.py makes them; the decode step's
@@ -817,16 +961,24 @@ def main() -> int:
             cuda_dev = next(d for d in ctx.devices if d.mca_name == "cuda")
             check(cuda_dev.tdev.type == "cuda", f"CUDA module bound to {cuda_dev.tdev}")
             kernels.reset_counts()
+            gc.collect()  # each timed window starts with no garbage pending
             t0 = time.perf_counter()
             out = run_flash_attention(ctx, q, k, v, use_cpu=False, **kw)
             wall = time.perf_counter() - t0
             n_launch = dict(kernels.flash_attention_block.launches_by_mode,
                             total=kernels.flash_attention_block.launches)
         finally:
+            # the write-back home (committer flush + batched D2H), timed
+            # apart from fini's teardown; fini's own detach finds it done
             t0 = time.perf_counter()
+            cuda_dev.detach()
+            detach_s = time.perf_counter() - t0
             ctx.fini()
             flush = time.perf_counter() - t0
-        return out, wall, n_launch, dict(cuda_dev.stats, flush_s=flush)
+        stats = device_stats(cuda_dev, flush_s=flush, detach_s=detach_s)
+        check(stats["wb_sync_fallbacks"] == 0, f"attention {kw}: synchronous write-back "
+              f"fallbacks {stats['wb_sync_fallbacks']}")
+        return out, wall, n_launch, stats
 
     attn_runs = [  # (name, q, k, v, dtype, kwargs, tolerance)
         ("attn_prefill_f32", (pre_q, pre_k, pre_v), torch.float32,
@@ -845,16 +997,33 @@ def main() -> int:
         ntasks = attention_task_count(ATTN_B, sq, sk, ATTN_H, qb, kw["kv_block"],
                                       causal=True)
         n_steps = ntasks - ATTN_B * ATTN_H * (-(-sq // qb))
-        out, wall, n_launch, stats = run_attention(q_in, k_in, v_in, **kw)
-        check(tuple(out.shape) == tuple(q_in.shape) and out.dtype == dt,
-              f"{name}: output {tuple(out.shape)} {out.dtype}")
-        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
-        check(stats["executed_tasks"] == ntasks,
-              f"{name}: {stats['executed_tasks']} tasks on the CUDA device, expected {ntasks}")
         expected = dict.fromkeys(kernels.flash_attention_block.launches_by_mode, 0)
         expected.update({"bf16" if dt == torch.bfloat16 else "f32": n_steps, "total": n_steps})
-        check(n_launch == expected,
-              f"{name}: flash_attention_block launches {n_launch}, expected {expected}")
+        # the f32 prefill at the default stage depth 1 and at depth 2, in turns
+        depths = STAGE_DEPTHS if name == "attn_prefill_f32" else (2,)
+        runs = []
+        for rep, depth in enumerate(depths):
+            with stage_depth(mca_param, depth):
+                out, wall, n_launch, stats = run_attention(q_in, k_in, v_in, **kw)
+            check(tuple(out.shape) == tuple(q_in.shape) and out.dtype == dt,
+                  f"{name}: output {tuple(out.shape)} {out.dtype}")
+            check(stats["executed_tasks"] == ntasks,
+                  f"{name}: {stats['executed_tasks']} tasks on the CUDA device, "
+                  f"expected {ntasks}")
+            check(n_launch == expected,
+                  f"{name}: flash_attention_block launches {n_launch}, expected {expected}")
+            attn_launches[name if rep == 0 else f"{name}_{rep}"] = n_launch
+            if rep == 0:
+                first, attn_wall[name] = out, wall
+            else:
+                check(torch.equal(out, first),
+                      f"{name} at depth {depth}: output differs from the first run's")
+            if len(depths) > 1:
+                depth_walls.add(name, depth, wall)
+            runs.append((depth, wall, stats))
+            del out
+        out = first
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
         # float64 oracle on the inputs the run saw (bf16-rounded for bf16)
         if name == "attn_decode":
             q64, k64, v64 = on_card(dec_q, dec_k, dec_v, dtype=torch.float64)
@@ -867,15 +1036,16 @@ def main() -> int:
         del ref
         check(gate <= tol, f"{name}: |out - ref| - {tol}|ref| reaches {gate} > {tol}")
         flops = 4.0 * ATTN_B * ATTN_H * sq * sk * ATTN_D
-        attn_launches[name] = n_launch
-        attn_wall[name] = wall
         if name == "attn_prefill_f32":
             attn_out[name] = out  # the pump's output must equal it
-        say("attention", run=name, B=ATTN_B, Sq=sq, Sk=sk, H=ATTN_H, D=ATTN_D,
-            dtype=str(dt), q_block=qb, kv_block=kw["kv_block"], tasks=ntasks,
-            launches=n_launch["total"], wall_s=wall, nominal_gflops=flops / wall / 1e9,
-            tasks_per_s=ntasks / wall, max_abs_err=max_err, gate=gate, tol=tol,
-            bytes_in=stats["bytes_in"])
+        for rep, (depth, wall, stats) in enumerate(runs):
+            say("attention", run=name, stage_depth=depth, rep=rep, B=ATTN_B, Sq=sq,
+                Sk=sk, H=ATTN_H, D=ATTN_D, dtype=str(dt), q_block=qb,
+                kv_block=kw["kv_block"], tasks=ntasks, launches=n_steps, wall_s=wall,
+                nominal_gflops=flops / wall / 1e9, tasks_per_s=ntasks / wall,
+                max_abs_err=max_err, gate=gate, tol=tol, equal_first_run=True,
+                **pipeline_fields(stats))
+        del out, first
         torch.cuda.empty_cache()
 
     # -- native phase: the f32 prefill through the native pump ----------------
@@ -887,15 +1057,21 @@ def main() -> int:
 
     def run_attention_native():
         """run_flash_attention_native, the user entry point: build, capture,
-        pump and assemble in one call.  Returns the output, wall seconds and
-        B5 launches per mode."""
+        pump and assemble in one call, on a device module of its own so
+        its staging counters can be read.  Returns the output, wall
+        seconds, B5 launches per mode and the device's stats."""
         kernels.reset_counts()
+        gc.collect()  # each timed window starts with no garbage pending
         t0 = time.perf_counter()
-        out = run_flash_attention_native(*pf_in, **pf_kw)
+        pump_dev = NativeExecutor._make_device()
+        out = run_flash_attention_native(*pf_in, device=pump_dev, **pf_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        stats = device_stats(pump_dev, flush_s=0.0)
+        check(stats["wb_sync_fallbacks"] == 0, "native prefill: synchronous write-back "
+              f"fallbacks {stats['wb_sync_fallbacks']}")
         return out, wall, dict(kernels.flash_attention_block.launches_by_mode,
-                               total=kernels.flash_attention_block.launches)
+                               total=kernels.flash_attention_block.launches), stats
 
     def b5_gates(label, out, n_launch):
         expected = dict.fromkeys(kernels.flash_attention_block.launches_by_mode, 0)
@@ -905,13 +1081,26 @@ def main() -> int:
         check(torch.equal(out, attn_out[pf_name]),
               f"{label}: output differs from run_flash_attention's")
 
-    out, wall_total, n_launch = run_attention_native()
-    b5_gates("native attn_prefill_f32", out, n_launch)
-    attn_launches[f"{pf_name}_native"] = n_launch
     ref = attention_reference(*(t.to(dev).double() for t in pf_in), causal=True)
-    gate, max_err = allclose_gate(out, ref, tol)
-    del ref, out
-    check(gate <= tol, f"native {pf_name}: |out - ref| - {tol}|ref| reaches {gate} > {tol}")
+    for rep, depth in enumerate(STAGE_DEPTHS):
+        with stage_depth(mca_param, depth):
+            out, wall_total, n_launch, stats = run_attention_native()
+        b5_gates(f"native attn_prefill_f32 depth {depth}", out, n_launch)
+        attn_launches[f"{pf_name}_native_{rep}"] = n_launch
+        depth_walls.add(f"{pf_name} pump", depth, wall_total)
+        gate, max_err = allclose_gate(out, ref, tol)
+        del out
+        check(gate <= tol, f"native {pf_name} depth {depth}: |out - ref| - {tol}|ref| "
+                           f"reaches {gate} > {tol}")
+        # the whole entry-point call against the whole dynamic call
+        say("native", path="attention", run=pf_name, stage_depth=depth, rep=rep,
+            entry_point_wall_s=wall_total, dynamic_wall_s=attn_wall[pf_name],
+            same_window_ratio=wall_total / attn_wall[pf_name],
+            launches=n_launch["total"], equal_dynamic=True, max_abs_err=max_err,
+            gate=gate, tol=tol, **pipeline_fields(stats))
+    del ref
+    # the default depth's entry-point wall, the median of its runs
+    wall_total = statistics.median(depth_walls.walls[f"{pf_name} pump"][2])
     # the same call's pieces, to time each apart: the graph's build, capture
     # + engine build, the pump, close() and assemble()
     t0 = time.perf_counter()
@@ -936,6 +1125,9 @@ def main() -> int:
     t0 = time.perf_counter()
     out = assemble()
     assemble_s = time.perf_counter() - t0
+    stats.update(device_stats(ex.device, flush_s=close_s))
+    check(stats["wb_sync_fallbacks"] == 0, f"native {pf_name} (pieces): synchronous "
+          f"write-back fallbacks {stats['wb_sync_fallbacks']}")
     pump_gates(f"native {pf_name} (pieces)", ran, pf_tasks, stats)
     b5_gates(f"native {pf_name} (pieces)", out, n_launch)
     del out
@@ -950,8 +1142,8 @@ def main() -> int:
         dynamic_wall_s=attn_wall[pf_name], same_window_ratio=wall_total / attn_wall[pf_name],
         same_window_host_ms_per_task=wall_total / ran * 1e3,
         dynamic_host_ms_per_task=attn_wall[pf_name] / ran * 1e3,
-        launches=n_launch["total"], equal_dynamic=True, max_abs_err=max_err, gate=gate,
-        tol=tol)
+        prefetched_batches=stats["prefetched_batches"], launches=n_launch["total"],
+        equal_dynamic=True, **pipeline_fields(stats))
     del tp, assemble, ex, attn_out
     torch.cuda.empty_cache()
 
@@ -997,6 +1189,7 @@ def main() -> int:
             tp = stencil_ptg(use_kernels=True, use_cpu=False).taskpool(
                 T=ST_T, MT=ST_TILES, NT=ST_TILES, A=A)
             kernels.reset_counts()
+            gc.collect()  # each timed window starts with no garbage pending
             t0 = time.perf_counter()
             ctx.add_taskpool(tp)
             ok = tp.wait(timeout=600)
@@ -1004,26 +1197,111 @@ def main() -> int:
             wall = time.perf_counter() - t0
             n_launch = kernels.stencil_5pt.launches
         finally:
+            # the write-back home (committer flush + batched D2H), timed
+            # apart from fini's teardown; fini's own detach finds it done
             t0 = time.perf_counter()
+            cuda_dev.detach()
+            detach_s = time.perf_counter() - t0
             ctx.fini()
             flush = time.perf_counter() - t0
         check(ok, f"stencil: taskpool failed ({tp.fail_reason})")
-        return A, wall, n_launch, dict(cuda_dev.stats, flush_s=flush)
+        stats = device_stats(cuda_dev, flush_s=flush, detach_s=detach_s)
+        check(stats["wb_sync_fallbacks"] == 0, "stencil: synchronous write-back "
+              f"fallbacks {stats['wb_sync_fallbacks']}")
+        return A, wall, n_launch, stats
 
-    A, st_wall, st_launches, stats = run_stencil()
-    check(stats["executed_tasks"] == n_tasks_st,
-          f"stencil: {stats['executed_tasks']} tasks on the CUDA device, expected {n_tasks_st}")
-    check(st_launches == n_tasks_st,
-          f"stencil: {st_launches} stencil_5pt launches, expected {n_tasks_st}")
-    got = torch.from_numpy(A.to_array(ST_T % 2)).to(dev).double()
-    st_gate, st_err = allclose_gate(got, st_ref, TOL_STENCIL_PATH)
-    del got
-    check(st_gate <= TOL_STENCIL_PATH,
-          f"stencil: |out - ref| - tol|ref| reaches {st_gate} > {TOL_STENCIL_PATH}")
-    say("stencil", N=ST_N, tile=ST_N // ST_TILES, T=ST_T, tasks=n_tasks_st,
-        launches=st_launches, wall_s=st_wall,
-        gcells_per_s=ST_N * ST_N * ST_T / st_wall / 1e9, max_abs_err=st_err,
-        gate=st_gate, tol=TOL_STENCIL_PATH)
+    def run_stencil_native():
+        """The same stencil through NativeExecutor(native_device=True): set-up
+        (capture + build) outside the window, the window ex.run() +
+        synchronize, then close() (the write-back home).  Returns the
+        buffers, tasks run, wall and set-up seconds, B3 launches and the
+        executor's stats merged with its device module's."""
+        A = StencilBuffers(grid, ST_TILES, ST_TILES)
+        tp = stencil_ptg(use_kernels=True, use_cpu=False).taskpool(
+            T=ST_T, MT=ST_TILES, NT=ST_TILES, A=A)
+        gc.collect()  # each timed window starts with no garbage pending
+        t0 = time.perf_counter()
+        ex = NativeExecutor(tp, native_device=True)
+        setup = time.perf_counter() - t0
+        try:
+            check(ex.device.tdev.type == "cuda", f"pump device bound to {ex.device.tdev}")
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            ran = ex.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = kernels.stencil_5pt.launches
+            stats = dict(ex.stats)
+        finally:
+            t0 = time.perf_counter()
+            ex.close()
+            flush = time.perf_counter() - t0
+        stats.update(device_stats(ex.device, flush_s=flush))
+        check(stats["wb_sync_fallbacks"] == 0, "native stencil: synchronous write-back "
+              f"fallbacks {stats['wb_sync_fallbacks']}")
+        return A, ran, wall, setup, n_launch, stats
+
+    # through Context at the default stage depth 1 and at depth 2, in turns
+    st_launch_total = 0
+    for rep, depth in enumerate(STAGE_DEPTHS):
+        with stage_depth(mca_param, depth):
+            A, wall, st_launches, stats = run_stencil()
+        check(stats["executed_tasks"] == n_tasks_st,
+              f"stencil: {stats['executed_tasks']} tasks on the CUDA device, "
+              f"expected {n_tasks_st}")
+        check(st_launches == n_tasks_st,
+              f"stencil: {st_launches} stencil_5pt launches, expected {n_tasks_st}")
+        st_launch_total += st_launches
+        depth_walls.add("stencil", depth, wall)
+        if rep == 0:
+            st_dyn, st_wall = A.to_array(ST_T % 2), wall
+            got = torch.from_numpy(st_dyn).to(dev).double()
+            st_gate, st_err = allclose_gate(got, st_ref, TOL_STENCIL_PATH)
+            del got
+            check(st_gate <= TOL_STENCIL_PATH, f"stencil: |out - ref| - tol|ref| "
+                                               f"reaches {st_gate} > {TOL_STENCIL_PATH}")
+        else:
+            check(np.array_equal(A.to_array(ST_T % 2), st_dyn),
+                  f"stencil at depth {depth}: grid differs from the first run's")
+        say("stencil", N=ST_N, tile=ST_N // ST_TILES, T=ST_T, tasks=n_tasks_st,
+            launches=st_launches, wall_s=wall, stage_depth=depth, rep=rep,
+            gcells_per_s=ST_N * ST_N * ST_T / wall / 1e9, max_abs_err=st_err,
+            gate=st_gate, tol=TOL_STENCIL_PATH, equal_first_run=True,
+            **pipeline_fields(stats))
+        del A
+    # the stencil through the native pump, at stage depth 1 and 2 in turns,
+    # then at depth 2 with the reference's 32 MB write-back watermark (the
+    # committer then drains mid-run, beside the kernels)
+    for rep, (depth, window_mb) in enumerate([(d, None) for d in STAGE_DEPTHS]
+                                             + [(2, 32)]):
+        if window_mb is not None:
+            mca_param.set_param("runtime", "wb_window_mb", window_mb)
+        try:
+            with stage_depth(mca_param, depth):
+                A, ran, wall, setup, n_launch, stats = run_stencil_native()
+        finally:
+            if window_mb is not None:
+                mca_param.unset("runtime", "wb_window_mb")
+        label = f"native stencil depth {depth}" + (f" window {window_mb} MB"
+                                                   if window_mb else "")
+        pump_gates(label, ran, n_tasks_st, stats)
+        check(n_launch == n_tasks_st,
+              f"{label}: {n_launch} stencil_5pt launches, expected {n_tasks_st}")
+        check(np.array_equal(A.to_array(ST_T % 2), st_dyn),
+              f"{label}: grid differs from the dynamic path's")
+        check((stats["prefetched_batches"] > 0) == (depth > 1),
+              f"{label}: {stats['prefetched_batches']} prefetched batches")
+        st_launch_total += n_launch
+        if window_mb is None:
+            depth_walls.add("stencil pump", depth, wall)
+        say("native", path="stencil", stage_depth=depth, rep=rep,
+            wb_window_mb=window_mb or 0, N=ST_N, tile=ST_N // ST_TILES,
+            T=ST_T, tasks=ran, launches=n_launch, wall_s=wall, capture_build_s=setup,
+            setup_plus_wall_s=setup + wall, dynamic_wall_s=st_wall,
+            same_window_ratio=(setup + wall) / st_wall, host_ms_per_task=wall / ran * 1e3,
+            pop_batches=stats["pop_batches"], prefetched_batches=stats["prefetched_batches"],
+            equal_dynamic=True, **pipeline_fields(stats))
+        del A
     del st_ref, zr, zc
 
     g_lead = torch.from_numpy(np.ascontiguousarray(grid[:FUSED_N, :FUSED_N])).to(dev)
@@ -1050,53 +1328,140 @@ def main() -> int:
     del g64, f_ref, f_out, g_lead
     torch.cuda.empty_cache()
 
+    # -- transfer phase: the copy engine against pageable copies --------------
+    # the stencil's 64 tiles of 4 MiB, twice (512 MiB each way), through the
+    # device module's engine (pinned ring, copy streams; in batches of 32,
+    # as the lane and the committer move them) and through pageable .to() /
+    # .cpu(), in turns: pageable, engine, engine, pageable
+    xfer_dev = NativeExecutor._make_device()
+    tile = ST_N // ST_TILES
+    host_tiles = [np.ascontiguousarray(grid[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile])
+                  for i in range(ST_TILES) for j in range(ST_TILES)] * 2
+    xfer_bytes = sum(t.nbytes for t in host_tiles)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    gbps = {"h2d_pageable": [], "h2d_engine": [], "d2h_pageable": [], "d2h_engine": []}
+    for how in ("pageable", "engine", "engine", "pageable"):
+        if how == "engine":
+            d_tiles, secs = timed(lambda: [d for i in range(0, len(host_tiles), 32)
+                                           for d in xfer_dev._h2d_batch(host_tiles[i:i + 32])])
+            d2h = lambda: [h for i in range(0, len(d_tiles), 32)  # noqa: E731
+                           for h in xfer_dev._d2h_batch(d_tiles[i:i + 32])]
+        else:
+            d_tiles, secs = timed(lambda: [torch.from_numpy(t).to(dev) for t in host_tiles])
+            d2h = lambda: [t.cpu().numpy() for t in d_tiles]  # noqa: E731
+        gbps[f"h2d_{how}"].append(xfer_bytes / secs / 1e9)
+        hosts, secs = timed(d2h)
+        gbps[f"d2h_{how}"].append(xfer_bytes / secs / 1e9)
+        check(all(np.array_equal(h, t) for h, t in zip(hosts, host_tiles)),
+              f"transfer [{how}]: the round trip changed a tile")
+        del d_tiles, hosts
+    say("transfer", tiles=len(host_tiles), tile_bytes=host_tiles[0].nbytes,
+        bytes_each_way=xfer_bytes, gbps=gbps, pinned_peak_bytes=xfer_dev.pinned_bytes[1],
+        h2d_copies=xfer_dev.stats["h2d_copies"], d2h_copies=xfer_dev.stats["d2h_copies"])
+    del host_tiles, xfer_dev
+    torch.cuda.empty_cache()
+
     if "--profile" in sys.argv[1:]:
         # where the time goes: one extra run of each f32 dpotrf variant, the
-        # f32 prefill and the stencil under torch.profiler; device busy =
-        # the summed device time of every kernel and copy (all on one
-        # stream, so they never overlap).  `run` returns the seconds its
-        # busy time is counted against — the timed window plus the write-back
-        # home that follows it (ctx.fini() / close()), whose copies the
-        # profiler sees too — and those seconds' parts
+        # f32 prefill and the stencil under torch.profiler.  Copies run on
+        # their own streams and may overlap kernels, so device busy is the
+        # UNION of every kernel's and copy's device interval (their sum is
+        # printed beside it), and the copy time that overlaps kernel time is
+        # union(copies) + union(kernels) - union(all).  `run` returns the
+        # seconds its busy time is counted against — the timed window plus
+        # the write-back home that follows it (ctx.fini() / close()), whose
+        # copies the profiler sees too — and those seconds' parts, with
+        # the bytes each direction moved
         from torch.profiler import ProfilerActivity, profile
+
+        def union_us(spans):
+            total, end = 0.0, None
+            for s0, s1 in sorted(spans):
+                if end is None or s0 > end:
+                    total += s1 - s0
+                    end = s1
+                elif s1 > end:
+                    total += s1 - end
+                    end = s1
+            return total
 
         def profiled(label, run):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 wall, parts = run()
-            rows = []
-            for ev in prof.key_averages():
+            spans = {"h2d": [], "d2h": [], "kernel": []}
+            rows = {}
+            for ev in prof.events():
                 if ev.device_type != torch.autograd.DeviceType.CUDA:
                     continue
-                us = getattr(ev, "self_device_time_total", None)
-                if us is None:
-                    us = ev.self_cuda_time_total
-                rows.append((us, ev.count, ev.key))
-            busy_ms = sum(r[0] for r in rows) / 1e3
-            rows.sort(reverse=True)
-            say("profile", variant=label, window_s=wall, device_busy_ms=busy_ms,
-                device_idle_share=1.0 - busy_ms / 1e3 / wall, parts=parts,
-                top=[{"kernel": k[:90], "count": c, "ms": us / 1e3}
-                     for us, c, k in rows[:8]])
+                what = ("h2d" if ev.name.startswith("Memcpy HtoD") else
+                        "d2h" if ev.name.startswith("Memcpy DtoH") else "kernel")
+                spans[what].append((ev.time_range.start, ev.time_range.end))
+                row = rows.setdefault(ev.name, [0.0, 0])
+                row[0] += ev.time_range.end - ev.time_range.start
+                row[1] += 1
+            copies = spans["h2d"] + spans["d2h"]
+            busy_us = union_us(copies + spans["kernel"])
+            copy_us, kernel_us = union_us(copies), union_us(spans["kernel"])
+            overlap_us = copy_us + kernel_us - busy_us
+            h2d_ms = sum(e - b for b, e in spans["h2d"]) / 1e3
+            d2h_ms = sum(e - b for b, e in spans["d2h"]) / 1e3
+            top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]
+            say("profile", variant=label, window_s=wall, device_busy_ms=busy_us / 1e3,
+                busy_sum_ms=sum(e - b for v in spans.values() for b, e in v) / 1e3,
+                device_idle_share=1.0 - busy_us / 1e6 / wall,
+                h2d_ms=h2d_ms, h2d_count=len(spans["h2d"]),
+                d2h_ms=d2h_ms, d2h_count=len(spans["d2h"]),
+                h2d_gbps=parts.get("bytes_in", 0) / h2d_ms / 1e6 if h2d_ms else None,
+                d2h_gbps=parts.get("bytes_out", 0) / d2h_ms / 1e6 if d2h_ms else None,
+                kernel_ms=kernel_us / 1e3, copy_kernel_overlap_ms=overlap_us / 1e3,
+                copy_overlap_share=overlap_us / copy_us if copy_us else None,
+                parts=parts, top=[{"kernel": k[:90], "count": c, "ms": us / 1e3}
+                                  for k, (us, c) in top])
 
         def with_flush(wall, stats):
-            return wall + stats["flush_s"], dict(wall_s=wall, flush_s=stats["flush_s"])
+            return wall + stats["flush_s"], dict(
+                wall_s=wall, flush_s=stats["flush_s"], bytes_in=stats["bytes_in"],
+                bytes_out=stats["bytes_out"])
 
         def native_window(r):
-            _A, _ran, wall, setup, _counts, stats = r
+            stats = r[-1]
+            setup, wall = r[3], r[2]
             return setup + wall + stats["flush_s"], dict(
-                capture_build_s=setup, wall_s=wall, flush_s=stats["flush_s"])
+                capture_build_s=setup, wall_s=wall, flush_s=stats["flush_s"],
+                bytes_in=stats["bytes_in"], bytes_out=stats["bytes_out"])
 
         for name, kw, _tol in variants[:2]:
             profiled(name, lambda: with_flush(*run_dpotrf(kw)[1::2]))
         name, arrays, dt, kw, _tol = attn_runs[0]
         profiled(name, lambda: with_flush(*run_attention(
             *(torch.from_numpy(a).to(dt) for a in arrays), **kw)[1::2]))
-        profiled("stencil", lambda: with_flush(*run_stencil()[1::2]))
+        # the stencil's staging, through Context and the pump, at each depth
+        for depth in (1, 2):
+            with stage_depth(mca_param, depth):
+                profiled(f"stencil_depth{depth}",
+                         lambda: with_flush(*run_stencil()[1::2]))
+                profiled(f"stencil_native_depth{depth}",
+                         lambda: native_window(run_stencil_native()))
         # set-up + run + close(): the same span as the dynamic run's window
-        # (startup enumeration inside it) plus its fini()
-        profiled("kernels_native", lambda: native_window(run_dpotrf_native(variants[0][1])))
+        # (startup enumeration inside it) plus its fini(); at each depth
+        for depth in (1, 2):
+            with stage_depth(mca_param, depth):
+                profiled(f"kernels_native_depth{depth}",
+                         lambda: native_window(run_dpotrf_native(variants[0][1])))
+
+        def prefill_native():
+            _out, wall, _n, stats = run_attention_native()
+            return wall, dict(bytes_in=stats["bytes_in"], bytes_out=stats["bytes_out"])
+
         # the whole entry-point call: close() and assemble() are inside it
-        profiled("attn_prefill_f32_native", lambda: (run_attention_native()[1], {}))
+        profiled("attn_prefill_f32_native", prefill_native)
 
     def entry(name, mode, n_launch, source="matmul.cu", line="70", key=None):
         row = results[key or (name, mode, TILE)]
@@ -1110,10 +1475,11 @@ def main() -> int:
         return out
 
     def mm_launches(name, mode):
-        """launches of one B1/B2 mode over the three dpotrf runs and the two
-        pump runs; split_f32
-        and B2 with bf16 operands run on no ported path (the reference's
-        callers of them, segmented LU and QR, are not ported yet)"""
+        """launches of one B1/B2 mode over every dpotrf run (dynamic at
+        both depths, the pump at both depths and under the 96 MB budget);
+        split_f32 and B2 with bf16 operands run on no ported path (the
+        reference's callers of them, segmented LU and QR, are not ported
+        yet)"""
         return sum(counts[name][mode] for counts in launches.values())
 
     table = [
@@ -1122,7 +1488,7 @@ def main() -> int:
         entry("matmul_update", "split", mm_launches("matmul_update", "split")),
         entry("matmul", "f32", mm_launches("matmul", "f32"), line="158"),
         entry("matmul", "bf16", mm_launches("matmul", "bf16"), line="158"),
-        entry("stencil_5pt", "f32", st_launches, "stencil.cu", "219",
+        entry("stencil_5pt", "f32", st_launch_total, "stencil.cu", "219",
               ("stencil_5pt", "f32")),
         entry("stencil_5pt_fused", "smem", fused_launches["smem"], "stencil.cu", "239",
               ("stencil_5pt_fused", "smem_f32")),
@@ -1134,6 +1500,7 @@ def main() -> int:
         for mode, case in (("f32", "f32"), ("bf16", "bf16"), ("f32_wide", "f32_512x512_d512"),
                            ("bf16_wide", "bf16_512x512_d512"))
     ]
+    depth_walls.report()
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

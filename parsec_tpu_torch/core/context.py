@@ -345,7 +345,9 @@ class Context:
 
     def fini(self) -> None:
         """Reference ``parsec_fini``: drain and tear down.  Detaching the
-        devices writes every dirty device tile back to its host copy."""
+        devices writes every dirty device tile back to its host copy (the
+        write-back committer's flush first); a failed write-back raises
+        here."""
         for cb in self._fini_cbs:
             try:
                 cb()
@@ -360,9 +362,13 @@ class Context:
         self._threads.clear()
         from ..device import device as devmod
 
-        devmod.detach_devices(self)
-        self.scheduler.remove(self)
-        debug.verbose(3, "core", "context down")
+        try:
+            # flushes each device's write-back committer first; a
+            # committer error re-raises here, after every device detached
+            devmod.detach_devices(self)
+        finally:
+            self.scheduler.remove(self)
+            debug.verbose(3, "core", "context down")
 
     # context manager sugar
     def __enter__(self) -> "Context":

@@ -207,23 +207,58 @@ class Data:
         return f"Data(key={self.key}, copies={list(self.copies)})"
 
 
+def set_ready_event(tensor: torch.Tensor, event) -> None:
+    """Record that ``tensor``'s value is complete once ``event`` (a
+    ``torch.cuda.Event`` recorded after the copy or the body that produced
+    it) has completed.  Readers on other streams wait on it instead of on
+    the whole device."""
+    tensor._ptt_ready = event
+
+
+def ready_event(tensor: torch.Tensor):
+    """The event :func:`set_ready_event` attached to ``tensor``, or None."""
+    return getattr(tensor, "_ptt_ready", None)
+
+
+#: device index -> the side stream host reads of CUDA tensors run on
+_read_streams: Dict[int, Any] = {}
+_read_lock = threading.Lock()
+
+
+def _read_stream(device: torch.device):
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    with _read_lock:
+        s = _read_streams.get(idx)
+        if s is None:
+            s = _read_streams[idx] = torch.cuda.Stream(device=idx)
+        return s
+
+
 def host_array(payload):
     """A private, writable host copy of ``payload``'s value: an ndarray, or a
     torch CPU tensor for a bfloat16 tensor (numpy has no bfloat16).
 
-    A CUDA tensor is copied device->host with ``.cpu()`` after a device
-    synchronize: every device computation of the port is enqueued on the
-    device's stream, and a read from another thread must see it finished.
-    A torch CPU tensor's ``.numpy()`` — like ``np.asarray`` of an ndarray —
-    ALIASES the source, and host copies are mutated in place by CPU bodies,
-    so the result is always a fresh copy."""
+    A CUDA tensor is copied device->host on a side stream that first waits
+    on the tensor's ready event (:func:`set_ready_event`) — or, for a
+    tensor without one, on everything queued on the device's default
+    stream, where the port's bodies run — so the read blocks on that copy
+    alone, never on the whole device.  A torch CPU tensor's ``.numpy()`` —
+    like ``np.asarray`` of an ndarray — ALIASES the source, and host copies
+    are mutated in place by CPU bodies, so the result is always a fresh
+    copy."""
     if isinstance(payload, np.ndarray):
         return np.array(payload, copy=True)
     if isinstance(payload, torch.Tensor):
         t = payload.detach()
         if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-            t = t.cpu()
+            stream = _read_stream(t.device)
+            event = ready_event(payload)
+            with torch.cuda.stream(stream):
+                if event is not None:
+                    stream.wait_event(event)
+                else:
+                    stream.wait_stream(torch.cuda.default_stream(t.device))
+                t = t.cpu()  # blocking: ``payload`` is held until it is done
         else:
             t = t.clone()
         return t if t.dtype == torch.bfloat16 else t.numpy()

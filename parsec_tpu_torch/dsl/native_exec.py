@@ -20,21 +20,25 @@ termination never touch the interpreter.  Single rank.  Two body regimes:
   <parsec_tpu_torch.device.cuda.CudaDevice.submit_batch>` (stage, body,
   epilog; no completion) and retires it with ONE ``done_batch`` call.
   Per task the interpreter is entered zero times for bookkeeping: no
-  trampoline, no completion callback (``stats`` pins it).
+  trampoline, no completion callback (``stats`` pins it).  At
+  ``runtime_stage_depth`` >= 2 (the default is 1) the pump keeps a prefetch
+  window of popped batches whose inputs the device's transfer lane
+  stages while the oldest batch computes (:func:`_pump_loop`).
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: the legacy ASYNC-chore protocol (``runtime_native_sched=off``,
 ``device_cuda_eager_complete=0`` under the pump) and mixed DAGs with
 CPU-only classes under ``native_device=True`` (A.10); supertask fusion
 (A.4); a list of taskpools — the serve executor — and the lifecycle-event
-drain that feeds ``DEP_DECREMENT`` observers (A.9); the staging lane at
-stage depth > 1 (A.3).
+drain that feeds ``DEP_DECREMENT`` observers (A.9).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
+import time
 import types
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -58,6 +62,11 @@ def _native_sched_mode() -> str:
 
 #: max ready tasks one ``pop_batch`` call returns in pump mode
 _POP_BATCH = 256
+
+#: the intra-wave split threshold: a lone ready batch is re-sliced across
+#: the prefetch window only when its prestage would move at least this
+#: many host->device bytes (the reference's ``runtime_stage_split_kb``)
+_STAGE_SPLIT_BYTES = 256 << 10
 
 
 def _fusion_mode() -> str:
@@ -130,42 +139,121 @@ class _NativeDeviceTask(Task):
 def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
                shim: _NativePoolShim, retire_cb: Callable[[List[Any]], None]
                ) -> int:
-    """The zero-interpreter hot loop at stage depth 1.  Per iteration: ONE
-    ``pop_batch`` returns up to ``_POP_BATCH`` ready native ids,
-    the device dispatches them (completion deferred), rare cross-tile
-    write-backs land, the batch retires through
-    :func:`..core.scheduling.retire_native` (COMPLETE_EXEC pins only), and
-    ONE ``done_batch`` runs every dep decrement, successor push and
-    quiescence count natively.  Python cost is O(batches), not O(tasks)."""
+    """The zero-interpreter hot loop.  Per batch: ONE ``pop_batch`` returns
+    up to ``_POP_BATCH`` ready native ids, the device dispatches them
+    (completion deferred), rare cross-tile write-backs land, the batch
+    retires through :func:`..core.scheduling.retire_native` (COMPLETE_EXEC
+    pins only), and ONE ``done_batch`` runs every dep decrement, successor
+    push and quiescence count natively.  Python cost is O(batches), not
+    O(tasks).
+
+    When the device carries the staging pipeline (``stage_depth`` > 1) the
+    pump keeps a WINDOW of up to ``stage_depth`` popped-but-not-yet-
+    submitted batches: a batch with input tiles to move that is popped
+    behind an older one goes to the device's transfer lane
+    (:class:`..device.staging.StageLane`) at once, so its host->device
+    copies overlap the older batch's dispatch; when the pump reaches it,
+    the lane stops after the chunk in flight and the batch's submit
+    stages what is left.  The oldest batch, and one whose inputs are all
+    resident, stage in their own submit: handing them over would only add
+    a thread handoff and make the lane's Python contend with the pump for
+    the interpreter lock, with nothing to overlap.  When the whole ready
+    frontier fits one pop and its prestage would move at least
+    ``_STAGE_SPLIT_BYTES``, the batch is re-sliced across the free buffers
+    so the window pipelines INTRA-wave.  A prestage failure is non-fatal:
+    the submit path restages the tile and fails loudly if the data is
+    truly bad."""
     from ..core import scheduling
     from ..data.data import land_into_home
 
-    buf = (ctypes.c_int64 * _POP_BATCH)()
+    depth = max(1, int(getattr(dev, "stage_depth", 1)))
+    lane = None
+    if depth > 1:
+        from ..device.staging import StageLane
+
+        lane = StageLane(dev)
+    chunk = max(1, _POP_BATCH // depth)
+    free = collections.deque((ctypes.c_int64 * chunk)() for _ in range(depth))
+    window: collections.deque = collections.deque()  # (buf, n, batch, job)
     done = 0
-    while True:
-        n = ng.pop_batch(buf)
-        if n == 0:
+    try:
+        while True:
+            # fill the prefetch window: pop ready batches and hand the
+            # stage-ins of those behind the oldest to the lane
+            while free and len(window) < depth:
+                buf = free.popleft()
+                n = ng.pop_batch(buf)
+                if n == 0:
+                    free.appendleft(buf)
+                    break
+                stats["pop_batches"] += 1
+                stats["pumped_tasks"] += n
+                batch = [pump_index[buf[i]] for i in range(n)]
+                # the bytes to stage matter only to a batch the lane may
+                # take (one behind an older batch) or one that may split
+                need = dev.prestage_bytes(batch) if lane is not None and (
+                    window or (free and n >= 4)) else 0
+                if (need and need >= _STAGE_SPLIT_BYTES and not window
+                        and free and n >= 4):
+                    # one wide ready wave with real transfer work to hide:
+                    # re-slice it across the free buffers so the lane
+                    # prestages slot k+1 while slot k computes
+                    ids = [buf[i] for i in range(n)]
+                    bufs = [buf] + [free.popleft() for _ in range(len(free))]
+                    per = -(-n // len(bufs))
+                    off = 0
+                    for b in bufs:
+                        k = min(per, n - off)
+                        if k <= 0:
+                            free.append(b)
+                            continue
+                        for i in range(k):
+                            b[i] = ids[off + i]
+                        sub = batch[off:off + k]
+                        off += k
+                        job = lane.stage(sub) if window else None
+                        stats["prefetched_batches"] += job is not None
+                        window.append((b, k, sub, job))
+                    continue
+                job = lane.stage(batch) if need and window else None
+                stats["prefetched_batches"] += job is not None
+                window.append((buf, n, batch, job))
+            if not window:
+                if shim.failed:
+                    raise RuntimeError(f"native device run failed: {shim.fail_reason}")
+                if ng.quiesced():
+                    return done
+                raise RuntimeError(
+                    f"native pump stalled: ready queue empty with {done} "
+                    f"retired and {ng.sched_pending()} queued "
+                    "(cycle or missing commit?)")
+            buf, n, batch, job = window.popleft()
+            t0 = time.perf_counter()
+            if job is not None:
+                # stops the lane after its chunk in flight (and logs a
+                # prestage error): the submit stages what is left
+                job.wait()
+            t1 = time.perf_counter()
+            dev.submit_batch(batch)
+            t2 = time.perf_counter()
             if shim.failed:
                 raise RuntimeError(f"native device run failed: {shim.fail_reason}")
-            if ng.quiesced():
-                return done
-            raise RuntimeError(
-                f"native pump stalled: ready queue empty with {done} "
-                f"retired and {ng.sched_pending()} queued "
-                "(cycle or missing commit?)")
-        stats["pop_batches"] += 1
-        stats["pumped_tasks"] += n
-        batch = [pump_index[buf[i]] for i in range(n)]
-        dev.submit_batch(batch)
-        if shim.failed:
-            raise RuntimeError(f"native device run failed: {shim.fail_reason}")
-        for t in batch:
-            for (src, home) in t._wbs:
-                land_into_home(home, src.newest_copy().payload)
-        scheduling.retire_native(batch, dev)
-        done += ng.done_batch(buf, n)
-        stats["done_batches"] += 1
-        retire_cb(batch)
+            for t in batch:
+                for (src, home) in t._wbs:
+                    land_into_home(home, src.newest_copy().payload)
+            scheduling.retire_native(batch, dev)
+            done += ng.done_batch(buf, n)
+            stats["done_batches"] += 1
+            free.append(buf)
+            retire_cb(batch)
+            # seconds the pump thread spent waiting on the lane, in the
+            # device's dispatch and in retirement: O(batches) clock reads
+            stats["lane_wait_s"] += t1 - t0
+            stats["submit_s"] += t2 - t1
+            stats["retire_s"] += time.perf_counter() - t2
+    finally:
+        if lane is not None:
+            lane.close()
 
 
 class NativeExecutor:
@@ -206,7 +294,9 @@ class NativeExecutor:
         #: In pump mode both MUST stay 0.
         self.stats: Dict[str, int] = {
             "trampoline_entries": 0, "completion_callbacks": 0,
-            "pop_batches": 0, "done_batches": 0, "pumped_tasks": 0}
+            "pop_batches": 0, "done_batches": 0, "pumped_tasks": 0,
+            "prefetched_batches": 0,
+            "lane_wait_s": 0.0, "submit_s": 0.0, "retire_s": 0.0}
         self._stats_lock = threading.Lock()
         #: native id -> prebuilt device task, the pump's dispatch map
         self._pump_index: Dict[int, _NativeDeviceTask] = {}
@@ -531,9 +621,11 @@ class NativeExecutor:
 
     def close(self) -> None:
         """Release the native graph, then flush dirty device tiles home so
-        host-side readers (``TiledMatrix.to_array``) see the final data.
-        The device stays usable: a caller may share it across executors.
-        A failed flush raises — it would hand back pre-run host tiles."""
+        host-side readers (``TiledMatrix.to_array``) see the final data:
+        ``detach`` drains the write-back committer first and writes the
+        rest home in one batch.  The device stays usable: a caller may
+        share it across executors.  A failed flush — a committer error
+        included — raises: it would hand back pre-run host tiles."""
         ng = self._ng
         if ng is not None:
             self._ng = None

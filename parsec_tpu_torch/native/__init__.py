@@ -10,14 +10,16 @@ the JAX package's ``native/build/`` library.
 :class:`NativeGraph` is the dependency-counting dataflow engine (atomic
 counters, priority pool, native worker threads, and the batched
 pop/done control plane of the pump; reference role:
-``parsec/scheduling.c`` + ``mca/sched``).
+``parsec/scheduling.c`` + ``mca/sched``).  :class:`ZoneAllocator` is the
+offset allocator the CUDA device module accounts device bytes with
+(first fit, alignment, coalescing; reference role: ``zone_malloc.c``).
 
 There is no fallback.  A missing source, a failed g++ run or a library
 that lacks a declared symbol raises ``RuntimeError`` carrying the cause
 (the compiler's output included); nothing carries on through the dynamic
-path.  Not ported yet: the zone allocator (ROADMAP A.3), the standalone
-native ready queue, the legacy ASYNC entry points ``run_async`` /
-``task_done`` (A.10) and the binary tracer (A.9).
+path.  Not ported yet: the standalone native ready queue, the legacy
+ASYNC entry points ``run_async`` / ``task_done`` (A.10) and the binary
+tracer (A.9).
 """
 
 from __future__ import annotations
@@ -99,6 +101,58 @@ def load(src_dir: Optional[str] = None,
         abi.bind(lib)
         _lib = lib
         return lib
+
+
+class ZoneAllocator:
+    """Offset allocator over a byte budget (native first fit + coalesce).
+    The device owns the real memory (torch's caching allocator places the
+    tensors); the zone models the budget's segments, alignment and
+    fragmentation, so an allocation can fail under budget and trigger
+    eviction.  Raises when the library cannot be built: there is no
+    fallback."""
+
+    def __init__(self, capacity: int):
+        self._lib = load()
+        self._z = self._lib.pz_zone_new(capacity)
+        if not self._z:
+            raise MemoryError("pz_zone_new failed")
+
+    def alloc(self, nbytes: int, align: int = 256) -> Optional[int]:
+        """A byte offset, or None when fragmented or full."""
+        off = self._lib.pz_zone_alloc(self._z, nbytes, align)
+        return None if off < 0 else off
+
+    def release(self, offset: int) -> None:
+        if self._lib.pz_zone_release(self._z, offset) != 0:
+            raise ValueError(f"unknown offset {offset}")
+
+    @property
+    def used(self) -> int:
+        return self._lib.pz_zone_used(self._z)
+
+    @property
+    def capacity(self) -> int:
+        return self._lib.pz_zone_capacity(self._z)
+
+    @property
+    def largest_free(self) -> int:
+        return self._lib.pz_zone_largest_free(self._z)
+
+    @property
+    def num_live(self) -> int:
+        return self._lib.pz_zone_num_live(self._z)
+
+    def close(self) -> None:
+        z = getattr(self, "_z", None)
+        if z:
+            self._z = None
+            self._lib.pz_zone_destroy(z)
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 class NativeGraph:

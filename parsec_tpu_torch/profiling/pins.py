@@ -5,9 +5,9 @@ flags fired from the scheduling core; modules subscribe per-site.  Here
 ``fire`` is a near-no-op unless at least one subscriber is registered for
 the site (the reference gates with an enable mask, ``pins.h:161-171``).
 
-The port carries the sites its runtime core fires; the comm, collective,
-serving, compile and staging sites of :mod:`parsec_tpu.profiling.pins`
-arrive with the layers that fire them.
+The port carries the sites its runtime core and staging pipeline fire;
+the comm, collective, serving and compile sites of
+:mod:`parsec_tpu.profiling.pins` arrive with the layers that fire them.
 """
 
 from __future__ import annotations
@@ -39,6 +39,23 @@ DATA_VERSION_BUMP = "data_version_bump"  # write retired: new tile version
 # device-manager epilog entry, fired with the TASK as payload BEFORE its
 # outputs commit (version bumps)
 DEVICE_EPILOG_BEGIN = "device_epilog_begin"
+# staging-pipeline spans (device/staging.py): one begin/end pair per
+# host->device prefetch batch (STAGE_IN, fired on the transfer lane) and
+# per device->host commit batch (WRITEBACK, fired on the committer thread
+# or around a batched detach flush).  Payload {"rank","id","tiles",
+# "bytes"} (+ "seconds" on END).
+STAGE_IN_BEGIN = "stage_in_begin"
+STAGE_IN_END = "stage_in_end"
+WRITEBACK_BEGIN = "writeback_begin"
+WRITEBACK_END = "writeback_end"
+# happens-before edges of the staging pipeline: HB_STAGE_IN fires on the
+# transfer thread after a task's inputs are prestaged ({"task": task});
+# HB_WB_ENQUEUE on the thread that committed the epilog ({"ticket",
+# "data"}) and HB_WB_COMMIT on the committer thread when that deferred
+# write-back lands ({"tickets": [...]}).
+HB_STAGE_IN = "hb_stage_in"
+HB_WB_ENQUEUE = "hb_wb_enqueue"
+HB_WB_COMMIT = "hb_wb_commit"
 
 ALL_SITES = [v for k, v in list(globals().items()) if k.isupper() and isinstance(v, str)]
 
