@@ -124,6 +124,28 @@ tiles, the run evicts, and its graphs are captured within the room the
 budget leaves them, with no out-of-memory error and the open card's
 grid.
 
+Supertask fusion (``runtime_fusion``): the dynamic and pump runs of dpotrf
+``kernels`` and ``kernels_trtri``, the f32 prefill and the stencil each
+run six times more at stage depth 1 with waves off, fusion off and
+``auto`` in turns (off, auto, auto, off, off, auto), every output
+``torch.equal`` to the path's first run with the same kernel launches;
+under ``auto`` every region of the DAG is dispatched once
+(``fused_submits`` and ``fused_tasks`` equal to the partition's regions
+and members, dispatches = tasks - fused tasks + regions, and on the pumps
+no per-task interpreter entry); ``fusion`` lines print each path's
+regions by kind, dispatches against tasks, the walls, host ms a task and
+the ratio of the medians (``fusion_walls``).  A wall is the window a user
+waits for: on the dynamic path add_taskpool to the end of wait(), on the
+dpotrf and stencil pumps the executor's set-up (capture, partition and
+plans) plus its run — the pumps' lines also print the median set-up at
+each setting — and on the prefill pump the whole call.  The fused dpotrf
+``kernels`` pump runs once more at stage depth 2 (the transfer lane
+prestages supertasks), and the prefill once through
+``run_flash_attention_native(..., fusion="auto")``.  The near-full stencil
+pump runs once more with fusion ``auto`` (waves off), its grid equal to
+the open card's.  ``--profile`` adds the fused dpotrf ``kernels`` and
+stencil pumps.
+
 Every run of the CUDA device module must end with no synchronous
 write-back fallback (``wb_sync_fallbacks == 0``) and no wave that fell
 back to per-task dispatch (``wave_fallbacks == 0``).  Kernel launches
@@ -187,6 +209,9 @@ STAGE_DEPTHS = (1, 2, 2, 1, 1, 2)
 # wave batching on (the reference's minimum wave, 2) and off, in turns (on,
 # off, off, on, on, off), each path at stage depth 1
 WAVES = (2, 0, 0, 2, 2, 0)
+# supertask fusion (runtime_fusion) off and auto, in turns (off, auto, auto,
+# off, off, auto), each path at stage depth 1 with waves off
+FUSION = ("off", "auto", "auto", "off", "off", "auto")
 # GraphExecutor replays timed a path, as bench.py's graph path times them
 GRAPH_REPLAYS = 5
 # the near-full stencil pump run: a 16384^2 grid (2 GiB of tiles, both
@@ -250,7 +275,8 @@ class ABWalls:
 
 
 WAVE_KEYS = ("wave_submits", "wave_tasks", "wave_graphs", "wave_capture_s",
-             "wave_copy_bytes", "wave_graph_bytes", "wave_fallbacks", "oom_reliefs")
+             "wave_copy_bytes", "wave_graph_bytes", "wave_fallbacks", "oom_reliefs",
+             "fused_submits", "fused_tasks")
 
 
 def device_stats(dev, **extra) -> dict:
@@ -305,6 +331,7 @@ def main() -> int:
         from parsec_tpu_torch import native
         from parsec_tpu_torch.device import cuda as cuda_module
         from parsec_tpu_torch.dsl import GraphExecutor
+        from parsec_tpu_torch.dsl import fusion
         from parsec_tpu_torch.dsl.native_exec import NativeExecutor
         from parsec_tpu_torch.parallel import attention_reference
     except ImportError as e:
@@ -867,6 +894,72 @@ def main() -> int:
             host_ms_per_task=wall / tasks * 1e3,
             capture_share=stats["wave_capture_s"] / wall, **extra, **pipeline_fields(stats))
 
+    # supertask fusion off and auto in turns (FUSION), at stage depth 1 with
+    # waves off: every output equal to fusion off's, the same launches, and
+    # under auto every region of the DAG dispatched once (one fusion line a
+    # path: the medians and their ratio)
+    fusion_walls = ABWalls("fusion_walls", ("fusion_off", "off"), ("fusion_auto", "auto"))
+
+    def fusion_plan(tp):
+        """The regions runtime_fusion=auto carves out of ``tp``'s DAG at
+        the default horizon (both runtimes partition the whole captured
+        DAG alike): (regions by kind, regions, member tasks)."""
+        regions = fusion.partition(tp.capture(), tp.ptg.classes, mode="auto",
+                                   max_tasks=fusion.fusion_max_tasks())
+        kinds = {}
+        for r in regions:
+            kinds[r.kind] = kinds.get(r.kind, 0) + 1
+        return kinds, len(regions), sum(len(r.members) for r in regions)
+
+    def fusion_turns(path, ntasks, plan, run_one, window):
+        """``run_one(mode, rep)`` runs ``path`` once (its output and
+        launches checked against fusion off's) and returns (wall, stats,
+        host seconds beside the wall).  The wall is the ``window`` a user
+        waits for: the dynamic call from add_taskpool to the end of wait(),
+        a pump's set-up (capture, partition, plans) and run, or the whole
+        entry-point call; a pump's extras carry its set-up seconds
+        (``capture_build_s``).  Checks every run's dispatches — a fused
+        region counts one — and prints the path's fusion line, with the
+        median set-up at each setting where the pump reports it."""
+        kinds, n_regions, n_members = plan
+        turns = {"off": [], "auto": []}
+        for rep, mode in enumerate(FUSION):
+            with mca(mca_param, "runtime", "fusion", mode), \
+                    mca(mca_param, "runtime", "stage_depth", 1), \
+                    mca(mca_param, "device", "cuda_wave_batch", 0):
+                wall, stats, extra = run_one(mode, rep)
+            fused = mode == "auto"
+            want = (n_regions, n_members) if fused else (0, 0)
+            check((stats["fused_submits"], stats["fused_tasks"]) == want,
+                  f"{path} at fusion {mode}: fused submits and tasks "
+                  f"{stats['fused_submits']}, {stats['fused_tasks']}, expected {want}")
+            dispatches = ntasks - stats["fused_tasks"] + stats["fused_submits"]
+            check(stats["executed_tasks"] == dispatches,
+                  f"{path} at fusion {mode}: {stats['executed_tasks']} dispatches, "
+                  f"expected {dispatches}")
+            if "completion_callbacks" in stats:
+                check(stats["trampoline_entries"] == stats["completion_callbacks"] == 0
+                      and stats["pumped_tasks"] == dispatches,
+                      f"{path} at fusion {mode}: pump stats {stats}")
+            fusion_walls.add(path, mode, wall)
+            turns[mode].append((wall, dispatches, stats, extra))
+        med = {m: statistics.median(w for w, _, _, _ in runs) for m, runs in turns.items()}
+        setup = {f"median_setup_{m}_s": statistics.median(t[3]["capture_build_s"]
+                                                          for t in runs)
+                 for m, runs in turns.items() if "capture_build_s" in runs[0][3]}
+        say("fusion", path=path, window=window, tasks=ntasks, regions=kinds,
+            fused_submits=n_regions, fused_tasks=n_members,
+            dispatches_auto=turns["auto"][0][1], dispatches_off=ntasks,
+            mean_region=n_members / n_regions, walls_off_s=[t[0] for t in turns["off"]],
+            walls_auto_s=[t[0] for t in turns["auto"]], median_off_s=med["off"],
+            median_auto_s=med["auto"], auto_over_off=med["auto"] / med["off"],
+            host_ms_per_task_off=med["off"] / ntasks * 1e3,
+            host_ms_per_task_auto=med["auto"] / ntasks * 1e3, **setup,
+            extra_off=turns["off"][-1][3], extra_auto=turns["auto"][-1][3],
+            last_auto={k: turns["auto"][-1][2][k] for k in (
+                "bytes_in", "bytes_out", "h2d_copies", "evictions", "oom_reliefs",
+                "wave_fallbacks", "wb_sync_fallbacks")})
+
     for name, kw, _tol in variants[:2]:
         ntasks = dpotrf_task_count(nt, use_trtri=kw.get("use_trtri", False))
         for rep, wave in enumerate(WAVES):
@@ -997,6 +1090,68 @@ def main() -> int:
         pop_batches=stats["pop_batches"], prefetched_batches=stats["prefetched_batches"],
         launches=counts, equal_dynamic=True, last_tile_err=last, recon_err=recon,
         **pipeline_fields(stats))
+
+    fusion_plans = {}
+    for name, kw, _tol in variants[:2]:
+        ntasks = dpotrf_task_count(nt, use_trtri=kw.get("use_trtri", False))
+        plan = fusion_plan(cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(
+            NT=nt, A=TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32)))
+
+        def dynamic_one(mode, rep, name=name, kw=kw):
+            A, wall, counts, stats = run_dpotrf(kw)
+            check(counts == launches[name],
+                  f"{name} at fusion {mode}: launches {counts}, first run {launches[name]}")
+            check(np.array_equal(A.to_array(), dyn_factor[name]),
+                  f"{name} at fusion {mode}: the factor differs from the first run's")
+            launches[f"{name}_fusion_{mode}_{rep}"] = counts
+            return wall, stats, {"detach_s": stats["detach_s"]}
+
+        def pump_one(mode, rep, name=name, kw=kw, ntasks=ntasks):
+            A, ran, wall, setup, counts, stats = run_dpotrf_native(kw)
+            check(ran == ntasks, f"native {name} at fusion {mode}: {ran} tasks")
+            check(counts == launches[name],
+                  f"native {name} at fusion {mode}: launches {counts}, dynamic {launches[name]}")
+            check(np.array_equal(A.to_array(), dyn_factor[name]),
+                  f"native {name} at fusion {mode}: the factor differs from the dynamic path's")
+            launches[f"native_{name}_fusion_{mode}_{rep}"] = counts
+            return setup + wall, stats, {"capture_build_s": setup, "run_s": wall,
+                                         "flush_s": stats["flush_s"],
+                                         "pop_batches": stats["pop_batches"]}
+
+        fusion_turns(f"dpotrf {name}", ntasks, plan, dynamic_one, "add_taskpool..wait")
+        fusion_turns(f"dpotrf {name} pump", ntasks, plan, pump_one, "setup+run")
+        fusion_plans[name] = plan
+
+    # one fused pump run at stage depth 2: the transfer lane prestages the
+    # supertasks' slots like any batch, and the factor stays the dynamic one
+    name, kw, _tol = variants[0]
+    ntasks = dpotrf_task_count(nt, use_trtri=kw.get("use_trtri", False))
+    _kinds, n_regions, n_members = fusion_plans[name]
+    with mca(mca_param, "runtime", "fusion", "auto"), \
+            mca(mca_param, "runtime", "stage_depth", 2), \
+            mca(mca_param, "device", "cuda_wave_batch", 0):
+        A, ran, wall, setup, counts, stats = run_dpotrf_native(kw)
+    label = f"native {name} fusion auto depth 2"
+    dispatches = ntasks - n_members + n_regions
+    check(ran == ntasks and counts == launches[name],
+          f"{label}: {ran} tasks, launches {counts}, dynamic {launches[name]}")
+    check(np.array_equal(A.to_array(), dyn_factor[name]),
+          f"{label}: the factor differs from the dynamic path's")
+    check((stats["fused_submits"], stats["fused_tasks"]) == (n_regions, n_members),
+          f"{label}: fused submits and tasks {stats['fused_submits']}, "
+          f"{stats['fused_tasks']}, expected {(n_regions, n_members)}")
+    check(stats["trampoline_entries"] == stats["completion_callbacks"] == 0
+          and stats["pumped_tasks"] == stats["executed_tasks"] == dispatches,
+          f"{label}: pump stats {stats}")
+    check(stats["prefetched_batches"] > 0 and stats["prefetched_tiles"] > 0,
+          f"{label}: the lane prestaged nothing ({stats})")
+    launches[f"native_{name}_fusion_depth2"] = counts
+    say("fusion_depth2", path=f"dpotrf {name} pump", stage_depth=2, tasks=ran,
+        dispatches=dispatches, wall_s=wall, capture_build_s=setup,
+        setup_plus_wall_s=setup + wall, pop_batches=stats["pop_batches"],
+        prefetched_batches=stats["prefetched_batches"], equal_dynamic=True,
+        **pipeline_fields(stats))
+    del A
 
     # -- graph phase: dpotrf through GraphExecutor (whole-DAG capture) -------
     # the first call (warm-up, capture, replay) timed on its own; then
@@ -1235,16 +1390,17 @@ def main() -> int:
         wave_line(pf_name, wave, rep, pf_tasks, wall, stats)
         del out
 
-    def run_attention_native():
+    def run_attention_native(fusion=None):
         """run_flash_attention_native, the user entry point: build, capture,
         pump and assemble in one call, on a device module of its own so
-        its staging counters can be read.  Returns the output, wall
-        seconds, B5 launches per mode and the device's stats."""
+        its staging counters can be read (``fusion`` its argument).
+        Returns the output, wall seconds, B5 launches per mode and the
+        device's stats."""
         kernels.reset_counts()
         gc.collect()  # each timed window starts with no garbage pending
         t0 = time.perf_counter()
         pump_dev = NativeExecutor._make_device()
-        out = run_flash_attention_native(*pf_in, device=pump_dev, **pf_kw)
+        out = run_flash_attention_native(*pf_in, device=pump_dev, fusion=fusion, **pf_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         stats = device_stats(pump_dev, flush_s=0.0)
@@ -1287,52 +1443,93 @@ def main() -> int:
         del out
     del ref
     # the default depth's entry-point wall, the median of its runs
-    wall_total = statistics.median(depth_walls.walls[f"{pf_name} pump"][2])
-    # the same call's pieces, to time each apart: the graph's build, capture
-    # + engine build, the pump, close() and assemble()
-    t0 = time.perf_counter()
-    tp, assemble = build_flash_attention(*pf_in, use_cpu=False, **pf_kw)
-    t1 = time.perf_counter()
-    ex = NativeExecutor(tp, native_device=True)
-    t2 = time.perf_counter()
-    graph_s, setup = t1 - t0, t2 - t1
-    try:
+    wall_total = statistics.median(depth_walls.walls[f"{pf_name} pump"][1])
+
+    def prefill_pump():
+        """What run_flash_attention_native does, each piece timed apart on
+        an executor whose stats stay readable: the graph's build, capture +
+        engine build (with fusion, the partition and the plans), the pump,
+        close() and assemble().  Returns the output, the pieces' seconds
+        (``wall`` the whole call), tasks run, B5 launches and the
+        executor's stats merged with its device's."""
         kernels.reset_counts()
-        t0 = time.perf_counter()
-        ran = ex.run()
+        gc.collect()  # each timed window starts with no garbage pending
+        t = [time.perf_counter()]
+        tp, assemble = build_flash_attention(*pf_in, use_cpu=False, **pf_kw)
+        t.append(time.perf_counter())
+        ex = NativeExecutor(tp, native_device=True)
+        t.append(time.perf_counter())
+        try:
+            ran = ex.run()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            stats = dict(ex.stats)
+        finally:
+            ex.close()
+        t.append(time.perf_counter())
+        out = assemble()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n_launch = dict(kernels.flash_attention_block.launches_by_mode,
-                        total=kernels.flash_attention_block.launches)
-        stats = dict(ex.stats)
-    finally:
-        t0 = time.perf_counter()
-        ex.close()
-        close_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out = assemble()
-    assemble_s = time.perf_counter() - t0
-    stats.update(device_stats(ex.device, flush_s=close_s))
-    check(stats["wb_sync_fallbacks"] == 0, f"native {pf_name} (pieces): synchronous "
-          f"write-back fallbacks {stats['wb_sync_fallbacks']}")
+        t.append(time.perf_counter())
+        secs = dict(zip(("graph_build_s", "capture_build_s", "run_s", "close_s",
+                         "assemble_s"), np.diff(t).tolist()), wall=t[-1] - t[0])
+        stats.update(device_stats(ex.device, flush_s=secs["close_s"]))
+        check(stats["wb_sync_fallbacks"] == 0, "native prefill: synchronous write-back "
+              f"fallbacks {stats['wb_sync_fallbacks']}")
+        return out, secs, ran, dict(kernels.flash_attention_block.launches_by_mode,
+                                    total=kernels.flash_attention_block.launches), stats
+
+    # the same call's pieces, to time each apart
+    out, secs, ran, n_launch, stats = prefill_pump()
     pump_gates(f"native {pf_name} (pieces)", ran, pf_tasks, stats)
     b5_gates(f"native {pf_name} (pieces)", out, n_launch)
     del out
     attn_launches[f"{pf_name}_native_pieces"] = n_launch
-    pump_run_s = wall
+    wall = pump_run_s = secs["run_s"]
     # wall_s is ex.run() alone; the dynamic wall is the whole
     # run_flash_attention call (build, run, assemble), so the whole
     # run_flash_attention_native call is the window that compares with it
     say("native", path="attention", run=pf_name, tasks=ran, wall_s=wall,
-        capture_build_s=setup, tasks_per_s=ran / wall, host_ms_per_task=wall / ran * 1e3,
-        pop_batches=stats["pop_batches"], graph_build_s=graph_s, close_s=close_s,
-        assemble_s=assemble_s, entry_point_wall_s=wall_total,
+        capture_build_s=secs["capture_build_s"], tasks_per_s=ran / wall,
+        host_ms_per_task=wall / ran * 1e3, pop_batches=stats["pop_batches"],
+        graph_build_s=secs["graph_build_s"], close_s=secs["close_s"],
+        assemble_s=secs["assemble_s"], entry_point_wall_s=wall_total,
         dynamic_wall_s=attn_wall[pf_name], same_window_ratio=wall_total / attn_wall[pf_name],
         same_window_host_ms_per_task=wall_total / ran * 1e3,
         dynamic_host_ms_per_task=attn_wall[pf_name] / ran * 1e3,
         prefetched_batches=stats["prefetched_batches"], launches=n_launch["total"],
         equal_dynamic=True, **pipeline_fields(stats))
-    del tp, assemble, ex
+
+    pf_plan = fusion_plan(build_flash_attention(*pf_in, use_cpu=False, **pf_kw)[0])
+
+    def prefill_dynamic_one(mode, rep):
+        out, wall, n_launch, stats = run_attention(*pf_in, **pf_kw)
+        check(n_launch == attn_launches[pf_name],
+              f"{pf_name} at fusion {mode}: B5 launches {n_launch}")
+        check(torch.equal(out, attn_out[pf_name]),
+              f"{pf_name} at fusion {mode}: output differs from the first run's")
+        attn_launches[f"{pf_name}_fusion_{mode}_{rep}"] = n_launch
+        return wall, stats, {"detach_s": stats["detach_s"]}
+
+    def prefill_pump_one(mode, rep):
+        out, secs, ran, n_launch, stats = prefill_pump()
+        check(ran == pf_tasks, f"native {pf_name} at fusion {mode}: {ran} tasks")
+        b5_gates(f"native {pf_name} at fusion {mode}", out, n_launch)
+        attn_launches[f"{pf_name}_native_fusion_{mode}_{rep}"] = n_launch
+        return secs["wall"], stats, dict(secs, pop_batches=stats["pop_batches"])
+
+    fusion_turns(pf_name, pf_tasks, pf_plan, prefill_dynamic_one, "the whole call")
+    fusion_turns(f"{pf_name} pump", pf_tasks, pf_plan, prefill_pump_one, "the whole call")
+    # the user's entry point with its fusion= argument (runtime_fusion off)
+    out, entry_wall, n_launch, stats = run_attention_native(fusion="auto")
+    b5_gates(f"run_flash_attention_native({pf_name}, fusion='auto')", out, n_launch)
+    del out
+    check((stats["fused_submits"], stats["fused_tasks"]) == pf_plan[1:],
+          f"run_flash_attention_native(fusion='auto'): fused submits and tasks "
+          f"{stats['fused_submits']}, {stats['fused_tasks']}, expected {pf_plan[1:]}")
+    attn_launches[f"{pf_name}_native_fusion_entry"] = n_launch
+    say("fusion_entry_point", path=f"{pf_name} pump", fusion="auto",
+        entry_point_wall_s=entry_wall, tasks=pf_tasks,
+        dispatches=stats["executed_tasks"], **pipeline_fields(stats))
 
     # -- graph phase: the f32 prefill through GraphExecutor --------------------
     tp, assemble = build_flash_attention(*pf_in, use_cpu=False, **pf_kw)
@@ -1543,13 +1740,46 @@ def main() -> int:
         wave_line("stencil pump", wave, rep, ran, wall, stats, capture_build_s=setup,
                   pop_batches=stats["pop_batches"])
         del A
-    # a near-full card with waves on: a grid twice the path's side (2 GiB
-    # of tiles) for NEAR_FULL_STEPS steps through the pump, with waves off
-    # on the open card, then with waves on after a ballast tensor has left
-    # NEAR_FULL_MB free: the automatic budget (85% of what the wave graphs'
-    # room and a chunk in flight leave) is then below the tiles, so the
-    # pump evicts while its graphs are captured within their room, with no
-    # out-of-memory error, and the grid equals the open card's
+    # the stencil's fusion turns, through Context and the pump: its levels
+    # fuse into waves of the default horizon
+    st_plan = fusion_plan(stencil_ptg(use_kernels=True, use_cpu=False).taskpool(
+        T=ST_T, MT=ST_TILES, NT=ST_TILES, A=StencilBuffers(grid, ST_TILES, ST_TILES)))
+
+    def stencil_dynamic_one(mode, rep):
+        nonlocal st_launch_total
+        A, wall, n_launch, stats = run_stencil()
+        check(n_launch == n_tasks_st,
+              f"stencil at fusion {mode}: {n_launch} stencil_5pt launches")
+        check(np.array_equal(A.to_array(ST_T % 2), st_dyn),
+              f"stencil at fusion {mode}: grid differs from the first run's")
+        st_launch_total += n_launch
+        return wall, stats, {"detach_s": stats["detach_s"]}
+
+    def stencil_pump_one(mode, rep):
+        nonlocal st_launch_total
+        A, ran, wall, setup, n_launch, stats = run_stencil_native()
+        check(ran == n_tasks_st and n_launch == n_tasks_st,
+              f"native stencil at fusion {mode}: {ran} tasks, {n_launch} launches")
+        check(np.array_equal(A.to_array(ST_T % 2), st_dyn),
+              f"native stencil at fusion {mode}: grid differs from the dynamic path's")
+        st_launch_total += n_launch
+        return setup + wall, stats, {"capture_build_s": setup, "run_s": wall,
+                                     "flush_s": stats["flush_s"],
+                                     "pop_batches": stats["pop_batches"]}
+
+    fusion_turns("stencil", n_tasks_st, st_plan, stencil_dynamic_one, "add_taskpool..wait")
+    fusion_turns("stencil pump", n_tasks_st, st_plan, stencil_pump_one, "setup+run")
+
+    # a near-full card: a grid twice the path's side (2 GiB of tiles) for
+    # NEAR_FULL_STEPS steps through the pump, with waves off on the open
+    # card, then after a ballast tensor has left NEAR_FULL_MB free, once
+    # with waves on and once with fusion on.  With waves the automatic
+    # budget (85% of what the wave graphs' room and a chunk in flight
+    # leave) is below the tiles, so the pump evicts while its graphs are
+    # captured within their room; with fusion the budget gives up a
+    # region's room (twice its output bytes) and its regions run within
+    # what is left.  No out-of-memory error, and the grid equals the open
+    # card's
     big = np.random.default_rng(1).standard_normal((2 * ST_N, 2 * ST_N)).astype(np.float32)
     big_tasks = 4 * ST_TILES * ST_TILES * NEAR_FULL_STEPS
     with mca(mca_param, "device", "cuda_wave_batch", 0):
@@ -1557,21 +1787,32 @@ def main() -> int:
     check(ran == n_launch == big_tasks, f"open-card big stencil: {ran} tasks, {n_launch} launches")
     big_want = A.to_array(NEAR_FULL_STEPS % 2)
     del A
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, _total = torch.cuda.mem_get_info(dev)
-    ballast = torch.empty(free - (NEAR_FULL_MB << 20), dtype=torch.uint8, device=dev)
-    try:
-        free_left, _total = torch.cuda.mem_get_info(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        reserved = torch.cuda.memory_reserved(dev)
-        with mca(mca_param, "device", "cuda_wave_batch", 2):
-            A, ran, wall, setup, n_launch, stats = run_stencil_native(big, NEAR_FULL_STEPS)
-        # what the run reserved beyond the card's state at its start
-        peak = torch.cuda.max_memory_reserved(dev) - reserved
-    finally:
-        del ballast
+
+    def near_full(settings):
+        """The big stencil through the pump behind a ballast leaving
+        NEAR_FULL_MB free, with the MCA ``settings`` ((framework, name):
+        value); returns the free bytes left, the bytes the run reserved
+        beyond the card's state at its start, and the run's results."""
+        gc.collect()
         torch.cuda.empty_cache()
+        free, _total = torch.cuda.mem_get_info(dev)
+        ballast = torch.empty(free - (NEAR_FULL_MB << 20), dtype=torch.uint8, device=dev)
+        try:
+            free_left, _total = torch.cuda.mem_get_info(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reserved = torch.cuda.memory_reserved(dev)
+            with contextlib.ExitStack() as params:
+                for (framework, name), value in settings.items():
+                    params.enter_context(mca(mca_param, framework, name, value))
+                res = run_stencil_native(big, NEAR_FULL_STEPS)
+            peak = torch.cuda.max_memory_reserved(dev) - reserved
+        finally:
+            del ballast
+            torch.cuda.empty_cache()
+        return (free_left, peak) + res
+
+    free_left, peak, A, ran, wall, setup, n_launch, stats = near_full(
+        {("device", "cuda_wave_batch"): 2})
     label = f"native stencil {2 * ST_N}^2, {NEAR_FULL_MB} MB free, waves on"
     pump_gates(label, ran, big_tasks, stats)
     check(n_launch == big_tasks, f"{label}: {n_launch} stencil_5pt launches")
@@ -1586,6 +1827,27 @@ def main() -> int:
         tile=ST_N // ST_TILES, T=NEAR_FULL_STEPS, wave_batch=2, tasks=ran, launches=n_launch,
         wall_s=wall, capture_build_s=setup, mem_budget=stats["mem_budget"],
         run_peak_reserved_bytes=peak, equal_open_card=True, **pipeline_fields(stats))
+    del A
+    big_plan = fusion_plan(stencil_ptg(use_kernels=True, use_cpu=False).taskpool(
+        T=NEAR_FULL_STEPS, MT=2 * ST_TILES, NT=2 * ST_TILES,
+        A=StencilBuffers(big, 2 * ST_TILES, 2 * ST_TILES)))
+    free_left, peak, A, ran, wall, setup, n_launch, stats = near_full(
+        {("runtime", "fusion"): "auto", ("device", "cuda_wave_batch"): 0})
+    label = f"native stencil {2 * ST_N}^2, {NEAR_FULL_MB} MB free, fusion auto"
+    check(ran == n_launch == big_tasks, f"{label}: {ran} tasks, {n_launch} launches")
+    check(stats["trampoline_entries"] == stats["completion_callbacks"] == 0,
+          f"{label}: per-task interpreter entries in pump mode ({stats})")
+    check((stats["fused_submits"], stats["fused_tasks"]) == big_plan[1:],
+          f"{label}: fused submits and tasks {stats['fused_submits']}, "
+          f"{stats['fused_tasks']}, expected {big_plan[1:]}")
+    check(np.array_equal(A.to_array(NEAR_FULL_STEPS % 2), big_want),
+          f"{label}: grid differs from the open card's")
+    say("native", path="stencil", near_full_free_bytes=free_left, N=2 * ST_N,
+        tile=ST_N // ST_TILES, T=NEAR_FULL_STEPS, fusion="auto", regions=big_plan[0],
+        tasks=ran, launches=n_launch, wall_s=wall, capture_build_s=setup,
+        mem_budget=stats["mem_budget"], run_peak_reserved_bytes=peak, equal_open_card=True,
+        **pipeline_fields(stats))
+    st_launch_total += n_launch
     del A, big, big_want
     del st_ref, zr, zc
 
@@ -1797,6 +2059,13 @@ def main() -> int:
                          lambda: with_flush(*run_dpotrf(variants[0][1])[1::2]))
                 profiled(f"stencil_native_waves{wave}", lambda: native_window(run_stencil_native()))
 
+        # the fused dpotrf and stencil pumps (runtime_fusion=auto), beside
+        # the unfused depth-1 and waves-off rows above
+        with mca(mca_param, "runtime", "fusion", "auto"):
+            profiled("kernels_native_fusion",
+                     lambda: native_window(run_dpotrf_native(variants[0][1])))
+            profiled("stencil_native_fusion", lambda: native_window(run_stencil_native()))
+
         def graph_replay(ex, feeds):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1848,6 +2117,7 @@ def main() -> int:
     ]
     depth_walls.report()
     wave_walls.report()
+    fusion_walls.report()
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

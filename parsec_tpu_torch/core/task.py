@@ -128,6 +128,7 @@ class Task:
         "on_complete",
         "prof",
         "user",
+        "fused_n",
         "_dev_completed",
         "_dev_attempts",
         "_dev_effects",
@@ -163,6 +164,10 @@ class Task:
         self.on_complete: Optional[Callable[["Task"], None]] = None
         self.prof: Dict[str, float] = {}
         self.user: Any = None
+        #: logical tasks this instance retires: a fused supertask
+        #: (:mod:`parsec_tpu_torch.dsl.fusion`) completes its N members at
+        #: once
+        self.fused_n: int = 1
         #: set by the device module once its eager-completion path has
         #: retired the task (guards the manager's error-containment fallback
         #: against double-completion)

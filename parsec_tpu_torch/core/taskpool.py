@@ -131,10 +131,14 @@ class Taskpool:
             self.on_complete(self)
 
     def task_done(self, task: Optional[Task] = None) -> None:
-        """Retire one task (drives termination detection)."""
+        """Retire one task (drives termination detection).  A fused
+        supertask (``task.fused_n > 1``) retires ALL its member tasks at
+        this one completion: the members were counted into the termdet at
+        startup, so the countdown and ``nb_retired`` move by N."""
+        n = task.fused_n if task is not None else 1
         with self._retire_lock:
-            self.nb_retired += 1
-        self.tdm.taskpool_addto_nb_tasks(self, -1)
+            self.nb_retired += n
+        self.tdm.taskpool_addto_nb_tasks(self, -n)
 
     def task_done_batch(self, n: int) -> None:
         """Retire ``n`` tasks in one call — the same as ``n``

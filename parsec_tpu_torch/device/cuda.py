@@ -63,6 +63,10 @@ per card (:class:`_WaveGraphs`), captured on a stream of their own, and
 live while a device module on the card holds them: a DAG pays its
 captures anew unless one stays attached.  The zone budget leaves the
 cache its room (:func:`_split_free`).
+A fused supertask (:mod:`..dsl.fusion`) is one task whose body runs a
+region's member bodies; it never rides a wave, and the runtime that
+fused it sets one region's bytes aside from an automatic budget
+(:meth:`CudaDevice.set_aside`).
 There is no jit and no compile cache (ROADMAP A.5).
 :meth:`CudaDevice.submit_batch` is the native pump's entry (no manager,
 completion left to the engine).
@@ -472,6 +476,10 @@ class CudaDevice(Device):
             help="device bytes (MB) managed for resident tiles (0=auto: "
                  "85% of the free device memory at attach, less what the "
                  "wave graphs may still take)")) << 20
+        #: whether the budget is the automatic one, and the bytes it
+        #: leaves to work in flight outside the zone (:meth:`set_aside`)
+        self._auto_budget = not budget
+        self._set_aside = 0
         if self.is_cuda:
             free, _total = torch.cuda.mem_get_info(self.tdev)
             graphs = self._graphs
@@ -479,6 +487,7 @@ class CudaDevice(Device):
                 free, budget, graphs.capacity - graphs.nbytes if graphs else 0)
             if graphs is not None:
                 self._graphs_cap = graphs.nbytes + room
+            self._set_aside = self._chunk_bytes
         elif not budget:
             budget = 4 << 30
         self.mem_used = 0
@@ -511,6 +520,9 @@ class CudaDevice(Device):
         for key in ("wave_submits", "wave_tasks", "wave_graphs", "wave_copy_bytes",
                     "wave_graph_bytes", "wave_fallbacks", "oom_reliefs"):
             self.stats[key] = 0
+        #: supertask fusion: fused regions dispatched and the member tasks
+        #: they ran (``fused_tasks / fused_submits`` is the mean region)
+        self.stats["fused_submits"] = self.stats["fused_tasks"] = 0
         self.stats["wave_capture_s"] = 0.0
         self._stats_lock = threading.Lock()
 
@@ -780,12 +792,15 @@ class CudaDevice(Device):
         body it does not read only through a ``**_`` catch-all
         (``_value_reads``, set by the PTG's device-body wrapper).  Excluded,
         as in the reference: custom stage hooks (the staged layout is the
-        hook's business).  The reference also excludes bodies that bake
-        values per task or donate inputs, and fused supertasks: the port
-        has no such body yet (fusion is ROADMAP A.4b)."""
+        hook's business) and fused supertasks (``_fused_n`` > 1, see
+        :mod:`..dsl.fusion`): a region is already one coarse dispatch of
+        many bodies, and batching regions would nest them for no gain.
+        The reference also excludes bodies that bake values per task or
+        donate inputs; the port has no such body."""
         body = task.selected_chore.body_fn if task.selected_chore else None
         if body is None or getattr(body, "_stage_in", None) \
-                or getattr(body, "_stage_out", None):
+                or getattr(body, "_stage_out", None) \
+                or getattr(body, "_fused_n", 1) > 1:
             return None
         reads = getattr(body, "_value_reads", None)
         sig: List[Any] = [getattr(body, "_graph_key", None) or body]
@@ -944,6 +959,25 @@ class CudaDevice(Device):
         if self.is_cuda:
             torch.cuda.empty_cache()
         self._bump(oom_reliefs=1)
+
+    def set_aside(self, nbytes: int) -> None:
+        """Leave ``nbytes`` outside an automatic budget for work in flight
+        that the zone does not account: a fused region's interior values
+        and fresh outputs, handed over by the runtime that fused it once
+        its regions are known (:func:`..dsl.fusion.region_room`).  A wave
+        chunk never runs beside a region (a fused body joins no wave), so
+        only what exceeds the bytes already set aside lowers the budget,
+        by the automatic budget's 85% of it, evicting down to it.  An
+        explicit budget stands."""
+        with self._res_lock:
+            extra = int(nbytes) - self._set_aside
+            if not self._auto_budget or extra <= 0:
+                return
+            self._set_aside = int(nbytes)
+            target = max(0, self.mem_budget - int(extra * 0.85))
+            while self.mem_used > target and self._evict_one():
+                pass
+            self.mem_budget = target
 
     def _chunk_cap(self, sig) -> int:
         """The most tasks of signature ``sig`` one chunk may hold: their
@@ -1110,6 +1144,10 @@ class CudaDevice(Device):
             return body(*dev_args), out_specs, out_hooks
 
         outputs, out_specs, out_hooks = self._relieving(stage_and_call)
+        fused_n = getattr(body, "_fused_n", 1)
+        if fused_n > 1:
+            # one fused region dispatched: its N members ran in the body
+            self._bump(fused_submits=1, fused_tasks=fused_n)
         if not isinstance(outputs, (tuple, list)):
             outputs = (outputs,)
         outputs = list(outputs)

@@ -99,6 +99,11 @@ class Device(Component):
         """Bytes of this task's input data already resident here (affinity)."""
         return 0
 
+    def set_aside(self, nbytes: int) -> None:
+        """Leave ``nbytes`` of this device's memory to work in flight that
+        its residency accounting does not see (a fused region's interior
+        values).  Devices with no memory budget have nothing to leave."""
+
 
 @register_component("device")
 class CpuDevice(Device):

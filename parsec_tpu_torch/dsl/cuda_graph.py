@@ -17,8 +17,8 @@ The dynamic runtime stays the tool for irregular DAGs, multi-pool
 composition and distributed execution; :class:`GraphExecutor` is the path
 for regular single-device taskpools.  Not ported yet:
 ``batch_levels=True`` (the reference's vmapped level batches; a
-ctypes-launched kernel cannot be vmapped), which comes with supertask
-fusion (ROADMAP A.4b).
+ctypes-launched kernel cannot be vmapped: the kernels need a batch grid
+dimension first, ROADMAP A.4c).
 """
 
 from __future__ import annotations
@@ -205,7 +205,7 @@ class GraphExecutor:
         if batch_levels:
             raise NotImplementedError(
                 "GraphExecutor(batch_levels=True): level batching is not "
-                "ported yet (ROADMAP A.4b)")
+                "ported yet (ROADMAP A.4c)")
         self.device = _resolve_device(device)
         self.taskpool = tp
         self.donate = donate

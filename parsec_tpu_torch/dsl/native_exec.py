@@ -26,13 +26,18 @@ termination never touch the interpreter.  Single rank.  Two body regimes:
   window of popped batches whose inputs the device's transfer lane
   stages while the oldest batch computes (:func:`_pump_loop`).
 
+Supertask fusion (:mod:`.fusion`, ``runtime_fusion`` or ``fusion=``): in
+pump mode each fused region is ONE native node — one device dispatch of
+the region's fused body, one ``done_batch`` slot retiring its N member
+tasks.  The CPU regime does not fuse, as in the reference: its bodies pay
+no device dispatch to save.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: the legacy ASYNC-chore protocol (``runtime_native_sched=off``,
 ``device_cuda_eager_complete=0`` under the pump) and mixed DAGs with
-CPU-only classes under ``native_device=True`` (A.10); supertask fusion
-(A.4b, the second half of A.4); a list of taskpools — the serve
-executor — and the lifecycle-event drain that feeds ``DEP_DECREMENT``
-observers (A.9).
+CPU-only classes under ``native_device=True`` (A.10); a list of
+taskpools — the serve executor — and the lifecycle-event drain that
+feeds ``DEP_DECREMENT`` observers (A.9).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..core.lifecycle import AccessMode, HookReturn, DEV_CPU
 from ..core.task import Chore, Task, TaskClass
 from ..profiling import pins
 from ..utils import mca_param
+from .fusion import FusedPlan, fusion_max_tasks, fusion_mode, partition, region_room
 from .graph import capture, source_tile
 from .ptg import CTL, PTGTaskpool, _wrap_device_body
 
@@ -69,13 +75,6 @@ _POP_BATCH = 256
 #: the prefetch window only when its prestage would move at least this
 #: many host->device bytes (the reference's ``runtime_stage_split_kb``)
 _STAGE_SPLIT_BYTES = 256 << 10
-
-
-def _fusion_mode() -> str:
-    return str(mca_param.register(
-        "runtime", "fusion", "off",
-        help="supertask fusion over captured graphs: off (fusion is not "
-             "ported yet)"))
 
 
 def _sched_seed() -> int:
@@ -273,17 +272,17 @@ class NativeExecutor:
     context, bound to the GPU unless
     ``PARSEC_MCA_device_cuda_torch_device=cpu`` asks for the torch CPU
     device.  :meth:`close` flushes dirty device tiles home.
+
+    ``fusion`` (None: the ``runtime_fusion`` MCA param) partitions the
+    captured DAG into fused regions in pump mode, one native node each
+    (``self._regions``); :meth:`run` still returns the LOGICAL task
+    count.  A partitioner failure raises.
     """
 
     def __init__(self, tp: PTGTaskpool, *, native_device: bool = False,
                  device=None, fusion: Optional[str] = None):
         from .. import native
 
-        mode = fusion if fusion is not None else _fusion_mode()
-        if mode not in ("", "off"):
-            raise NotImplementedError(
-                f"native fusion {mode!r}: supertask fusion is not ported yet "
-                "(ROADMAP A.4)")
         self._native = native
         native.load()  # raises with the cause: there is no fallback
         self.taskpool = tp
@@ -313,6 +312,7 @@ class NativeExecutor:
                     "DEP_DECREMENT observers on a pump run need the native "
                     "lifecycle-event drain, which comes with the profiling "
                     "layer (ROADMAP A.9)")
+            mode = fusion if fusion is not None else fusion_mode()
             if self.device is None:
                 self.device = self._make_device()
             if not getattr(self.device, "_eager", True):
@@ -324,11 +324,24 @@ class NativeExecutor:
         self.graph = capture(tp, ranks=[0])
         self._new_tiles: Dict[Tuple, np.ndarray] = {}
         self._new_data: Dict[Tuple, Any] = {}
-        #: per native task (user tag = index): its CPU body, or in pump
-        #: mode its prebuilt device task
+        #: per native node (user tag = index): its CPU body, or in pump
+        #: mode its prebuilt device task (a fused region's supertask)
         self._bodies: List[Any] = []
+        #: fused regions of the captured DAG (pump mode), each member's
+        #: region, and the regions' plans
+        self._regions: List[Any] = []
+        self._region_of: Dict[Tuple, Any] = {}
+        self._plans: List[FusedPlan] = []
+        if self.native_device:
+            self._regions = partition(self.graph, tp.ptg.classes, mode=mode,
+                                      max_tasks=fusion_max_tasks())
+            for r in self._regions:
+                for m in r.members:
+                    self._region_of[m] = r
         self._ng = None
         self._build()
+        if self._plans:
+            self.device.set_aside(region_room(self._plans))
 
     @staticmethod
     def _make_device():
@@ -368,8 +381,21 @@ class NativeExecutor:
         g = self.graph
         ng = self._ng = self._native.NativeGraph()
         index: Dict[Tuple, int] = {}
+        region_native: Dict[int, int] = {}
         order = list(g.nodes)
         for tid in order:
+            reg = self._region_of.get(tid)
+            if reg is not None:
+                # a fused region: ONE native node for all its members, at
+                # their highest priority
+                rid = region_native.get(reg.index)
+                if rid is None:
+                    rid = region_native[reg.index] = ng.add_task(
+                        priority=max(g.nodes[m].priority for m in reg.members),
+                        user_tag=len(self._bodies))
+                    self._bodies.append(self._make_fused_dispatch(reg, rid))
+                index[tid] = rid
+                continue
             node = g.nodes[tid]
             index[tid] = ng.add_task(priority=node.priority,
                                      user_tag=len(self._bodies))
@@ -378,10 +404,19 @@ class NativeExecutor:
                 body.native_id = index[tid]
                 self._pump_index[index[tid]] = body
             self._bodies.append(body)
+        # with regions, the contracted edges are DEDUPLICATED (add_dep is
+        # symmetric: one in-degree per declared edge, one release per
+        # successor entry, so one edge per node pair stays balanced), and
+        # intra-region edges run inside the fused body
+        seen_edges = set()
         for tid in order:
             me = index[tid]
             for (_f, succ, _sf) in g.nodes[tid].out_edges:
-                ng.add_dep(me, index[succ])
+                tgt = index[succ]
+                if tgt == me or (self._regions and (me, tgt) in seen_edges):
+                    continue
+                seen_edges.add((me, tgt))
+                ng.add_dep(me, tgt)
         if self.native_device:
             # decided BEFORE the commit pass: committing pushes the source
             # tasks, and those pushes must land in the native SchedQ
@@ -389,8 +424,8 @@ class NativeExecutor:
         # commit only after EVERY edge is declared: committing a task arms
         # it, and a task whose in-edges arrived after arming would release
         # early
-        for tid in order:
-            ng.commit(index[tid])
+        for nid in dict.fromkeys(index.values()):
+            ng.commit(nid)
         ng.seal()
 
     def _make_body(self, tid: Tuple):
@@ -524,6 +559,57 @@ class NativeExecutor:
                      for (src_data, cname2, key) in self._write_back_plan(tid)]
         return task
 
+    def _make_fused_dispatch(self, region, native_id: int) -> _NativeDeviceTask:
+        """Prebuild the supertask of a fused region: one device task whose
+        chore body is the region's :class:`.fusion.FusedPlan` body, over
+        one Data a slot.  The pump dispatches it like any device task and
+        its ``done_batch`` slot retires the N members (``fused_n``).
+        There is no completion callback: successor release is the
+        engine's, and every member's cross-tile write-back is
+        pre-resolved into ``_wbs``."""
+        tp = self.taskpool
+        g = self.graph
+        plan = FusedPlan(tp, g, region)
+        self._plans.append(plan)
+
+        def data_of_slot(key):
+            if key[0] == "ext":
+                # (producer tid, producer flow): the Data the producer's
+                # flow threads, as its own dispatch resolves it
+                key = source_tile(g, key[1], key[2])
+            return self._data_for(key)
+
+        task = _NativeDeviceTask(self._pool_shim, self._fused_tclass(plan),
+                                 (region.index,), plan.priority)
+        task.fused_n = len(region.members)
+        chore = Chore(plan.device_type, hook=lambda es, task: HookReturn.ASYNC)
+        chore.body_fn = plan.body_fn
+        task.selected_chore = chore
+        task.selected_device = self.device
+        task.body_args = [("data", data_of_slot(k), AccessMode(m) if m else AccessMode.IN)
+                          for k, m in zip(plan.slot_keys, plan.slot_modes)]
+        task.native_id = native_id
+        # every member's cross-tile write-backs, landed after the one
+        # dispatch; per home tile only the LAST member's landing survives
+        # (an earlier one would be superseded anyway)
+        wb_map: Dict[Tuple, Any] = {}
+        for tid in region.members:
+            for (src_data, cname2, key) in self._write_back_plan(tid):
+                wb_map[(cname2, key)] = src_data
+        task._wbs = [(src_data, tp.constants[cname2].data_of(*key))
+                     for (cname2, key), src_data in wb_map.items()]
+        self._pump_index[native_id] = task
+        return task
+
+    def _fused_tclass(self, plan) -> TaskClass:
+        """Bare vtable for a fused supertask (the contract of
+        :meth:`_device_tclass`: every completion-path slot is None)."""
+        cache = self.__dict__.setdefault("_ftclass_cache", {})
+        tc = cache.get(plan.name)
+        if tc is None:
+            tc = cache[plan.name] = TaskClass(plan.name)
+        return tc
+
     # -- default numpy path ----------------------------------------------
     def _make_numpy_body(self, tid: Tuple) -> Callable[[], None]:
         tp = self.taskpool
@@ -592,7 +678,8 @@ class NativeExecutor:
         return body
 
     def run(self, nthreads: int = 4) -> int:
-        """Execute to quiescence; returns the number of tasks run."""
+        """Execute to quiescence; returns the number of LOGICAL tasks run
+        (a fused region's node counts its members)."""
         if self.native_device:
             n = self._run_pump()
         else:
@@ -609,7 +696,7 @@ class NativeExecutor:
         if n != len(self._bodies):
             raise RuntimeError(
                 f"native engine retired {n}/{len(self._bodies)} tasks")
-        return n
+        return len(self.graph.nodes)
 
     def _run_pump(self) -> int:
         """Drive the zero-interpreter lifecycle (:func:`_pump_loop`).
@@ -617,9 +704,11 @@ class NativeExecutor:
         device dispatch: no trampoline is installed and no completion
         callback exists, and ``self.stats`` pins it."""
         tp = self.taskpool
+        # the progress currency counts logical tasks: a fused supertask
+        # retires all its members (the rule of Taskpool.task_done)
         return _pump_loop(self._ng, self.device, self._pump_index, self.stats,
                           self._pool_shim,
-                          lambda batch: tp.task_done_batch(len(batch)))
+                          lambda batch: tp.task_done_batch(sum(t.fused_n for t in batch)))
 
     def close(self) -> None:
         """Release the native graph, then flush dirty device tiles home so
@@ -637,16 +726,18 @@ class NativeExecutor:
 
 
 def run_native(tp, *, nthreads: int = 4, native_device: bool = False,
-               device=None) -> int:
+               device=None, fusion: Optional[str] = None) -> int:
     """One-shot: capture + native execution of ``tp``; returns the number
-    of tasks run.  With ``native_device=True`` every task runs through the
-    CUDA device module driven by the native pump (see
-    :class:`NativeExecutor`)."""
+    of (logical) tasks run.  With ``native_device=True`` every task runs
+    through the CUDA device module driven by the native pump, fused
+    regions as one dispatch each (``fusion``, None: ``runtime_fusion``;
+    see :class:`NativeExecutor`)."""
     if isinstance(tp, (list, tuple)):
         raise NotImplementedError(
             "run_native over a list of taskpools (the multi-tenant serve "
             "executor) is not ported yet (ROADMAP A.9)")
-    ex = NativeExecutor(tp, native_device=native_device, device=device)
+    ex = NativeExecutor(tp, native_device=native_device, device=device,
+                        fusion=fusion)
     try:
         return ex.run(nthreads=nthreads)
     finally:

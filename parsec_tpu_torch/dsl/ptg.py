@@ -41,9 +41,11 @@ native engine (:meth:`PTGTaskpool.run_native`, :mod:`.native_exec`) and
 the whole-DAG CUDA graph (:class:`.cuda_graph.GraphExecutor`) run the same
 definitions outside the dynamic path.
 
+Supertask fusion (:mod:`.fusion`, ``runtime_fusion``) is read at attach:
+fused regions dispatch as one supertask each.
+
 What the port leaves out, each raising ``NotImplementedError`` naming its
-ROADMAP item when reached: supertask fusion and ``GraphExecutor(
-batch_levels=True)`` (A.4b),
+ROADMAP item when reached: ``GraphExecutor(batch_levels=True)`` (A.4c),
 the ahead-of-time verifier and lint (A.9), remote successors and
 write-backs (A.8), and reshape property blocks (A.8).
 """
@@ -630,6 +632,11 @@ class PTGTaskpool(Taskpool):
         #: counting and repo-miss resolution: existence depends only on
         #: the taskpool constants
         self._exists_memo: Dict[Tuple[str, Tuple], bool] = {}
+        #: supertask-fusion table (:class:`.fusion.FusionTable`), built at
+        #: attach when ``runtime_fusion`` is on: routes fused members'
+        #: releases to region counters and dispatches each region as ONE
+        #: device chore; None = per-task dispatch (the default)
+        self._fusion = None
         for pc in ptg.classes.values():
             self.repos[pc.name] = DataRepo(nb_flows=len(pc.flows))
             self._build_class(pc)
@@ -648,18 +655,35 @@ class PTGTaskpool(Taskpool):
         return _capture(self, ranks)
 
     def run_native(self, *, nthreads: int = 4, native_device: bool = False,
-                   device=None) -> int:
+                   device=None, fusion: Optional[str] = None) -> int:
         """Execute this (unstarted) taskpool on the native C++ engine —
         dependency counting, scheduling and termination never enter the
         interpreter.  CPU bodies by default; ``native_device=True`` runs
         every task through the CUDA device module driven by the native
-        pump.  See :class:`parsec_tpu_torch.dsl.native_exec.NativeExecutor`."""
+        pump, fused regions as one dispatch each (``fusion``, None: the
+        ``runtime_fusion`` MCA param).  See
+        :class:`parsec_tpu_torch.dsl.native_exec.NativeExecutor`."""
         from .native_exec import run_native as _run_native
 
-        return _run_native(self, nthreads=nthreads,
-                           native_device=native_device, device=device)
+        return _run_native(self, nthreads=nthreads, native_device=native_device,
+                           device=device, fusion=fusion)
 
     def attached(self, context) -> None:
+        # supertask fusion (runtime_fusion): capture, partition and lower
+        # before any task is scheduled.  A failure fails this pool (the
+        # context stays usable) and raises: per-task dispatch never
+        # replaces a requested fusion in silence
+        from .fusion import build_fusion_table
+
+        try:
+            self._fusion = build_fusion_table(self, context)
+        except Exception as e:
+            self.context = context
+            self.fail(f"supertask fusion failed: {type(e).__name__}: {e}")
+            raise
+        if self._fusion is not None:
+            for d in context.devices:
+                d.set_aside(self._fusion.room)
         # no pre-scan: the chunked startup pass counts local tasks
         # incrementally while the first chunks already execute
         # (add_taskpool holds a runtime action across startup, so the
@@ -721,7 +745,9 @@ class PTGTaskpool(Taskpool):
                     if not self._is_startup(pc, loc, goal_known_zero=True):
                         undefined += 1
                     elif self._claim_source(pc.name, loc):
-                        ready.append(self._make_task(pc, loc))
+                        t = self._route_source(pc, loc)
+                        if t is not None:
+                            ready.append(t)
                     else:
                         claimed += 1  # a producer beat the scan to it: fine
                 if pending >= self.STARTUP_CHUNK:
@@ -739,6 +765,16 @@ class PTGTaskpool(Taskpool):
             self._local_cache[pc.name] = cached
             self._warn_undefined(pc, undefined, claimed)
         return []
+
+    def _route_source(self, pc: PTGTaskClass, loc: Tuple) -> Optional[Task]:
+        """Claimed startup source → a schedulable task: the task itself,
+        or for a fused member one region-readiness event (the supertask,
+        exactly once, when the region's last event lands)."""
+        if self._fusion is not None:
+            handled, supertask = self._fusion.route_ready(pc.name, loc)
+            if handled:
+                return supertask
+        return self._make_task(pc, loc)
 
     def _claim_source(self, name: str, locs: Tuple) -> bool:
         """Atomically claim the right to schedule a goal-0 task.  Closes
@@ -891,12 +927,18 @@ class PTGTaskpool(Taskpool):
         return release_deps
 
     def _release_deps_core(self, pc: PTGTaskClass, locals_: Tuple,
-                           flow_data: List[Optional[Data]]) -> List[Task]:
-        """Successor release for one completed task: write-backs, repo
-        deposits and dependency-counter decrements.  ``flow_data[f.index]``
-        is the Data behind each non-CTL flow."""
+                           flow_data: List[Optional[Data]],
+                           origin_region=None) -> List[Task]:
+        """Successor release for one (possibly fused) completed task:
+        write-backs, repo deposits and dependency-counter decrements.
+        ``flow_data[f.index]`` is the Data behind each non-CTL flow.
+        ``origin_region`` (a member-tid set) is the supertask's release:
+        successors inside the producer's own region ran inside the fused
+        body, never consume the repo and are not released (a decrement
+        would schedule the region twice)."""
         env = pc.env_of(locals_, self.constants)
         repo = self.repos[pc.name]
+        fusion = self._fusion
         entry = None
         nb_consumers = 0
         myrank = self.context.rank if self.context else 0
@@ -919,6 +961,9 @@ class PTGTaskpool(Taskpool):
                         continue
                     if not succ_pc.valid(locs, self.constants):
                         continue
+                    if origin_region is not None \
+                            and (t.class_name, locs) in origin_region:
+                        continue  # intra-region edge: ran in the fused body
                     if succ_pc.rank_of(locs, self.constants) != myrank:
                         raise NotImplementedError(
                             f"{pc.name}{locals_}: successor "
@@ -935,6 +980,20 @@ class PTGTaskpool(Taskpool):
             repo.set_usage_limit(locals_, nb_consumers)
         ready: List[Task] = []
         for succ_pc, locs in succ_list:
+            if fusion is not None:
+                ext = fusion.ext_goal(succ_pc.name, locs)
+                if ext is not None:
+                    # fused member: its counter runs with the EXTERNAL goal
+                    # (intra-region producers never fire) and readiness
+                    # feeds the region.  An ext-goal-0 member needs the
+                    # exactly-once claim of a goal-0 successor: a duplicate
+                    # region event would dispatch the supertask early
+                    became, _ = self.deps.release_counter((succ_pc.name, locs), ext)
+                    if became and (ext != 0 or self._claim_source(succ_pc.name, locs)):
+                        _, supertask = fusion.route_ready(succ_pc.name, locs)
+                        if supertask is not None:
+                            ready.append(supertask)
+                    continue
             goal = succ_pc.goal_of(locs, self.constants, self._exists_memo)
             became, _ = self.deps.release_counter((succ_pc.name, locs), goal)
             if became and (goal != 0

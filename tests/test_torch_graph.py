@@ -147,7 +147,7 @@ def test_apply_never_writes_through_and_outputs_survive_a_second_apply(feed):
 
 
 def test_graph_batch_levels_raises_a4b():
-    with pytest.raises(NotImplementedError, match="A.4b"):
+    with pytest.raises(NotImplementedError, match="A.4c"):
         GraphExecutor(_chain(PTG, LocalCollection, "cuda"), device="cpu", batch_levels=True)
 
 

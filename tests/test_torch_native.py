@@ -378,12 +378,6 @@ def _device_dpotrf():
 
 def _unported_hook(case, port_param):
     """Arrange one unported hook; returns (callable, ROADMAP item)."""
-    if case == "fusion_arg":
-        return lambda: NativeExecutor(_device_dpotrf(), native_device=True,
-                                      fusion="chains"), "A.4"
-    if case == "fusion_param":
-        port_param("runtime", "fusion", "auto")
-        return lambda: NativeExecutor(_device_dpotrf(), native_device=True), "A.4"
     if case == "native_sched_off":
         port_param("runtime", "native_sched", "off")
         return lambda: run_native(_device_dpotrf(), native_device=True), "A.10"
@@ -410,7 +404,7 @@ def _unported_hook(case, port_param):
 
 
 @pytest.mark.parametrize("case", [
-    "fusion_arg", "fusion_param", "native_sched_off", "eager_complete_0",
+    "native_sched_off", "eager_complete_0",
     "cpu_only_class", "taskpool_list", "dep_decrement_observer"])
 def test_unported_native_hooks_raise(case, cpu_device, port_param):
     fn, item = _unported_hook(case, port_param)
