@@ -37,7 +37,10 @@
    within 2x of the plain version's error); checks that two launches on
    the same inputs are bit-identical; and times kernel, plain version and,
    for B1/B2, the one-call PyTorch yardstick (``torch.addmm``,
-   ``torch.matmul``);
+   ``torch.matmul``); B1 ``split_f32`` with B not transposed and B2 f32
+   with B not transposed also at their callers' shapes (a segmented-LU
+   strip, 15872 x 4096 x 512; tiled QR's tsmqr, (1024 x 1024) x
+   (1024 x 512));
 4. dpotrf path: tiled dpotrf at N=8192 nb=512 float32 through
    ``Context`` / ``add_taskpool`` / ``wait`` with every task on the CUDA
    device module — hand kernels for the updates, then the ``use_trtri``
@@ -93,7 +96,23 @@
    and back through the device module's copy engine (pinned buffers, copy
    streams) and through pageable ``.to()`` / ``.cpu()``, in turns, each
    direction's GB/s printed;
-9. with ``--profile``, runs the two f32 dpotrf variants, the f32 prefill
+9. the dense factorizations beyond dpotrf: getrf's card tile body
+   (``lu_factor_ex(pivot=False)``) against the rank-1 loop it replaces;
+   ``SegmentedCholesky`` at N=32768 nb=512 (strip 4096, tail 4096) on the
+   KMS matrix built on the card, through ``Context`` and the CUDA device
+   module, static (twice), generic and bf16 storage, and
+   ``WholeCholesky`` twice as the runtime-bypassing ceiling, each gated
+   by the sampled 256-row reconstruction against the closed-form oracle
+   (bench.py:2227-2256; the matrix factored in place, no host copy);
+   ``SegmentedLU`` at N=16384 (tail 8192: plain f32, ``fused_update``
+   through B1 ``split_f32``, bf16 storage) and ``SegmentedQR`` (tail
+   2048), gated as bench.py:2475-2497; tiled LU and QR at N=8192 nb=512
+   with the hand kernels (B1 and B2 with B not transposed) through
+   ``Context``, the native pump (factor ``np.array_equal`` to the
+   dynamic one) and ``GraphExecutor`` (first call and two replays), gated
+   by a sampled reconstruction and by A^T A = R^T R on sampled columns;
+   each run's B1/B2 launches per mode checked exactly;
+10. with ``--profile``, runs the two f32 dpotrf variants, the f32 prefill
    and the stencil (through ``Context`` and through the pump, each at
    stage depth 1 and 2) once more under ``torch.profiler``, and the
    pump's dpotrf ``kernels`` (at stage depth 1 and 2) and f32 prefill,
@@ -103,7 +122,7 @@
    the pump's and the dynamic dpotrf and the stencil pump with waves on
    and off (``d2d_ms``: the wave chunks' device-to-device copies), and one
    ``GraphExecutor`` replay of dpotrf, the prefill and the stencil;
-10. prints each path's walls at stage depth 1 and 2 (``stage_depth_walls``,
+11. prints each path's walls at stage depth 1 and 2 (``stage_depth_walls``,
    with the ratio of their medians) and with waves on and off
    (``wave_walls``), the kernel table as one JSON line, the
    card line, and last ``{"ok": true, "device": {...}}``.
@@ -177,6 +196,12 @@ RAGGED = (500, 300, 200)
 TINY = (64, 64, 16)        # one slab of one output tile
 UNALIGNED = (130, 70, 37)  # row pitches that are not 16-byte multiples
 SHAPES = (TILE, RAGGED, TINY, UNALIGNED)
+# the B1/B2 modes the dense factorizations give callers, each timed at its
+# caller's shape beside the tile rows: split_f32 at a segmented-LU strip
+# (the first trailing strip at N=16384 nb=512, strip 4096) and B2 at
+# tiled QR's tsmqr ((2nb x 2nb) Q^T times the stacked (2nb x nb) tiles)
+CALLER_SHAPES = {("matmul_update", "split_nt"): (15872, 4096, 512),
+                 ("matmul", "f32_nt"): (1024, 512, 1024)}
 TOL_F32, TOL_BF16, TOL_SPLIT_F64 = 1e-4, 1e-3, 1e-5
 # B2 with bfloat16 output rounds the f32 sum once: one bf16 ulp at the
 # largest element
@@ -306,6 +331,405 @@ def card_line() -> str:
     return out.strip().splitlines()[0].strip()
 
 
+# -- the dense factorizations beyond dpotrf ------------------------------------
+# sizes from the reference's own bench: the panel stage's N=32768 nb=512
+# (bench.py:205-206) and the QR/LU stage's largest leg, N=16384
+# (bench.py:2544); the tiled LU and QR at the dpotrf path's N=8192 nb=512
+SEG_CHOL_N, SEG_NB, SEG_STRIP, SEG_CHOL_TAIL = 32768, 512, 4096, 4096
+SEG_QRLU_N, SEG_LU_TAIL, SEG_QR_TAIL = 16384, 8192, 2048
+SEG_SAMPLES = 256
+# gates: bench.py:2227-2256 (the KMS oracle, f32 1e-3, bf16 storage 1e-2)
+# and :2475-2497 (LU 1e-3, storage 1e-2; QR reconstruction and
+# orthogonality 1e-3); the tiled LU at the reference test's f32 rtol
+# (tests/collections/test_lu.py:43) and QR at _check_r's
+# (tests/collections/test_qr.py:53)
+TOL_SEG, TOL_SEG_STORAGE, TOL_TILED_LU, TOL_TILED_QR = 1e-3, 1e-2, 1e-4, 5e-3
+# a card getrf tile against the rank-1 loop it replaces (f32 ulps over nb
+# steps)
+TOL_GETRF = 1e-4
+TILED_REPLAYS = 2
+
+
+def factorization_phases(h):
+    """Segmented Cholesky (N=32768), segmented LU and QR (N=16384) through
+    ``Context`` and the CUDA device module, ``WholeCholesky`` as the
+    runtime-bypassing ceiling, then tiled LU and QR (N=8192) with the hand
+    kernels through ``Context``, the native pump and ``GraphExecutor``.
+    Each run is gated before its line prints.  ``h`` carries main's
+    helpers (numpy, torch, the device, the card line, ``say``,
+    ``check``, and ``profiled``: None, or with ``--profile`` the profile
+    pass, which then runs each path once more under ``torch.profiler``);
+    returns each gated run's B1/B2 launches per mode."""
+    np, torch, dev, card, say, check = h.np, h.torch, h.dev, h.card, h.say, h.check
+    profiled = h.profiled
+    from parsec_tpu_torch import Context
+    from parsec_tpu_torch.datadist import TiledMatrix
+    from parsec_tpu_torch.dsl import GraphExecutor
+    from parsec_tpu_torch.dsl.native_exec import NativeExecutor
+    from parsec_tpu_torch.ops import (SegmentedCholesky, SegmentedLU, SegmentedQR,
+                                      WholeCholesky, kernels, lu_ptg, lu_task_count,
+                                      n_segments, qr_constants, qr_ptg, qr_task_count)
+    from parsec_tpu_torch.ops.lu import getrf_cuda, getrf_plain
+
+    launches = {}
+
+    def counts():
+        return {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+                for fn in (kernels.matmul_update, kernels.matmul)}
+
+    def only(fn_name, mode, n):
+        """The launch counts of a run that launched ``n`` kernels of one
+        B1/B2 mode and nothing else."""
+        want = {fn.__name__: dict(dict.fromkeys(fn.launches_by_mode, 0), total=0)
+                for fn in (kernels.matmul_update, kernels.matmul)}
+        want[fn_name][mode] = want[fn_name]["total"] = n
+        return want
+
+    def timed(fn):
+        gc.collect()  # each timed window starts with no garbage pending
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def cuda_module(ctx):
+        d = next(d for d in ctx.devices if d.mca_name == "cuda")
+        check(d.tdev.type == "cuda", f"CUDA module bound to {d.tdev}")
+        return d
+
+    # -- getrf's card body against the rank-1 loop it replaces ---------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    T = torch.randn((SEG_NB, SEG_NB), generator=gen, device=dev) \
+        + SEG_NB * torch.eye(SEG_NB, device=dev)
+    card_lu, plain_lu = getrf_cuda(T), getrf_plain(T)
+    err = ((card_lu - plain_lu).abs().max() / plain_lu.abs().max()).item()
+    check(err < TOL_GETRF, f"getrf: card body vs rank-1 loop {err} >= {TOL_GETRF}")
+    say("getrf_tile", nb=SEG_NB, rel_err=err, tol=TOL_GETRF, card=card)
+    del T, card_lu, plain_lu
+
+    # -- segmented Cholesky, N=32768 ------------------------------------------
+    n, nb = SEG_CHOL_N, SEG_NB
+    # the KMS matrix rho^|i-j| (rho = 1/2) + 3 I, provably SPD, built on the
+    # card strip by strip (bench.py:2213-2225)
+    pristine = torch.empty((n, n), device=dev)
+    cols = torch.arange(n, device=dev, dtype=torch.float32)
+    for i0 in range(0, n, 2048):
+        pristine[i0:i0 + 2048] = torch.exp2(-(cols[i0:i0 + 2048, None] - cols[None, :]).abs())
+    pristine.diagonal().add_(3.0)
+    del cols
+    idx = torch.from_numpy(np.sort(np.random.default_rng(3).choice(
+        n, SEG_SAMPLES, replace=False))).to(dev)
+
+    def chol_gate(L):
+        """Sampled reconstruction against the closed-form oracle: rows idx
+        of L, masked to their lower triangle, times their transpose, held
+        against the KMS entries (bench.py:2227-2256), in float64."""
+        R = L[idx].double()  # gather first, upcast the 256 rows after
+        R *= torch.arange(n, device=dev)[None, :] <= idx[:, None]
+        d = (idx[:, None] - idx[None, :]).abs().double()
+        S = torch.exp2(-d) + 3.0 * torch.eye(SEG_SAMPLES, device=dev, dtype=torch.float64)
+        return ((R @ R.mT - S).abs().max() / 4.0).item()
+
+    flops = n ** 3 / 3
+    work = torch.empty_like(pristine)
+    walls = {}
+    ctx = Context()
+    try:
+        cuda_dev = cuda_module(ctx)
+        for label, kw, tol in (("f32_static", dict(specialize="static"), TOL_SEG),
+                               ("f32_static", dict(specialize="static"), TOL_SEG),
+                               ("f32_generic", dict(specialize="generic"), TOL_SEG),
+                               ("bf16_storage", dict(bf16="storage"), TOL_SEG_STORAGE)):
+            sc = SegmentedCholesky(ctx, n, nb, strip=SEG_STRIP, tail=SEG_CHOL_TAIL, **kw)
+            if kw.get("bf16"):
+                inp = pristine.to(torch.bfloat16)
+            else:
+                work.copy_(pristine)
+                inp = work
+            ptr, moved = inp.data_ptr(), (cuda_dev.stats["bytes_in"],
+                                          cuda_dev.stats["bytes_out"])
+            L, wall = timed(lambda: sc.run(inp))
+            check(L.data_ptr() == ptr, f"segmented cholesky {label}: the matrix moved")
+            check((cuda_dev.stats["bytes_in"], cuda_dev.stats["bytes_out"]) == moved,
+                  f"segmented cholesky {label}: the matrix was copied host<->device")
+            err = chol_gate(L)
+            check(err < tol, f"segmented cholesky {label}: sampled error {err} >= {tol}")
+            walls.setdefault(label, []).append(wall)
+            say("segmented", path="cholesky", variant=label, N=n, nb=nb, strip=SEG_STRIP,
+                tail=SEG_CHOL_TAIL, tasks=sc.nt_tasks, wall_s=wall,
+                gflops=flops / wall / 1e9, host_ms_per_task=wall / sc.nt_tasks * 1e3,
+                sampled_err=err, tol=tol, in_place=True, card=card)
+            del L, inp
+        if profiled:
+            sc = SegmentedCholesky(ctx, n, nb, strip=SEG_STRIP, tail=SEG_CHOL_TAIL)
+            work.copy_(pristine)
+            profiled("seg_cholesky_f32_static", lambda: (timed(lambda: sc.run(work))[1], {}))
+    finally:
+        ctx.fini()
+    wc = WholeCholesky(n, nb, strip=SEG_STRIP, device=dev)
+    for rep in range(2):
+        work.copy_(pristine)
+        L, wall = timed(lambda: wc.run(work))
+        err = chol_gate(L)
+        check(err < TOL_SEG, f"whole cholesky: sampled error {err} >= {TOL_SEG}")
+        walls.setdefault("whole", []).append(wall)
+        del L
+    if profiled:
+        work.copy_(pristine)
+        profiled("whole_cholesky_f32", lambda: (timed(lambda: wc.run(work))[1], {}))
+    runtime = min(walls["f32_static"])
+    whole = min(walls["whole"])
+    say("segmented", path="cholesky_whole", N=n, nb=nb, strip=SEG_STRIP,
+        walls_s=walls["whole"], gflops=flops / whole / 1e9, sampled_err=err,
+        runtime_wall_s=runtime, runtime_over_whole=runtime / whole, card=card)
+    del pristine, work
+    torch.cuda.empty_cache()
+
+    # -- segmented LU and QR, N=16384 -----------------------------------------
+    n = SEG_QRLU_N
+    gen.manual_seed(12)
+    A_lu = torch.randn((n, n), generator=gen, device=dev)
+    A_lu.diagonal().add_(float(n))  # diagonally dominant: nopiv-class input
+    gen.manual_seed(11)
+    A_qr = torch.randn((n, n), generator=gen, device=dev)
+    idx = torch.from_numpy(np.sort(np.random.default_rng(13).choice(
+        n, SEG_SAMPLES, replace=False))).to(dev)
+    rows = torch.arange(n, device=dev)
+    ref_lu = A_lu[idx][:, idx].double()
+
+    def lu_gate(M):
+        """Sampled L[idx, :] @ U[:, idx] against A[idx, idx], relative to
+        the sample's largest entry (bench.py:2487-2495), in float64."""
+        Lr = M[idx].double() * (rows[None, :] < idx[:, None]) \
+            + (rows[None, :] == idx[:, None])
+        Uc = M[:, idx].double() * (rows[:, None] <= idx[None, :])
+        return ((Lr @ Uc - ref_lu).abs().max() / ref_lu.abs().max()).item()
+
+    # split_f32 launches of one fused static run: one per trailing strip
+    n_split = sum(-(-(n - k0) // SEG_STRIP) for k0 in range(nb, n, nb))
+    work = torch.empty_like(A_lu)
+    ctx = Context()
+    try:
+        cuda_dev = cuda_module(ctx)
+        for label, kw, tol in (("f32", {}, TOL_SEG),
+                               ("fused_split", dict(fused_update=True), TOL_SEG),
+                               ("bf16_storage", dict(bf16="storage"), TOL_SEG_STORAGE)):
+            sl = SegmentedLU(ctx, n, nb, strip=SEG_STRIP, tail=SEG_LU_TAIL,
+                             specialize="static", **kw)
+            if kw.get("bf16"):
+                inp = A_lu.to(torch.bfloat16)
+            else:
+                work.copy_(A_lu)
+                inp = work
+            ptr = inp.data_ptr()
+            kernels.reset_counts()
+            M, wall = timed(lambda: sl.run(inp))
+            got = counts()
+            want = only("matmul_update", "split_nt", n_split if kw.get("fused_update") else 0)
+            check(got == want, f"segmented LU {label}: launches {got}, expected {want}")
+            launches[f"seg_lu_{label}"] = got
+            check(M.data_ptr() == ptr, f"segmented LU {label}: the matrix moved")
+            err = lu_gate(M)
+            check(err < tol, f"segmented LU {label}: sampled error {err} >= {tol}")
+            # the fused update's copies: each strip out and back (R x w
+            # read + written twice) and the U-row slice made contiguous
+            copy_bytes = 4 * sum(4 * (n - k0) * min(SEG_STRIP, n - c0) + 2 * nb * min(SEG_STRIP, n - c0)
+                                 for k0 in range(nb, n, nb) for c0 in range(k0, n, SEG_STRIP))
+            say("segmented", path="lu", variant=label, N=n, nb=nb, strip=SEG_STRIP,
+                tail=SEG_LU_TAIL, specialize="static", tasks=sl.nt_tasks, wall_s=wall,
+                gflops=2 / 3 * n ** 3 / wall / 1e9, host_ms_per_task=wall / sl.nt_tasks * 1e3,
+                sampled_err=err, tol=tol, launches=got,
+                strip_copy_bytes=copy_bytes if kw.get("fused_update") else 0, card=card)
+            del M, inp
+        if profiled:
+            sl = SegmentedLU(ctx, n, nb, strip=SEG_STRIP, tail=SEG_LU_TAIL,
+                             specialize="static", fused_update=True)
+            work.copy_(A_lu)
+            profiled("seg_lu_fused_split", lambda: (timed(lambda: sl.run(work))[1], {}))
+        del A_lu, ref_lu
+        sq = SegmentedQR(ctx, n, nb, strip=SEG_STRIP, tail=SEG_QR_TAIL)
+        work.copy_(A_qr)
+        kernels.reset_counts()
+        (Q, R), wall = timed(lambda: sq.run(work))
+        check(counts() == only("matmul", "f32", 0), f"segmented QR: launches {counts()}")
+        check(Q.data_ptr() == work.data_ptr(), "segmented QR: the matrix moved")
+        rec = Q.double() @ R[:, idx].double()
+        ref = A_qr[:, idx].double()
+        rec_err = ((rec - ref).abs().max() / ref.abs().max()).item()
+        qs = Q[:, idx].double()
+        orth = (qs.mT @ qs - torch.eye(SEG_SAMPLES, device=dev, dtype=torch.float64)
+                ).abs().max().item()
+        del rec, ref, qs, Q, R
+        check(rec_err < TOL_SEG and orth < TOL_SEG,
+              f"segmented QR: reconstruction {rec_err}, orthogonality {orth} (>= {TOL_SEG})")
+        say("segmented", path="qr", N=n, nb=nb, strip=SEG_STRIP, tail=SEG_QR_TAIL,
+            specialize="generic", tasks=sq.nt_tasks, wall_s=wall,
+            gflops=4 / 3 * n ** 3 / wall / 1e9, host_ms_per_task=wall / sq.nt_tasks * 1e3,
+            rec_err=rec_err, orth_err=orth, tol=TOL_SEG, card=card)
+        if profiled:
+            work.copy_(A_qr)
+            profiled("seg_qr", lambda: (timed(lambda: sq.run(work))[1], {}))
+    finally:
+        ctx.fini()
+    del A_qr, work
+    torch.cuda.empty_cache()
+
+    # -- tiled LU and QR, N=8192, hand kernels: dynamic, pump, GraphExecutor -
+    n = N
+    nt = n // NB
+    gen.manual_seed(21)
+    A_lu = (torch.randn((n, n), generator=gen, device=dev)
+            + n * torch.eye(n, device=dev)).cpu().numpy()
+    gen.manual_seed(22)
+    A_qr = torch.randn((n, n), generator=gen, device=dev).cpu().numpy()
+    idx = torch.from_numpy(np.sort(np.random.default_rng(14).choice(
+        n, SEG_SAMPLES, replace=False))).to(dev)
+    rows = torch.arange(n, device=dev)
+
+    def tiled_lu_gate(P):
+        Pd = torch.from_numpy(P).to(dev)
+        Lr = Pd[idx].double() * (rows[None, :] < idx[:, None]) + (rows[None, :] == idx[:, None])
+        Uc = Pd[:, idx].double() * (rows[:, None] <= idx[None, :])
+        ref = torch.from_numpy(A_lu).to(dev)[idx][:, idx].double()
+        return ((Lr @ Uc - ref).abs().max() / ref.abs().max()).item()
+
+    def tiled_qr_gate(P):
+        """A^T A = R^T R on the sampled columns (R upper: its zeroed lower
+        triangle checked exactly), relative to the sample's largest
+        entry."""
+        Rd = torch.from_numpy(P).to(dev)
+        check(bool((Rd.tril(-1) == 0).all()), "tiled QR: R has entries below the diagonal")
+        Rs = Rd[:, idx].double()
+        As = torch.from_numpy(A_qr).to(dev)[:, idx].double()
+        ref = As.mT @ As
+        return ((Rs.mT @ Rs - ref).abs().max() / ref.abs().max()).item()
+
+    tiled = (("lu", lu_ptg, lambda A: {}, A_lu, tiled_lu_gate, TOL_TILED_LU,
+              lu_task_count(nt), ("matmul_update", "f32_nt", (nt - 1) * nt * (2 * nt - 1) // 6),
+              2 / 3 * n ** 3),
+             ("qr", qr_ptg, qr_constants, A_qr, tiled_qr_gate, TOL_TILED_QR,
+              qr_task_count(nt), ("matmul", "f32_nt", nt * (nt - 1) // 2
+                                  + (nt - 1) * nt * (2 * nt - 1) // 6),
+              4 / 3 * n ** 3))
+    for path, make_ptg, consts, A0, gate, tol, ntasks, (fn_name, mode, n_mm), fl in tiled:
+        def pool():
+            A = TiledMatrix(n, n, NB, NB, name="A", dtype=np.float32).from_array(A0)
+            tp = make_ptg(use_cuda=True, use_cpu=False, use_kernels=True).taskpool(
+                NT=A.mt, A=A, **consts(A))
+            return A, tp
+
+        def dynamic():
+            """One run through Context: (matrix, wall, launches, device
+            stats, seconds of ctx.fini(): the write-back home)."""
+            A, tp = pool()
+            ctx = Context()
+            try:
+                cuda_dev = cuda_module(ctx)
+                kernels.reset_counts()
+
+                def run():
+                    ctx.add_taskpool(tp)
+                    return tp.wait(timeout=600)
+
+                ok, wall = timed(run)
+                got = counts()
+            finally:
+                t0 = time.perf_counter()
+                ctx.fini()
+                flush = time.perf_counter() - t0
+            check(ok, f"tiled {path}: taskpool failed ({tp.fail_reason})")
+            return A, wall, got, dict(cuda_dev.stats), flush
+
+        def pump():
+            """One run through the native pump: (matrix, tasks, run wall,
+            capture + build s, launches, close() s)."""
+            A, tp = pool()
+            t0 = time.perf_counter()
+            ex = NativeExecutor(tp, native_device=True)
+            setup = time.perf_counter() - t0
+            try:
+                kernels.reset_counts()
+                ran, wall = timed(ex.run)
+                got = counts()
+            finally:
+                t0 = time.perf_counter()
+                ex.close()
+                flush = time.perf_counter() - t0
+            return A, ran, wall, setup, got, flush
+
+        want = only(fn_name, mode, n_mm)
+        A, wall, got, stats, _flush = dynamic()
+        check(stats["executed_tasks"] == ntasks,
+              f"tiled {path}: {stats['executed_tasks']} tasks, expected {ntasks}")
+        check(got == want, f"tiled {path}: launches {got}, expected {want}")
+        launches[f"tiled_{path}_dynamic"] = got
+        dyn = A.to_array()
+        err = gate(dyn)
+        check(err < tol, f"tiled {path}: sampled error {err} >= {tol}")
+        say("tiled", path=path, runtime="dynamic", N=n, nb=NB, tasks=ntasks, wall_s=wall,
+            gflops=fl / wall / 1e9, host_ms_per_task=wall / ntasks * 1e3,
+            sampled_err=err, tol=tol, launches=got, card=card)
+        dyn_wall = wall
+        A, ran, wall, setup, got, _flush = pump()
+        check(ran == ntasks, f"tiled {path} pump: {ran} tasks, expected {ntasks}")
+        check(got == want, f"tiled {path} pump: launches {got}, expected {want}")
+        launches[f"tiled_{path}_pump"] = got
+        check(np.array_equal(A.to_array(), dyn),
+              f"tiled {path} pump: the factor differs from the dynamic path's")
+        say("tiled", path=path, runtime="pump", N=n, nb=NB, tasks=ran, wall_s=wall,
+            capture_build_s=setup, gflops=fl / wall / 1e9,
+            host_ms_per_task=wall / ran * 1e3, setup_plus_wall_s=setup + wall,
+            dynamic_wall_s=dyn_wall, same_window_ratio=(setup + wall) / dyn_wall,
+            equal_dynamic=True, card=card)
+        # GraphExecutor: the first call (warm-up, capture, replay), then
+        # TILED_REPLAYS replays
+        A, tp = pool()
+        ex = GraphExecutor(tp)
+        feeds = {k: torch.from_numpy(A.data_of(*k[1]).newest_copy().payload).to(dev)
+                 for k in ex.input_keys}
+        kernels.reset_counts()
+        first, first_s = timed(lambda: ex.apply(feeds))
+        replay_s = [timed(lambda: ex.apply(feeds))[1] for _ in range(TILED_REPLAYS)]
+        got = counts()
+        want_graph = {f: {m: c * (2 + TILED_REPLAYS) for m, c in by.items()}
+                      for f, by in want.items()}
+        check(got == want_graph, f"tiled {path} graph: launches {got}, expected {want_graph}")
+        launches[f"tiled_{path}_graph"] = got
+        out = np.zeros((n, n), np.float32)
+        for (_c, (i, j)), tile in first.items():
+            out[i * NB:(i + 1) * NB, j * NB:(j + 1) * NB] = tile.cpu().numpy()
+        err = gate(out)
+        check(err < tol, f"tiled {path} graph: sampled error {err} >= {tol}")
+        med = statistics.median(replay_s)
+        say("tiled", path=path, runtime="graph", N=n, nb=NB, tasks=ntasks,
+            first_call_s=first_s, capture_s=ex.capture_s, replay_s=replay_s,
+            gflops=fl / med / 1e9, host_ms_per_task=med / ntasks * 1e3,
+            sampled_err=err, tol=tol, equal_dynamic=bool(np.array_equal(out, dyn)),
+            graph_pool_bytes=ex.graph_pool_bytes, card=card)
+        if profiled:
+            # the window a user waits for: the run plus its write-back home
+            # (the pump's also its capture + build)
+            def dyn_window():
+                _A, wall, _got, stats, flush = dynamic()
+                return wall + flush, dict(wall_s=wall, flush_s=flush,
+                                          bytes_in=stats["bytes_in"],
+                                          bytes_out=stats["bytes_out"])
+
+            def pump_window():
+                _A, _ran, wall, setup, _got, flush = pump()
+                return setup + wall + flush, dict(capture_build_s=setup, wall_s=wall,
+                                                  flush_s=flush)
+
+            profiled(f"tiled_{path}", dyn_window)
+            profiled(f"tiled_{path}_native", pump_window)
+            profiled(f"graph_tiled_{path}", lambda: (timed(lambda: ex.apply(feeds))[1], {}))
+        del ex, feeds, first, out, dyn, A
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -428,89 +852,90 @@ def main() -> int:
     results = {}
     failures = []
     seed = 100
-    for (m, n, k) in SHAPES:
-        for name in ("matmul_update", "matmul"):
-            modes = (("f32", "f32_nt", "bf16", "bf16_nt", "split", "split_nt")
-                     if name == "matmul_update" else ("f32", "f32_nt", "bf16", "bf16_nt"))
-            for mode in modes:
-                seed += 1
-                tb = not mode.endswith("_nt")
-                op_dtype = torch.bfloat16 if mode.startswith("bf16") else torch.float32
-                split = mode.startswith("split")
-                alpha = -1.0 if tb else 1.0
-                A = rand((m, k), seed + 1000, op_dtype)
-                B = rand((n, k) if tb else (k, n), seed + 2000, op_dtype)
-                b = B.mT if tb else B
-                if name == "matmul_update":
-                    C = rand((m, n), seed)
-                    kw = dict(alpha=alpha, transpose_b=tb, split_f32=split)
-                    run = lambda: kernels.matmul_update(C, A, B, **kw)  # noqa: E731
-                    plain = lambda: kernels.matmul_update_plain(C, A, B, **kw)  # noqa: E731
-                    lib_fn, lib_call = library_update(C, A, B, alpha, tb)
-                    tol = TOL_BF16 if op_dtype == torch.bfloat16 else TOL_F32
-                else:
-                    C, alpha = None, 1.0
-                    run = lambda: kernels.matmul(A, B, transpose_b=tb)  # noqa: E731
-                    plain = lambda: kernels.matmul_plain(A, B, transpose_b=tb)  # noqa: E731
-                    lib_fn, lib_call = (lambda: torch.matmul(A, b)), "torch.matmul"
-                    tol = TOL_BF16_OUT if op_dtype == torch.bfloat16 else TOL_F32
-                label = f"{name}[{mode}] {m}x{n}x{k}"
-                out, out2, ref = run(), run(), plain()
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                rel = rel_err(out, ref)
-                row = {"shape": [m, n, k], "max_abs_err": err, "rel_err": rel, "tol": tol,
-                       "bit_identical": bool(torch.equal(out, out2))}
-                if not (bool(torch.isfinite(out).all()) and rel < tol):
-                    failures.append(f"{label}: rel err {rel} >= {tol}")
-                if not row["bit_identical"]:
-                    failures.append(f"{label}: two launches on the same inputs differ")
-                if op_dtype == torch.float32:
-                    # f32-class modes against a float64 product: < 1e-5 at
-                    # every shape; the f32 modes at the tile also within 2x
-                    # of the plain version's (cuBLAS FP32, TF32 off) error
-                    r64 = A.double() @ b.double()
-                    if C is not None:
-                        r64 = C.double() + alpha * r64
-                    row["rel_err_vs_f64"] = rel_err(out, r64)
-                    row["plain_rel_err_vs_f64"] = rel_err(ref, r64)
-                    if row["rel_err_vs_f64"] >= TOL_SPLIT_F64:
-                        failures.append(f"{label} vs f64: {row['rel_err_vs_f64']} "
-                                        f">= {TOL_SPLIT_F64}")
-                    if (not split and (m, n, k) == TILE and row["rel_err_vs_f64"]
-                            > F64_GATE_FACTOR * row["plain_rel_err_vs_f64"]):
-                        failures.append(f"{label} vs f64: {row['rel_err_vs_f64']} > "
-                                        f"{F64_GATE_FACTOR} x the plain version's "
-                                        f"{row['plain_rel_err_vs_f64']}")
-                if (m, n, k) == TILE:
-                    row["config"] = kernels._mm_config(
-                        m, n, k, operand_dtype=A.dtype, out_dtype=out.dtype,
-                        transpose_b=tb, split_f32=split, a_ptr=A.data_ptr(),
-                        b_ptr=B.data_ptr(), o_ptr=out.data_ptr(),
-                        c_ptr=None if C is None else C.data_ptr())._asdict()
-                    row["ms"] = time_ms(run)
-                    row["plain_ms"] = time_ms(plain)
-                    lib_rel = rel_err(lib_fn(), ref)
-                    if lib_rel >= tol:
-                        failures.append(f"library {lib_call} disagrees with the plain "
-                                        f"{label}: {lib_rel}")
-                    row["library_call"] = lib_call
-                    row["library_ms"] = time_ms(lib_fn)
-                    isz = A.element_size()
-                    c_bytes = 2 * m * n * 4 if C is not None else m * n * out.element_size()
-                    nbytes = (m * k + n * k) * isz + c_bytes
-                    flops = 2 * m * n * k + (2 * m * n if C is not None else 0)
-                    if op_dtype == torch.bfloat16:
-                        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "bf16")
-                    elif split:
-                        row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, "bf16")
-                    else:
-                        # f32: three TF32 tensor-core passes (this design);
-                        # true FP32 on the CUDA cores printed beside it
-                        row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, "tf32")
-                        row["bound_fp32_ms"], _ = bound(flops, nbytes, "f32")
-                results[(name, mode, (m, n, k))] = row
-                say("kernel", name=name, mode=mode, **row)
+    cases = [((m, n, k), name, mode) for (m, n, k) in SHAPES
+             for name in ("matmul_update", "matmul")
+             for mode in (("f32", "f32_nt", "bf16", "bf16_nt", "split", "split_nt")
+                          if name == "matmul_update" else ("f32", "f32_nt", "bf16", "bf16_nt"))]
+    cases += [(shape, name, mode) for (name, mode), shape in CALLER_SHAPES.items()]
+    for (m, n, k), name, mode in cases:
+        seed += 1
+        tb = not mode.endswith("_nt")
+        op_dtype = torch.bfloat16 if mode.startswith("bf16") else torch.float32
+        split = mode.startswith("split")
+        alpha = -1.0 if tb else 1.0
+        A = rand((m, k), seed + 1000, op_dtype)
+        B = rand((n, k) if tb else (k, n), seed + 2000, op_dtype)
+        b = B.mT if tb else B
+        if name == "matmul_update":
+            C = rand((m, n), seed)
+            kw = dict(alpha=alpha, transpose_b=tb, split_f32=split)
+            run = lambda: kernels.matmul_update(C, A, B, **kw)  # noqa: E731
+            plain = lambda: kernels.matmul_update_plain(C, A, B, **kw)  # noqa: E731
+            lib_fn, lib_call = library_update(C, A, B, alpha, tb)
+            tol = TOL_BF16 if op_dtype == torch.bfloat16 else TOL_F32
+        else:
+            C, alpha = None, 1.0
+            run = lambda: kernels.matmul(A, B, transpose_b=tb)  # noqa: E731
+            plain = lambda: kernels.matmul_plain(A, B, transpose_b=tb)  # noqa: E731
+            lib_fn, lib_call = (lambda: torch.matmul(A, b)), "torch.matmul"
+            tol = TOL_BF16_OUT if op_dtype == torch.bfloat16 else TOL_F32
+        label = f"{name}[{mode}] {m}x{n}x{k}"
+        out, out2, ref = run(), run(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = rel_err(out, ref)
+        row = {"shape": [m, n, k], "max_abs_err": err, "rel_err": rel, "tol": tol,
+               "bit_identical": bool(torch.equal(out, out2))}
+        if not (bool(torch.isfinite(out).all()) and rel < tol):
+            failures.append(f"{label}: rel err {rel} >= {tol}")
+        if not row["bit_identical"]:
+            failures.append(f"{label}: two launches on the same inputs differ")
+        if op_dtype == torch.float32:
+            # f32-class modes against a float64 product: < 1e-5 at
+            # every shape; the f32 modes at the tile also within 2x
+            # of the plain version's (cuBLAS FP32, TF32 off) error
+            r64 = A.double() @ b.double()
+            if C is not None:
+                r64 = C.double() + alpha * r64
+            row["rel_err_vs_f64"] = rel_err(out, r64)
+            row["plain_rel_err_vs_f64"] = rel_err(ref, r64)
+            if row["rel_err_vs_f64"] >= TOL_SPLIT_F64:
+                failures.append(f"{label} vs f64: {row['rel_err_vs_f64']} "
+                                f">= {TOL_SPLIT_F64}")
+            if (not split and (m, n, k) == TILE and row["rel_err_vs_f64"]
+                    > F64_GATE_FACTOR * row["plain_rel_err_vs_f64"]):
+                failures.append(f"{label} vs f64: {row['rel_err_vs_f64']} > "
+                                f"{F64_GATE_FACTOR} x the plain version's "
+                                f"{row['plain_rel_err_vs_f64']}")
+        if (m, n, k) == TILE or CALLER_SHAPES.get((name, mode)) == (m, n, k):
+            row["config"] = kernels._mm_config(
+                m, n, k, operand_dtype=A.dtype, out_dtype=out.dtype,
+                transpose_b=tb, split_f32=split, a_ptr=A.data_ptr(),
+                b_ptr=B.data_ptr(), o_ptr=out.data_ptr(),
+                c_ptr=None if C is None else C.data_ptr())._asdict()
+            row["ms"] = time_ms(run)
+            row["plain_ms"] = time_ms(plain)
+            lib_rel = rel_err(lib_fn(), ref)
+            if lib_rel >= tol:
+                failures.append(f"library {lib_call} disagrees with the plain "
+                                f"{label}: {lib_rel}")
+            row["library_call"] = lib_call
+            row["library_ms"] = time_ms(lib_fn)
+            isz = A.element_size()
+            c_bytes = 2 * m * n * 4 if C is not None else m * n * out.element_size()
+            nbytes = (m * k + n * k) * isz + c_bytes
+            flops = 2 * m * n * k + (2 * m * n if C is not None else 0)
+            if op_dtype == torch.bfloat16:
+                row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "bf16")
+            elif split:
+                row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, "bf16")
+            else:
+                # f32: three TF32 tensor-core passes (this design);
+                # true FP32 on the CUDA cores printed beside it
+                row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, "tf32")
+                row["bound_fp32_ms"], _ = bound(flops, nbytes, "f32")
+        results[(name, mode, (m, n, k))] = row
+        say("kernel", name=name, mode=mode, **row)
     check(not failures, "B1/B2 kernel phase:\n  " + "\n  ".join(failures))
 
     # -- B5 flash_attention_block at the attention path's blocks ----------------
@@ -850,8 +1275,10 @@ def main() -> int:
             n_upd = nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
             n_mm = nt * (nt - 1) // 2 if trtri else 0
             upd_mode = "bf16" if kw.get("bf16_updates") else "f32"
-            expected = {"matmul_update": dict(f32=0, bf16=0, split=0, total=n_upd),
-                        "matmul": dict(f32=n_mm, bf16=0, total=n_mm)}
+            expected = {fn.__name__: dict(dict.fromkeys(fn.launches_by_mode, 0), total=0)
+                        for fn in (kernels.matmul_update, kernels.matmul)}
+            expected["matmul_update"]["total"] = n_upd
+            expected["matmul"].update(f32=n_mm, total=n_mm)
             expected["matmul_update"][upd_mode] = n_upd
             check(counts == expected, f"{name}: launches {counts}, expected {expected}")
             launches[name if rep == 0 else f"{name}_{rep}"] = counts
@@ -1947,6 +2374,7 @@ def main() -> int:
     del host_tiles, xfer_dev
     torch.cuda.empty_cache()
 
+    profiled = None
     if "--profile" in sys.argv[1:]:
         # where the time goes: one extra run of each f32 dpotrf variant, the
         # f32 prefill and the stencil under torch.profiler.  Copies run on
@@ -2078,9 +2506,14 @@ def main() -> int:
         for label, (ex, feeds) in graph_execs.items():
             profiled(f"graph_{label}", lambda: graph_replay(ex, feeds))
 
+    # the dense factorizations, each path once more under the profiler
+    # with --profile
+    factor_launches = factorization_phases(types.SimpleNamespace(
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, profiled=profiled))
+
     def entry(name, mode, n_launch, source="matmul.cu", line="70", key=None):
         row = results[key or (name, mode, TILE)]
-        out = {"name": f"{name}[{mode}]", "route": "cuda",
+        out = {"name": f"{name}[{mode}]", "route": "cuda", "shape": row["shape"],
                "source": f"parsec_tpu_torch/csrc/{source}",
                "replaces": f"parsec_tpu/ops/pallas_kernels.py:{line}",
                "launches": n_launch, "max_abs_err": row["max_abs_err"],
@@ -2090,18 +2523,28 @@ def main() -> int:
         return out
 
     def mm_launches(name, mode):
-        """launches of one B1/B2 mode over every dpotrf run (dynamic at
-        both depths, the pump at both depths and under the 96 MB budget);
-        split_f32 and B2 with bf16 operands run on no ported path (the
-        reference's callers of them, segmented LU and QR, are not ported
-        yet)"""
-        return sum(counts[name][mode] for counts in launches.values())
+        """launches of one B1/B2 mode over every run of the paths that call
+        them: dpotrf (dynamic at both depths, the pump at both depths and
+        under the 96 MB budget, waves, fusion, graph), the segmented LU
+        (split_f32, B not transposed) and the tiled LU and QR (dynamic,
+        pump, graph; B not transposed); split_f32 with B transposed and
+        B1/B2 with bf16 operands and B not transposed run on no ported
+        path"""
+        return sum(counts[name][mode]
+                   for counts in (*launches.values(), *factor_launches.values()))
+
+    def caller_entry(name, mode, line="70"):
+        return entry(name, mode, mm_launches(name, mode), line=line,
+                     key=(name, mode, CALLER_SHAPES[(name, mode)]))
 
     table = [
         entry("matmul_update", "f32", mm_launches("matmul_update", "f32")),
+        entry("matmul_update", "f32_nt", mm_launches("matmul_update", "f32_nt")),
         entry("matmul_update", "bf16", mm_launches("matmul_update", "bf16")),
         entry("matmul_update", "split", mm_launches("matmul_update", "split")),
+        caller_entry("matmul_update", "split_nt"),
         entry("matmul", "f32", mm_launches("matmul", "f32"), line="158"),
+        caller_entry("matmul", "f32_nt", line="158"),
         entry("matmul", "bf16", mm_launches("matmul", "bf16"), line="158"),
         entry("stencil_5pt", "f32", st_launch_total, "stencil.cu", "219",
               ("stencil_5pt", "f32")),

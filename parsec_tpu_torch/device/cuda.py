@@ -52,7 +52,11 @@ CPU device streams, events and pinning are skipped; the lane and committer
 threads still run.
 
 Device bodies are functional torch: tensors in, fresh tensors out for
-the writable flows (a device copy is never mutated in place).  A body is
+the writable flows (a device copy is never mutated in place) — except a
+body marked ``_donate_args`` (the segmented factorizations), which
+updates its inputs in place and returns them: it is called once per task
+(an error inside it fails the task; only its staging is retried after an
+out-of-memory error) and joins no wave and no fused region.  A body is
 called directly, or — wave batching, ``device_cuda_wave_batch`` >= 2
 (default 0: off) — a drained or popped batch's same-signature tasks go
 out as one wave in power-of-2 chunks, each chunk one captured CUDA graph
@@ -794,12 +798,16 @@ class CudaDevice(Device):
         as in the reference: custom stage hooks (the staged layout is the
         hook's business) and fused supertasks (``_fused_n`` > 1, see
         :mod:`..dsl.fusion`): a region is already one coarse dispatch of
-        many bodies, and batching regions would nest them for no gain.
-        The reference also excludes bodies that bake values per task or
-        donate inputs; the port has no such body."""
+        many bodies, and batching regions would nest them for no gain; and
+        donating bodies (``_donate_args``: the segmented factorizations,
+        which update their inputs in place — a captured graph would
+        replay the update onto its own static copies).  The reference
+        also excludes bodies that bake values per task; a torch body gets
+        its values as Python ints, so the port has no such body."""
         body = task.selected_chore.body_fn if task.selected_chore else None
         if body is None or getattr(body, "_stage_in", None) \
                 or getattr(body, "_stage_out", None) \
+                or getattr(body, "_donate_args", None) \
                 or getattr(body, "_fused_n", 1) > 1:
             return None
         reads = getattr(body, "_value_reads", None)
@@ -933,7 +941,10 @@ class CudaDevice(Device):
         after :meth:`_relieve_memory` when the caching allocator runs out of
         memory, at most ``_OOM_RETRIES`` times.  A second run repeats
         nothing wrongly: a tile staged again is a residency hit, a body is
-        functional, and no epilog has begun."""
+        functional, and no epilog has begun.  A donating body is not
+        functional — it may have written part of its inputs before running
+        out of memory — so :meth:`_submit` relieves only its staging and
+        calls it once, outside."""
         for attempt in range(_OOM_RETRIES + 1):
             try:
                 return fn()
@@ -1139,11 +1150,21 @@ class CudaDevice(Device):
         if body is None:
             raise RuntimeError(f"chore of {task!r} has no body_fn for device execution")
 
-        def stage_and_call():
-            dev_args, out_specs, out_hooks = self._stage_task_args(task, body)
-            return body(*dev_args), out_specs, out_hooks
+        if getattr(body, "_donate_args", None):
+            # an in-place body: its staging may run again, its call never —
+            # an error inside it (out of memory included) fails the task,
+            # and _dev_effects stops _submit_one's retry, which would
+            # apply the updates it made before the error a second time
+            dev_args, out_specs, out_hooks = self._relieving(
+                lambda: self._stage_task_args(task, body))
+            task._dev_effects = True
+            outputs = body(*dev_args)
+        else:
+            def stage_and_call():
+                dev_args, out_specs, out_hooks = self._stage_task_args(task, body)
+                return body(*dev_args), out_specs, out_hooks
 
-        outputs, out_specs, out_hooks = self._relieving(stage_and_call)
+            outputs, out_specs, out_hooks = self._relieving(stage_and_call)
         fused_n = getattr(body, "_fused_n", 1)
         if fused_n > 1:
             # one fused region dispatched: its N members ran in the body

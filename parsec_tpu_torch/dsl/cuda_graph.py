@@ -142,11 +142,14 @@ class _Step:
         self.drops: List[Tuple[Tuple, str]] = []
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device, who: str = "GraphExecutor") -> torch.device:
+    """``device``, or the current CUDA device; without a GPU and without an
+    explicit request, raise (the port runs on the card unless asked for
+    the CPU)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "GraphExecutor: torch.cuda.is_available() is False; ask for "
+                f"{who}: torch.cuda.is_available() is False; ask for "
                 "the torch CPU device explicitly (device='cpu')")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
@@ -206,7 +209,7 @@ class GraphExecutor:
             raise NotImplementedError(
                 "GraphExecutor(batch_levels=True): level batching is not "
                 "ported yet (ROADMAP A.4c)")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.taskpool = tp
         self.donate = donate
         self.graph: TaskGraph = capture_dag(tp)

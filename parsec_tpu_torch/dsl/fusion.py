@@ -138,10 +138,14 @@ def fusion_scan_mode() -> str:
 
 def class_fusible(pc) -> bool:
     """Is a PTG task class eligible for fused regions?  It needs an
-    accelerator BODY, no custom staging hooks and no input-side reshape
-    property blocks: the fused body resolves dataflow itself and cannot
-    replay those hooks per member."""
-    if class_device_type(pc) is None or pc.stage_hooks:
+    accelerator BODY that does not donate its inputs (``_donate_args``: an
+    in-place body is called once per task, outside any retry), no custom
+    staging hooks and no input-side reshape property blocks: the fused
+    body resolves dataflow itself and cannot replay those hooks per
+    member."""
+    dt = class_device_type(pc)
+    if dt is None or pc.stage_hooks \
+            or getattr(pc.bodies[dt], "_donate_args", None):
         return False
     for f in pc.flows:
         for dep in f.deps_in:

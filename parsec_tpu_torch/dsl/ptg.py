@@ -47,7 +47,8 @@ fused regions dispatch as one supertask each.
 What the port leaves out, each raising ``NotImplementedError`` naming its
 ROADMAP item when reached: ``GraphExecutor(batch_levels=True)`` (A.4c),
 the ahead-of-time verifier and lint (A.9), remote successors and
-write-backs (A.8), and reshape property blocks (A.8).
+write-backs (A.8), and a reshape property block on an incoming dep
+(A.8; on a ``<- NEW`` dep the block names the new tile's shape and dtype).
 """
 
 from __future__ import annotations
@@ -598,12 +599,27 @@ class PTG:
             "PTG.verify (the graph linter) is not ported yet (ROADMAP A.9)")
 
 
-def _reshape_requested(props: Dict[str, str], constants: Dict[str, Any]) -> bool:
-    """Whether a dep's property block asks for a reshape (the keys
-    :class:`parsec_tpu.data.reshape.ReshapeSpec` reads): a ``[type=NAME]``
-    naming no taskpool constant is a wire-layout tag, not a reshape."""
-    return ("dtype" in props or "shape" in props
-            or ("type" in props and props["type"] in constants))
+def _props_spec(props: Dict[str, str], constants: Dict[str, Any]
+                ) -> Tuple[Optional[Any], Optional[Tuple[int, ...]]]:
+    """(dtype, shape) a dep's property block names, each None when absent
+    (the port's copy of the reference's ``ReshapeSpec.from_props``):
+    ``dtype=float32`` (a numpy dtype name), ``shape=4x8`` (``x``-separated)
+    and ``type=NAME``, looked up in the taskpool constants, whose value is a
+    ``(dtype, shape)`` tuple or a dtype.  A ``[type=NAME]`` naming no
+    constant is a wire-layout tag and names nothing here."""
+    dtype = shape = None
+    v = constants.get(props["type"]) if "type" in props else None
+    if isinstance(v, tuple) and len(v) == 2:
+        dtype, shape = v
+    elif v is not None:
+        dtype = v
+    if "dtype" in props:
+        dtype = props["dtype"]
+    if "shape" in props:
+        shape = tuple(int(x) for x in props["shape"].replace("(", "")
+                      .replace(")", "").split("x"))
+    return (None if dtype is None else np.dtype(dtype),
+            None if shape is None else tuple(int(x) for x in shape))
 
 
 # ---------------------------------------------------------------------------
@@ -837,7 +853,8 @@ class PTGTaskpool(Taskpool):
                 dt = pc.active_input_dep(f, env)
                 dep, target = dt if dt is not None else (None, None)
                 if (dep is not None and dep.props
-                        and _reshape_requested(dep.props, self.constants)):
+                        and not isinstance(target, _NewRef)
+                        and _props_spec(dep.props, self.constants) != (None, None)):
                     raise NotImplementedError(
                         f"{pc.name}.{f.name}: dep {dep.src!r} asks for a "
                         "reshape, which is not ported yet (ROADMAP A.8)")
@@ -885,23 +902,25 @@ class PTGTaskpool(Taskpool):
         return data
 
     def new_tile_spec(self, pc_name: str, flow_name: str) -> Tuple[Tuple, Any]:
-        """(shape, dtype) for a flow's ``<- NEW`` tile: the taskpool-wide
-        ``TILE_SHAPE``/``TILE_DTYPE`` constants.  A reshape property block
-        on the NEW dep is not ported yet."""
+        """(shape, dtype) for a flow's ``<- NEW`` tile: a ``[shape=…]`` /
+        ``[dtype=…]`` / ``[type=NAME]`` property block on the NEW dep wins
+        (NAME resolves through the taskpool constants, so shapes may
+        depend on problem parameters; :func:`_props_spec`); otherwise the
+        taskpool-wide ``TILE_SHAPE``/``TILE_DTYPE`` constants."""
+        shape = self.constants.get("TILE_SHAPE", (1,))
+        dtype = self.constants.get("TILE_DTYPE", np.float64)
         pc = self.ptg.classes.get(pc_name)
         for f in (pc.flows if pc is not None else ()):
             if f.name != flow_name:
                 continue
             for dep in f.deps_in:
-                if ((isinstance(dep.then, _NewRef)
-                     or isinstance(dep.otherwise, _NewRef))
-                        and _reshape_requested(dep.props, self.constants)):
-                    raise NotImplementedError(
-                        f"{pc_name}.{flow_name}: NEW dep {dep.src!r} asks "
-                        "for a reshape, which is not ported yet "
-                        "(ROADMAP A.8)")
-        shape = self.constants.get("TILE_SHAPE", (1,))
-        dtype = self.constants.get("TILE_DTYPE", np.float64)
+                # NEW may sit in either branch of a guarded dep
+                if dep.props and (isinstance(dep.then, _NewRef)
+                                  or isinstance(dep.otherwise, _NewRef)):
+                    want_dtype, want_shape = _props_spec(dep.props, self.constants)
+                    shape = want_shape or shape
+                    dtype = want_dtype or dtype
+            break
         return tuple(shape), dtype
 
     def _new_tile(self, pc: PTGTaskClass, f: _PTGFlow, locals_: Tuple) -> Data:
@@ -1085,6 +1104,10 @@ def _wrap_device_body(pc: PTGTaskClass, fn: Callable):
     wrapped.__name__ = getattr(fn, "__name__", pc.name)
     wrapped._graph_key = (fn, tuple(names))
     wrapped._value_reads = _value_reads(fn, value_names)
+    if getattr(fn, "_donate_args", None):
+        # an in-place body (the segmented factorizations): the device
+        # module never runs it twice for one task, and it joins no wave
+        wrapped._donate_args = fn._donate_args
     if pc.stage_hooks:
         # per-flow custom staging, indexed by the data-arg position the
         # device module sees (non-CTL flow declaration order)

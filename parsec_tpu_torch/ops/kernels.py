@@ -30,8 +30,10 @@ is no fallback from a failed launch to the plain version.
 
 ``wrapper.launches`` counts kernel launches and nothing else;
 ``wrapper.calls`` counts every call, CPU ones included.  B1 and B2 also
-count their launches per operand mode, ``wrapper.launches_by_mode``
-(``f32``, ``bf16``, ``split``); B4 per mode (``smem``, ``global``), B5 per
+count their launches per operand mode and layout,
+``wrapper.launches_by_mode``: ``f32``, ``bf16``, ``split`` for ``A @ B.T``
+(``transpose_b=True``) and the same with ``_nt`` for ``A @ B``
+(``transpose_b=False``, the tiled LU and QR updates); B4 per mode (``smem``, ``global``), B5 per
 kernel (``f32``, ``bf16``, ``f32_wide``, ``bf16_wide``).  Inside a
 captured CUDA graph a wrapper runs at capture and its kernel at every
 replay: the capturer moves the counts with :func:`launch_counts` and
@@ -333,13 +335,20 @@ def matmul_update(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
         return out
     mode = _mm_launch(out, C, A, B, alpha=alpha, transpose_b=transpose_b,
                       split_f32=split_f32)
-    _count_mode(matmul_update, mode)
+    _count_mode(matmul_update, _layout_mode(mode, transpose_b))
     return out
+
+
+def _layout_mode(mode: str, transpose_b: bool) -> str:
+    """The ``launches_by_mode`` key of a B1/B2 launch: its operand mode,
+    with ``_nt`` when B is not transposed."""
+    return mode if transpose_b else mode + "_nt"
 
 
 matmul_update.calls = 0
 matmul_update.launches = 0
-matmul_update.launches_by_mode = dict.fromkeys(("f32", "bf16", "split"), 0)
+matmul_update.launches_by_mode = dict.fromkeys(
+    ("f32", "bf16", "split", "f32_nt", "bf16_nt", "split_nt"), 0)
 
 
 # -- B2: matmul -------------------------------------------------------------
@@ -365,13 +374,13 @@ def matmul(A: torch.Tensor, B: torch.Tensor, *,
         return out
     mode = _mm_launch(out, None, A, B, alpha=1.0, transpose_b=transpose_b,
                       split_f32=False)
-    _count_mode(matmul, mode)
+    _count_mode(matmul, _layout_mode(mode, transpose_b))
     return out
 
 
 matmul.calls = 0
 matmul.launches = 0
-matmul.launches_by_mode = dict.fromkeys(("f32", "bf16"), 0)
+matmul.launches_by_mode = dict.fromkeys(("f32", "bf16", "f32_nt", "bf16_nt"), 0)
 
 
 # -- B3: stencil_5pt --------------------------------------------------------

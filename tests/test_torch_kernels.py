@@ -255,7 +255,10 @@ def test_counters_count_calls_but_no_launch_on_cpu():
 
 @pytest.mark.parametrize("name, mode", [("matmul_update", "f32"), ("matmul_update", "bf16"),
                                         ("matmul_update", "split"), ("matmul", "f32"),
-                                        ("matmul", "bf16")])
+                                        ("matmul", "bf16"), ("matmul_update", "f32_nt"),
+                                        ("matmul_update", "bf16_nt"),
+                                        ("matmul_update", "split_nt"), ("matmul", "f32_nt"),
+                                        ("matmul", "bf16_nt")])
 def test_launch_counts_by_mode(name, mode):
     """A B1/B2 launch adds one to the wrapper's total and to its mode's
     count, and reset_counts zeroes both."""
