@@ -40,7 +40,20 @@
    ``torch.matmul``); B1 ``split_f32`` with B not transposed and B2 f32
    with B not transposed also at their callers' shapes (a segmented-LU
    strip, 15872 x 4096 x 512; tiled QR's tsmqr, (1024 x 1024) x
-   (1024 x 512));
+   (1024 x 512)); then the batch axis: B1 (f32, bf16, split_f32 and f32
+   with B not transposed at dpotrf's largest gemm group, 105 x 512^3, and
+   the last at the tiled LU's, 225), B2 (f32 at dpotrf trtri's trsm group
+   of 15 sharing one inverse, f32 with B not transposed at tiled QR's
+   largest tsmqr group, 65), B3 (the stencil's 36 interior tiles of a
+   step, halos strided slices of stacked neighbours, and a top-edge group
+   sharing one zero halo row) and B5 (f32 and bf16 at the prefill's
+   largest level, 256 x (512 x 512 x 128), each member's q offset its own,
+   three fully masked; the wide kernel at 8 x D = 512), each one launch
+   through ``torch.func.vmap`` as a level-batched replay makes it,
+   ``torch.equal`` to its members launched one by one, within the
+   kernel's tolerance of its batched plain version (B3 bit for bit), the
+   masked members' carries exact, timed beside the members launched one
+   by one, with its bound;
 4. dpotrf path: tiled dpotrf at N=8192 nb=512 float32 through
    ``Context`` / ``add_taskpool`` / ``wait`` with every task on the CUDA
    device module — hand kernels for the updates, then the ``use_trtri``
@@ -65,7 +78,12 @@
    (whole-DAG capture: the first call — warm-up, capture, replay — timed
    on its own, then five replays on reused device feeds), every output
    tile ``torch.equal`` to the dynamic factor, the launches of one eager
-   warm-up and six replays;
+   warm-up and six replays; then each through ``GraphExecutor(tp,
+   batch_levels=True)`` on the same feeds (``graph_batched`` lines: no
+   group fallen back, the launches a call the plan's groups mode by mode,
+   the factor within the path's gates, its max abs difference to the
+   unbatched replay, first-call s, replay median beside the unbatched
+   one, stack bytes a call);
 5. device-module phase: a 2048 x 2048 dpotrf with event-polled
    completion and one under an 8 MB residency budget (eviction
    write-back), each checked against a float64 Cholesky;
@@ -82,14 +100,16 @@
    once more through its pieces, to time capture and build apart), each
    output ``torch.equal`` to ``run_flash_attention``'s; then the f32
    prefill's taskpool through ``GraphExecutor``, each output plane equal
-   to ``run_flash_attention``'s;
+   to ``run_flash_attention``'s, and level-batched (8 B5 launches a call),
+   ``torch.equal`` to the unbatched replay;
 7. stencil path: ``stencil_ptg(use_kernels=True)`` on an 8192^2 float32
    grid in 1024^2 tiles for 20 steps (B3 launches counted), through
    ``Context`` at stage depth 1 and 2 in turns and then through the native
    pump at stage depth 1 and 2 in turns (and at 2 with the reference's
    32 MB write-back watermark: the committer draining mid-run beside the
    kernels), each grid ``torch.equal`` to the first; then through
-   ``GraphExecutor``, equal tile by tile; then B4 on the leading 2048^2
+   ``GraphExecutor``, equal tile by tile, and level-batched, ``torch.equal``
+   to the unbatched replay; then B4 on the leading 2048^2
    block for 100 steps (one smem-mode launch), all against a float64
    reference;
 8. transfer phase: the stencil's 64 tiles of 4 MiB, twice, host->device
@@ -109,7 +129,8 @@
    2048), gated as bench.py:2475-2497; tiled LU and QR at N=8192 nb=512
    with the hand kernels (B1 and B2 with B not transposed) through
    ``Context``, the native pump (factor ``np.array_equal`` to the
-   dynamic one) and ``GraphExecutor`` (first call and two replays), gated
+   dynamic one) and ``GraphExecutor`` (first call and two replays;
+   unbatched and level-batched), gated
    by a sampled reconstruction and by A^T A = R^T R on sampled columns;
    each run's B1/B2 launches per mode checked exactly;
 10. with ``--profile``, runs the two f32 dpotrf variants, the f32 prefill
@@ -121,7 +142,9 @@
    ms and GB/s, and how much of the copy time overlaps kernel time; then
    the pump's and the dynamic dpotrf and the stencil pump with waves on
    and off (``d2d_ms``: the wave chunks' device-to-device copies), and one
-   ``GraphExecutor`` replay of dpotrf, the prefill and the stencil;
+   ``GraphExecutor`` replay of dpotrf, the prefill and the stencil, and
+   one level-batched replay of each (its member stacks show in ``top`` as
+   ``CatArrayBatchedCopy`` kernels);
 11. prints each path's walls at stage depth 1 and 2 (``stage_depth_walls``,
    with the ratio of their medians) and with waves on and off
    (``wave_walls``), the kernel table as one JSON line, the
@@ -331,6 +354,84 @@ def card_line() -> str:
     return out.strip().splitlines()[0].strip()
 
 
+# -- level-batched whole-DAG replays (GraphExecutor(batch_levels=True)) -------
+
+def batched_graph(h, label, tp, feeds, ref_out, ref_median_s, kernel_of, tasks, exact,
+                  replays=GRAPH_REPLAYS):
+    """``GraphExecutor(tp, batch_levels=True)`` on the feeds of the path's
+    unbatched executor: the first call (warm-up, capture, replay) timed on
+    its own, then ``replays`` replays.  ``kernel_of`` maps each task class
+    that launches a hand kernel to its (wrapper, mode).  Checks that no
+    group fell back; that a call launches each kernel once a batched group
+    (under the mode's ``_b``) and once a task run per task, mode by mode,
+    and so every call; and that the outputs equal the unbatched replay's
+    where ``exact`` (the stencil and the prefill: every batched group is a
+    hand kernel or elementwise), else prints their max abs difference for
+    the caller's gate.  Returns the executor, its last outputs and the
+    kernel counters of its calls."""
+    torch = h.torch
+    from parsec_tpu_torch.dsl import GraphExecutor
+    from parsec_tpu_torch.ops import kernels
+
+    gc.collect()
+    t0 = time.perf_counter()
+    ex = GraphExecutor(tp, batch_levels=True)
+    plan_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = ex.apply(feeds)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    gc.collect()  # the timed replays start with no garbage pending
+    replay_s = []
+    for _ in range(replays):
+        t0 = time.perf_counter()
+        last = ex.apply(feeds)
+        torch.cuda.synchronize()
+        replay_s.append(time.perf_counter() - t0)
+    h.check(ex.batch_fallbacks == 0,
+            f"graph_batched {label}: {ex.batch_fallbacks} groups fell back per task")
+    groups = ex.group_counts()
+    want = {}
+    for cls, (fn, mode) in kernel_of.items():
+        by = want.setdefault(fn, {})
+        row = groups.get(cls, {})
+        for m, n in ((mode, row.get("per_task", 0)), (mode + "_b", row.get("batched", 0))):
+            if n:
+                by[m] = by.get(m, 0) + n
+    per_call = {}
+    for (fn, mode), n in ex.launches.items():
+        if mode not in ("total", "members") and n:
+            per_call.setdefault(fn, {})[mode] = n
+    h.check(per_call == want, f"graph_batched {label}: launches a call {per_call}, "
+            f"the plan's groups {want}")
+    calls = 2 + replays  # the warm-up, the first call's replay, the replays
+    wrappers = {fn.__name__: fn for fn in kernels._WRAPPERS}
+    counted = {fn: {m: n for m, n in wrappers[fn].launches_by_mode.items() if n}
+               for fn in want}
+    h.check(counted == {fn: {m: n * calls for m, n in by.items()} for fn, by in want.items()},
+            f"graph_batched {label}: {counted} launched over {calls} calls, "
+            f"{want} a call")
+    members = {fn: ex.launches.get((fn, "members"), 0) for fn in want}
+    equal = all(torch.equal(first[k], ref_out[k]) and torch.equal(last[k], ref_out[k])
+                for k in ref_out)
+    diff = max((last[k].double() - ref_out[k].double()).abs().max().item() for k in ref_out)
+    if exact:
+        h.check(equal, f"graph_batched {label}: outputs differ from the unbatched "
+                f"replay's (max abs {diff})")
+    med = statistics.median(replay_s)
+    h.say("graph_batched", path=label, tasks=tasks, plan_s=plan_s, first_call_s=first_s,
+          capture_s=ex.capture_s, replay_s=replay_s, median_replay_s=med,
+          unbatched_median_replay_s=ref_median_s, batched_over_unbatched=med / ref_median_s,
+          host_ms_per_task=med / tasks * 1e3, groups=groups, launches_per_call=per_call,
+          members_per_call=members, batch_fallbacks=ex.batch_fallbacks,
+          stack_bytes_per_call=ex.stack_bytes, graph_pool_bytes=ex.graph_pool_bytes,
+          equal_unbatched=equal, max_abs_diff_unbatched=diff, card=h.card)
+    del first
+    return ex, last, {fn: dict(wrappers[fn].launches_by_mode) for fn in want}
+
+
 # -- the dense factorizations beyond dpotrf ------------------------------------
 # sizes from the reference's own bench: the panel stage's N=32768 nb=512
 # (bench.py:205-206) and the QR/LU stage's largest leg, N=16384
@@ -348,6 +449,8 @@ TOL_SEG, TOL_SEG_STORAGE, TOL_TILED_LU, TOL_TILED_QR = 1e-3, 1e-2, 1e-4, 5e-3
 # steps)
 TOL_GETRF = 1e-4
 TILED_REPLAYS = 2
+# the task classes whose bodies launch the tiled path's hand kernel
+TILED_KERNEL_CLASSES = {"lu": ("gemm",), "qr": ("unmqr", "tsmqr")}
 
 
 def factorization_phases(h):
@@ -708,6 +811,21 @@ def factorization_phases(h):
             gflops=fl / med / 1e9, host_ms_per_task=med / ntasks * 1e3,
             sampled_err=err, tol=tol, equal_dynamic=bool(np.array_equal(out, dyn)),
             graph_pool_bytes=ex.graph_pool_bytes, card=card)
+        # the same DAG level-batched: each B1/B2 group one launch; its
+        # batched library solves and QRs may round apart from the
+        # per-tile calls, so the factor passes the path's gate and its
+        # distance to the unbatched replay's is printed
+        b_ex, b_last, h.batched_launches[f"tiled_{path}"] = batched_graph(
+            h, f"tiled_{path}", tp, feeds, first, med,
+            {cls: (fn_name, mode) for cls in TILED_KERNEL_CLASSES[path]}, ntasks,
+            exact=False, replays=TILED_REPLAYS)
+        out = np.zeros((n, n), np.float32)
+        for (_c, (i, j)), tile in b_last.items():
+            out[i * NB:(i + 1) * NB, j * NB:(j + 1) * NB] = tile.cpu().numpy()
+        err = gate(out)
+        check(err < tol, f"tiled {path} graph_batched: sampled error {err} >= {tol}")
+        say("tiled", path=path, runtime="graph_batched", N=n, nb=NB, sampled_err=err, tol=tol,
+            card=card)
         if profiled:
             # the window a user waits for: the run plus its write-back home
             # (the pump's also its capture + build)
@@ -725,7 +843,9 @@ def factorization_phases(h):
             profiled(f"tiled_{path}", dyn_window)
             profiled(f"tiled_{path}_native", pump_window)
             profiled(f"graph_tiled_{path}", lambda: (timed(lambda: ex.apply(feeds))[1], {}))
-        del ex, feeds, first, out, dyn, A
+            profiled(f"graph_batched_tiled_{path}",
+                     lambda: (timed(lambda: b_ex.apply(feeds))[1], {}))
+        del ex, b_ex, b_last, feeds, first, out, dyn, A
         torch.cuda.empty_cache()
     return launches
 
@@ -1190,6 +1310,203 @@ def main() -> int:
         say("kernel", name="stencil_5pt_fused", mode=label, **row)
         del grid, out, out2, ref, one
 
+    # -- the batch axis: B1, B2, B3 and B5, one launch over a level's group ---
+    # each kernel as a level-batched replay calls it (the wrapper under
+    # torch.func.vmap, its custom op's vmap rule launching once over the
+    # members), at the largest group a path makes; each batched launch
+    # torch.equal to its members launched one by one and within the
+    # kernel's tolerance of its batched plain version; timed beside the
+    # members launched one by one, its bound the members' work together
+    from torch.func import vmap
+
+    batched_results = {}
+    failures = []
+
+    def batched_row(key, n_mem, run_b, one, plain_b, err, tol, flops, nbytes, op_type,
+                    library=None, **extra):
+        out_b = run_b()
+        outs_1 = [one(i) for i in range(n_mem)]
+        ref = plain_b()
+        torch.cuda.synchronize()
+        if isinstance(out_b, tuple):
+            stacked = tuple(torch.stack(parts) for parts in zip(*outs_1))
+            equal = all(torch.equal(a, b) for a, b in zip(out_b, stacked))
+            finite = all(bool(torch.isfinite(o).all()) for o in out_b)
+        else:
+            equal = bool(torch.equal(out_b, torch.stack(outs_1)))
+            finite = bool(torch.isfinite(out_b).all())
+        row = {"members": n_mem, "err": err(out_b, ref), "tol": tol,
+               "max_abs_err": max((o.double() - r.double()).abs().max().item()
+                                  for o, r in zip(*((out_b, ref) if isinstance(out_b, tuple)
+                                                    else ((out_b,), (ref,))))),
+               "equal_one_by_one": equal, **extra}
+        # tol 0: bit for bit (B3, whose plain version is elementwise)
+        if not (finite and (row["err"] <= tol if tol == 0.0 else row["err"] < tol)):
+            failures.append(f"{key}: error {row['err']} against the batched plain "
+                            f"version, tolerance {tol}")
+        if not equal:
+            failures.append(f"{key}: the batched launch differs from its members "
+                            "launched one by one")
+        del out_b, outs_1, ref
+        row["ms"] = time_ms(run_b, 10)
+        row["single_ms"] = time_ms(lambda: one(n_mem - 1), 20)
+        row["one_by_one_ms"] = time_ms(lambda: [one(i) for i in range(n_mem)], 3)
+        row["members_x_single_ms"] = n_mem * row["single_ms"]
+        row["plain_ms"] = time_ms(plain_b, 3)
+        row["library_ms"], row["library_call"] = None, "none"
+        if library is not None:
+            row["library_call"] = library[1]
+            row["library_ms"] = time_ms(library[0], 10)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, op_type)
+        batched_results[key] = row
+        say("kernel_batched", name=key[0], mode=key[1], **row)
+
+    def library_batched(C, A, b, alpha):
+        """One PyTorch call of C + alpha * A @ b over the members (f32
+        operands: cuBLAS batched SGEMM; bf16: f32 output if this torch
+        has ``out_dtype``), else None.  Timed only."""
+        b = b.expand(A.shape[0], *b.shape[-2:])
+        if A.dtype == torch.float32:
+            return (lambda: torch.baddbmm(C, A, b, alpha=alpha)), "torch.baddbmm"
+        try:
+            torch.baddbmm(C, A, b, alpha=alpha, out_dtype=torch.float32)
+        except (TypeError, RuntimeError):
+            return None
+        return ((lambda: torch.baddbmm(C, A, b, alpha=alpha, out_dtype=torch.float32)),
+                "torch.baddbmm(out_dtype=float32)")
+
+    # (name, mode, members, (m, n, k), B shared): B1 at dpotrf's largest
+    # gemm group (105) in every mode the paths run, and with B not
+    # transposed at the tiled LU's largest (225); B2 at dpotrf trtri's
+    # trsm group (15, the level's one inverse shared) and the tiled QR's
+    # largest tsmqr group (65)
+    mm_batched = [("matmul_update", "f32_b", 105, TILE, False),
+                  ("matmul_update", "bf16_b", 105, TILE, False),
+                  ("matmul_update", "split_b", 105, TILE, False),
+                  ("matmul_update", "f32_nt_b", 105, TILE, False),
+                  ("matmul_update", "f32_nt_b", 225, TILE, False),
+                  ("matmul", "f32_b", 15, TILE, True),
+                  ("matmul", "f32_nt_b", 65, CALLER_SHAPES[("matmul", "f32_nt")], False)]
+    for name, mode, n_mem, (m, n, k), shared_b in mm_batched:
+        seed += 1
+        tb = "_nt" not in mode
+        op_dtype = torch.bfloat16 if mode.startswith("bf16") else torch.float32
+        split = mode.startswith("split")
+        A = rand((n_mem, m, k), seed + 1000, op_dtype)
+        b_shape = (n, k) if tb else (k, n)
+        B = rand(b_shape if shared_b else (n_mem, *b_shape), seed + 2000, op_dtype)
+        b_dim = None if shared_b else 0
+        b = B.mT if tb else B
+        member_b = (lambda i: B) if shared_b else (lambda i: B[i])  # noqa: E731
+        isz = A.element_size()
+        b_bytes = B.numel() * isz
+        if name == "matmul_update":
+            C = rand((n_mem, m, n), seed)
+            alpha = -1.0 if tb else 1.0
+            kw = dict(alpha=alpha, transpose_b=tb, split_f32=split)
+            run_b = lambda: vmap(lambda c, a, bb: kernels.matmul_update(  # noqa: E731
+                c, a, bb, **kw), in_dims=(0, 0, b_dim))(C, A, B)
+            one = lambda i: kernels.matmul_update(C[i], A[i], member_b(i), **kw)  # noqa: E731
+            plain_b = lambda: kernels.matmul_update_plain(C, A, B, **kw)  # noqa: E731
+            lib = library_batched(C, A, b, alpha)
+            tol = TOL_BF16 if op_dtype == torch.bfloat16 else TOL_F32
+            flops = n_mem * (2 * m * n * k + 2 * m * n)
+            nbytes = n_mem * (m * k * isz + 2 * m * n * 4) + b_bytes
+        else:
+            run_b = lambda: vmap(lambda a, bb: kernels.matmul(  # noqa: E731
+                a, bb, transpose_b=tb), in_dims=(0, b_dim))(A, B)
+            one = lambda i: kernels.matmul(A[i], member_b(i), transpose_b=tb)  # noqa: E731
+            plain_b = lambda: kernels.matmul_plain(A, B, transpose_b=tb)  # noqa: E731
+            lib = ((lambda: torch.matmul(A, b)), "torch.matmul")
+            tol = TOL_F32
+            flops = n_mem * 2 * m * n * k
+            nbytes = n_mem * (m * k + m * n) * isz + b_bytes
+        op_type = "bf16" if op_dtype == torch.bfloat16 or split else "tf32"
+        batched_row((name, f"{mode}_{n_mem}"), n_mem, run_b, one, plain_b, rel_err, tol,
+                    (1 if op_type == "bf16" and not split else 3) * flops, nbytes, op_type,
+                    library=lib, shape=[m, n, k], b_shared=shared_b)
+        del A, B, b
+    check(not failures, "B1/B2 batched launches:\n  " + "\n  ".join(failures))
+
+    # B3 at the stencil's largest group: its 36 interior tiles of a step,
+    # each halo a strided slice of a stacked neighbour tile as the body
+    # takes it; and a top-edge group (6 tiles) whose absent upper halo is
+    # one zero row every member shares (batch stride 0)
+    st_tile = ST_N // ST_TILES
+    for label, n_mem, top_edge in (("interior", (ST_TILES - 2) ** 2, False),
+                                   ("top_edge", ST_TILES - 2, True)):
+        seed += 1
+        h = w = st_tile
+        old, nu, nd, nl, nr = (rand((n_mem, h, w), seed + 1000 * j) for j in range(5))
+        zrow = torch.zeros((1, w), device=dev)
+
+        def st_body(o, U, D, L, R, _top=top_edge):
+            up = zrow if _top else U[-1:, :]
+            return kernels.stencil_5pt(o, up, D[:1, :], L[:, -1:], R[:, :1])
+
+        args = (old, nu, nd, nl, nr)
+        run_b = lambda: vmap(st_body)(*args)  # noqa: E731
+        one = lambda i: st_body(*(t[i] for t in args))  # noqa: E731
+        plain_b = lambda: kernels.stencil_5pt_plain(  # noqa: E731
+            old, zrow.expand(n_mem, 1, w) if top_edge else nu[:, -1:, :], nd[:, :1, :],
+            nl[:, :, -1:], nr[:, :, :1])
+        batched_row(("stencil_5pt", f"step_b_{label}_{n_mem}"), n_mem, run_b, one, plain_b,
+                    lambda o, r: float(not torch.equal(o, r)), 0.0,
+                    n_mem * 4 * h * w, n_mem * (2 * h * w + 2 * (h + w)) * 4, "f32",
+                    shape=[h, w])
+        del old, nu, nd, nl, nr, args
+    check(not failures, "B3 batched launches:\n  " + "\n  ".join(failures))
+
+    # B5 at the f32 prefill's largest level: 256 (head, q block) steps at
+    # one key block, each member's q offset its own (read on the card from
+    # an int64 tensor), k and v stacked; members whose query rows all lie
+    # before the key block are fully masked and must keep their carry
+    # exactly.  The wide kernel (D = 512) at a small batch.
+    for label, n_mem, d, dt in (("f32", 256, ATTN_D, f32), ("bf16", 256, ATTN_D, bf16),
+                                ("f32_wide", 8, 512, f32)):
+        seed += 1
+        sq = sk = ATTN_BLOCK
+        k_off = 3 * ATTN_BLOCK
+        q_offs = [(j % (ATTN_S // ATTN_BLOCK)) * ATTN_BLOCK for j in range(n_mem)]
+        q_off_t = torch.tensor(q_offs, dtype=torch.int64, device=dev)
+        q, k, v = (rand((n_mem, n, d), seed + off, dt)
+                   for n, off in ((sq, 0), (sk, 1000), (sk, 2000)))
+        acc = rand((n_mem, sq, d), seed + 3000)
+        m = rand((n_mem, sq, 1), seed + 4000)
+        l = rand((n_mem, sq, 1), seed + 5000).abs()
+        kw = dict(causal=True, scale=d ** -0.5)
+
+        def attn_body(Q, K, V, ACC, M, L, qo):
+            return kernels.flash_attention_block(Q, K, V, ACC, M, L, qo, k_off, **kw)
+
+        args = (q, k, v, acc, m, l)
+        run_b = lambda: vmap(attn_body)(*args, q_off_t)  # noqa: E731
+        one = lambda i: kernels.flash_attention_block(  # noqa: E731
+            *(t[i] for t in args), q_offs[i], k_off, **kw)
+        plain_b = lambda: kernels.flash_attention_block_plain(  # noqa: E731
+            *args, q_off_t, k_off, **kw)
+        masked = [i for i, qo in enumerate(q_offs) if qo + sq - 1 < k_off]
+        out_b = run_b()
+        torch.cuda.synchronize()
+        exact = all(torch.equal(out_b[0][i], acc[i]) and torch.equal(out_b[1][i], m[i])
+                    and torch.equal(out_b[2][i], l[i]) for i in masked)
+        if not exact:
+            failures.append(f"flash_attention_block[{label}_b]: a fully masked member's "
+                            "carry changed")
+        del out_b
+        pairs = sum(attn_pairs(sq, sk, qo, k_off, True) for qo in q_offs)
+        nbytes = n_mem * ((q[0].numel() + 2 * k[0].numel()) * q.element_size()
+                          + 2 * sq * d * 4 + 4 * sq * 4)
+        flops, op_type = ((4 * d * pairs, "f32") if label.endswith("_wide") else
+                          (6 * d * pairs, "bf16") if label == "bf16" else
+                          (3 * 4 * d * pairs, "tf32"))
+        batched_row(("flash_attention_block", f"{label}_b_{n_mem}"), n_mem, run_b, one,
+                    plain_b, carry_err, TOL_ATTN, flops, nbytes, op_type,
+                    shape=[sq, sk, d], masked_members=len(masked), masked_exact=exact)
+        del q, k, v, acc, m, l, args
+    check(not failures, "B5 batched launches:\n  " + "\n  ".join(failures))
+    torch.cuda.empty_cache()
+
     # -- main path: dpotrf N=8192 nb=512 on the CUDA device module ----------
     # SPD input made from a numpy seed as bench.py makes it (M M^T + N I),
     # the product taken on the card; the oracle is a float64 Cholesky
@@ -1583,8 +1900,28 @@ def main() -> int:
     # -- graph phase: dpotrf through GraphExecutor (whole-DAG capture) -------
     # the first call (warm-up, capture, replay) timed on its own; then
     # GRAPH_REPLAYS replays on reused device feeds (apply + synchronize),
-    # every output tile equal to the dynamic factor's
+    # every output tile equal to the dynamic factor's; then the same DAG
+    # level-batched (batched_graph)
     graph_execs = {}
+    batched_execs, batched_launches = {}, {}
+    # what batched_graph needs of this scope (``h`` is a loop variable here)
+    hb = types.SimpleNamespace(torch=torch, card=card, say=say, check=check)
+
+    def factor_gate(label, tiles, recon_tol):
+        """The dpotrf path's gates on a factor given as output tiles:
+        ||LL^T - S||max / ||S||max and the last tile against the float64
+        Cholesky."""
+        L = torch.zeros((N, N), dtype=torch.float64, device=dev)
+        for (_c, (m, n)), tile in tiles.items():
+            L[m * NB:(m + 1) * NB, n * NB:(n + 1) * NB] = tile
+        L = L.tril()
+        check(bool(torch.isfinite(L).all()), f"{label}: non-finite factor")
+        recon = ((L @ L.mT - S64).abs().max() / s_max).item()
+        last = ((L[-NB:, -NB:] - L_ref_last).abs().max() / scale).item()
+        del L
+        check(last < 1e-3, f"{label}: last-tile error {last} >= 1e-3")
+        check(recon < recon_tol, f"{label}: ||LL^T-S||max/||S||max {recon} >= {recon_tol}")
+        return recon, last
 
     def run_graph(ex, feeds):
         """The first call and GRAPH_REPLAYS replays of ``ex`` on ``feeds``:
@@ -1641,7 +1978,7 @@ def main() -> int:
             ref = fac[m * NB:(m + 1) * NB, n * NB:(n + 1) * NB]
             check(torch.equal(tile, ref) and torch.equal(last[(_c, (m, n))], ref),
                   f"graph {name}: tile ({m}, {n}) differs from the dynamic factor")
-        del fac, first, last
+        del fac, first
         fields = graph_fields(ex, first_s, replay_s, ntasks)
         pump = depth_walls.walls.get(f"dpotrf {name} pump")
         say("graph", path="dpotrf", variant=name, N=N, nb=NB, plan_s=plan_s,
@@ -1650,7 +1987,22 @@ def main() -> int:
             pump_median_depth1_s=statistics.median(pump[1]) if pump else None,
             equal_dynamic=True, **fields)
         graph_execs[f"dpotrf_{name}"] = (ex, feeds)
-        del A, tp
+        # the same DAG level-batched: each B1/B2 group one launch; its
+        # batched library potrf/trsm groups may round apart from the
+        # per-tile calls, so the factor passes the path's gates and its
+        # distance to the unbatched replay's is printed
+        upd = "bf16" if kw.get("bf16_updates") else "f32"
+        kernel_of = {"syrk": ("matmul_update", upd), "gemm": ("matmul_update", upd)}
+        if kw.get("use_trtri"):
+            kernel_of["trsm"] = ("matmul", "f32")
+        b_ex, b_last, batched_launches[f"dpotrf_{name}"] = batched_graph(
+            hb, f"dpotrf_{name}", tp, feeds, last, fields["median_replay_s"], kernel_of,
+            ntasks, exact=False)
+        recon, last_err = factor_gate(f"graph_batched {name}", b_last, _tol)
+        say("graph_batched_gate", path=f"dpotrf_{name}", recon_err=recon, tol=_tol,
+            last_tile_err=last_err, card=card)
+        batched_execs[f"dpotrf_{name}"] = (b_ex, feeds)
+        del A, tp, last, b_last
     del dyn_factor
 
     # -- device-module phase: the CUDA module's GPU-only paths ----------------
@@ -1983,14 +2335,20 @@ def main() -> int:
         ref = want_out[b, o:o + ATTN_BLOCK, h, :]
         check(torch.equal(plane, ref) and torch.equal(first[key], ref),
               f"graph {pf_name}: output plane {key} differs from run_flash_attention's")
-    del first, last, want_out
+    del first, want_out
     say("graph", path="attention", run=pf_name, plan_s=plan_s,
         nominal_gflops=4.0 * ATTN_B * ATTN_H * ATTN_S ** 2 * ATTN_D
         / statistics.median(replay_s) / 1e9,
         dynamic_wall_s=attn_wall[pf_name], pump_run_s=pump_run_s, equal_dynamic=True,
         **graph_fields(ex, first_s, replay_s, pf_tasks))
     graph_execs[pf_name] = (ex, feeds)
-    del tp, assemble, attn_out
+    # level-batched: each level's (head, q block) steps one B5 launch over
+    # the members' own q offsets, every output plane equal to the replay's
+    b_ex, _b_last, batched_launches[pf_name] = batched_graph(
+        hb, pf_name, tp, feeds, last, statistics.median(replay_s),
+        {"attn_step": ("flash_attention_block", "f32")}, pf_tasks, exact=True)
+    batched_execs[pf_name] = (b_ex, feeds)
+    del tp, assemble, attn_out, last, _b_last
     torch.cuda.empty_cache()
 
     # the yardstick users would otherwise call: PyTorch's fused attention on
@@ -2301,14 +2659,20 @@ def main() -> int:
             ref = want_grid[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile]
             check(torch.equal(first[key], ref) and torch.equal(last[key], ref),
                   f"graph stencil: tile ({i}, {j}) differs from the dynamic path's")
-    del first, last, want_grid
+    del first, want_grid
     say("graph", path="stencil", N=ST_N, tile=tile, T=ST_T, plan_s=plan_s,
         gcells_per_s=ST_N * ST_N * ST_T / statistics.median(replay_s) / 1e9,
         dynamic_wall_s=st_wall,
         pump_median_depth1_s=statistics.median(depth_walls.walls["stencil pump"][1]),
         equal_dynamic=True, **graph_fields(ex, first_s, replay_s, n_tasks_st))
     graph_execs["stencil"] = (ex, feeds)
-    del A, tp
+    # level-batched: each step's tiles of one halo pattern one B3 launch,
+    # every tile equal to the replay's
+    b_ex, _b_last, batched_launches["stencil"] = batched_graph(
+        hb, "stencil", tp, feeds, last, statistics.median(replay_s),
+        {"stencil": ("stencil_5pt", "step")}, n_tasks_st, exact=True)
+    batched_execs["stencil"] = (b_ex, feeds)
+    del A, tp, last, _b_last
 
     g_lead = torch.from_numpy(np.ascontiguousarray(grid[:FUSED_N, :FUSED_N])).to(dev)
     f_ref = g_lead.double()
@@ -2502,14 +2866,19 @@ def main() -> int:
             wall = time.perf_counter() - t0
             return wall, dict(replay_s=wall)
 
-        # one GraphExecutor replay a path, beside the pump rows above
+        # one GraphExecutor replay a path, beside the pump rows above, and
+        # one level-batched replay (its member stacks: the top list's
+        # CatArrayBatchedCopy kernels)
         for label, (ex, feeds) in graph_execs.items():
             profiled(f"graph_{label}", lambda: graph_replay(ex, feeds))
+        for label, (ex, feeds) in batched_execs.items():
+            profiled(f"graph_batched_{label}", lambda: graph_replay(ex, feeds))
 
     # the dense factorizations, each path once more under the profiler
     # with --profile
     factor_launches = factorization_phases(types.SimpleNamespace(
-        np=np, torch=torch, dev=dev, card=card, say=say, check=check, profiled=profiled))
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, profiled=profiled,
+        batched_launches=batched_launches))
 
     def entry(name, mode, n_launch, source="matmul.cu", line="70", key=None):
         row = results[key or (name, mode, TILE)]
@@ -2557,6 +2926,34 @@ def main() -> int:
               "attention.cu", "283", ("flash_attention_block", case))
         for mode, case in (("f32", "f32"), ("bf16", "bf16"), ("f32_wide", "f32_512x512_d512"),
                            ("bf16_wide", "bf16_512x512_d512"))
+    ]
+
+    def batched_entry(name, mode, key, source, line):
+        """A batched mode's row: its launches over the level-batched
+        replays, its times and bound at the largest group a path makes."""
+        row = batched_results[(name, key)]
+        n_launch = sum(c.get(name, {}).get(mode, 0) for c in batched_launches.values())
+        check(n_launch > 0, f"{name}[{mode}]: no launch on the level-batched replays")
+        return {"name": f"{name}[{mode}]", "route": "cuda",
+                "shape": [row["members"], *row["shape"]],
+                "source": f"parsec_tpu_torch/csrc/{source}",
+                "replaces": f"parsec_tpu/ops/pallas_kernels.py:{line}",
+                "launches": n_launch, "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "library_call": row["library_call"],
+                "members": row["members"], "one_by_one_ms": row["one_by_one_ms"]}
+
+    # the batched modes the level-batched replays launch (split_b, B5's
+    # bf16 and wide batches run on no batched path: printed above only)
+    table += [
+        batched_entry("matmul_update", "f32_b", "f32_b_105", "matmul.cu", "70"),
+        batched_entry("matmul_update", "bf16_b", "bf16_b_105", "matmul.cu", "70"),
+        batched_entry("matmul_update", "f32_nt_b", "f32_nt_b_225", "matmul.cu", "70"),
+        batched_entry("matmul", "f32_b", "f32_b_15", "matmul.cu", "158"),
+        batched_entry("matmul", "f32_nt_b", "f32_nt_b_65", "matmul.cu", "158"),
+        batched_entry("stencil_5pt", "step_b", "step_b_interior_36", "stencil.cu", "219"),
+        batched_entry("flash_attention_block", "f32_b", "f32_b_256", "attention.cu", "283"),
     ]
     depth_walls.report()
     wave_walls.report()

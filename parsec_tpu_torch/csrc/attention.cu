@@ -78,6 +78,17 @@
 // accumulator per warp in registers and a K/V chunk per stage in shared
 // memory, and neither fits at D = 512.
 //
+// Batch axis (both kernels).  One launch may run `batch` independent
+// updates (a level of a whole-DAG replay: one group of prefill steps,
+// ROADMAP A.4c): grid z is the member, each operand steps by its own batch
+// stride in elements (0: an operand every member shares), and each member
+// reads its own q_off / k_off from a device array of int64 where one is
+// given (stride 0: one value for all), else takes the scalar.  A member's
+// blocks run the single update's arithmetic at its own addresses and
+// offsets -- a fully masked member leaves its carry exact -- so a batched
+// launch is bit-identical to its members launched one by one.  The 16-byte
+// copies are decided over every member's addresses (bases and strides).
+//
 // Interface: a plain C entry point bound with ctypes; it launches on the
 // given stream, does not synchronise, allocates nothing, and returns the
 // launch's cudaError_t (0 = launched).
@@ -96,6 +107,24 @@ constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int D_ENGINE = 256;        // widest head of the mma.sync engine
 constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory a block may opt in to
+constexpr int MAX_BATCH = 65535;       // grid z
+
+// a batched launch: each operand's per-member element stride (0: shared by
+// every member), and the members' offsets, q_off[z * q_step] where q_off is
+// given (else the scalar offset)
+struct Batch {
+  long long q, k, v, acc, m, l, acc_o, m_o, l_o;
+  const long long* q_off;
+  long long q_step;
+  const long long* k_off;
+  long long k_step;
+};
+
+// member z's offset: its entry of the device array, or the scalar
+__device__ __forceinline__ long long member_off(const long long* offs, long long step,
+                                                long long scalar) {
+  return offs ? offs[blockIdx.z * step] : scalar;
+}
 
 template <typename T, int DMAX>
 struct Traits {
@@ -253,15 +282,19 @@ __device__ __forceinline__ void load_tile(Bits* dst, const Bits* __restrict__ sr
 
 // -- the kernel -------------------------------------------------------------
 
-template <typename T, int DMAX>
+// BATCHED: a launch of more than one member, or one that reads its offsets
+// from device memory.  A single update takes the other instantiation, where
+// the member offsets fold away and the code is the unbatched kernel's own
+// (the offsets cost it registers and spills otherwise)
+template <typename T, int DMAX, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
                    const void* __restrict__ kv, const void* __restrict__ vv,
-                   const float* __restrict__ acc_in, const float* __restrict__ m_in,
-                   const float* __restrict__ l_in, float* __restrict__ acc_out,
-                   float* __restrict__ m_out, float* __restrict__ l_out, long long q_off,
-                   long long k_off, int causal, float scale, int vec_q, int vec_kv,
-                   int vec_acc) {
+                   const float* __restrict__ acc_b, const float* __restrict__ m_b,
+                   const float* __restrict__ l_b, float* __restrict__ acc_ob,
+                   float* __restrict__ m_ob, float* __restrict__ l_ob, long long q_off0,
+                   long long k_off0, int causal, float scale, int vec_q, int vec_kv,
+                   int vec_acc, Batch bt) {
   using Tr = Traits<T, DMAX>;
   using Bits = typename Tr::Bits;
   constexpr int BKC = Tr::BKC, KW = Tr::KW, KSTEP = Tr::KSTEP, STAGES = Tr::STAGES;
@@ -275,9 +308,19 @@ flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
   auto k_stage = [&](int st) { return reinterpret_cast<Bits*>(stages + st * Tr::STAGE_BYTES); };
   auto v_stage = [&](int st) { return k_stage(st) + BKC * KP; };
 
-  const Bits* q = static_cast<const Bits*>(qv);
-  const Bits* k = static_cast<const Bits*>(kv);
-  const Bits* v = static_cast<const Bits*>(vv);
+  // this block's member of the batch
+  const long long z = BATCHED ? blockIdx.z : 0;
+  const Bits* q = static_cast<const Bits*>(qv) + z * bt.q;
+  const Bits* k = static_cast<const Bits*>(kv) + z * bt.k;
+  const Bits* v = static_cast<const Bits*>(vv) + z * bt.v;
+  const float* __restrict__ acc_in = acc_b + z * bt.acc;
+  const float* __restrict__ m_in = m_b + z * bt.m;
+  const float* __restrict__ l_in = l_b + z * bt.l;
+  float* __restrict__ acc_out = acc_ob + z * bt.acc_o;
+  float* __restrict__ m_out = m_ob + z * bt.m_o;
+  float* __restrict__ l_out = l_ob + z * bt.l_o;
+  const long long q_off = BATCHED ? member_off(bt.q_off, bt.q_step, q_off0) : q_off0;
+  const long long k_off = BATCHED ? member_off(bt.k_off, bt.k_step, k_off0) : k_off0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // the fragment's row group and column pair
   const int row0 = blockIdx.x * BQ;
@@ -545,13 +588,19 @@ flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(int sq, int sk, int d, const void* q, const void* k, const void* v,
+// 16-byte copies of every member: the row pitch, the base and the batch
+// stride (in elements of `size` bytes) all 16-byte multiples
+__host__ inline bool aligned16(const void* p, long long stride, size_t size) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (stride * (long long)size) % 16 == 0;
+}
+
+template <typename T, int DMAX, bool BATCHED>
+cudaError_t launch(int batch, int sq, int sk, int d, const void* q, const void* k, const void* v,
                    const float* acc, const float* m, const float* l, float* acc_o, float* m_o,
                    float* l_o, long long q_off, long long k_off, int causal, float scale,
-                   cudaStream_t stream) {
+                   const Batch& bt, cudaStream_t stream) {
   constexpr int smem = Traits<T, DMAX>::SMEM;
-  auto kern = flash_block_kernel<T, DMAX>;
+  auto kern = flash_block_kernel<T, DMAX, BATCHED>;
   // dynamic shared memory above the 48 KB default: opted in once per
   // instantiation (a thread-safe static), for the device current at the
   // first launch -- the port drives one device
@@ -560,13 +609,12 @@ cudaError_t launch(int sq, int sk, int d, const void* q, const void* k, const vo
   if (opted != cudaSuccess) return opted;
   // 16-byte copies where the row pitch and the base are 16-byte multiples
   const bool pitch16 = size_t(d) * sizeof(T) % 16 == 0;
-  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const int vec_q = pitch16 && aligned(q);
-  const int vec_kv = pitch16 && aligned(k) && aligned(v);
-  const int vec_acc = d % 4 == 0 && aligned(acc);
-  kern<<<(sq + BQ - 1) / BQ, THREADS, smem, stream>>>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o,
-                                                      l_o, q_off, k_off, causal, scale, vec_q,
-                                                      vec_kv, vec_acc);
+  const int vec_q = pitch16 && aligned16(q, bt.q, sizeof(T));
+  const int vec_kv = pitch16 && aligned16(k, bt.k, sizeof(T)) && aligned16(v, bt.v, sizeof(T));
+  const int vec_acc = d % 4 == 0 && aligned16(acc, bt.acc, 4);
+  const dim3 grid((sq + BQ - 1) / BQ, 1, batch);
+  kern<<<grid, THREADS, smem, stream>>>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
+                                        k_off, causal, scale, vec_q, vec_kv, vec_acc, bt);
   return cudaGetLastError();
 }
 
@@ -628,14 +676,25 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
-template <typename T>
+template <typename T, bool BATCHED>
 __global__ void __launch_bounds__(WTHREADS)
-flash_wide_kernel(int sq, int sk, int d, const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ acc_in,
-                  const float* __restrict__ m_in, const float* __restrict__ l_in,
-                  float* __restrict__ acc_out, float* __restrict__ m_out,
-                  float* __restrict__ l_out, long long q_off, long long k_off, int causal,
-                  float scale) {
+flash_wide_kernel(int sq, int sk, int d, const T* __restrict__ q_b, const T* __restrict__ k_b,
+                  const T* __restrict__ v_b, const float* __restrict__ acc_b,
+                  const float* __restrict__ m_b, const float* __restrict__ l_b,
+                  float* __restrict__ acc_ob, float* __restrict__ m_ob,
+                  float* __restrict__ l_ob, long long q_off0, long long k_off0, int causal,
+                  float scale, Batch bt) {
+  // this block's member of the batch
+  const long long z = BATCHED ? blockIdx.z : 0;
+  const T* __restrict__ q = q_b + z * bt.q;
+  const T* __restrict__ k = k_b + z * bt.k;
+  const T* __restrict__ v = v_b + z * bt.v;
+  const float* __restrict__ acc_in = acc_b + z * bt.acc;
+  const float* __restrict__ m_in = m_b + z * bt.m;
+  const float* __restrict__ l_in = l_b + z * bt.l;
+  const long long q_off = BATCHED ? member_off(bt.q_off, bt.q_step, q_off0) : q_off0;
+  const long long k_off = BATCHED ? member_off(bt.k_off, bt.k_step, k_off0) : k_off0;
+
   extern __shared__ __align__(16) float wsm[];
   float* qt = wsm;
   float* kt = qt + WDS * WQP;
@@ -764,6 +823,10 @@ flash_wide_kernel(int sq, int sk, int d, const T* __restrict__ q, const T* __res
       for (int c = 0; c < WDPT; ++c) acc[r][c] += pv[r][c];
   }
 
+  // the member's outputs
+  float* __restrict__ acc_out = acc_ob + z * bt.acc_o;
+  float* __restrict__ m_out = m_ob + z * bt.m_o;
+  float* __restrict__ l_out = l_ob + z * bt.l_o;
 #pragma unroll
   for (int r = 0; r < WRPT; ++r) {
     const int gr = row0 + ty + WTY * r;
@@ -780,50 +843,76 @@ flash_wide_kernel(int sq, int sk, int d, const T* __restrict__ q, const T* __res
   }
 }
 
-template <typename T>
-cudaError_t launch_wide(int sq, int sk, int d, const void* q, const void* k, const void* v,
-                        const float* acc, const float* m, const float* l, float* acc_o,
-                        float* m_o, float* l_o, long long q_off, long long k_off, int causal,
-                        float scale, cudaStream_t stream) {
-  auto kern = flash_wide_kernel<T>;
+template <typename T, bool BATCHED>
+cudaError_t launch_wide(int batch, int sq, int sk, int d, const void* q, const void* k,
+                        const void* v, const float* acc, const float* m, const float* l,
+                        float* acc_o, float* m_o, float* l_o, long long q_off, long long k_off,
+                        int causal, float scale, const Batch& bt, cudaStream_t stream) {
+  auto kern = flash_wide_kernel<T, BATCHED>;
   static const cudaError_t opted =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_SMEM);
   if (opted != cudaSuccess) return opted;
-  const dim3 grid((sq + WBQ - 1) / WBQ, (d + WCW - 1) / WCW);
+  const dim3 grid((sq + WBQ - 1) / WBQ, (d + WCW - 1) / WCW, batch);
   kern<<<grid, WTHREADS, WIDE_SMEM, stream>>>(sq, sk, d, static_cast<const T*>(q),
                                               static_cast<const T*>(k), static_cast<const T*>(v),
                                               acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
-                                              scale);
+                                              scale, bt);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int sq, int sk, int d, const void* q, const void* k, const void* v,
-                       const float* acc, const float* m, const float* l, float* acc_o,
-                       float* m_o, float* l_o, long long q_off, long long k_off, int causal,
-                       float scale, cudaStream_t stream) {
+template <typename T, bool BATCHED>
+cudaError_t dispatch_d(int batch, int sq, int sk, int d, const void* q, const void* k,
+                       const void* v, const float* acc, const float* m, const float* l,
+                       float* acc_o, float* m_o, float* l_o, long long q_off, long long k_off,
+                       int causal, float scale, const Batch& bt, cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 64>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
-                         scale, stream);
+    return launch<T, 64, BATCHED>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
+                                  k_off, causal, scale, bt, stream);
   if (d <= 128)
-    return launch<T, 128>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
-                          scale, stream);
+    return launch<T, 128, BATCHED>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o,
+                                   q_off, k_off, causal, scale, bt, stream);
   if (d <= D_ENGINE)
-    return launch<T, 256>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
-                          scale, stream);
-  return launch_wide<T>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off, k_off, causal,
-                        scale, stream);
+    return launch<T, 256, BATCHED>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o,
+                                   q_off, k_off, causal, scale, bt, stream);
+  return launch_wide<T, BATCHED>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
+                                 k_off, causal, scale, bt, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_b(int batch, int sq, int sk, int d, const void* q, const void* k,
+                       const void* v, const float* acc, const float* m, const float* l,
+                       float* acc_o, float* m_o, float* l_o, long long q_off, long long k_off,
+                       int causal, float scale, const Batch& bt, cudaStream_t stream) {
+  if (batch > 1 || bt.q_off || bt.k_off)
+    return dispatch_d<T, true>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
+                               k_off, causal, scale, bt, stream);
+  return dispatch_d<T, false>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
+                              k_off, causal, scale, bt, stream);
 }
 
 }  // namespace
 
-extern "C" int ptt_flash_attention_block(int bf16, int sq, int sk, int d, const void* q,
-                                         const void* k, const void* v, const void* acc,
-                                         const void* m, const void* l, void* acc_o, void* m_o,
-                                         void* l_o, long long q_off, long long k_off, int causal,
-                                         float scale, void* stream) {
-  if (sq < 0 || sk < 0 || d <= 0) return (int)cudaErrorInvalidValue;
+// `batch` members.  strides: the members' element strides of q, k, v, acc,
+// m, l, acc_o, m_o and l_o (null: batch 1).  q_offs / k_offs: device int64
+// offsets, member z's at [z * step] (null: the scalar q_off / k_off).
+extern "C" int ptt_flash_attention_block(int bf16, int batch, int sq, int sk, int d,
+                                         const void* q, const void* k, const void* v,
+                                         const void* acc, const void* m, const void* l,
+                                         void* acc_o, void* m_o, void* l_o, long long q_off,
+                                         long long k_off, int causal, float scale,
+                                         const long long* strides, const void* q_offs,
+                                         long long q_step, const void* k_offs, long long k_step,
+                                         void* stream) {
+  if (sq < 0 || sk < 0 || d <= 0 || batch < 1 || batch > MAX_BATCH)
+    return (int)cudaErrorInvalidValue;
   if (sq == 0) return 0;
+  Batch bt{0, 0, 0, 0, 0, 0, 0, 0, 0, static_cast<const long long*>(q_offs), q_step,
+           static_cast<const long long*>(k_offs), k_step};
+  if (strides) {
+    bt.q = strides[0], bt.k = strides[1], bt.v = strides[2];
+    bt.acc = strides[3], bt.m = strides[4], bt.l = strides[5];
+    bt.acc_o = strides[6], bt.m_o = strides[7], bt.l_o = strides[8];
+  }
   auto s = static_cast<cudaStream_t>(stream);
   auto a = static_cast<const float*>(acc);
   auto mi = static_cast<const float*>(m);
@@ -832,8 +921,8 @@ extern "C" int ptt_flash_attention_block(int bf16, int sq, int sk, int d, const 
   auto mo = static_cast<float*>(m_o);
   auto lo = static_cast<float*>(l_o);
   if (bf16)
-    return (int)dispatch_d<__nv_bfloat16>(sq, sk, d, q, k, v, a, mi, li, ao, mo, lo, q_off,
-                                          k_off, causal, scale, s);
-  return (int)dispatch_d<float>(sq, sk, d, q, k, v, a, mi, li, ao, mo, lo, q_off, k_off, causal,
-                                scale, s);
+    return (int)dispatch_b<__nv_bfloat16>(batch, sq, sk, d, q, k, v, a, mi, li, ao, mo, lo,
+                                          q_off, k_off, causal, scale, bt, s);
+  return (int)dispatch_b<float>(batch, sq, sk, d, q, k, v, a, mi, li, ao, mo, lo, q_off, k_off,
+                                causal, scale, bt, s);
 }

@@ -52,6 +52,17 @@
 // cores, sets its time.  TMA and a warp-specialised persistent pipeline
 // are the known next steps.
 //
+// Batch axis.  One launch may run `batch` independent products (a level of
+// a whole-DAG replay: one group of same-shape tile updates, ROADMAP A.4c):
+// grid z is the member, and each operand steps by its own batch stride in
+// elements, 0 for an operand every member shares.  A member's blocks run
+// exactly the single product's arithmetic at the member's addresses, so a
+// batched launch is bit-identical to its members launched one by one.  The
+// vector flags hold for every member: the caller decides them over the
+// bases and the batch strides together.  A single product launches the
+// BATCHED = false instantiation, where the member offsets fold away and
+// the code is the unbatched kernel's own.
+//
 // Interface: plain C entry points bound with ctypes.  Every pointer and the
 // stream are passed as void*; the vector widths come from the caller
 // (ops/kernels.py:_mm_config), the shared-memory bytes from the mode.
@@ -75,6 +86,12 @@ constexpr int BN = 64;           // output tile columns: wgmma's n64
 constexpr int THREADS = 128;     // one warpgroup
 constexpr int ALIGN = 1024;      // the swizzle pattern repeats every 8 rows
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may opt in to
+constexpr int MAX_BATCH = 65535;    // grid z
+
+// per-member element strides of a batched launch (0: shared by every member)
+struct Strides {
+  long long a, b, c, o;
+};
 
 template <int MODE>
 struct ModeTraits {
@@ -323,11 +340,11 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 
 // -- the kernel -------------------------------------------------------------
 
-template <int MODE, typename TO, bool TRANS_B, bool HAS_C>
+template <int MODE, typename TO, bool TRANS_B, bool HAS_C, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 1)
 mm_kernel(int M, int N, int K, const void* __restrict__ Av, const void* __restrict__ Bv,
-          const float* __restrict__ C, TO* __restrict__ O, float alpha, int vec_a, int vec_b,
-          int vec_c) {
+          const float* __restrict__ Cb, TO* __restrict__ Ob, float alpha, int vec_a, int vec_b,
+          int vec_c, Strides bs) {
   using T = ModeTraits<MODE>;
   using Bits = typename T::Bits;
   constexpr int A_BYTES = BM * ROW_BYTES, B_BYTES = BN * ROW_BYTES;
@@ -345,8 +362,12 @@ mm_kernel(int M, int N, int K, const void* __restrict__ Av, const void* __restri
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const Bits* A = static_cast<const Bits*>(Av);
-  const Bits* B = static_cast<const Bits*>(Bv);
+  // this block's member of the batch
+  const int64_t z = BATCHED ? blockIdx.z : 0;
+  const Bits* A = static_cast<const Bits*>(Av) + z * bs.a;
+  const Bits* B = static_cast<const Bits*>(Bv) + z * bs.b;
+  const float* __restrict__ C = HAS_C ? Cb + z * bs.c : Cb;
+  TO* __restrict__ O = Ob + z * bs.o;
   const int ldb = TRANS_B ? K : N;
 
   Loader<MODE, BM, true> la;
@@ -433,64 +454,73 @@ mm_kernel(int M, int N, int K, const void* __restrict__ Av, const void* __restri
   }
 }
 
-template <int MODE, typename TO, bool TRANS_B, bool HAS_C>
-cudaError_t launch(int M, int N, int K, const void* A, const void* B, const void* C, void* O,
-                   float alpha, int vec_a, int vec_b, int vec_c, cudaStream_t stream) {
+template <int MODE, typename TO, bool TRANS_B, bool HAS_C, bool BATCHED>
+cudaError_t launch(int batch, int M, int N, int K, const void* A, const void* B, const void* C,
+                   void* O, float alpha, int vec_a, int vec_b, int vec_c, Strides bs,
+                   cudaStream_t stream) {
   constexpr int smem = ModeTraits<MODE>::SMEM;
-  auto kern = mm_kernel<MODE, TO, TRANS_B, HAS_C>;
+  auto kern = mm_kernel<MODE, TO, TRANS_B, HAS_C, BATCHED>;
   // dynamic shared memory above the 48 KB default: opted in once per
   // instantiation (a thread-safe static), for the device current at the
   // first launch -- the port drives one device
   static const cudaError_t opted =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opted != cudaSuccess) return opted;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
   kern<<<grid, THREADS, smem, stream>>>(M, N, K, A, B, static_cast<const float*>(C),
-                                         static_cast<TO*>(O), alpha, vec_a, vec_b, vec_c);
+                                         static_cast<TO*>(O), alpha, vec_a, vec_b, vec_c, bs);
   return cudaGetLastError();
 }
 
 template <int MODE, typename TO, bool HAS_C>
-cudaError_t dispatch(int trans_b, int M, int N, int K, const void* A, const void* B,
+cudaError_t dispatch(int trans_b, int batch, int M, int N, int K, const void* A, const void* B,
                      const void* C, void* O, float alpha, int vec_a, int vec_b, int vec_c,
-                     void* stream) {
+                     const long long* strides, void* stream) {
+  if (batch < 1 || batch > MAX_BATCH) return cudaErrorInvalidValue;
+  Strides bs{0, 0, 0, 0};
+  if (strides) bs = Strides{strides[0], strides[1], strides[2], strides[3]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return trans_b ? launch<MODE, TO, true, HAS_C>(M, N, K, A, B, C, O, alpha, vec_a, vec_b,
-                                                 vec_c, s)
-                 : launch<MODE, TO, false, HAS_C>(M, N, K, A, B, C, O, alpha, vec_a, vec_b,
-                                                  vec_c, s);
+  auto run = trans_b ? (batch > 1 ? launch<MODE, TO, true, HAS_C, true>
+                                  : launch<MODE, TO, true, HAS_C, false>)
+                     : (batch > 1 ? launch<MODE, TO, false, HAS_C, true>
+                                  : launch<MODE, TO, false, HAS_C, false>);
+  return run(batch, M, N, K, A, B, C, O, alpha, vec_a, vec_b, vec_c, bs, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// B1: O(m,n) f32 = C(m,n) f32 + alpha * A @ op(B).
+// B1: O(m,n) f32 = C(m,n) f32 + alpha * A @ op(B), for each of `batch`
+// members.
 // in_bf16: A and B are bf16 (else f32); split_f32: f32 operands, 3-pass
 // bf16 (else 3-pass TF32).  vec_a, vec_b: 16-byte operand loads; vec_c:
-// paired C/O accesses.
-int ptt_matmul_update(int in_bf16, int trans_b, int split_f32, int M, int N, int K,
+// paired C/O accesses.  strides: the members' element strides of A, B, C
+// and O (null: batch 1).
+int ptt_matmul_update(int in_bf16, int trans_b, int split_f32, int batch, int M, int N, int K,
                       const void* C, const void* A, const void* B, void* O, float alpha,
-                      int vec_a, int vec_b, int vec_c, void* stream) {
+                      int vec_a, int vec_b, int vec_c, const long long* strides, void* stream) {
   if (in_bf16)
-    return dispatch<BF16, float, true>(trans_b, M, N, K, A, B, C, O, alpha, vec_a, vec_b,
-                                       vec_c, stream);
+    return dispatch<BF16, float, true>(trans_b, batch, M, N, K, A, B, C, O, alpha, vec_a,
+                                       vec_b, vec_c, strides, stream);
   if (split_f32)
-    return dispatch<SPLIT, float, true>(trans_b, M, N, K, A, B, C, O, alpha, vec_a, vec_b,
-                                        vec_c, stream);
-  return dispatch<TF32X3, float, true>(trans_b, M, N, K, A, B, C, O, alpha, vec_a, vec_b,
-                                       vec_c, stream);
+    return dispatch<SPLIT, float, true>(trans_b, batch, M, N, K, A, B, C, O, alpha, vec_a,
+                                        vec_b, vec_c, strides, stream);
+  return dispatch<TF32X3, float, true>(trans_b, batch, M, N, K, A, B, C, O, alpha, vec_a,
+                                       vec_b, vec_c, strides, stream);
 }
 
 // B2: O(m,n) = A @ op(B), in A's dtype (f32 by three TF32 passes, or bf16
-// rounded once from the f32 sum).  Vector flags as for ptt_matmul_update.
-int ptt_matmul(int in_bf16, int trans_b, int M, int N, int K, const void* A, const void* B,
-               void* O, int vec_a, int vec_b, int vec_c, void* stream) {
+// rounded once from the f32 sum).  Vector flags and strides as for
+// ptt_matmul_update (C's stride unused).
+int ptt_matmul(int in_bf16, int trans_b, int batch, int M, int N, int K, const void* A,
+               const void* B, void* O, int vec_a, int vec_b, int vec_c,
+               const long long* strides, void* stream) {
   if (in_bf16)
-    return dispatch<BF16, __nv_bfloat16, false>(trans_b, M, N, K, A, B, nullptr, O, 1.f,
-                                                vec_a, vec_b, vec_c, stream);
-  return dispatch<TF32X3, float, false>(trans_b, M, N, K, A, B, nullptr, O, 1.f, vec_a,
-                                        vec_b, vec_c, stream);
+    return dispatch<BF16, __nv_bfloat16, false>(trans_b, batch, M, N, K, A, B, nullptr, O, 1.f,
+                                                vec_a, vec_b, vec_c, strides, stream);
+  return dispatch<TF32X3, float, false>(trans_b, batch, M, N, K, A, B, nullptr, O, 1.f, vec_a,
+                                        vec_b, vec_c, strides, stream);
 }
 
 }  // extern "C"

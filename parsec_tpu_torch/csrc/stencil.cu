@@ -31,7 +31,14 @@
 // point launches the same kernel with one element per thread and scalar
 // accesses.  What bounds it: one read of `old` and one write of the result,
 // 8 bytes per f32 element (2.5 us for a 1024^2 f32 tile at 3.35 TB/s),
-// against 5 operations per element: byte-bound.
+// against 5 operations per element: byte-bound.  One launch may step
+// `batch` independent tiles (a level of a whole-DAG replay, ROADMAP A.4c):
+// grid z is the member, and each operand has its own batch stride in
+// elements (0: a zero halo every member shares; the halo columns keep
+// their row stride).  A member runs the single step's arithmetic at its
+// own addresses, so a batched launch is bit-identical to its members
+// launched one by one; the caller decides the 16-byte groups over every
+// member's addresses (the bases and the batch strides).
 //
 // B4.  Two modes, chosen by the caller before launch (kernels._fused_mode):
 //   * smem: one persistent block per SM holds a strip of `rows` grid rows
@@ -83,6 +90,7 @@ constexpr int STEP_THREADS = 128;  // B3: one warp covers 512 contiguous bytes
 constexpr int STEP_ROWS = 4;       // B3: rows of one thread's strip
 constexpr int FUSED_THREADS = 256;        // B4 global mode
 constexpr int FUSED_SMEM_THREADS = 512;   // B4 smem mode
+constexpr int MAX_BATCH = 65535;          // B3: grid z
 constexpr unsigned FULL = 0xffffffffu;
 
 // -- arithmetic in the storage type ----------------------------------------
@@ -231,11 +239,29 @@ __device__ __forceinline__ T from_words(const Word (&v)[words_of(sizeof(T))]) {
 
 // -- B3: one step of a tile -------------------------------------------------
 
-template <typename T, int VEC>
+// B3's per-member element strides (0: shared by every member)
+struct StepStrides {
+  long long old, up, down, left, right, out;
+};
+
+// BATCHED: a launch of more than one member.  A single step takes the
+// other instantiation, where the member offsets fold away and the code is
+// the unbatched kernel's own (the offsets cost a single step registers and
+// time otherwise)
+template <typename T, int VEC, bool BATCHED>
 __global__ void __launch_bounds__(STEP_THREADS)
-stencil_step_kernel(int h, int w, const T* __restrict__ old, const T* __restrict__ up,
-                    const T* __restrict__ down, const T* __restrict__ left, long long ls,
-                    const T* __restrict__ right, long long rs, T* __restrict__ out) {
+stencil_step_kernel(int h, int w, const T* __restrict__ old_b, const T* __restrict__ up_b,
+                    const T* __restrict__ down_b, const T* __restrict__ left_b, long long ls,
+                    const T* __restrict__ right_b, long long rs, T* __restrict__ out_b,
+                    StepStrides bs) {
+  // this block's member of the batch
+  const long long z = BATCHED ? blockIdx.z : 0;
+  const T* __restrict__ old = old_b + z * bs.old;
+  const T* __restrict__ up = up_b + z * bs.up;
+  const T* __restrict__ down = down_b + z * bs.down;
+  const T* __restrict__ left = left_b + z * bs.left;
+  const T* __restrict__ right = right_b + z * bs.right;
+  T* __restrict__ out = out_b + z * bs.out;
   const int lane = threadIdx.x & 31;
   const int c0 = (blockIdx.x * STEP_THREADS + threadIdx.x) * VEC;
   const int r0 = blockIdx.y * STEP_ROWS;
@@ -289,20 +315,19 @@ stencil_step_kernel(int h, int w, const T* __restrict__ old, const T* __restrict
 }
 
 template <typename T>
-int launch_step(int vec, int h, int w, const void* old, const void* up, const void* down,
-                const void* left, long long ls, const void* right, long long rs, void* out,
-                cudaStream_t stream) {
+int launch_step(int vec, int batch, int h, int w, const void* old, const void* up,
+                const void* down, const void* left, long long ls, const void* right, long long rs,
+                void* out, StepStrides bs, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const int groups = vec ? w / VEC : w;
-  const dim3 grid((groups + STEP_THREADS - 1) / STEP_THREADS, (h + STEP_ROWS - 1) / STEP_ROWS);
-  if (vec)
-    stencil_step_kernel<T, VEC><<<grid, STEP_THREADS, 0, stream>>>(
-        h, w, (const T*)old, (const T*)up, (const T*)down, (const T*)left, ls, (const T*)right,
-        rs, (T*)out);
-  else
-    stencil_step_kernel<T, 1><<<grid, STEP_THREADS, 0, stream>>>(
-        h, w, (const T*)old, (const T*)up, (const T*)down, (const T*)left, ls, (const T*)right,
-        rs, (T*)out);
+  const dim3 grid((groups + STEP_THREADS - 1) / STEP_THREADS, (h + STEP_ROWS - 1) / STEP_ROWS,
+                  batch);
+  auto kern = vec ? (batch > 1 ? stencil_step_kernel<T, VEC, true>
+                                : stencil_step_kernel<T, VEC, false>)
+                  : (batch > 1 ? stencil_step_kernel<T, 1, true>
+                               : stencil_step_kernel<T, 1, false>);
+  kern<<<grid, STEP_THREADS, 0, stream>>>(h, w, (const T*)old, (const T*)up, (const T*)down,
+                                          (const T*)left, ls, (const T*)right, rs, (T*)out, bs);
   return (int)cudaGetLastError();
 }
 
@@ -605,25 +630,31 @@ extern "C" int ptt_stencil_device(int* sms, int* smem_optin) {
   return (int)err;
 }
 
-extern "C" int ptt_stencil_5pt(int dtype, int vec, int h, int w, const void* old,
+// `batch` members; strides: the members' element strides of old, up, down,
+// left, right and out (null: batch 1)
+extern "C" int ptt_stencil_5pt(int dtype, int vec, int batch, int h, int w, const void* old,
                                const void* up, const void* down, const void* left,
                                long long left_stride, const void* right,
-                               long long right_stride, void* out, void* stream) {
-  if (h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+                               long long right_stride, void* out, const long long* strides,
+                               void* stream) {
+  if (h <= 0 || w <= 0 || batch < 1 || batch > MAX_BATCH) return (int)cudaErrorInvalidValue;
+  StepStrides bs{0, 0, 0, 0, 0, 0};
+  if (strides)
+    bs = StepStrides{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5]};
   auto s = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
-      return launch_step<float>(vec, h, w, old, up, down, left, left_stride, right,
-                                right_stride, out, s);
+      return launch_step<float>(vec, batch, h, w, old, up, down, left, left_stride, right,
+                                right_stride, out, bs, s);
     case 1:
-      return launch_step<double>(vec, h, w, old, up, down, left, left_stride, right,
-                                 right_stride, out, s);
+      return launch_step<double>(vec, batch, h, w, old, up, down, left, left_stride, right,
+                                 right_stride, out, bs, s);
     case 2:
-      return launch_step<__half>(vec, h, w, old, up, down, left, left_stride, right,
-                                 right_stride, out, s);
+      return launch_step<__half>(vec, batch, h, w, old, up, down, left, left_stride, right,
+                                 right_stride, out, bs, s);
     case 3:
-      return launch_step<__nv_bfloat16>(vec, h, w, old, up, down, left, left_stride, right,
-                                        right_stride, out, s);
+      return launch_step<__nv_bfloat16>(vec, batch, h, w, old, up, down, left, left_stride,
+                                        right, right_stride, out, bs, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -45,10 +45,10 @@ Supertask fusion (:mod:`.fusion`, ``runtime_fusion``) is read at attach:
 fused regions dispatch as one supertask each.
 
 What the port leaves out, each raising ``NotImplementedError`` naming its
-ROADMAP item when reached: ``GraphExecutor(batch_levels=True)`` (A.4c),
-the ahead-of-time verifier and lint (A.9), remote successors and
-write-backs (A.8), and a reshape property block on an incoming dep
-(A.8; on a ``<- NEW`` dep the block names the new tile's shape and dtype).
+ROADMAP item when reached: the ahead-of-time verifier and lint (A.9),
+remote successors and write-backs (A.8), and a reshape property block on
+an incoming dep (A.8; on a ``<- NEW`` dep the block names the new tile's
+shape and dtype).
 """
 
 from __future__ import annotations

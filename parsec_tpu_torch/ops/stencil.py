@@ -44,7 +44,7 @@ INOUT = AccessMode.INOUT
 class StencilBuffers(DataCollection):
     """Double-buffered tile grid: keys are (parity, i, j); parity 0 holds
     the initial state, parity 1 is scratch.  Single rank: the reference's
-    ``rank_of`` placement serves its distributed runs (ROADMAP A.10)."""
+    ``rank_of`` placement serves its distributed runs (ROADMAP A.8)."""
 
     def __init__(self, grid: np.ndarray, mt: int, nt: int, *, name: str = "A"):
         super().__init__(name)
@@ -101,7 +101,10 @@ def _apply_5pt(xp, OLD, UP, DOWN, LEFT, RIGHT):
     if xp is np:
         pad = np.zeros((h + 2, w + 2), OLD.dtype)
     else:
-        pad = torch.zeros((h + 2, w + 2), dtype=OLD.dtype, device=OLD.device)
+        # new_zeros, not torch.zeros: under torch.func.vmap (a level-batched
+        # replay) the padded tile is batched with OLD, so the halo writes
+        # below can land in it
+        pad = OLD.new_zeros((h + 2, w + 2))
     pad[1:-1, 1:-1] = OLD
     if UP is not None:
         pad[0, 1:-1] = UP[-1, :]

@@ -84,6 +84,51 @@ def test_captured_dpotrf_replays_equal_to_eager(variant, card):
         assert first[k].data_ptr() != second[k].data_ptr()
 
 
+
+def _batched_pool(path):
+    """(taskpool, feeds source) of one level-batched path at test size."""
+    if path == "stencil":
+        A = stencil.StencilBuffers(_GRID, _ST["MT"], _ST["NT"])
+        return stencil.stencil_ptg(use_kernels=True, use_cpu=False).taskpool(A=A, **_ST)
+    if path == "attention":
+        return attention.build_flash_attention(*_QKV, use_cpu=False, **_ATTN)[0]
+    return _dpotrf_pool(path)[0]
+
+
+@pytest.mark.parametrize("path", ["kernels", "kernels_trtri", "attention", "stencil"])
+def test_batched_replays_launch_a_group_once(path, card):
+    """``GraphExecutor(batch_levels=True)`` on the card: no group falls
+    back, a replay launches each hand kernel once a batched group (its
+    ``_b`` mode) and once a per-task task, the members counted apart;
+    the stencil and the prefill equal the unbatched replay bit for bit,
+    dpotrf within f32 rounding of it (batched library potrf/trsm)."""
+    tp = _batched_pool(path)
+    plain = GraphExecutor(tp, device=card)
+    feeds = {k: torch.as_tensor(tp.constants[k[0]].data_of(*k[1]).newest_copy().payload)
+             .to(card) for k in plain.input_keys}
+    want = plain.apply(feeds)
+    ex = GraphExecutor(tp, device=card, batch_levels=True)
+    ex.apply(feeds)
+    kernels.reset_counts()
+    got = ex.apply(feeds)
+    torch.cuda.synchronize()
+    assert ex.batch_fallbacks == 0
+    cls, fn = {"stencil": ("stencil", kernels.stencil_5pt),
+               "attention": ("attn_step", kernels.flash_attention_block)}.get(
+        path, ("gemm", kernels.matmul_update))
+    groups = ex.group_counts()[cls]
+    batched = sum(n for mode, n in fn.launches_by_mode.items() if mode.endswith("_b"))
+    assert groups["batched"] > 0 and batched >= groups["batched"]
+    assert fn.members >= groups["members"]
+    assert kernels.launch_counts() == {k: n for k, n in ex.launches.items()} | {
+        k: 0 for k in kernels.launch_counts() if k not in ex.launches}
+    for k in ex.output_keys:
+        if path in ("stencil", "attention"):
+            assert torch.equal(got[k], want[k])
+        else:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
+
+
 def _run(path, wave):
     mca_param.set_param("device", "cuda_wave_batch", wave)
     try:

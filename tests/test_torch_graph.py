@@ -146,11 +146,6 @@ def test_apply_never_writes_through_and_outputs_survive_a_second_apply(feed):
     assert torch.equal(second, kept + 1)
 
 
-def test_graph_batch_levels_raises_a4b():
-    with pytest.raises(NotImplementedError, match="A.4c"):
-        GraphExecutor(_chain(PTG, LocalCollection, "cuda"), device="cpu", batch_levels=True)
-
-
 def test_graph_needs_a_card_unless_the_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

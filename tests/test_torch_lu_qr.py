@@ -13,9 +13,10 @@ each held to the reference test's tolerance.  CPU chores do the
 reference's numpy arithmetic in the same order: their factors are
 bit-identical.
 
-Not mirrored: ``test_qr_graph_batched_levels`` (``GraphExecutor(
-batch_levels=True)``, ROADMAP A.4c), ``test_qr_via_dtd_replay`` (DTD,
-A.9a) and ``test_lu_distributed_2x2`` (the distributed layer, A.8).
+``test_qr_graph_batched_levels`` is mirrored in
+``tests/test_torch_batch_levels.py``.  Not mirrored:
+``test_qr_via_dtd_replay`` (DTD, A.9a) and ``test_lu_distributed_2x2``
+(the distributed layer, A.8).
 """
 
 import numpy as np
