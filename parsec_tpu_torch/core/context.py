@@ -105,6 +105,12 @@ class Context:
         self.comm = None
         self.cuda_device = cuda_device
 
+        # the program cache (captured programs in this process), made
+        # before the devices attach, as the reference's executable cache
+        from .. import compile_cache
+
+        self.compile_cache = compile_cache.for_context(self)
+
         sched_name = scheduler or str(mca_param.register(
             "mca", "sched", "", help="scheduler component selection")) or None
         self.scheduler = open_component("sched", sched_name)

@@ -71,7 +71,9 @@ A fused supertask (:mod:`..dsl.fusion`) is one task whose body runs a
 region's member bodies; it never rides a wave, and the runtime that
 fused it sets one region's bytes aside from an automatic budget
 (:meth:`CudaDevice.set_aside`).
-There is no jit and no compile cache (ROADMAP A.5).
+There is no jit: whole-DAG graphs are cached in the program cache
+(:mod:`..compile_cache`), whose pools the out-of-memory relief drops
+when no live executor holds them (:meth:`CudaDevice._relieve_memory`).
 :meth:`CudaDevice.submit_batch` is the native pump's entry (no manager,
 completion left to the engine).
 
@@ -520,9 +522,10 @@ class CudaDevice(Device):
         #: into and out of replayed graphs, and waves that failed before
         #: dispatch and went per task (chip_smoke fails a run where that
         #: is not 0); and the times the allocator ran out of memory below
-        #: the budget, which lowered it (:meth:`_relieve_memory`)
+        #: the budget, which lowered it, and the cached programs each such
+        #: relief dropped (:meth:`_relieve_memory`)
         for key in ("wave_submits", "wave_tasks", "wave_graphs", "wave_copy_bytes",
-                    "wave_graph_bytes", "wave_fallbacks", "oom_reliefs"):
+                    "wave_graph_bytes", "wave_fallbacks", "oom_reliefs", "program_drops"):
             self.stats[key] = 0
         #: supertask fusion: fused regions dispatched and the member tasks
         #: they ran (``fused_tasks / fused_submits`` is the mean region)
@@ -958,9 +961,19 @@ class CudaDevice(Device):
         """The caching allocator ran out of memory below the zone's budget:
         its pools, one a stream, keep freed blocks that the zone counts as
         free, and under eviction churn they hold well beyond the live
-        tiles.  Lower the budget to three quarters of what the zone holds,
-        evict down to it, and return the allocator's free segments to CUDA
-        (``stats["oom_reliefs"]``)."""
+        tiles; the program cache's graphs hold private pools outside any
+        budget.  Drop the cached programs no live executor holds
+        (``stats["program_drops"]``), then lower the budget to three
+        quarters of what the zone holds, evict down to it, and return the
+        allocator's free segments to CUDA (``stats["oom_reliefs"]``)."""
+        from .. import compile_cache
+
+        dropped = compile_cache.default_cache().clear_memory(keep_held=True)
+        cache = getattr(self.context, "compile_cache", None)
+        if cache is not None:
+            dropped += cache.clear_memory(keep_held=True)
+        if dropped:
+            self._bump(program_drops=dropped)
         with self._res_lock:
             target = self.mem_used * 3 // 4
             if target:

@@ -11,7 +11,10 @@ loaded, library handles and workspaces made, on the capture stream) and
 captures it into one ``torch.cuda.CUDAGraph`` over static input tensors;
 every call replays it: no Python dispatch, no scheduler, one launch.
 Unlike XLA, a replay runs the kernels the bodies launched, in capture
-order: nothing is fused or reordered.
+order: nothing is fused or reordered.  The captured graph is kept in the
+program cache (:mod:`..compile_cache`) under the plan's content digest,
+as the reference keys its whole-DAG program: an executor built again on
+a same-shaped pool replays it instead of capturing anew.
 
 ``batch_levels=True`` runs the reference's level batches: each
 dependency level's tasks of one class and one flow signature run as one
@@ -31,104 +34,20 @@ from __future__ import annotations
 
 import functools
 import hashlib
-import re
 import time
 import weakref
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import compile_cache
 from ..core.lifecycle import AccessMode, DEV_CUDA
 from ..utils import debug
 from .graph import TaskGraph, capture as capture_dag
 from .ptg import CTL, PTGTaskpool
 
 Key = Tuple[str, Tuple]  # (collection name, tile key)
-
-
-# -- content fingerprints (the port's copy of the reference's
-# compile_cache.code_fingerprint and _scrub) ---------------------------------
-
-_ADDR_RE = re.compile(r"0x[0-9a-fA-F]+")
-
-
-def _scrub(s: str) -> str:
-    """Drop memory addresses from reprs: ``<fn at 0x7f..>`` must
-    fingerprint identically across processes."""
-    return _ADDR_RE.sub("0xX", s)
-
-
-def _code_parts(code, out: List[str], depth: int = 0) -> None:
-    if depth > 6:  # pathological nesting: stop, stay stable
-        return
-    out.append(code.co_name)
-    out.append(hashlib.sha1(code.co_code).hexdigest())
-    out.append(repr(code.co_names))
-    out.append(repr(code.co_varnames[:code.co_argcount]))
-    for const in code.co_consts:
-        if hasattr(const, "co_code"):
-            _code_parts(const, out, depth + 1)
-        else:
-            out.append(_scrub(repr(const)))
-
-
-def _value_part(v, out: List[str], depth: int = 0) -> None:
-    """Stable description of a closure or default value."""
-    if depth > 4:
-        out.append(f"<deep:{type(v).__name__}>")
-    elif callable(v) and hasattr(v, "__code__"):
-        _callable_parts(v, out)
-    elif isinstance(v, (np.ndarray, torch.Tensor)):
-        a = v.detach().cpu().contiguous().numpy() if isinstance(v, torch.Tensor) \
-            else np.ascontiguousarray(v)
-        out.append(f"nd:{a.shape}:{a.dtype}:{hashlib.sha1(a.tobytes()).hexdigest()}")
-    elif isinstance(v, (tuple, list)):
-        out.append(f"{type(v).__name__}[")
-        for x in v:
-            _value_part(x, out, depth + 1)
-        out.append("]")
-    elif isinstance(v, dict):
-        out.append("{")
-        for k in sorted(v, key=repr):
-            out.append(_scrub(repr(k)))
-            _value_part(v[k], out, depth + 1)
-        out.append("}")
-    else:
-        out.append(_scrub(repr(v)))
-
-
-def _callable_parts(fn: Callable, out: List[str]) -> None:
-    fn = getattr(fn, "__wrapped__", fn)
-    if isinstance(fn, functools.partial):
-        out.append("partial")
-        _value_part(fn.args, out)
-        _value_part(fn.keywords, out)
-        _callable_parts(fn.func, out)
-        return
-    code = getattr(fn, "__code__", None)
-    if code is None:
-        out.append(_scrub(repr(fn)))
-        return
-    out.append(getattr(fn, "__qualname__", ""))
-    _code_parts(code, out)
-    for d in (getattr(fn, "__defaults__", None) or ()):
-        _value_part(d, out)
-    for cell in (getattr(fn, "__closure__", None) or ()):
-        try:
-            _value_part(cell.cell_contents, out)
-        except ValueError:  # empty cell
-            out.append("<empty-cell>")
-
-
-def code_fingerprint(fn: Callable) -> str:
-    """Stable content hash of a callable: bytecode (through nested code
-    objects), names, defaults and closure values, through
-    ``functools.partial`` too.  Changing a body's code or a baked
-    parameter changes it; re-importing the same source does not."""
-    out: List[str] = []
-    _callable_parts(fn, out)
-    return hashlib.sha256("|".join(out).encode()).hexdigest()[:24]
 
 
 # -- the executor ---------------------------------------------------------------
@@ -231,6 +150,27 @@ def _as_tensor(x) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
+class _CapturedDAG(compile_cache.Program):
+    """One whole-DAG program in the cache: the graph, the static tensors it
+    reads and writes, the kernel launches a replay makes, the card bytes
+    its private pool took, and what the capturing executor decided and
+    holds that the graph reads by address — the level plan's groups (the
+    differing params were made on the device at the warm-up) and the plan
+    itself (bodies whose closures may hold device tensors)."""
+
+    def __init__(self, graph, static_in, static_out, launches, pool_bytes, owner):
+        super().__init__(pool_bytes + sum(int(t.nbytes) for t in static_in))
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+        self.launches = launches
+        self.pool_bytes = pool_bytes
+        self.groups = owner._groups
+        self.batch_fallbacks = owner.batch_fallbacks
+        self.stack_bytes = owner.stack_bytes
+        self.plan = owner._plan
+
+
 class GraphExecutor:
     """Run a PTG taskpool's whole DAG as one captured CUDA graph.
 
@@ -249,6 +189,14 @@ class GraphExecutor:
     kept for the reference's signature: the static inputs are the
     executor's own copies already, so there is nothing to donate and it
     changes nothing.
+
+    The capture goes through the process's program cache
+    (:func:`..compile_cache.default_cache`), keyed by
+    :attr:`program_digest`, ``batch_levels``, the inputs' shapes and
+    dtypes and the card: an executor built later on a same-shaped pool
+    (the same bodies, params and dataflow) warms up and replays the cached
+    graph instead of capturing its own (``cache_hit``).  Live executors
+    sharing a graph take turns: a call holds the program's lock.
 
     Either way, ``apply`` never writes through to a caller's tensor (the
     feeds are copied into the executor's inputs, one ``_foreach_copy_``)
@@ -369,13 +317,17 @@ class GraphExecutor:
             for vkey, li in last_level.items():
                 self._level_drops[li].append(vkey)
         self.capture = capture and self.device.type == "cuda"
-        self._graph = None
-        self._static_in: List[torch.Tensor] = []
-        self._static_out: Tuple[torch.Tensor, ...] = ()
+        #: the program cache this executor's capture goes through
+        self.cache = compile_cache.default_cache()
+        #: the captured program (the cache's entry) once the first call ran
+        self._prog: Optional[_CapturedDAG] = None
+        #: whether that program came from the cache (another executor's)
+        self.cache_hit = False
         #: kernel launches one replay makes, per (wrapper, mode)
         self.launches: Dict[Tuple[str, str], int] = {}
-        #: seconds of the first call's warm-up + capture, and the bytes
-        #: the card reserved while capturing (the graph's private pool)
+        #: seconds of the first call's warm-up + capture (a cache hit: the
+        #: lookup), and the bytes the card reserved while capturing (the
+        #: graph's private pool)
         self.capture_s = 0.0
         self.graph_pool_bytes = 0
         self.replays = 0
@@ -599,19 +551,16 @@ class GraphExecutor:
     @functools.cached_property
     def program_digest(self) -> str:
         """Content digest of the plan: every step's body fingerprint,
-        resolved params, dataflow sources and write-backs, the NEW-tile
-        specs and the executor's input/output key order.  Computed on
-        first read: nothing in the port keys on it until a compile cache
-        does (ROADMAP A.5)."""
+        params (a tensor or array by its content), dataflow sources and
+        write-backs, the NEW-tile specs, the executor's input/output key
+        order and ``batch_levels``.  The program cache's key
+        (:meth:`_build`); computed on first read."""
         tp = self._tp
         h = hashlib.sha256()
-        fps: Dict[int, str] = {}
         for step in self._plan:
-            fp = fps.get(id(step.body))
-            if fp is None:
-                fp = fps[id(step.body)] = code_fingerprint(step.body)
-            h.update(repr((step.tid, fp,
-                           sorted((k, _scrub(repr(v))) for k, v in step.params.items()),
+            h.update(repr((step.tid, compile_cache.body_fingerprint(step.body),
+                           sorted((k, compile_cache.value_fingerprint(v))
+                                  for k, v in step.params.items()),
                            step.flow_inputs, step.writable, step.write_backs)).encode())
             for fname, src in step.flow_inputs:
                 if src is not None and src[0] == "new":
@@ -620,25 +569,61 @@ class GraphExecutor:
         h.update(repr(("batch_levels", self.batch_levels)).encode())
         return h.hexdigest()[:32]
 
+    def _fingerprint(self, ins: List[torch.Tensor]) -> str:
+        return compile_cache.fingerprint(
+            ("graph", self.program_digest, self.batch_levels), compile_cache.argsig(ins),
+            backend=compile_cache._platform(self.device))
+
+    def _warm_up(self, ins: List[torch.Tensor], stream) -> List[torch.Tensor]:
+        """The plan run once eagerly on ``stream`` over a copy of ``ins``
+        (kernel modules loaded, library handles and workspaces made; the
+        level plan's group decisions taken where none are given), its
+        outputs dropped.  Returns the copy."""
+        own = [torch.empty(x.shape, dtype=x.dtype, device=self.device) for x in ins]
+        torch._foreach_copy_(own, ins)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._run(own)
+        torch.cuda.synchronize(self.device)
+        return own
+
     def _build(self, ins: List[torch.Tensor]) -> None:
-        """The first call on the card: static inputs, the warm-up on the
-        capture stream, the capture."""
+        """The first call on the card: the program cache's entry for this
+        plan and these input shapes, or a new one — the warm-up, then the
+        capture over static inputs, on a stream of their own.  A hit warms
+        up and captures nothing: it replays the entry's graph, over the
+        entry's static tensors, and takes the entry's launches, pool bytes
+        and level-batching decisions (its groups, with their device-made
+        params, which the graph reads).  ``capture_s``: the warm-up and
+        the capture, or on a hit the lookup."""
         from ..device.cuda import capture_graph
 
         t0 = time.perf_counter()
-        self._static_in = [torch.empty(x.shape, dtype=x.dtype, device=self.device)
-                           for x in ins]
-        torch._foreach_copy_(self._static_in, ins)
+        fp = self._fingerprint(ins)
+        prog = self.cache.get(fp)
         stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            self._run(self._static_in)  # the warm-up: its outputs are dropped
-        torch.cuda.synchronize(self.device)
-        reserved = torch.cuda.memory_reserved(self.device)
-        self._graph, self._static_out, self.launches = capture_graph(
-            lambda: self._run(self._static_in), stream)
-        self.graph_pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.capture_s = time.perf_counter() - t0
+        hit = prog is not None
+        if hit:
+            self.capture_s = time.perf_counter() - t0
+            # the entry's level decisions (equal digests: equal plans), so
+            # the warm-up repeats them and decides nothing
+            self._groups = prog.groups
+            self._warm_up(ins, stream)
+        else:
+            static_in = self._warm_up(ins, stream)
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph, static_out, launches = capture_graph(lambda: self._run(static_in), stream)
+            pool = torch.cuda.memory_reserved(self.device) - reserved
+            prog = _CapturedDAG(graph, static_in, static_out, launches, pool, self)
+            self.cache.put(fp, prog)
+            self.capture_s = time.perf_counter() - t0
+        prog.hold(self)
+        self._prog = prog
+        self.launches = prog.launches
+        self.graph_pool_bytes = prog.pool_bytes
+        self.batch_fallbacks = prog.batch_fallbacks
+        self.stack_bytes = prog.stack_bytes
+        self.cache_hit = hit
 
     def apply(self, feeds: Dict[Key, Any]) -> Dict[Key, torch.Tensor]:
         """Run on explicit feeds: ``feeds[(collection_name, key)]`` = a
@@ -651,13 +636,16 @@ class GraphExecutor:
         from ..ops import kernels
 
         with torch.cuda.device(self.device):
-            if self._graph is None:
+            if self._prog is None:
                 self._build(ins)
-            else:
-                torch._foreach_copy_(self._static_in, ins)
-            self._graph.replay()
-            outs = [torch.empty_like(x) for x in self._static_out]
-            torch._foreach_copy_(outs, list(self._static_out))
+            prog = self._prog
+            # another live executor may replay the same graph: its static
+            # tensors take one call at a time
+            with prog.lock:
+                torch._foreach_copy_(prog.static_in, ins)
+                prog.graph.replay()
+                outs = [torch.empty_like(x) for x in prog.static_out]
+                torch._foreach_copy_(outs, list(prog.static_out))
         kernels.add_launches(self.launches)
         self.replays += 1
         return dict(zip(self.output_keys, outs))

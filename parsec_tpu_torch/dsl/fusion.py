@@ -42,7 +42,8 @@ MCA knobs (framework ``runtime``):
 * ``runtime_fusion`` = ``off`` (default) | ``auto`` | ``chains`` |
   ``waves`` — what the partitioner may fuse;
 * ``runtime_fusion_max_tasks`` — the most members a region holds
-  (0 = :data:`DEFAULT_HORIZON`);
+  (0 = the tuning store's winner for the card, else
+  :data:`DEFAULT_HORIZON`);
 * ``runtime_fusion_scan`` = ``auto`` | ``off`` | ``on`` — which uniform
   leading chain the reference rolls into one ``lax.scan`` (``auto``
   requires equal member shapes).  The port computes the same segment
@@ -66,10 +67,11 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
+from .. import tuning
+from ..compile_cache import _scrub, body_fingerprint
 from ..core.lifecycle import AccessMode, DEV_CPU, HookReturn
 from ..core.task import Chore, Flow, Task, TaskClass
 from ..utils import debug, mca_param
-from .cuda_graph import _scrub, code_fingerprint
 from .graph import TaskGraph, source_tile
 from .ptg import _NewRef, _accel_hook
 
@@ -87,23 +89,6 @@ SCAN_MIN = 4
 
 TaskId = Tuple[str, Tuple]
 
-#: body -> content fingerprint, shared by every plan build.  Weak keys:
-#: an ``id()`` key outlives its body and a new body may reuse it (a reused
-#: id once served a wrong result); region digests fingerprint the same few
-#: class bodies hundreds of times otherwise
-_body_fp_memo: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-def _body_fp(body) -> str:
-    try:
-        fp = _body_fp_memo.get(body)
-    except TypeError:  # not weak-referenceable
-        return code_fingerprint(body)
-    if fp is None:
-        fp = _body_fp_memo[body] = code_fingerprint(body)
-    return fp
-
-
 # ---------------------------------------------------------------------------
 # configuration
 # ---------------------------------------------------------------------------
@@ -116,16 +101,19 @@ def fusion_mode() -> str:
              "+ waves) | chains | waves"))
 
 
-def fusion_max_tasks() -> int:
-    """The region-size horizon: ``runtime_fusion_max_tasks``, or
-    :data:`DEFAULT_HORIZON` when it is 0.  The reference consults its
-    TuningStore for a per-device-generation horizon first and falls back
-    to the same 16 on an empty store; the store is not ported yet
-    (ROADMAP A.5)."""
+def fusion_max_tasks(device=None) -> int:
+    """The region-size horizon: ``runtime_fusion_max_tasks``, or when it is
+    0 the tuning store's entry for ``device``'s card (op ``fusion``, param
+    ``max_tasks``), or :data:`DEFAULT_HORIZON`.  Unlike the reference, a
+    failing lookup raises: a corrupt entry already reads as absent."""
     cap = int(mca_param.register(
         "runtime", "fusion_max_tasks", 0, level=3,
-        help=f"max member tasks per fused region (0 = {DEFAULT_HORIZON})"))
-    return cap if cap > 0 else DEFAULT_HORIZON
+        help="max member tasks per fused region (0 = the tuning store's "
+             f"entry for the card, else {DEFAULT_HORIZON})"))
+    if cap > 0:
+        return cap
+    return int(tuning.resolve_nb("fusion", 0, "any", device=device, param="max_tasks",
+                                 default=DEFAULT_HORIZON))
 
 
 def fusion_scan_mode() -> str:
@@ -528,10 +516,13 @@ class FusedPlan:
                 self.classes_of.append(t[0])
         self.name = f"fused[{'+'.join(self.classes_of)}]"
 
-        #: device bytes of the tiles the region writes: its fresh outputs
-        #: before the epilog accounts them (:func:`region_room`)
-        self.out_bytes = sum(self._tile_nbytes(tp, g, slot_keys[i])
-                             for i in self.out_slots)
+        #: the home tiles of the out slots (an external producer's value
+        #: followed to its memory source), and their device bytes in this
+        #: pool: the region's fresh outputs before the epilog accounts
+        #: them (:func:`region_room`)
+        self._out_tiles = [source_tile(g, k[1], k[2]) if k[0] == "ext" else k
+                           for k in (slot_keys[i] for i in self.out_slots)]
+        self.out_bytes = self.out_bytes_in(tp)
         self._scan_mode = scan if scan is not None else fusion_scan_mode()
         self.body_fn = _FusedBody(self)
         # a weak reference: the scan analysis reads the pool's tiles on
@@ -541,11 +532,13 @@ class FusedPlan:
     @functools.cached_property
     def digest(self) -> str:
         """Content digest over the member fingerprints and the region's
-        shape, stable across recaptures; computed on first read (only a
-        program cache would read it, ROADMAP A.5)."""
+        shape, stable across recaptures; computed on first read.  No
+        region is captured into a CUDA graph, so no program is cached
+        under it (the reference's fused-program cache keys XLA programs
+        on it)."""
         h = hashlib.sha256()
         for step in self.steps:
-            h.update(repr((step.cname, step.locs, _body_fp(step.body),
+            h.update(repr((step.cname, step.locs, body_fingerprint(step.body),
                            sorted((k, _scrub(repr(v)))
                                   for k, v in step.params.items()),
                            step.resolvers, step.writable)).encode())
@@ -555,18 +548,20 @@ class FusedPlan:
                        len(self.region.members))).encode())
         return h.hexdigest()[:32]
 
-    @staticmethod
-    def _tile_nbytes(tp, g: TaskGraph, key: Tuple) -> int:
-        if key[0] == "ext":
-            key = source_tile(g, key[1], key[2])
-        if key[0] == "data":
-            p = getattr(tp.constants[key[1]].data_of(*key[2]).newest_copy(),
-                        "payload", None)
-            return 0 if p is None else int(p.nbytes)
-        if key[0] == "new":
-            shape, dtype = tp.new_tile_spec(key[1][0], key[2])
-            return int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
-        return 0  # a remote source: not on this rank's card
+    def out_bytes_in(self, tp) -> int:
+        """The bytes of the tiles the region writes, in pool ``tp`` (a
+        cached plan serves same-shaped pools whose tiles may differ)."""
+        total = 0
+        for key in self._out_tiles:
+            if key[0] == "data":
+                p = getattr(tp.constants[key[1]].data_of(*key[2]).newest_copy(),
+                            "payload", None)
+                total += 0 if p is None else int(p.nbytes)
+            elif key[0] == "new":
+                shape, dtype = tp.new_tile_spec(key[1][0], key[2])
+                total += int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+            # a remote source is not on this rank's card
+        return total
 
     # -- scan analysis -----------------------------------------------------
     @functools.cached_property
@@ -716,13 +711,15 @@ class _FusedBody:
         return ("fused", self._plan.digest)
 
 
-def region_room(plans: List[FusedPlan]) -> int:
+def region_room(plans: List[FusedPlan], tp=None) -> int:
     """Device bytes one fused region in flight holds outside the zone's
     accounting: its fresh outputs and, between members, one generation of
     interior values (each dropped after its last reader) — twice the
-    largest region's output bytes.  The runtimes hand it to their device
-    modules (``set_aside``) once the regions are known."""
-    return 2 * max((p.out_bytes for p in plans), default=0)
+    largest region's output bytes (in ``tp``, default each plan's own
+    pool).  The runtimes hand it to their device modules (``set_aside``)
+    once the regions are known."""
+    return 2 * max((p.out_bytes if tp is None else p.out_bytes_in(tp) for p in plans),
+                   default=0)
 
 
 # ---------------------------------------------------------------------------
@@ -762,7 +759,7 @@ class FusionTable:
         self._member: Dict[TaskId, _LiveRegion] = {}
         self.live: List[_LiveRegion] = []
         #: the device bytes one region in flight holds outside the zone
-        self.room = region_room(plans)
+        self.room = region_room(plans, tp)
         for region, plan, (ext_goals, waiting) in zip(regions, plans, analysis):
             lr = _LiveRegion(region, plan)
             lr.ext_goals = ext_goals
@@ -945,29 +942,92 @@ def analyze_regions(tp, g: TaskGraph, regions: List[Region],
     return plans, analysis
 
 
+class _CachedFusion:
+    __slots__ = ("regions", "plans", "analysis", "placement", "scalars")
+
+    def __init__(self, regions, plans, analysis, placement, scalars):
+        self.regions = regions
+        self.plans = plans
+        self.analysis = analysis
+        self.placement = placement
+        self.scalars = scalars
+
+
+#: PTG definition -> {config key -> _CachedFusion} (the reference's
+#: partition cache).  Capture, partition and lowering cost real time an
+#: attach, and many pools are built from one definition (the attention
+#: definitions are memoized); the partition depends only on the
+#: definition, the scalar constants and the placement map, each checked on
+#: reuse.  Weak keys: a definition's entries go with it
+_fusion_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_fusion_cache_lock = threading.Lock()
+#: what :func:`build_fusion_table` did: ``captures`` and ``partitions``
+#: (a pool partitioned), ``hits`` (a pool took a cached partition)
+stats: Dict[str, int] = {"captures": 0, "partitions": 0, "hits": 0}
+
+
+def _scalar_constants(constants: Dict[str, Any]) -> Tuple:
+    return tuple(sorted(
+        (k, v) for k, v in constants.items()
+        if isinstance(v, (int, float, str, bool, np.integer, np.floating))))
+
+
+def _placement_of(tp) -> Dict[TaskId, int]:
+    """The global placement map, as the capture's first pass builds it."""
+    consts = tp.constants
+    out: Dict[TaskId, int] = {}
+    for pc in tp.ptg.classes.values():
+        for loc in pc.param_space(consts):
+            out[(pc.name, loc)] = pc.rank_of(loc, consts)
+    return out
+
+
 def build_fusion_table(tp, context) -> Optional[FusionTable]:
     """Attach-time entry point of the dynamic runtime: capture this
     rank's subgraph, partition it, lower each region and build the table
     — or None when fusion is off or nothing fuses.  Any failure raises.
-    (The reference caches the partition per PTG definition for repeated
-    same-shaped pools; the port re-partitions each pool: ROADMAP A.5.)"""
+    The (regions, plans, goals) triple is cached per PTG definition and
+    reused for a pool whose scalar constants and placement map equal the
+    cached ones: no second capture and no second partition (the pump
+    partitions on every build, as the reference's does)."""
     mode = fusion_mode()
     if mode == "off":
         return None
+    rank = context.rank
     classes = tp.ptg.classes
-    devtypes = {d.device_type for d in context.devices
-                if getattr(d, "enabled", True)}
-    g = tp.capture(ranks=[context.rank])
+    devices = [d for d in context.devices if getattr(d, "enabled", True)]
+    devtypes = {d.device_type for d in devices}
+    accel = next((d for d in devices if d.device_type != DEV_CPU), None)
+    horizon = fusion_max_tasks(device=accel)
+    scan = fusion_scan_mode()
+    key = (rank, getattr(context, "nranks", 1), mode, horizon, scan, tuple(sorted(devtypes)))
+    scalars = _scalar_constants(tp.constants)
+
+    with _fusion_cache_lock:
+        per = _fusion_cache.get(tp.ptg)
+        cached = per.get(key) if per else None
+    if cached is not None and cached.scalars == scalars \
+            and cached.placement == _placement_of(tp):
+        stats["hits"] += 1
+        if not cached.regions:
+            return None
+        return FusionTable(tp, cached.regions, cached.plans, cached.analysis)
+
+    g = tp.capture(ranks=[rank])
+    stats["captures"] += 1
 
     def eligible(name: str) -> bool:
         pc = classes[name]
         return class_device_type(pc) in devtypes and class_fusible(pc)
 
-    regions = partition(g, classes, mode=mode, max_tasks=fusion_max_tasks(),
-                        eligible=eligible)
+    regions = partition(g, classes, mode=mode, max_tasks=horizon, eligible=eligible)
+    stats["partitions"] += 1
+    plans, analysis = analyze_regions(tp, g, regions, scan=scan) if regions else ([], [])
+    with _fusion_cache_lock:
+        _fusion_cache.setdefault(tp.ptg, {})[key] = _CachedFusion(
+            regions, plans, analysis, dict(g.global_ranks), scalars)
     if not regions:
         return None
-    plans, analysis = analyze_regions(tp, g, regions)
     debug.verbose(3, "fusion", "%s: fused %d regions covering %d/%d tasks",
                   tp.ptg.name, len(regions),
                   sum(len(r.members) for r in regions), len(g.nodes))

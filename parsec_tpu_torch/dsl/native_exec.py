@@ -334,7 +334,7 @@ class NativeExecutor:
         self._plans: List[FusedPlan] = []
         if self.native_device:
             self._regions = partition(self.graph, tp.ptg.classes, mode=mode,
-                                      max_tasks=fusion_max_tasks())
+                                      max_tasks=fusion_max_tasks(device=self.device))
             for r in self._regions:
                 for m in r.members:
                     self._region_of[m] = r

@@ -57,6 +57,7 @@ import inspect
 import itertools
 import re
 import threading
+import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -651,8 +652,11 @@ class PTGTaskpool(Taskpool):
         #: supertask-fusion table (:class:`.fusion.FusionTable`), built at
         #: attach when ``runtime_fusion`` is on: routes fused members'
         #: releases to region counters and dispatches each region as ONE
-        #: device chore; None = per-task dispatch (the default)
+        #: device chore; None = per-task dispatch (the default); and the
+        #: seconds the attach spent building it (a capture, partition and
+        #: lowering, or the partition cache's lookup)
         self._fusion = None
+        self.fusion_setup_s = 0.0
         for pc in ptg.classes.values():
             self.repos[pc.name] = DataRepo(nb_flows=len(pc.flows))
             self._build_class(pc)
@@ -691,8 +695,10 @@ class PTGTaskpool(Taskpool):
         # replaces a requested fusion in silence
         from .fusion import build_fusion_table
 
+        t0 = time.perf_counter()
         try:
             self._fusion = build_fusion_table(self, context)
+            self.fusion_setup_s = time.perf_counter() - t0
         except Exception as e:
             self.context = context
             self.fail(f"supertask fusion failed: {type(e).__name__}: {e}")

@@ -18,8 +18,9 @@ dynamic runtime, :func:`run_flash_attention_native` through the native
 engine's pump.  Not ported yet, each raising ``NotImplementedError``: the
 distributed ring-attention graphs (:func:`ring_attention_ptg`,
 :func:`ring_attention_builder`, :func:`run_ring_attention_graph`, ROADMAP
-A.8).  ``"auto"`` block sizes take the value the reference falls back to
-on an empty tuning store; the store itself is ROADMAP A.5.
+A.8).  ``"auto"`` block sizes read the autotuner's winners for the
+sequence length and the card (:func:`..tuning.autotune_attention`), else
+``min(128, S)``, as the reference's.
 
 The numerics oracle is
 :func:`parsec_tpu_torch.parallel.attention_reference`.
@@ -35,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tuning
 from ..core.lifecycle import AccessMode
 from ..data.collection import DataCollection
 from ..data.data import Data, data_create, host_array
@@ -237,13 +239,15 @@ def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
 # builders and entry points
 # ---------------------------------------------------------------------------
 
-def _resolve_block(value, seq: int) -> int:
-    """``"auto"`` resolves to ``min(128, seq)``: the reference's value on
-    an empty tuning store (the store is ROADMAP A.5); explicit values
-    pass through."""
+def _resolve_block(value, op_param: str, seq: int, dtype) -> int:
+    """``"auto"`` resolves against the tuning store (op ``attention``,
+    param ``q_block``/``kv_block``, keyed on the sequence length, the dtype
+    and the card), else ``min(128, seq)``; explicit values pass
+    through."""
     if value != "auto":
         return int(value)
-    return min(128, seq)
+    default = min(128, seq)
+    return int(tuning.resolve_nb("attention", seq, dtype, param=op_param, default=default))
 
 
 #: memo of flash-attention PTG *definitions* keyed by every builder
@@ -325,8 +329,8 @@ def build_flash_attention(q, k, v, *, causal: bool = False,
             f"causal attention with q_offset={q_offset} < 0 (Sq={Sq} > "
             f"Sk={Sk}?): leading query rows would attend to nothing; "
             "pass q/k/v with Sq <= Sk or an explicit q_offset >= 0")
-    qb = _resolve_block(q_block, Sq)
-    kvb = _resolve_block(kv_block, Sk)
+    qb = _resolve_block(q_block, "q_block", Sq, q.dtype)
+    kvb = _resolve_block(kv_block, "kv_block", Sk, q.dtype)
     qs = block_splits(Sq, qb)
     ks = block_splits(Sk, kvb)
     G = B * H

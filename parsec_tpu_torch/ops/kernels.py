@@ -114,18 +114,28 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> Path:
-    """Compile the kernel sources into a shared library (once per source
-    content; reused while the sources are unchanged) and return its path.
-    One ``nvcc`` per source, all started together, then one link."""
-    global build_log
+#: the kernel library's file name is this prefix, its content tag, ".so"
+LIBRARY_PREFIX = "libparsec_tpu_torch_kernels_"
+
+
+def library_tag() -> str:
+    """The kernel library's content address: the sources and the flags
+    (a library under another tag was built from other sources)."""
     digest = hashlib.sha256()
     for src in _SOURCES:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
-    tag = digest.hexdigest()[:16]
-    lib = _BUILD_DIR / f"libparsec_tpu_torch_kernels_{tag}.so"
+    return digest.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernel sources into a shared library (once per source
+    content; reused while the sources are unchanged) and return its path.
+    One ``nvcc`` per source, all started together, then one link."""
+    global build_log
+    tag = library_tag()
+    lib = _BUILD_DIR / f"{LIBRARY_PREFIX}{tag}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -33,8 +33,9 @@ accumulation; ``"storage"`` = the matrix lives in bf16 (panel math in
 f32).  The products are library calls; float32 runs in full FP32 (the
 device module turns TF32 off).
 
-``nb="auto"`` resolves through :func:`auto_nb`: the reference's rule for
-an empty tuning store (the port has no tuner yet, ROADMAP A.5).
+``nb="auto"`` reads the autotuner's winner for (``dpotrf_seg``, N,
+dtype, card) (:func:`..tuning.autotune_nb`), else 512 halved until it
+divides N, as the reference's.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tuning
 from ..core.lifecycle import AccessMode
 from ..data.collection import DataCollection
 from ..data.data import Data, data_create
@@ -52,20 +54,6 @@ from .panel_chol import chol_inv, mm_acc32, sub_product
 from .tiles import check_tiling
 
 INOUT = AccessMode.INOUT
-
-
-def auto_nb(nb, n: int, *, default: int = 512):
-    """The panel width for ``nb="auto"``: ``default`` halved until it
-    divides ``n`` — what the reference's ``tuning.auto_nb`` returns with an
-    empty tuning store.  The store lookup (the autotuner's persisted
-    winner for the op, N, dtype and device) lands with ROADMAP A.5.  An
-    explicit ``nb`` passes through."""
-    if nb != "auto":
-        return nb
-    d = default
-    while d > 1 and n % d:
-        d //= 2
-    return d
 
 
 class _DeviceMatrix(DataCollection):
@@ -275,14 +263,16 @@ class SegmentedCholesky:
     def __init__(self, context, n: int, nb="auto", *, bf16=False,
                  strip: int = 4096, tail: int = 4096,
                  specialize: str = "static"):
-        nb = auto_nb(nb, n)
+        self.device = device_module(context, "segmented cholesky")
+        nb = tuning.auto_nb(nb, "dpotrf_seg", n,
+                            "bfloat16" if bf16 == "storage" else "float32",
+                            device=self.device, default=512, divides=n)
         self.context = context
         self.n, self.nb = n, nb
         self.store_bf16 = bf16 == "storage"
         self.nt_tasks = n_segments(n, nb, tail)
         self.ptg = segmented_cholesky_ptg(n, nb, bf16=bf16, strip=strip,
                                           tail=tail, specialize=specialize)
-        self.device = device_module(context, "segmented cholesky")
 
     def run(self, A_dev: torch.Tensor, *, timeout: Optional[float] = 600) -> torch.Tensor:
         """Factorize a device-resident (n, n) tensor IN PLACE through the

@@ -48,12 +48,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tuning
 from ..core.lifecycle import AccessMode
 from ..dsl.ptg import PTG
 from . import kernels
 from .panel_chol import sub_product
-from .segmented_chol import (_attach_device_matrix, _chunked, auto_nb,
-                             device_module, n_segments, run_on_device)
+from .segmented_chol import (_attach_device_matrix, _chunked, device_module,
+                             n_segments, run_on_device)
 from .tiles import check_tiling
 
 INOUT = AccessMode.INOUT
@@ -315,7 +316,10 @@ class SegmentedLU:
                  prec=None, tail: int = 4096, specialize: str = "generic",
                  bf16=False, pivot: str = "block",
                  fused_update: bool = False, solve_prec=None):
-        nb = auto_nb(nb, n)
+        self.device = device_module(context, "segmented LU")
+        nb = tuning.auto_nb(nb, "getrf_seg", n,
+                            "bfloat16" if bf16 == "storage" else "float32",
+                            device=self.device, default=512, divides=n)
         self.context = context
         self.n, self.nb = n, nb
         self.store_bf16 = bf16 == "storage"
@@ -326,7 +330,6 @@ class SegmentedLU:
                                     bf16=bf16, pivot=pivot,
                                     fused_update=fused_update,
                                     solve_prec=solve_prec)
-        self.device = device_module(context, "segmented LU")
 
     def run(self, A_dev: torch.Tensor, *, timeout: Optional[float] = 600):
         """Factorize IN PLACE and return the packed L\\U tensor — or

@@ -29,10 +29,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tuning
 from ..core.lifecycle import AccessMode
 from ..dsl.ptg import PTG
-from .segmented_chol import (_attach_device_matrix, _chunked, auto_nb,
-                             device_module, n_segments, run_on_device)
+from .segmented_chol import (_attach_device_matrix, _chunked, device_module,
+                             n_segments, run_on_device)
 from .segmented_lu import check_precision
 from .tiles import check_tiling
 
@@ -177,14 +178,15 @@ class SegmentedQR:
     def __init__(self, context, n: int, nb="auto", *, strip: int = 4096,
                  prec=None, specialize: str = "generic",
                  tail: int = 4096, bf16=False):
-        nb = auto_nb(nb, n)
+        self.device = device_module(context, "segmented QR")
+        nb = tuning.auto_nb(nb, "geqrf_seg", n, "float32", device=self.device,
+                            default=512, divides=n)
         self.context = context
         self.n, self.nb = n, nb
         self.nt_tasks = n_segments(n, nb, tail)
         self.ptg = segmented_qr_ptg(n, nb, strip=strip, prec=prec,
                                     specialize=specialize, tail=tail,
                                     bf16=bf16)
-        self.device = device_module(context, "segmented QR")
 
     def run(self, A_dev: torch.Tensor, *, timeout: Optional[float] = 600) -> Tuple:
         """Factorize; ``A_dev`` becomes Q in place.  Returns (Q, R) device

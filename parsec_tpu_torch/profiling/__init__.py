@@ -1,7 +1,8 @@
-"""Profiling: PINS callback sites and job trace ids.
+"""Profiling: PINS callback sites, job trace ids, and the ``cache`` and
+``autotune`` commands (:mod:`.tools`).
 
-Tracing, critical-path analysis, health and SLO planes of
-:mod:`parsec_tpu.profiling` are not ported yet (ROADMAP A.11).
+Tracing, critical-path analysis, health and SLO planes and the other
+commands of :mod:`parsec_tpu.profiling` are not ported yet (ROADMAP A.9b).
 """
 
 from . import jobtrace, pins  # noqa: F401

@@ -659,10 +659,17 @@ def test_build_rejects_bad_shapes():
                                     q_block=16, kv_block=16)
 
 
-def test_auto_blocks_take_the_empty_store_default():
-    assert attention._resolve_block("auto", 48) == 48
-    assert attention._resolve_block("auto", 4096) == 128
-    assert attention._resolve_block(20, 4096) == 20
+def test_auto_blocks_take_the_empty_store_default(tmp_path, monkeypatch):
+    """On an empty tuning store (a fresh cache root) "auto" is min(128, S)
+    in both packages; explicit values pass through."""
+    monkeypatch.setenv("PARSEC_TPU_COMPILE_CACHE", str(tmp_path))
+    for value, param, seq in (("auto", "q_block", 48), ("auto", "kv_block", 4096),
+                              (20, "q_block", 4096)):
+        got = attention._resolve_block(value, param, seq, np.float32)
+        assert got == ref_attention._resolve_block(value, param, seq, np.float32)
+    assert attention._resolve_block("auto", "q_block", 48, torch.float32) == 48
+    assert attention._resolve_block("auto", "kv_block", 4096, torch.float32) == 128
+    assert attention._resolve_block(20, "q_block", 4096, torch.float32) == 20
     with pytest.raises(ValueError, match="positive"):
         attention.block_splits(10, 0)
 

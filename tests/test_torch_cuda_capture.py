@@ -19,7 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from parsec_tpu_torch import AccessMode, mca_param  # noqa: E402
+from parsec_tpu_torch import AccessMode, compile_cache, mca_param  # noqa: E402
 from parsec_tpu_torch.data import LocalCollection  # noqa: E402
 from parsec_tpu_torch.datadist import TiledMatrix  # noqa: E402
 from parsec_tpu_torch.device import cuda as cuda_mod  # noqa: E402
@@ -127,6 +127,43 @@ def test_batched_replays_launch_a_group_once(path, card):
             assert torch.equal(got[k], want[k])
         else:
             torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("batch_levels", [False, True], ids=["unbatched", "batched"])
+@pytest.mark.parametrize("path", ["kernels", "attention"])
+def test_same_shaped_pool_replays_the_cached_graph(path, batch_levels, card):
+    """An executor built on a fresh same-shaped pool takes the first
+    executor's program from the cache: its first call captures nothing
+    (one more hit, no more captures), counts a warm-up and a replay of the
+    first's launches, and returns the same bits on the same feeds; the two
+    live executors then take turns on the one graph."""
+    cache = compile_cache.default_cache()
+    cache.clear_memory()  # an earlier test may have captured this shape
+    base = cache.snapshot()
+    tp = _batched_pool(path)
+    first = GraphExecutor(tp, device=card, batch_levels=batch_levels)
+    feeds = {k: torch.as_tensor(tp.constants[k[0]].data_of(*k[1]).newest_copy().payload)
+             .to(card) for k in first.input_keys}
+    want = first.apply(feeds)
+    assert (cache.stats["captures"] - base["captures"], cache.hits - base["hits"]) == (1, 0)
+    assert not first.cache_hit
+    second = GraphExecutor(_batched_pool(path), device=card, batch_levels=batch_levels)
+    assert second.program_digest == first.program_digest
+    kernels.reset_counts()
+    got = second.apply(feeds)
+    torch.cuda.synchronize()
+    assert (cache.stats["captures"] - base["captures"], cache.hits - base["hits"]) == (1, 1)
+    assert second.cache_hit
+    assert second.launches == first.launches
+    assert {k: n for k, n in kernels.launch_counts().items() if n} == \
+        {k: 2 * n for k, n in first.launches.items() if n}
+    assert second.graph_pool_bytes == first.graph_pool_bytes
+    if batch_levels:
+        assert second.group_counts() == first.group_counts()
+        assert second.batch_fallbacks == first.batch_fallbacks == 0
+    again = first.apply(feeds)
+    for k in first.output_keys:
+        assert torch.equal(got[k], want[k]) and torch.equal(again[k], want[k])
 
 
 def _run(path, wave):

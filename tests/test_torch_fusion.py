@@ -9,7 +9,11 @@ package's.
   — region kinds and member lists, in modes auto, chains and waves, at
   horizons 4 and 16; the plans' slots and ``_scan_segments`` equal too;
 * the mirrors of ``tests/dsl/test_fusion.py`` (all but the
-  cross-process program-cache pin, which waits for ROADMAP A.5);
+  cross-process fused-program cache pin: no fused region is captured, so
+  no program is cached);
+* the partition cache (A.4d): a same-shaped pool of one PTG definition
+  takes the cached regions without a capture or a partition, bit-identical;
+  another NT partitions again; the cached regions are the reference's;
 * execution: fused and unfused runs ``torch.equal`` on the dynamic path
   and through the pump (the CUDA device module bound to the torch CPU
   device, the kernel wrappers on their plain versions) at stage depths 1
@@ -709,3 +713,82 @@ def test_failing_fused_body_fails_the_run(cpu_device, monkeypatch):
         assert ex.device.stats["fused_submits"] == 0
     finally:
         ex.close()
+
+
+# -- the partition cache (A.4d) ------------------------------------------------------
+
+def _pools_of(ptg, shapes):
+    """Pools of one PTG definition, one per (n, nb), on the same SPD data
+    as ``_dpotrf_pools``."""
+    pools = []
+    for n, nb in shapes:
+        A = TiledMatrix(n, n, nb, nb, name="A", dtype=np.float32).from_array(_spd(n, seed=3))
+        pools.append(ptg.taskpool(NT=A.mt, A=A))
+    return pools
+
+
+def _stats_delta(before):
+    return tuple(F.stats[k] - before[k] for k in ("captures", "partitions", "hits"))
+
+
+def test_same_shaped_pool_reuses_the_cached_partition(cpu_device, port_param, monkeypatch):
+    """A second pool of one PTG definition, with the same scalar constants
+    and placement, takes the cached regions, plans and goals: no second
+    capture and no second partition (both would raise here), and its
+    factor is bit-identical to the first pool's and to fusion off's.  A
+    pool with another NT partitions again."""
+    ptg = cholesky_ptg(use_cuda=True, use_cpu=False, use_kernels=True)
+    first, second = _pools_of(ptg, [(128, 32), (128, 32)])
+    base = _baseline("kernels")
+    port_param("runtime", "fusion", "auto")
+    before = dict(F.stats)
+    with parsec_tpu_torch.Context(nb_cores=2, cuda_device="cpu") as ctx:
+        ctx.add_taskpool(first)
+        assert first.wait(timeout=60), first.fail_reason
+        assert _stats_delta(before) == (1, 1, 0)
+        regions = [lr.region for lr in first._fusion.live]
+
+        def boom(*a, **k):
+            raise AssertionError("a cached pool must not capture or partition")
+
+        monkeypatch.setattr(F, "partition", boom)
+        monkeypatch.setattr(type(second), "capture", boom)
+        ctx.add_taskpool(second)
+        assert second.wait(timeout=60), second.fail_reason
+        assert _stats_delta(before) == (1, 1, 1)
+        assert [lr.region for lr in second._fusion.live] == regions
+        assert second._fusion is not first._fusion and second._fusion.tp is second
+        dev = ctx.devices[1].stats
+        assert dev["fused_submits"] == 2 * len(regions)
+        monkeypatch.undo()
+        (third,) = _pools_of(ptg, [(160, 32)])
+        ctx.add_taskpool(third)
+        assert third.wait(timeout=60), third.fail_reason
+        assert _stats_delta(before) == (2, 2, 1)
+        assert len(third._fusion.live) != len(regions)
+    np.testing.assert_array_equal(_result("kernels", first), base)
+    np.testing.assert_array_equal(_result("kernels", second), base)
+
+
+def test_cached_regions_equal_the_reference_partition(port_param):
+    """The cached regions are the reference's ``partition`` of the same
+    pool; a same-scalars pool of other tiles takes them and sizes its own
+    set-aside (four times the bytes at twice the tile)."""
+    import types
+
+    ptg = cholesky_ptg(use_cuda=True, use_cpu=False, use_kernels=True)
+    small, big = _pools_of(ptg, [(128, 32), (256, 64)])
+    port_param("runtime", "fusion", "auto")
+    ctx = types.SimpleNamespace(rank=0, devices=[types.SimpleNamespace(device_type="cuda")])
+    before = dict(F.stats)
+    table = F.build_fusion_table(small, ctx)
+    (cached,) = F._fusion_cache[ptg].values()
+    _, _, theirs, rg = _captured("dpotrf128")
+    want = ref_fusion.partition(rg, theirs.ptg.classes, mode="auto", max_tasks=16)
+    assert _view(cached.regions) == _view(want)
+    assert [lr.region for lr in table.live] == cached.regions
+    assert cached.scalars == (("NT", 4),) and cached.placement == F._placement_of(small)
+    again = F.build_fusion_table(big, ctx)
+    assert _stats_delta(before) == (1, 1, 1)
+    assert [lr.region for lr in again.live] == cached.regions
+    assert again.room == 4 * table.room > 0

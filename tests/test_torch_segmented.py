@@ -235,15 +235,17 @@ def test_chunk_walk_equals_reference(n, nb, strip):
         assert covered == list(range((k + 1) * nb, n))
 
 
-def test_auto_nb_is_the_empty_store_rule():
-    """nb="auto" is 512 halved until it divides N — the reference's
-    ``tuning.auto_nb`` on an empty store — and explicit values pass."""
-    from parsec_tpu import tuning
+def test_auto_nb_is_the_empty_store_rule(tmp_path, monkeypatch):
+    """On an empty tuning store nb="auto" is 512 halved until it divides N
+    in both packages, and explicit values pass."""
+    from parsec_tpu import tuning as ref_tuning
+    from parsec_tpu_torch import tuning
 
+    monkeypatch.setenv("PARSEC_TPU_COMPILE_CACHE", str(tmp_path))
     for n in (512, 768, 1000, 4096, 96):
-        assert segmented_chol.auto_nb("auto", n) == tuning.auto_nb(
-            "auto", "dpotrf_seg", n, default=512, divides=n)
-    assert segmented_chol.auto_nb(64, 512) == 64
+        assert tuning.auto_nb("auto", "dpotrf_seg", n, default=512, divides=n) \
+            == ref_tuning.auto_nb("auto", "dpotrf_seg", n, default=512, divides=n)
+    assert tuning.auto_nb(64, "dpotrf_seg", 512) == 64
 
 
 def test_builder_validation():
