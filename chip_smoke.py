@@ -83,7 +83,17 @@
    group fallen back, the launches a call the plan's groups mode by mode,
    the factor within the path's gates, its max abs difference to the
    unbatched replay, first-call s, replay median beside the unbatched
-   one, stack bytes a call);
+   one, stack bytes a call); then the front ends (``front_ends`` lines):
+   the same dpotrf inserted through DTD (``ops.insert_dpotrf``, an
+   insertion window of 64 tasks) in the three variants, and compiled from
+   the port's ``examples/jdf/cholesky.jdf`` — dynamic, through the pump,
+   as a ``GraphExecutor`` first call, and as a module ``jdfc`` generated
+   from the file — each factor ``torch.equal`` to the PTG's on the same
+   path with the PTG's launches per mode, every task on the CUDA module;
+   then DTD ``kernels`` at N=4096 under each of the twelve schedulers and
+   ``spq``/``wdrr`` with ``sched_native_queue=1``, each factor
+   ``torch.equal`` to ``lfq``'s and to the PTG's, with walls and tasks/s
+   beside the PTG run's;
 5. device-module phase: a 2048 x 2048 dpotrf with event-polled
    completion and one under an 8 MB residency budget (eviction
    write-back), each checked against a float64 Cholesky;
@@ -266,6 +276,12 @@ WAVES = (2, 0, 0, 2, 2, 0)
 FUSION = ("off", "auto", "auto", "off", "off", "auto")
 # GraphExecutor replays timed a path, as bench.py's graph path times them
 GRAPH_REPLAYS = 5
+# the front-ends phase: DTD's insertion window (below dpotrf's task count:
+# the inserting thread runs tasks), the size of the scheduler sweep and
+# the twelve schedulers, lfq (the default) first
+FE_WINDOW, FE_SCHED_N = 64, 4096
+FE_SCHEDULERS = ("lfq", "gd", "ap", "ll", "rnd", "spq", "llp", "ltq", "pbq",
+                 "lhq", "ip", "wdrr")
 # the near-full stencil pump run: a 16384^2 grid (2 GiB of tiles, both
 # buffers) for this many steps, on a card a ballast tensor has left this
 # many MB free: the automatic budget (about 1.4 GiB) then falls below them
@@ -356,6 +372,243 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0].strip()
+
+
+# -- the other front ends: DTD, JDF and jdfc; the scheduler family ----------
+
+def front_ends_phase(h):
+    """Tiled dpotrf (N=8192 nb=512 f32, the dpotrf path's SPD matrix)
+    inserted through DTD and compiled from the port's ``cholesky.jdf``, on
+    the CUDA device module with the B1 and B2 kernels.
+
+    DTD: the right-looking loop (``ops.insert_dpotrf``: potrf, trsm, syrk,
+    gemm in k order, each class with a CPU and a CUDA body) in the
+    ``kernels``, ``kernels_trtri`` and ``kernels_bf16`` variants, with an
+    insertion window of ``FE_WINDOW`` tasks (the inserting thread runs
+    tasks itself once it fills).  JDF: dynamic on ``Context``, through the
+    pump and as a ``GraphExecutor`` replay, and once more as a module
+    ``jdfc`` generated from the file.  Every factor ``torch.equal`` to the
+    PTG's on the same path (the dynamic factor, which the pump and graph
+    phases held their own factors to), every run on the CUDA module only,
+    with the PTG's launches per mode.  Then DTD ``kernels`` at
+    N=``FE_SCHED_N`` under each of the twelve schedulers, and ``spq`` and
+    ``wdrr`` with ``sched_native_queue=1``, each factor ``torch.equal`` to
+    ``lfq``'s and to the PTG's at that size.  ``h`` carries main's
+    helpers and the dpotrf path's state; each run's launches go into
+    ``h.launches`` (the kernel table's counts)."""
+    np, torch, dev, card, say, check = h.np, h.torch, h.dev, h.card, h.say, h.check
+    from parsec_tpu_torch import Context, mca_param
+    from parsec_tpu_torch.datadist import TiledMatrix
+    from parsec_tpu_torch.dsl import DTDTaskpool, GraphExecutor, compile_jdf_file, jdfc
+    from parsec_tpu_torch.dsl.native_exec import NativeExecutor
+    from parsec_tpu_torch.ops import cholesky_ptg, dpotrf_task_count, insert_dpotrf, kernels
+
+    jdf_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "parsec_tpu_torch", "examples", "jdf", "cholesky.jdf")
+
+    def counts():
+        return {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+                for fn in (kernels.matmul_update, kernels.matmul)}
+
+    def cuda_module(ctx):
+        d = next(d for d in ctx.devices if d.mca_name == "cuda")
+        check(d.tdev.type == "cuda", f"CUDA module bound to {d.tdev}")
+        return d
+
+    def equal(A, ref, label):
+        check(torch.equal(torch.from_numpy(A.to_array()), torch.from_numpy(ref)),
+              f"{label}: the factor differs from the PTG's")
+
+    def run_context(S_in, fill, sched=None):
+        """One run on a fresh Context: ``fill(ctx, A)`` inserts or attaches
+        and returns (taskpool, tasks, finish), ``finish()`` ending the
+        window; the wall is fill + finish + synchronize.  The factor comes
+        home after the window (DTD: ``flush_all``; ``ctx.fini()``)."""
+        n_in = S_in.shape[0]
+        A = TiledMatrix(n_in, n_in, NB, NB, name="A", dtype=np.float32).from_array(S_in)
+        ctx = Context(scheduler=sched)
+        try:
+            cdev = cuda_module(ctx)
+            check(ctx.scheduler.mca_name == (sched or "lfq"),
+                  f"scheduler {ctx.scheduler.mca_name}, asked for {sched}")
+            kernels.reset_counts()
+            gc.collect()
+            t0 = time.perf_counter()
+            tp, ntasks, finish = fill(ctx, A)
+            ok = finish()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = counts()
+            if isinstance(tp, DTDTaskpool):
+                tp.flush_all()
+                tp.close()
+                ok = ok and ctx.wait(timeout=600)
+        finally:
+            ctx.fini()
+        check(ok and not tp.failed, f"taskpool failed ({tp.fail_reason})")
+        stats = device_stats(cdev)
+        check(stats["executed_tasks"] == ntasks,
+              f"{stats['executed_tasks']} tasks on the CUDA module, expected {ntasks}")
+        check(stats["wb_sync_fallbacks"] == 0, "synchronous write-back fallbacks")
+        return A, ntasks, wall, c, stats
+
+    def dtd(kw):
+        def fill(ctx, A):
+            tp = DTDTaskpool(ctx)
+            n = insert_dpotrf(tp, A, **kw)
+            return tp, n, lambda: tp.wait(timeout=600)
+        return fill
+
+    def ptg_fill(tp_of):
+        def fill(ctx, A):
+            tp = tp_of(A)
+            ctx.add_taskpool(tp)
+            return tp, dpotrf_task_count(A.mt), lambda: tp.wait(timeout=600)
+        return fill
+
+    nt = N // NB
+    # -- DTD, the three variants ---------------------------------------------
+    with mca(mca_param, "dtd", "window_size", FE_WINDOW), \
+            mca(mca_param, "dtd", "threshold_size", FE_WINDOW // 2):
+        for name, kw, _tol in h.variants:
+            ntasks = dpotrf_task_count(nt, use_trtri=kw.get("use_trtri", False))
+            check(ntasks > FE_WINDOW, "the window must be below the task count")
+            A, n, wall, c, stats = run_context(h.S, dtd(kw))
+            check(n == ntasks, f"dtd {name}: {n} tasks inserted, expected {ntasks}")
+            check(c == h.launches[name], f"dtd {name}: launches {c}, the PTG's "
+                  f"{h.launches[name]}")
+            equal(A, h.dyn_factor[name], f"dtd {name}")
+            h.launches[f"dtd_{name}"] = c
+            say("front_ends", path="dtd", variant=name, N=N, nb=NB, tasks=ntasks,
+                window=FE_WINDOW, wall_s=wall, tasks_per_s=ntasks / wall,
+                ptg_wall_s=h.dyn_wall[name], ptg_tasks_per_s=ntasks / h.dyn_wall[name],
+                launches=c, equal_ptg=True, card=card, **pipeline_fields(stats))
+            del A
+
+    # -- JDF: dynamic, pump, graph, and a jdfc-generated module ----------------
+    ntasks = dpotrf_task_count(nt)
+    want = h.launches["kernels"]
+    jdf = compile_jdf_file(jdf_path)
+    A, _n, wall, c, stats = run_context(h.S, ptg_fill(
+        lambda A: jdf.new(A=A, NT=A.mt, KERNELS=1)))
+    check(c == want, f"jdf dynamic: launches {c}, the PTG's {want}")
+    equal(A, h.dyn_factor["kernels"], "jdf dynamic")
+    h.launches["jdf_dynamic"] = c
+    say("front_ends", path="jdf_dynamic", variant="kernels", N=N, nb=NB, tasks=ntasks,
+        wall_s=wall, tasks_per_s=ntasks / wall, ptg_wall_s=h.dyn_wall["kernels"],
+        launches=c, equal_ptg=True, card=card, **pipeline_fields(stats))
+
+    A = TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32).from_array(h.S)
+    tp = jdf.new(A=A, NT=A.mt, KERNELS=1)
+    gc.collect()
+    t0 = time.perf_counter()
+    ex = NativeExecutor(tp, native_device=True)
+    setup = time.perf_counter() - t0
+    try:
+        check(ex.device.tdev.type == "cuda", f"pump device bound to {ex.device.tdev}")
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        ran = ex.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+    finally:
+        ex.close()
+    check(ran == ntasks, f"jdf pump: ran {ran} tasks, expected {ntasks}")
+    check(c == want, f"jdf pump: launches {c}, the PTG's {want}")
+    equal(A, h.dyn_factor["kernels"], "jdf pump")
+    h.launches["jdf_pump"] = c
+    pump = h.depth_walls.walls.get("dpotrf kernels pump")
+    say("front_ends", path="jdf_pump", variant="kernels", N=N, nb=NB, tasks=ntasks,
+        setup_s=setup, wall_s=wall, tasks_per_s=ntasks / wall,
+        ptg_pump_median_depth1_s=statistics.median(pump[1]) if pump else None,
+        launches=c, equal_ptg=True, card=card)
+
+    A = TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32).from_array(h.S)
+    ex = GraphExecutor(jdf.new(A=A, NT=A.mt, KERNELS=1))
+    check(ex.device.type == "cuda", f"GraphExecutor bound to {ex.device}")
+    feeds = {k: torch.from_numpy(A.data_of(*k[1]).newest_copy().payload).to(dev)
+             for k in ex.input_keys}
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ex.apply(feeds)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    c = counts()
+    # the first call: an eager warm-up and one replay, each launching what
+    # one dynamic run launches
+    want2 = {fn: {mode: 2 * n for mode, n in by_mode.items()} for fn, by_mode in want.items()}
+    check(c == want2, f"jdf graph: launches {c}, expected {want2}")
+    fac = torch.from_numpy(h.dyn_factor["kernels"]).to(dev)
+    for (_c, (m, n)), tile in out.items():
+        check(torch.equal(tile, fac[m * NB:(m + 1) * NB, n * NB:(n + 1) * NB]),
+              f"jdf graph: tile ({m}, {n}) differs from the PTG's factor")
+    h.launches["jdf_graph"] = c
+    say("front_ends", path="jdf_graph", variant="kernels", N=N, nb=NB, tasks=ntasks,
+        first_call_s=first_s, capture_s=ex.capture_s,
+        ptg_first_call_s=h.first_calls.get(("dpotrf_kernels", False)),
+        launches=c, equal_ptg=True, card=card)
+    del ex, feeds, out, fac, A
+
+    gen_dir = tempfile.mkdtemp(prefix="chip_smoke_jdfc_")
+    try:
+        gen_py = os.path.join(gen_dir, "cholesky_ptg.py")
+        check(jdfc.main([jdf_path, "-o", gen_py]) == 0, "jdfc failed")
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location("cholesky_ptg_generated", gen_py)
+        gen = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(gen)
+    finally:
+        shutil.rmtree(gen_dir, True)
+    A, _n, wall, c, stats = run_context(h.S, ptg_fill(
+        lambda A: gen.new(A=A, NT=A.mt, KERNELS=1)))
+    check(c == want, f"jdfc module: launches {c}, the PTG's {want}")
+    equal(A, h.dyn_factor["kernels"], "jdfc module")
+    h.launches["jdfc_dynamic"] = c
+    say("front_ends", path="jdfc_dynamic", variant="kernels", N=N, nb=NB, tasks=ntasks,
+        wall_s=wall, tasks_per_s=ntasks / wall, ptg_wall_s=h.dyn_wall["kernels"],
+        launches=c, equal_ptg=True, card=card)
+    del A
+
+    # -- the scheduler family: DTD dpotrf kernels at FE_SCHED_N ----------------
+    n_s = FE_SCHED_N
+    S_s = np.ascontiguousarray(h.S[:n_s, :n_s])  # a leading block: SPD
+    ntasks = dpotrf_task_count(n_s // NB)
+    A, _n, ptg_wall, ptg_c, _stats = run_context(S_s, ptg_fill(
+        lambda A: cholesky_ptg(use_cuda=True, use_cpu=False,
+                               use_kernels=True).taskpool(NT=A.mt, A=A)))
+    ptg_factor = A.to_array()
+    h.launches["sched_ptg"] = ptg_c
+    walls = {}
+    lfq_factor = None
+    runs = [(s, 0) for s in FE_SCHEDULERS] + [("spq", 1), ("wdrr", 1)]
+    with mca(mca_param, "dtd", "window_size", FE_WINDOW), \
+            mca(mca_param, "dtd", "threshold_size", FE_WINDOW // 2):
+        for sched, nq in runs:
+            with mca(mca_param, "sched", "native_queue", nq):
+                A, n, wall, c, stats = run_context(S_s, dtd(dict(use_kernels=True)), sched)
+            check(n == ntasks, f"dtd under {sched}: {n} tasks inserted")
+            check(c == ptg_c, f"dtd under {sched}: launches {c}, the PTG's {ptg_c}")
+            factor = A.to_array()
+            check(torch.equal(torch.from_numpy(factor), torch.from_numpy(ptg_factor)),
+                  f"dtd under {sched} (native queue {nq}): the factor differs from "
+                  "the PTG's")
+            if lfq_factor is None:
+                lfq_factor = factor
+            check(torch.equal(torch.from_numpy(factor), torch.from_numpy(lfq_factor)),
+                  f"dtd under {sched} (native queue {nq}): the factor differs from lfq's")
+            label = sched + ("_native_queue" if nq else "")
+            h.launches[f"sched_{label}"] = c
+            walls[label] = wall
+            say("front_ends", path="dtd_sched", scheduler=sched, native_queue=nq,
+                N=n_s, nb=NB, tasks=ntasks, wall_s=wall, tasks_per_s=ntasks / wall,
+                ptg_wall_s=ptg_wall, launches=c, equal_lfq=True, equal_ptg=True,
+                card=card)
+            del A, factor
+    say("front_ends_sched_walls", N=n_s, nb=NB, tasks=ntasks, ptg_lfq_wall_s=ptg_wall,
+        walls_s=walls, card=card)
 
 
 # -- level-batched whole-DAG replays (GraphExecutor(batch_levels=True)) -------
@@ -2269,6 +2522,12 @@ def main() -> int:
             last_tile_err=last_err, card=card)
         batched_execs[f"dpotrf_{name}"] = (b_ex, feeds)
         del A, tp, last, b_last
+
+    # -- front ends: DTD, JDF, jdfc and the schedulers on dpotrf --------------
+    front_ends_phase(types.SimpleNamespace(
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
+        variants=variants, launches=launches, dyn_factor=dyn_factor,
+        dyn_wall=dyn_wall, depth_walls=depth_walls, first_calls=first_calls))
     del dyn_factor
 
     # -- device-module phase: the CUDA module's GPU-only paths ----------------

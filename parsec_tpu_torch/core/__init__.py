@@ -3,6 +3,7 @@
 from .lifecycle import AccessMode, HookReturn, TaskStatus, DEV_CPU, DEV_CUDA
 from .task import Chore, Flow, Task, TaskClass
 from .taskpool import Taskpool
+from .compound import CompoundTaskpool, compose
 from .context import Context, ExecutionStream
 from . import sched  # register scheduler components
 from . import termdet  # register termdet components
@@ -18,6 +19,8 @@ __all__ = [
     "Task",
     "TaskClass",
     "Taskpool",
+    "CompoundTaskpool",
+    "compose",
     "Context",
     "ExecutionStream",
 ]

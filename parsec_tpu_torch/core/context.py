@@ -337,6 +337,39 @@ class Context:
     def current_es(self) -> Optional[ExecutionStream]:
         return getattr(self._tls, "es", None)
 
+    def _progress_comm(self) -> None:
+        """Drive the comm engine: a no-op at one rank, the only kind of
+        context the port builds (comm engines are ROADMAP A.8)."""
+
+    def help_execute_one(self) -> bool:
+        """Execute one ready task on the calling thread if safely possible
+        (DTD's insertion window and ``wait``).  Worker threads use their
+        own stream; other threads borrow stream 0 under its ownership
+        lock.  The task runs through the same progress path as a worker's,
+        so a CUDA chore goes through its device module's
+        ``kernel_scheduler`` (the compute stream, its events), never
+        through a host body.  Returns True if a task ran."""
+        es = self.current_es()
+        if es is not None:
+            task = self._next_task(es)
+            if task is not None:
+                self._run_task(es, task)
+                return True
+            return False
+        if not self._es0_lock.acquire(blocking=False):
+            return False  # someone else drives stream 0; let them progress
+        try:
+            es = self.streams[0]
+            self._tls.es = es
+            task = self._next_task(es)
+            if task is not None:
+                self._run_task(es, task)
+                return True
+            return False
+        finally:
+            self._tls.es = None
+            self._es0_lock.release()
+
     # ------------------------------------------------------------------
     def schedule(self, tasks, es: Optional[ExecutionStream] = None, distance: int = 0) -> None:
         """Public entry to make externally-built tasks runnable."""

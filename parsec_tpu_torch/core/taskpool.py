@@ -28,6 +28,8 @@ class Taskpool:
 
     # taskpool type tags (reference parsec_internal.h:112-115)
     TYPE_PTG = "ptg"
+    TYPE_DTD = "dtd"
+    TYPE_COMPOUND = "compound"
     TYPE_USER = "user"
 
     def __init__(

@@ -1,5 +1,7 @@
-"""Data distributions: the single-rank tiled matrix."""
+"""Data distributions: the tiled matrix and its block-cyclic placements."""
 
-from .matrix import FULL, LOWER, UPPER, TiledMatrix, from_numpy_tiles
+from .matrix import (FULL, LOWER, UPPER, SymTwoDimBlockCyclic, TiledMatrix,
+                     TwoDimBlockCyclic, from_numpy_tiles)
 
-__all__ = ["FULL", "LOWER", "UPPER", "TiledMatrix", "from_numpy_tiles"]
+__all__ = ["FULL", "LOWER", "UPPER", "SymTwoDimBlockCyclic", "TiledMatrix",
+           "TwoDimBlockCyclic", "from_numpy_tiles"]

@@ -2,10 +2,13 @@
 
 Reference: ``parsec/data_dist/matrix/`` — the ``parsec_tiled_matrix_t``
 base descriptor (``matrix.h``: mb/nb tile sizes, lm/ln full sizes, mt/nt
-tile counts, uplo storage).  The port carries the single-rank
-:class:`TiledMatrix`; the block-cyclic, symmetric, tabular and band
-distributions of :mod:`parsec_tpu.datadist.matrix` come with the
-distributed layer (ROADMAP A.10).
+tile counts, uplo storage), and the two-dimensional block-cyclic
+distribution with k-cyclic super-tiling (``two_dim_rectangle_cyclic.h``:
+row rank = (m / kp) % P, col rank = (n / kq) % Q) with its symmetric
+variant (``sym_two_dim_rectangle_cyclic.c``).  The owner math covers any
+P×Q grid, but only one rank runs: ``from_array``/``to_array`` move the
+tiles this rank owns.  Multi-rank use, the tabular and band distributions
+come with the distributed layer (ROADMAP A.8).
 
 Host tiles are numpy arrays, exactly as in the JAX package, so both
 packages can factor identical input (:func:`from_numpy_tiles`).  Device
@@ -78,6 +81,12 @@ class TiledMatrix(DataCollection):
                 if self.stored(i, j):
                     yield (i, j)
 
+    def local_tiles(self):
+        """The stored keys this rank owns."""
+        for key in self.tiles():
+            if self.rank_of(*key) == self.myrank:
+                yield key
+
     # -- vtable -----------------------------------------------------------
     def data_key(self, *key) -> Tuple[int, int]:
         if len(key) == 1:
@@ -103,10 +112,11 @@ class TiledMatrix(DataCollection):
 
     # -- whole-matrix helpers (tests / verification) ----------------------
     def to_array(self) -> np.ndarray:
-        """Gather the tiles into a dense host array; a tile whose newest
-        copy lives on a device is copied back without changing residency."""
+        """Gather this rank's tiles into a dense host array; a tile whose
+        newest copy lives on a device is copied back without changing
+        residency."""
         out = np.zeros((self.m, self.n), self.default_dtype)
-        for (i, j) in self.tiles():
+        for (i, j) in self.local_tiles():
             c = self.data_of(i, j).newest_copy()
             if c is None:
                 continue
@@ -115,7 +125,7 @@ class TiledMatrix(DataCollection):
         return out
 
     def from_array(self, a: np.ndarray) -> "TiledMatrix":
-        for (i, j) in self.tiles():
+        for (i, j) in self.local_tiles():
             h, w = self.tile_shape(i, j)
             # copy (not a view): the runtime mutates tiles in place and must
             # never alias the caller's array
@@ -125,6 +135,39 @@ class TiledMatrix(DataCollection):
             copy = d.get_copy(0) or d.attach_copy(0, tile)
             copy.payload = tile
         return self
+
+
+class TwoDimBlockCyclic(TiledMatrix):
+    """ScaLAPACK-style 2D block-cyclic placement over a P×Q process grid
+    with kp/kq k-cyclic super-tiling (reference
+    ``two_dim_rectangle_cyclic.h:24-95``)."""
+
+    def __init__(self, m, n, mb, nb, *, p: int = 1, q: int = 1, kp: int = 1,
+                 kq: int = 1, **kw):
+        kw.setdefault("nodes", p * q)
+        super().__init__(m, n, mb, nb, **kw)
+        if p * q != self.nodes:
+            raise ValueError(f"grid {p}x{q} incompatible with {self.nodes} nodes")
+        self.p, self.q, self.kp, self.kq = p, q, kp, kq
+
+    def rank_of(self, *key) -> int:
+        i, j = self.data_key(*key)
+        rrow = (i // self.kp) % self.p
+        rcol = (j // self.kq) % self.q
+        return rrow * self.q + rcol
+
+    def vpid_of(self, *key) -> int:
+        return 0
+
+
+class SymTwoDimBlockCyclic(TwoDimBlockCyclic):
+    """Symmetric (triangular-storage) block-cyclic matrix (reference
+    ``sym_two_dim_rectangle_cyclic.c``)."""
+
+    def __init__(self, m, n, mb, nb, *, uplo: str = LOWER, **kw):
+        if uplo not in (LOWER, UPPER):
+            raise ValueError("sym matrix needs uplo lower|upper")
+        super().__init__(m, n, mb, nb, uplo=uplo, **kw)
 
 
 def from_numpy_tiles(tiles: Mapping[Tuple[int, int], np.ndarray], mb: int,

@@ -136,6 +136,12 @@ def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
 
 
+def _scratch_dtype(dtype) -> torch.dtype:
+    """A scratch argument's dtype (numpy, as DTD's CPU bodies take it, or
+    torch) as a torch dtype."""
+    return dtype if isinstance(dtype, torch.dtype) else _torch_dtype(dtype)
+
+
 def _capacity_chunks(sizes: List[int], cap: int) -> List[List[int]]:
     """Indices of ``sizes`` in order, grouped so that each group's total is
     at most ``cap`` (an item larger than ``cap`` goes alone)."""
@@ -795,7 +801,10 @@ class CudaDevice(Device):
         object itself, never ``id(body)``, which a dead body's successor
         may reuse), each data argument's shape, dtype and access mode, and
         the VALUE of each scalar the body reads (a CUDA graph bakes scalar
-        kernel arguments in; the reference traces them).  Values reach a
+        kernel arguments in; the reference traces them), and each scratch
+        buffer's shape and dtype, all in argument order (DTD interleaves
+        values and scratch with data; ``_value_reads`` counts values
+        only, so either layout indexes it right).  Values reach a
         body it does not read only through a ``**_`` catch-all
         (``_value_reads``, set by the PTG's device-body wrapper).  Excluded,
         as in the reference: custom stage hooks (the staged layout is the
@@ -831,6 +840,9 @@ class CudaDevice(Device):
                 # the dtype object, not its str: numpy's __str__ is most of
                 # this function's cost
                 sig.append(("data", tuple(shape), dtype, int(mode)))
+            elif kind == "scratch":
+                shape, dtype = payload
+                sig.append(("scratch", tuple(shape), _scratch_dtype(dtype)))
             elif kind == "value":
                 if reads is None or reads[nvalue]:
                     try:
@@ -1005,7 +1017,8 @@ class CudaDevice(Device):
 
     def _chunk_cap(self, sig) -> int:
         """The most tasks of signature ``sig`` one chunk may hold: their
-        static bytes — each data argument in, each writable one out too —
+        static bytes — each data argument and scratch buffer in, each
+        writable data argument out too —
         within this module's chunk bound (:func:`_split_free`) and half the
         card's cache capacity (0 when one task alone exceeds that)."""
         limit = self._chunk_bytes
@@ -1013,13 +1026,14 @@ class CudaDevice(Device):
             limit = min(limit, min(self._graphs.capacity, self._graphs_cap) // 2)
         task_bytes = 0
         for part in sig[1:]:
-            if part[0] != "data":
+            if part[0] not in ("data", "scratch"):
                 continue
-            _kind, shape, dtype, mode = part
+            shape, dtype = part[1], part[2]
             itemsize = dtype.itemsize if isinstance(dtype, torch.dtype) \
                 else np.dtype(dtype).itemsize
             nbytes = int(np.prod(shape, dtype=np.int64)) * itemsize
-            task_bytes += nbytes * (2 if mode & int(AccessMode.OUT) else 1)
+            out = part[0] == "data" and part[3] & int(AccessMode.OUT)
+            task_bytes += nbytes * (2 if out else 1)
         return limit // max(task_bytes, 1)
 
     def _run_chunk(self, body, key, args: List[List[Any]]) -> List[List[Any]]:
@@ -1100,7 +1114,12 @@ class CudaDevice(Device):
     def _stage_task_args(self, task: Task, body):
         """kernel_push: stage every flow of ``task`` onto this device and
         return ``(dev_args, out_specs, out_hooks)`` (reference
-        device_gpu.c:2015-2164 stage-in phase)."""
+        device_gpu.c:2015-2164 stage-in phase).  ``task.body_args`` is a
+        list of ``(kind, payload, mode)``: the PTG puts its flows first and
+        its values after; DTD keeps the caller's argument order, values
+        and ``scratch`` buffers (a ``(shape, dtype)`` allocated zeroed
+        here) interleaved with the data.  Each kind is handled where it
+        stands, so both layouts give the body its positional arguments."""
         # per-flow custom staging (reference stage_in/stage_out device
         # hooks, device_gpu.h:62-94), keyed by data-arg order
         si_hooks = getattr(body, "_stage_in", None) or {}
@@ -1140,7 +1159,12 @@ class CudaDevice(Device):
                     out_hooks.append(so_hooks.get(data_idx))
             elif kind == "value":
                 dev_args.append(payload)
-            # other kinds (e.g. "ctl") contribute no argument
+            elif kind == "scratch":
+                # DTD's per-task scratch buffer, zeroed on this device
+                shape, dtype = payload
+                dev_args.append(torch.zeros(shape, dtype=_scratch_dtype(dtype),
+                                            device=self.tdev))
+            # "ctl" contributes no argument
         return dev_args, out_specs, out_hooks
 
     def _await_copy(self, arr) -> None:

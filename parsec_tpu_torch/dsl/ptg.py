@@ -45,7 +45,7 @@ Supertask fusion (:mod:`.fusion`, ``runtime_fusion``) is read at attach:
 fused regions dispatch as one supertask each.
 
 What the port leaves out, each raising ``NotImplementedError`` naming its
-ROADMAP item when reached: the ahead-of-time verifier and lint (A.9),
+ROADMAP item when reached: the ahead-of-time verifier and lint (A.9b),
 remote successors and write-backs (A.8), and a reshape property block on
 an incoming dep (A.8; on a ``<- NEW`` dep the block names the new tile's
 shape and dtype).
@@ -363,6 +363,8 @@ class PTGTaskClass:
         #: taskpool-constant names passed to bodies by name (JDF globals
         #: are visible inside reference BODY blocks as C globals)
         self.body_globals: List[str] = []
+        #: the JDF heading's property block (``[ high_priority = on ]``)
+        self.properties: Dict[str, Any] = {}
 
     @property
     def param_names(self) -> List[str]:
@@ -597,7 +599,7 @@ class PTG:
     def verify(self, *args: Any, **kw: Any):
         """Ahead-of-time graph verification is not ported yet."""
         raise NotImplementedError(
-            "PTG.verify (the graph linter) is not ported yet (ROADMAP A.9)")
+            "PTG.verify (the graph linter) is not ported yet (ROADMAP A.9b)")
 
 
 def _props_spec(props: Dict[str, str], constants: Dict[str, Any]

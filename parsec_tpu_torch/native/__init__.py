@@ -14,14 +14,15 @@ pop/done control plane of the pump; reference role:
 offset allocator the CUDA device module accounts device bytes with
 (first fit, alignment, coalescing; reference role: ``zone_malloc.c``).
 :meth:`NativeGraph.order` linearises a captured DAG for whole-DAG capture
-(:mod:`parsec_tpu_torch.dsl.cuda_graph`).
+(:mod:`parsec_tpu_torch.dsl.cuda_graph`).  :class:`NativeReadyQueue` is
+the ready-queue state of the ``spq`` and ``wdrr`` schedulers under
+``sched_native_queue=1`` (the pump's own SchedQ, A.10e).
 
 There is no fallback.  A missing source, a failed g++ run or a library
 that lacks a declared symbol raises ``RuntimeError`` carrying the cause
 (the compiler's output included); nothing carries on through the dynamic
-path.  Not ported yet: the standalone native ready queue, the legacy
-ASYNC entry points ``run_async`` / ``task_done`` (A.10) and the binary
-tracer (A.9).
+path.  Not ported yet: the legacy ASYNC entry points ``run_async`` /
+``task_done`` (A.10a) and the binary tracer (A.10f).
 """
 
 from __future__ import annotations
@@ -270,6 +271,59 @@ class NativeGraph:
         if g:
             self._g = None
             self._lib.pz_graph_destroy(g)
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class NativeReadyQueue:
+    """Standalone native ready queue — the queue STATE of a Python
+    scheduler, with pop ORDER decided natively (one shared implementation
+    with the pump disciplines in graph.cpp, so worker-based and
+    pump-based runs order identically).
+
+    Ownership handoff: the caller keeps its task objects in a dict keyed
+    by the integer ``handle`` it pushes; :meth:`pop` returns the handle
+    whose task the caller then owns again.  ``policy``: ``prio`` orders
+    (priority desc, distance asc, insertion seq asc) — the spq key;
+    ``wdrr`` runs deficit round robin over tenant bins."""
+
+    POLICIES = {"prio": 0, "wdrr": 1}
+
+    def __init__(self, policy: str = "prio", quantum: int = 0,
+                 seed: int = -1):
+        self._lib = load()
+        self._q = self._lib.pz_rq_new(self.POLICIES[policy], int(quantum),
+                                      int(seed))
+        if not self._q:
+            raise MemoryError("pz_rq_new failed")
+
+    def set_tenant_weight(self, tenant: int, weight: int) -> None:
+        self._lib.pz_rq_tenant_weight(self._q, int(tenant), int(weight))
+
+    def push(self, priority: int, handle: int, distance: int = 0,
+             tenant: int = 0) -> None:
+        self._lib.pz_rq_push(self._q, int(priority), int(distance),
+                             int(tenant), int(handle))
+
+    def pop(self) -> int:
+        """Next handle under the discipline, or -1 when empty."""
+        return self._lib.pz_rq_pop(self._q)
+
+    def count(self) -> int:
+        return self._lib.pz_rq_count(self._q)
+
+    def clear(self) -> None:
+        self._lib.pz_rq_clear(self._q)
+
+    def close(self) -> None:
+        q = getattr(self, "_q", None)
+        if q:
+            self._q = None
+            self._lib.pz_rq_destroy(q)
 
     def __del__(self):  # pragma: no cover
         try:

@@ -13,7 +13,7 @@ from .attention import (
     run_flash_attention,
     run_flash_attention_native,
 )
-from .cholesky import cholesky_ptg, dpotrf_task_count, run_cholesky
+from .cholesky import cholesky_ptg, dpotrf_task_count, insert_dpotrf, run_cholesky
 from .lu import lu_ptg, lu_task_count, run_lu
 from .panel_chol import PanelCholesky, WholeCholesky
 from .qr import qr_constants, qr_ptg, qr_task_count, run_qr
@@ -29,6 +29,7 @@ __all__ = [
     "run_flash_attention",
     "run_flash_attention_native",
     "cholesky_ptg",
+    "insert_dpotrf",
     "dpotrf_task_count",
     "run_cholesky",
     "lu_ptg",

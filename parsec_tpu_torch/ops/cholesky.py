@@ -11,15 +11,24 @@ priorities):
 
 Dataflow: each tile's value threads through the update chain as a flow, so
 lookahead across iterations emerges from dependencies alone.
+
+:func:`insert_dpotrf` inserts the same loop into a DTD taskpool
+(:mod:`parsec_tpu_torch.dsl.dtd`) with the same bodies and priorities, so
+each tile sees the same updates in the same order from the same functions
+as through the PTG.
 """
 
 from __future__ import annotations
 
-from ..core.lifecycle import AccessMode
+import numpy as np
+
+from ..core.lifecycle import AccessMode, DEV_CPU, DEV_CUDA
+from ..data.data import data_create
 from ..dsl.ptg import PTG
 from . import tiles
 
 IN = AccessMode.IN
+OUT = AccessMode.OUT
 INOUT = AccessMode.INOUT
 
 
@@ -133,6 +142,61 @@ def dpotrf_task_count(nt: int, *, use_trtri: bool = False) -> int:
     nt(nt-1)/2 trsm and syrk, C(nt, 3) gemm, plus nt-1 trtri."""
     n = nt + nt * (nt - 1) + nt * (nt - 1) * (nt - 2) // 6
     return n + (nt - 1 if use_trtri else 0)
+
+
+def insert_dpotrf(dtd, A, *, use_cpu: bool = True, use_kernels: bool = False,
+                  use_trtri: bool = False, bf16_updates: bool = False) -> int:
+    """Insert the right-looking tiled dpotrf over TiledMatrix ``A`` into
+    the DTD taskpool ``dtd`` (potrf, [trtri,] trsm, syrk, gemm in k order)
+    and return the number of tasks inserted.  Each class has a CUDA body
+    and, with ``use_cpu``, a CPU body: the bodies, options and priorities
+    of :func:`cholesky_ptg`.  With ``use_trtri`` each ``trtri(k)`` writes
+    a fresh inverse tile (OUT), read by the column's trsms."""
+    if bf16_updates and not use_kernels:
+        raise ValueError("bf16_updates requires use_kernels")
+
+    def bodies(cpu, cuda):
+        return {DEV_CPU: cpu, DEV_CUDA: cuda} if use_cpu else {DEV_CUDA: cuda}
+
+    syrk_dev, gemm_dev = tiles.syrk_cuda, tiles.gemm_update_cuda
+    if use_kernels:
+        syrk_dev = tiles.syrk_kernel_bf16 if bf16_updates else tiles.syrk_kernel
+        gemm_dev = (tiles.gemm_update_kernel_bf16 if bf16_updates
+                    else tiles.gemm_update_kernel)
+    potrf = bodies(tiles.potrf_cpu, tiles.potrf_cuda)
+    trtri = bodies(tiles.trtri_cpu, tiles.trtri_cuda)
+    trsm = (bodies(tiles.trsm_inv_cpu, tiles.trsm_inv_kernel if use_kernels
+                   else tiles.trsm_inv_cuda) if use_trtri
+            else bodies(tiles.trsm_cpu, tiles.trsm_cuda))
+    syrk = bodies(tiles.syrk_cpu, syrk_dev)
+    gemm = bodies(tiles.gemm_update_cpu, gemm_dev)
+    nt = A.mt
+    n = 0
+    for k in range(nt):
+        T = A.data_of(k, k)
+        dtd.insert_task(potrf, (T, INOUT), priority=(nt - k) * 1000, name="potrf")
+        n += 1
+        if use_trtri and k < nt - 1:
+            inv = data_create(("inv", k), payload=np.zeros(A.tile_shape(k, k),
+                                                           A.default_dtype))
+            dtd.insert_task(trtri, (T, IN), (inv, OUT),
+                            priority=(nt - k) * 1000 - 1, name="trtri")
+            n += 1
+        for m in range(k + 1, nt):
+            dtd.insert_task(trsm, (inv if use_trtri else T, IN),
+                            (A.data_of(m, k), INOUT),
+                            priority=(nt - m) * 100, name="trsm")
+            n += 1
+        for m in range(k + 1, nt):
+            dtd.insert_task(syrk, (A.data_of(m, m), INOUT), (A.data_of(m, k), IN),
+                            priority=(nt - m) * 100 + 10, name="syrk")
+            n += 1
+            for j in range(k + 1, m):
+                dtd.insert_task(gemm, (A.data_of(m, j), INOUT),
+                                (A.data_of(m, k), IN), (A.data_of(j, k), IN),
+                                priority=(nt - m) * 10, name="gemm")
+                n += 1
+    return n
 
 
 def run_cholesky(context, A, *, use_cuda: bool = True, use_cpu: bool = True,
