@@ -93,7 +93,26 @@
    then DTD ``kernels`` at N=4096 under each of the twelve schedulers and
    ``spq``/``wdrr`` with ``sched_native_queue=1``, each factor
    ``torch.equal`` to ``lfq``'s and to the PTG's, with walls and tasks/s
-   beside the PTG run's;
+   beside the PTG run's; then the ``legacy_async`` phase
+   (:func:`legacy_async_phase`): ``kernels`` and ``kernels_trtri``
+   through the native engine's legacy ASYNC-chore protocol — native
+   workers hand each task to the CUDA module, whose completion callback
+   calls ``NativeGraph.task_done`` — with ``runtime_native_sched=off`` and
+   with ``device_cuda_eager_complete=0``, each factor ``torch.equal`` to
+   the same call's pump factor with the pump's launches (B1 680, B2 120
+   with ``trtri``) and one trampoline entry and one completion callback a
+   task (816; 831 with ``trtri``), each ``legacy_async`` line with its
+   wall beside the pump's; a mixed DAG (``potrf``'s CUDA body taken
+   away: 16 host tasks through the ``Data`` staging discipline, 800 on
+   the card) within 1e-3 of the pump's factor, with 680 B1 launches and
+   the host versions of the diagonal tiles kept through the detach; the
+   dynamic path with ``runtime_dep_storage=dense`` and with
+   ``runtime_vpmap=nb:2`` and the pump with ``nb:2``, each ``torch.equal``
+   to the hash and flat runs; a ``checkpoint.save`` of the factor while
+   its tiles are newest on the card, restored into a fresh collection in
+   a new ``Context`` (``np.array_equal``), and ``diag_band_to_rect`` of
+   the device-newest factor against its host reference
+   (``single_card_core`` lines);
 5. device-module phase: a 2048 x 2048 dpotrf with event-polled
    completion and one under an 8 MB residency budget (eviction
    write-back), each checked against a float64 Cholesky;
@@ -612,6 +631,265 @@ def front_ends_phase(h):
 
 
 # -- level-batched whole-DAG replays (GraphExecutor(batch_levels=True)) -------
+
+def legacy_async_phase(h):
+    """Tiled dpotrf (N=8192 nb=512 f32, the dpotrf path's SPD matrix)
+    through the legacy ASYNC-chore protocol and a mixed CPU/GPU DAG, and
+    the rest of the single-card core on the same matrix.
+
+    ``kernels`` and ``kernels_trtri`` through ``NativeExecutor(tp,
+    native_device=True)`` three times each in one stretch: the pump, then
+    ``runtime_native_sched=off``, then ``device_cuda_eager_complete=0``
+    (both the legacy protocol: native workers enter the trampoline once a
+    task and hand it to the CUDA module, whose completion callback calls
+    ``task_done``).  Each legacy factor ``torch.equal`` to the pump's, the
+    same B1/B2 launches per mode (680 B1, and 120 B2 with ``trtri``), one
+    trampoline entry and one completion callback a task, every task on the
+    CUDA module.  Then the mixed DAG: ``cholesky_ptg(use_kernels=True)``
+    with the ``potrf`` class's CUDA body taken away, so its 16 tasks run on
+    the host (``_make_cpu_data_body``) and the other 800 on the card;
+    within 1e-3 of the pump's factor (PERF.md §2's gate), 680 B1
+    launches, and the host versions of the diagonal tiles kept through the
+    device's detach.  Then the dynamic path with
+    ``runtime_dep_storage=dense`` and with ``runtime_vpmap=nb:2`` and the
+    pump with ``nb:2``, each factor ``torch.equal`` to the hash/flat
+    run's; in the dense run, while its tiles are newest on the card, a
+    ``checkpoint.save`` of the factor and ``diag_band_to_rect`` of it; the
+    checkpoint restored into a fresh collection in a new ``Context``,
+    ``np.array_equal`` to the factor, and the band equal to its host
+    reference.  ``h`` carries main's helpers and the dpotrf path's state;
+    every run's launches go into ``h.launches``."""
+    np, torch, dev, card, say, check = h.np, h.torch, h.dev, h.card, h.say, h.check
+    S = h.S
+    from parsec_tpu_torch import Context, mca_param
+    from parsec_tpu_torch.core.lifecycle import DEV_CUDA
+    from parsec_tpu_torch.data import checkpoint
+    from parsec_tpu_torch.datadist import TiledMatrix
+    from parsec_tpu_torch.datadist.band import (diag_band_to_rect_ptg,
+                                                diag_band_to_rect_reference)
+    from parsec_tpu_torch.dsl.native_exec import NativeExecutor
+    from parsec_tpu_torch.ops import cholesky_ptg, dpotrf_task_count, kernels
+
+    nt = N // NB
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+                for fn in (kernels.matmul_update, kernels.matmul)}
+
+    def native(kw, mixed=False):
+        """One dpotrf through NativeExecutor(native_device=True) under the
+        MCA params in force; the wall is ex.run() + synchronize, set-up
+        (capture + build) apart.  Returns the matrix, tasks, wall, set-up,
+        launches, stats and — for the mixed DAG — the diagonal tiles' host
+        versions and values before the detach."""
+        A = TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32).from_array(S)
+        ptg = cholesky_ptg(use_cuda=True, use_cpu=mixed, **kw)
+        if mixed:
+            del ptg.classes["potrf"].bodies[DEV_CUDA]
+        tp = ptg.taskpool(NT=nt, A=A)
+        gc.collect()
+        t0 = time.perf_counter()
+        ex = NativeExecutor(tp, native_device=True)
+        setup = time.perf_counter() - t0
+        diag = None
+        try:
+            check(ex.device.tdev.type == "cuda", f"native device bound to {ex.device.tdev}")
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            ran = ex.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = counts()
+            stats = dict(ex.stats, pump=ex._pump)
+            if mixed:
+                diag = {k: (A.data_of(k, k).get_copy(0).version,
+                            np.array(A.data_of(k, k).get_copy(0).payload),
+                            A.data_of(k, k).newest_copy().device_index)
+                        for k in range(nt)}
+        finally:
+            t0 = time.perf_counter()
+            ex.close()
+            flush = time.perf_counter() - t0
+        stats.update(device_stats(ex.device, flush_s=flush))
+        check(stats["wb_sync_fallbacks"] == 0, "synchronous write-back fallbacks")
+        return A, ran, wall, setup, c, stats, diag
+
+    def factor_errs(factor, ref_factor):
+        """||LL^T - S||max/||S||max and the last tile's max error relative
+        to the reference factor's, in float64 on the card."""
+        L = torch.from_numpy(factor).to(dev).double().tril()
+        recon = ((L @ L.mT - h.S64).abs().max() / h.s_max).item()
+        ref_last = torch.from_numpy(ref_factor[-NB:, -NB:]).to(dev).double().tril()
+        last = ((L[-NB:, -NB:] - ref_last).abs().max() / ref_last.abs().max()).item()
+        del L
+        return recon, last
+
+    pump_factor = {}
+    for name, kw, _tol in h.variants[:2]:
+        trtri = kw.get("use_trtri", False)
+        ntasks = dpotrf_task_count(nt, use_trtri=trtri)
+        n_upd = nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
+        n_mm = nt * (nt - 1) // 2 if trtri else 0
+        A, ran, p_wall, p_setup, p_counts, p_stats, _ = native(kw)
+        check(p_stats["pump"] and ran == ntasks
+              and p_stats["trampoline_entries"] == p_stats["completion_callbacks"] == 0,
+              f"legacy_async {name}: the pump run ({ran} tasks, {p_stats})")
+        check(p_counts["matmul_update"]["total"] == n_upd and
+              p_counts["matmul"]["total"] == n_mm,
+              f"legacy_async {name}: pump launches {p_counts}")
+        pump_factor[name] = A.to_array()
+        check(np.array_equal(pump_factor[name], h.dyn_factor[name]),
+              f"legacy_async {name}: the pump's factor differs from the dynamic path's")
+        h.launches[f"legacy_pump_{name}"] = p_counts
+        for protocol, param in (("native_sched_off", ("runtime", "native_sched", "off")),
+                                ("eager_complete_0", ("device", "cuda_eager_complete", 0))):
+            with mca(mca_param, *param):
+                A, ran, wall, setup, c, stats, _ = native(kw)
+            label = f"legacy_async {name} {protocol}"
+            check(not stats["pump"] and ran == ntasks, f"{label}: pump={stats['pump']}, "
+                  f"{ran} tasks")
+            check(torch.equal(torch.from_numpy(A.to_array()),
+                              torch.from_numpy(pump_factor[name])),
+                  f"{label}: the factor differs from the pump's")
+            check(c == p_counts, f"{label}: launches {c}, the pump's {p_counts}")
+            check(stats["trampoline_entries"] == stats["completion_callbacks"] == ntasks,
+                  f"{label}: {stats['trampoline_entries']} trampoline entries and "
+                  f"{stats['completion_callbacks']} completion callbacks, "
+                  f"expected {ntasks} each")
+            check(stats["executed_tasks"] == ntasks and stats["pop_batches"] == 0,
+                  f"{label}: {stats['executed_tasks']} tasks on the CUDA module")
+            h.launches[f"legacy_{name}_{protocol}"] = c
+            say("legacy_async", variant=name, protocol=protocol, N=N, nb=NB, tasks=ran,
+                wall_s=wall, setup_s=setup, pump_wall_s=p_wall, pump_setup_s=p_setup,
+                wall_over_pump=wall / p_wall,
+                setup_plus_wall_over_pump=(setup + wall) / (p_setup + p_wall),
+                host_ms_per_task=wall / ran * 1e3,
+                pump_host_ms_per_task=p_wall / ran * 1e3,
+                trampoline_entries=stats["trampoline_entries"],
+                completion_callbacks=stats["completion_callbacks"], launches=c,
+                equal_pump=True, card=card, **pipeline_fields(stats))
+
+    # -- the mixed DAG: potrf on the host, the rest on the card -----------------
+    ntasks = dpotrf_task_count(nt)
+    A, ran, wall, setup, c, stats, diag = native(dict(use_kernels=True), mixed=True)
+    check(not stats["pump"] and ran == ntasks, f"mixed: pump={stats['pump']}, {ran} tasks")
+    check(c["matmul_update"]["total"] == nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
+          and c["matmul"]["total"] == 0, f"mixed: launches {c}")
+    check(stats["trampoline_entries"] == ntasks
+          and stats["completion_callbacks"] == stats["executed_tasks"] == ntasks - nt,
+          f"mixed: {stats['trampoline_entries']} entries, {stats['completion_callbacks']} "
+          f"callbacks, {stats['executed_tasks']} tasks on the CUDA module")
+    for k, (version, tile, where) in diag.items():
+        home = A.data_of(k, k).get_copy(0)
+        check(where == 0 and home.version == version and np.array_equal(home.payload, tile),
+              f"mixed: the host version of potrf tile {k} did not survive the detach")
+    mixed_factor = A.to_array()
+    recon, last = factor_errs(mixed_factor, pump_factor["kernels"])
+    check(recon < 1e-3 and last < 1e-3,
+          f"mixed: ||LL^T-S||max/||S||max {recon}, last tile {last} (gate 1e-3)")
+    h.launches["legacy_mixed"] = c
+    say("legacy_async", variant="kernels", protocol="mixed_host_potrf", N=N, nb=NB,
+        tasks=ran, host_tasks=nt, wall_s=wall, setup_s=setup,
+        pump_wall_s=None, recon_err=recon, last_tile_err_vs_pump=last,
+        max_abs_diff_vs_pump=float(np.abs(mixed_factor - pump_factor["kernels"]).max()),
+        trampoline_entries=stats["trampoline_entries"],
+        completion_callbacks=stats["completion_callbacks"], launches=c, card=card,
+        **pipeline_fields(stats))
+    del mixed_factor
+
+    # -- the single-card core: dense storage, vpmaps, checkpoint, band ------------
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    try:
+        path = os.path.join(ckdir, "factor")
+        walls = {}
+        for label, param in (("dense", ("runtime", "dep_storage", "dense")),
+                             ("vpmap_nb2", ("runtime", "vpmap", "nb:2"))):
+            A = TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32).from_array(S)
+            with mca(mca_param, *param):
+                ctx = Context()
+                try:
+                    tp = cholesky_ptg(use_cuda=True, use_cpu=False,
+                                      use_kernels=True).taskpool(NT=nt, A=A)
+                    kernels.reset_counts()
+                    gc.collect()
+                    t0 = time.perf_counter()
+                    ctx.add_taskpool(tp)
+                    ok = tp.wait(timeout=600)
+                    torch.cuda.synchronize()
+                    walls[label] = time.perf_counter() - t0
+                    c = counts()
+                    check(ok, f"{label}: taskpool failed ({tp.fail_reason})")
+                    if label == "dense":
+                        check(type(tp.deps).__name__ == "DenseDepTracker" and tp._counted,
+                              "dense: the PTG did not take the dense storage")
+                    else:
+                        check(ctx.vpmap.nb_vps() == 2, f"vpmap: {ctx.vpmap.vps}")
+                    if label == "dense":
+                        # the factor's tiles (the lower triangle) are newest
+                        # on the card here
+                        on_card = sum(A.data_of(i, j).newest_copy().device_index != 0
+                                      for (i, j) in A.local_tiles() if i >= j)
+                        check(on_card == nt * (nt + 1) // 2,
+                              f"checkpoint: {on_card} factor tiles device-newest")
+                        t0 = time.perf_counter()
+                        checkpoint.save(path, A, meta={"N": N, "nb": NB})
+                        save_s = time.perf_counter() - t0
+                        Bb = TiledMatrix(NB + 1, nt * (NB + 2), NB + 1, NB + 2, name="B",
+                                         dtype=np.float32)
+                        t0 = time.perf_counter()
+                        tpb = diag_band_to_rect_ptg(NB, NB).taskpool(NT=nt, A=A, B=Bb)
+                        ctx.add_taskpool(tpb)
+                        check(tpb.wait(timeout=600), f"band: failed ({tpb.fail_reason})")
+                        band_s = time.perf_counter() - t0
+                finally:
+                    ctx.fini()
+            check(torch.equal(torch.from_numpy(A.to_array()),
+                              torch.from_numpy(h.dyn_factor["kernels"])),
+                  f"{label}: the factor differs from the hash/flat dynamic run's")
+            check(c == h.launches["kernels"], f"{label}: launches {c}, "
+                  f"the hash/flat run's {h.launches['kernels']}")
+            h.launches[f"core_{label}"] = c
+            say("single_card_core", path="dpotrf kernels dynamic", run=label, N=N, nb=NB,
+                wall_s=walls[label], hash_flat_wall_s=h.dyn_wall["kernels"],
+                equal_hash_flat=True, launches=c, card=card)
+        factor = h.dyn_factor["kernels"]
+        band_ref = diag_band_to_rect_reference(factor, NB, NB, nt)
+        check(np.array_equal(Bb.to_array(), band_ref),
+              "band: diag_band_to_rect of the device-newest factor differs from the "
+              "host reference")
+        # the checkpoint, restored into a fresh collection in a new Context
+        B = TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32)
+        with Context():
+            t0 = time.perf_counter()
+            n_tiles = checkpoint.restore(path, B)
+            restore_s = time.perf_counter() - t0
+        check(n_tiles == len(list(B.local_tiles())), f"restore: {n_tiles} tiles")
+        check(np.array_equal(B.to_array(), factor),
+              "checkpoint: the restored factor differs from the factor")
+        shard_mb = os.path.getsize(path + ".rank0.npz") / 2 ** 20
+        say("single_card_core", path="checkpoint", tiles=n_tiles, save_s=save_s,
+            restore_s=restore_s, shard_mb=shard_mb, equal=True,
+            manifest=checkpoint.manifest(path)[0], card=card)
+        say("single_card_core", path="diag_band_to_rect", NT=nt, MB=NB, seconds=band_s,
+            equal_host_reference=True, card=card)
+        del A, B, Bb
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # the pump with runtime_vpmap=nb:2 (the engine's steal map; the pump
+    # has no worker threads to steal, so the factor must not move)
+    with mca(mca_param, "runtime", "vpmap", "nb:2"):
+        A, ran, wall, setup, c, stats, _ = native(dict(use_kernels=True))
+    check(stats["pump"] and torch.equal(torch.from_numpy(A.to_array()),
+                                        torch.from_numpy(pump_factor["kernels"])),
+          "vpmap nb:2: the pump's factor differs from the flat pump's")
+    check(c == h.launches["legacy_pump_kernels"], f"vpmap nb:2 pump: launches {c}")
+    h.launches["core_vpmap_nb2_pump"] = c
+    say("single_card_core", path="dpotrf kernels pump", run="vpmap_nb2", N=N, nb=NB,
+        wall_s=wall, equal_flat=True, launches=c, card=card)
+    say("legacy_async_phase", seconds=time.perf_counter() - t_phase, card=card)
+
 
 def batched_graph(h, label, tp, feeds, ref_out, ref_median_s, kernel_of, tasks, exact,
                   replays=GRAPH_REPLAYS):
@@ -2528,6 +2806,12 @@ def main() -> int:
         np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
         variants=variants, launches=launches, dyn_factor=dyn_factor,
         dyn_wall=dyn_wall, depth_walls=depth_walls, first_calls=first_calls))
+
+    # -- legacy ASYNC protocol, a mixed CPU/GPU DAG, the single-card core ------
+    legacy_async_phase(types.SimpleNamespace(
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S, S64=S64,
+        s_max=s_max, variants=variants, launches=launches, dyn_factor=dyn_factor,
+        dyn_wall=dyn_wall))
     del dyn_factor
 
     # -- device-module phase: the CUDA module's GPU-only paths ----------------

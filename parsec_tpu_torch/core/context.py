@@ -33,7 +33,7 @@ from typing import Callable, Dict, List, Optional
 
 from ..profiling import jobtrace, pins
 from ..utils import debug, mca_param, open_component
-from ..utils.binding import VPMap
+from ..utils.binding import VPMap, available_cores, bind_current_thread
 from . import scheduling
 from .task import Task
 from .taskpool import Taskpool
@@ -116,7 +116,16 @@ class Context:
         self.scheduler = open_component("sched", sched_name)
         self.scheduler.install(self)
 
-        self.vpmap = VPMap.flat(self.nb_workers)
+        # virtual-process map and optional core binding (reference vpmap.c
+        # + bindthread.c; see utils/binding.py); an invalid map is fatal
+        try:
+            self.vpmap = VPMap.from_param(self.nb_workers)
+        except ValueError as e:
+            debug.fatal("%s", e)
+        self._bind_threads = bool(mca_param.register(
+            "runtime", "bind_threads", False,
+            help="pin worker threads to cores round-robin"))
+        self._cores = available_cores()
         self.streams: List[ExecutionStream] = [
             ExecutionStream(i, self, vp_id=self.vpmap.vp_of(i)) for i in range(self.nb_workers)
         ]
@@ -285,6 +294,8 @@ class Context:
 
     def _worker_main(self, es: ExecutionStream) -> None:
         self._tls.es = es
+        if self._bind_threads:
+            bind_current_thread(self.vpmap.core_for(es.worker_id, self._cores))
         backoff = 1e-6
         while True:
             with self._cv:

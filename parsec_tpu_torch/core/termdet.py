@@ -10,9 +10,11 @@ taskpool has quiesced.  Two counters drive it (``termdet.h:153-232``):
 
 The ``local`` module (default; reference
 ``termdet/local/termdet_local_module.c``) declares termination when both hit
-zero after the taskpool is marked ready.  Only ``local`` is ported; the
-distributed ``fourcounter`` wave algorithm and ``user_trigger`` come with
-the distributed layer (ROADMAP A.10).
+zero after the taskpool is marked ready.  ``user_trigger`` (reference
+``termdet/user_trigger``) holds termination until the application calls
+``tp.tdm.trigger(tp)``; at one rank it is ``local`` plus that gate.  The
+distributed ``fourcounter`` wave algorithm, and ``user_trigger``'s signal
+across ranks, come with the distributed layer (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -137,3 +139,48 @@ class TermDetLocal(TermDetMonitor):
             self._terminated = False
             self._nb_tasks = 0
             self._runtime_actions = 0
+
+
+@register_component("termdet")
+class TermDetUserTrigger(TermDetLocal):
+    """App-driven termination (reference ``termdet/user_trigger``): the
+    taskpool quiesces only once the application has called
+    :meth:`trigger` — the counters are still tracked, so runtime actions
+    drain, but reaching zero alone does not terminate.  Select with
+    ``Taskpool(termdet="user_trigger")``; the taskpool exposes it as
+    ``tp.tdm.trigger(tp)``."""
+
+    mca_name = "user_trigger"
+    mca_priority = 0  # never auto-selected
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._triggered = False
+
+    def trigger(self, tp) -> None:
+        """The user's termination signal.  At one rank it gates this
+        monitor; carrying it to other ranks needs the comm engine."""
+        ctx = getattr(tp, "context", None)
+        if ctx is not None and getattr(ctx, "nranks", 1) > 1:
+            raise NotImplementedError(
+                "user_trigger termination across ranks needs the "
+                "distributed layer, which is not ported yet (ROADMAP A.8)")
+        fire = False
+        with self._lock:
+            self._triggered = True
+            fire = self._check_locked()
+        if fire:
+            self._fire()
+
+    def _check_locked(self) -> bool:
+        # the trigger means "no more work will be discovered": terminate
+        # once the known tasks and runtime actions have drained
+        if (self._ready and self._triggered and not self._terminated
+                and self._nb_tasks == 0 and self._runtime_actions == 0):
+            self._terminated = True
+            return True
+        return False
+
+    def reset(self) -> None:
+        super().reset()
+        self._triggered = False

@@ -1,12 +1,17 @@
-"""Data layer: versioned per-device copies, collections, data repos.
+"""Data layer: versioned per-device copies, collections, data repos,
+arenas (:mod:`.arena`), datatypes (:mod:`.datatype`) and checkpoints
+(:mod:`.checkpoint`).
 
-Arenas, datatypes, checkpointing and reshape of :mod:`parsec_tpu.data`
-are not ported yet (reshape: ROADMAP A.8; the rest: A.9a).
+The reshape layer of :mod:`parsec_tpu.data` is not ported yet (ROADMAP
+A.8).
 """
 
 from .data import Coherency, Data, DataCopy, data_create, host_array
 from .collection import DataCollection, LocalCollection
 from .datarepo import DataRepo
+from .arena import Arena, ArenaRecycleError, ByteBudget, BytePool
+from .datatype import (Contiguous, Datatype, Vector, type_create_contiguous,
+                       type_create_vector, type_of_array)
 
 __all__ = [
     "Coherency",
@@ -17,4 +22,14 @@ __all__ = [
     "DataCollection",
     "LocalCollection",
     "DataRepo",
+    "Arena",
+    "ArenaRecycleError",
+    "ByteBudget",
+    "BytePool",
+    "Contiguous",
+    "Datatype",
+    "Vector",
+    "type_create_contiguous",
+    "type_create_vector",
+    "type_of_array",
 ]

@@ -5,10 +5,13 @@ base descriptor (``matrix.h``: mb/nb tile sizes, lm/ln full sizes, mt/nt
 tile counts, uplo storage), and the two-dimensional block-cyclic
 distribution with k-cyclic super-tiling (``two_dim_rectangle_cyclic.h``:
 row rank = (m / kp) % P, col rank = (n / kq) % Q) with its symmetric
-variant (``sym_two_dim_rectangle_cyclic.c``).  The owner math covers any
-P×Q grid, but only one rank runs: ``from_array``/``to_array`` move the
-tiles this rank owns.  Multi-rank use, the tabular and band distributions
-come with the distributed layer (ROADMAP A.8).
+variant (``sym_two_dim_rectangle_cyclic.c``), and the band composites
+that route a band around the diagonal to a sub-distribution of its own
+(``{sym_,}two_dim_rectangle_cyclic_band.{c,h}``).  The owner math covers
+any P×Q grid, but only one rank runs: ``from_array``/``to_array`` move the
+tiles this rank owns.  Multi-rank use comes with the distributed layer
+(ROADMAP A.8); the vector and tabular distributions with ``array/``
+(A.7b).
 
 Host tiles are numpy arrays, exactly as in the JAX package, so both
 packages can factor identical input (:func:`from_numpy_tiles`).  Device
@@ -168,6 +171,86 @@ class SymTwoDimBlockCyclic(TwoDimBlockCyclic):
         if uplo not in (LOWER, UPPER):
             raise ValueError("sym matrix needs uplo lower|upper")
         super().__init__(m, n, mb, nb, uplo=uplo, **kw)
+
+
+class TwoDimBlockCyclicBand(TiledMatrix):
+    """Composite band distribution (reference
+    ``two_dim_rectangle_cyclic_band.{c,h}``): tiles within
+    ``|i - j| < band_size`` of the diagonal delegate to the ``band``
+    sub-distribution at the remapped row ``i - j + band_size - 1`` (the
+    band is stored as a (2*band_size-1, NT) rectangle); every other tile
+    delegates to ``off_band``.  Storage lives in the sub-collections —
+    this wrapper only routes."""
+
+    def __init__(self, band: TiledMatrix, off_band: TiledMatrix,
+                 band_size: int):
+        super().__init__(off_band.m, off_band.n, off_band.mb, off_band.nb,
+                         name=f"{off_band.name}_band",
+                         nodes=off_band.nodes, myrank=off_band.myrank,
+                         dtype=off_band.default_dtype)
+        if band_size < 1:
+            raise ValueError("band_size must be >= 1")
+        self.band, self.off_band, self.band_size = band, off_band, band_size
+
+    def _band_row(self, i: int, j: int) -> int:
+        return i - j + self.band_size - 1
+
+    def _in_band(self, i: int, j: int) -> bool:
+        return abs(i - j) < self.band_size
+
+    def rank_of(self, *key) -> int:
+        i, j = self.data_key(*key)
+        if self._in_band(i, j):
+            return self.band.rank_of(self._band_row(i, j), j)
+        return self.off_band.rank_of(i, j)
+
+    def vpid_of(self, *key) -> int:
+        i, j = self.data_key(*key)
+        if self._in_band(i, j):
+            return self.band.vpid_of(self._band_row(i, j), j)
+        return self.off_band.vpid_of(i, j)
+
+    def data_of(self, *key) -> Data:
+        i, j = self.data_key(*key)
+        if self._in_band(i, j):
+            return self.band.data_of(self._band_row(i, j), j)
+        return self.off_band.data_of(i, j)
+
+
+class SymTwoDimBlockCyclicBand(TiledMatrix):
+    """Symmetric band composite (reference
+    ``sym_two_dim_rectangle_cyclic_band.{c,h}``): band tiles remap to row
+    ``|i - j|`` of the ``band`` sub-distribution (the band stored as a
+    (band_size, NT) rectangle); off-band tiles delegate to the symmetric
+    ``off_band`` distribution."""
+
+    def __init__(self, band: TiledMatrix, off_band: TiledMatrix,
+                 band_size: int):
+        super().__init__(off_band.m, off_band.n, off_band.mb, off_band.nb,
+                         name=f"{off_band.name}_symband",
+                         nodes=off_band.nodes, myrank=off_band.myrank,
+                         dtype=off_band.default_dtype)
+        if band_size < 1:
+            raise ValueError("band_size must be >= 1")
+        self.band, self.off_band, self.band_size = band, off_band, band_size
+
+    def rank_of(self, *key) -> int:
+        i, j = self.data_key(*key)
+        if abs(i - j) < self.band_size:
+            return self.band.rank_of(abs(i - j), j)
+        return self.off_band.rank_of(i, j)
+
+    def vpid_of(self, *key) -> int:
+        i, j = self.data_key(*key)
+        if abs(i - j) < self.band_size:
+            return self.band.vpid_of(abs(i - j), j)
+        return self.off_band.vpid_of(i, j)
+
+    def data_of(self, *key) -> Data:
+        i, j = self.data_key(*key)
+        if abs(i - j) < self.band_size:
+            return self.band.data_of(abs(i - j), j)
+        return self.off_band.data_of(i, j)
 
 
 def from_numpy_tiles(tiles: Mapping[Tuple[int, int], np.ndarray], mb: int,

@@ -1,8 +1,8 @@
-"""Device modules: the CPU cores (device 0) and the CUDA accelerator module
+"""Device modules: the CPU cores (device 0), the CUDA accelerator module
 with its staging pipeline (:mod:`.staging`: the prefetch lane and the
-write-back committer).
-
-The template module of :mod:`parsec_tpu.device` is not ported yet.
+write-back committer), and the template module (:mod:`.template`: the
+skeleton of a new backend, inert unless selected; it runs bodies on the
+host).
 """
 
 from .device import (
@@ -13,6 +13,7 @@ from .device import (
     Device,
 )
 from .cuda import CudaDevice
+from .template import DEV_TEMPLATE, TemplateDevice
 
 __all__ = [
     "ADVICE_PREFERRED_DEVICE",
@@ -20,5 +21,7 @@ __all__ = [
     "ADVICE_WARMUP",
     "CpuDevice",
     "CudaDevice",
+    "DEV_TEMPLATE",
     "Device",
+    "TemplateDevice",
 ]

@@ -136,7 +136,12 @@ def attach_devices(context: "Context", names: Optional[List[str]] = None) -> Lis
 
     devices: List[Device] = []
     for cls in components_of_type("device"):
-        if sel is not None and cls.mca_name not in sel and cls.mca_name != "cpu":
+        explicit = sel is not None and cls.mca_name in sel
+        if sel is not None and not explicit and cls.mca_name != "cpu":
+            continue
+        # naming a module trumps its availability probe: a module inert
+        # by default (the template) attaches when asked for
+        if not explicit and not cls.available():
             continue
         dev = cls(context, len(devices))
         dev.attach()

@@ -6,11 +6,21 @@ ready-queue pops, dependency counting, release_deps — is native C
 This module keeps that split: the captured DAG (:mod:`.graph`) is handed
 to the C++ engine (``native/src/graph.cpp``, bound by
 :mod:`parsec_tpu_torch.native`), and dependency resolution, scheduling and
-termination never touch the interpreter.  Single rank.  Two body regimes:
+termination never touch the interpreter.  Single rank.  Three regimes:
 
 * **CPU chores** (``native_device=False``, the default): in-place numpy
   tiles, entered once per task through the ``NativeGraph.run`` trampoline
   from native worker threads;
+* **the legacy ASYNC-chore protocol** (``native_device=True`` with
+  ``runtime_native_sched=off``, ``device_cuda_eager_complete=0``, or a
+  class that has only a CPU body): native workers enter the interpreter
+  once per task through the ``NativeGraph.run_async`` trampoline — a
+  device task is handed to the CUDA module (``kernel_scheduler``, the
+  chore returns ASYNC) and its completion callback signals
+  ``NativeGraph.task_done``, a host task of a mixed DAG runs its CPU body
+  through the ``Data`` staging discipline and completes inline.  Exactly
+  two entries per device task, never one for dependency bookkeeping
+  (``stats["trampoline_entries"]``, ``["completion_callbacks"]``);
 * **pump mode** (``native_device=True``, all-device DAGs): the engine
   owns the whole per-task lifecycle — ready-queue order (priority, or the
   schedule explorer's seeded perturbation through ``sched_rnd_seed``),
@@ -26,18 +36,19 @@ termination never touch the interpreter.  Single rank.  Two body regimes:
   window of popped batches whose inputs the device's transfer lane
   stages while the oldest batch computes (:func:`_pump_loop`).
 
-Supertask fusion (:mod:`.fusion`, ``runtime_fusion`` or ``fusion=``): in
-pump mode each fused region is ONE native node — one device dispatch of
-the region's fused body, one ``done_batch`` slot retiring its N member
-tasks.  The CPU regime does not fuse, as in the reference: its bodies pay
-no device dispatch to save.
+Supertask fusion (:mod:`.fusion`, ``runtime_fusion`` or ``fusion=``): with
+``native_device=True`` each fused region is ONE native node — one device
+dispatch of the region's fused body, and one ``done_batch`` slot (pump)
+or one ``task_done`` (legacy) retiring its N member tasks.  The CPU
+regime does not fuse, as in the reference: its bodies pay no device
+dispatch to save.
+
+``runtime_vpmap`` (``nb:<k>`` or ``'0,1;2,3'``) groups the native workers
+into virtual processes for the engine's hierarchical steal, on every run.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the legacy ASYNC-chore protocol (``runtime_native_sched=off``,
-``device_cuda_eager_complete=0`` under the pump) and mixed DAGs with
-CPU-only classes under ``native_device=True`` (A.10); a list of
-taskpools — the serve executor — and the lifecycle-event drain that
-feeds ``DEP_DECREMENT`` observers (A.9).
+item: a list of taskpools — the serve executor (A.9c) — and the
+lifecycle-event drain that feeds ``DEP_DECREMENT`` observers (A.9b).
 """
 
 from __future__ import annotations
@@ -64,8 +75,8 @@ def _native_sched_mode() -> str:
     return str(mca_param.register(
         "runtime", "native_sched", "auto",
         help="native-device lifecycle protocol: auto (pump mode — zero "
-             "interpreter entries per task) | off (the legacy ASYNC-chore "
-             "protocol, not ported yet)"))
+             "interpreter entries per task for all-device DAGs) | off "
+             "(the legacy ASYNC-chore protocol: two entries per task)"))
 
 
 #: max ready tasks one ``pop_batch`` call returns in pump mode
@@ -103,22 +114,32 @@ class _TaskInfo:
 
 
 class _NativePoolShim:
-    """Stand-in taskpool for pump-dispatched device tasks: carries the
+    """Stand-in taskpool for native-dispatched device tasks: carries the
     failure contract the device module uses (``failed`` checked before
     every dispatch, ``fail(why)`` called when a submit or epilog cannot
-    be recovered).  The pump reads it after every batch."""
+    be recovered).  The pump reads it after every batch; on a legacy run
+    (``ng`` set) a failure also aborts the native workers, which would
+    otherwise wait for a completion that never comes."""
 
     def __init__(self, name: str):
         self.name = name
         self.failed = False
         self.fail_reason: Optional[str] = None
+        #: the legacy run's native graph
+        self.ng = None
 
     def fail(self, why: str) -> bool:
         if self.failed:
             return False
         self.failed = True
         self.fail_reason = why
+        if self.ng is not None:
+            self.ng.fail()
         return True
+
+    def task_done(self, task=None) -> None:
+        """A legacy completion (``complete_execution``): quiescence is the
+        native engine's, and the run reports progress at its end."""
 
 
 class _NativeDeviceTask(Task):
@@ -265,16 +286,19 @@ class NativeExecutor:
     collections, exactly like the dynamic runtime's CPU path.  The
     taskpool must be unstarted (never attached to a Context).
 
-    ``native_device=True`` runs every task through the CUDA device module
-    in pump mode (see the module docstring); every task class needs a
-    device BODY.  ``device=`` reuses one :class:`CudaDevice` across
-    executors; without it the executor builds one on a single-rank shim
-    context, bound to the GPU unless
+    ``native_device=True`` runs every task class that has a device BODY
+    through the CUDA device module: in pump mode for an all-device DAG,
+    else — ``runtime_native_sched=off``, ``device_cuda_eager_complete=0``,
+    or a class with only a CPU body, which then runs on the host through
+    the ``Data`` staging discipline — under the legacy ASYNC-chore
+    protocol (see the module docstring).  ``device=`` reuses one
+    :class:`CudaDevice` across executors; without it the executor builds
+    one on a single-rank shim context, bound to the GPU unless
     ``PARSEC_MCA_device_cuda_torch_device=cpu`` asks for the torch CPU
     device.  :meth:`close` flushes dirty device tiles home.
 
     ``fusion`` (None: the ``runtime_fusion`` MCA param) partitions the
-    captured DAG into fused regions in pump mode, one native node each
+    captured DAG into fused regions, one native node each
     (``self._regions``); :meth:`run` still returns the LOGICAL task
     count.  A partitioner failure raises.
     """
@@ -290,9 +314,9 @@ class NativeExecutor:
         self.device = device
         #: control-plane counters.  ``trampoline_entries`` counts every
         #: interpreter entry through the native workers' trampoline (the
-        #: CPU regime: one per task); ``completion_callbacks`` the legacy
-        #: protocol's per-task callbacks, which the port has no path for.
-        #: In pump mode both MUST stay 0.
+        #: CPU regime and the legacy protocol: one per task);
+        #: ``completion_callbacks`` the legacy protocol's per-device-task
+        #: completion callbacks.  In pump mode both MUST stay 0.
         self.stats: Dict[str, int] = {
             "trampoline_entries": 0, "completion_callbacks": 0,
             "pop_batches": 0, "done_batches": 0, "pumped_tasks": 0,
@@ -302,24 +326,19 @@ class NativeExecutor:
         #: native id -> prebuilt device task, the pump's dispatch map
         self._pump_index: Dict[int, _NativeDeviceTask] = {}
         self._pool_shim: Optional[_NativePoolShim] = None
+        #: pump mode (decided at build) and whether a CPU-only class runs
+        #: on the host in this device DAG
+        self._pump = False
+        self._has_cpu_bodies = False
         if self.native_device:
-            if _native_sched_mode() == "off":
-                raise NotImplementedError(
-                    "runtime_native_sched=off selects the legacy ASYNC-chore "
-                    "protocol, which is not ported yet (ROADMAP A.10)")
             if pins.active(pins.DEP_DECREMENT):
                 raise NotImplementedError(
-                    "DEP_DECREMENT observers on a pump run need the native "
-                    "lifecycle-event drain, which comes with the profiling "
-                    "layer (ROADMAP A.9)")
+                    "DEP_DECREMENT observers on a native device run need "
+                    "the native lifecycle-event drain, which comes with "
+                    "the profiling layer (ROADMAP A.9)")
             mode = fusion if fusion is not None else fusion_mode()
             if self.device is None:
                 self.device = self._make_device()
-            if not getattr(self.device, "_eager", True):
-                raise NotImplementedError(
-                    "device_cuda_eager_complete=0 routes native runs to the "
-                    "legacy ASYNC-chore protocol, which is not ported yet "
-                    "(ROADMAP A.10)")
             self._pool_shim = _NativePoolShim(f"native:{tp.ptg.name}")
         self.graph = capture(tp, ranks=[0])
         self._new_tiles: Dict[Tuple, np.ndarray] = {}
@@ -418,9 +437,16 @@ class NativeExecutor:
                 seen_edges.add((me, tgt))
                 ng.add_dep(me, tgt)
         if self.native_device:
-            # decided BEFORE the commit pass: committing pushes the source
-            # tasks, and those pushes must land in the native SchedQ
-            ng.sched_config(seed=_sched_seed())
+            # pump or legacy, decided BEFORE the commit pass: committing
+            # pushes the source tasks, and in pump mode those pushes must
+            # land in the native SchedQ
+            self._pump = (not self._has_cpu_bodies
+                          and _native_sched_mode() != "off"
+                          and getattr(self.device, "_eager", True))
+            if self._pump:
+                ng.sched_config(seed=_sched_seed())
+            else:
+                self._arm_legacy(ng)
         # commit only after EVERY edge is declared: committing a task arms
         # it, and a task whose in-edges arrived after arming would release
         # early
@@ -429,16 +455,90 @@ class NativeExecutor:
         ng.seal()
 
     def _make_body(self, tid: Tuple):
-        """The numpy body (CPU regime), or the prebuilt device task."""
+        """The numpy body (CPU regime), the prebuilt device task, or — a
+        CPU-only class in a device DAG — the Data-staged host body."""
         if self.native_device:
             pc = self.taskpool.ptg.classes[tid[0]]
-            if all(dt == DEV_CPU for dt in pc.bodies):
-                raise NotImplementedError(
-                    f"native_device=True: class {pc.name} has only a CPU "
-                    "body; mixed DAGs need the legacy ASYNC-chore protocol, "
-                    "which is not ported yet (ROADMAP A.10)")
-            return self._make_device_dispatch(tid)
+            if any(dt != DEV_CPU for dt in pc.bodies):
+                return self._make_device_dispatch(tid)
+            # a host body needs the legacy protocol's trampoline: its
+            # presence rules the pump out
+            self._has_cpu_bodies = True
+            return self._make_cpu_data_body(tid)
         return self._make_numpy_body(tid)
+
+    def _arm_legacy(self, ng) -> None:
+        """The legacy protocol's completion side: each device task (a
+        fused supertask included) gets the callback that the CUDA module's
+        ``complete_execution`` calls — from the thread that retires it —
+        which lands the task's cross-tile write-backs and signals ONE
+        ``task_done``; successor release stays in the engine.  A device
+        failure aborts the run (the pool shim fails the graph)."""
+        from ..data.data import land_into_home
+
+        stats = self.stats
+        lock = self._stats_lock
+
+        def on_complete(t: Task) -> None:
+            with lock:
+                stats["completion_callbacks"] += 1
+            for (src, home) in t._wbs:
+                land_into_home(home, src.newest_copy().payload)
+            ng.task_done(t.native_id)
+
+        for task in self._pump_index.values():
+            task.on_complete = on_complete
+        self._pool_shim.ng = ng
+
+    def _make_cpu_data_body(self, tid: Tuple) -> Callable[[], bool]:
+        """A CPU-only class in a device DAG: its CPU body runs on the host
+        through the Data staging discipline — each input staged to the
+        host copy at its newest version (a tile the card wrote is read
+        after its ready event, :func:`.ptg.stage_to_cpu`), ownership moved
+        to the host (a write invalidates the device copy, so the next
+        device read restages it) and each written tile's host version
+        bumped (the device's detach then leaves the newer host version
+        alone: the write-back version guard).  Completes inline."""
+        from ..data.data import land_into_home
+        from .ptg import stage_to_cpu
+
+        tp = self.taskpool
+        cname, locs = tid
+        pc = tp.ptg.classes[cname]
+        fn = pc.bodies[DEV_CPU]
+        flow_specs = self._flow_data(tid, pc)
+        scalars = self._scalars_of(pc, locs)
+        wbs = [(src, tp.constants[cname2].data_of(*key))
+               for (src, cname2, key) in self._write_back_plan(tid)]
+        info = _TaskInfo(cname, locs)
+
+        def body() -> bool:
+            pins.fire(pins.EXEC_BEGIN, None, info)
+            kw: Dict[str, Any] = dict(scalars)
+            writable = []
+            for fname, data, mode in flow_specs:
+                if data is None:
+                    kw[fname] = None
+                    continue
+                kw[fname] = stage_to_cpu(data)
+                data.transfer_ownership(0, mode & AccessMode.INOUT)
+                if mode & AccessMode.OUT:
+                    writable.append(data)
+            result = fn(**kw)
+            if result is not None and not isinstance(result, HookReturn):
+                outs = result if isinstance(result, (tuple, list)) else (result,)
+                for data, new in zip(writable, outs):
+                    data.get_copy(0).payload = np.asarray(new)
+            for data in writable:
+                data.version_bump(0)
+            pins.fire(pins.EXEC_END, None, info)
+            pins.fire(pins.COMPLETE_EXEC_BEGIN, None, info)
+            for (src, home) in wbs:
+                land_into_home(home, src.newest_copy().payload)
+            pins.fire(pins.COMPLETE_EXEC_END, None, info)
+            return False  # synchronous: the worker completes it inline
+
+        return body
 
     # -- native device dispatch ------------------------------------------
     def _flow_data(self, tid: Tuple, pc) -> List[Tuple[str, Any, Any]]:
@@ -679,9 +779,14 @@ class NativeExecutor:
 
     def run(self, nthreads: int = 4) -> int:
         """Execute to quiescence; returns the number of LOGICAL tasks run
-        (a fused region's node counts its members)."""
-        if self.native_device:
+        (a fused region's node counts its members).  Honors
+        ``runtime_vpmap``: the workers split into VP locality domains and
+        the native steal path prefers same-VP victims."""
+        self._apply_vpmap(nthreads)
+        if self._pump:
             n = self._run_pump()
+        elif self.native_device:
+            n = self._run_legacy(nthreads)
         else:
             bodies = self._bodies
             stats = self.stats
@@ -697,6 +802,54 @@ class NativeExecutor:
             raise RuntimeError(
                 f"native engine retired {n}/{len(self._bodies)} tasks")
         return len(self.graph.nodes)
+
+    def _run_legacy(self, nthreads: int) -> int:
+        """The legacy ASYNC-chore protocol: native workers enter the
+        trampoline once per task.  A device task is handed to the CUDA
+        module and reported ASYNC — its completion callback
+        (:meth:`_arm_legacy`) releases the successors — and a host task
+        runs inline.  Neither side holds a lock the other needs: the
+        trampoline takes only the stats lock, and the device's manager
+        (the worker whose ``kernel_scheduler`` call found no manager
+        running) retires tasks and calls ``task_done``, which never
+        re-enters the interpreter."""
+        bodies = self._bodies
+        stats = self.stats
+        lock = self._stats_lock
+        dev = self.device
+        shim = self._pool_shim
+
+        def trampoline(_task_id: int, user_tag: int) -> bool:
+            with lock:
+                stats["trampoline_entries"] += 1
+            body = bodies[user_tag]
+            if not isinstance(body, _NativeDeviceTask):
+                return body()
+            if shim.failed:
+                raise RuntimeError(
+                    f"native device pool failed: {shim.fail_reason}")
+            dev.kernel_scheduler(None, body)
+            return True  # ASYNC: task_done releases the successors
+
+        try:
+            n = self._ng.run_async(trampoline, nthreads=nthreads)
+        except RuntimeError:
+            if shim.failed:
+                raise RuntimeError(
+                    f"native device run failed: {shim.fail_reason}") from None
+            raise
+        if shim.failed:
+            raise RuntimeError(f"native device run failed: {shim.fail_reason}")
+        self.taskpool.task_done_batch(len(self.graph.nodes))
+        return n
+
+    def _apply_vpmap(self, nthreads: int) -> None:
+        """Hand ``runtime_vpmap`` to the engine for the next run's
+        ``nthreads`` workers; an invalid spec raises ValueError."""
+        from ..utils.binding import VPMap
+
+        vm = VPMap.from_param(nthreads)
+        self._ng.set_vpmap([vm.vp_of(w) for w in range(nthreads)])
 
     def _run_pump(self) -> int:
         """Drive the zero-interpreter lifecycle (:func:`_pump_loop`).
@@ -728,10 +881,11 @@ class NativeExecutor:
 def run_native(tp, *, nthreads: int = 4, native_device: bool = False,
                device=None, fusion: Optional[str] = None) -> int:
     """One-shot: capture + native execution of ``tp``; returns the number
-    of (logical) tasks run.  With ``native_device=True`` every task runs
-    through the CUDA device module driven by the native pump, fused
-    regions as one dispatch each (``fusion``, None: ``runtime_fusion``;
-    see :class:`NativeExecutor`)."""
+    of (logical) tasks run.  With ``native_device=True`` every task with a
+    device body runs through the CUDA device module — driven by the native
+    pump, or by the legacy ASYNC-chore protocol — fused regions as one
+    dispatch each (``fusion``, None: ``runtime_fusion``; see
+    :class:`NativeExecutor`)."""
     if isinstance(tp, (list, tuple)):
         raise NotImplementedError(
             "run_native over a list of taskpools (the multi-tenant serve "

@@ -62,12 +62,13 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 
 import numpy as np
 
-from ..core.deps import DepTracker
+from ..core.deps import DenseDepTracker, DepTracker
 from ..core.lifecycle import AccessMode, HookReturn, DEV_CPU, DEV_CUDA
 from ..core.task import Chore, Flow, Task, TaskClass
 from ..core.taskpool import Taskpool
 from ..data.data import Data, data_create, host_array
 from ..data.datarepo import DataRepo
+from ..utils import mca_param
 
 IN = AccessMode.IN
 OUT = AccessMode.OUT
@@ -580,8 +581,13 @@ class PTG:
     analogue of the generated ``parsec_<name>_new(...)``, reusable with
     different problem sizes."""
 
-    def __init__(self, name: str, **constants: Any):
+    def __init__(self, name: str, *, dep_storage: Optional[str] = None,
+                 **constants: Any):
         self.name = name
+        #: dependency-storage backend: "hash" | "dense" | None (= the
+        #: ``runtime_dep_storage`` MCA param; reference: ``jdf2c -M``
+        #: dynamic-hash-table vs index-array, ``ptg-compiler/main.c:37``)
+        self.dep_storage = dep_storage
         self.constants: Dict[str, Any] = dict(constants)
         self.classes: Dict[str, PTGTaskClass] = {}
 
@@ -636,10 +642,15 @@ class PTGTaskpool(Taskpool):
         self.taskpool_type = Taskpool.TYPE_PTG
         self.ptg = ptg
         self.constants = constants
-        self.deps = DepTracker()
+        self.deps = self._make_dep_tracker()
         self.repos: Dict[str, DataRepo] = {}
         self._built: Dict[str, TaskClass] = {}
         self._local_cache: Dict[str, List[Tuple]] = {}
+        #: per class, the inclusive (lo, hi) bounding box of its parameter
+        #: space: the dense dependency storage's array shape
+        self._class_box: Dict[str, Tuple] = {}
+        #: True once attach counted the local tasks up front (dense mode)
+        self._counted = False
         self._new_tiles: Dict[Tuple, Data] = {}
         self._new_lock = threading.Lock()
         #: exactly-once guard for GOAL-0 tasks: the chunked startup scan
@@ -690,6 +701,61 @@ class PTGTaskpool(Taskpool):
         return _run_native(self, nthreads=nthreads, native_device=native_device,
                            device=device, fusion=fusion)
 
+    def _make_dep_tracker(self):
+        """The dependency-storage backend (reference: per-class ``-M``
+        choice between the dynamic hash table and the dense index-array,
+        ``ptg-compiler/main.c:37`` / ``parsec_internal.h:359-362``).  The
+        dense boxes are registered at attach, by the enumeration that
+        counts the local tasks (:meth:`_count_local`)."""
+        mode = self.ptg.dep_storage
+        if mode is None:
+            mode = mca_param.register(
+                "runtime", "dep_storage", "hash",
+                help="PTG dependency-tracking storage: hash (dynamic hash "
+                     "table) or dense (index array over each class's "
+                     "parameter box)")
+        if mode not in ("hash", "dense"):
+            raise ValueError(
+                f"PTG {self.ptg.name}: unknown dep_storage {mode!r} "
+                "(expected 'hash' or 'dense')")
+        return DenseDepTracker() if mode == "dense" else DepTracker()
+
+    def _local_space(self, pc: PTGTaskClass) -> List[Tuple]:
+        """The class's local tasks (every task: one rank), recording its
+        parameter box on the way."""
+        cached = self._local_cache.get(pc.name)
+        if cached is None:
+            cached = []
+            lo = hi = None
+            for loc in pc.param_space(self.constants):
+                if pc.rank_of(loc, self.constants) != 0:
+                    raise NotImplementedError(
+                        f"{pc.name}{loc} is placed on rank "
+                        f"{pc.rank_of(loc, self.constants)}: distributed "
+                        "taskpools are not ported yet (ROADMAP A.8)")
+                if lo is None:
+                    lo, hi = list(loc), list(loc)
+                else:
+                    for i, v in enumerate(loc):
+                        lo[i] = min(lo[i], v)
+                        hi[i] = max(hi[i], v)
+                cached.append(loc)
+            if lo is not None:
+                self._class_box[pc.name] = tuple(
+                    (int(a), int(b)) for a, b in zip(lo, hi))
+            self._local_cache[pc.name] = cached
+        return cached
+
+    def _count_local(self) -> int:
+        """Enumerate every class's local tasks, register the dense boxes,
+        and return the exact local task count."""
+        self._local_cache.clear()
+        n = sum(len(self._local_space(pc)) for pc in self.ptg.classes.values())
+        if isinstance(self.deps, DenseDepTracker):
+            for name, box in self._class_box.items():
+                self.deps.register_class(name, box)
+        return n
+
     def attached(self, context) -> None:
         # supertask fusion (runtime_fusion): capture, partition and lower
         # before any task is scheduled.  A failure fails this pool (the
@@ -708,11 +774,20 @@ class PTGTaskpool(Taskpool):
         if self._fusion is not None:
             for d in context.devices:
                 d.set_aside(self._fusion.room)
-        # no pre-scan: the chunked startup pass counts local tasks
-        # incrementally while the first chunks already execute
-        # (add_taskpool holds a runtime action across startup, so the
-        # transiently-small count cannot quiesce)
-        self.tdm.taskpool_set_nb_tasks(self, 0)
+        if isinstance(self.deps, DenseDepTracker):
+            # dense mode: the class boxes must be registered before ANY
+            # release (a counter split between the hash fallback and the
+            # dense array never reaches its goal), and the same
+            # enumeration yields the exact local count: scan up front
+            self.tdm.taskpool_set_nb_tasks(self, self._count_local())
+            self._counted = True
+        else:
+            # hash mode: no pre-scan — the chunked startup pass counts
+            # local tasks incrementally while the first chunks already
+            # execute (add_taskpool holds a runtime action across startup,
+            # so the transiently-small count cannot quiesce)
+            self.tdm.taskpool_set_nb_tasks(self, 0)
+            self._counted = False
         super().attached(context)
 
     # -- vtable construction (the jdf2c analogue) ------------------------
@@ -750,6 +825,26 @@ class PTGTaskpool(Taskpool):
         # jdf2c.c:3036).  Dynamic-input tasks are held back via the
         # `undefined` path and released by their producers.
         from ..core import scheduling
+
+        if self._counted:
+            # dense mode counted at attach: the cache holds the local
+            # space and the count is final — only pick the sources
+            out: List[Task] = []
+            for pc in self.ptg.classes.values():
+                undefined = claimed = 0
+                for loc in self._local_space(pc):
+                    if pc.goal_of(loc, self.constants, self._exists_memo) != 0:
+                        continue
+                    if not self._is_startup(pc, loc, goal_known_zero=True):
+                        undefined += 1
+                    elif self._claim_source(pc.name, loc):
+                        t = self._route_source(pc, loc)
+                        if t is not None:
+                            out.append(t)
+                    else:
+                        claimed += 1  # a producer beat the scan to it: fine
+                self._warn_undefined(pc, undefined, claimed)
+            return out
 
         myrank = context.rank if context is not None else 0
         for pc in self.ptg.classes.values():

@@ -21,20 +21,27 @@ the ready-queue state of the ``spq`` and ``wdrr`` schedulers under
 There is no fallback.  A missing source, a failed g++ run or a library
 that lacks a declared symbol raises ``RuntimeError`` carrying the cause
 (the compiler's output included); nothing carries on through the dynamic
-path.  Not ported yet: the legacy ASYNC entry points ``run_async`` /
-``task_done`` (A.10a) and the binary tracer (A.10f).
+path.  :meth:`NativeGraph.run_async` / :meth:`NativeGraph.task_done` are
+the legacy ASYNC-chore protocol (the reference's
+``PARSEC_HOOK_RETURN_ASYNC``): a body hands its task to a device manager,
+whose completion signals the engine from any thread.
+:meth:`NativeGraph.set_vpmap` groups the workers into virtual processes
+for the hierarchical steal.  Not ported yet: the lifecycle-event drain
+(A.10b) and the binary tracer (A.10f).
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import subprocess
 import threading
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
+from ..profiling import pins
 from . import abi
-from .abi import BODY_FN
+from .abi import ASYNC_BODY_FN, BODY_FN
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -164,8 +171,15 @@ class NativeGraph:
     Build with ``add_task``/``add_dep``, ``commit`` every task once all
     its in-edges are declared, ``seal``, then either ``run(body)`` (native
     worker threads enter ``body(task_id, user_tag)`` through a ctypes
-    trampoline) or drive the pump control plane: ``sched_config`` before
-    the commits, then ``pop_batch``/``done_batch`` until ``quiesced``."""
+    trampoline), ``run_async(body)`` (the same, with bodies that may hand
+    their task to a device manager, whose completion calls
+    :meth:`task_done`) or drive the pump control plane: ``sched_config``
+    before the commits, then ``pop_batch``/``done_batch`` until
+    ``quiesced``."""
+
+    #: stable per-graph tokens for the NATIVE_TASK_DONE site: ``id(self)``
+    #: would be reused after GC and mix up sequential graphs' task ids
+    _HB_TOKENS = itertools.count(1)
 
     def __init__(self):
         self._lib = load()
@@ -176,6 +190,7 @@ class NativeGraph:
         #: CFUNCTYPE object would leave them a dangling function pointer
         self._keepalive: List = []
         self._n = 0
+        self.hb_token = next(NativeGraph._HB_TOKENS)
 
     def add_task(self, priority: int = 0, user_tag: int = 0) -> int:
         self._n += 1
@@ -225,6 +240,85 @@ class NativeGraph:
             raise RuntimeError(
                 "graph did not quiesce (cycle or uncommitted task)")
         return n
+
+    def run_async(self, body: Callable[[int, int], Any],
+                  nthreads: int = 2) -> int:
+        """Execute with an ASYNC-capable body (the reference's
+        ``PARSEC_HOOK_RETURN_ASYNC`` protocol): ``body(task_id, user_tag)``
+        returns falsy when the task completed synchronously, truthy when a
+        device manager took it — its completion must then be signalled
+        through :meth:`task_done`, which releases the successors natively.
+        Blocks until every task, the ASYNC ones included, completed.  A
+        raising body fails the run (:meth:`fail`), so completions that
+        will never arrive cannot hang the workers, and the error re-raises
+        here."""
+        errors: List[BaseException] = []
+
+        @ASYNC_BODY_FN
+        def trampoline(task_id, user_tag, _ctx):
+            try:
+                return 1 if body(task_id, user_tag) else 0
+            except BaseException as e:  # noqa: BLE001 - relayed to caller
+                errors.append(e)
+                self._lib.pz_graph_fail(self._g)
+                # report ASYNC, never "done": a body may raise AFTER its
+                # task already completed through task_done (a manager
+                # draining inline completes tasks before it returns), and
+                # a 0 here would complete it a second time and release its
+                # successors twice.  The fail() above ends the run anyway.
+                return 1
+
+        self._keepalive.append(trampoline)
+        n = self._lib.pz_graph_run_async(self._g, trampoline, None, nthreads)
+        if errors:
+            raise errors[0]
+        if n < 0:
+            raise RuntimeError(
+                "graph did not quiesce (cycle, uncommitted task, or a "
+                "failed run with ASYNC completions outstanding)")
+        return n
+
+    def task_done(self, task_id: int) -> bool:
+        """Signal an ASYNC task's completion: successor release, ready
+        pushes and quiescence accounting run natively (``pz_task_done``).
+        Callable from any thread.  Returns False when the task had already
+        completed (the engine's double-completion guard refused the
+        signal) or the graph is closed (a straggler racing shutdown —
+        never a NULL handle into C); raises on an unknown id."""
+        g = self._g  # snapshot: close() may clear it under our feet
+        if not g:
+            return False
+        rc = self._lib.pz_task_done(g, task_id)
+        if rc == -1:
+            raise ValueError(f"task_done: unknown task id {task_id}")
+        if pins.active(pins.NATIVE_TASK_DONE):
+            pins.fire(pins.NATIVE_TASK_DONE, None,
+                      {"graph": self.hb_token, "task": int(task_id),
+                       "accepted": rc == 0})
+        return rc == 0
+
+    @property
+    def double_completes(self) -> int:
+        """Completion signals the double-completion guard refused."""
+        return self._lib.pz_graph_double_completes(self._g)
+
+    def set_vpmap(self, vp_of_worker) -> None:
+        """Assign each worker id of the NEXT run to a virtual process (a
+        locality domain): the steal path tries same-VP victims first, then
+        crosses domains (reference lfq hierarchy with the vpmap,
+        ``sched_local_queues_utils.h:22-36``)."""
+        n = len(vp_of_worker)
+        arr = (ctypes.c_int32 * n)(*[int(v) for v in vp_of_worker])
+        self._lib.pz_graph_set_vpmap(self._g, arr, n)
+
+    @property
+    def steals(self) -> int:
+        return self._lib.pz_graph_steals(self._g)
+
+    @property
+    def steals_remote(self) -> int:
+        """The cross-VP share of ``steals`` (0 without a vpmap)."""
+        return self._lib.pz_graph_steals_remote(self._g)
 
     # ---- zero-interpreter lifecycle (pump mode) ----------------------
     def sched_config(self, seed: int = -1) -> None:

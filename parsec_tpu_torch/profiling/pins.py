@@ -59,6 +59,14 @@ WRITEBACK_END = "writeback_end"
 HB_STAGE_IN = "hb_stage_in"
 HB_WB_ENQUEUE = "hb_wb_enqueue"
 HB_WB_COMMIT = "hb_wb_commit"
+# arena slots (data/arena.py): a buffer handed out and one recycled, the
+# latter fired under the freelist lock
+ARENA_ALLOC = "arena_alloc"              # {"arena","slot"}
+ARENA_RECYCLE = "arena_recycle"          # {"arena","slot"}
+# one ASYNC completion entered the native engine (NativeGraph.task_done,
+# the legacy protocol); accepted=False records a signal the engine's
+# double-completion guard refused
+NATIVE_TASK_DONE = "native_task_done"    # {"graph","task","accepted"}
 
 ALL_SITES = [v for k, v in list(globals().items()) if k.isupper() and isinstance(v, str)]
 

@@ -599,7 +599,19 @@ def test_fused_body_never_joins_a_wave(cpu_device, port_param):
 def test_lane_prestages_a_supertasks_slots(cpu_device, port_param, monkeypatch):
     """Stage depth 2: the pump's transfer lane prestages a popped batch of
     supertasks like any batch (four stencil regions a level at horizon 4,
-    every wide ready batch re-sliced onto the lane)."""
+    every wide ready batch re-sliced onto the lane).  The pump waits for
+    the lane to finish each job before the batch's submit stops it, so
+    that the lane stages in every run: otherwise whether it reaches a job
+    before the pump does is a race between two threads."""
+    from parsec_tpu_torch.device import staging
+
+    stop_after_chunk = staging._StageJob.wait
+
+    def wait_for_the_lane(job):
+        job.done.wait(timeout=60)
+        stop_after_chunk(job)
+
+    monkeypatch.setattr(staging._StageJob, "wait", wait_for_the_lane)
     monkeypatch.setattr(native_exec, "_STAGE_SPLIT_BYTES", 1)
     port_param("runtime", "stage_depth", 2)
     port_param("runtime", "fusion_max_tasks", 4)

@@ -5,8 +5,8 @@ Every case of the reference's ``tests/dsl/test_jdf.py`` and
 ``tests/dsl/test_jdf_reference_cases.py`` compiles the same JDF text in
 both packages and runs it from the same seeded numpy inputs; the tiles
 and counters they leave must be ``np.array_equal``.  Cases the port
-refuses (multi-rank, the template device) are replaced by the port's
-counterpart: the refusal, or the same flow on the CUDA module.
+refuses (multi-rank) are replaced by the refusal; the template-device
+case runs on both packages' template modules.
 
 Beyond those: the dynamic cases of ``test_jdf_cholesky.py`` and
 ``test_jdf_lu.py``; the port's own ``examples/jdf/cholesky.jdf`` (its
@@ -665,26 +665,37 @@ def _plus_one_dev(x):
     return x + 1.0
 
 
-def _times_three_host(x):
-    x *= 3.0
+def _times_three(x):
+    return x * 3.0
 
 
 def test_host_writeback_after_device_write():
-    """The reference checks its template device writes home after a TPU
-    write; the port has no template device yet (ROADMAP A.9a), so the same
-    hand-over runs device -> host body: the CPU body must read the
-    device's version and publish its own on the host."""
+    """The reference's ``test_template_device_writeback_after_tpu``: a tile
+    the accelerator module wrote (its newest copy on the device), then a
+    template-device body: the template must read the device's version
+    and publish its own on host copy 0.  Both packages attach their
+    template module by name beside their accelerator module."""
     def scenario(P, ctx):
         d = P.data_create("x", payload=np.full(4, 1.0))
         tp = P.DTD(ctx)
         tp.insert_task({P.DEV_KEY: _plus_one_dev}, (d, P.jdf.INOUT))
-        tp.insert_task(_times_three_host, (d, P.jdf.INOUT))
+        tp.insert_task({"template": _times_three}, (d, P.jdf.INOUT))
         assert tp.wait(timeout=60)
-        return [np.asarray(P.stage(d))]
+        tdev = next(x for x in ctx.devices if x.mca_name == "template")
+        return [np.asarray(P.stage(d)), tdev.stats["executed_tasks"],
+                d.newest_copy().device_index]
 
-    res = both(scenario, nb_cores=2, device=True)
+    res = []
+    for P, ctx in ((REF, parsec_tpu.Context(nb_cores=2, devices=["tpu", "template"])),
+                   (PORT, parsec_tpu_torch.Context(nb_cores=2, cuda_device="cpu",
+                                                   devices=["cuda", "template"]))):
+        try:
+            res.append(scenario(P, ctx))
+        finally:
+            ctx.fini()
     assert_same(res)
     np.testing.assert_array_equal(res[1][0], 6.0)
+    assert res[1][1:] == [1, 0]
 
 
 def test_jdfc_stencil_roundtrip(tmp_path):

@@ -377,18 +377,19 @@ def _device_dpotrf():
 
 
 def _unported_hook(case, port_param):
-    """Arrange one unported hook; returns (callable, ROADMAP item)."""
+    """Arrange one hook that was unported; returns (callable, ROADMAP item
+    — None for the three the legacy ASYNC protocol took over, A.10a)."""
     if case == "native_sched_off":
         port_param("runtime", "native_sched", "off")
-        return lambda: run_native(_device_dpotrf(), native_device=True), "A.10"
+        return lambda: run_native(_device_dpotrf(), native_device=True), None
     if case == "eager_complete_0":
         port_param("device", "cuda_eager_complete", 0)
-        return lambda: run_native(_device_dpotrf(), native_device=True), "A.10"
+        return lambda: run_native(_device_dpotrf(), native_device=True), None
     if case == "cpu_only_class":
         A = TiledMatrix(64, 64, 32, 32, name="A", dtype=np.float64).from_array(
             _spd(64, np.float64))
         tp = cholesky_ptg(use_cuda=False, use_cpu=True).taskpool(NT=A.mt, A=A)
-        return lambda: run_native(tp, native_device=True), "A.10"
+        return lambda: run_native(tp, native_device=True), None
     if case == "taskpool_list":
         return lambda: run_native([_device_dpotrf(), _device_dpotrf()]), "A.9"
     assert case == "dep_decrement_observer"
@@ -407,7 +408,14 @@ def _unported_hook(case, port_param):
     "native_sched_off", "eager_complete_0",
     "cpu_only_class", "taskpool_list", "dep_decrement_observer"])
 def test_unported_native_hooks_raise(case, cpu_device, port_param):
+    """A hook still unported raises naming its ROADMAP item.  The legacy
+    protocol's three run to the end: the NT=2 dpotrf's four tasks
+    (tests/test_torch_legacy.py holds their results to the pump's and
+    the reference's)."""
     fn, item = _unported_hook(case, port_param)
+    if item is None:
+        assert fn() == 4
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         fn()
 
