@@ -112,7 +112,18 @@
    its tiles are newest on the card, restored into a fresh collection in
    a new ``Context`` (``np.array_equal``), and ``diag_band_to_rect`` of
    the device-newest factor against its host reference
-   (``single_card_core`` lines);
+   (``single_card_core`` lines); then the ``analysis`` phase
+   (:func:`analysis_phase`): ``PTG.verify`` of the path's ``kernels`` and
+   ``kernels_trtri`` graphs at N=8192 and ``tools lint --all`` over the
+   registry, clean; the dynamic ``kernels`` and ``kernels_trtri`` and the
+   depth-2 pump's ``kernels`` under ``PARSEC_TPU_LINT=strict``,
+   ``PARSEC_TPU_HBCHECK=strict`` and ``PARSEC_TPU_LOCKDEP=1``, each right
+   after the same run unchecked, every factor ``torch.equal`` to the
+   dynamic path's with its launches and no checker finding; the schedule
+   explorer over four seeds of the dynamic ``kernels`` dpotrf, each
+   digest that factor's bit for bit; and ``verify_engine`` against the
+   engine the port built (ABI, model, conformance at the nt=16 DAG) with
+   no finding (``analysis_*`` lines);
 5. device-module phase: a 2048 x 2048 dpotrf with event-polled
    completion and one under an 8 MB residency budget (eviction
    write-back), each checked against a float64 Cholesky;
@@ -889,6 +900,238 @@ def legacy_async_phase(h):
     say("single_card_core", path="dpotrf kernels pump", run="vpmap_nb2", N=N, nb=NB,
         wall_s=wall, equal_flat=True, launches=c, card=card)
     say("legacy_async_phase", seconds=time.perf_counter() - t_phase, card=card)
+
+
+# -- the graph verifier and the runtime checkers on the dpotrf path ---------
+
+#: the checker switches the phase's checked runs set before their Context
+CHECKED_ENV = {"PARSEC_TPU_LINT": "strict", "PARSEC_TPU_HBCHECK": "strict",
+               "PARSEC_TPU_LOCKDEP": "1"}
+
+
+def analysis_phase(h):
+    """The analysis layer over the dpotrf path (N=8192 nb=512 f32, the
+    path's SPD matrix), every task on the CUDA module with the hand
+    kernels.
+
+    Lint: ``PTG.verify`` of ``cholesky_ptg`` ``kernels`` and
+    ``kernels_trtri`` over the path's TiledMatrix (no error finding), and
+    ``tools lint --all`` over the registry (every buildable graph clean,
+    each graph that waits for A.8 or A.7b reported as waiting).  Checked
+    runs, under ``PARSEC_TPU_LINT=strict``, ``PARSEC_TPU_HBCHECK=strict``
+    and ``PARSEC_TPU_LOCKDEP=1`` (restored after): the dynamic ``kernels``
+    and ``kernels_trtri`` and the pump's ``kernels`` at stage depth 2 (the
+    transfer lane and the write-back committer), each right after the same
+    run unchecked; every factor ``torch.equal`` to the dynamic path's
+    first, the launches its, no hb finding and no lock-order finding.  The
+    schedule explorer: four seeds of the dynamic ``kernels`` dpotrf
+    (``rnd`` pop order, completion jitter, hb-check), every digest the
+    dynamic factor's bit for bit.  ``verify_engine`` against the engine
+    library the port built: ABI, model and conformance (the nt=16 dpotrf
+    DAG, seeds 0-3) with no finding; the clang-tidy leg may only report
+    ENG021 (not installed).  ``h`` carries main's helpers and the path's
+    state; the phase's launches go into ``h.launches``."""
+    import io
+
+    np, torch, card, say, check = h.np, h.torch, h.card, h.say, h.check
+    from parsec_tpu_torch import Context, mca_param
+    from parsec_tpu_torch.analysis import errors_of, hb, lockdep
+    from parsec_tpu_torch.analysis.edges import count_instances
+    from parsec_tpu_torch.analysis.engine_verify import verify_engine
+    from parsec_tpu_torch.analysis.schedules import explore
+    from parsec_tpu_torch.datadist import TiledMatrix
+    from parsec_tpu_torch.dsl.native_exec import NativeExecutor
+    from parsec_tpu_torch.ops import cholesky_ptg, dpotrf_task_count, kernels
+    from parsec_tpu_torch.profiling import tools
+
+    nt = N // NB
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+                for fn in (kernels.matmul_update, kernels.matmul)}
+
+    def matrix():
+        return TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32).from_array(h.S)
+
+    def equal_dyn(A, name):
+        return torch.equal(torch.from_numpy(A.to_array()),
+                           torch.from_numpy(h.dyn_factor[name]))
+
+    # -- lint: the path's PTG at N=8192, then the registry ----------------
+    A = TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32)
+    for name, kw, _tol in h.variants[:2]:
+        ptg = cholesky_ptg(use_cuda=True, use_cpu=False, **kw)
+        t0 = time.perf_counter()
+        findings = ptg.verify({"NT": nt, "A": A})
+        seconds = time.perf_counter() - t0
+        check(errors_of(findings) == [], f"lint {name}: {[str(f) for f in findings]}")
+        say("analysis_lint", graph=f"cholesky_ptg {name}", N=N, nb=NB,
+            instances=count_instances(ptg, {"NT": nt, "A": A}, 10 ** 6),
+            findings=len(findings), seconds=seconds, card=card)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tools.main(["lint", "--all"])
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue().splitlines()
+    summary = out[-1] if out else ""
+    waiting = [ln.split(":")[0] for ln in out if ": waiting: " in ln]
+    check(rc == 0 and " 0 error(s), 0 warning(s)" in summary,
+          f"tools lint --all: rc {rc}, {summary}")
+    check(len(waiting) == 6 and all(("ROADMAP A.8" in ln or "ROADMAP A.7b" in ln)
+                                    for ln in out if ": waiting: " in ln),
+          f"tools lint --all: waiting {waiting}")
+    say("analysis_lint", graph="registry --all", summary=summary,
+        clean=sum(ln.endswith("OK") or ": OK (" in ln for ln in out),
+        waiting=waiting, seconds=seconds, card=card)
+
+    # -- checked runs: each right after the same run unchecked ------------
+    def dynamic(kw):
+        A = matrix()
+        tp = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(NT=nt, A=A)
+        gc.collect()
+        kernels.reset_counts()
+        ctx = Context()
+        try:
+            t0 = time.perf_counter()
+            ctx.add_taskpool(tp)
+            ok = tp.wait(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = counts()
+        finally:
+            ctx.fini()
+        check(ok, f"analysis dpotrf {kw}: taskpool failed ({tp.fail_reason})")
+        return A, wall, c, ctx
+
+    def pump(kw):
+        A = matrix()
+        tp = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(NT=nt, A=A)
+        gc.collect()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        ex = NativeExecutor(tp, native_device=True)
+        try:
+            check(ex.device.tdev.type == "cuda", f"native device bound to {ex.device.tdev}")
+            ex.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = counts()
+        finally:
+            ex.close()
+        check(ex._pump, "analysis pump: the pump did not run")
+        check(ex.device.stats["wb_sync_fallbacks"] == 0, "synchronous write-back fallbacks")
+        return A, wall, c, ex
+
+    saved = {k: os.environ.pop(k, None) for k in CHECKED_ENV}
+    runs = [("kernels", "dynamic", 1), ("kernels_trtri", "dynamic", 1),
+            ("kernels", "pump", 2)]
+    try:
+        for name, path, depth in runs:
+            kw = dict(next(v[1] for v in h.variants if v[0] == name))
+            run = dynamic if path == "dynamic" else pump
+            label = f"dpotrf {name} {path} depth {depth}"
+            with mca(mca_param, "runtime", "stage_depth", depth):
+                A, plain_wall, plain_c, _ = run(kw)
+                check(equal_dyn(A, name), f"{label} unchecked: the factor differs")
+                # the checkers observe the checked run only: installed here
+                # (a Context would install them from the switches; the pump
+                # has none) and removed after it
+                os.environ.update(CHECKED_ENV)
+                rec = hb.ensure_live().install()
+                lockdep.install()
+                n0 = len(rec.events)
+                try:
+                    A, wall, c, owner = run(kw)
+                    # a Context reports at fini; the pump has none: here
+                    hb_findings = (owner.hb_findings if path == "dynamic"
+                                   else hb.live_report())
+                    lock_findings = lockdep.checker().findings()
+                    n_locks = lockdep.checker().n_locks
+                finally:
+                    for k in CHECKED_ENV:
+                        os.environ.pop(k, None)
+                    rec.uninstall()
+                    lockdep.uninstall()
+            events = rec.events[n0:]
+            kinds = {}
+            for e in events:
+                kinds[e.kind] = kinds.get(e.kind, 0) + 1
+            check(equal_dyn(A, name), f"{label} checked: the factor differs from "
+                  "the dynamic path's")
+            check(c == plain_c == h.launches[name],
+                  f"{label}: launches {c}, unchecked {plain_c}, dynamic {h.launches[name]}")
+            check(hb_findings == [], f"{label}: hb findings {[str(f) for f in hb_findings]}")
+            check(lock_findings == [],
+                  f"{label}: lockdep findings {[str(f) for f in lock_findings]}")
+            check(rec.dropped == 0, f"{label}: {rec.dropped} hb events dropped")
+            if path == "pump":
+                check(all(kinds.get(k, 0) > 0 for k in
+                          ("stage_in", "wb_enqueue", "wb_commit", "dep_dec", "task_publish")),
+                      f"{label}: lane/committer/drain events missing: {kinds}")
+                check(owner.stats["prefetched_batches"] > 0, f"{label}: the lane never ran")
+            h.launches[f"analysis_{name}_{path}"] = c
+            h.launches[f"analysis_{name}_{path}_unchecked"] = plain_c
+            say("analysis_checked", path=label, N=N, nb=NB, wall_s=wall,
+                unchecked_wall_s=plain_wall, checked_over_unchecked=wall / plain_wall,
+                hb_events=len(events), hb_event_kinds=kinds, hb_findings=0,
+                lock_findings=0, locks_tracked=n_locks,
+                equal_dynamic=True, launches=c, card=card)
+    finally:
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+
+    # -- the schedule explorer: four seeds of the dynamic kernels dpotrf ---
+    kw = dict(next(v[1] for v in h.variants if v[0] == "kernels"))
+
+    def build(rank, ctx):
+        A = matrix()
+        return cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(NT=nt, A=A), A
+
+    want = {}
+    for (i, j) in A.local_tiles():
+        tile = h.dyn_factor["kernels"][i * NB:(i + 1) * NB, j * NB:(j + 1) * NB]
+        want[(i, j)] = ((NB, NB), "float32", np.ascontiguousarray(tile).tobytes())
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = explore(build, nranks=1, seeds=range(4), hbcheck=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    c = counts()
+    check(res.identical and not res.errors, f"explorer: {res.summary()}")
+    check(res.race_findings() == [], f"explorer: {res.race_findings()}")
+    for seed in res.seeds:
+        check(res.digests[seed][0] == want,
+              f"explorer seed {seed}: the digest differs from the dynamic factor")
+    check(c["matmul_update"]["total"] == 4 * h.launches["kernels"]["matmul_update"]["total"],
+          f"explorer: launches {c}")
+    h.launches["analysis_explore"] = c
+    say("analysis_explore", path="dpotrf kernels dynamic", N=N, nb=NB, seeds=res.seeds,
+        wall_s=[res.wall_s[s] for s in res.seeds], seconds=seconds,
+        findings=sum(len(f) for f in res.findings.values()), identical=True,
+        equal_dynamic=True, launches=c, card=card)
+
+    # -- engine-verify against the library the port built ------------------
+    t0 = time.perf_counter()
+    findings, stats = verify_engine(conformance_nt=nt, conformance_seeds=(0, 1, 2, 3))
+    seconds = time.perf_counter() - t0
+    by_code = {}
+    for f in findings:
+        by_code[f.code] = by_code.get(f.code, 0) + 1
+    check(set(by_code) <= {"ENG021"},
+          f"engine-verify: {[str(f) for f in findings if f.code != 'ENG021']}")
+    check(stats["abi"]["findings"] == 0 and stats["conformance"]["runs"] == 4
+          and stats["conformance"]["tasks"] == dpotrf_task_count(nt),
+          f"engine-verify: {stats}")
+    check(all(not s["truncated"] for s in stats["model"].values()),
+          f"engine-verify: model truncated {stats['model']}")
+    say("analysis_engine", abi=stats["abi"], conformance=stats["conformance"],
+        model={d: {k: s[k] for k in ("states", "transitions", "terminals")}
+               for d, s in stats["model"].items()},
+        tidy=[str(f) for f in findings if f.code == "ENG021"], errors=0,
+        seconds=seconds, card=card)
+    say("analysis_phase", seconds=time.perf_counter() - t_phase, card=card)
 
 
 def batched_graph(h, label, tp, feeds, ref_out, ref_median_s, kernel_of, tasks, exact,
@@ -2812,6 +3055,11 @@ def main() -> int:
         np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S, S64=S64,
         s_max=s_max, variants=variants, launches=launches, dyn_factor=dyn_factor,
         dyn_wall=dyn_wall))
+
+    # -- the graph verifier and the runtime checkers on the dpotrf path -----
+    analysis_phase(types.SimpleNamespace(
+        np=np, torch=torch, card=card, say=say, check=check, S=S,
+        variants=variants, launches=launches, dyn_factor=dyn_factor))
     del dyn_factor
 
     # -- device-module phase: the CUDA module's GPU-only paths ----------------

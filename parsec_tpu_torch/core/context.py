@@ -17,10 +17,16 @@ torch CPU device is used only on request (``cuda_device="cpu"`` here, or
 the MCA param ``device_cuda_torch_device=cpu``), and ``devices=["cpu"]``
 gives a host-only context with no accelerator module at all.
 
-Single-rank only: comm engines, the compile cache, the ABI check and the
-health/flight/watchdog/SLO planes of :class:`parsec_tpu.core.Context` are
-not ported yet; asking for one raises ``NotImplementedError`` naming its
-ROADMAP item.
+Opt-in checkers (:mod:`..analysis`), installed before any runtime lock or
+thread exists: ``PARSEC_TPU_HBCHECK=1|strict`` (happens-before race
+recorder, findings in ``ctx.hb_findings`` at :meth:`Context.fini`),
+``PARSEC_TPU_LOCKDEP=1`` (lock-order checker, ``ctx.lock_findings``) and
+``PARSEC_TPU_ABI_CHECK=1|strict`` (the engine library's ABI against its
+spec).
+
+Single-rank only: comm engines and the health/flight/watchdog/SLO planes
+of :class:`parsec_tpu.core.Context` are not ported yet; asking for one
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,13 +47,10 @@ from .taskpool import Taskpool
 #: environment switches of reference features the port has not ported yet
 #: (env var -> ROADMAP item); a set switch raises instead of being ignored
 _UNPORTED_ENV = {
-    "PARSEC_TPU_HBCHECK": "A.9 (analysis: hb race checker)",
-    "PARSEC_TPU_LOCKDEP": "A.9 (analysis: lockdep)",
-    "PARSEC_TPU_ABI_CHECK": "A.9 (analysis: engine-verify ABI lint)",
-    "PARSEC_TPU_FLIGHT": "A.9 (profiling: flight recorder)",
-    "PARSEC_TPU_HEALTH": "A.9 (profiling: health exporter)",
-    "PARSEC_TPU_WATCHDOG": "A.9 (profiling: watchdog)",
-    "PARSEC_TPU_SLO": "A.9 (profiling: SLO plane)",
+    "PARSEC_TPU_FLIGHT": "A.9b (profiling: flight recorder)",
+    "PARSEC_TPU_HEALTH": "A.9b (profiling: health exporter)",
+    "PARSEC_TPU_WATCHDOG": "A.9b (profiling: watchdog)",
+    "PARSEC_TPU_SLO": "A.9b (profiling: SLO plane)",
 }
 
 
@@ -94,6 +97,19 @@ class Context:
             raise NotImplementedError(
                 "multi-rank contexts (comm engines) are not ported yet "
                 "(ROADMAP A.8)")
+        # opt-in runtime checkers, installed BEFORE any runtime lock or
+        # thread exists so they observe the whole context lifetime
+        if os.environ.get("PARSEC_TPU_HBCHECK", "0") not in ("", "0"):
+            from ..analysis import hb as _hb
+
+            _hb.ensure_live()
+        if os.environ.get("PARSEC_TPU_LOCKDEP", "0") not in ("", "0"):
+            from ..analysis import lockdep as _lockdep
+
+            _lockdep.install()
+        abi_mode = os.environ.get("PARSEC_TPU_ABI_CHECK", "0").strip().lower()
+        if abi_mode not in ("", "0"):
+            self._abi_check(strict=abi_mode == "strict")
         if nb_cores is None:
             nb_cores = mca_param.register(
                 "runtime", "num_cores", min(os.cpu_count() or 1, 8),
@@ -165,6 +181,27 @@ class Context:
         debug.verbose(3, "core", "context up: %d workers, sched=%s, devices=%s",
                       self.nb_workers, self.scheduler.mca_name,
                       [d.name for d in self.devices])
+
+    def _abi_check(self, strict: bool) -> None:
+        """``PARSEC_TPU_ABI_CHECK`` startup lint: the engine's ABI spec
+        against the sources, and against the built library when there is
+        one (ENG001-ENG006), before any ctypes call crosses the boundary.
+        ``strict`` raises on error findings; otherwise they are logged.
+        A library not built yet is not a finding: its first use builds
+        it from the sources the spec was just checked against."""
+        from .. import native
+        from ..analysis.findings import LintError, errors_of
+        from ..native import abi as _abi
+
+        lib = os.path.join(native.BUILD_DIR, native.LIB_NAME)
+        findings = _abi.abi_findings(lib if os.path.exists(lib) else None,
+                                     native.SRC_DIR)
+        for f in findings:
+            debug.warning("abi-check: %s", f)
+        if strict and errors_of(findings):
+            raise LintError(
+                f"PARSEC_TPU_ABI_CHECK=strict: {lib} drifted from the ABI "
+                f"spec ({len(findings)} finding(s))", findings)
 
     # ------------------------------------------------------------------
     # taskpool lifecycle
@@ -418,7 +455,22 @@ class Context:
             devmod.detach_devices(self)
         finally:
             self.scheduler.remove(self)
-            debug.verbose(3, "core", "context down")
+        # env-driven checker reports (PARSEC_TPU_HBCHECK / LOCKDEP):
+        # findings land on the context, are logged, and strict hb-check
+        # raises
+        if os.environ.get("PARSEC_TPU_HBCHECK", "0") not in ("", "0"):
+            from ..analysis import hb as _hb
+
+            self.hb_findings = _hb.live_report()
+        if os.environ.get("PARSEC_TPU_LOCKDEP", "0") not in ("", "0"):
+            from ..analysis import lockdep as _lockdep
+
+            chk = _lockdep.checker()
+            if chk is not None:
+                self.lock_findings = chk.findings()
+                for f in self.lock_findings:
+                    debug.warning("lockdep: %s", f)
+        debug.verbose(3, "core", "context down")
 
     # context manager sugar
     def __enter__(self) -> "Context":

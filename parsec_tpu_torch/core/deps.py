@@ -42,8 +42,8 @@ def _fire_dep_dec(tracker: "DepTracker | DenseDepTracker", key: Hashable,
 
 def fire_native_dep_dec(graph_token: int, task_id: int, ready: bool) -> None:
     """The native engine's flavor of the same site, for the batched
-    lifecycle-event drain of the pump (which comes with the profiling
-    layer, ROADMAP A.9b): one atomic dep-counter decrement observed inside
+    lifecycle-event drain of the pump (``dsl.native_exec._EventDrain``):
+    one atomic dep-counter decrement observed inside
     ``pz_graph_done_batch``.  The
     tracker identity is ``("native", graph hb token)`` — tuple-tagged so
     it can never collide with a Python tracker's integer token — and the

@@ -18,7 +18,7 @@ operator and the tile index as values, so its tasks share one task class.
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -46,10 +46,13 @@ def _map_body(a, b, op, i, j):
 
 
 def apply_taskpool(context, A: TiledMatrix,
-                   op: Callable[[np.ndarray, int, int], Any]) -> DTDTaskpool:
+                   op: Callable[[np.ndarray, int, int], Any], *,
+                   uplo: Optional[str] = None) -> DTDTaskpool:
     """Apply ``op(tile, i, j)`` to every stored tile (reference
     ``parsec_apply`` / apply.jdf).  ``op`` may mutate in place or return a
-    replacement tile.  Returns the taskpool (wait on it)."""
+    replacement tile.  Returns the taskpool (wait on it).  ``uplo`` is
+    accepted and ignored, as the reference does: every stored tile is
+    visited."""
     _check_one_rank(A, "apply_taskpool")
     tp = DTDTaskpool(context, name=f"apply_{A.name}")
     for (i, j) in A.tiles():

@@ -64,6 +64,15 @@ class Device(Component):
     def detach(self) -> None:
         pass
 
+    def taskpool_register(self, tp) -> None:
+        pass
+
+    def memory_register(self, data) -> None:
+        pass
+
+    def memory_unregister(self, data) -> None:
+        pass
+
     def data_advise(self, data, advice: int) -> None:
         """Placement hint (reference ``device.h:76-78,328``):
         PREFERRED_DEVICE pins the selector's choice to this device."""

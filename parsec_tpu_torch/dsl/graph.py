@@ -14,7 +14,7 @@ Capture cost is O(tasks + edges) expression evaluations.
 from __future__ import annotations
 
 import heapq
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from ..core.lifecycle import AccessMode
 from .ptg import (
@@ -26,6 +26,20 @@ from .ptg import (
 )
 
 TaskId = Tuple[str, Tuple]  # (class name, locals)
+
+
+class PTGDefinitionView:
+    """Duck-typed stand-in for a ``PTGTaskpool`` carrying only what
+    :func:`capture` reads (``.ptg`` and ``.constants``) — lets the static
+    verifier capture a bare PTG definition against concrete globals
+    without instantiating a taskpool (no dep trackers, repos, taskpool
+    ids, or MCA parameter registration)."""
+
+    __slots__ = ("ptg", "constants")
+
+    def __init__(self, ptg, constants: Dict[str, Any]):
+        self.ptg = ptg
+        self.constants = dict(constants)
 
 #: graphs with more nodes than this are ordered by the native engine
 _NATIVE_ORDER_MIN = 256
@@ -155,6 +169,8 @@ def find_cycle(g: TaskGraph) -> List[TaskId]:
 
 def capture(tp: PTGTaskpool, ranks: Optional[Iterable[int]] = None) -> TaskGraph:
     """Evaluate every task's dependency expressions and materialise the DAG.
+    ``tp`` is a taskpool or a :class:`PTGDefinitionView` of a bare
+    definition.
 
     ``ranks=None`` captures all tasks; otherwise only tasks whose affinity
     maps into ``ranks`` (matching each rank's local view).

@@ -63,7 +63,7 @@ reference's inline-C escapes.
 Entry points: :func:`compile_jdf` (text → :class:`JDF`), ``JDF.new(...)``
 (instantiate a taskpool), and :mod:`parsec_tpu_torch.dsl.jdfc` (the CLI
 code generator, ``parsec_ptgpp`` analogue, emitting a Python module).
-:meth:`JDF.verify` waits for the graph linter (ROADMAP A.9b).
+:meth:`JDF.verify` runs the graph linter (:mod:`parsec_tpu_torch.analysis`).
 """
 
 from __future__ import annotations
@@ -643,10 +643,14 @@ class JDF:
 
     # ------------------------------------------------------------------
     def verify(self, globals_: Optional[Dict[str, Any]] = None, **kw):
-        """Ahead-of-time graph verification of the compiled JDF: the graph
-        linter is not ported yet."""
-        raise NotImplementedError(
-            "JDF.verify (the graph linter) is not ported yet (ROADMAP A.9b)")
+        """Ahead-of-time graph verification of the compiled JDF (see
+        ``PTG.verify``).  Without ``globals_`` only the static source-level
+        checks run, judged against the declared JDF globals; with concrete
+        globals the full instance checks (reciprocity, hazards, cycles,
+        liveness) run.  Returns a list of findings (empty = clean)."""
+        from ..analysis import lint_jdf
+
+        return lint_jdf(self, globals_, **kw)
 
     def required_globals(self) -> List[str]:
         return [g.name for g in self.ast.globals if not g.has_default]

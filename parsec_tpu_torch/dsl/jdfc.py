@@ -17,10 +17,9 @@ Usage::
     python -m parsec_tpu_torch.dsl.jdfc -i chain.jdf -o chain_ptg.py
     python -m parsec_tpu_torch.dsl.jdfc chain.jdf      # writes chain_ptg.py
 
-The JAX package's generator also lints the definition with its graph
-verifier before it emits.  The port's verifier is not ported yet (ROADMAP
-A.9b), so generation skips that step, and an explicit ``--lint`` or
-``--strict`` raises ``NotImplementedError`` naming that item.
+Generation lints the compiled definition with the static graph verifier
+(:mod:`parsec_tpu_torch.analysis`) first; ``--lint`` runs only the lint
+and ``--strict`` makes any finding fatal.
 """
 
 from __future__ import annotations
@@ -57,22 +56,30 @@ def _emit_body(tc: JDFTaskClass, body, device: str, tc_globals) -> str:
     return f"def {_body_fn_name(tc, device)}({', '.join(args)}):\n{code}\n"
 
 
-def _no_lint(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"jdfc {what}: the graph linter is not ported yet (ROADMAP A.9b)")
-
-
 def generate(text: str, name: str, source: str = "<jdf>", *,
-             lint: bool = False, strict: bool = False) -> str:
+             lint: bool = True, strict: bool = False) -> str:
     """JDF source text → Python module source.
 
-    ``lint``/``strict`` ask for the static graph verifier, which is not
-    ported yet: either raises ``NotImplementedError``."""
-    if lint or strict:
-        raise _no_lint("--strict" if strict else "--lint")
+    ``lint`` (default on) runs the static graph verifier
+    (:mod:`parsec_tpu_torch.analysis`) over the compiled definition — the
+    ``jdf_sanity_checks`` analogue of the reference compiler — printing
+    findings to stderr; ``strict`` turns any finding into a
+    :class:`parsec_tpu_torch.analysis.LintError` instead of emitting
+    code."""
     # validate by fully compiling (prologue exec + builder lowering): the
     # generated module should never be the first place an error surfaces
     jdf = compile_jdf(text, name)
+    if lint:
+        from ..analysis import lint_jdf
+        from ..analysis.findings import LintError
+
+        findings = lint_jdf(jdf)
+        for f in findings:
+            print(f"{source}: {f}", file=sys.stderr)
+        if strict and findings:
+            raise LintError(
+                f"{source}: {len(findings)} lint finding(s) under --strict",
+                findings)
     ast: JDFAst = jdf.ast
 
     out: List[str] = []
@@ -170,17 +177,17 @@ def main(argv=None) -> int:
     p.add_argument("--check", action="store_true",
                    help="parse + compile only, emit nothing")
     p.add_argument("--lint", action="store_true",
-                   help="static graph verification (not ported yet: "
-                   "raises, ROADMAP A.9b)")
+                   help="parse + compile + static graph verification only, "
+                   "emit nothing (findings to stderr)")
     p.add_argument("--strict", action="store_true",
-                   help="treat lint findings as fatal (not ported yet: "
-                   "raises, ROADMAP A.9b)")
+                   help="treat lint findings as fatal (non-zero exit, no "
+                   "module emitted)")
     args = p.parse_args(argv)
     path = args.input_flag or args.input
     if not path:
         p.error("no input file")
-    if args.lint or args.strict:
-        raise _no_lint("--strict" if args.strict else "--lint")
+    from ..analysis.findings import LintError, errors_of
+
     try:
         with open(path) as f:
             text = f.read()
@@ -190,10 +197,23 @@ def main(argv=None) -> int:
             compile_jdf(text, name)
             print(f"{path}: OK")
             return 0
-        src = generate(text, name, source=path)
+        if args.lint:
+            from ..analysis import lint_jdf
+
+            findings = lint_jdf(compile_jdf(text, name))
+            for fi in findings:
+                print(f"{path}: {fi}", file=sys.stderr)
+            if errors_of(findings) or (args.strict and findings):
+                return 1
+            print(f"{path}: OK ({len(findings)} warning(s))"
+                  if findings else f"{path}: OK")
+            return 0
+        src = generate(text, name, source=path, strict=args.strict)
         out_path = args.out or f"{stem}_ptg.py"
         with open(out_path, "w") as f:
             f.write(src)
+    except LintError:
+        return 1  # findings already printed by generate()
     except OSError as e:
         print(f"jdfc: {e}", file=sys.stderr)
         return 1

@@ -34,7 +34,10 @@ termination never touch the interpreter.  Single rank.  Three regimes:
   trampoline, no completion callback (``stats`` pins it).  At
   ``runtime_stage_depth`` >= 2 (the default is 1) the pump keeps a prefetch
   window of popped batches whose inputs the device's transfer lane
-  stages while the oldest batch computes (:func:`_pump_loop`).
+  stages while the oldest batch computes (:func:`_pump_loop`).  When a
+  ``DEP_DECREMENT`` or ``NATIVE_TASK_DONE`` observer is subscribed (the
+  hb checker), the engine buffers its lifecycle events and the pump
+  drains them once a batch into PINS (:class:`_EventDrain`).
 
 Supertask fusion (:mod:`.fusion`, ``runtime_fusion`` or ``fusion=``): with
 ``native_device=True`` each fused region is ONE native node — one device
@@ -47,8 +50,9 @@ dispatch to save.
 into virtual processes for the engine's hierarchical steal, on every run.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: a list of taskpools — the serve executor (A.9c) — and the
-lifecycle-event drain that feeds ``DEP_DECREMENT`` observers (A.9b).
+item: a list of taskpools — the serve executor (A.9c) — and
+``DEP_DECREMENT`` observers of a legacy-protocol run, whose decrements
+happen inside ``task_done`` on the device's threads (A.10b).
 """
 
 from __future__ import annotations
@@ -158,9 +162,63 @@ class _NativeDeviceTask(Task):
         self._wbs: List[Tuple[Any, Any]] = []
 
 
+class _EventDrain:
+    """Batched publisher for the native lifecycle-event buffer: maps the
+    engine's (kind, a, b) records onto the PINS sites so the hb checker
+    orders pump runs — with no per-task interpreter work on the hot path
+    (one drain per pump batch).  Kind mapping:
+
+    * ``EVT_DEP_DEC``  -> :data:`pins.DEP_DECREMENT` with tracker
+      ``("native", graph.hb_token)`` (one record per native dep-counter
+      decrement, ``ready`` flagging the release that armed the task);
+    * ``EVT_PUBLISH``  -> :data:`pins.SCHEDULE_BEGIN` with a 1-task batch
+      (the native SchedQ push — ``task_publish`` in hb terms);
+    * ``EVT_RETIRE``   -> :data:`pins.NATIVE_TASK_DONE` (the payload the
+      legacy ``task_done`` path fires, double completions included).
+    """
+
+    def __init__(self, ng, pump_index: Dict[int, Any], cap: int):
+        self.ng = ng
+        self.index = pump_index
+        n = max(1024, cap * 4)
+        self.k = (ctypes.c_int32 * n)()
+        self.a = (ctypes.c_int64 * n)()
+        self.b = (ctypes.c_int64 * n)()
+
+    def drain(self) -> int:
+        from ..core.deps import fire_native_dep_dec
+
+        ng = self.ng
+        k, a, b = self.k, self.a, self.b
+        dep_on = pins.active(pins.DEP_DECREMENT)
+        sched_on = pins.active(pins.SCHEDULE_BEGIN)
+        done_on = pins.active(pins.NATIVE_TASK_DONE)
+        token = ng.hb_token
+        total = 0
+        while True:
+            n = ng.events_drain(k, a, b)
+            total += n
+            for i in range(n):
+                kind = k[i]
+                if kind == ng.EVT_DEP_DEC:
+                    if dep_on:
+                        fire_native_dep_dec(token, int(a[i]), bool(b[i]))
+                elif kind == ng.EVT_PUBLISH:
+                    if sched_on:
+                        t = self.index.get(a[i])
+                        if t is not None:
+                            pins.fire(pins.SCHEDULE_BEGIN, None, (t,))
+                elif done_on:
+                    pins.fire(pins.NATIVE_TASK_DONE, None, {
+                        "graph": token, "task": int(a[i]),
+                        "accepted": bool(b[i])})
+            if n < len(k):
+                return total
+
+
 def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
-               shim: _NativePoolShim, retire_cb: Callable[[List[Any]], None]
-               ) -> int:
+               shim: _NativePoolShim, retire_cb: Callable[[List[Any]], None],
+               ev: Optional[_EventDrain] = None) -> int:
     """The zero-interpreter hot loop.  Per batch: ONE ``pop_batch`` returns
     up to ``_POP_BATCH`` ready native ids, the device dispatches them
     (completion deferred), rare cross-tile write-backs land, the batch
@@ -184,7 +242,8 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
     ``_STAGE_SPLIT_BYTES``, the batch is re-sliced across the free buffers
     so the window pipelines INTRA-wave.  A prestage failure is non-fatal:
     the submit path restages the tile and fails loudly if the data is
-    truly bad."""
+    truly bad.  ``ev`` republishes the engine's lifecycle events after
+    each ``done_batch``."""
     from ..core import scheduling
     from ..data.data import land_into_home
 
@@ -268,6 +327,8 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
             stats["done_batches"] += 1
             free.append(buf)
             retire_cb(batch)
+            if ev is not None:
+                stats["events_drained"] += ev.drain()
             # seconds the pump thread spent waiting on the lane, in the
             # device's dispatch and in retirement: O(batches) clock reads
             stats["lane_wait_s"] += t1 - t0
@@ -320,7 +381,7 @@ class NativeExecutor:
         self.stats: Dict[str, int] = {
             "trampoline_entries": 0, "completion_callbacks": 0,
             "pop_batches": 0, "done_batches": 0, "pumped_tasks": 0,
-            "prefetched_batches": 0,
+            "prefetched_batches": 0, "events_drained": 0,
             "lane_wait_s": 0.0, "submit_s": 0.0, "retire_s": 0.0}
         self._stats_lock = threading.Lock()
         #: native id -> prebuilt device task, the pump's dispatch map
@@ -330,12 +391,9 @@ class NativeExecutor:
         #: on the host in this device DAG
         self._pump = False
         self._has_cpu_bodies = False
+        #: native ids with no predecessor (the commit pass publishes them)
+        self._roots: List[int] = []
         if self.native_device:
-            if pins.active(pins.DEP_DECREMENT):
-                raise NotImplementedError(
-                    "DEP_DECREMENT observers on a native device run need "
-                    "the native lifecycle-event drain, which comes with "
-                    "the profiling layer (ROADMAP A.9)")
             mode = fusion if fusion is not None else fusion_mode()
             if self.device is None:
                 self.device = self._make_device()
@@ -428,6 +486,7 @@ class NativeExecutor:
         # successor entry, so one edge per node pair stays balanced), and
         # intra-region edges run inside the fused body
         seen_edges = set()
+        has_pred = set()
         for tid in order:
             me = index[tid]
             for (_f, succ, _sf) in g.nodes[tid].out_edges:
@@ -436,6 +495,9 @@ class NativeExecutor:
                     continue
                 seen_edges.add((me, tgt))
                 ng.add_dep(me, tgt)
+                has_pred.add(tgt)
+        self._roots = [nid for nid in dict.fromkeys(index.values())
+                       if nid not in has_pred]
         if self.native_device:
             # pump or legacy, decided BEFORE the commit pass: committing
             # pushes the source tasks, and in pump mode those pushes must
@@ -445,6 +507,11 @@ class NativeExecutor:
                           and getattr(self.device, "_eager", True))
             if self._pump:
                 ng.sched_config(seed=_sched_seed())
+            elif pins.active(pins.DEP_DECREMENT):
+                raise NotImplementedError(
+                    "DEP_DECREMENT observers on a legacy-protocol native "
+                    "run need the event drain at task_done, which is not "
+                    "ported yet (ROADMAP A.10b)")
             else:
                 self._arm_legacy(ng)
         # commit only after EVERY edge is declared: committing a task arms
@@ -857,11 +924,26 @@ class NativeExecutor:
         device dispatch: no trampoline is installed and no completion
         callback exists, and ``self.stats`` pins it."""
         tp = self.taskpool
+        ng = self._ng
+        ev = None
+        if pins.active(pins.DEP_DECREMENT) or pins.active(pins.NATIVE_TASK_DONE):
+            # observers (the hb checker): buffer the engine's lifecycle
+            # events from here on.  The commit pass already published the
+            # roots unbuffered, so publish them now: hb then orders each
+            # root's publish before its exec
+            ng.events_enable(True)
+            if pins.active(pins.SCHEDULE_BEGIN):
+                for nid in self._roots:
+                    t = self._pump_index.get(nid)
+                    if t is not None:
+                        pins.fire(pins.SCHEDULE_BEGIN, None, (t,))
+            ev = _EventDrain(ng, self._pump_index, _POP_BATCH)
         # the progress currency counts logical tasks: a fused supertask
         # retires all its members (the rule of Taskpool.task_done)
-        return _pump_loop(self._ng, self.device, self._pump_index, self.stats,
+        return _pump_loop(ng, self.device, self._pump_index, self.stats,
                           self._pool_shim,
-                          lambda batch: tp.task_done_batch(sum(t.fused_n for t in batch)))
+                          lambda batch: tp.task_done_batch(sum(t.fused_n for t in batch)),
+                          ev)
 
     def close(self) -> None:
         """Release the native graph, then flush dirty device tiles home so
@@ -889,7 +971,7 @@ def run_native(tp, *, nthreads: int = 4, native_device: bool = False,
     if isinstance(tp, (list, tuple)):
         raise NotImplementedError(
             "run_native over a list of taskpools (the multi-tenant serve "
-            "executor) is not ported yet (ROADMAP A.9)")
+            "executor) is not ported yet (ROADMAP A.9c)")
     ex = NativeExecutor(tp, native_device=native_device, device=device,
                         fusion=fusion)
     try:

@@ -44,11 +44,13 @@ definitions outside the dynamic path.
 Supertask fusion (:mod:`.fusion`, ``runtime_fusion``) is read at attach:
 fused regions dispatch as one supertask each.
 
+Ahead-of-time verification (:meth:`PTG.verify`, and ``PARSEC_TPU_LINT``
+at attach) runs the graph linter of :mod:`parsec_tpu_torch.analysis`.
+
 What the port leaves out, each raising ``NotImplementedError`` naming its
-ROADMAP item when reached: the ahead-of-time verifier and lint (A.9b),
-remote successors and write-backs (A.8), and a reshape property block on
-an incoming dep (A.8; on a ``<- NEW`` dep the block names the new tile's
-shape and dtype).
+ROADMAP item when reached: remote successors and write-backs (A.8), and a
+reshape property block on an incoming dep (A.8; on a ``<- NEW`` dep the
+block names the new tile's shape and dtype).
 """
 
 from __future__ import annotations
@@ -88,6 +90,33 @@ _SAFE_BUILTINS = {
 #: (tens of thousands of calls per attach); a per-call dict alloc is
 #: measurable there
 _EVAL_GLOBALS = {"__builtins__": _SAFE_BUILTINS}
+
+#: cumulative existence/validity predicate WORK units: one per direct
+#: ``instance_exists`` evaluation (memo misses + unmemoized calls), one
+#: per O(1) range-membership check inside ``valid``, and one per
+#: MATERIALIZED candidate value when a parameter's range has to be
+#: expanded — so an implementation that enumerates a producer's
+#: parameter span scales this counter with the span.  Monotone,
+#: process-wide, incremented under the GIL; read via
+#: :func:`exists_eval_count` and difference around a run — the
+#: deterministic measure tests pin the O(#params) law on, instead of a
+#: wall-clock ratio.
+_exists_evals = 0
+
+
+def exists_eval_count() -> int:
+    """Current value of the existence-predicate work counter."""
+    return _exists_evals
+
+
+def reset_exists_eval_count() -> int:
+    """Zero the process-global existence-predicate work counter and
+    return the value it had, so work from earlier taskpools in the same
+    process cannot bleed into a measurement."""
+    global _exists_evals
+    old = _exists_evals
+    _exists_evals = 0
+    return old
 
 
 def _c_to_py(src: str) -> str:
@@ -480,15 +509,21 @@ class PTGTaskClass:
 
     def valid(self, locals_: Tuple, constants: Dict[str, Any]) -> bool:
         """Membership of ``locals_`` in the parameter space: O(#params),
-        with O(1) range membership per parameter."""
+        with O(1) range membership per parameter (each check one unit of
+        :func:`exists_eval_count`; a range that must be materialized
+        counts its candidates)."""
+        global _exists_evals
         env = dict(constants)
         it = iter(locals_)
         for name, expr, is_param in self.decls:
             if is_param:
                 v = next(it)
                 vals = expr.values(env)
-                if not isinstance(vals, range):
+                if isinstance(vals, range):
+                    _exists_evals += 1
+                else:
                     vals = tuple(vals)
+                    _exists_evals += max(len(vals), 1)
                 if v not in vals:
                     return False
                 env[name] = v
@@ -553,14 +588,18 @@ class PTGTaskClass:
         ONE predicate behind goal counting and input resolution.  ``memo``
         (the taskpool's per-instance dict, safe because existence depends
         only on the taskpool constants) bounds it to one evaluation per
-        distinct (class, key)."""
+        distinct (class, key).  Every direct evaluation (memo miss
+        included) counts one unit of :func:`exists_eval_count`."""
+        global _exists_evals
         if memo is not None:
             mk = (self.name, key)
             r = memo.get(mk)
             if r is None:
+                _exists_evals += 1
                 r = memo[mk] = (len(key) == len(self.param_names)
                                 and self.valid(key, constants))
             return r
+        _exists_evals += 1
         return len(key) == len(self.param_names) and self.valid(key, constants)
 
     def rank_of(self, locals_: Tuple, constants: Dict[str, Any]) -> int:
@@ -602,10 +641,52 @@ class PTG:
         merged.update(constants)
         return PTGTaskpool(self, merged, termdet=termdet)
 
-    def verify(self, *args: Any, **kw: Any):
-        """Ahead-of-time graph verification is not ported yet."""
-        raise NotImplementedError(
-            "PTG.verify (the graph linter) is not ported yet (ROADMAP A.9b)")
+    def verify(self, globals_: Optional[Dict[str, Any]] = None, *,
+               level: str = "full", ignore: Sequence[str] = (),
+               known: Optional[Iterable[str]] = None,
+               collections: Optional[set] = None,
+               max_tasks: Optional[int] = None,
+               **more: Any):
+        """Ahead-of-time graph verification (the jdfc sanity-check
+        analogue): enumerate the parameter space under the given concrete
+        globals WITHOUT executing any task body and check edge
+        reciprocity, data hazards, cycles/liveness, and expression/
+        affinity sanity.  Returns a list of
+        :class:`parsec_tpu_torch.analysis.Finding` (empty = clean).
+
+        ``level``: ``"full"`` (default) runs every check; ``"static"``
+        runs only source-level lint (no parameter-space enumeration).
+        ``ignore`` suppresses finding codes (e.g. ``("PTG021",)`` for
+        graphs with dynamic guards).  ``known``/``collections`` name the
+        symbols a later taskpool() call will supply (without them, a
+        no-globals static verify treats every referenced symbol as
+        known).  ``max_tasks`` caps the instance enumeration (PTG050
+        beyond it).  Extra keyword arguments are graph globals, mirroring
+        ``taskpool(**constants)``."""
+        from ..analysis import verify_ptg
+        from ..analysis.linter import collection_names, free_symbols
+
+        kw: Dict[str, Any] = {"level": level, "ignore": ignore}
+        if max_tasks is not None:
+            kw["max_tasks"] = max_tasks
+        if globals_ is None and not more:
+            # no concrete globals: static-only lint of the definition,
+            # judged against the caller's names or, by default, every
+            # symbol the definition references
+            if known is None:
+                known = free_symbols(self) | set(self.constants)
+            if collections is None:
+                collections = collection_names(self)
+            return verify_ptg(self, None, known=known,
+                              collections=collections, **kw)
+        if known is not None:
+            kw["known"] = known
+        if collections is not None:
+            kw["collections"] = collections
+        merged = dict(self.constants)
+        merged.update(globals_ or {})
+        merged.update(more)
+        return verify_ptg(self, merged, **kw)
 
 
 def _props_spec(props: Dict[str, str], constants: Dict[str, Any]
@@ -757,6 +838,14 @@ class PTGTaskpool(Taskpool):
         return n
 
     def attached(self, context) -> None:
+        # PARSEC_TPU_LINT: a strict failure fails this pool (the context
+        # stays usable) and raises before any task is scheduled
+        try:
+            self._maybe_lint()
+        except Exception as e:
+            self.context = context
+            self.fail(f"startup lint failed: {e}")
+            raise
         # supertask fusion (runtime_fusion): capture, partition and lower
         # before any task is scheduled.  A failure fails this pool (the
         # context stays usable) and raises: per-task dispatch never
@@ -789,6 +878,34 @@ class PTGTaskpool(Taskpool):
             self.tdm.taskpool_set_nb_tasks(self, 0)
             self._counted = False
         super().attached(context)
+
+    def _maybe_lint(self) -> None:
+        """Opt-in startup verification (``PARSEC_TPU_LINT``): ``1``/``warn``
+        logs findings and continues; ``strict``/``2`` raises
+        :class:`..analysis.LintError` on error-severity findings before
+        any task is scheduled.  ``PARSEC_TPU_LINT_IGNORE`` suppresses
+        codes (comma/space separated, e.g. ``PTG021`` for dynamic-guard
+        graphs).  Off by default: the verifier re-enumerates the
+        parameter space."""
+        import os
+
+        mode = os.environ.get("PARSEC_TPU_LINT", "").strip().lower()
+        if mode in ("", "0", "off"):
+            return
+        from ..analysis import verify_ptg
+        from ..analysis.findings import LintError, errors_of
+        from ..utils import debug
+
+        ignore = tuple(
+            c for c in os.environ.get("PARSEC_TPU_LINT_IGNORE", "")
+            .replace(",", " ").split() if c)
+        findings = verify_ptg(self.ptg, self.constants, ignore=ignore)
+        for f in findings:
+            debug.warning("lint %s: %s", self.ptg.name, f)
+        if mode in ("strict", "2") and errors_of(findings):
+            raise LintError(
+                f"PARSEC_TPU_LINT=strict: taskpool {self.ptg.name} has "
+                f"{len(errors_of(findings))} lint error(s)", findings)
 
     # -- vtable construction (the jdf2c analogue) ------------------------
     def _build_class(self, pc: PTGTaskClass) -> None:

@@ -26,8 +26,12 @@ the legacy ASYNC-chore protocol (the reference's
 ``PARSEC_HOOK_RETURN_ASYNC``): a body hands its task to a device manager,
 whose completion signals the engine from any thread.
 :meth:`NativeGraph.set_vpmap` groups the workers into virtual processes
-for the hierarchical steal.  Not ported yet: the lifecycle-event drain
-(A.10b) and the binary tracer (A.10f).
+for the hierarchical steal.  :meth:`NativeGraph.events_enable` /
+:meth:`NativeGraph.events_drain` buffer and drain the engine's lifecycle
+events (``EVT_DEP_DEC``, ``EVT_PUBLISH``, ``EVT_RETIRE``), which the
+pump republishes into PINS for the hb checker and the engine verifier
+replays against its model.  Not ported yet: the per-tenant ``wdrr`` pump
+policy of the serve executor (A.9c) and the binary tracer (A.10f).
 """
 
 from __future__ import annotations
@@ -321,13 +325,16 @@ class NativeGraph:
         return self._lib.pz_graph_steals_remote(self._g)
 
     # ---- zero-interpreter lifecycle (pump mode) ----------------------
+    #: lifecycle event kinds from :meth:`events_drain` (graph.cpp EvtKind)
+    EVT_DEP_DEC, EVT_PUBLISH, EVT_RETIRE = 0, 1, 2
+
     def sched_config(self, seed: int = -1) -> None:
         """Route ready pushes and pops through the native pump scheduler's
         priority policy: pops go (priority desc, insertion seq asc);
         ``seed >= 0`` applies the schedule explorer's deterministic
         pop-order perturbation.  Must be called BEFORE tasks commit.  The
         engine's per-tenant ``wdrr`` policy waits for the serve executor
-        (ROADMAP A.9)."""
+        (ROADMAP A.9c)."""
         self._lib.pz_graph_sched_config(self._g, 0, 0, int(seed))
 
     def pop_batch(self, buf) -> int:
@@ -346,6 +353,19 @@ class NativeGraph:
 
     def sched_pending(self) -> int:
         return self._lib.pz_graph_sched_pending(self._g)
+
+    def events_enable(self, on: bool) -> None:
+        """Buffer (or stop buffering) the engine's lifecycle events."""
+        self._lib.pz_graph_events_enable(self._g, 1 if on else 0)
+
+    def events_drain(self, kinds, a, b) -> int:
+        """Drain buffered lifecycle events into three preallocated
+        parallel ctypes arrays (c_int32 kinds, c_int64 a/b); returns the
+        count.  Kinds: :data:`EVT_DEP_DEC` (a=succ id, b=ready),
+        :data:`EVT_PUBLISH` (a=task id, b=priority), :data:`EVT_RETIRE`
+        (a=task id, b=accepted)."""
+        return self._lib.pz_graph_events_drain(self._g, kinds, a, b,
+                                               len(kinds))
 
     def fail(self) -> None:
         """Abort a live run: workers drain their current body and exit,

@@ -10,12 +10,15 @@ derives from it:
 * :func:`required_symbols` is the list the load check keys on: a library
   missing one of them is refused with a readable error;
 * :func:`parse_source_prototypes` reads the ``extern "C"`` prototypes the
-  sources really define, so a test can hold the spec to them.
+  sources really define, so a test can hold the spec to them;
+* :func:`abi_findings` is the engine-verify lint over all three — the
+  spec, the sources' prototypes and the symbols the built library
+  exports (:func:`elf_exported_functions`), plus the trace record layout
+  (:func:`parse_source_record_layout`) — reporting ENG001–ENG006
+  findings (``tools engine-verify``, ``PARSEC_TPU_ABI_CHECK``).
 
 A ctypes boundary has no compiler to check it, so this module plays the
-header's role.  The engine-verify lint over it (``abi_findings``,
-ENG001–ENG006, and the ``PARSEC_TPU_ABI_CHECK`` switch) reports through
-the analysis findings layer and is not ported yet (ROADMAP A.9).
+header's role.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import os
 import re
+import struct as _struct
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -168,6 +172,17 @@ SPEC: Dict[str, Dict[str, Any]] = {
 }
 
 
+#: the trace record wire layout (trace.cpp ``struct Record``).  Field
+#: order, widths and total size are an on-disk contract: drift corrupts
+#: every trace silently.
+TRACE_RECORD: List[Tuple[str, str]] = [
+    ("stream_id", "i32"), ("keyword_id", "i32"), ("phase", "i32"),
+    ("reserved", "i32"), ("ts_ns", "i64"), ("event_id", "i64"),
+    ("info", "i64"),
+]
+TRACE_RECORD_SIZE = 40
+
+
 def required_symbols() -> List[str]:
     """Every C entry point the bindings require (derived from the spec)."""
     return list(SPEC)
@@ -239,4 +254,174 @@ def parse_source_prototypes(
                 if args.strip() else []
             params = [p for p in params if p]
             out[name] = (_norm_ctype(ret), params)
+    return out
+
+
+def parse_source_record_layout(
+        src_dir: Optional[str] = None) -> Optional[List[Tuple[str, str]]]:
+    """The trace.cpp ``struct Record`` field list as (name, token), or
+    None when the struct cannot be located."""
+    path = os.path.join(src_dir or SRC_DIR, "trace.cpp")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        body = f.read()
+    m = re.search(r"struct\s+Record\s*\{([^}]*)\}", body)
+    if m is None:
+        return None
+    tok_of = {"int32_t": "i32", "int64_t": "i64"}
+    fields: List[Tuple[str, str]] = []
+    for fm in re.finditer(r"(int32_t|int64_t)\s+([A-Za-z_][A-Za-z0-9_]*)\s*;",
+                          m.group(1)):
+        fields.append((fm.group(2), tok_of[fm.group(1)]))
+    return fields or None
+
+
+# ---------------------------------------------------------------------------
+# ELF dynamic-symbol reader (which pz_*/pt_* the .so really exports)
+# ---------------------------------------------------------------------------
+
+def elf_exported_functions(path: str) -> List[str]:
+    """Globally-defined function symbols of an ELF64 shared object,
+    read with a pure-Python ``.dynsym`` walk (no nm dependency).
+    Raises ValueError on a non-ELF64-LE file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"\x7fELF":
+        raise ValueError(f"{path}: not an ELF file")
+    if data[4] != 2 or data[5] != 1:
+        raise ValueError(f"{path}: not a little-endian ELF64 object")
+    e_shoff, = _struct.unpack_from("<Q", data, 0x28)
+    e_shentsize, e_shnum = _struct.unpack_from("<HH", data, 0x3A)
+    dynsym = None
+    sections = []
+    for i in range(e_shnum):
+        off = e_shoff + i * e_shentsize
+        (sh_name, sh_type, sh_flags, sh_addr, sh_offset, sh_size,
+         sh_link, sh_info, sh_align, sh_entsize) = _struct.unpack_from(
+            "<IIQQQQIIQQ", data, off)
+        sections.append((sh_type, sh_offset, sh_size, sh_link, sh_entsize))
+        if sh_type == 11:  # SHT_DYNSYM
+            dynsym = sections[-1]
+    if dynsym is None:
+        raise ValueError(f"{path}: no .dynsym section")
+    _, sym_off, sym_size, strtab_idx, sym_ent = dynsym
+    sym_ent = sym_ent or 24
+    _, str_off, str_size, _, _ = sections[strtab_idx]
+    strings = data[str_off:str_off + str_size]
+    out: List[str] = []
+    for off in range(sym_off, sym_off + sym_size, sym_ent):
+        st_name, st_info, _st_other, st_shndx = _struct.unpack_from(
+            "<IBBH", data, off)
+        if st_shndx == 0:          # SHN_UNDEF: imported, not exported
+            continue
+        if (st_info & 0xF) != 2:   # STT_FUNC
+            continue
+        if (st_info >> 4) not in (1, 2):  # GLOBAL | WEAK
+            continue
+        end = strings.index(b"\0", st_name)
+        out.append(strings[st_name:end].decode())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the lint
+# ---------------------------------------------------------------------------
+
+def abi_findings(lib_path: Optional[str] = None,
+                 src_dir: Optional[str] = None) -> List[Any]:
+    """Cross-check the declared ABI against reality.  Three legs:
+
+    * spec vs the engine sources' prototypes — ENG003 signature drift,
+      ENG004 spec entry with no source definition, ENG002 source export
+      the spec does not declare;
+    * spec vs the built ``.so`` (when ``lib_path`` names one) — ENG001
+      declared symbol missing from the library, ENG002 undeclared
+      export, ENG005 library older than its sources (stale build);
+    * trace record layout vs trace.cpp — ENG006.  (The reference also
+      holds its Python ``.pbt`` reader to it; the port's reader comes
+      with the binary tracer, ROADMAP A.10f.)
+    """
+    from ..analysis.findings import Finding
+
+    out: List[Any] = []
+    protos = parse_source_prototypes(src_dir)
+    for name in SPEC:
+        if name not in protos:
+            out.append(Finding(
+                "ENG004", f"ABI spec declares {name} but the engine "
+                          "sources define no such extern \"C\" symbol",
+                task=name))
+            continue
+        want_ret, want_args = spec_signature(name)
+        got_ret, got_args = protos[name]
+        if (want_ret, want_args) != (got_ret, got_args):
+            out.append(Finding(
+                "ENG003",
+                f"signature drift for {name}: spec declares "
+                f"{want_ret}({', '.join(want_args)}) but the source "
+                f"defines {got_ret}({', '.join(got_args)})",
+                task=name))
+    for name in protos:
+        if name not in SPEC:
+            out.append(Finding(
+                "ENG002", f"the engine sources export {name} with no ABI "
+                          "spec entry (undeclared entry point: ctypes "
+                          "callers would bind it blind)",
+                task=name))
+    if lib_path and os.path.exists(lib_path):
+        try:
+            exported = set(elf_exported_functions(lib_path))
+        except (ValueError, OSError, IndexError) as e:
+            out.append(Finding(
+                "ENG001", f"cannot read exported symbols of {lib_path}: "
+                          f"{e}"))
+        else:
+            for name in SPEC:
+                if name not in exported:
+                    out.append(Finding(
+                        "ENG001",
+                        f"{name} is declared in the ABI spec but not "
+                        f"exported by {os.path.basename(lib_path)} "
+                        "(stale build, or the definition was dropped)",
+                        task=name))
+            for name in sorted(exported):
+                if name.startswith(("pz_", "pt_")) and name not in SPEC:
+                    out.append(Finding(
+                        "ENG002",
+                        f"{os.path.basename(lib_path)} exports {name} "
+                        "with no ABI spec entry (undeclared export)",
+                        task=name))
+        try:
+            srcs = [os.path.join(src_dir or SRC_DIR, s) for s in SOURCES]
+            newest = max(os.path.getmtime(p) for p in srcs
+                         if os.path.exists(p))
+            if os.path.getmtime(lib_path) < newest:
+                out.append(Finding(
+                    "ENG005",
+                    f"{os.path.basename(lib_path)} is older than the "
+                    "engine sources (stale build: delete it, or touch the "
+                    "sources, to force a rebuild)"))
+        except (OSError, ValueError):
+            pass
+    out.extend(_record_layout_findings(src_dir))
+    return out
+
+
+def _record_layout_findings(src_dir: Optional[str] = None) -> List[Any]:
+    from ..analysis.findings import Finding
+
+    out: List[Any] = []
+    width = {"i32": 4, "i64": 8}
+    if sum(width[t] for _, t in TRACE_RECORD) != TRACE_RECORD_SIZE:
+        out.append(Finding(
+            "ENG006", "ABI spec trace-record fields do not sum to "
+                      f"TRACE_RECORD_SIZE={TRACE_RECORD_SIZE}"))
+    src = parse_source_record_layout(src_dir)
+    if src is not None and src != TRACE_RECORD:
+        out.append(Finding(
+            "ENG006",
+            f"trace record layout drift: spec declares {TRACE_RECORD} "
+            f"but trace.cpp defines {src} (every .pbt reader depends on "
+            "this byte layout)"))
     return out

@@ -63,6 +63,11 @@ HB_WB_COMMIT = "hb_wb_commit"
 # latter fired under the freelist lock
 ARENA_ALLOC = "arena_alloc"              # {"arena","slot"}
 ARENA_RECYCLE = "arena_recycle"          # {"arena","slot"}
+# comm frames (cross-rank happens-before edges): a frame handed to the
+# transport and the same frame delivered on its peer.  The hb recorder
+# subscribes to both; the comm layer fires them (ROADMAP A.8)
+HB_FRAME_SEND = "hb_frame_send"          # {"frame","peer"}
+HB_FRAME_DELIVER = "hb_frame_deliver"    # {"frame","peer"}
 # one ASYNC completion entered the native engine (NativeGraph.task_done,
 # the legacy protocol); accepted=False records a signal the engine's
 # double-completion guard refused

@@ -1,9 +1,10 @@
-"""Command-line tools of the port: ``cache`` and ``autotune``.
+"""Command-line tools of the port: ``cache``, ``autotune``, ``lint`` and
+``engine-verify``.
 
-The port of those two commands of :mod:`parsec_tpu.profiling.tools`; the
-reference's other commands (the trace readers, merge, critpath, lint,
-hbcheck, the serving dashboards) come with the rest of profiling and
-analysis (ROADMAP A.9b) and are not registered.
+The port of those commands of :mod:`parsec_tpu.profiling.tools`; the
+reference's other commands (the trace readers, merge, critpath, hbcheck,
+check, the serving dashboards) come with the rest of profiling (ROADMAP
+A.9b, second half) and are not registered.
 
 * ``cache`` — ``ls`` / ``stats`` / ``purge`` / ``verify`` over the port's
   persistent artifacts: the autotuner's winners (``<root>/autotune``,
@@ -18,9 +19,19 @@ analysis (ROADMAP A.9b) and are not registered.
   (:mod:`..compile_cache`): none is on disk.
 * ``autotune`` — the timed nb / attention-block / wave-batch searches of
   :mod:`..tuning`, on the card unless ``--device cpu``.
+* ``lint`` — the ahead-of-time PTG/JDF graph verifier
+  (:mod:`..analysis`) over ``.jdf`` files, ``module:callable`` builders
+  and registry names; ``--all`` sweeps :mod:`..analysis.registry`, where
+  the graphs that wait for another layer are reported as waiting.
+* ``engine-verify`` — the native engine's ABI contract, the lifecycle
+  model checker, the conformance replay of a real pump loop on the
+  g++-built library, and the clang-tidy gate
+  (:mod:`..analysis.engine_verify`).
 
 Usage::
 
+    python -m parsec_tpu_torch.profiling.tools lint --all
+    python -m parsec_tpu_torch.profiling.tools engine-verify --nt 16
     python -m parsec_tpu_torch.profiling.tools cache stats
     python -m parsec_tpu_torch.profiling.tools autotune --op dpotrf_seg --n 32768 --nb 256,512,1024
     python -m parsec_tpu_torch.profiling.tools autotune --attention --n 4096
@@ -178,10 +189,190 @@ def cmd_autotune(args) -> int:
     return 0
 
 
+def _parse_defines(defs) -> Dict[str, Any]:
+    """``-D NAME=VALUE`` pairs; values are Python literals when they
+    parse as one (``-D NT=4``, ``-D SHAPE='(2,2)'``), strings otherwise."""
+    import ast as _ast
+
+    out: Dict[str, Any] = {}
+    for d in defs or []:
+        name, eq, val = d.partition("=")
+        if not eq or not name.strip():
+            raise SystemExit(f"bad -D {d!r}: want NAME=VALUE")
+        try:
+            out[name.strip()] = _ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            out[name.strip()] = val
+    return out
+
+
+def _lint_one(target: str, overrides: Dict[str, Any], ignore):
+    """Resolve one lint target -> (display name, findings, notes)."""
+    import importlib
+
+    from ..analysis import lint_jdf, synthesize_collections, verify_ptg
+
+    notes: List[str] = []
+    if target.endswith(".jdf") or os.path.isfile(target):
+        from ..dsl.jdf import compile_jdf_file
+
+        jdf = compile_jdf_file(target)
+        consts = dict(jdf.ptg.constants)
+        consts.update(overrides)
+        consts, synth = synthesize_collections(jdf.ptg, consts)
+        if synth:
+            notes.append(f"synthesized collection(s): {', '.join(synth)}")
+        missing = [g.name for g in jdf.ast.globals
+                   if not g.has_default and g.name not in consts]
+        if missing:
+            notes.append(f"missing globals {missing} (pass -D NAME=VALUE): "
+                         "static checks only")
+            return target, lint_jdf(jdf, ignore=ignore), notes
+        return target, lint_jdf(jdf, consts, ignore=ignore,
+                                fusion_hints=True), notes
+    if target.startswith("array:"):
+        raise NotImplementedError(
+            f"lint target {target}: the array front end is not ported yet "
+            "(ROADMAP A.7b)")
+    if ":" in target:
+        from ..analysis.linter import collection_names, free_symbols
+
+        mod_name, _, fn_name = target.partition(":")
+        fn = getattr(importlib.import_module(mod_name), fn_name)
+        ptg = fn() if callable(fn) else fn
+        consts = dict(ptg.constants)
+        consts.update(overrides)
+        consts, synth = synthesize_collections(ptg, consts)
+        if synth:
+            notes.append(f"synthesized collection(s): {', '.join(synth)}")
+        missing = sorted(free_symbols(ptg) - set(consts))
+        if missing:
+            # a builder PTG declares its globals only implicitly: lint
+            # statically against the full referenced-symbol universe
+            # instead of flagging every unsupplied scalar as unbound
+            notes.append(f"missing globals {missing} (pass -D NAME=VALUE): "
+                         "static checks only")
+            findings = verify_ptg(
+                ptg, None, level="static",
+                known=free_symbols(ptg) | set(consts),
+                collections=collection_names(ptg), ignore=ignore)
+            return target, findings, notes
+        return target, verify_ptg(ptg, consts, ignore=ignore,
+                                  fusion_hints=True), notes
+    from ..analysis import registry
+
+    ptg, consts = registry.build(target)
+    consts = dict(consts)
+    consts.update(overrides)
+    return target, verify_ptg(ptg, consts, ignore=ignore,
+                              fusion_hints=True), notes
+
+
+def cmd_lint(args) -> int:
+    """Ahead-of-time graph verifier CLI (see parsec_tpu_torch.analysis).
+    A registry graph ``--all`` adds that needs an unported layer is
+    reported as waiting (its ROADMAP item) and does not fail the run; a
+    target named explicitly that cannot be built fails it."""
+    from ..analysis import errors_of, registry
+    from ..analysis.findings import infos_of
+
+    ignore = tuple(c for arg in (args.ignore or [])
+                   for c in arg.split(",") if c)
+    explicit = list(args.targets or [])
+    targets = list(explicit)
+    if args.all:
+        targets.extend(registry.names())
+        targets = list(dict.fromkeys(targets))  # explicit + --all overlap
+    if not targets:
+        print("lint: no targets (pass .jdf files, module:callable specs, "
+              f"registry names, or --all; registry: {registry.names()})",
+              file=sys.stderr)
+        return 2
+    overrides = _parse_defines(args.define)
+    n_err = n_warn = n_info = n_wait = 0
+    failed = False
+    for target in targets:
+        try:
+            name, findings, notes = _lint_one(target, overrides, ignore)
+        except NotImplementedError as e:
+            if target in explicit:
+                print(f"{target}: FAILED to build: {e}", file=sys.stderr)
+                failed = True
+            else:
+                print(f"{target}: waiting: {e}")
+                n_wait += 1
+            continue
+        except Exception as e:
+            print(f"{target}: FAILED to build/parse: "
+                  f"{type(e).__name__}: {e}", file=sys.stderr)
+            failed = True
+            continue
+        for note in notes:
+            print(f"{name}: note: {note}")
+        for f in findings:
+            print(f"{name}: {f}")
+        errs = len(errors_of(findings))
+        infos = len(infos_of(findings))
+        n_err += errs
+        n_info += infos
+        n_warn += len(findings) - errs - infos
+        if errs == 0 and errs + infos == len(findings):
+            # advisory-only graphs are still clean
+            print(f"{name}: OK"
+                  + (f" ({infos} advisory)" if infos else ""))
+    print(f"lint: {len(targets)} graph(s), {n_err} error(s), "
+          f"{n_warn} warning(s), {n_info} advisory, {n_wait} waiting")
+    if failed or n_err:
+        return 1
+    # advisory findings (PTG060 fusion hints) NEVER fail --strict
+    if args.strict and n_warn:
+        return 1
+    return 0
+
+
+def cmd_engine_verify(args) -> int:
+    """Verify the native engine: ABI contract lint, exhaustive lifecycle
+    model checking, conformance replay of a real pump loop, clang-tidy
+    gate (see parsec_tpu_torch.analysis.engine_verify)."""
+    from ..analysis import errors_of
+    from ..analysis.engine_verify import verify_engine
+    from ..analysis.findings import infos_of
+
+    legs = [leg for leg in ("abi", "model", "conformance", "tidy")
+            if getattr(args, leg)]
+    if args.all or not legs:
+        legs = ["abi", "model", "conformance", "tidy"]
+    findings, stats = verify_engine(
+        legs, workers=args.workers, conformance_nt=args.nt,
+        conformance_seeds=tuple(range(args.seeds)))
+    for f in findings:
+        print(f)
+    for leg in legs:
+        st = stats.get(leg)
+        if leg == "model" and isinstance(st, dict):
+            for dag, s in st.items():
+                print(f"engine-verify: model {dag}: {s['states']} "
+                      f"state(s), {s['transitions']} transition(s), "
+                      f"{s['sleep_skips']} sleep-skip(s)"
+                      + (" TRUNCATED" if s["truncated"] else ""))
+        elif st:
+            print(f"engine-verify: {leg}: {st}")
+    errs = len(errors_of(findings))
+    infos = len(infos_of(findings))
+    print(f"engine-verify: {'+'.join(legs)}: {errs} error(s), "
+          f"{len(findings) - errs - infos} warning(s), {infos} skipped")
+    if errs:
+        return 1
+    if args.strict and len(findings) - infos:
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="parsec_tpu_torch.profiling.tools",
-        description="the port's persistent artifacts (cache) and autotuner (autotune)")
+        description="the port's persistent artifacts (cache), autotuner "
+        "(autotune), graph verifier (lint) and engine verifier (engine-verify)")
     sub = p.add_subparsers(dest="cmd", required=True)
     pe = sub.add_parser(
         "cache", help="compiled libraries and tuning winners: list, stats, purge, "
@@ -221,6 +412,50 @@ def main(argv=None) -> int:
                     help="torch device to tune on (default: the current card; "
                     "'cpu' for the torch CPU device)")
     pa.set_defaults(fn=cmd_autotune)
+    pl = sub.add_parser(
+        "lint", help="ahead-of-time PTG/JDF graph verifier: edge "
+        "reciprocity, data hazards, deadlock/liveness, expression lint "
+        "— no task body executes")
+    pl.add_argument("targets", nargs="*",
+                    help=".jdf file, module:callable returning a PTG, or "
+                    "in-repo registry name")
+    pl.add_argument("-D", "--define", action="append", metavar="NAME=VALUE",
+                    help="bind a graph global (Python literal or string; "
+                    "repeatable); undeclared collections are synthesized")
+    pl.add_argument("--all", action="store_true",
+                    help="also lint every in-repo graph "
+                    "(parsec_tpu_torch.analysis.registry)")
+    pl.add_argument("--strict", action="store_true",
+                    help="exit non-zero on warnings too, not just errors")
+    pl.add_argument("--ignore", action="append", metavar="CODES",
+                    help="comma-separated finding codes to suppress "
+                    "(e.g. PTG021 for dynamic-guard graphs)")
+    pl.set_defaults(fn=cmd_lint)
+    pv = sub.add_parser(
+        "engine-verify", help="verify the native engine: ABI contract "
+        "lint (spec vs .so exports vs C++ prototypes), exhaustive "
+        "lifecycle model checking with DPOR reduction, conformance "
+        "replay of a real pump loop, clang-tidy zero-warning gate "
+        "(ENG0xx findings)")
+    pv.add_argument("--abi", action="store_true",
+                    help="ABI contract lint only")
+    pv.add_argument("--model", action="store_true",
+                    help="lifecycle model checker only")
+    pv.add_argument("--conformance", action="store_true",
+                    help="real-engine conformance replay only")
+    pv.add_argument("--tidy", action="store_true",
+                    help="clang-tidy gate only")
+    pv.add_argument("--all", action="store_true",
+                    help="every leg (the default when none is picked)")
+    pv.add_argument("--workers", type=int, default=2,
+                    help="model worker threads to interleave (default 2)")
+    pv.add_argument("--nt", type=int, default=4,
+                    help="conformance dpotrf tile count (default 4)")
+    pv.add_argument("--seeds", type=int, default=4,
+                    help="conformance schedule-explorer seeds (default 4)")
+    pv.add_argument("--strict", action="store_true",
+                    help="exit non-zero on warnings too (skips exempt)")
+    pv.set_defaults(fn=cmd_engine_verify)
     args = p.parse_args(argv)
     return args.fn(args)
 

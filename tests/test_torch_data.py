@@ -488,3 +488,25 @@ def test_bf16_tile_refused(tmp_path):
     d.data_of(0).get_copy(0).payload = torch.ones(2, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="bfloat16"):
         ck.save(str(tmp_path / "bf"), d)
+
+
+@pytest.mark.parametrize("ctx_kw", [{"devices": ["cpu"]}, {"cuda_device": "cpu"}])
+def test_register_with_every_device(ctx_kw):
+    """ROADMAP C.5: ``DataCollection.register_with`` calls each attached
+    device's ``memory_register``, a no-op on every module as in the
+    reference (``taskpool_register``/``memory_unregister`` likewise), on a
+    host-only context and with the CUDA module bound to the torch CPU
+    device."""
+    ref_ctx = parsec_tpu.Context(1)
+    try:
+        RefLocalCollection("x").register_with(ref_ctx)
+    finally:
+        ref_ctx.fini()
+    with parsec_tpu_torch.Context(1, **ctx_kw) as ctx:
+        dc = LocalCollection("x")
+        dc.register_with(ctx)
+        assert len(ctx.devices) == (1 if "devices" in ctx_kw else 2)
+        for d in ctx.devices:
+            assert d.memory_register(dc) is None
+            assert d.memory_unregister(dc) is None
+            assert d.taskpool_register(None) is None

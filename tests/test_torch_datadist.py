@@ -84,6 +84,27 @@ def test_apply_functional_return():
     np.testing.assert_array_equal(out, expect)
 
 
+@pytest.mark.parametrize("uplo", ["L", "U", None])
+def test_apply_accepts_and_ignores_uplo(uplo):
+    """ROADMAP C.6: the reference's ``uplo=`` keyword is accepted and
+    ignored (every stored tile is visited), with the reference's tiles."""
+    M = np.random.default_rng(11).standard_normal((12, 12))
+
+    def run(m, ctx):
+        A = m.TiledMatrix(12, 12, 4, 4).from_array(M)
+        tp = m.apply_taskpool(ctx, A, lambda t, i, j: t * (i + 1) - j, uplo=uplo)
+        assert tp.wait(timeout=30)
+        return [A.to_array()]
+
+    [out] = _equal(both(run))
+    expect = M.copy()
+    for i in range(3):
+        for j in range(3):
+            expect[i * 4:(i + 1) * 4, j * 4:(j + 1) * 4] = \
+                M[i * 4:(i + 1) * 4, j * 4:(j + 1) * 4] * (i + 1) - j
+    np.testing.assert_allclose(out, expect, rtol=0, atol=1e-15)
+
+
 def test_apply_lower_storage_touches_stored_tiles_only():
     M = np.random.default_rng(7).standard_normal((16, 16))
 

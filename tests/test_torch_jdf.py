@@ -15,9 +15,11 @@ B1 f32 and bf16) held to the reference's ``cholesky_ptg(use_pallas=True)``
 in Pallas interpret mode and ``torch.equal`` to the port's
 ``cholesky_ptg`` on the dynamic path, the pump and a ``GraphExecutor``
 replay; the captured DAG of a JDF equal node for node in both packages;
-and the A.9b refusals of ``JDF.verify`` and ``jdfc --lint/--strict``.
+and ``JDF.verify`` and ``jdfc --lint/--strict`` giving the JAX package's
+findings.
 """
 
+import collections
 import importlib.util
 import os
 import sys
@@ -1761,13 +1763,23 @@ END
 
 
 def test_verify_and_lint_refused_naming_a9b(tmp_path):
-    j = jdf.compile_jdf(CHAIN, "chain")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-        j.verify()
+    """Once refused naming A.9b; since the graph linter is ported,
+    ``JDF.verify`` and ``jdfc --lint/--strict`` give the JAX package's
+    answers on the same JDF."""
+    def key(fs):
+        return collections.Counter(
+            (f.code, f.severity, f.task, f.flow, f.env, f.dep, f.count) for f in fs)
+
+    j, rj = jdf.compile_jdf(CHAIN, "chain"), ref_jdf.compile_jdf(CHAIN, "chain")
+    assert key(j.verify()) == key(rj.verify())
+    consts = {"NB": 3, "mydata": LocalCollection("mydata")}
+    ref_consts = {"NB": 3, "mydata": RefLocalCollection("mydata")}
+    assert key(j.verify(consts)) == key(rj.verify(ref_consts))
     path = tmp_path / "chain.jdf"
     path.write_text(CHAIN)
-    for flag in ("--lint", "--strict"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-            jdfc.main([flag, str(path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-        jdfc.generate(CHAIN, "chain", lint=True)
+    assert jdfc.main(["--lint", str(path)]) == ref_jdfc.main(["--lint", str(path)]) == 0
+    outs = [tmp_path / "port_ptg.py", tmp_path / "ref_ptg.py"]
+    assert (jdfc.main(["--strict", str(path), "-o", str(outs[0])])
+            == ref_jdfc.main(["--strict", str(path), "-o", str(outs[1])]) == 0)
+    assert all(p.exists() for p in outs)
+    assert jdfc.generate(CHAIN, "chain", lint=True, strict=True)

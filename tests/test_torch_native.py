@@ -391,27 +391,34 @@ def _unported_hook(case, port_param):
         tp = cholesky_ptg(use_cuda=False, use_cpu=True).taskpool(NT=A.mt, A=A)
         return lambda: run_native(tp, native_device=True), None
     if case == "taskpool_list":
-        return lambda: run_native([_device_dpotrf(), _device_dpotrf()]), "A.9"
-    assert case == "dep_decrement_observer"
+        return lambda: run_native([_device_dpotrf(), _device_dpotrf()]), "A.9c"
+    if case == "dep_decrement_observer_legacy":
+        port_param("runtime", "native_sched", "off")
+    else:
+        assert case == "dep_decrement_observer"
 
     def run():
         cb = lambda es, payload: None  # noqa: E731
         pins.subscribe(pins.DEP_DECREMENT, cb)
         try:
-            run_native(_device_dpotrf(), native_device=True)
+            return run_native(_device_dpotrf(), native_device=True)
         finally:
             pins.unsubscribe(pins.DEP_DECREMENT, cb)
-    return run, "A.9"
+    # the pump drains the engine's lifecycle events into the observer;
+    # the legacy protocol's drain at task_done is not ported
+    return run, ("A.10b" if case == "dep_decrement_observer_legacy" else None)
 
 
 @pytest.mark.parametrize("case", [
     "native_sched_off", "eager_complete_0",
-    "cpu_only_class", "taskpool_list", "dep_decrement_observer"])
+    "cpu_only_class", "taskpool_list", "dep_decrement_observer",
+    "dep_decrement_observer_legacy"])
 def test_unported_native_hooks_raise(case, cpu_device, port_param):
     """A hook still unported raises naming its ROADMAP item.  The legacy
     protocol's three run to the end: the NT=2 dpotrf's four tasks
     (tests/test_torch_legacy.py holds their results to the pump's and
-    the reference's)."""
+    the reference's).  So does a DEP_DECREMENT observer of a pump run,
+    fed by the pump's event drain; on the legacy protocol it raises."""
     fn, item = _unported_hook(case, port_param)
     if item is None:
         assert fn() == 4
