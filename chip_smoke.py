@@ -123,7 +123,17 @@
    explorer over four seeds of the dynamic ``kernels`` dpotrf, each
    digest that factor's bit for bit; and ``verify_engine`` against the
    engine the port built (ABI, model, conformance at the nt=16 DAG) with
-   no finding (``analysis_*`` lines);
+   no finding (``analysis_*`` lines); then the ``profiling`` phase
+   (:func:`profiling_phase`): the dynamic ``kernels`` and
+   ``kernels_trtri``, the depth-2 pump's ``kernels`` and the f32 prefill
+   (through ``measure_overlap``) each once untraced and once under the
+   binary tracer (``RankTraceSet``), every traced output ``torch.equal``
+   to the untraced one with its launches; each dump read back (an
+   ``exec`` pair a task, the DAG's edges, ``critpath``'s chain as long as
+   the DAG's longest path, its buckets printed), ``tools info``,
+   ``to-csv``, ``critpath``, ``merge``, ``hbcheck`` and ``check`` on the
+   dumps, and a ``GraphExecutor`` traced cold (one ``compile`` span) and
+   on a program-cache hit (none) (``profiling*`` lines);
 5. device-module phase: a 2048 x 2048 dpotrf with event-polled
    completion and one under an 8 MB residency budget (eviction
    write-back), each checked against a float64 Cholesky;
@@ -1132,6 +1142,352 @@ def analysis_phase(h):
         tidy=[str(f) for f in findings if f.code == "ENG021"], errors=0,
         seconds=seconds, card=card)
     say("analysis_phase", seconds=time.perf_counter() - t_phase, card=card)
+
+
+# -- the trace stack on the main path ----------------------------------------
+
+def _dag_shape(tp, capture):
+    """(tasks, edges, longest path in tasks, sources) of a taskpool's
+    captured DAG; an edge is a (producer, consumer) pair per flow, as the
+    pump publishes them."""
+    g = capture(tp, ranks=[0])
+    succ = {t: [s for (_f, s, _sf) in n.out_edges if s != t] for t, n in g.nodes.items()}
+    indeg = dict.fromkeys(g.nodes, 0)
+    for t in g.nodes:
+        for s in succ[t]:
+            indeg[s] += 1
+    sources = [t for t, d in indeg.items() if d == 0]
+    depth = dict.fromkeys(g.nodes, 1)
+    ready = list(sources)
+    while ready:
+        t = ready.pop()
+        for s in succ[t]:
+            depth[s] = max(depth[s], depth[t] + 1)
+            indeg[s] -= 1
+            if indeg[s] == 0:
+                ready.append(s)
+    return len(g.nodes), sum(len(v) for v in succ.values()), max(depth.values()), len(sources)
+
+
+def profiling_phase(h):
+    """The trace stack over the main path: dpotrf N=8192 nb=512 f32 (the
+    path's SPD matrix) with every task on the CUDA module and the hand
+    kernels, and the f32 flash-attention prefill at Llama-2-7B's layer.
+
+    Each run goes once untraced and then once under ``RankTraceSet(1)``
+    (the binary tracer): the dynamic ``kernels`` and ``kernels_trtri``
+    at stage depth 1, the pump's ``kernels`` at depth 2 (the lane's
+    ``stage_in`` and the committer's ``writeback`` spans), and the
+    prefill through ``measure_overlap(nranks=1)``.  Each traced output is
+    ``torch.equal`` to the untraced one with the untraced launches (B1
+    680 a dpotrf, B2 120 with ``trtri``, B5 1152 a prefill).  Each dump
+    is read back (``read_pbt``): an ``exec`` pair for every task; the
+    pump's ``dep_edge`` instants are its captured DAG's edges and
+    ``critpath.analyze`` walks a chain as long as the DAG's longest path;
+    the dynamic path's are releases (one a non-source task: the
+    predecessor whose completion made it ready), its ``hb_dep_dec``
+    instants the DAG's edges, and its chain the executed release chain
+    from a source to the last task (the longest path or shorter, both
+    printed); every run's buckets printed.
+    ``tools info``, ``to-csv``, ``critpath`` and ``merge`` run on every
+    dump, ``hbcheck`` on the pump's finds nothing and ``tools check``
+    passes.  A ``GraphExecutor`` of the dpotrf DAG traced cold shows one
+    ``compile`` span; a second one on a same-shaped pool hits the program
+    cache and shows none.  On the card an ``exec`` span is the host's
+    submit of the task, not the kernel's run."""
+    import io
+
+    np, torch, card, say, check = h.np, h.torch, h.card, h.say, h.check
+    from parsec_tpu_torch import Context, compile_cache, mca_param
+    from parsec_tpu_torch.datadist import TiledMatrix
+    from parsec_tpu_torch.dsl import GraphExecutor
+    from parsec_tpu_torch.dsl.graph import capture
+    from parsec_tpu_torch.dsl.native_exec import NativeExecutor
+    from parsec_tpu_torch.ops import (build_flash_attention, cholesky_ptg, kernels,
+                                      run_flash_attention)
+    from parsec_tpu_torch.profiling import critpath, tools
+    from parsec_tpu_torch.profiling.binary import RankTraceSet, read_pbt
+    from parsec_tpu_torch.profiling.overlap import measure_overlap
+
+    nt = N // NB
+    t_phase = time.perf_counter()
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+
+    def counts():
+        return {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+                for fn in (kernels.matmul_update, kernels.matmul, kernels.flash_attention_block)}
+
+    def matrix():
+        return TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32).from_array(h.S)
+
+    def tool(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tools.main(argv)
+        return rc, buf.getvalue()
+
+    def traced(run, trace):
+        """``run()`` under a fresh RankTraceSet (installed only when
+        ``trace``); returns run's result and the set."""
+        ts = RankTraceSet(1).install() if trace else None
+        try:
+            return run(), ts
+        finally:
+            if ts is not None:
+                ts.uninstall()
+
+    def read_back(label, path, shape, pump, wall, plain_wall):
+        ntasks, nedges, longest, sources = shape
+        t0 = time.perf_counter()
+        evs = read_pbt(path)
+        read_s = time.perf_counter() - t0
+        c = {}
+        for e in evs:
+            c[(e["name"], e["ph"])] = c.get((e["name"], e["ph"]), 0) + 1
+        n_exec = (c.get(("exec", "B"), 0), c.get(("exec", "E"), 0))
+        check(n_exec == (ntasks, ntasks), f"profiling {label}: exec pairs {n_exec}, "
+              f"{ntasks} tasks")
+        dep = c.get(("dep_edge", "i"), 0)
+        if pump:
+            check(dep == nedges, f"profiling {label}: {dep} dep_edge instants, "
+                  f"the DAG has {nedges} edges")
+        else:
+            # the dynamic path records a release: the one predecessor whose
+            # completion made its successor ready; every edge decrements
+            dec = c.get(("hb_dep_dec", "i"), 0)
+            check(dep == ntasks - sources and dec == nedges,
+                  f"profiling {label}: {dep} dep_edge (releases, want "
+                  f"{ntasks - sources}), {dec} hb_dep_dec (want {nedges} edges)")
+        t0 = time.perf_counter()
+        rep = critpath.analyze(evs)
+        crit_s = time.perf_counter() - t0
+        chain = [r["token"] for r in rep["chain"]]
+        if pump:
+            # every edge published: the walk from the last task through the
+            # predecessor submitted last is the DAG's longest path
+            check(rep["n_tasks"] == longest, f"profiling {label}: critical path of "
+                  f"{rep['n_tasks']} tasks, the DAG's longest path is {longest}")
+        else:
+            # releases only: the walk is the executed binding chain — from a
+            # source, through each task's releasing predecessor, to the last
+            # task — never longer than the DAG's longest path
+            edges = {(e["args"]["event_id"], e["args"]["info"])
+                     for e in evs if e["name"] == "dep_edge"}
+            released = {d for _p, d in edges}
+            check(chain and chain[0] not in released
+                  and all(pair in edges for pair in zip(chain, chain[1:]))
+                  and 1 < rep["n_tasks"] <= longest,
+                  f"profiling {label}: critical path of {rep['n_tasks']} tasks is not "
+                  f"a release chain from a source (longest path {longest})")
+        rcs = {}
+        for cmd, extra in (("info", []), ("to-csv", ["-o", path + ".csv"]),
+                           ("critpath", []), ("merge", ["-o", path + ".merged.json"])):
+            rc, _out = tool([cmd, path, *extra])
+            rcs[cmd] = rc
+        check(all(rc == 0 for rc in rcs.values()), f"profiling {label}: tools {rcs}")
+        nbytes = os.path.getsize(path) + os.path.getsize(path + ".meta.json")
+        n_events = len(evs)
+        b = rep["buckets"]
+        say("profiling", run=label, N=N if "prefill" not in label else None,
+            tasks=ntasks, dag_edges=nedges, longest_path=longest, wall_s=wall,
+            untraced_wall_s=plain_wall, traced_over_untraced=wall / plain_wall,
+            events=n_events, events_per_task=n_events / ntasks,
+            events_per_s=n_events / wall, dump_bytes=nbytes,
+            exec_pairs=n_exec[0], dep_edges=dep,
+            stage_in_spans=c.get(("stage_in", "B"), 0),
+            writeback_spans=c.get(("writeback", "B"), 0),
+            chain_tasks=rep["n_tasks"], chain_is_longest=rep["n_tasks"] == longest,
+            chain_wall_us=rep["wall_us"],
+            coverage=rep["coverage"], buckets=b,
+            bucket_share={k[:-3]: (v / rep["wall_us"] if rep["wall_us"] else 0.0)
+                          for k, v in b.items()},
+            read_s=read_s, critpath_s=crit_s, tools_rc=rcs, card=card)
+        return rep
+
+    # -- dpotrf: dynamic kernels and kernels_trtri, the depth-2 pump ---------
+    def dpotrf(kw, path):
+        A = matrix()
+        tp = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(NT=nt, A=A)
+        gc.collect()
+        kernels.reset_counts()
+        if path == "dynamic":
+            ctx = Context()
+            try:
+                t0 = time.perf_counter()
+                ctx.add_taskpool(tp)
+                ok = tp.wait(timeout=600)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c = counts()
+            finally:
+                ctx.fini()  # the write-back home: traced too
+            check(ok, f"profiling dpotrf {kw}: taskpool failed ({tp.fail_reason})")
+        else:
+            t0 = time.perf_counter()
+            ex = NativeExecutor(tp, native_device=True)
+            try:
+                check(ex.device.tdev.type == "cuda", f"native device bound to {ex.device.tdev}")
+                ex.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c = counts()
+            finally:
+                ex.close()
+            check(ex._pump, "profiling pump: the pump did not run")
+            check(ex.device.stats["wb_sync_fallbacks"] == 0, "synchronous write-back fallbacks")
+        return A, wall, c
+
+    pump_dump = None
+    lean_ratio = None
+    for name, path, depth in (("kernels", "dynamic", 1), ("kernels_trtri", "dynamic", 1),
+                              ("kernels", "pump", 2)):
+        kw = dict(next(v[1] for v in h.variants if v[0] == name))
+        label = f"dpotrf_{name}_{path}_depth{depth}"
+        shape = _dag_shape(cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(
+            NT=nt, A=TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32)), capture)
+        with mca(mca_param, "runtime", "stage_depth", depth):
+            (A0, plain_wall, plain_c), _ = traced(lambda: dpotrf(kw, path), False)
+            (A1, wall, c), ts = traced(lambda: dpotrf(kw, path), True)
+        p = ts.dump(os.path.join(tdir, label))[0]
+        ts.close()
+        f0, f1 = torch.from_numpy(A0.to_array()), torch.from_numpy(A1.to_array())
+        check(torch.equal(f1, f0) and torch.equal(f0, torch.from_numpy(h.dyn_factor[name])),
+              f"profiling {label}: the traced factor differs from the untraced one "
+              "or from the dynamic path's")
+        want = {k: v for k, v in h.launches[name].items()}
+        got = {k: c[k] for k in want}
+        check(got == {k: plain_c[k] for k in want} == want,
+              f"profiling {label}: launches {got}, untraced {plain_c}, dynamic {want}")
+        check(c["flash_attention_block"]["total"] == 0, f"profiling {label}: B5 launched")
+        h.launches[f"profiling_{name}_{path}"] = got
+        h.launches[f"profiling_{name}_{path}_untraced"] = {k: plain_c[k] for k in want}
+        read_back(label, p, shape, path == "pump", wall, plain_wall)
+        if path == "pump":
+            pump_dump = p
+        elif name == "kernels":
+            # the same run under a lean set: no select or prepare_input
+            # subscribers (a select callback runs on every scheduler poll,
+            # idle ones included, on every worker)
+            def lean():
+                ts = RankTraceSet(1, lean=True).install()
+                try:
+                    return dpotrf(kw, path), ts
+                finally:
+                    ts.uninstall()
+
+            (A2, lean_wall, lean_c), ts = lean()
+            n_lean = ts.traces[0].total_events
+            ts.close()
+            check(torch.equal(torch.from_numpy(A2.to_array()), f0) and lean_c == c,
+                  f"profiling {label} lean: the factor or the launches differ")
+            lean_ratio = lean_wall / plain_wall
+            h.launches[f"profiling_{name}_{path}_lean"] = {k: lean_c[k] for k in want}
+            say("profiling_lean", run=label, wall_s=lean_wall, untraced_wall_s=plain_wall,
+                traced_over_untraced=lean_ratio, events=n_lean,
+                events_per_task=n_lean / shape[0], card=card)
+            del A2
+        del A0, A1, f0, f1
+
+    # -- hbcheck over the pump's dump, and the aggregate gate ---------------
+    rc, out = tool(["hbcheck", pump_dump])
+    summary = out.strip().splitlines()[-1] if out.strip() else ""
+    check(rc == 0 and " 0 race(s), 0 warning(s)" in summary, f"tools hbcheck: rc {rc}, {summary}")
+    t0 = time.perf_counter()
+    rc_check, out = tool(["check", "--hbcheck", pump_dump])
+    check_s = time.perf_counter() - t0
+    check(rc_check == 0, "tools check: " + " | ".join(out.strip().splitlines()[-8:]))
+    say("profiling_tools", hbcheck=summary, check=out.strip().splitlines()[-1],
+        check_s=check_s, card=card)
+
+    # -- the f32 prefill through measure_overlap(nranks=1) ------------------
+    rng = np.random.default_rng(9)
+    pf_in = [torch.from_numpy(rng.standard_normal((ATTN_B, ATTN_S, ATTN_H, ATTN_D)).astype(
+        np.float32)) for _ in range(3)]
+    pf_kw = dict(causal=True, q_block=ATTN_BLOCK, kv_block=ATTN_BLOCK)
+    shape = _dag_shape(build_flash_attention(*pf_in, use_cpu=False, **pf_kw)[0], capture)
+
+    def prefill(stats):
+        """One prefill, traced through measure_overlap when ``stats`` is a
+        dict (the context's fini, the write-back home, inside the scope)."""
+        ctx = Context()
+        kernels.reset_counts()
+        gc.collect()
+        scope = (measure_overlap(stats, nranks=1, trace_dir=os.path.join(tdir, "prefill"))
+                 if stats is not None else contextlib.nullcontext())
+        with scope:
+            try:
+                t0 = time.perf_counter()
+                out = run_flash_attention(ctx, *pf_in, use_cpu=False, **pf_kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c = counts()
+            finally:
+                ctx.fini()
+        return out, wall, c
+
+    plain_out, plain_wall, plain_c = prefill(None)
+    stats = {}
+    out, wall, c = prefill(stats)
+    n_steps = c["flash_attention_block"]["total"]
+    # one B5 launch a step: every task but the (B x H x query blocks) outs
+    steps = shape[0] - ATTN_B * ATTN_H * (ATTN_S // ATTN_BLOCK)
+    check(torch.equal(out, plain_out), "profiling prefill: the traced output differs")
+    check(c == plain_c and n_steps == steps,
+          f"profiling prefill: launches {c}, untraced {plain_c}, {steps} steps")
+    check(stats["n_comm_events"] == 0 and stats["trace_ranks"] == 1,
+          f"profiling prefill: overlap stats {stats}")
+    # B5's launches of the phase join the attention phases' count
+    h.b5_launches["profiling_prefill"] = c["flash_attention_block"]
+    h.b5_launches["profiling_prefill_untraced"] = plain_c["flash_attention_block"]
+    read_back("prefill_f32_dynamic", os.path.join(tdir, "prefill", "rank0.pbt"), shape,
+              False, wall, plain_wall)
+    say("profiling_overlap", run="prefill_f32_dynamic", overlap_fraction=stats["overlap_fraction"],
+        n_comm_events=stats["n_comm_events"], busy_us=stats["busy_us"],
+        trace_ranks=stats["trace_ranks"], card=card)
+    del out, plain_out, pf_in
+
+    # -- capture spans: a cold GraphExecutor, then a program-cache hit -------
+    cache = compile_cache.ProgramCache()  # cold whatever earlier phases cached
+    spans = []
+    for rep in range(2):
+        A = matrix()
+        tp = cholesky_ptg(use_cuda=True, use_cpu=False, use_kernels=True).taskpool(NT=nt, A=A)
+        ex = GraphExecutor(tp)
+        ex.cache = cache
+        kernels.reset_counts()
+
+        def call():
+            t0 = time.perf_counter()
+            ex()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        first_s, ts = traced(call, True)
+        c = counts()
+        h.launches[f"profiling_graph{rep}"] = {k: c[k] for k in ("matmul_update", "matmul")}
+        p = ts.dump(os.path.join(tdir, f"graph{rep}"))[0]
+        ts.close()
+        evs = [e for e in read_pbt(p) if e["name"] == "compile"]
+        n = (sum(e["ph"] == "B" for e in evs), sum(e["ph"] == "E" for e in evs))
+        want = (1, 1) if rep == 0 else (0, 0)
+        check(ex.cache_hit == (rep == 1) and n == want,
+              f"profiling graph {rep}: cache hit {ex.cache_hit}, compile spans {n}")
+        if rep == 0:
+            check(evs[1]["args"]["info"] == 0, "profiling graph: a miss's span not marked miss")
+        check(torch.equal(torch.from_numpy(A.to_array()), torch.from_numpy(h.dyn_factor["kernels"])),
+              f"profiling graph {rep}: the factor differs from the dynamic path's")
+        spans.append(n[0])
+        say("profiling_capture", rep=rep, cache_hit=ex.cache_hit, compile_spans=n[0],
+            compile_us=(evs[1]["ts"] - evs[0]["ts"]) if evs else 0.0, first_call_s=first_s,
+            capture_s=ex.capture_s,
+            launches={f"{fn}.{mode}": n for (fn, mode), n in ex.launches.items()}, card=card)
+        del ex, tp, A
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tdir, ignore_errors=True)
+    say("profiling_phase", seconds=time.perf_counter() - t_phase,
+        lean_traced_over_untraced=lean_ratio, card=card)
 
 
 def batched_graph(h, label, tp, feeds, ref_out, ref_median_s, kernel_of, tasks, exact,
@@ -3060,6 +3416,13 @@ def main() -> int:
     analysis_phase(types.SimpleNamespace(
         np=np, torch=torch, card=card, say=say, check=check, S=S,
         variants=variants, launches=launches, dyn_factor=dyn_factor))
+
+    # -- the trace stack: traced dpotrf, pump, prefill and a capture ---------
+    profiling_b5 = {}
+    profiling_phase(types.SimpleNamespace(
+        np=np, torch=torch, card=card, say=say, check=check, S=S,
+        variants=variants, launches=launches, dyn_factor=dyn_factor,
+        b5_launches=profiling_b5))
     del dyn_factor
 
     # -- device-module phase: the CUDA module's GPU-only paths ----------------
@@ -3146,7 +3509,7 @@ def main() -> int:
         ("attn_decode", (dec_q[:, -DEC_SQ:], dec_k, dec_v), torch.float32,
          dict(causal=True, q_block="auto", kv_block=ATTN_BLOCK), TOL_ATTN_F32),
     ]
-    attn_launches = {}
+    attn_launches = dict(profiling_b5)
     attn_out, attn_wall = {}, {}
     for name, (q_np, k_np, v_np), dt, kw, tol in attn_runs:
         q_in, k_in, v_in = (torch.from_numpy(a).to(dt) for a in (q_np, k_np, v_np))

@@ -18,9 +18,8 @@ expression and affinity lint — without executing a single task body:
 Runtime-concurrency layer (``RT0xx`` finding codes):
 
 * :mod:`.hb` — vector-clock happens-before race checker over the
-  runtime's PINS event streams, live (``PARSEC_TPU_HBCHECK=1|strict``);
-  its offline reader of binary traces comes with the profiling layer
-  (ROADMAP A.9b, second half);
+  runtime's PINS event streams, live (``PARSEC_TPU_HBCHECK=1|strict``)
+  and offline over binary ``.pbt`` dumps (``tools hbcheck``);
 * :mod:`.schedules` — deterministic schedule explorer at one rank:
   seeded pop order and completion timing, with bit-identical-results +
   clean-hb-check assertions per seed;

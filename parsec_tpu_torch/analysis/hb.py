@@ -1,6 +1,6 @@
 """hb-check — vector-clock happens-before race detection for the runtime.
 
-The port of :mod:`parsec_tpu.analysis.hb`, its live half.  The static
+The port of :mod:`parsec_tpu.analysis.hb`.  The static
 linter (:mod:`.linter`) proves the *declared* graph is sound; this module
 checks the *executed schedule*: every pair of conflicting runtime events
 (two version commits to one tile, an arena slot recycle racing another,
@@ -32,10 +32,10 @@ PINS, records events (with compact stacks), and ``analyze()`` returns
 :class:`~parsec_tpu_torch.analysis.findings.Finding` objects with
 ``RTxxx`` codes.  ``PARSEC_TPU_HBCHECK=1`` installs a process-wide
 recorder whose findings are reported at ``Context.fini`` (``strict``
-raises).  The post-hoc front-end over binary trace dumps
-(:func:`events_from_trace`, :func:`analyze_trace`, ``tools hbcheck``)
-needs the binary trace reader, which comes with the profiling layer
-(ROADMAP A.9b, second half): both raise naming it.
+raises).  The post-hoc front-end reads the same event kinds out of
+binary ``.pbt`` dumps of a :class:`~parsec_tpu_torch.profiling.binary.
+RankTraceSet` (:func:`events_from_trace`, :func:`analyze_trace`, ``tools
+hbcheck``).
 """
 
 from __future__ import annotations
@@ -457,16 +457,80 @@ def live_report(strict: Optional[bool] = None) -> List[Finding]:
 # post-hoc trace front-end (tools hbcheck)
 # ---------------------------------------------------------------------------
 
+#: trace keyword -> analyzer kind, for the hb_* instants RankTraceSet
+#: records (:mod:`parsec_tpu_torch.profiling.binary`)
+TRACE_KINDS = {
+    "hb_dep_dec": "dep_dec",
+    "hb_ver_bump": "ver_bump",
+    "hb_arena_alloc": "arena_alloc",
+    "hb_arena_recycle": "arena_recycle",
+    "hb_frame_send": "frame_send",
+    "hb_frame_deliver": "frame_deliver",
+    "hb_task_done": "task_done",
+    "hb_stage_in": "stage_in",
+    "hb_wb_enqueue": "wb_enqueue",
+    "hb_wb_commit": "wb_commit",
+}
+
+
 def events_from_trace(paths: Iterable[str]) -> List[HBEvent]:
-    """Decode hb-relevant events out of binary ``.pbt`` dumps: needs the
-    binary trace reader, which is not ported yet."""
-    raise NotImplementedError(
-        "hb-check over binary traces needs the binary trace reader, which "
-        "comes with the profiling layer (ROADMAP A.9b, second half)")
+    """Decode hb-relevant events out of one or more ``.pbt`` dumps (one
+    per rank; same-process ranks share the monotonic clock so timestamps
+    interleave correctly; multi-process dumps should be clock-aligned by
+    ``tools merge`` conventions first)."""
+    from ..profiling.binary import read_pbt
+
+    raw: List[Tuple[float, int, HBEvent]] = []
+    n = itertools.count(1)
+    for path in paths:
+        for e in read_pbt(path):
+            name, ph = e["name"], e["ph"]
+            pid = e.get("pid", 0)
+            thread = f"r{pid}/{e.get('tid')}"
+            args = e.get("args", {})
+            eid, info = args.get("event_id", 0), args.get("info", 0)
+            kind = obj = None
+            extra: Any = None
+            if name in TRACE_KINDS and ph == "i":
+                kind = TRACE_KINDS[name]
+                if kind == "dep_dec":
+                    obj, extra = ("dep", pid, eid), {"ready": bool(info)}
+                elif kind == "ver_bump":
+                    obj, extra = ("data", pid, eid), {"version": info}
+                elif kind in ("arena_alloc", "arena_recycle"):
+                    obj = ("slot", pid, eid)
+                elif kind in ("frame_send", "frame_deliver"):
+                    obj = eid
+                elif kind == "task_done":
+                    obj, extra = ("ntask", eid), {"accepted": bool(info)}
+                elif kind == "stage_in":
+                    obj = eid          # task token (same space as exec)
+                elif kind in ("wb_enqueue", "wb_commit"):
+                    obj = eid          # committer ticket
+            elif name == "dep_edge" and ph == "i":
+                kind, obj = "dep_edge", (eid, info)
+            elif name == "sched_publish" and ph == "i":
+                kind, obj = "task_publish", eid
+            elif name == "exec" and ph in ("B", "E"):
+                kind = "exec_begin" if ph == "B" else "exec_end"
+                obj = eid
+            elif name == "complete_exec" and ph == "B":
+                kind, obj = "complete_begin", eid
+            if kind is None:
+                continue
+            idx = next(n)
+            raw.append((e["ts"], idx, HBEvent(idx, thread, kind, obj, extra)))
+    raw.sort(key=lambda t: (t[0], t[1]))
+    out = []
+    for seq, (_ts, _i, ev) in enumerate(raw, 1):
+        ev.seq = seq
+        out.append(ev)
+    return out
 
 
 def analyze_trace(paths) -> List[Finding]:
     """``tools hbcheck`` core: happens-before analysis over binary trace
-    dump(s) — not ported yet (see :func:`events_from_trace`)."""
-    return analyze_events(events_from_trace(
-        [paths] if isinstance(paths, str) else paths))
+    dump(s)."""
+    if isinstance(paths, str):
+        paths = [paths]
+    return analyze_events(events_from_trace(paths))

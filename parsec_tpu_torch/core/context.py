@@ -47,10 +47,10 @@ from .taskpool import Taskpool
 #: environment switches of reference features the port has not ported yet
 #: (env var -> ROADMAP item); a set switch raises instead of being ignored
 _UNPORTED_ENV = {
-    "PARSEC_TPU_FLIGHT": "A.9b (profiling: flight recorder)",
-    "PARSEC_TPU_HEALTH": "A.9b (profiling: health exporter)",
-    "PARSEC_TPU_WATCHDOG": "A.9b (profiling: watchdog)",
-    "PARSEC_TPU_SLO": "A.9b (profiling: SLO plane)",
+    "PARSEC_TPU_FLIGHT": "A.9b part 2 (profiling: flight recorder)",
+    "PARSEC_TPU_HEALTH": "A.9b part 2 (profiling: health exporter)",
+    "PARSEC_TPU_WATCHDOG": "A.9b part 2 (profiling: watchdog)",
+    "PARSEC_TPU_SLO": "A.9b part 2 (profiling: SLO plane)",
 }
 
 

@@ -66,11 +66,18 @@ def execute(context: "Context", es: "ExecutionStream", task: "Task") -> HookRetu
             )
     chore = task.selected_chore
     task.status = TaskStatus.HOOK
-    pins.fire(pins.EXEC_BEGIN, es, task)
+    # a device module that runs the task on a thread of its own fires the
+    # EXEC pins around its submit there (the CUDA module: this hook only
+    # hands the task to its manager, whose loop may run many other tasks
+    # inside this call), so the core does not wrap its hook
+    wrap = not getattr(task.selected_device, "fires_exec_pins", False)
+    if wrap:
+        pins.fire(pins.EXEC_BEGIN, es, task)
     rc = chore.hook(es, task)
     if rc is None:
         rc = HookReturn.DONE
-    pins.fire(pins.EXEC_END, es, task)
+    if wrap:
+        pins.fire(pins.EXEC_END, es, task)
     return rc
 
 

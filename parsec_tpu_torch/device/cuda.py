@@ -461,6 +461,12 @@ class CudaDevice(Device):
     mca_name = "cuda"
     mca_priority = 50
     device_type = DEV_CUDA
+    #: this module fires every task's EXEC pins around the task's submit
+    #: (on its manager thread, or the pump's), for the dynamic path, the
+    #: pump and the legacy protocol alike: the scheduling core's hook only
+    #: hands the task over.  On the card the span is the host's submit
+    #: (staging, launch, epilog enqueue), not the kernel's run
+    fires_exec_pins = True
 
     def __init__(self, context, index):
         super().__init__(context, index)
@@ -744,9 +750,9 @@ class CudaDevice(Device):
         counted in ``stats["wave_fallbacks"]``, warned about, and its
         not-yet-committed tasks go per task; once a task's epilog has
         begun, its failure fails the pool inside :meth:`_submit_wave`.
-        In pump mode (``complete=False``) no scheduling core wraps the
-        tasks in EXEC pins, so they fire here, ``task.prof["wave"]``
-        holding the chunk size (0 for a per-task submit)."""
+        Every task's EXEC pins fire here around its submit
+        (:attr:`fires_exec_pins`), ``task.prof["wave"]`` holding the
+        chunk size (0 for a per-task submit)."""
         units: List[Tuple[bool, Any]] = []
         buckets: Dict[Any, List[Task]] = {}
         for task in tasks:
@@ -762,8 +768,7 @@ class CudaDevice(Device):
                 group = buckets[key] = []
                 units.append((True, (group, sig)))
             group.append(task)
-        exec_pins = not complete and (pins.active(pins.EXEC_BEGIN)
-                                      or pins.active(pins.EXEC_END))
+        exec_pins = pins.active(pins.EXEC_BEGIN) or pins.active(pins.EXEC_END)
         for is_wave, item in units:
             if not is_wave:
                 self._submit_single(item, es, complete, exec_pins)
@@ -883,8 +888,7 @@ class CudaDevice(Device):
         if sig is None:
             sig = self._wave_signature(tasks[0])
         cap = max(1, self._chunk_cap(sig))
-        exec_pins = not complete and (pins.active(pins.EXEC_BEGIN)
-                                      or pins.active(pins.EXEC_END))
+        exec_pins = pins.active(pins.EXEC_BEGIN) or pins.active(pins.EXEC_END)
         eager = self._eager or not complete
         start = 0
         remaining = len(tasks)

@@ -43,6 +43,7 @@ import torch
 
 from .. import compile_cache
 from ..core.lifecycle import AccessMode, DEV_CUDA
+from ..profiling import jobtrace, pins
 from ..utils import debug
 from .graph import TaskGraph, capture as capture_dag
 from .ptg import CTL, PTGTaskpool
@@ -610,13 +611,27 @@ class GraphExecutor:
             self._groups = prog.groups
             self._warm_up(ins, stream)
         else:
-            static_in = self._warm_up(ins, stream)
-            reserved = torch.cuda.memory_reserved(self.device)
-            graph, static_out, launches = capture_graph(lambda: self._run(static_in), stream)
-            pool = torch.cuda.memory_reserved(self.device) - reserved
-            prog = _CapturedDAG(graph, static_in, static_out, launches, pool, self)
-            self.cache.put(fp, prog)
-            self.capture_s = time.perf_counter() - t0
+            # a miss is a compile: one COMPILE_BEGIN/END span around the
+            # warm-up and the capture (the reference's payload keys; a hit
+            # fires nothing), so a trace's critical path shows the capture
+            span = pins.active(pins.COMPILE_BEGIN) or pins.active(pins.COMPILE_END)
+            payload = {"rank": getattr(getattr(self.taskpool, "context", None), "rank", 0),
+                       "fp": fp, "key": f"graph:{self.program_digest}",
+                       "trace": jobtrace.current()}
+            if span:
+                pins.fire(pins.COMPILE_BEGIN, None, dict(payload))
+            try:
+                static_in = self._warm_up(ins, stream)
+                reserved = torch.cuda.memory_reserved(self.device)
+                graph, static_out, launches = capture_graph(lambda: self._run(static_in), stream)
+                pool = torch.cuda.memory_reserved(self.device) - reserved
+                prog = _CapturedDAG(graph, static_in, static_out, launches, pool, self)
+                self.cache.put(fp, prog)
+            finally:
+                self.capture_s = time.perf_counter() - t0
+                if span:
+                    pins.fire(pins.COMPILE_END, None,
+                              dict(payload, kind="miss", seconds=self.capture_s))
         prog.hold(self)
         self._prog = prog
         self.launches = prog.launches

@@ -103,13 +103,16 @@ def _sched_seed() -> int:
 
 class _TaskInfo:
     """Task stand-in for PINS subscribers on the CPU trampoline path:
-    carries the attributes observers read (``task_class.name``, ``prof``,
-    ``repr``)."""
+    carries the attributes observers read (``task_class.name``,
+    ``locals``, ``taskpool``, ``prof``, ``repr``)."""
 
-    __slots__ = ("task_class", "prof", "_r")
+    __slots__ = ("task_class", "locals", "taskpool", "prof", "_r")
 
     def __init__(self, cname: str, detail: Any):
         self.task_class = types.SimpleNamespace(name=cname)
+        self.locals = detail
+        #: no pool: the trace's job and tenant instants come from a pool
+        self.taskpool = None
         self.prof: Dict[str, Any] = {}
         self._r = f"{cname}{detail}"
 
@@ -409,6 +412,10 @@ class NativeExecutor:
         self._regions: List[Any] = []
         self._region_of: Dict[Tuple, Any] = {}
         self._plans: List[FusedPlan] = []
+        #: per task id: the object its EXEC pins fire with (the prebuilt
+        #: device task, a fused region's supertask, or the CPU body's
+        #: stand-in), so trace edges join the exec spans' tokens
+        self._trace_objs: Dict[Tuple, Any] = {}
         if self.native_device:
             self._regions = partition(self.graph, tp.ptg.classes, mode=mode,
                                       max_tasks=fusion_max_tasks(device=self.device))
@@ -472,6 +479,7 @@ class NativeExecutor:
                         user_tag=len(self._bodies))
                     self._bodies.append(self._make_fused_dispatch(reg, rid))
                 index[tid] = rid
+                self._trace_objs[tid] = self._pump_index[rid]
                 continue
             node = g.nodes[tid]
             index[tid] = ng.add_task(priority=node.priority,
@@ -480,6 +488,7 @@ class NativeExecutor:
             if isinstance(body, _NativeDeviceTask):
                 body.native_id = index[tid]
                 self._pump_index[index[tid]] = body
+                self._trace_objs[tid] = body
             self._bodies.append(body)
         # with regions, the contracted edges are DEDUPLICATED (add_dep is
         # symmetric: one in-degree per declared edge, one release per
@@ -577,7 +586,7 @@ class NativeExecutor:
         scalars = self._scalars_of(pc, locs)
         wbs = [(src, tp.constants[cname2].data_of(*key))
                for (src, cname2, key) in self._write_back_plan(tid)]
-        info = _TaskInfo(cname, locs)
+        info = self._trace_objs[tid] = _TaskInfo(cname, locs)
 
         def body() -> bool:
             pins.fire(pins.EXEC_BEGIN, None, info)
@@ -820,7 +829,7 @@ class NativeExecutor:
             home = ("data", cname2, tuple(key))
             write_backs.append((src if src != home else None, cname2, tuple(key)))
 
-        info = _TaskInfo(cname, locs)
+        info = self._trace_objs[tid] = _TaskInfo(cname, locs)
 
         def body() -> None:
             # PINS sites fire with es=None: the native engine owns
@@ -850,6 +859,8 @@ class NativeExecutor:
         ``runtime_vpmap``: the workers split into VP locality domains and
         the native steal path prefers same-VP victims."""
         self._apply_vpmap(nthreads)
+        if pins.active(pins.RELEASE_DEPS_END):
+            self._emit_trace_edges()
         if self._pump:
             n = self._run_pump()
         elif self.native_device:
@@ -869,6 +880,25 @@ class NativeExecutor:
             raise RuntimeError(
                 f"native engine retired {n}/{len(self._bodies)} tasks")
         return len(self.graph.nodes)
+
+    def _emit_trace_edges(self) -> None:
+        """Publish the captured DAG's edges to trace observers in ONE
+        pre-run pass through the RELEASE_DEPS_END site (the payload of
+        the dynamic runtime's release, ``(task, successors)``): the
+        engine releases successors natively, so no per-task release runs
+        in Python, and ``profiling.critpath`` gets its predecessor map
+        with no hot-loop instrumentation.  The objects are the ones each
+        task's EXEC pins fire with, so the edges join the exec spans'
+        tokens; an edge inside a fused region ran in the fused body and
+        is left out."""
+        for tid, node in self.graph.nodes.items():
+            if not node.out_edges:
+                continue
+            me = self._trace_objs[tid]
+            succs = [self._trace_objs[s] for (_f, s, _sf) in node.out_edges
+                     if self._trace_objs[s] is not me]
+            if succs:
+                pins.fire(pins.RELEASE_DEPS_END, None, (me, succs))
 
     def _run_legacy(self, nthreads: int) -> int:
         """The legacy ASYNC-chore protocol: native workers enter the

@@ -17,6 +17,9 @@ offset allocator the CUDA device module accounts device bytes with
 (:mod:`parsec_tpu_torch.dsl.cuda_graph`).  :class:`NativeReadyQueue` is
 the ready-queue state of the ``spq`` and ``wdrr`` schedulers under
 ``sched_native_queue=1`` (the pump's own SchedQ, A.10e).
+:class:`NativeTracer` is the binary event tracer under
+:mod:`parsec_tpu_torch.profiling.binary` (one native buffer per thread,
+``steady_clock`` timestamps taken in C++, ``PBTRACE1`` dumps).
 
 There is no fallback.  A missing source, a failed g++ run or a library
 that lacks a declared symbol raises ``RuntimeError`` carrying the cause
@@ -31,7 +34,7 @@ for the hierarchical steal.  :meth:`NativeGraph.events_enable` /
 events (``EVT_DEP_DEC``, ``EVT_PUBLISH``, ``EVT_RETIRE``), which the
 pump republishes into PINS for the hb checker and the engine verifier
 replays against its model.  Not ported yet: the per-tenant ``wdrr`` pump
-policy of the serve executor (A.9c) and the binary tracer (A.10f).
+policy of the serve executor (A.9c).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import itertools
 import os
 import subprocess
 import threading
+import time
 from typing import Any, Callable, List, Optional
 
 from ..profiling import pins
@@ -442,5 +446,104 @@ class NativeReadyQueue:
     def __del__(self):  # pragma: no cover
         try:
             self.close()
+        except Exception:
+            pass
+
+
+class NativeTracer:
+    """Binary event tracer with native per-stream buffers and
+    steady-clock nanosecond timestamps (reference role:
+    ``parsec/profiling.c`` per-thread dbp buffers).
+
+    A stream is claimed per thread on its first log (a
+    ``threading.local`` per tracer: the CUDA module's manager, the pump,
+    the stage lane and the write-back committer each log into their own);
+    a dump writes a ``PBTRACE1`` file of every stream's records, readable
+    by :func:`parsec_tpu_torch.profiling.binary.read_pbt`.  The streams
+    belong to the native tracer, not to their threads: a thread that has
+    exited keeps its records until the tracer is destroyed.  Keyword names
+    live Python-side (:class:`~parsec_tpu_torch.profiling.binary.BinaryTrace`
+    pairs the dump with a sidecar).  There is no fallback: an engine that
+    cannot be built, a failed allocation or a failed dump raises."""
+
+    PHASE_BEGIN, PHASE_END, PHASE_INSTANT, PHASE_COUNTER = 0, 1, 2, 3
+
+    def __init__(self):
+        self._lib = load()
+        # the native t0 (steady_clock, CLOCK_MONOTONIC on Linux) is taken
+        # inside pt_tracer_new: the midpoint of the monotonic clock read
+        # on either side of the call places it within half the call's span
+        before = time.monotonic_ns()
+        self._t = self._lib.pt_tracer_new()
+        #: absolute monotonic ns of the native timestamps' zero
+        self.epoch_ns = (before + time.monotonic_ns()) // 2
+        if not self._t:
+            raise MemoryError("pt_tracer_new failed")
+        self._tls = threading.local()
+        self._streams_lock = threading.Lock()
+        self._stream_names: List[str] = []
+
+    def _stream(self, t):
+        s = getattr(self._tls, "s", None)
+        if s is None:
+            s = self._lib.pt_stream_new(t)
+            if not s:
+                raise MemoryError("pt_stream_new failed")
+            self._tls.s = s
+            # the name goes at the NATIVE stream id: two threads racing
+            # their first log must not cross-label each other's events
+            sid = self._lib.pt_stream_id(s)
+            with self._streams_lock:
+                while len(self._stream_names) <= sid:
+                    self._stream_names.append("")
+                self._stream_names[sid] = threading.current_thread().name
+        return s
+
+    def log(self, keyword: int, phase: int, event_id: int = 0,
+            info: int = 0) -> None:
+        # close() only detaches the handle (the native buffers go when this
+        # object is collected): a logger still subscribed while the tracer
+        # closes either sees None and logs nothing, or logs into live
+        # native memory
+        t = self._t
+        if t is None:
+            return
+        self._lib.pt_log(t, self._stream(t), keyword, phase, event_id, info)
+
+    def stream_names(self) -> List[str]:
+        with self._streams_lock:
+            return list(self._stream_names)
+
+    @property
+    def total_events(self) -> int:
+        if self._t is None:
+            return 0
+        return self._lib.pt_total_events(self._t)
+
+    def dump(self, path: str) -> int:
+        if self._t is None:
+            raise OSError("tracer is closed")
+        n = self._lib.pt_dump(self._t, path.encode())
+        if n < 0:
+            raise OSError(f"cannot write trace to {path}")
+        return n
+
+    def close(self) -> None:
+        """Detach: later logs do nothing and a dump raises.  The native
+        buffers are destroyed only when this object is collected, so a
+        logger racing the close (it holds a reference through its bound
+        callback) never touches freed memory."""
+        t = getattr(self, "_t", None)
+        if t:
+            self._t = None
+            self._closed_handle = t
+
+    def __del__(self):  # pragma: no cover
+        try:
+            t = getattr(self, "_t", None) or getattr(self, "_closed_handle", None)
+            if t:
+                self._t = None
+                self._closed_handle = None
+                self._lib.pt_tracer_destroy(t)
         except Exception:
             pass

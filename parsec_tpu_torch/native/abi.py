@@ -338,9 +338,9 @@ def abi_findings(lib_path: Optional[str] = None,
     * spec vs the built ``.so`` (when ``lib_path`` names one) — ENG001
       declared symbol missing from the library, ENG002 undeclared
       export, ENG005 library older than its sources (stale build);
-    * trace record layout vs trace.cpp — ENG006.  (The reference also
-      holds its Python ``.pbt`` reader to it; the port's reader comes
-      with the binary tracer, ROADMAP A.10f.)
+    * trace record layout vs trace.cpp, and the ``.pbt`` reader's record
+      dtype (:data:`parsec_tpu_torch.profiling.binary._RECORD_DTYPE`) vs
+      the spec — ENG006.
     """
     from ..analysis.findings import Finding
 
@@ -408,7 +408,11 @@ def abi_findings(lib_path: Optional[str] = None,
     return out
 
 
-def _record_layout_findings(src_dir: Optional[str] = None) -> List[Any]:
+def _record_layout_findings(src_dir: Optional[str] = None,
+                            record_dtype=None) -> List[Any]:
+    """ENG006: the spec's trace record against its own size, against
+    trace.cpp's ``struct Record`` and against the ``.pbt`` reader's
+    record dtype (``record_dtype``, default the reader's own)."""
     from ..analysis.findings import Finding
 
     out: List[Any] = []
@@ -424,4 +428,17 @@ def _record_layout_findings(src_dir: Optional[str] = None) -> List[Any]:
             f"trace record layout drift: spec declares {TRACE_RECORD} "
             f"but trace.cpp defines {src} (every .pbt reader depends on "
             "this byte layout)"))
+    if record_dtype is None:
+        from ..profiling.binary import _RECORD_DTYPE as record_dtype
+    py = [(n, "i32" if record_dtype[n].itemsize == 4 else "i64")
+          for n in record_dtype.names]
+    # the reader's field names are its own (shorter) vocabulary; the
+    # contract is positional: field count, per-field width, total size
+    if ([t for _, t in py] != [t for _, t in TRACE_RECORD]
+            or record_dtype.itemsize != TRACE_RECORD_SIZE):
+        out.append(Finding(
+            "ENG006",
+            f"trace record layout drift: profiling.binary reads "
+            f"{record_dtype.itemsize}B records {py} but the ABI spec "
+            f"declares {TRACE_RECORD_SIZE}B {TRACE_RECORD}"))
     return out

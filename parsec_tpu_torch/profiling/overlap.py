@@ -1,0 +1,98 @@
+"""Comm/compute overlap measurement as a reusable scope — PER RANK.
+
+The port of :mod:`parsec_tpu.profiling.overlap`: the scope records one
+binary trace per rank (:class:`~parsec_tpu_torch.profiling.binary.
+RankTraceSet`) and computes each rank's fraction of comm events that
+land inside its own exec spans.  The port runs one rank a process, and
+nothing fires comm events before the comm layer is ported (ROADMAP
+A.8): at one rank the scope reports ``n_comm_events == 0`` and an
+overlap of 0, and still yields the rank's busy time, its dump and (with
+``trace_dir``) a merged trace.  ``nranks > 1`` raises naming A.8.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import tempfile
+from typing import Dict, Iterator, List, Optional
+
+
+@contextlib.contextmanager
+def measure_overlap(stats: Dict, *, nranks: int = 1,
+                    trace_dir: Optional[str] = None,
+                    traces=None) -> Iterator[Dict]:
+    """Context manager: record per-rank task/comm traces for everything
+    run inside the scope; on exit merge into ``stats``:
+
+    * ``overlap_fraction`` — MEAN across ranks of each rank's fraction
+      of comm events landing inside its own exec-busy union (ranks with
+      no comm events don't participate);
+    * ``overlap_min`` / ``overlap_per_rank`` — the straggler view: one
+      stalled rank shows up here even when the mean looks healthy;
+    * ``overlap_union`` — the legacy all-ranks-unioned figure;
+    * ``n_comm_events`` / ``busy_us`` — totals (union busy time);
+    * with ``trace_dir``: per-rank ``rank<r>.pbt`` dumps plus ONE merged
+      Chrome trace (``stats["merged_trace"]``, one track per rank,
+      ``stats["trace_ranks"]`` tracks).
+
+    Pass a pre-built installed-or-not :class:`RankTraceSet` via
+    ``traces`` to keep its dumps.  Raises when the native engine cannot
+    be built (there is no fallback)."""
+    from .binary import RankTraceSet, to_chrome_events
+    from .tools import comm_overlap_fraction
+
+    if nranks > 1:
+        raise NotImplementedError(
+            f"measure_overlap(nranks={nranks}) needs the comm layer, "
+            "which is not ported yet (ROADMAP A.8)")
+
+    ts = traces if traces is not None else RankTraceSet(nranks)
+    ts.install()
+    try:
+        yield stats
+    finally:
+        ts.uninstall()
+        own_dir = None
+        if trace_dir is None:
+            own_dir = tempfile.mkdtemp(prefix="parsec_tpu_trace_")
+        directory = trace_dir or own_dir
+        try:
+            paths = ts.dump(directory)
+            per_rank_events: List[List[dict]] = [
+                to_chrome_events(p) for p in paths]
+            fractions: List[float] = []
+            per_rank: List[Optional[float]] = []
+            n_comm_total = 0
+            for evs in per_rank_events:
+                frac, n_comm, _busy = comm_overlap_fraction(evs)
+                n_comm_total += n_comm
+                per_rank.append(round(frac, 4) if n_comm else None)
+                if n_comm:
+                    fractions.append(frac)
+            all_events = [e for evs in per_rank_events for e in evs]
+            union_frac, _n, busy_us = comm_overlap_fraction(all_events)
+            stats["overlap_per_rank"] = per_rank
+            stats["overlap_fraction"] = round(
+                sum(fractions) / len(fractions), 4) if fractions else 0.0
+            stats["overlap_min"] = round(min(fractions), 4) \
+                if fractions else 0.0
+            stats["overlap_union"] = round(union_frac, 4)
+            stats["n_comm_events"] = n_comm_total
+            stats["busy_us"] = busy_us
+            if trace_dir is not None:
+                from .merge import merge_traces
+
+                merged_path = os.path.join(trace_dir, "merged.trace.json")
+                doc = merge_traces(paths, out=merged_path)
+                stats["merged_trace"] = merged_path
+                stats["trace_ranks"] = len(doc["metadata"]["ranks"])
+        finally:
+            # release the native tracer buffers: repeated measurement
+            # scopes must not accumulate per-rank native buffers for the
+            # life of the process
+            ts.close()
+            if own_dir is not None:
+                import shutil
+
+                shutil.rmtree(own_dir, ignore_errors=True)

@@ -5,9 +5,12 @@ flags fired from the scheduling core; modules subscribe per-site.  Here
 ``fire`` is a near-no-op unless at least one subscriber is registered for
 the site (the reference gates with an enable mask, ``pins.h:161-171``).
 
-The port carries the sites its runtime core and staging pipeline fire;
-the comm, collective, serving and compile sites of
-:mod:`parsec_tpu.profiling.pins` arrive with the layers that fire them.
+The port declares every site of :mod:`parsec_tpu.profiling.pins`, so a
+subscriber (the binary tracer's :class:`~.binary.RankTraceSet`) wires
+itself as the reference's does.  Not every site has a firing site yet:
+the comm, collective and activation sites wait for the comm layer
+(ROADMAP A.8), the job sites for the serving plane (A.9c), and
+``DATA_FLUSH_*`` has none in the reference either.
 """
 
 from __future__ import annotations
@@ -22,15 +25,53 @@ PREPARE_INPUT_BEGIN = "prepare_input_begin"
 PREPARE_INPUT_END = "prepare_input_end"
 RELEASE_DEPS_BEGIN = "release_deps_begin"
 RELEASE_DEPS_END = "release_deps_end"
-# EXEC fires with the task around its body; in pump mode the device module
-# fires it (no scheduling core wraps the hook there) for every member of a
-# wave, with ``task.prof["wave"]`` the chunk size (0 for a per-task submit)
+# EXEC fires with the task around its body; for a task on the CUDA module
+# the module fires it around the task's submit (on the dynamic path, the
+# pump and the legacy protocol alike; the core's hook only hands the task
+# over), for every member of a wave, with ``task.prof["wave"]`` the chunk
+# size (0 for a per-task submit)
 EXEC_BEGIN = "exec_begin"
 EXEC_END = "exec_end"
 COMPLETE_EXEC_BEGIN = "complete_exec_begin"
 COMPLETE_EXEC_END = "complete_exec_end"
 SCHEDULE_BEGIN = "schedule_begin"
 SCHEDULE_END = "schedule_end"
+# remote-activation callback and data flush: named for subscribers; the
+# activation site fires with the comm layer (ROADMAP A.8), the flush
+# sites have no firing site in the reference either
+ACTIVATE_CB_BEGIN = "activate_cb_begin"
+ACTIVATE_CB_END = "activate_cb_end"
+DATA_FLUSH_BEGIN = "data_flush_begin"
+DATA_FLUSH_END = "data_flush_end"
+# comm-thread sites: protocol instants ({"rank", "dst"|"peer", "bytes",
+# "trace", "proto"}) and one begin/end span per frame crossing the
+# transport ({"rank", "peer", "bytes", "tag", "qdepth"}).  Nothing fires
+# them before the comm layer is ported (ROADMAP A.8)
+COMM_ACTIVATE = "comm_activate"
+COMM_DATA_CTL = "comm_data_ctl"
+COMM_DATA_PLD = "comm_data_pld"
+COMM_SEND_BEGIN = "comm_send_begin"
+COMM_SEND_END = "comm_send_end"
+COMM_RECV_BEGIN = "comm_recv_begin"
+COMM_RECV_END = "comm_recv_end"
+# collective spans, one begin/end per op ({"rank","id","kind","bytes",
+# "nranks"}) and one COLL_SEG instant per landed segment: the comm layer
+# fires them (ROADMAP A.8)
+COLL_BEGIN = "coll_begin"
+COLL_END = "coll_end"
+COLL_SEG = "coll_seg"
+# serving-plane job lifecycle ({"rank","trace","tenant","job_id"}): the
+# serving plane fires them (ROADMAP A.9c)
+JOB_SUBMIT = "job_submit"
+JOB_ADMIT = "job_admit"
+JOB_DONE = "job_done"
+# program-cache compile spans: one begin/end pair around a CUDA-graph
+# capture that missed the program cache (dsl/cuda_graph.py's
+# GraphExecutor), payload {"rank","fp","key","trace"} (+ "kind" and
+# "seconds" on END).  A cache hit fires nothing.  Binary traces record
+# them as ``compile`` spans, critpath's ``compile`` bucket
+COMPILE_BEGIN = "compile_begin"
+COMPILE_END = "compile_end"
 # happens-before sites: runtime transitions whose ORDERING decides
 # concurrency correctness.  They fire with ``es=None`` and a dict payload;
 # producers guard payload construction behind ``active()`` so the hot

@@ -1,5 +1,5 @@
 """The port's happens-before race checker (parsec_tpu_torch.analysis.hb)
-against the JAX package's: its live half.
+against the JAX package's: its live half and its offline front-end.
 
 The analyzer cases of the reference's ``tests/analysis/test_hbcheck.py``
 feed the same synthetic event streams to both packages' analyzers, which
@@ -9,8 +9,9 @@ give the same code).  Beyond those: ``PARSEC_TPU_HBCHECK`` on the port's
 ``Context`` (the dynamic path and the pump at stage depth 2, where the
 transfer lane and the write-back committer add their edges, and the
 pump's lifecycle-event drain its native decrements), and the offline
-front-end raising naming ROADMAP A.9b.  Findings of live runs are
-compared as (code, severity): their subjects name Python objects.
+front-end over ``.pbt`` dumps of either package (a seeded race gives the
+reference's findings; a traced pump run is clean).  Findings of live runs
+are compared as (code, severity): their subjects name Python objects.
 """
 
 import collections
@@ -324,11 +325,15 @@ def test_arena_recycle_guard(bypass):
     assert out[0] == out[1] == ([("RT002", "error")] if bypass else [])
 
 
-def test_offline_front_end_waits_for_the_profiling_layer():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-        hb.events_from_trace(["rank0.pbt"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-        hb.analyze_trace("rank0.pbt")
+def test_offline_front_end_waits_for_the_profiling_layer(tmp_path):
+    """The post-hoc front-end reads binary dumps now that the tracer is
+    ported: a missing dump raises (no quiet empty analysis), and the
+    trace kinds are the reference's."""
+    with pytest.raises(FileNotFoundError):
+        hb.events_from_trace([str(tmp_path / "rank0.pbt")])
+    with pytest.raises(FileNotFoundError):
+        hb.analyze_trace(str(tmp_path / "rank0.pbt"))
+    assert hb.TRACE_KINDS == ref_hb.TRACE_KINDS
     from parsec_tpu_torch import analysis
 
     assert analysis.analyze_trace is hb.analyze_trace
@@ -438,3 +443,101 @@ def test_pump_drain_feeds_dep_decrement_observers(port_param):
         pins.unsubscribe(pins.DEP_DECREMENT, cb)
     assert len(seen) == n_edges
     assert sum(r for _, r in seen) == n_inner
+
+
+# ---------------------------------------------------------------------------
+# post-hoc front-end over .pbt dumps (tools hbcheck)
+# ---------------------------------------------------------------------------
+
+def _doctored_dump(path, writer, seeded_race):
+    """A dump of ``writer``'s BinaryTrace (the JAX package's or the
+    port's): hb events of a release, an exec and version commits on
+    named threads; with ``seeded_race`` two threads commit one tile with
+    no happens-before path between them (RT001)."""
+    tr = writer.BinaryTrace(rank=0)
+    k = {n: tr.keyword(n) for n in ("hb_ver_bump", "dep_edge", "exec", "hb_dep_dec")}
+
+    def on(name, fn):
+        th = threading.Thread(target=fn, name=name)
+        th.start()
+        th.join()
+
+    def producer():
+        tr.begin(k["exec"], 1)
+        tr.instant(k["hb_ver_bump"], 5, 1)
+        tr.end(k["exec"], 1)
+        tr.instant(k["hb_dep_dec"], 77, 1)
+        tr.instant(k["dep_edge"], 1, 2)
+
+    def consumer():
+        tr.begin(k["exec"], 2)
+        tr.instant(k["hb_ver_bump"], 5, 2)
+        tr.end(k["exec"], 2)
+
+    on("producer", producer)
+    on("consumer", consumer)
+    if seeded_race:
+        on("rogue", lambda: tr.instant(k["hb_ver_bump"], 5, 3))
+    tr.dump(path)
+    tr.close()
+
+
+@pytest.mark.parametrize("seeded_race", [False, True], ids=["clean", "race"])
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_analyze_trace_over_a_dump_gives_the_references_findings(
+        tmp_path, writer, seeded_race, capsys):
+    from parsec_tpu.profiling import binary as ref_binary
+    from parsec_tpu.profiling.tools import main as ref_tools
+    from parsec_tpu_torch.profiling import binary
+    from parsec_tpu_torch.profiling.tools import main as tools
+
+    p = str(tmp_path / "rank0.pbt")
+    _doctored_dump(p, binary if writer == "port" else ref_binary, seeded_race)
+    mine, ref = hb.analyze_trace(p), ref_hb.analyze_trace(p)
+    assert full_key(mine) == full_key(ref)
+    # the rogue commit is unordered with both ordered commits: two RT001
+    assert codes(mine) == ([("RT001", "error")] * 2 if seeded_race else [])
+    evs, ref_evs = hb.events_from_trace([p]), ref_hb.events_from_trace([p])
+    assert [(e.seq, e.thread, e.kind, e.obj, e.info) for e in evs] == \
+        [(e.seq, e.thread, e.kind, e.obj, e.info) for e in ref_evs]
+    rc = tools(["hbcheck", p])
+    out = capsys.readouterr().out
+    assert rc == ref_tools(["hbcheck", p]) == (1 if seeded_race else 0)
+    assert out == capsys.readouterr().out
+
+
+def test_hbcheck_over_a_traced_pump_run_is_clean(tmp_path, port_param):
+    """A RankTraceSet over a pump dpotrf: the engine's drained decrements,
+    publishes and retires, the exec spans and the trace edges land in the
+    dump, and the offline checker finds the schedule clean."""
+    from parsec_tpu_torch.profiling.binary import RankTraceSet
+    from parsec_tpu_torch.profiling.tools import main as tools
+
+    port_param("device", "cuda_torch_device", "cpu")
+    tp, A = _dpotrf_pool(N=128, nb=16)
+    ts = RankTraceSet(1).install()
+    ex = NativeExecutor(tp, native_device=True)
+    try:
+        ex.run()
+        ex.close()
+    finally:
+        ts.uninstall()
+    paths = ts.dump(str(tmp_path))
+    ts.close()
+    kinds = collections.Counter(e.kind for e in hb.events_from_trace(paths))
+    for kind in ("dep_dec", "task_publish", "task_done", "exec_begin", "dep_edge", "ver_bump"):
+        assert kinds[kind] > 0, kinds
+    assert hb.analyze_trace(paths) == []
+    assert tools(["hbcheck", *paths]) == 0
+
+
+def test_hbcheck_with_no_events_exits_2(tmp_path):
+    from parsec_tpu_torch.profiling.binary import BinaryTrace
+    from parsec_tpu_torch.profiling.tools import main as tools
+
+    tr = BinaryTrace(rank=0)
+    tr.instant(tr.keyword("unrelated"), 1)
+    p = str(tmp_path / "empty.pbt")
+    tr.dump(p)
+    tr.close()
+    assert tools(["hbcheck", p]) == 2

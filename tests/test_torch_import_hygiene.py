@@ -8,7 +8,9 @@ interpreter drives the single-card core's modules — dense dependency
 storage, a vpmap, ``user_trigger``, arenas, datatypes, a checkpoint, the
 tiled-matrix operations, band storage, the template device and the legacy
 ASYNC protocol with a mixed DAG on the CUDA module bound to the torch CPU
-device — under the same rule."""
+device — under the same rule, and a third the trace stack: a traced pump
+run through every tracer and PINS module, the dump read back and run
+through the trace commands."""
 
 import os
 import subprocess
@@ -142,3 +144,61 @@ def test_core_modules_load_neither_jax_nor_the_jax_package(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "CORE LOADED []" in proc.stdout
+
+
+TRACE_SCRIPT = textwrap.dedent("""
+    import os, sys, tempfile
+    import numpy as np
+    from parsec_tpu_torch import mca_param
+    from parsec_tpu_torch.analysis import hb
+    from parsec_tpu_torch.datadist import TiledMatrix
+    from parsec_tpu_torch.dsl.native_exec import NativeExecutor
+    from parsec_tpu_torch.ops import cholesky_ptg
+    from parsec_tpu_torch.profiling import (AlperfModule, DotGrapher, SDEModule,
+                                            TaskProfiler, critpath, merge)
+    from parsec_tpu_torch.profiling.binary import RankTraceSet, read_pbt
+    from parsec_tpu_torch.profiling.checkers import IteratorsChecker
+    from parsec_tpu_torch.profiling.overlap import measure_overlap
+    from parsec_tpu_torch.profiling.tools import main as tools
+
+    rng = np.random.default_rng(0)
+    m = rng.standard_normal((64, 64)).astype(np.float32)
+    A = TiledMatrix(64, 64, 16, 16, name="A", dtype=np.float32).from_array(
+        m @ m.T + 64 * np.eye(64, dtype=np.float32))
+    mca_param.set_param("device", "cuda_torch_device", "cpu")
+    d = tempfile.mkdtemp()
+    mods = [TaskProfiler().install(), DotGrapher().install(), IteratorsChecker().install()]
+    sde_mod, alperf = SDEModule(), AlperfModule()
+    stats = {}
+    with measure_overlap(stats, trace_dir=d):
+        ex = NativeExecutor(cholesky_ptg(use_kernels=True).taskpool(NT=4, A=A),
+                            native_device=True)
+        assert ex.run() == 20
+        ex.close()
+    for mod in mods:
+        mod.uninstall()
+    sde_mod.disable()
+    alperf.disable()
+    p = os.path.join(d, "rank0.pbt")
+    assert critpath.analyze(read_pbt(p))["n_tasks"] == 10
+    assert merge.merge_traces([p])["metadata"]["ranks"] == [0]
+    assert hb.analyze_trace(p) == []
+    for argv in (["info", p], ["critpath", p], ["hbcheck", p],
+                 ["merge", p, "-o", os.path.join(d, "m.json")]):
+        assert tools(argv) == 0, argv
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "parsec_tpu"))
+    print("TRACE LOADED", bad)
+    assert not bad, bad
+""")
+
+
+def test_trace_stack_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """A traced pump run through every tracer and PINS module of the
+    port, the dump read back, merged, critpath'd and hbchecked, and the
+    trace commands run: neither JAX nor the JAX package is loaded."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TRACE_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "TRACE LOADED []" in proc.stdout

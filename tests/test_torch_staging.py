@@ -621,10 +621,22 @@ def _pump_stats(depth, port_param):
     return result(), stats, dev_stats, armed
 
 
-def test_pump_prefetch_window_engages(cpu_device, port_param, eager_lane):
+def test_pump_prefetch_window_engages(cpu_device, port_param, eager_lane,
+                                      monkeypatch):
     """Depth 2 arms the transfer lane and the committer: the pump reports
     prefetched batches and the device prestaged tiles; depth 1 keeps the
-    synchronous shape."""
+    synchronous shape.  The pump waits for the lane to finish each job
+    before the batch's submit stops it, so the lane stages in every run:
+    otherwise whether it reaches a job before the pump does is a race
+    between two threads (under a loaded host the lane may not run at
+    all before the pump stops it)."""
+    stop_after_chunk = staging._StageJob.wait
+
+    def wait_for_the_lane(job):
+        job.done.wait(timeout=60)
+        stop_after_chunk(job)
+
+    monkeypatch.setattr(staging._StageJob, "wait", wait_for_the_lane)
     out2, stats, dev_stats, armed = _pump_stats(2, port_param)
     assert stats["prefetched_batches"] > 0 and dev_stats["prefetched_tiles"] > 0
     assert stats["submit_s"] > 0 and dev_stats["prestage_s"] > 0
