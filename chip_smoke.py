@@ -238,6 +238,25 @@ pump runs once more with fusion ``auto`` (waves off), its grid equal to
 the open card's.  ``--profile`` adds the fused dpotrf ``kernels`` and
 stencil pumps.
 
+The serving plane (``serve`` phase, after the trace stack): three tenants
+on the card, built from the checkout's entry points — 16 decode jobs (8
+query rows at the tail of a 4096-token causal sequence, Llama-2-7B's 32
+heads x 128, 512-key blocks: 256 B5 launches each), the f32 prefill (1152
+B5 launches) and the dpotrf ``kernels`` (680 B1 launches) — run alone
+(the oracles), then through a ``RuntimeService`` (wdrr, at most 8 pools in
+flight, the decodes 2 ms apart) with the flight recorder, the health
+exporter on 127.0.0.1, the watchdog and the SLO plane on, scraped
+throughout; every served output ``torch.equal`` to its solo run with its
+launches exact; ``tools serve-status``, ``top --once``, ``flightdump``,
+``read_pbt`` and ``critpath`` against the live endpoint; the turn with the
+four switches off and on in turns (the observability cost, ``serve_obs``);
+the same turn on ``lfq`` (the decodes' p50/p95 latency beside wdrr's); the
+whole mix admitted at once on wdrr and on lfq (the decodes' share of the
+scheduler's pops while the prefill has work, and the ready queue's depth);
+the native serve executor over the prefill, the dpotrf and four decodes,
+with their weights and with every weight 1 (the decodes retire earlier
+with theirs), and a ``rebind`` that captures nothing.
+
 Every run of the CUDA device module must end with no synchronous
 write-back fallback (``wb_sync_fallbacks == 0``) and no wave that fell
 back to per-task dispatch (``wave_fallbacks == 0``).  Kernel launches
@@ -1490,6 +1509,561 @@ def profiling_phase(h):
         lean_traced_over_untraced=lean_ratio, card=card)
 
 
+# -- the serving plane and the live planes on the main path ------------------
+# three tenants on one Context with the CUDA module (stage depth 1, fusion
+# and waves off): SERVE_K decode jobs of SERVE_DEC_Q query rows at the tail
+# of the 4096-token causal sequence at Llama-2-7B's layer (ATTN_H x ATTN_D,
+# ATTN_BLOCK-key blocks), beside the f32 prefill and the dpotrf N=8192
+SERVE_K, SERVE_DEC_Q, SERVE_INFLIGHT, SERVE_GAP_S = 16, 8, 8, 0.002
+SERVE_WEIGHTS = {"decode": 4, "prefill": 1, "factor": 1}
+SERVE_NATIVE_DECODES = 4
+# the four switches off and on for the observability cost, in turns after
+# the live turn, which is the first run with them on: (on, off, off, on,
+# on, off)
+SERVE_OBS = (False, False, True, True, False)
+SERVE_SWITCHES = ("PARSEC_TPU_FLIGHT", "PARSEC_TPU_HEALTH", "PARSEC_TPU_WATCHDOG",
+                  "PARSEC_TPU_SLO")
+# the flight ring a thread during the phase: holds a whole served turn
+SERVE_FR_EVENTS = 1 << 17
+
+
+def serve_phase(h):
+    """The serving plane and the live planes on the main path.
+
+    Three tenants, built from the checkout's entry points on the card:
+    ``decode`` (weight 4) — ``SERVE_K`` decode jobs, each ``SERVE_DEC_Q``
+    query rows at the tail of a 4096-token causal KV sequence, 32 heads x
+    128, f32, q block 8, kv block 512 (256 B5 launches a job; each job's
+    q/k/v from its own stream, a generator seeded by the crc32 of its tag);
+    ``prefill`` (weight 1) — the causal prefill S = 4096 (1152 B5 launches);
+    ``factor`` (weight 1) — dpotrf N=8192 nb=512 f32 ``kernels`` on the
+    path's SPD matrix (680 B1 launches).
+
+    1. Solo: each job alone on the context (the oracles); the factor
+       ``torch.equal`` to the dynamic path's, decode 0 within 2e-5 of its
+       float64 attention.
+    2. A ``RuntimeService`` (wdrr, ``serve_max_inflight_pools`` 8, the four
+       switches on, the health exporter on an ephemeral 127.0.0.1 port):
+       prefill and factor first, then the decodes 2 ms apart.  Every output
+       ``torch.equal`` to its solo run, the launches exact, every job done,
+       the counters adding up, at least one job queued at its submit; a
+       thread scrapes ``/metrics``, ``/status`` and ``/healthz`` through
+       the turn.  After it, ``tools serve-status``, ``top --once`` and
+       ``flightdump`` against the endpoint; the dump read back (``exec``
+       spans, ``job_phase`` and ``tenant:`` instants of all three
+       tenants), ``critpath`` sliced to one job a tenant (its per-tenant
+       table names the tenant); the watchdog reports no stall and
+       ``diagnose()`` no error; the SLO plane's job histograms count each
+       tenant's jobs.
+       Under wdrr the decodes' median completion comes before the
+       prefill's.
+    3. The observability cost: the turn with the four switches off and on
+       in turns, the live turn the first run with them on (``SERVE_OBS``),
+       the median ratio.
+    4. The same turn on an ``lfq`` context (fairness off): decode p50/p95
+       latency under both.
+    5. The whole mix admitted at once (no admission queue), switches off,
+       on wdrr and on lfq, every task the scheduler hands out recorded
+       with the ready tasks it still held: while the decode and the
+       prefill tenants both have work left, the decodes' share of their
+       pops and the queue's depth (reported).
+    6. The native serve executor over the prefill, the factor and
+       ``SERVE_NATIVE_DECODES`` decodes (weights 1, 1, 4, ...): each output
+       ``torch.equal`` to its solo pump run, every decode pool retired
+       before the factor's last task, no trampoline entry; again with
+       every weight 1, where each decode pool retires its last task later
+       and the prefill its last no later; the same pools
+       through a ``RuntimeService`` for the wall beside it; then ``rebind``
+       of a decode executor to a fresh same-shaped pool: nothing captured,
+       its output ``torch.equal`` to its solo run.
+
+    Every run's launches are counted (``serve_launches``), the pump's solo
+    runs and the rebound executor's first run included.
+    """
+    import collections
+    import io
+    import threading
+    import urllib.request
+    import zlib
+
+    np, torch, dev, card, say, check = h.np, h.torch, h.dev, h.card, h.say, h.check
+    from parsec_tpu_torch import Context, mca_param
+    from parsec_tpu_torch.datadist import TiledMatrix
+    from parsec_tpu_torch.dsl import native_exec
+    from parsec_tpu_torch.dsl.native_exec import NativeExecutor, NativeServeExecutor
+    from parsec_tpu_torch.ops import build_flash_attention, cholesky_ptg, kernels
+    from parsec_tpu_torch.profiling import critpath, tools
+    from parsec_tpu_torch.profiling.binary import read_pbt
+    from parsec_tpu_torch.profiling.jobtrace import hex_id, trace_id_of
+    from parsec_tpu_torch.serve import RuntimeService
+
+    t_phase = time.perf_counter()
+    b5_counts, mm_counts = _launch_readers(kernels)
+    nt, nkv = N // NB, ATTN_S // ATTN_BLOCK
+    n_dec = ATTN_H * nkv                           # B5 launches a decode job
+    n_pf = ATTN_H * nkv * (nkv + 1) // 2           # B5 launches the prefill
+    n_b1 = nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
+    fdir = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    saved_env = {k: os.environ.get(k) for k in SERVE_SWITCHES + ("PARSEC_TPU_FLIGHT_DIR",)}
+    os.environ["PARSEC_TPU_FLIGHT_DIR"] = fdir
+
+    def seeded(tag, shape):
+        """A tensor from the job tag's own stream (crc32 of the tag seeds
+        a generator on the card), kept on the host as a user's input is."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(zlib.crc32(tag.encode()))
+        return torch.randn(shape, generator=g, device=dev).cpu()
+
+    kv_shape = (ATTN_B, ATTN_S, ATTN_H, ATTN_D)
+    inputs = {f"decode{i}": (seeded(f"decode{i}.q", (ATTN_B, SERVE_DEC_Q, ATTN_H, ATTN_D)),
+                             seeded(f"decode{i}.k", kv_shape), seeded(f"decode{i}.v", kv_shape))
+              for i in range(SERVE_K + 1)}  # the last one: the rebind's fresh pool
+    inputs["prefill"] = tuple(seeded(f"prefill.{x}", kv_shape) for x in "qkv")
+
+    def named(tp, tag):
+        # a job's trace id comes from its pool's name: one a job
+        tp.name, tp.trace_id = tag, trace_id_of(tag)
+        return tp
+
+    def build(tag):
+        """(taskpool, read) of one job: read() gives its output on the host."""
+        if tag == "factor":
+            A = TiledMatrix(N, N, NB, NB, name="A", dtype=np.float32).from_array(h.S)
+            tp = cholesky_ptg(use_cuda=True, use_cpu=False, use_kernels=True).taskpool(
+                NT=A.mt, A=A)
+            return named(tp, tag), lambda: torch.from_numpy(A.to_array())
+        qb = ATTN_BLOCK if tag == "prefill" else SERVE_DEC_Q
+        tp, assemble = build_flash_attention(*inputs[tag], causal=True, q_block=qb,
+                                             kv_block=ATTN_BLOCK, use_cpu=False)
+        return named(tp, tag), assemble
+
+    def tenant_of(tag):
+        return "decode" if tag.startswith("decode") else tag
+
+    def switches(on):
+        for var in SERVE_SWITCHES:
+            os.environ.pop(var, None)
+        if on:
+            for var in SERVE_SWITCHES:
+                os.environ[var] = "1"
+        else:
+            os.environ["PARSEC_TPU_SLO"] = "0"  # a service installs one otherwise
+
+    def context(on, scheduler="wdrr"):
+        switches(on)
+        ctx = Context(scheduler=scheduler)
+        cuda_dev = next(d for d in ctx.devices if d.mca_name == "cuda")
+        check(cuda_dev.tdev.type == "cuda", f"serve: CUDA module bound to {cuda_dev.tdev}")
+        planes = (ctx.flight, ctx.health, ctx.watchdog, ctx.slo)
+        check(all(p is not None for p in planes) if on else not any(planes),
+              f"serve: the switches {'on' if on else 'off'} gave the planes {planes}")
+        return ctx, cuda_dev
+
+    def finish(ctx, cuda_dev, label):
+        cuda_dev.detach()
+        stats = device_stats(cuda_dev)
+        ctx.fini()
+        check(stats["wb_sync_fallbacks"] == 0, f"serve {label}: synchronous write-back "
+              f"fallbacks {stats['wb_sync_fallbacks']}")
+
+    decode_tags = [f"decode{i}" for i in range(SERVE_K)]
+    mix = ["prefill", "factor"] + decode_tags
+
+    def launches_of(tags):
+        n_pf_jobs = sum(t == "prefill" for t in tags)
+        return (n_dec * sum(t.startswith("decode") for t in tags) + n_pf * n_pf_jobs,
+                n_b1 * sum(t == "factor" for t in tags))
+
+    h.serve_decode_launches = 0
+    phase_launches = {}
+
+    def counted(label, tags):
+        """The launches since the last reset, kept for the kernel table
+        (the decodes' share of B5's apart, for its decode-shape row)."""
+        b5, mm = b5_counts(), mm_counts()
+        h.b5_launches[f"serve_{label}"] = b5
+        h.launches[f"serve_{label}"] = mm
+        h.serve_decode_launches += b5["f32"] - n_pf * sum(t == "prefill" for t in tags)
+        phase_launches[label] = (b5["total"], mm["matmul_update"]["total"])
+        return b5, mm
+
+    # -- 1. solo runs on one context: the oracles ---------------------------
+    ctx, cuda_dev = context(True)
+    solo, solo_walls = {}, {}
+    for tag in ["decode0", "prefill", "factor"] + decode_tags[1:] + [f"decode{SERVE_K}"]:
+        tp, read = build(tag)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        ctx.add_taskpool(tp)
+        check(tp.wait(timeout=600), f"serve solo {tag}: {tp.fail_reason}")
+        torch.cuda.synchronize()
+        solo_walls[tag] = time.perf_counter() - t0
+        b5, mm = counted(f"solo_{tag}", [tag])
+        want_b5, want_b1 = launches_of([tag])
+        check(b5["f32"] == b5["total"] == want_b5 and mm["matmul_update"]["f32"] == want_b1,
+              f"serve solo {tag}: launches B5 {b5}, B1 {mm['matmul_update']}")
+        solo[tag] = read()
+        check(bool(torch.isfinite(solo[tag]).all()), f"serve solo {tag}: non-finite output")
+    finish(ctx, cuda_dev, "solo")
+    check(torch.equal(solo["factor"], torch.from_numpy(h.dyn_factor["kernels"])),
+          "serve solo factor: differs from the dynamic path's factor")
+    q, k, v = (x.to(dev).double() for x in inputs["decode0"])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * ATTN_D ** -0.5
+    pos_q = torch.arange(ATTN_S - SERVE_DEC_Q, ATTN_S, device=dev)[:, None]
+    logits = logits.masked_fill(torch.arange(ATTN_S, device=dev)[None, :] > pos_q, float("-inf"))
+    ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
+    dec_err = (solo["decode0"].to(dev).double() - ref).abs().max().item()
+    check(dec_err <= TOL_ATTN_F32 * (1 + ref.abs().max().item()),
+          f"serve solo decode0: {dec_err} from its float64 attention")
+    del q, k, v, logits, ref
+    say("serve_solo", jobs=len(solo), decode_wall_s_median=statistics.median(
+        solo_walls[t] for t in decode_tags), prefill_wall_s=solo_walls["prefill"],
+        factor_wall_s=solo_walls["factor"], decode0_err_vs_f64=dec_err,
+        launches_a_decode=n_dec, card=card)
+
+    # -- the served turn -----------------------------------------------------
+    def scraper(url, stop, log):
+        """Fetches /metrics, /status and /healthz over 127.0.0.1 until
+        ``stop``; every response kept (a failed fetch ends the loop)."""
+        try:
+            while True:
+                got = {}
+                for path in ("/metrics", "/status", "/healthz"):
+                    with urllib.request.urlopen(url + path, timeout=60) as r:
+                        got[path] = (r.status, r.read().decode())
+                log["scrapes"].append(got)
+                if stop.wait(0.05):
+                    return
+        except Exception as e:  # the phase checks it
+            log["error"] = repr(e)
+
+    def turn(label, on, tags, scheduler="wdrr", scrape=False, after=None,
+             inflight=SERVE_INFLIGHT):
+        """One served turn: ``tags`` submitted in order (the decodes
+        SERVE_GAP_S apart) to a RuntimeService on a fresh context, at most
+        ``inflight`` pools admitted at once; returns the turn's record
+        after checking every output against its solo run, the launches,
+        the states and the counters.  The record's ``pops`` is the job of
+        every task the scheduler handed out, in the order it did."""
+        ctx, cuda_dev = context(on, scheduler)
+        sv = RuntimeService(ctx, fairness=scheduler == "wdrr")
+        pops, depths = [], []
+        sched = ctx.scheduler
+        real_select = sched.select
+
+        def select(es):
+            task = real_select(es)
+            if task is not None:
+                pops.append(task.taskpool.name)
+                depths.append(sched.pending_estimate())
+            return task
+
+        sched.select = select
+        try:
+            check(sv.fairness == (scheduler == "wdrr"), f"serve {label}: fairness {sv.fairness}")
+            sv.max_inflight_pools = inflight
+            for tenant, w in SERVE_WEIGHTS.items():
+                sv.tenant(tenant, weight=w)
+            jobs = [(tag, *build(tag)) for tag in tags]
+            log = {"scrapes": [], "error": None}
+            stop = threading.Event()
+            th = threading.Thread(target=scraper, args=(ctx.health.url, stop, log),
+                                  daemon=True) if scrape else None
+            kernels.reset_counts()
+            gc.collect()
+            if th is not None:
+                th.start()
+            t0 = time.perf_counter()
+            handles, queued = [], 0
+            for i, (tag, tp, _read) in enumerate(jobs):
+                if i and tag.startswith("decode"):
+                    time.sleep(SERVE_GAP_S)
+                hd = sv.submit(tenant_of(tag), tp)
+                queued += hd.state == "queued"
+                handles.append(hd)
+            for hd in handles:
+                check(hd.wait(timeout=600), f"serve {label}: {hd!r} {hd.status()}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            b5, mm = counted(label, tags)
+            if th is not None:
+                stop.set()
+                th.join(timeout=120)
+            want_b5, want_b1 = launches_of(tags)
+            check(b5["f32"] == b5["total"] == want_b5 and mm["matmul_update"]["f32"] ==
+                  mm["matmul_update"]["total"] == want_b1 and mm["matmul"]["total"] == 0,
+                  f"serve {label}: launches B5 {b5}, B1/B2 {mm}, want {want_b5}, {want_b1}")
+            for (tag, _tp, read), hd in zip(jobs, handles):
+                check(hd.status()["state"] == "done", f"serve {label}: {tag} {hd.status()}")
+                check(torch.equal(read(), solo[tag]), f"serve {label}: {tag} differs from solo")
+            cnt = sv.counters()
+            check(cnt["done"] == len(tags) and cnt["rejected"] == cnt["failed"] == 0
+                  and cnt["queued"] == cnt["inflight"] == 0,
+                  f"serve {label}: counters {cnt}")
+            doc = sv.status_doc()
+            check(sum(t["submitted"] for t in doc["tenants"].values()) == len(tags)
+                  and sum(t["completed"] for t in doc["tenants"].values()) == len(tags),
+                  f"serve {label}: tenants {doc['tenants']}")
+            rec = {"wall": wall, "handles": dict(zip(tags, handles)), "queued": queued,
+                   "log": log, "counters": cnt, "pops": pops, "depths": depths}
+            if after is not None:
+                after(sv, ctx, rec)
+            return rec
+        finally:
+            sv.close(timeout=600)
+            finish(ctx, cuda_dev, label)
+
+    def percentile(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+    def latencies(rec):
+        dec = [rec["handles"][t] for t in rec["handles"] if t.startswith("decode")]
+        lat = [hd.latency_s for hd in dec]
+        qd = [hd.queue_delay_s for hd in dec]
+        out = {"decode_p50_ms": percentile(lat, 0.5) * 1e3,
+               "decode_p95_ms": percentile(lat, 0.95) * 1e3,
+               "decode_queue_p50_ms": percentile(qd, 0.5) * 1e3,
+               "decode_queue_p95_ms": percentile(qd, 0.95) * 1e3}
+        for tag in ("prefill", "factor"):
+            if tag in rec["handles"]:
+                out[f"{tag}_ms"] = rec["handles"][tag].latency_s * 1e3
+                out[f"{tag}_queue_ms"] = rec["handles"][tag].queue_delay_s * 1e3
+        return out
+
+    # -- 2. the served turn with the live planes, scraped ---------------------
+    def live_checks(sv, ctx, rec):
+        log = rec["log"]
+        check(log["error"] is None and len(log["scrapes"]) >= 3,
+              f"serve live: {len(log['scrapes'])} scrapes, error {log['error']}")
+        seen_pool, retired, tenants_seen = False, {}, set()
+        for got in log["scrapes"]:
+            check(all(code == 200 for code, _ in got.values()),
+                  f"serve live: a scrape answered {[c for c, _ in got.values()]}")
+            metrics = got["/metrics"][1]
+            check(all(f in metrics for f in ("parsec_serve_jobs_queued", "parsec_serve_jobs_inflight",
+                                            "parsec_serve_jobs_done_total")),
+                  "serve live: /metrics lacks the parsec_serve_jobs_* families")
+            seen_pool |= "parsec_taskpool_retired_total" in metrics
+            st = json.loads(got["/status"][1])
+            tenants_seen |= set(st["serve"]["tenants"])
+            for p in st["taskpools"]:
+                key = p["taskpool_id"]
+                check(p["retired"] >= retired.get(key, 0),
+                      f"serve live: pool {p['name']} retired went back to {p['retired']}")
+                retired[key] = p["retired"]
+            check(json.loads(got["/healthz"][1])["ok"] is True, "serve live: /healthz not ok")
+        check(seen_pool, "serve live: no scrape saw a parsec_taskpool_* family")
+        check(tenants_seen == set(SERVE_WEIGHTS), f"serve live: /status tenants {tenants_seen}")
+        check(rec["queued"] >= 1, "serve live: no job was queued before its admission")
+        url = ctx.health.url
+        outs = {}
+        for argv in (["serve-status", url], ["top", url, "--once"],
+                     ["flightdump", url, "-o", fdir]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = tools.main(argv)
+            outs[argv[0]] = buf.getvalue()
+            check(rc == 0, f"serve live: tools {argv[0]} exited {rc}: {buf.getvalue()[-2000:]}")
+        check(all(t in outs["serve-status"] for t in SERVE_WEIGHTS),
+              "serve live: serve-status lacks a tenant")
+        dump = os.path.join(fdir, f"rank{ctx.rank}.fr.pbt")
+        evs = read_pbt(dump)
+        names = collections.Counter(e["name"] for e in evs)
+        check(names["exec"] > 0 and names["job_phase"] > 0,
+              f"serve live: the dump lacks exec spans or job_phase instants ({len(evs)} events)")
+        check(all(names[f"tenant:{t}"] > 0 for t in SERVE_WEIGHTS),
+              f"serve live: tenant instants {[n for n in names if n.startswith('tenant:')]}")
+        paths = {}
+        for tag in ("prefill", "factor", "decode0"):
+            rep = critpath.analyze(evs, job=hex_id(trace_id_of(tag)))
+            text = critpath.render(rep)
+            check(rep["n_tasks"] > 0 and tenant_of(tag) in rep["per_tenant"]
+                  and tenant_of(tag) in text,
+                  f"serve live: critpath --job {tag}: per-tenant {list(rep['per_tenant'])}")
+            paths[tag] = (len(rep["chain"]), rep["per_tenant"][tenant_of(tag)]["count"])
+        wd = ctx.watchdog.status()
+        diag = ctx.watchdog.diagnose()
+        check(wd["stalled"] is False and not diag.errors,
+              f"serve live: watchdog {wd}, findings {[str(f) for f in diag.findings]}")
+        for tenant, n in (("decode", SERVE_K), ("prefill", 1), ("factor", 1)):
+            hist = ctx.slo.hist("job_latency", ("tenant", tenant))
+            check(hist.count == n, f"serve live: {tenant} job_latency count {hist.count} != {n}")
+        rec.update(scrapes=len(log["scrapes"]), dump_events=len(evs),
+                   dump_bytes=os.path.getsize(dump), critpath=paths,
+                   metrics_bytes=len(log["scrapes"][-1]["/metrics"][1]))
+
+    with mca(mca_param, "runtime", "stage_depth", 1), \
+            mca(mca_param, "runtime", "fusion", "off"), \
+            mca(mca_param, "device", "cuda_wave_batch", 0), \
+            mca(mca_param, "profiling", "fr_events", SERVE_FR_EVENTS):
+        try:
+            live = turn("wdrr", True, mix, scrape=True, after=live_checks)
+            dec_done = sorted(live["handles"][t].t_done for t in decode_tags)
+            check(statistics.median(dec_done) < live["handles"]["prefill"].t_done,
+                  "serve wdrr: the decodes' median completion came after the prefill's")
+            say("serve_wdrr", wall_s=live["wall"], solo_sum_s=sum(solo_walls[t] for t in mix),
+                queued_at_submit=live["queued"], counters=live["counters"],
+                scrapes=live["scrapes"], flight_events=live["dump_events"],
+                flight_bytes=live["dump_bytes"], metrics_bytes=live["metrics_bytes"],
+                critpath_chain_and_tenant_tasks=live["critpath"], **latencies(live), card=card)
+
+            # -- 3. the observability cost: the switches off and on ----------
+            # the live turn is the first run with them on
+            walls = {False: [], True: [live["wall"]]}
+            for rep, on in enumerate(SERVE_OBS):
+                walls[on].append(turn(f"obs{rep}_{'on' if on else 'off'}", on, mix)["wall"])
+            ratio = statistics.median(walls[True]) / statistics.median(walls[False])
+            say("serve_obs", walls_off_s=walls[False], walls_on_s=walls[True],
+                median_on_over_off=ratio, card=card)
+
+            # -- 4. fairness off: the same turn on lfq -----------------------
+            lfq = turn("lfq", True, mix, scheduler="lfq")
+            lat_w, lat_l = latencies(live), latencies(lfq)
+            say("serve_fairness", wdrr=lat_w, lfq=lat_l,
+                p95_lfq_over_wdrr=lat_l["decode_p95_ms"] / lat_w["decode_p95_ms"],
+                p50_lfq_over_wdrr=lat_l["decode_p50_ms"] / lat_w["decode_p50_ms"],
+                wall_wdrr_s=live["wall"], wall_lfq_s=lfq["wall"], card=card)
+
+            # -- 5. the whole mix admitted at once: no admission queue -------
+            # from the first pop of the last decode job (every job admitted
+            # and started) to the first time the decode or the prefill
+            # tenant has no task left, both tenants have work: the decodes'
+            # share of the two tenants' pops there, and how many ready tasks
+            # the scheduler held after each pop.  wdrr can give the decodes
+            # their weight's share (4/5) only while its bins hold tasks; an
+            # idle worker takes every ready task at once and hands it to the
+            # CUDA module's pending queue (first in, first out), so the
+            # depth says how often the scheduler had a choice to make.
+            # Reported, not gated: the native run below is the check that
+            # the weights act on the card
+            def decode_share(rec):
+                pops, depths = rec["pops"], rec["depths"]
+                ten = [tenant_of(tag) for tag in pops]
+                start = pops.index(decode_tags[-1])
+                end = min(len(ten) - 1 - ten[::-1].index(t) for t in ("decode", "prefill"))
+                window = collections.Counter(ten[start:end])
+                both = window["decode"] + window["prefill"]
+                depth = sorted(depths[start:end]) or [0]
+                return dict(decode_share=window["decode"] / both if both else 0.0,
+                            window=(start, end), pops_in_window=dict(window),
+                            depth_p50=percentile(depth, 0.5), depth_p90=percentile(depth, 0.9),
+                            depth_max=depth[-1],
+                            depth_zero_frac=sum(d == 0 for d in depth) / len(depth))
+
+            co = {}
+            for sched in ("wdrr", "lfq"):
+                rec = turn(f"coadmitted_{sched}", False, mix, scheduler=sched, inflight=len(mix))
+                check(rec["queued"] == 0, f"serve co-admitted {sched}: {rec['queued']} queued")
+                co[sched] = dict(decode_share(rec), pops=len(rec["pops"]), wall_s=rec["wall"],
+                                 **latencies(rec))
+            say("serve_coadmitted", weight_share=SERVE_WEIGHTS["decode"] / (
+                SERVE_WEIGHTS["decode"] + SERVE_WEIGHTS["prefill"]), **co, card=card)
+
+            # -- 6. the native serve executor, the same pools served, rebind --
+            ntags = ["prefill", "factor"] + decode_tags[:SERVE_NATIVE_DECODES]
+            pump_solo = {}
+            for tag in ntags:
+                tp, read = build(tag)
+                ex = NativeExecutor(tp, native_device=True)
+                try:
+                    kernels.reset_counts()
+                    ex.run()
+                    torch.cuda.synchronize()
+                    counted(f"pump_solo_{tag}", [tag])
+                finally:
+                    ex.close()
+                pump_solo[tag] = read()
+                check(torch.equal(pump_solo[tag], solo[tag]),
+                      f"serve native: the pump's solo {tag} differs from the dynamic solo")
+            def native_run(label, weights):
+                """The pools as tenants of one native serve executor:
+                (executor, counts, setup s, wall s, last retire a pool)."""
+                jobs = [(tag, *build(tag)) for tag in ntags]
+                t0 = time.perf_counter()
+                sx = NativeServeExecutor([tp for _t, tp, _r in jobs], weights=weights)
+                setup_s = time.perf_counter() - t0
+                try:
+                    kernels.reset_counts()
+                    t0 = time.perf_counter()
+                    counts = sx.run()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    b5, mm = counted(label, ntags)
+                finally:
+                    sx.close()
+                want_b5, want_b1 = launches_of(ntags)
+                check(b5["f32"] == want_b5 and mm["matmul_update"]["f32"] == want_b1,
+                      f"serve {label}: launches B5 {b5}, B1 {mm}")
+                check(counts == [len(ch.graph.nodes) for ch in sx.children],
+                      f"serve {label}: counts {counts}")
+                check(sx.stats["trampoline_entries"] == 0 == sx.stats["completion_callbacks"],
+                      f"serve {label}: stats {sx.stats}")
+                for tag, _tp, read in jobs:
+                    check(torch.equal(read(), pump_solo[tag]), f"serve {label}: {tag} differs")
+                last = {i: max(pos for t, pos, _s in sx.retire_log if t == i)
+                        for i in range(len(ntags))}
+                return sx, counts, setup_s, wall, last
+
+            sx, counts, setup_s, native_wall, last = native_run(
+                "native", [SERVE_WEIGHTS[tenant_of(t)] for t in ntags])
+            check(all(last[i] < last[1] for i in range(2, len(ntags))),
+                  f"serve native: last retires {last}")
+            # the weights at work: with every weight 1 each decode pool
+            # retires its last task later, the prefill its last no later
+            _sx, _c, _s, equal_wall, last_equal = native_run("native_equal", [1] * len(ntags))
+            check(all(last[i] < last_equal[i] for i in range(2, len(ntags)))
+                  and last[0] >= last_equal[0],
+                  f"serve native: last retires weighted {last}, all weights 1 {last_equal}")
+            same = turn("same_pools", False, ntags)
+            # rebind: a decode executor re-aimed at a fresh same-shaped pool
+            captures = []
+            real_capture = native_exec.capture
+            native_exec.capture = lambda *a, **kw: captures.append(1) or real_capture(*a, **kw)
+            try:
+                tp, read = build("decode0")
+                ex = NativeExecutor(tp, native_device=True)
+                try:
+                    kernels.reset_counts()
+                    ex.run()
+                    torch.cuda.synchronize()
+                    counted("rebind_first", ["decode0"])
+                    fresh, fresh_read = build(f"decode{SERVE_K}")
+                    kernels.reset_counts()
+                    t0 = time.perf_counter()
+                    ex.rebind(fresh)
+                    rebind_s = time.perf_counter() - t0
+                    ex.run()
+                    torch.cuda.synchronize()
+                    b5, _mm = counted("rebind", ["decode"])
+                finally:
+                    ex.close()
+            finally:
+                native_exec.capture = real_capture
+            check(captures == [1], f"serve rebind: {len(captures)} captures, want the first only")
+            check(b5["f32"] == n_dec, f"serve rebind: B5 launches {b5}")
+            check(torch.equal(read(), solo["decode0"]) and torch.equal(
+                fresh_read(), solo[f"decode{SERVE_K}"]), "serve rebind: an output differs")
+            say("serve_native", pools=ntags, counts=counts, setup_s=setup_s, wall_s=native_wall,
+                service_wall_s=same["wall"], native_over_service=native_wall / same["wall"],
+                pop_batches=sx.stats["pop_batches"], trampoline_entries=0,
+                last_retire=last, last_retire_equal_weights=last_equal,
+                equal_weights_wall_s=equal_wall, rebind_s=rebind_s, card=card)
+        finally:
+            for var, val in saved_env.items():
+                if val is None:
+                    os.environ.pop(var, None)
+                else:
+                    os.environ[var] = val
+            shutil.rmtree(fdir, ignore_errors=True)
+    # every run of the phase counted, B5 and B1 launches a run
+    say("serve_launches", runs=phase_launches,
+        b5_total=sum(b5 for b5, _b1 in phase_launches.values()),
+        b1_total=sum(b1 for _b5, b1 in phase_launches.values()),
+        b5_decode=h.serve_decode_launches)
+    say("serve_phase", seconds=time.perf_counter() - t_phase, card=card)
+
+
 def batched_graph(h, label, tp, feeds, ref_out, ref_median_s, kernel_of, tasks, exact,
                   replays=GRAPH_REPLAYS):
     """``GraphExecutor(tp, batch_levels=True)`` on the feeds of the path's
@@ -2471,6 +3045,10 @@ def main() -> int:
         ("f32_causal_diag", ATTN_BLOCK, ATTN_BLOCK, ATTN_D, f32, True, 0, 0),
         ("f32_ragged", DEC_SQ, DEC_SK - dec_k_off, ATTN_D, f32, True,
          DEC_SK - DEC_SQ, dec_k_off),
+        # the serve phase's decode job: 8 query rows at the tail of the
+        # 4096-token sequence against one full 512-key block
+        ("f32_decode_8x512", SERVE_DEC_Q, ATTN_BLOCK, ATTN_D, f32, True,
+         ATTN_S - SERVE_DEC_Q, 0),
         ("bf16", ATTN_BLOCK, ATTN_BLOCK, ATTN_D, bf16, True, ATTN_BLOCK, 0),
         ("bf16_causal_diag", ATTN_BLOCK, ATTN_BLOCK, ATTN_D, bf16, True, 0, 0),
         ("bf16_ragged", DEC_SQ, DEC_SK - dec_k_off, ATTN_D, bf16, True,
@@ -3423,6 +4001,12 @@ def main() -> int:
         np=np, torch=torch, card=card, say=say, check=check, S=S,
         variants=variants, launches=launches, dyn_factor=dyn_factor,
         b5_launches=profiling_b5))
+
+    # -- the serving plane and the live planes: three tenants served --------
+    serve = types.SimpleNamespace(
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
+        launches=launches, dyn_factor=dyn_factor, b5_launches=profiling_b5)
+    serve_phase(serve)
     del dyn_factor
 
     # -- device-module phase: the CUDA module's GPU-only paths ----------------
@@ -4360,6 +4944,11 @@ def main() -> int:
               "attention.cu", "283", ("flash_attention_block", case))
         for mode, case in (("f32", "f32"), ("bf16", "bf16"), ("f32_wide", "f32_512x512_d512"),
                            ("bf16_wide", "bf16_512x512_d512"))
+    ] + [
+        # the f32 mode at the serve phase's decode shape (8 x 512 x 128):
+        # the decode jobs' launches, a share of the f32 row's
+        entry("flash_attention_block", "f32_decode", serve.serve_decode_launches,
+              "attention.cu", "283", ("flash_attention_block", "f32_decode_8x512"))
     ]
 
     def batched_entry(name, mode, key, source, line):

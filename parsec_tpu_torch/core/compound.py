@@ -2,9 +2,8 @@
 
 Reference: ``parsec/compound.c`` (``parsec_compose`` :96) — a compound
 taskpool runs its members one after another; member *i+1* is enqueued when
-member *i* terminates.  The port of :mod:`parsec_tpu.core.compound`; the
-serving plane's tenant propagation waits for the port's ``serve/``
-(ROADMAP A.9c).
+member *i* terminates.  The port of :mod:`parsec_tpu.core.compound`,
+tenant propagation to the members included.
 """
 
 from __future__ import annotations
@@ -44,6 +43,14 @@ class CompoundTaskpool(Taskpool):
             return
         member = self.members[self._next]
         self._next += 1
+        # the serving plane's identity reaches the members at launch: a
+        # compound submitted through a RuntimeService got its tenant and
+        # composed priority at admission, after construction
+        if self.tenant is not None:
+            member.tenant = self.tenant
+            member.tenant_weight = self.tenant_weight
+            member.job_priority = self.job_priority
+            member.priority_base = self.priority_base
         prev_cb = member.on_complete
 
         def chain(tp, _prev=prev_cb):

@@ -24,9 +24,18 @@ recorder, findings in ``ctx.hb_findings`` at :meth:`Context.fini`),
 ``PARSEC_TPU_ABI_CHECK=1|strict`` (the engine library's ABI against its
 spec).
 
-Single-rank only: comm engines and the health/flight/watchdog/SLO planes
-of :class:`parsec_tpu.core.Context` are not ported yet; asking for one
-raises ``NotImplementedError`` naming its ROADMAP item.
+Live planes, installed last (:mod:`..profiling`): ``PARSEC_TPU_FLIGHT=1``
+(the always-on flight recorder, dumped on a body failure, a watchdog
+firing or a ``/flightdump`` request), ``PARSEC_TPU_HEALTH=1|<port>`` (the
+health exporter on 127.0.0.1: ``/metrics``, ``/status``, ``/healthz``,
+``/flightdump``; ``1`` takes an ephemeral port), ``PARSEC_TPU_WATCHDOG=1|
+strict`` (the stall watchdog; strict fails stalled pools with its
+diagnosis) and ``PARSEC_TPU_SLO=1`` (the SLO plane; a
+:class:`~parsec_tpu_torch.serve.RuntimeService` installs one unless it is
+``0``).  :meth:`Context.fini` stops and joins them first.
+
+Single-rank only: comm engines are not ported yet; asking for one raises
+``NotImplementedError`` naming ROADMAP A.8.
 """
 
 from __future__ import annotations
@@ -43,15 +52,6 @@ from ..utils.binding import VPMap, available_cores, bind_current_thread
 from . import scheduling
 from .task import Task
 from .taskpool import Taskpool
-
-#: environment switches of reference features the port has not ported yet
-#: (env var -> ROADMAP item); a set switch raises instead of being ignored
-_UNPORTED_ENV = {
-    "PARSEC_TPU_FLIGHT": "A.9b part 2 (profiling: flight recorder)",
-    "PARSEC_TPU_HEALTH": "A.9b part 2 (profiling: health exporter)",
-    "PARSEC_TPU_WATCHDOG": "A.9b part 2 (profiling: watchdog)",
-    "PARSEC_TPU_SLO": "A.9b part 2 (profiling: SLO plane)",
-}
 
 
 class ExecutionStream:
@@ -88,11 +88,6 @@ class Context:
         nranks: int = 1,
         comm=None,
     ):
-        for var, item in _UNPORTED_ENV.items():
-            if os.environ.get(var, "0") not in ("", "0"):
-                raise NotImplementedError(
-                    f"{var} is set, but that feature is not ported yet "
-                    f"(ROADMAP {item})")
         if comm is not None or nranks != 1:
             raise NotImplementedError(
                 "multi-rank contexts (comm engines) are not ported yet "
@@ -181,6 +176,37 @@ class Context:
         debug.verbose(3, "core", "context up: %d workers, sched=%s, devices=%s",
                       self.nb_workers, self.scheduler.mca_name,
                       [d.name for d in self.devices])
+        #: the serving plane (a RuntimeService hangs itself here)
+        self.serve = None
+        self._install_live_planes()
+
+    def _install_live_planes(self) -> None:
+        """The opt-in live planes, installed last (module docstring)."""
+        self.flight = None
+        self.health = None
+        self.watchdog = None
+        self.slo = None
+        if os.environ.get("PARSEC_TPU_FLIGHT", "0") not in ("", "0"):
+            from ..profiling.flight import FlightRecorder
+
+            self.flight = FlightRecorder(
+                nranks=1, base_rank=self.rank, context=self).install()
+        hp = os.environ.get("PARSEC_TPU_HEALTH", "")
+        if hp not in ("", "0"):
+            from ..profiling.health import HealthServer
+
+            port = int(hp) + self.rank if hp.isdigit() and hp != "1" else 0
+            self.health = HealthServer(self, port=port).start()
+        wd = os.environ.get("PARSEC_TPU_WATCHDOG", "0")
+        if wd not in ("", "0"):
+            from ..profiling.health import Watchdog
+
+            self.watchdog = Watchdog(
+                self, strict=(wd.strip().lower() == "strict")).start()
+        if os.environ.get("PARSEC_TPU_SLO", "0") not in ("", "0"):
+            from ..profiling.slo import SloPlane
+
+            self.slo = SloPlane(self)
 
     def _abi_check(self, strict: bool) -> None:
         """``PARSEC_TPU_ABI_CHECK`` startup lint: the engine's ABI spec
@@ -368,7 +394,13 @@ class Context:
         except Exception as e:
             debug.error("worker %d: task %r raised: %s", es.worker_id, task, e)
             traceback.print_exc()
-            task.taskpool.fail(f"task {task!r} body raised: {type(e).__name__}: {e}")
+            why = f"task {task!r} body raised: {type(e).__name__}: {e}"
+            task.taskpool.fail(why)
+            # the incident's artifact: the flight recorder's last events
+            # (a no-op unless PARSEC_TPU_FLIGHT installed one; never raises)
+            from ..profiling import flight as _flight
+
+            _flight.dump_on_failure(why)
             # do NOT run the completion side: successors would consume the
             # failed task's stale data.  A device-manager hook may have
             # ALREADY completed this task before raising on someone else's
@@ -434,7 +466,22 @@ class Context:
         """Reference ``parsec_fini``: drain and tear down.  Detaching the
         devices writes every dirty device tile back to its host copy (the
         write-back committer's flush first); a failed write-back raises
-        here."""
+        here.  The live planes stop first: the watchdog must not read the
+        teardown as a stall, nor the exporter serve a context being taken
+        apart."""
+        for attr in ("watchdog", "health"):
+            obj = getattr(self, attr, None)
+            if obj is not None:
+                try:
+                    obj.stop()
+                except Exception as e:
+                    debug.warning("%s stop failed: %s", attr, e)
+                setattr(self, attr, None)
+        for attr in ("flight", "slo"):
+            obj = getattr(self, attr, None)
+            if obj is not None:
+                obj.uninstall()
+                setattr(self, attr, None)
         for cb in self._fini_cbs:
             try:
                 cb()

@@ -144,7 +144,10 @@ class Task:
         self.taskpool = taskpool
         self.task_class = task_class
         self.locals = tuple(locals_)
-        self.priority = priority
+        # the pool's composed (tenant weight, job priority) offset — set
+        # by the serving plane, 0 everywhere else — rides every task, so
+        # the scheduler's pop order sees the composition
+        self.priority = priority + getattr(taskpool, "priority_base", 0)
         self.status = TaskStatus.NONE
         self.chore_mask: int = ~0  # bitmask over task_class.chores indices
         self.selected_device = None

@@ -8,7 +8,9 @@ completion callbacks.
 from __future__ import annotations
 
 import itertools
+import math
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, TYPE_CHECKING
 
 from ..profiling.jobtrace import trace_id_of
@@ -63,6 +65,16 @@ class Taskpool:
         #: Front-ends that manage counters themselves set this False.
         self.auto_count = nb_tasks is None
         self.priority: int = 0
+        #: serving-plane identity (set by :mod:`parsec_tpu_torch.serve` at
+        #: admission, None outside a service): the tenant this pool
+        #: belongs to, the tenant's fairness weight and the job priority
+        #: the submitter asked for.  ``priority_base`` is the composed
+        #: (tenant weight, job priority) offset every task of the pool
+        #: adds to its own priority at construction (``Task.__init__``).
+        self.tenant: Optional[str] = None
+        self.tenant_weight: int = 1
+        self.job_priority: int = 0
+        self.priority_base: int = 0
         #: 64-bit job trace id, derived deterministically from the pool name
         self.trace_id: int = trace_id_of(name)
         self.user: Any = None
@@ -70,6 +82,11 @@ class Taskpool:
         #: arrive from concurrent workers and ``+=`` alone loses updates
         self.nb_retired = 0
         self._retire_lock = threading.Lock()
+        self._t_attached: Optional[float] = None
+        #: set at the terminating transition: freezes the progress() rate
+        #: window, so a finished pool's rate stops decaying while
+        #: co-resident pools keep the context alive
+        self._t_terminated: Optional[float] = None
 
     # -- task classes -----------------------------------------------------
     def add_task_class(self, tc: TaskClass) -> TaskClass:
@@ -85,6 +102,7 @@ class Taskpool:
     def attached(self, context: "Context") -> None:
         """Called by ``Context.add_taskpool``."""
         self.context = context
+        self._t_attached = time.monotonic()
         if self._known_nb_tasks is not None:
             self.tdm.taskpool_set_nb_tasks(self, self._known_nb_tasks)
 
@@ -101,6 +119,7 @@ class Taskpool:
             if self._terminated.is_set():
                 return False
             self.failed = True
+            self._t_terminated = time.monotonic()
             self._terminated.set()
             return True
 
@@ -125,6 +144,7 @@ class Taskpool:
                 # already terminated (normally, or force-failed): a late
                 # tdm zero-crossing must not re-fire on_complete
                 return
+            self._t_terminated = time.monotonic()
             self._terminated.set()
         debug.verbose(4, "core", "taskpool %s(%d) terminated", self.name, self.taskpool_id)
         if self.context is not None:
@@ -165,6 +185,46 @@ class Taskpool:
         else:
             ok = self._terminated.wait(timeout)
         return ok and not self.failed
+
+    def progress(self) -> Dict[str, Any]:
+        """Live progress of this pool — the per-taskpool slice the health
+        plane exports (``/metrics`` ``parsec_taskpool_*``, ``/status``):
+        tasks retired, the known total (for auto-counted pools, retired
+        plus the monitor's outstanding count: the tasks discovered so
+        far), the retire rate since attach and the rate-extrapolated ETA.
+        ``known`` and ``eta_s`` are None when no estimate exists; an ETA
+        is None, never infinite."""
+        retired = self.nb_retired
+        known = self._known_nb_tasks
+        if known is None:
+            rem = getattr(self.tdm, "_nb_tasks", None)
+            if isinstance(rem, int) and rem >= 0:
+                known = retired + rem
+        # the rate window is this pool's own: attach to termination (or
+        # to now while live), whatever its neighbours on the context do
+        end = self._t_terminated if self._t_terminated is not None \
+            else time.monotonic()
+        elapsed = (end - self._t_attached) \
+            if self._t_attached is not None else 0.0
+        rate = retired / elapsed if elapsed > 0 else 0.0
+        eta = None
+        if known is not None and rate > 0:
+            eta = max(0.0, (known - retired) / rate)
+            if not math.isfinite(eta):
+                eta = None
+        return {
+            "taskpool_id": self.taskpool_id,
+            "name": self.name,
+            "type": self.taskpool_type,
+            "tenant": self.tenant,
+            "retired": retired,
+            "known": known,
+            "elapsed_s": round(elapsed, 6),
+            "rate_tasks_per_s": round(rate, 3),
+            "eta_s": round(eta, 3) if eta is not None else None,
+            "done": self.is_done(),
+            "failed": self.failed,
+        }
 
     # -- helpers ----------------------------------------------------------
     def new_task(self, tc: TaskClass, locals_=(), priority: int = 0) -> Task:

@@ -5,10 +5,11 @@ the PTG-to-DTD replay (:mod:`.ptg_to_dtd`), the PTG's whole-DAG capture
 (:mod:`.graph`), the native executor (:mod:`.native_exec`), whole-DAG
 CUDA-graph capture (:mod:`.cuda_graph`, :class:`GraphExecutor`, with
 level batching: ``batch_levels=True``) and supertask fusion
-(:mod:`.fusion`).
+(:mod:`.fusion`).  :class:`~.native_exec.NativeServeExecutor` runs several
+pools as wdrr tenants of one native graph.
 
-The collective tasks, the serve and the distributed executors of
-:mod:`parsec_tpu.dsl` are not ported yet (ROADMAP A.8, A.9c).
+The collective tasks and the distributed executors of
+:mod:`parsec_tpu.dsl` are not ported yet (ROADMAP A.8).
 """
 
 from .cuda_graph import GraphExecutor

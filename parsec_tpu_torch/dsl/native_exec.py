@@ -49,10 +49,16 @@ dispatch to save.
 ``runtime_vpmap`` (``nb:<k>`` or ``'0,1;2,3'``) groups the native workers
 into virtual processes for the engine's hierarchical steal, on every run.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: a list of taskpools — the serve executor (A.9c) — and
-``DEP_DECREMENT`` observers of a legacy-protocol run, whose decrements
-happen inside ``task_done`` on the device's threads (A.10b).
+A ``DEP_DECREMENT`` observer of a legacy-protocol run is fed the engine's
+decrements: the run buffers them and each completion callback drains them
+after its ``task_done`` (the run's end drains the rest).
+``runtime_native_conformance=1`` replays every pump run's drained event
+stream against the engine verifier's model (ENG014 raises).
+
+:class:`NativeServeExecutor` (``run_native([...])``) runs N all-device
+pools as wdrr tenants of ONE native graph, one device module and one
+pump; :meth:`NativeExecutor.rebind` reuses a captured graph for a
+same-shaped pool.
 """
 
 from __future__ import annotations
@@ -90,6 +96,23 @@ _POP_BATCH = 256
 #: the prefetch window only when its prestage would move at least this
 #: many host->device bytes (the reference's ``runtime_stage_split_kb``)
 _STAGE_SPLIT_BYTES = 256 << 10
+
+
+def _conformance_on() -> bool:
+    return bool(int(mca_param.register(
+        "runtime", "native_conformance", 0,
+        help="1 = certify every pump run's drained lifecycle-event stream "
+             "against the engine-verify model (exactly-once publish and "
+             "retire, dep decrements matching in-degree, happens-before "
+             "drain order); a divergence raises LintError with ENG014 "
+             "findings.  Diagnostic: capture and replay cost O(events)")))
+
+
+def _wdrr_quantum() -> int:
+    return int(mca_param.register(
+        "sched", "wdrr_quantum", 4,
+        help="task credits a tenant's deficit gains per round-robin "
+             "visit, scaled by the tenant's weight"))
 
 
 def _sched_seed() -> int:
@@ -180,9 +203,19 @@ class _EventDrain:
       legacy ``task_done`` path fires, double completions included).
     """
 
-    def __init__(self, ng, pump_index: Dict[int, Any], cap: int):
+    def __init__(self, ng, pump_index: Dict[int, Any], cap: int,
+                 capture: Optional[List[Tuple[int, int, int]]] = None,
+                 legacy: bool = False):
         self.ng = ng
         self.index = pump_index
+        #: every drained record, kept raw for the conformance replay
+        #: (``runtime_native_conformance``)
+        self.capture = capture
+        #: a legacy-protocol run: ``task_done`` fires NATIVE_TASK_DONE
+        #: itself, so only the dep decrements are republished; drains
+        #: come from several completing threads, one at a time
+        self.legacy = legacy
+        self._lock = threading.Lock()
         n = max(1024, cap * 4)
         self.k = (ctypes.c_int32 * n)()
         self.a = (ctypes.c_int64 * n)()
@@ -198,9 +231,14 @@ class _EventDrain:
         done_on = pins.active(pins.NATIVE_TASK_DONE)
         token = ng.hb_token
         total = 0
+        if self.legacy:
+            sched_on = done_on = False
         while True:
             n = ng.events_drain(k, a, b)
             total += n
+            if self.capture is not None:
+                self.capture.extend(
+                    (int(k[i]), int(a[i]), int(b[i])) for i in range(n))
             for i in range(n):
                 kind = k[i]
                 if kind == ng.EVT_DEP_DEC:
@@ -218,9 +256,20 @@ class _EventDrain:
             if n < len(k):
                 return total
 
+    def drain_locked(self) -> int:
+        with self._lock:
+            return self.drain()
+
+
+def _pump_failure(shims) -> Optional[str]:
+    for shim in shims:
+        if shim.failed:
+            return shim.fail_reason or "device submit/epilog failed"
+    return None
+
 
 def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
-               shim: _NativePoolShim, retire_cb: Callable[[List[Any]], None],
+               shims, retire_cb: Callable[[List[Any]], None],
                ev: Optional[_EventDrain] = None) -> int:
     """The zero-interpreter hot loop.  Per batch: ONE ``pop_batch`` returns
     up to ``_POP_BATCH`` ready native ids, the device dispatches them
@@ -246,7 +295,9 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
     so the window pipelines INTRA-wave.  A prestage failure is non-fatal:
     the submit path restages the tile and fails loudly if the data is
     truly bad.  ``ev`` republishes the engine's lifecycle events after
-    each ``done_batch``."""
+    each ``done_batch``.  ``shims`` are the pool shims of the pools the
+    graph holds (one, or the serve executor's N): a failed one ends the
+    run."""
     from ..core import scheduling
     from ..data.data import land_into_home
 
@@ -303,8 +354,9 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
                 stats["prefetched_batches"] += job is not None
                 window.append((buf, n, batch, job))
             if not window:
-                if shim.failed:
-                    raise RuntimeError(f"native device run failed: {shim.fail_reason}")
+                why = _pump_failure(shims)
+                if why is not None:
+                    raise RuntimeError(f"native device run failed: {why}")
                 if ng.quiesced():
                     return done
                 raise RuntimeError(
@@ -320,8 +372,9 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
             t1 = time.perf_counter()
             dev.submit_batch(batch)
             t2 = time.perf_counter()
-            if shim.failed:
-                raise RuntimeError(f"native device run failed: {shim.fail_reason}")
+            why = _pump_failure(shims)
+            if why is not None:
+                raise RuntimeError(f"native device run failed: {why}")
             for t in batch:
                 for (src, home) in t._wbs:
                     land_into_home(home, src.newest_copy().payload)
@@ -365,10 +418,14 @@ class NativeExecutor:
     captured DAG into fused regions, one native node each
     (``self._regions``); :meth:`run` still returns the LOGICAL task
     count.  A partitioner failure raises.
+
+    :meth:`rebind` aims the executor at a same-shaped pool and reruns the
+    captured graph: nothing is captured again.
     """
 
     def __init__(self, tp: PTGTaskpool, *, native_device: bool = False,
-                 device=None, fusion: Optional[str] = None):
+                 device=None, fusion: Optional[str] = None,
+                 _shared_graph=None, _tenant: int = 0):
         from .. import native
 
         self._native = native
@@ -387,6 +444,19 @@ class NativeExecutor:
             "prefetched_batches": 0, "events_drained": 0,
             "lane_wait_s": 0.0, "submit_s": 0.0, "retire_s": 0.0}
         self._stats_lock = threading.Lock()
+        #: serve mode (:class:`NativeServeExecutor`): build into ITS shared
+        #: native graph under this wdrr tenant id instead of owning one
+        self._shared_graph = _shared_graph
+        self._tenant = int(_tenant)
+        #: the native event buffer was armed at build (observers or the
+        #: conformance replay), and the legacy run's drain
+        self._events_on = False
+        self._legacy_drain: Optional[_EventDrain] = None
+        #: native-id edges as declared, kept for the conformance replay
+        self._conformance = False
+        self._edges: List[Tuple[int, int]] = []
+        #: task id -> native id
+        self._index: Dict[Tuple, int] = {}
         #: native id -> prebuilt device task, the pump's dispatch map
         self._pump_index: Dict[int, _NativeDeviceTask] = {}
         self._pool_shim: Optional[_NativePoolShim] = None
@@ -463,8 +533,11 @@ class NativeExecutor:
 
     def _build(self) -> None:
         g = self.graph
-        ng = self._ng = self._native.NativeGraph()
-        index: Dict[Tuple, int] = {}
+        ng = self._shared_graph if self._shared_graph is not None \
+            else self._native.NativeGraph()
+        self._ng = ng
+        index = self._index
+        self._conformance = _conformance_on()
         region_native: Dict[int, int] = {}
         order = list(g.nodes)
         for tid in order:
@@ -477,6 +550,8 @@ class NativeExecutor:
                     rid = region_native[reg.index] = ng.add_task(
                         priority=max(g.nodes[m].priority for m in reg.members),
                         user_tag=len(self._bodies))
+                    if self._tenant:
+                        ng.set_task_tenant(rid, self._tenant)
                     self._bodies.append(self._make_fused_dispatch(reg, rid))
                 index[tid] = rid
                 self._trace_objs[tid] = self._pump_index[rid]
@@ -484,6 +559,8 @@ class NativeExecutor:
             node = g.nodes[tid]
             index[tid] = ng.add_task(priority=node.priority,
                                      user_tag=len(self._bodies))
+            if self._tenant:
+                ng.set_task_tenant(index[tid], self._tenant)
             body = self._make_body(tid)
             if isinstance(body, _NativeDeviceTask):
                 body.native_id = index[tid]
@@ -504,10 +581,20 @@ class NativeExecutor:
                     continue
                 seen_edges.add((me, tgt))
                 ng.add_dep(me, tgt)
+                if self._conformance:
+                    self._edges.append((me, tgt))
                 has_pred.add(tgt)
         self._roots = [nid for nid in dict.fromkeys(index.values())
                        if nid not in has_pred]
-        if self.native_device:
+        if self._shared_graph is not None:
+            # the serve executor configured the shared graph's wdrr pump;
+            # a host body would need the trampoline the pump never runs
+            if self._has_cpu_bodies:
+                raise RuntimeError(
+                    "NativeServeExecutor requires all-device task classes "
+                    f"({self.taskpool.ptg.name} has CPU-only classes)")
+            self._pump = True
+        elif self.native_device:
             # pump or legacy, decided BEFORE the commit pass: committing
             # pushes the source tasks, and in pump mode those pushes must
             # land in the native SchedQ
@@ -516,19 +603,21 @@ class NativeExecutor:
                           and getattr(self.device, "_eager", True))
             if self._pump:
                 ng.sched_config(seed=_sched_seed())
-            elif pins.active(pins.DEP_DECREMENT):
-                raise NotImplementedError(
-                    "DEP_DECREMENT observers on a legacy-protocol native "
-                    "run need the event drain at task_done, which is not "
-                    "ported yet (ROADMAP A.10b)")
             else:
                 self._arm_legacy(ng)
+        if self._pump and (self._conformance or pins.active(pins.DEP_DECREMENT)
+                           or pins.active(pins.NATIVE_TASK_DONE)):
+            # observers installed (or the replay asked for): buffer from
+            # here on, so the commit pass's root publishes are captured
+            ng.events_enable(True)
+            self._events_on = True
         # commit only after EVERY edge is declared: committing a task arms
         # it, and a task whose in-edges arrived after arming would release
         # early
         for nid in dict.fromkeys(index.values()):
             ng.commit(nid)
-        ng.seal()
+        if self._shared_graph is None:
+            ng.seal()
 
     def _make_body(self, tid: Tuple):
         """The numpy body (CPU regime), the prebuilt device task, or — a
@@ -554,6 +643,14 @@ class NativeExecutor:
 
         stats = self.stats
         lock = self._stats_lock
+        ev = None
+        if pins.active(pins.DEP_DECREMENT):
+            # the engine decrements inside task_done (and inside a host
+            # task's inline completion): buffer, and drain after each
+            # task_done on the completing thread
+            ng.events_enable(True)
+            ev = self._legacy_drain = _EventDrain(ng, self._pump_index, 64,
+                                                  legacy=True)
 
         def on_complete(t: Task) -> None:
             with lock:
@@ -561,6 +658,10 @@ class NativeExecutor:
             for (src, home) in t._wbs:
                 land_into_home(home, src.newest_copy().payload)
             ng.task_done(t.native_id)
+            if ev is not None:
+                n = ev.drain_locked()
+                with lock:
+                    stats["events_drained"] += n
 
         for task in self._pump_index.values():
             task.on_complete = on_complete
@@ -937,6 +1038,9 @@ class NativeExecutor:
             raise
         if shim.failed:
             raise RuntimeError(f"native device run failed: {shim.fail_reason}")
+        if self._legacy_drain is not None:
+            # host tasks' inline completions decrement on the workers
+            self.stats["events_drained"] += self._legacy_drain.drain_locked()
         self.taskpool.task_done_batch(len(self.graph.nodes))
         return n
 
@@ -955,25 +1059,124 @@ class NativeExecutor:
         callback exists, and ``self.stats`` pins it."""
         tp = self.taskpool
         ng = self._ng
-        ev = None
-        if pins.active(pins.DEP_DECREMENT) or pins.active(pins.NATIVE_TASK_DONE):
-            # observers (the hb checker): buffer the engine's lifecycle
-            # events from here on.  The commit pass already published the
-            # roots unbuffered, so publish them now: hb then orders each
-            # root's publish before its exec
+        drain = (self._events_on or pins.active(pins.DEP_DECREMENT)
+                 or pins.active(pins.NATIVE_TASK_DONE))
+        if drain and not self._events_on:
+            # observers installed after the build (the hb checker): buffer
+            # the engine's lifecycle events from here on.  The commit pass
+            # published the roots unbuffered, so publish them now: hb then
+            # orders each root's publish before its exec
             ng.events_enable(True)
+            self._events_on = True
             if pins.active(pins.SCHEDULE_BEGIN):
                 for nid in self._roots:
                     t = self._pump_index.get(nid)
                     if t is not None:
                         pins.fire(pins.SCHEDULE_BEGIN, None, (t,))
-            ev = _EventDrain(ng, self._pump_index, _POP_BATCH)
+        capture: Optional[List[Tuple[int, int, int]]] = \
+            [] if self._conformance else None
+        ev = _EventDrain(ng, self._pump_index, _POP_BATCH, capture) if drain else None
         # the progress currency counts logical tasks: a fused supertask
         # retires all its members (the rule of Taskpool.task_done)
-        return _pump_loop(ng, self.device, self._pump_index, self.stats,
-                          self._pool_shim,
-                          lambda batch: tp.task_done_batch(sum(t.fused_n for t in batch)),
-                          ev)
+        n = _pump_loop(ng, self.device, self._pump_index, self.stats,
+                       (self._pool_shim,),
+                       lambda batch: tp.task_done_batch(sum(t.fused_n for t in batch)),
+                       ev)
+        if capture is not None:
+            self._certify_drain(capture)
+        return n
+
+    def _certify_drain(self, events: List[Tuple[int, int, int]]) -> None:
+        """``runtime_native_conformance``: replay the drained lifecycle
+        stream against the engine verifier's model; a divergence (ENG014)
+        raises LintError — the drain misreported what the engine did."""
+        from ..analysis import engine_verify
+        from ..analysis.findings import LintError
+
+        n_tasks = max(dict.fromkeys(self._index.values()), default=-1) + 1
+        dag = engine_verify.SeedDag(
+            f"pump:{self.taskpool.ptg.name}", n_tasks, tuple(self._edges))
+        fs = engine_verify.conformance_findings(dag, events,
+                                                quiesced=self._ng.quiesced())
+        if fs:
+            raise LintError(
+                f"native pump drain failed conformance ({len(fs)} finding(s))", fs)
+        self.stats["conformance_events"] = len(events)
+
+    def rebind(self, tp: PTGTaskpool) -> "NativeExecutor":
+        """Aim this executor at a SAME-SHAPE taskpool (the same task
+        classes, parameter spaces, scalar globals and collection names;
+        only the tiles' contents may differ) and rewind the native graph
+        for another run: the captured graph, the fused partition and the
+        native nodes and edges are reused, nothing is captured again.  A
+        stream of same-shaped jobs (a decode step after another) pays the
+        capture once.  With ``native_device=True`` the previous run's
+        device tiles are flushed home first and the device tasks are
+        rebuilt over the new pool's tiles.  A shape mismatch raises."""
+        if self._shared_graph is not None:
+            raise RuntimeError("rebind: a serve executor's child shares the "
+                               "serve executor's graph and cannot be rebound")
+        self._check_same_shape(tp)
+        if self.device is not None:
+            self.device.detach()  # the previous pool's tiles land home
+        self.taskpool = tp
+        self._new_tiles.clear()
+        self._new_data.clear()
+        self.__dict__.pop("_chore_cache", None)
+        self._ng.reset()
+        if self.native_device:
+            self._rebuild_device_tasks()
+        # (the CPU regime's bodies read self.taskpool at run time)
+        for nid in dict.fromkeys(self._index.values()):
+            self._ng.commit(nid)
+        return self
+
+    def _rebuild_device_tasks(self) -> None:
+        """Rebuild every native node's body over the current pool's tiles,
+        in the build's order (a node's user tag is its body's position)."""
+        self._pump_index.clear()
+        self._plans.clear()
+        self._has_cpu_bodies = False
+        self._bodies = []
+        for tid in self.graph.nodes:
+            nid = self._index[tid]
+            reg = self._region_of.get(tid)
+            if reg is not None:
+                if nid not in self._pump_index:
+                    self._bodies.append(self._make_fused_dispatch(reg, nid))
+                self._trace_objs[tid] = self._pump_index[nid]
+                continue
+            body = self._make_body(tid)
+            if isinstance(body, _NativeDeviceTask):
+                body.native_id = nid
+                self._pump_index[nid] = body
+                self._trace_objs[tid] = body
+            self._bodies.append(body)
+        if not self._pump:
+            self._arm_legacy(self._ng)
+
+    def _check_same_shape(self, tp: PTGTaskpool) -> None:
+        """The new pool's global task placement and scalar globals must
+        match the captured structure exactly (a pass-1 enumeration)."""
+        consts = tp.constants
+        fresh = {}
+        for pc in tp.ptg.classes.values():
+            for loc in pc.param_space(consts):
+                fresh[(pc.name, loc)] = pc.rank_of(loc, consts)
+        old = self.graph.global_ranks
+        if fresh != old:
+            raise ValueError(
+                "rebind: taskpool shape/placement differs from the captured "
+                f"structure ({len(fresh)} vs {len(old)} tasks or moved "
+                "ranks); build a fresh executor")
+        old_scalars = {k: v for k, v in self.taskpool.constants.items()
+                       if isinstance(v, (int, float, str, bool))}
+        new_scalars = {k: v for k, v in consts.items()
+                       if isinstance(v, (int, float, str, bool))}
+        if old_scalars != new_scalars:
+            raise ValueError(
+                "rebind: scalar globals differ (bodies bake them): "
+                f"{old_scalars} vs {new_scalars}")
 
     def close(self) -> None:
         """Release the native graph, then flush dirty device tiles home so
@@ -981,7 +1184,11 @@ class NativeExecutor:
         ``detach`` drains the write-back committer first and writes the
         rest home in one batch.  The device stays usable: a caller may
         share it across executors.  A failed flush — a committer error
-        included — raises: it would hand back pre-run host tiles."""
+        included — raises: it would hand back pre-run host tiles.  A serve
+        executor's child owns neither: closing it does nothing."""
+        if self._shared_graph is not None:
+            self._ng = None
+            return
         ng = self._ng
         if ng is not None:
             self._ng = None
@@ -990,18 +1197,141 @@ class NativeExecutor:
             self.device.detach()
 
 
+class NativeServeExecutor:
+    """Multi-tenant native pump: N unstarted all-device PTG taskpools share
+    ONE native graph, ONE device module and ONE pump loop; the engine's
+    wdrr SchedQ interleaves the pools (tenants) by weight with the
+    semantics of :mod:`..core.sched.wdrr` — each round-robin visit gives a
+    tenant's deficit ``quantum x weight`` task credits, a drained tenant
+    forfeits its credits and leaves the ring, and within a tenant pops
+    follow (priority desc, insertion order).  A small tenant's tasks keep
+    retiring beside a large dpotrf backlog, with no interpreter entry per
+    task.
+
+    ``weights`` maps pool position -> wdrr weight (a sequence or a dict;
+    default 1); they reach the engine before any child builds, so the
+    commit pass's root pushes land in weighted bins.  :meth:`run` returns
+    the per-pool logical task counts; :attr:`retire_log` holds ``(pool
+    index, retire position, seconds since the pump started)`` for every
+    retired native task."""
+
+    def __init__(self, pools: List[PTGTaskpool], *, device=None,
+                 weights=None, seed: int = -1):
+        from .. import native
+
+        if len(pools) < 1:
+            raise ValueError("NativeServeExecutor needs >= 1 taskpool")
+        native.load()  # raises with the cause: there is no fallback
+        self.ng = native.NativeGraph()
+        self.device = device if device is not None else NativeExecutor._make_device()
+        # BEFORE any child builds: the commit pass's pushes must land in
+        # the configured wdrr bins
+        self.ng.sched_config(policy="wdrr", quantum=_wdrr_quantum(), seed=seed)
+        self.stats: Dict[str, Any] = {
+            "trampoline_entries": 0, "completion_callbacks": 0,
+            "pop_batches": 0, "done_batches": 0, "pumped_tasks": 0,
+            "prefetched_batches": 0, "events_drained": 0,
+            "lane_wait_s": 0.0, "submit_s": 0.0, "retire_s": 0.0}
+        self.children: List[NativeExecutor] = []
+        self.retire_log: List[Tuple[int, int, float]] = []
+        self.weights: List[int] = []
+        for i, tp in enumerate(pools):
+            if weights is None:
+                w = 1
+            elif isinstance(weights, dict):
+                w = int(weights.get(i, 1))
+            else:
+                w = int(weights[i])
+            # one clamped weight, recorded and given to the engine alike
+            w = max(1, w)
+            self.weights.append(w)
+            self.ng.set_tenant_weight(i + 1, w)
+            self.children.append(NativeExecutor(
+                tp, native_device=True, device=self.device,
+                _shared_graph=self.ng, _tenant=i + 1))
+        self.ng.seal()
+        self._pump_index: Dict[int, _NativeDeviceTask] = {}
+        self._tenant_of: Dict[int, int] = {}
+        for i, ch in enumerate(self.children):
+            self._pump_index.update(ch._pump_index)
+            for nid in ch._pump_index:
+                self._tenant_of[nid] = i
+            # the union pump owns the counters
+            ch.stats = self.stats
+
+    def run(self) -> List[int]:
+        """Pump the union DAG to quiescence; returns the per-pool logical
+        task counts."""
+        if pins.active(pins.RELEASE_DEPS_END):
+            for ch in self.children:
+                ch._emit_trace_edges()
+        ng = self.ng
+        events_on = any(ch._events_on for ch in self.children)
+        drain = events_on or pins.active(pins.DEP_DECREMENT) \
+            or pins.active(pins.NATIVE_TASK_DONE)
+        if drain and not events_on:
+            ng.events_enable(True)
+            if pins.active(pins.SCHEDULE_BEGIN):
+                for ch in self.children:
+                    for nid in ch._roots:
+                        t = self._pump_index.get(nid)
+                        if t is not None:
+                            pins.fire(pins.SCHEDULE_BEGIN, None, (t,))
+        ev = _EventDrain(ng, self._pump_index, _POP_BATCH) if drain else None
+        tenant_of = self._tenant_of
+        log = self.retire_log
+        children = self.children
+        t0 = time.perf_counter()
+
+        def retire_cb(batch):
+            now = time.perf_counter() - t0
+            done = [0] * len(children)
+            pos = len(log)
+            for t in batch:
+                i = tenant_of[t.native_id]
+                pos += 1
+                log.append((i, pos, now))
+                done[i] += t.fused_n
+            for i, k in enumerate(done):
+                if k:  # each pool's progress currency, one call a pool
+                    children[i].taskpool.task_done_batch(k)
+
+        n = _pump_loop(ng, self.device, self._pump_index, self.stats,
+                       [ch._pool_shim for ch in children], retire_cb, ev)
+        expected = sum(len(ch._bodies) for ch in children)
+        if n != expected:
+            raise RuntimeError(f"native serve pump retired {n}/{expected} tasks")
+        return [len(ch.graph.nodes) for ch in children]
+
+    def close(self) -> None:
+        """Release the shared graph and flush the device's dirty tiles
+        home (a failed flush raises, as :meth:`NativeExecutor.close`)."""
+        for ch in self.children:
+            ch.close()  # a child owns neither the graph nor the device
+        ng = self.ng
+        if ng is not None:
+            self.ng = None
+            ng.close()
+        if self.device is not None:
+            self.device.detach()
+
+
 def run_native(tp, *, nthreads: int = 4, native_device: bool = False,
-               device=None, fusion: Optional[str] = None) -> int:
+               device=None, fusion: Optional[str] = None, weights=None):
     """One-shot: capture + native execution of ``tp``; returns the number
     of (logical) tasks run.  With ``native_device=True`` every task with a
     device body runs through the CUDA device module — driven by the native
     pump, or by the legacy ASYNC-chore protocol — fused regions as one
     dispatch each (``fusion``, None: ``runtime_fusion``; see
-    :class:`NativeExecutor`)."""
+    :class:`NativeExecutor`).  A LIST of taskpools runs them as wdrr
+    tenants of one shared native graph (:class:`NativeServeExecutor`,
+    ``weights`` per pool) and returns the per-pool task counts."""
     if isinstance(tp, (list, tuple)):
-        raise NotImplementedError(
-            "run_native over a list of taskpools (the multi-tenant serve "
-            "executor) is not ported yet (ROADMAP A.9c)")
+        sx = NativeServeExecutor(list(tp), device=device, weights=weights)
+        try:
+            return sx.run()
+        finally:
+            sx.close()
     ex = NativeExecutor(tp, native_device=native_device, device=device,
                         fusion=fusion)
     try:

@@ -33,8 +33,11 @@ for the hierarchical steal.  :meth:`NativeGraph.events_enable` /
 :meth:`NativeGraph.events_drain` buffer and drain the engine's lifecycle
 events (``EVT_DEP_DEC``, ``EVT_PUBLISH``, ``EVT_RETIRE``), which the
 pump republishes into PINS for the hb checker and the engine verifier
-replays against its model.  Not ported yet: the per-tenant ``wdrr`` pump
-policy of the serve executor (A.9c).
+replays against its model.  :meth:`NativeGraph.sched_config` takes the
+pump's policy (``prio`` or the per-tenant ``wdrr`` of the serve executor,
+with :meth:`NativeGraph.set_task_tenant` and
+:meth:`NativeGraph.set_tenant_weight`), and :meth:`NativeGraph.reset`
+rewinds a quiesced graph for a same-shaped rerun.
 """
 
 from __future__ import annotations
@@ -332,14 +335,42 @@ class NativeGraph:
     #: lifecycle event kinds from :meth:`events_drain` (graph.cpp EvtKind)
     EVT_DEP_DEC, EVT_PUBLISH, EVT_RETIRE = 0, 1, 2
 
-    def sched_config(self, seed: int = -1) -> None:
-        """Route ready pushes and pops through the native pump scheduler's
-        priority policy: pops go (priority desc, insertion seq asc);
-        ``seed >= 0`` applies the schedule explorer's deterministic
-        pop-order perturbation.  Must be called BEFORE tasks commit.  The
-        engine's per-tenant ``wdrr`` policy waits for the serve executor
-        (ROADMAP A.9c)."""
-        self._lib.pz_graph_sched_config(self._g, 0, 0, int(seed))
+    SCHED_POLICIES = {"prio": 0, "wdrr": 1}
+
+    def sched_config(self, policy: str = "prio", quantum: int = 0,
+                     seed: int = -1) -> None:
+        """Route ready pushes and pops through the native pump scheduler.
+        ``prio`` pops (priority desc, insertion seq asc), the spq order;
+        ``wdrr`` runs weighted deficit round robin over tenant bins (see
+        :meth:`set_task_tenant`, :meth:`set_tenant_weight`; ``quantum`` is
+        the credits a weight-1 tenant gains a visit); ``seed >= 0``
+        applies the schedule explorer's deterministic pop-order
+        perturbation.  Must be called BEFORE tasks commit."""
+        self._lib.pz_graph_sched_config(
+            self._g, self.SCHED_POLICIES[policy], int(quantum), int(seed))
+
+    def set_task_tenant(self, task_id: int, tenant: int) -> None:
+        """Put a task in a wdrr tenant bin (before its commit)."""
+        self._lib.pz_graph_task_tenant(self._g, task_id, int(tenant))
+
+    def set_tenant_weight(self, tenant: int, weight: int) -> None:
+        """(Re-)tune a tenant bin's wdrr weight (at least 1)."""
+        self._lib.pz_graph_tenant_weight(self._g, int(tenant), int(weight))
+
+    POLICIES = {"lfq": 0, "gd": 1}
+
+    def set_policy(self, policy: str) -> None:
+        """Worker-run scheduling policy: ``lfq`` (per-worker bounded heaps
+        and hierarchical steal, the default) or ``gd`` (one global
+        priority heap)."""
+        self._lib.pz_graph_set_policy(self._g, self.POLICIES[policy])
+
+    def reset(self) -> None:
+        """Rewind a QUIESCED graph for a rerun over the same structure:
+        every task returns to uncommitted and the caller re-commits as
+        after construction.  Raises while tasks are outstanding."""
+        if self._lib.pz_graph_reset(self._g) != 0:
+            raise RuntimeError("cannot reset: tasks still outstanding")
 
     def pop_batch(self, buf) -> int:
         """Pop up to ``len(buf)`` ready ids into ``buf`` (a preallocated

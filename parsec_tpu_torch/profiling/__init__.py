@@ -3,9 +3,10 @@ tracers, the DOT grapher, the live properties dictionary, SDE counters,
 alperf, job trace ids, and the offline trace tools (:mod:`.tools`:
 ``info``, ``to-csv``, ``merge``, ``critpath``, ``hbcheck``, ``check``).
 
-The port of :mod:`parsec_tpu.profiling`.  Its live planes — the health
-server, the stall watchdog, the flight recorder, the SLO plane, ``top``
-and the serve monitor — are ROADMAP A.9b part 2.
+The port of :mod:`parsec_tpu.profiling`, with its live planes: the health
+exporter and the stall watchdog (:mod:`.health`), the flight recorder
+(:mod:`.flight`), the SLO plane (:mod:`.slo`), ``top`` (:mod:`.top`) and
+the monitor (:mod:`.monitor`).
 """
 
 from . import pins
@@ -17,13 +18,10 @@ from . import jobtrace  # noqa: F401
 from .alperf import AlperfModule
 from .sde import SDEModule
 
-#: the reference's live-plane names (health server, watchdog, flight
-#: recorder): ROADMAP A.9b part 2
-_LIVE_PLANES = ("HealthServer", "Watchdog", "FlightRecorder")
-
 __all__ = ["pins", "Trace", "TaskProfiler", "CommProfiler", "DotGrapher",
            "dictionary", "sde", "SDEModule", "AlperfModule",
-           "BinaryTrace", "BinaryTaskProfiler", "RankTraceSet"]
+           "BinaryTrace", "BinaryTaskProfiler", "RankTraceSet",
+           "HealthServer", "Watchdog", "FlightRecorder"]
 
 
 def __getattr__(name):
@@ -33,8 +31,12 @@ def __getattr__(name):
         from . import binary
 
         return getattr(binary, name)
-    if name in _LIVE_PLANES:
-        raise NotImplementedError(
-            f"profiling.{name}: the live planes are not ported yet "
-            "(ROADMAP A.9b part 2)")
+    if name in ("HealthServer", "Watchdog"):
+        from . import health
+
+        return getattr(health, name)
+    if name == "FlightRecorder":
+        from .flight import FlightRecorder
+
+        return FlightRecorder
     raise AttributeError(name)

@@ -207,12 +207,12 @@ class RankTraceSet:
       payload landed — the events the overlap metric counts).
 
     ``trace_factory(rank) -> trace`` swaps the per-rank sink: the default
-    is the native :class:`BinaryTrace` (the reference's flight recorder
-    passes a bounded ring here; ROADMAP A.9b part 2).
+    is the native :class:`BinaryTrace`; the flight recorder
+    (:mod:`.flight`) passes a bounded ring here.
 
-    The comm, collective and job callbacks are subscribed as the
-    reference subscribes them; nothing fires their sites before the comm
-    layer (ROADMAP A.8) and the serving plane (A.9c) are ported.
+    The comm and collective callbacks are subscribed as the reference
+    subscribes them; nothing fires their sites before the comm layer is
+    ported (ROADMAP A.8).  The serving plane fires the job sites.
 
     ``lean=True`` drops the highest-frequency/lowest-value subscribers —
     the select-latency/steals instrumentation (which fires on every

@@ -14,8 +14,8 @@ id, info = ``PHASE_*``); :func:`job_of_event` resolves one event.
 ``profiling.merge`` annotates every job-attributable event with
 ``args.trace_id`` and ``profiling.critpath --job`` slices on it.  The
 port records ``job_map`` instants for tasks whose pool carries a trace
-id; the ``job_phase`` instants and the ``jobwire_*`` / ``jobcoll`` events
-come with the serving plane (ROADMAP A.9c) and the comm layer (A.8).
+id and the serving plane's ``job_phase`` instants; the ``jobwire_*`` /
+``jobcoll`` events come with the comm layer (ROADMAP A.8).
 """
 
 from __future__ import annotations

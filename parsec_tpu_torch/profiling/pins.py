@@ -9,8 +9,8 @@ The port declares every site of :mod:`parsec_tpu.profiling.pins`, so a
 subscriber (the binary tracer's :class:`~.binary.RankTraceSet`) wires
 itself as the reference's does.  Not every site has a firing site yet:
 the comm, collective and activation sites wait for the comm layer
-(ROADMAP A.8), the job sites for the serving plane (A.9c), and
-``DATA_FLUSH_*`` has none in the reference either.
+(ROADMAP A.8), and ``DATA_FLUSH_*`` has none in the reference either.
+The serving plane (:mod:`parsec_tpu_torch.serve`) fires the job sites.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ COLL_BEGIN = "coll_begin"
 COLL_END = "coll_end"
 COLL_SEG = "coll_seg"
 # serving-plane job lifecycle ({"rank","trace","tenant","job_id"}): the
-# serving plane fires them (ROADMAP A.9c)
+# serving plane (parsec_tpu_torch.serve) fires them
 JOB_SUBMIT = "job_submit"
 JOB_ADMIT = "job_admit"
 JOB_DONE = "job_done"

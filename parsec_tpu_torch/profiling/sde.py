@@ -27,8 +27,8 @@ TASKS_RETIRED = "PARSEC::TASKS_RETIRED"
 PENDING_TASKS = "PARSEC::SCHEDULER::PENDING_TASKS"
 # the reference's serving-side gauge set: the names are part of the
 # monitoring contract, so the port declares them all.  The health plane
-# that registers them per context is ROADMAP A.9b part 2; the comm,
-# collective and serving counters wait for A.8 and A.9c
+# (profiling.health.register_context_gauges) registers them per context;
+# the comm and collective counters read zero until A.8
 READY_TASKS = "PARSEC::SCHEDULER::READY_TASKS"
 COMM_WIRE_BYTES = "PARSEC::COMM::WIRE_BYTES"
 COMM_EAGER_HIT_RATE = "PARSEC::COMM::EAGER_HIT_RATE"

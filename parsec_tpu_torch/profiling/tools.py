@@ -45,9 +45,13 @@ Chrome/Perfetto JSON.
   :mod:`..tuning`, on the card unless ``--device cpu``.
 
 ``check-comms`` is registered and raises: the comm-protocol events it
-counts come with the comm layer (ROADMAP A.8).  ``flightdump``,
-``serve-status`` and ``top`` are registered and raise: they read the live
-planes (ROADMAP A.9b part 2).
+counts come with the comm layer (ROADMAP A.8).  The live planes:
+
+* ``flightdump`` — snapshot the flight recorder through a live health
+  endpoint's ``/flightdump`` (or the recorders of this process into a
+  directory);
+* ``serve-status`` — the per-tenant serving table of a live ``/status``;
+* ``top`` — the live terminal dashboard (:mod:`.top`) over ``/status``.
 
 Usage::
 
@@ -658,12 +662,120 @@ def cmd_check(args) -> int:
     return 1 if n_err else 0
 
 
-def cmd_live_plane(args) -> int:
-    """``flightdump``, ``serve-status`` and ``top`` read the live planes
-    (the flight recorder, the health endpoint, the serving plane)."""
-    raise NotImplementedError(
-        f"tools {args.cmd} reads the live planes, which are not ported yet "
-        "(ROADMAP A.9b part 2)")
+def cmd_flightdump(args) -> int:
+    """Trigger + collect a flight-recorder snapshot.
+
+    ``target`` is either the base URL of a live health endpoint (the
+    server process writes ``rank<r>.fr.pbt`` files and reports their
+    paths) or, for embedded use, an output DIRECTORY — in which case the
+    recorders installed in THIS process are dumped."""
+    import os
+
+    target = args.target
+    out_dir = args.out
+    if target.startswith(("http://", "https://")):
+        import json as _json
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+
+        url = target.rstrip("/") + "/flightdump"
+        if out_dir:
+            url += "?" + urllib.parse.urlencode(
+                {"dir": os.path.abspath(out_dir)})
+        try:
+            with urllib.request.urlopen(url, timeout=30) as resp:
+                doc = _json.loads(resp.read().decode())
+        except urllib.error.HTTPError as e:
+            body = e.read().decode(errors="replace")
+            print(f"flightdump: {e.code} from {url}: {body}",
+                  file=sys.stderr)
+            return 1
+        except OSError as e:
+            print(f"flightdump: cannot reach {url}: {e}", file=sys.stderr)
+            return 1
+        paths = doc.get("paths", [])
+        for p in paths:
+            print(p)
+        print(f"flightdump: {len(paths)} snapshot(s) "
+              f"(load with: tools merge/critpath/hbcheck)")
+        return 0 if paths else 1
+    from . import flight
+
+    if not flight.installed():
+        print("flightdump: no flight recorder installed in this process "
+              "(set PARSEC_TPU_FLIGHT=1, or pass a live health endpoint "
+              "URL)", file=sys.stderr)
+        return 1
+    paths = flight.dump_all(out_dir or target, reason="tools flightdump")
+    for p in paths:
+        print(p)
+    return 0 if paths else 1
+
+
+def cmd_serve_status(args) -> int:
+    """Render the per-tenant serving table of a live ``/status``
+    endpoint (the ``serve`` section ``serve.RuntimeService`` exports)."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    url = args.url.rstrip("/") + "/status"
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            doc = _json.loads(resp.read().decode())
+    except urllib.error.HTTPError as e:
+        print(f"serve-status: {e.code} from {url}", file=sys.stderr)
+        return 1
+    except (OSError, ValueError) as e:
+        print(f"serve-status: cannot read {url}: {e}", file=sys.stderr)
+        return 1
+    sv = doc.get("serve")
+    if not sv:
+        print(f"serve-status: rank {doc.get('rank')} at {args.url} has "
+              "no serving plane attached (not a RuntimeService context)",
+              file=sys.stderr)
+        return 1
+    j = sv["jobs"]
+    print(f"rank {doc.get('rank')} serve: scheduler={sv['scheduler']} "
+          f"fairness={'on' if sv['fairness'] else 'off'}"
+          f"{' CLOSING' if sv['closing'] else ''}")
+    lim = sv["limits"]
+    print(f"  limits: inflight<={lim['max_inflight_pools']} "
+          f"backlog<={lim['max_ready_backlog']} "
+          f"arena<={lim['arena_budget'] or 'inf'} "
+          f"queue<={lim['max_queued']}")
+    print(f"  jobs: {j['inflight']} in flight, {j['queued']} queued, "
+          f"{j['done']} done, {j['failed']} failed, "
+          f"{j['cancelled']} cancelled, {j['rejected']} rejected, "
+          f"{j['expired']} expired")
+    hdr = (f"  {'tenant':<16}{'w':>3}{'run':>5}{'queue':>6}{'done':>6}"
+           f"{'fail':>5}{'rej':>5}{'retired':>9}{'tasks/s':>9}"
+           f"{'eta_s':>7}")
+    print(hdr)
+    import math as _math
+
+    for name in sorted(sv["tenants"]):
+        t = sv["tenants"][name]
+        # unknown ETA (no rate yet, or a non-finite extrapolation from a
+        # 0-rate window) renders as "--", never "inf"
+        eta = ("--" if t["eta_s"] is None
+               or not _math.isfinite(float(t["eta_s"]))
+               else f"{float(t['eta_s']):.1f}")
+        print(f"  {name:<16}{t['weight']:>3}{t['inflight']:>5}"
+              f"{t['queued']:>6}{t['completed']:>6}{t['failed']:>5}"
+              f"{t['rejected']:>5}{t['retired']:>9}"
+              f"{t['rate_tasks_per_s']:>9.1f}{eta:>7}")
+    return 0
+
+
+def cmd_top(args) -> int:
+    """Live terminal dashboard over one or more /status endpoints
+    (see :mod:`.top`; the live counterpart of one-shot serve-status)."""
+    from .top import run_top
+
+    return run_top(args.urls, interval=args.interval, once=args.once,
+                   max_updates=args.max_updates)
 
 
 def main(argv=None) -> int:
@@ -734,11 +846,42 @@ def main(argv=None) -> int:
                     help="comma-separated graph-lint finding codes to "
                     "suppress")
     pg.set_defaults(fn=cmd_check)
-    for name in ("flightdump", "serve-status", "top"):
-        pf = sub.add_parser(name, help="live planes: not ported yet "
-                            "(ROADMAP A.9b part 2)")
-        pf.add_argument("target", nargs="*")
-        pf.set_defaults(fn=cmd_live_plane)
+    pf = sub.add_parser(
+        "flightdump", help="snapshot a live mesh's flight recorder "
+        "(rank<r>.fr.pbt per rank): pass a health endpoint URL "
+        "(PARSEC_TPU_HEALTH=1 in the app) or an output directory for "
+        "in-process recorders")
+    pf.add_argument("target",
+                    help="http://host:port of a live health endpoint, or "
+                    "an output directory (in-process mode)")
+    pf.add_argument("-o", "--out",
+                    help="directory the snapshots land in (URL mode: the "
+                    "SERVER process writes there; default: its cwd or "
+                    "PARSEC_TPU_FLIGHT_DIR)")
+    pf.set_defaults(fn=cmd_flightdump)
+    ps = sub.add_parser(
+        "serve-status", help="per-tenant serving table of a live "
+        "RuntimeService mesh: jobs in flight/queued/done, retired "
+        "tasks, rates and ETAs per tenant (reads /status of a "
+        "PARSEC_TPU_HEALTH endpoint)")
+    ps.add_argument("url", help="http://host:port of a live health "
+                    "endpoint whose context carries a RuntimeService")
+    ps.set_defaults(fn=cmd_serve_status)
+    pt = sub.add_parser(
+        "top", help="live terminal dashboard (curses-free) over one or "
+        "more /status endpoints: tenants, in-flight jobs with phase + "
+        "ETA + trace id, per-rank straggler flags, SLO histogram "
+        "sparklines — refreshed in place")
+    pt.add_argument("urls", nargs="+",
+                    help="http://host:port of live health endpoints "
+                    "(one per rank, or just rank 0's)")
+    pt.add_argument("--interval", type=float, default=1.0,
+                    help="refresh period in seconds (default 1.0)")
+    pt.add_argument("--once", action="store_true",
+                    help="print one frame and exit (no screen clear)")
+    pt.add_argument("--max-updates", type=int, default=0,
+                    help="stop after N refreshes (0 = forever)")
+    pt.set_defaults(fn=cmd_top)
     pe = sub.add_parser(
         "cache", help="compiled libraries and tuning winners: list, stats, purge, "
         "integrity verify (PARSEC_TPU_COMPILE_CACHE governs the tuning root)")

@@ -8,9 +8,15 @@ interpreter drives the single-card core's modules — dense dependency
 storage, a vpmap, ``user_trigger``, arenas, datatypes, a checkpoint, the
 tiled-matrix operations, band storage, the template device and the legacy
 ASYNC protocol with a mixed DAG on the CUDA module bound to the torch CPU
-device — under the same rule, and a third the trace stack: a traced pump
+device — under the same rule, a third the trace stack: a traced pump
 run through every tracer and PINS module, the dump read back and run
-through the trace commands."""
+through the trace commands, and a fourth the serving plane and the live
+planes: a RuntimeService with the flight recorder, the health exporter
+(bound to 127.0.0.1 on an ephemeral port), the watchdog and the SLO
+plane switched on, scraped, and read by ``serve-status``, ``top``,
+``flightdump`` and the monitor, beside the native serve executor and a
+rebound device executor.  ``chip_smoke.py`` alone in a directory, or on
+a machine without a GPU, exits non-zero and prints no result."""
 
 import os
 import subprocess
@@ -202,3 +208,84 @@ def test_trace_stack_loads_neither_jax_nor_the_jax_package(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "TRACE LOADED []" in proc.stdout
+
+
+LIVE_SCRIPT = textwrap.dedent("""
+    import io, json, os, sys, tempfile, urllib.request
+    from contextlib import redirect_stdout
+    import numpy as np
+    import torch
+    for var in ("PARSEC_TPU_FLIGHT", "PARSEC_TPU_HEALTH", "PARSEC_TPU_WATCHDOG",
+                "PARSEC_TPU_SLO"):
+        os.environ[var] = "1"
+    d = tempfile.mkdtemp()
+    os.environ["PARSEC_TPU_FLIGHT_DIR"] = d
+    from parsec_tpu_torch import mca_param
+    from parsec_tpu_torch.dsl.native_exec import NativeExecutor, run_native
+    from parsec_tpu_torch.ops import build_flash_attention
+    from parsec_tpu_torch.profiling import monitor, tools
+    from parsec_tpu_torch.profiling.binary import read_pbt
+    from parsec_tpu_torch.serve import RuntimeService
+
+    def decode(seed):
+        rng = np.random.default_rng(seed)
+        mk = lambda s: torch.from_numpy(rng.standard_normal((1, s, 2, 8)).astype(np.float32))
+        return build_flash_attention(mk(8), mk(64), mk(64), causal=True, q_block=8,
+                                     kv_block=16, use_cpu=False)
+
+    sv = RuntimeService(nb_cores=2, cuda_device="cpu")
+    ctx = sv.context
+    host, port = ctx.health._httpd.server_address
+    assert host == "127.0.0.1" and port > 0 and ctx.health.url.startswith("http://127.0.0.1:")
+    hs = [sv.submit("decode", decode(i)[0]) for i in range(3)]
+    assert all(h.wait(timeout=120) for h in hs)
+    text = urllib.request.urlopen(ctx.health.url + "/metrics", timeout=10).read().decode()
+    assert "parsec_serve_jobs_done_total" in text and "parsec_job_latency_seconds" in text
+    out = io.StringIO()
+    with redirect_stdout(out):
+        assert tools.main(["serve-status", ctx.health.url]) == 0
+        assert tools.main(["top", ctx.health.url, "--once"]) == 0
+        assert tools.main(["flightdump", ctx.health.url, "-o", d]) == 0
+        assert monitor.main([ctx.health.url]) == 0
+    assert any(e["name"] == "tenant:decode" for e in read_pbt(os.path.join(d, "rank0.fr.pbt")))
+    assert ctx.watchdog.status()["stalled"] is False
+    assert sv.close(timeout=60)
+    mca_param.set_param("device", "cuda_torch_device", "cpu")
+    counts = run_native([decode(7)[0], decode(8)[0]])
+    assert counts[0] == counts[1] > 0, counts
+    ex = NativeExecutor(decode(9)[0], native_device=True)
+    ex.run()
+    ex.rebind(decode(10)[0])
+    ex.run()
+    ex.close()
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "parsec_tpu"))
+    print("LIVE LOADED", bad)
+    assert not bad, bad
+""")
+
+
+def test_serving_and_live_planes_load_neither_jax_nor_the_jax_package(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", LIVE_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "LIVE LOADED []" in proc.stdout
+
+
+def test_chip_smoke_fails_without_the_repo_and_without_a_gpu(tmp_path):
+    """chip_smoke.py copied alone into a directory, and run from the
+    checkout on a machine without a GPU: both exit non-zero and print no
+    result line."""
+    import shutil
+
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), alone)
+    for cwd in (alone, ROOT):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        env.pop("PYTHONPATH", None)
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

@@ -377,36 +377,41 @@ def _device_dpotrf():
 
 
 def _unported_hook(case, port_param):
-    """Arrange one hook that was unported; returns (callable, ROADMAP item
-    — None for the three the legacy ASYNC protocol took over, A.10a)."""
+    """Arrange one hook that was unported; returns (callable, what it
+    returns) — the legacy ASYNC protocol took over three (A.10a), the
+    serve executor the list of pools (A.9c) and the legacy protocol's
+    event drain the DEP_DECREMENT observer of a legacy run (A.10b)."""
     if case == "native_sched_off":
         port_param("runtime", "native_sched", "off")
-        return lambda: run_native(_device_dpotrf(), native_device=True), None
+        return lambda: run_native(_device_dpotrf(), native_device=True), 4
     if case == "eager_complete_0":
         port_param("device", "cuda_eager_complete", 0)
-        return lambda: run_native(_device_dpotrf(), native_device=True), None
+        return lambda: run_native(_device_dpotrf(), native_device=True), 4
     if case == "cpu_only_class":
         A = TiledMatrix(64, 64, 32, 32, name="A", dtype=np.float64).from_array(
             _spd(64, np.float64))
         tp = cholesky_ptg(use_cuda=False, use_cpu=True).taskpool(NT=A.mt, A=A)
-        return lambda: run_native(tp, native_device=True), None
+        return lambda: run_native(tp, native_device=True), 4
     if case == "taskpool_list":
-        return lambda: run_native([_device_dpotrf(), _device_dpotrf()]), "A.9c"
+        return lambda: run_native([_device_dpotrf(), _device_dpotrf()]), [4, 4]
     if case == "dep_decrement_observer_legacy":
         port_param("runtime", "native_sched", "off")
     else:
         assert case == "dep_decrement_observer"
+    seen = []
 
     def run():
-        cb = lambda es, payload: None  # noqa: E731
+        cb = lambda es, payload: seen.append(payload)  # noqa: E731
         pins.subscribe(pins.DEP_DECREMENT, cb)
         try:
-            return run_native(_device_dpotrf(), native_device=True)
+            n = run_native(_device_dpotrf(), native_device=True)
         finally:
             pins.unsubscribe(pins.DEP_DECREMENT, cb)
-    # the pump drains the engine's lifecycle events into the observer;
-    # the legacy protocol's drain at task_done is not ported
-    return run, ("A.10b" if case == "dep_decrement_observer_legacy" else None)
+        # the NT=2 dpotrf's three edges, each one native decrement, drained
+        # by the pump or, on the legacy protocol, after each task_done
+        assert len(seen) == 3 and all(p["mode"] == "native" for p in seen)
+        return n
+    return run, 4
 
 
 @pytest.mark.parametrize("case", [
@@ -414,17 +419,13 @@ def _unported_hook(case, port_param):
     "cpu_only_class", "taskpool_list", "dep_decrement_observer",
     "dep_decrement_observer_legacy"])
 def test_unported_native_hooks_raise(case, cpu_device, port_param):
-    """A hook still unported raises naming its ROADMAP item.  The legacy
-    protocol's three run to the end: the NT=2 dpotrf's four tasks
-    (tests/test_torch_legacy.py holds their results to the pump's and
-    the reference's).  So does a DEP_DECREMENT observer of a pump run,
-    fed by the pump's event drain; on the legacy protocol it raises."""
-    fn, item = _unported_hook(case, port_param)
-    if item is None:
-        assert fn() == 4
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        fn()
+    """Every hook that was unported now runs to the end: the NT=2
+    dpotrf's four tasks (tests/test_torch_legacy.py holds the legacy
+    protocol's results to the pump's and the reference's), a list of two
+    through the serve executor, and a DEP_DECREMENT observer fed on the
+    pump and on the legacy protocol alike."""
+    fn, want = _unported_hook(case, port_param)
+    assert fn() == want
 
 
 def test_build_without_sources_raises(tmp_path):

@@ -162,15 +162,19 @@ def test_raising_body_fails_the_pool():
 def test_unported_features_raise(feature, monkeypatch):
     from parsec_tpu_torch.data import LocalCollection
 
-    if feature in ("comm", "env"):
-        if feature == "env":
-            monkeypatch.setenv("PARSEC_TPU_WATCHDOG", "1")
-            kw = {}
-        else:
-            kw = dict(nranks=2, rank=0)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A.9" if feature == "env" else "ROADMAP A.8"):
-            parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"], **kw)
+    if feature == "env":
+        # ported since A.9b's second half: the switch installs the plane
+        monkeypatch.setenv("PARSEC_TPU_WATCHDOG", "1")
+        ctx = parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"])
+        try:
+            assert ctx.watchdog is not None and not ctx.watchdog.stalled
+        finally:
+            ctx.fini()
+        assert ctx.watchdog is None
+        return
+    if feature == "comm":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+            parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"], nranks=2, rank=0)
         return
     ptg = PTG("p")
     s = ptg.task_class("s", k="0 .. 1")
