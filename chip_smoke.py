@@ -257,6 +257,19 @@ the native serve executor over the prefill, the dpotrf and four decodes,
 with their weights and with every weight 1 (the decodes retire earlier
 with theirs), and a ``rebind`` that captures nothing.
 
+The array front end (``array`` phase, after the serving plane): the
+reference's acceptance program ``C = (A @ A.T + B).cholesky(); x =
+C.solve(b)`` at N=8192 nb=512 f32 (b 8192 x 1024), one taskpool of 5726
+tasks, run through ``DistArray.compute`` with every task on the CUDA
+module, gated on the card in float64 (‖C·Cᵀ − S‖ and ‖C·x − b‖ under
+1e-3, C's upper triangle exactly zero), then through the pump, a
+``GraphExecutor`` (first call, five replays, a rebuilt program's cache
+hit) and a ``RuntimeService`` tenant job, each ``torch.equal`` to the
+dynamic run; the fused elementwise chain (fusion off and ``auto``
+``torch.equal``), ``sum`` and ``norm`` against float64; the array
+counters grown as counted and B1–B5 launched +0 over the phase (the
+array's device bodies are library calls).
+
 Every run of the CUDA device module must end with no synchronous
 write-back fallback (``wb_sync_fallbacks == 0``) and no wave that fell
 back to per-task dispatch (``wave_fallbacks == 0``).  Kernel launches
@@ -946,7 +959,8 @@ def analysis_phase(h):
     Lint: ``PTG.verify`` of ``cholesky_ptg`` ``kernels`` and
     ``kernels_trtri`` over the path's TiledMatrix (no error finding), and
     ``tools lint --all`` over the registry (every buildable graph clean,
-    each graph that waits for A.8 or A.7b reported as waiting).  Checked
+    the array front end's canonical programs among them, each graph that
+    waits for A.8 reported as waiting).  Checked
     runs, under ``PARSEC_TPU_LINT=strict``, ``PARSEC_TPU_HBCHECK=strict``
     and ``PARSEC_TPU_LOCKDEP=1`` (restored after): the dynamic ``kernels``
     and ``kernels_trtri`` and the pump's ``kernels`` at stage depth 2 (the
@@ -1008,8 +1022,7 @@ def analysis_phase(h):
     waiting = [ln.split(":")[0] for ln in out if ": waiting: " in ln]
     check(rc == 0 and " 0 error(s), 0 warning(s)" in summary,
           f"tools lint --all: rc {rc}, {summary}")
-    check(len(waiting) == 6 and all(("ROADMAP A.8" in ln or "ROADMAP A.7b" in ln)
-                                    for ln in out if ": waiting: " in ln),
+    check(len(waiting) == 3 and all("ROADMAP A.8" in ln for ln in out if ": waiting: " in ln),
           f"tools lint --all: waiting {waiting}")
     say("analysis_lint", graph="registry --all", summary=summary,
         clean=sum(ln.endswith("OK") or ": OK (" in ln for ln in out),
@@ -2578,6 +2591,288 @@ def factorization_phases(h):
 # -- the autotuner, the program cache and fusion's partition cache -----------
 # the sweeps' candidates: the attention blocks around the path's 512, and
 # the panel and tile widths around nb=512
+# -- the array front end: one mixed program through every runtime --------
+
+#: the array phase's acceptance program (bench.py:137-138's dpotrf size):
+#: C = (A @ A.T + B).cholesky(), x = C.solve(b) with A N x N standard
+#: normal, B = N I and b N x ARR_NRHS, all in ARR_NB tiles
+ARR_N, ARR_NB, ARR_NRHS = N, NB, 1024
+ARR_SEED = 19
+ARR_REPLAYS = 5
+#: reductions against float64, relative
+TOL_ARR_REDUCE = 1e-9
+
+
+def array_task_counts(nt: int, nc: int) -> dict:
+    """Tasks a class prefix of the mixed program at ``nt`` tile rows and
+    ``nc`` rhs tile columns: transpose, the matmul's init and k-chain, the
+    add, the Cholesky's four classes, the solve's three (no ``arr_cp``:
+    the add is a single-consumer private producer)."""
+    return {"arr_tr": nt * nt, "arr_mi": nt * nt, "arr_mm": (nt - 1) * nt * nt,
+            "arr_ew": nt * nt, "arr_po": nt, "arr_ts": nt * (nt - 1) // 2,
+            "arr_sy": nt * (nt - 1) // 2, "arr_gm": nt * (nt - 1) * (nt - 2) // 6,
+            "arr_sv": nt * nc, "arr_sb": (nt - 1) * nc, "arr_su": nt * (nt - 1) // 2 * nc}
+
+
+def array_phase(h):
+    """The array front end (``parsec_tpu_torch.array``) on the card: the
+    reference's acceptance program ``C = (A @ A.T + B).cholesky(); x =
+    C.solve(b)`` at N=8192 nb=512 f32 (A standard normal from seed
+    ``ARR_SEED``, B = N I, b 8192 x 1024), lowered into ONE taskpool of
+    5726 tasks (the class counts checked against the pool's).
+
+    1. Dynamic: ``x.compute(ctx, others=[C], use_cpu=False)`` on a
+       ``Context`` with the CUDA module, every task on it.
+    2. Gates on the card in float64: ‖C·Cᵀ − S‖max/‖S‖max < 1e-3 for S =
+       A·Aᵀ + B, the upper triangle of C exactly zero, ‖C·x − b‖max/‖b‖max
+       < 1e-3.
+    3. The native pump (``run_native(native_device=True)``): C and x
+       ``torch.equal`` to the dynamic run's.
+    4. ``GraphExecutor``: the first call, then the median of
+       ``ARR_REPLAYS`` replays, ``torch.equal`` to the dynamic run; a
+       rebuilt same-shaped program's executor is a program-cache hit that
+       captures nothing, with the same bits.
+    5. Fusion: ``((A + B) * 0.5 - B).scale(2.0)`` (A, B standard normal)
+       with ``runtime_fusion`` off and ``auto``: ``torch.equal``,
+       ``fused_submits`` > 0 under ``auto`` and 0 under off, within f32
+       rounding (2 eps of |A| + |B|) of the float64 formula; the fused
+       result's ``sum`` in the same context, its tiles newest on the card
+       (the host-only partials stage them home), within 1e-9 of its host
+       copy's float64 sum.
+    6. ``A.sum(ctx)`` and ``A.norm(ctx)`` within 1e-9 relative of float64.
+    7. Serving: the program as a tenant job of a ``RuntimeService`` that
+       attaches the CUDA module, ``torch.equal`` to the dynamic run.
+    8. ``pa.counters()`` grew by the programs lowered and pools built, and
+       no hand-written kernel launched over the phase (B1–B5 +0): the
+       array's device bodies are library calls, as the reference's are XLA
+       calls.
+
+    One ``array`` line a run: wall, tasks, tasks/s, host ms a task, the
+    card; the replay's first call and median."""
+    np, torch, dev, card, say, check = h.np, h.torch, h.dev, h.card, h.say, h.check
+    import re
+
+    from parsec_tpu_torch import Context, compile_cache, mca_param
+    from parsec_tpu_torch import array as pa
+    from parsec_tpu_torch.dsl import GraphExecutor
+    from parsec_tpu_torch.ops import kernels
+    from parsec_tpu_torch.serve import RuntimeService
+
+    t_phase = time.perf_counter()
+    counters0 = pa.counters()
+    launches0 = kernels.launch_counts()
+    nt, nc = ARR_N // ARR_NB, ARR_NRHS // ARR_NB
+    want_counts = array_task_counts(nt, nc)
+    n_tasks = sum(want_counts.values())
+    rng = np.random.default_rng(ARR_SEED)
+    G = rng.standard_normal((ARR_N, ARR_N), dtype=np.float32)
+    H = np.eye(ARR_N, dtype=np.float32) * ARR_N
+    rhs = rng.standard_normal((ARR_N, ARR_NRHS), dtype=np.float32)
+    #: programs lowered and pools built by the phase, as counted here
+    expect = {"programs_lowered": 0, "taskpools_built": 0}
+
+    def expect_(lowered, built):
+        expect["programs_lowered"] += lowered
+        expect["taskpools_built"] += built
+
+    def arrays():
+        """Fresh leaves and the lazy mixed program over them: (A, C, x)."""
+        A = pa.from_numpy(G, ARR_NB)
+        C = (A @ A.T + pa.from_numpy(H, ARR_NB)).cholesky()
+        return A, C, C.solve(pa.from_numpy(rhs, ARR_NB))
+
+    def program():
+        """A fresh build of the mixed program, lowered: (C, x, program)."""
+        _A, C, x = arrays()
+        expect_(1, 0)
+        return C, x, pa.lower([x, C], use_cpu=False)
+
+    def line(run, wall, tasks, **extra):
+        say("array", run=run, wall_s=wall, tasks=tasks, tasks_per_s=tasks / wall,
+            host_ms_per_task=1e3 * wall / tasks, card=card, **extra)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- 1. dynamic ------------------------------------------------------------
+    _C, _x, twin = program()  # the program lowered apart: its class counts
+    counts = {}
+    for name, pc in twin.ptg.classes.items():
+        key = re.sub(r"\d+$", "", name)
+        counts[key] = counts.get(key, 0) + sum(1 for _ in pc.param_space(twin.constants))
+    check(counts == want_counts, f"array: the program's classes {counts}, "
+                                 f"expected {want_counts}")
+    if (ARR_N, ARR_NB, ARR_NRHS) == (8192, 512, 1024):
+        check(n_tasks == 5726, f"array: {n_tasks} tasks, expected 5726")
+    del _C, _x, twin
+    A, C, x = arrays()
+    expect_(1, 1)  # compute() lowers and builds its own
+    with Context() as ctx:
+        cuda_dev = next(d for d in ctx.devices if d.mca_name == "cuda")
+        before = dict(cuda_dev.stats)
+        _, wall = timed(lambda: x.compute(ctx, others=[C], use_cpu=False))
+        stats = device_stats(cuda_dev)
+        executed = stats["executed_tasks"] - before["executed_tasks"]
+        check(executed == n_tasks,
+              f"array dynamic: {executed} tasks on the CUDA module, expected {n_tasks}")
+        check(stats["wb_sync_fallbacks"] == 0, "array dynamic: a synchronous write-back")
+        C_np, x_np = C.to_numpy(), x.to_numpy()
+    line("dynamic", wall, n_tasks, cuda_tasks=executed, **pipeline_fields(stats))
+
+    # -- 2. gates on the card in float64 --------------------------------------
+    Cg = torch.from_numpy(C_np).to(dev).double()
+    Ag = torch.from_numpy(G).to(dev).double()
+    S = Ag @ Ag.mT + ARR_N * torch.eye(ARR_N, dtype=torch.float64, device=dev)
+    recon = ((Cg @ Cg.mT - S).abs().max() / S.abs().max()).item()
+    upper = int(torch.count_nonzero(torch.triu(Cg, 1)).item())
+    bg = torch.from_numpy(rhs).to(dev).double()
+    resid = ((Cg @ torch.from_numpy(x_np).to(dev).double() - bg).abs().max()
+             / bg.abs().max()).item()
+    check(recon < 1e-3, f"array: |C C^T - S|/|S| = {recon} >= 1e-3")
+    check(upper == 0, f"array: {upper} nonzeros above C's diagonal")
+    check(resid < 1e-3, f"array: |C x - b|/|b| = {resid} >= 1e-3")
+    say("array_gates", recon_err=recon, solve_resid=resid, upper_nonzeros=upper,
+        tol=1e-3, card=card)
+    del Cg, Ag, S, bg
+    torch.cuda.empty_cache()
+
+    def same(C2, x2, what):
+        check(np.array_equal(C2.to_numpy(), C_np) and np.array_equal(x2.to_numpy(), x_np),
+              f"array {what}: C or x differs from the dynamic run's")
+
+    # -- 3. the native pump ----------------------------------------------------
+    C2, x2, prog = program()
+    expect_(0, 1)
+    _, wall = timed(lambda: prog.run_native(native_device=True))
+    same(C2, x2, "pump")
+    line("pump", wall, n_tasks, equal_dynamic=True)
+    del C2, x2, prog
+
+    # -- 4. GraphExecutor: first call, replays, a rebuilt program's hit -------
+    def graph_of(prog):
+        expect_(0, 1)
+        tp = prog.taskpool()
+        prog.finalize()
+        ex = GraphExecutor(tp)
+        return tp, ex
+
+    C3, x3, prog = program()
+    (tp3, ex), plan_s = timed(lambda: graph_of(prog))
+    feeds = {(c, k): torch.from_numpy(np.asarray(
+        tp3.constants[c].data_of(*k).newest_copy().payload)).to(dev)
+        for (c, k) in ex.input_keys}
+    cache = compile_cache.default_cache()
+    snap0 = cache.snapshot()
+    out, first_s = timed(lambda: ex.apply(feeds))
+    replays = [timed(lambda: ex.apply(feeds))[1] for _ in range(ARR_REPLAYS)]
+    names = {id(v): k for k, v in tp3.constants.items()}
+    c_name, x_name = names[id(C3._node.coll)], names[id(x3._node.coll)]
+
+    def graph_equal(outs):
+        for (cname, (i, j)), t in outs.items():
+            ref = {c_name: C_np, x_name: x_np}.get(cname)
+            if ref is None:
+                continue
+            tile = ref[i * ARR_NB:(i + 1) * ARR_NB, j * ARR_NB:(j + 1) * ARR_NB]
+            if not torch.equal(t.cpu(), torch.from_numpy(np.ascontiguousarray(tile))):
+                return False
+        return True
+
+    check(graph_equal(out), "array graph: a C or x tile differs from the dynamic run's")
+    line("graph", statistics.median(replays), n_tasks, plan_s=plan_s, first_call_s=first_s,
+         replay_s=replays, median_replay_s=statistics.median(replays),
+         capture_s=ex.capture_s, graph_pool_bytes=ex.graph_pool_bytes, equal_dynamic=True)
+    C4, x4, prog4 = program()
+    tp4, ex2 = graph_of(prog4)
+    check(ex2.input_keys == ex.input_keys, "array graph: the rebuilt program's inputs differ")
+    snap1 = cache.snapshot()
+    out2, first2_s = timed(lambda: ex2.apply(feeds))
+    snap2 = cache.snapshot()
+    check(ex2.cache_hit and snap2.get("captures") == snap1.get("captures")
+          and snap2["hits"] == snap1["hits"] + 1,
+          f"array graph rebuilt: cache {snap1} -> {snap2}, hit {ex2.cache_hit}")
+    check(graph_equal(out2), "array graph rebuilt: a tile differs from the dynamic run's")
+    say("array_program_cache", first_call_s=first2_s, first_executor_first_call_s=first_s,
+        capture_s=ex2.capture_s, captures=snap2.get("captures", 0) - snap0.get("captures", 0),
+        cache=snap2, card=card)
+    del out, out2, ex, ex2, tp3, tp4, feeds, C3, x3, C4, x4, prog, prog4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5. fusion off / auto on the elementwise chain -------------------------
+    F = np.random.default_rng(ARR_SEED + 1).standard_normal((ARR_N, ARR_N), dtype=np.float32)
+    chain = {}
+    for mode in ("off", "auto"):
+        with mca(mca_param, "runtime", "fusion", mode):
+            out = ((pa.from_numpy(G, ARR_NB) + pa.from_numpy(F, ARR_NB)) * 0.5
+                   - pa.from_numpy(F, ARR_NB)).scale(2.0)
+            expect_(2, 2)  # the chain and its sum
+            with Context() as ctx:
+                cuda_dev = next(d for d in ctx.devices if d.mca_name == "cuda")
+                before = dict(cuda_dev.stats)
+                _, wall = timed(lambda: out.compute(ctx, use_cpu=False))
+                delta = {k: cuda_dev.stats[k] - before[k]
+                         for k in ("executed_tasks", "fused_submits", "fused_tasks")}
+                dev_sum = out.sum(ctx)
+            res = out.to_numpy()
+        chain[mode] = res
+        host_sum = float(res.astype(np.float64).sum())
+        check(abs(dev_sum - host_sum) <= TOL_ARR_REDUCE * abs(host_sum),
+              f"array fusion {mode}: sum {dev_sum} vs {host_sum}")
+        line(f"fusion_{mode}", wall, 4 * nt * nt, **delta, sum=dev_sum)
+        check((delta["fused_submits"] > 0) == (mode == "auto"),
+              f"array fusion {mode}: fused_submits {delta['fused_submits']}")
+    check(np.array_equal(chain["off"], chain["auto"]), "array fusion: auto differs from off")
+    Gg, Fg = torch.from_numpy(G).to(dev).double(), torch.from_numpy(F).to(dev).double()
+    want = ((Gg + Fg) * 0.5 - Fg) * 2.0
+    err = (torch.from_numpy(chain["auto"]).to(dev).double() - want).abs().max().item()
+    bound = 2 * float(np.finfo(np.float32).eps) * (Gg.abs() + Fg.abs()).max().item()
+    check(err <= bound, f"array fusion: |out - f64| = {err} > {bound}")
+    say("array_fusion_gate", max_abs_err=err, bound=bound, card=card)
+    del chain, Fg, want, F
+
+    # -- 6. reductions ----------------------------------------------------------
+    expect_(2, 2)
+    with Context() as ctx:
+        (s, nrm), wall = timed(lambda: (A.sum(ctx), A.norm(ctx)))
+    s64, n64 = Gg.sum().item(), Gg.norm().item()
+    check(abs(s - s64) <= TOL_ARR_REDUCE * abs(s64) and abs(nrm - n64) <= TOL_ARR_REDUCE * n64,
+          f"array reductions: sum {s} vs {s64}, norm {nrm} vs {n64}")
+    line("reductions", wall, 2 * nt * nt, sum=s, sum_f64=s64, norm=nrm, norm_f64=n64)
+    del Gg
+
+    # -- 7. served as a tenant job ---------------------------------------------
+    C5, x5, prog = program()
+    with RuntimeService() as sv:
+        check(any(d.mca_name == "cuda" for d in sv.context.devices),
+              "array serve: the service attached no CUDA module")
+        sv.tenant("arrays", weight=1)
+        expect_(0, 1)
+        tp = prog.taskpool()
+        ok, wall = timed(lambda: sv.submit("arrays", tp).wait(timeout=600))
+        check(ok, f"array serve: the job did not finish ({tp.fail_reason})")
+        prog.finalize()
+        same(C5, x5, "serve")
+    line("serve", wall, n_tasks, tenant=tp.progress()["tenant"], equal_dynamic=True)
+    del C5, x5, prog, tp
+
+    # -- 8. counters and launches ----------------------------------------------
+    counters1 = pa.counters()
+    grew = {k: counters1[k] - counters0[k] for k in counters1}
+    check(all(grew[k] == n for k, n in expect.items()) and grew["classes_generated"] > 0,
+          f"array counters grew {grew}, expected {expect}")
+    moved = {k: n - launches0.get(k, 0) for k, n in kernels.launch_counts().items()
+             if n != launches0.get(k, 0)}
+    check(not moved, f"array: hand-written kernels launched over the phase: {moved}")
+    say("array_phase", seconds=time.perf_counter() - t_phase, counters=counters1,
+        counters_grew=grew, kernel_launches_moved=moved, recon_err=recon,
+        solve_resid=resid, tasks=n_tasks, card=card)
+
+
 TUNE_BLOCKS = (256, 512)
 TUNE_NB = (256, 512, 1024)
 
@@ -4008,6 +4303,12 @@ def main() -> int:
         launches=launches, dyn_factor=dyn_factor, b5_launches=profiling_b5)
     serve_phase(serve)
     del dyn_factor
+
+    # -- the array front end: one mixed program through every runtime ------
+    array_phase(types.SimpleNamespace(
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- device-module phase: the CUDA module's GPU-only paths ----------------
     # event-polled completion (cuda_eager_complete=0) and eviction with

@@ -7,8 +7,9 @@ at run time or compiled from a ``.jdf`` file) or inserted task by task
 accelerator bodies are torch on an NVIDIA GPU, with the hot tile kernels
 written by hand in CUDA C++ for Hopper (``csrc/``).  Its user-facing
 paths: tiled Cholesky (:func:`parsec_tpu_torch.ops.run_cholesky`),
-blockwise flash attention (:func:`parsec_tpu_torch.ops.run_flash_attention`)
-and the 2D 5-point stencil (:func:`parsec_tpu_torch.ops.stencil_ptg`).
+blockwise flash attention (:func:`parsec_tpu_torch.ops.run_flash_attention`),
+the 2D 5-point stencil (:func:`parsec_tpu_torch.ops.stencil_ptg`) and the
+lazy tiled-array front end (:mod:`parsec_tpu_torch.array`).
 
 This package never imports JAX or :mod:`parsec_tpu`: it keeps its own copy
 of every framework-neutral layer it needs.  Its entry points run on the
@@ -16,6 +17,7 @@ GPU unless the caller asks for the CPU (``Context(cuda_device="cpu")``,
 or ``Context(devices=["cpu"])`` for a host-only context).
 """
 
+from .version import __version__
 from .utils import debug, mca_param
 from .core import (
     AccessMode,
@@ -35,6 +37,7 @@ from .core import (
 from . import device  # register device components  # noqa: F401
 
 __all__ = [
+    "__version__",
     "debug",
     "mca_param",
     "AccessMode",

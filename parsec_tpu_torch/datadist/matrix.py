@@ -10,12 +10,17 @@ that route a band around the diagonal to a sub-distribution of its own
 (``{sym_,}two_dim_rectangle_cyclic_band.{c,h}``).  The owner math covers
 any P×Q grid, but only one rank runs: ``from_array``/``to_array`` move the
 tiles this rank owns.  Multi-rank use comes with the distributed layer
-(ROADMAP A.8); the vector and tabular distributions with ``array/``
-(A.7b).
+(ROADMAP A.8).  The distributed vector (``vector_two_dim_cyclic``) and the
+rank-table placement (``two_dim_tabular``) complete the set.
 
 Host tiles are numpy arrays, exactly as in the JAX package, so both
 packages can factor identical input (:func:`from_numpy_tiles`).  Device
-copies are torch tensors owned by the CUDA device module.
+copies are torch tensors owned by the CUDA device module.  numpy has no
+bfloat16 (the JAX package borrows ``ml_dtypes``'): a matrix of dtype
+``torch.bfloat16`` (or any dtype named ``"bfloat16"``) keeps its host tiles
+as bfloat16 torch CPU tensors, the form :func:`..data.data.host_array`
+gives them, and ``to_array`` widens them to float32, which holds every
+bfloat16 value exactly.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import threading
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..data.collection import DataCollection
 from ..data.data import Data, data_create, host_array
@@ -31,6 +37,36 @@ from ..data.data import Data, data_create, host_array
 LOWER = "lower"
 UPPER = "upper"
 FULL = "full"
+
+
+def is_bfloat16(dtype) -> bool:
+    """True for ``torch.bfloat16`` and for any dtype named ``bfloat16``
+    (``"bfloat16"``, ``ml_dtypes``' numpy dtype)."""
+    if dtype is torch.bfloat16:
+        return True
+    name = getattr(dtype, "name", dtype)
+    return isinstance(name, str) and name == "bfloat16"
+
+
+def tile_dtype(dtype):
+    """A tile dtype: ``torch.bfloat16`` for a bfloat16, else a numpy dtype."""
+    return torch.bfloat16 if is_bfloat16(dtype) else np.dtype(dtype)
+
+
+def _zeros(shape, dtype):
+    if dtype is torch.bfloat16:
+        return torch.zeros(shape, dtype=torch.bfloat16)
+    return np.zeros(shape, dtype)
+
+
+def as_tile(block: np.ndarray, dtype):
+    """A private host tile of ``dtype`` holding ``block``'s values."""
+    if dtype is torch.bfloat16:
+        # a bfloat16 source (ml_dtypes') widens to float32 exactly first:
+        # torch reads no numpy bfloat16
+        wide = np.float32 if is_bfloat16(block.dtype) else None
+        return torch.from_numpy(np.array(block, dtype=wide, copy=True)).to(torch.bfloat16)
+    return block.astype(dtype, copy=True)
 
 
 class TiledMatrix(DataCollection):
@@ -55,7 +91,7 @@ class TiledMatrix(DataCollection):
         self.m, self.n, self.mb, self.nb = m, n, mb, nb
         self.mt = (m + mb - 1) // mb
         self.nt = (n + nb - 1) // nb
-        self.default_dtype = np.dtype(dtype)
+        self.default_dtype = tile_dtype(dtype)
         self.uplo = uplo
         self._init = init
         self._store: Dict[Tuple[int, int], Data] = {}
@@ -106,25 +142,39 @@ class TiledMatrix(DataCollection):
             if d is None:
                 shape = self.tile_shape(*k)
                 if self._init is not None:
-                    payload = np.asarray(self._init(k[0], k[1], shape), dtype=self.default_dtype)
+                    payload = self._init(k[0], k[1], shape)
+                    payload = (as_tile(np.asarray(payload), torch.bfloat16)
+                               if self.default_dtype is torch.bfloat16
+                               else np.asarray(payload, dtype=self.default_dtype))
                 else:
-                    payload = np.zeros(shape, self.default_dtype)
+                    # zero on first touch: a lazily-zero matrix costs
+                    # nothing until a tile is read
+                    payload = _zeros(shape, self.default_dtype)
                 d = data_create(k, self, payload=payload)
                 self._store[k] = d
             return d
+
+    def materialized_keys(self):
+        """Tile keys whose Data exists right now (no lazy creation)."""
+        with self._lock:
+            return list(self._store)
 
     # -- whole-matrix helpers (tests / verification) ----------------------
     def to_array(self) -> np.ndarray:
         """Gather this rank's tiles into a dense host array; a tile whose
         newest copy lives on a device is copied back without changing
         residency."""
-        out = np.zeros((self.m, self.n), self.default_dtype)
+        bf16 = self.default_dtype is torch.bfloat16
+        out = np.zeros((self.m, self.n), np.float32 if bf16 else self.default_dtype)
         for (i, j) in self.local_tiles():
             c = self.data_of(i, j).newest_copy()
             if c is None:
                 continue
             h, w = self.tile_shape(i, j)
-            out[i * self.mb : i * self.mb + h, j * self.nb : j * self.nb + w] = host_array(c.payload)[:h, :w]
+            tile = host_array(c.payload)
+            if isinstance(tile, torch.Tensor):
+                tile = tile.float().numpy()
+            out[i * self.mb : i * self.mb + h, j * self.nb : j * self.nb + w] = tile[:h, :w]
         return out
 
     def from_array(self, a: np.ndarray) -> "TiledMatrix":
@@ -132,8 +182,8 @@ class TiledMatrix(DataCollection):
             h, w = self.tile_shape(i, j)
             # copy (not a view): the runtime mutates tiles in place and must
             # never alias the caller's array
-            tile = a[i * self.mb : i * self.mb + h, j * self.nb : j * self.nb + w].astype(
-                self.default_dtype, copy=True)
+            tile = as_tile(a[i * self.mb : i * self.mb + h, j * self.nb : j * self.nb + w],
+                            self.default_dtype)
             d = self.data_of(i, j)
             copy = d.get_copy(0) or d.attach_copy(0, tile)
             copy.payload = tile
@@ -171,6 +221,51 @@ class SymTwoDimBlockCyclic(TwoDimBlockCyclic):
         if uplo not in (LOWER, UPPER):
             raise ValueError("sym matrix needs uplo lower|upper")
         super().__init__(m, n, mb, nb, uplo=uplo, **kw)
+
+
+class VectorTwoDimCyclic(TiledMatrix):
+    """Distributed vector: ``m`` elements in ``mb``-sized segments, placed
+    cyclically over the process grid (reference
+    ``vector_two_dim_cyclic.{c,h}``).  Keys are single segment indices
+    ``(i,)``; placement follows the row dimension of a P×Q grid so a vector
+    aligns with the rows of a matching :class:`TwoDimBlockCyclic` matrix."""
+
+    def __init__(self, m, mb, *, p: int = 1, q: int = 1, kp: int = 1, **kw):
+        kw.setdefault("nodes", p * q)
+        super().__init__(m, 1, mb, 1, **kw)
+        if p * q != self.nodes:
+            raise ValueError(f"grid {p}x{q} incompatible with {self.nodes} nodes")
+        self.p, self.q, self.kp = p, q, kp
+
+    def data_key(self, *key) -> Tuple[int, int]:
+        if len(key) == 1 and not isinstance(key[0], tuple):
+            return (int(key[0]), 0)
+        return super().data_key(*key)
+
+    def tile_shape(self, i: int, j: int = 0) -> Tuple[int, int]:
+        return (min(self.mb, self.m - i * self.mb), 1)
+
+    def rank_of(self, *key) -> int:
+        i, _ = self.data_key(*key)
+        return ((i // self.kp) % self.p) * self.q
+
+    def vpid_of(self, *key) -> int:
+        return 0
+
+
+class TwoDimTabular(TiledMatrix):
+    """Arbitrary rank table (reference ``two_dim_tabular.c``): placement
+    comes from a user table or callable over tile keys."""
+
+    def __init__(self, m, n, mb, nb, *, rank_table, **kw):
+        super().__init__(m, n, mb, nb, **kw)
+        self._rank_table = rank_table
+
+    def rank_of(self, *key) -> int:
+        k = self.data_key(*key)
+        if callable(self._rank_table):
+            return int(self._rank_table(*k))
+        return int(self._rank_table[k])
 
 
 class TwoDimBlockCyclicBand(TiledMatrix):

@@ -363,6 +363,12 @@ class _PTGFlow:
         self.deps_in: List[_Dep] = []
         self.deps_out: List[_Dep] = []
 
+    def add_deps(self, deps: Sequence[str]) -> None:
+        """Parse ``deps`` and append each to the input or output list."""
+        for d in deps:
+            dep = _parse_dep(d)
+            (self.deps_in if dep.is_input else self.deps_out).append(dep)
+
 
 class PTGTaskClass:
     """Declarative task class (reference ``jdf_function_entry_t``).
@@ -433,11 +439,30 @@ class PTGTaskClass:
 
     def flow(self, name: str, mode: AccessMode, *deps: str) -> "PTGTaskClass":
         f = _PTGFlow(name, mode, len(self.flows))
-        for d in deps:
-            dep = _parse_dep(d)
-            (f.deps_in if dep.is_input else f.deps_out).append(dep)
+        f.add_deps(deps)
         self.flows.append(f)
         return self
+
+    def add_dep(self, flow_name: str, *deps: str) -> "PTGTaskClass":
+        """Append dependencies to an EXISTING flow.  Graph-synthesis front
+        ends (:mod:`parsec_tpu_torch.array`) build producer classes before
+        their consumers exist, then mirror the consumer edges back onto the
+        producer once they are known — JDF reciprocity demands both sides,
+        but a synthesizer discovers them one at a time.
+
+        Only valid before the definition's first ``taskpool()``: the dense
+        dep boxes, fusion's partition cache (keyed by the definition) and a
+        captured graph's digest are all derived from a built pool, so an
+        edge added after one would leave them describing another graph."""
+        if self.ptg.instantiated:
+            raise RuntimeError(
+                f"class {self.name}: add_dep after PTG {self.ptg.name!r} "
+                "built a taskpool — derived structures would go stale")
+        for f in self.flows:
+            if f.name == flow_name:
+                f.add_deps(deps)
+                return self
+        raise ValueError(f"class {self.name}: no flow {flow_name!r}")
 
     def ctl(self, name: str, *deps: str) -> "PTGTaskClass":
         return self.flow(name, CTL, *deps)
@@ -629,6 +654,9 @@ class PTG:
         self.dep_storage = dep_storage
         self.constants: Dict[str, Any] = dict(constants)
         self.classes: Dict[str, PTGTaskClass] = {}
+        #: True once ``taskpool()`` built a pool: the class deps are final
+        #: from then on (:meth:`PTGTaskClass.add_dep` refuses)
+        self.instantiated = False
 
     def task_class(self, name: str, **params: str) -> PTGTaskClass:
         c = PTGTaskClass(self, name, params)
@@ -639,6 +667,7 @@ class PTG:
                  **constants: Any) -> "PTGTaskpool":
         merged = dict(self.constants)
         merged.update(constants)
+        self.instantiated = True
         return PTGTaskpool(self, merged, termdet=termdet)
 
     def verify(self, globals_: Optional[Dict[str, Any]] = None, *,

@@ -1,5 +1,6 @@
-"""Tile-level compute bodies for tiled Cholesky (dpotrf), and the shared
-tiling check.
+"""Tile-level compute bodies for dense linear algebra — tiled Cholesky
+(dpotrf), the GEMM and the forward substitution the array front end
+(:mod:`parsec_tpu_torch.array`) chains — and the shared tiling check.
 
 Each op comes in two incarnations, matching the multi-chore model
 (reference: BODY [type=CUDA] blocks):
@@ -11,8 +12,8 @@ Each op comes in two incarnations, matching the multi-chore model
   (the device module turns TF32 off), the counterpart of the reference's
   ``precision="highest"``.
 
-potrf, trsm and trtri stay library calls, as they are XLA calls in the
-reference: ``torch.linalg.cholesky_ex`` (not ``cholesky``, whose error
+potrf, trsm, trtri and trsv_fwd stay library calls, as they are XLA calls
+in the reference: ``torch.linalg.cholesky_ex`` (not ``cholesky``, whose error
 check synchronises the host on every potrf and stalls eager completion)
 and ``torch.linalg.solve_triangular``.  Their results come back
 column-major; the bodies return them row-major contiguous, the layout the
@@ -53,6 +54,16 @@ def check_tiling(n: int, nb: int, *, what: str = "N", op: str = "op",
             f"pick a value dividing {what}, or an op that supports "
             "ragged tiles)")
     return (n + nb - 1) // nb
+
+
+# -- GEMM -------------------------------------------------------------------
+
+def gemm_cpu(a, b, c, **_):
+    c += a @ b
+
+
+def gemm_cuda(a, b, c, **_):
+    return c + a @ b
 
 
 # -- Cholesky kernels (lower, right-looking) --------------------------------
@@ -110,6 +121,28 @@ def trsm_inv_cpu(I, C, **_):
 
 def trsm_inv_cuda(I, C, **_):
     return C @ torch.tril(I).mT
+
+
+# -- forward substitution (left lower-triangular solve) ---------------------
+# The tile kernels of x = L^{-1} b: the array front end's solve() graphs
+# (parsec_tpu_torch.array) thread the right-hand side through a per-row
+# accumulation chain (gemm_sub) ending in the diagonal solve (trsv_fwd),
+# which writes the result tile X in place (CPU) / returns it (CUDA).
+
+def trsv_fwd_cpu(D, R, X, **_):
+    X[:] = np.linalg.solve(np.tril(D), R)
+
+
+def trsv_fwd_cuda(D, R, X, **_):
+    return torch.linalg.solve_triangular(D, R, upper=False).contiguous()
+
+
+def gemm_sub_cpu(L, X, R, **_):
+    R -= L @ X
+
+
+def gemm_sub_cuda(L, X, R, **_):
+    return R - L @ X
 
 
 # -- hand-written kernel incarnations ---------------------------------------

@@ -39,8 +39,7 @@ SDE counters that monitors read while the runtime runs
 The comm layer's parts — the comm and collective summaries, rank
 heartbeats, clock re-sync and the rendezvous, collective, fourcounter and
 silent-rank findings — come with it (ROADMAP A.8): a context carries no
-comm engine, so the summaries read None.  The array front end's counters
-read zero until it is ported (ROADMAP A.7b).
+comm engine, so the summaries read None.
 
 Env wiring (read by ``Context.__init__``): ``PARSEC_TPU_HEALTH=1``
 (ephemeral port) or ``=<port>`` starts a :class:`HealthServer`;
@@ -83,11 +82,17 @@ def _coll_summary(ctx) -> Optional[Dict[str, Any]]:
 
 
 def _array_summary() -> Dict[str, Any]:
-    """The array front end's synthesis counters: zeros, as the reference
-    reports them before its first program lowers (the front end is
-    ROADMAP A.7b)."""
-    return {"programs_lowered": 0, "classes_generated": 0,
-            "taskpools_built": 0}
+    """Array-front-end synthesis counters (``parsec_array_*`` on
+    /metrics, the ``PARSEC::ARRAY::*`` SDE gauges).  Process-wide and
+    import-light: a scrape never imports the array package, and reads
+    zeros until the first program lowers."""
+    import sys
+
+    mod = sys.modules.get("parsec_tpu_torch.array.lower")
+    if mod is None:  # never imported: nothing lowered, report zeros
+        return {"programs_lowered": 0, "classes_generated": 0,
+                "taskpools_built": 0}
+    return mod.counters()
 
 
 def _device_summary(dev) -> Dict[str, Any]:

@@ -444,9 +444,15 @@ def _lint_one(target: str, overrides: Dict[str, Any], ignore):
         return target, lint_jdf(jdf, consts, ignore=ignore,
                                 fusion_hints=True), notes
     if target.startswith("array:"):
-        raise NotImplementedError(
-            f"lint target {target}: the array front end is not ported yet "
-            "(ROADMAP A.7b)")
+        # canonical array-front-end programs (parsec_tpu_torch.array): lint
+        # the GENERATED graph exactly as lower() emits it
+        from ..array import canonical_program
+
+        prog = canonical_program(target.partition(":")[2] or "mixed")
+        consts = prog.constants
+        consts.update(overrides)
+        return target, verify_ptg(prog.ptg, consts, ignore=ignore,
+                                  fusion_hints=True), notes
     if ":" in target:
         from ..analysis.linter import collection_names, free_symbols
 

@@ -15,8 +15,9 @@ planes: a RuntimeService with the flight recorder, the health exporter
 (bound to 127.0.0.1 on an ephemeral port), the watchdog and the SLO
 plane switched on, scraped, and read by ``serve-status``, ``top``,
 ``flightdump`` and the monitor, beside the native serve executor and a
-rebound device executor.  ``chip_smoke.py`` alone in a directory, or on
-a machine without a GPU, exits non-zero and prints no result."""
+rebound device executor.  A fifth lowers and runs array programs
+(``parsec_tpu_torch.array``).  ``chip_smoke.py`` alone in a directory, or
+on a machine without a GPU, exits non-zero and prints no result."""
 
 import os
 import subprocess
@@ -271,6 +272,55 @@ def test_serving_and_live_planes_load_neither_jax_nor_the_jax_package(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "LIVE LOADED []" in proc.stdout
+
+
+ARRAY_SCRIPT = textwrap.dedent("""
+    import io, contextlib, sys
+    import numpy as np
+    import parsec_tpu_torch
+    from parsec_tpu_torch import array as pa
+    from parsec_tpu_torch.profiling import health, tools
+
+    rng = np.random.default_rng(0)
+    G = rng.standard_normal((20, 20)).astype(np.float32)
+    rhs = rng.standard_normal((20, 2)).astype(np.float32)
+    L = np.linalg.cholesky(G.astype(np.float64) @ G.T + 20 * np.eye(20))
+
+    def program():
+        A = pa.from_numpy(G, 8)
+        B = pa.from_numpy(20 * np.eye(20, dtype=np.float32), 8)
+        C = (A @ A.T + B).cholesky()
+        return C, C.solve(pa.from_numpy(rhs, 8, 2))
+
+    for kw in (dict(use_cuda=False), dict(use_cpu=False)):
+        C, x = program()
+        with parsec_tpu_torch.Context(nb_cores=2, cuda_device="cpu") as ctx:
+            x.compute(ctx, others=[C], **kw)
+            s = C.sum(ctx)
+        assert np.allclose(np.tril(C.to_numpy()), L, atol=2e-3)
+        assert abs(s - C.to_numpy().astype(np.float64).sum()) < 1e-6
+    C, x = program()
+    pa.lower([x, C], use_cuda=False).run_native(nthreads=2)
+    assert np.allclose(x.to_numpy(), np.linalg.solve(L, rhs), atol=2e-3)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert tools.main(["lint", "array:mixed"]) == 0
+    assert health._array_summary()["programs_lowered"] >= 4
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "parsec_tpu"))
+    print("ARRAY LOADED", bad)
+""")
+
+
+def test_array_front_end_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """Importing parsec_tpu_torch.array, lowering and running a program on
+    the CPU (host bodies, the CUDA module on the torch CPU device, the
+    native engine), a reduction and ``tools lint array:mixed`` load
+    neither JAX nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", ARRAY_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "ARRAY LOADED []" in proc.stdout
 
 
 def test_chip_smoke_fails_without_the_repo_and_without_a_gpu(tmp_path):
