@@ -270,6 +270,20 @@ dynamic run; the fused elementwise chain (fusion off and ``auto``
 counters grown as counted and B1–B5 launched +0 over the phase (the
 array's device bodies are library calls).
 
+The cross-rank core (``multirank`` phase, after the array front end): N
+ranks in one process, each a full ``Context`` over one ``InprocFabric``,
+driven from a thread a rank, every rank's CUDA module on ``cuda:0``.  The
+dpotrf at N=8192 nb=512 (``kernels`` and ``kernels_trtri`` at 4 ranks on
+a 2x2 grid, ``kernels`` at 2 ranks on 1x2, the 4-rank DTD dpotrf and a
+4-rank run under the four-counter termination detector), each factor
+``torch.equal`` to the one-rank dynamic factor with B1 +680 (B2 +120),
+every rank's ``bytes_in`` exactly its own home tiles and its
+``bytes_d2d`` > 0 (cross-rank tiles land device-to-device); the array
+program at 4 ranks, C and x ``torch.equal`` to the array phase's; a body
+raising on rank 3 failing every rank within 60 s, each context then
+running a fresh 4-rank dpotrf.  Its runs' B1/B2 launches join the
+``kernels`` line.
+
 Every run of the CUDA device module must end with no synchronous
 write-back fallback (``wb_sync_fallbacks == 0``) and no wave that fell
 back to per-task dispatch (``wave_fallbacks == 0``).  Kernel launches
@@ -2722,6 +2736,7 @@ def array_phase(h):
         check(stats["wb_sync_fallbacks"] == 0, "array dynamic: a synchronous write-back")
         C_np, x_np = C.to_numpy(), x.to_numpy()
     line("dynamic", wall, n_tasks, cuda_tasks=executed, **pipeline_fields(stats))
+    h.arr_out.update(C=C_np, x=x_np, wall=wall)  # the multirank phase's oracle
 
     # -- 2. gates on the card in float64 --------------------------------------
     Cg = torch.from_numpy(C_np).to(dev).double()
@@ -2872,6 +2887,354 @@ def array_phase(h):
         counters_grew=grew, kernel_launches_moved=moved, recon_err=recon,
         solve_resid=resid, tasks=n_tasks, card=card)
 
+
+#: the multirank phase: ranks a run, their process grid, worker streams a
+#: rank (4 ranks x 2 = the one-rank context's 8), the abort's time limit
+MR_GRIDS = {4: (2, 2), 2: (1, 2)}
+MR_CORES = 2
+MR_ABORT_S = 60.0
+
+
+def multirank_phase(h):
+    """The cross-rank core (``parsec_tpu_torch.comm``) on the card: N ranks
+    in one process, each a full ``Context(rank=r, nranks=N, comm=ces[r])``
+    over one ``InprocFabric(N)``, each rank driven from its own thread (the
+    reference's ``run_ranks``), every rank's CUDA module bound to
+    ``cuda:0`` (``rank % device_count`` on a one-card host) with its own
+    automatic budget.  Runs, each on a fresh mesh:
+
+    1. ``cholesky_ptg`` ``kernels`` and ``kernels_trtri`` at 4 ranks on a
+       2x2 ``TwoDimBlockCyclic``, and ``kernels`` at 2 ranks on a 1x2 grid:
+       N=8192 nb=512 f32, the one-rank dynamic runs' matrix (not cut).
+       The factor assembled from the ranks' home tiles is ``torch.equal``
+       to the one-rank dynamic factor; ‖LLᵀ − S‖max/‖S‖max < 1e-3; B1
+       +680 (B2 +120 with trtri); every rank executed device tasks and
+       sent activations; every rank that received a tile counted
+       ``bytes_d2d`` > 0, and its ``bytes_in`` is exactly its own home
+       tiles (and its trtri's NEW tiles): no cross-rank tile came through
+       the host.
+    2. The same 4-rank dpotrf through DTD (``insert_dpotrf``, shadow tasks
+       across ranks, ``flush_all`` home): ``torch.equal``, B1 +680.
+    3. The 4-rank ``kernels`` run under ``termdet="fourcounter"``: equal,
+       and every rank's pool terminated by the wave.
+    4. The array program ``C = (A @ A.T + B).cholesky(); x = C.solve(b)``
+       at 4 ranks (2x2): C and x ``torch.equal`` to the ``array`` phase's
+       one-rank result; B1–B5 +0.
+    5. A body raising on rank 3 of a 4-rank dpotrf: every rank's ``wait``
+       returns False within ``MR_ABORT_S``; each context then runs a small
+       4-rank dpotrf to the right factor.
+
+    One ``multirank`` line a run."""
+    np, torch, dev, card, say, check = h.np, h.torch, h.dev, h.card, h.say, h.check
+    import threading
+
+    from parsec_tpu_torch import Context, DEV_CPU
+    from parsec_tpu_torch import array as pa
+    from parsec_tpu_torch.comm import InprocFabric
+    from parsec_tpu_torch.comm.termdet_fourcounter import TermDetFourCounter
+    from parsec_tpu_torch.datadist import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl.dtd import DTDTaskpool
+    from parsec_tpu_torch.ops import cholesky_ptg, dpotrf_task_count, insert_dpotrf, kernels
+
+    t_phase = time.perf_counter()
+    nt = N // NB
+    tile_bytes = NB * NB * 4
+    S64 = torch.from_numpy(h.S).to(dev).double()
+    s_max = S64.abs().max().item()
+
+    def mesh(nranks):
+        ces = InprocFabric(nranks).endpoints()
+        ctxs = [Context(nb_cores=MR_CORES, rank=r, nranks=nranks, comm=ces[r])
+                for r in range(nranks)]
+        cuda_devs = [next(d for d in c.devices if d.mca_name == "cuda") for c in ctxs]
+        for r, d in enumerate(cuda_devs):
+            check(d.tdev.type == dev.type and d.tdev.index in (None, 0),
+                  f"multirank rank {r}: CUDA module bound to {d.tdev}")
+        return ces, ctxs, cuda_devs
+
+    def drive(ctxs, per_rank, timeout=600.0):
+        """Run ``per_rank(r, ctx)`` on one thread a rank, all started
+        together; returns each rank's (result, seconds from the common
+        start) and the whole run's wall (to the card's idle)."""
+        out = [None] * len(ctxs)
+        errors = []
+        t0 = time.perf_counter()
+
+        def worker(r):
+            try:
+                res = per_rank(r, ctxs[r])
+                out[r] = (res, time.perf_counter() - t0)
+            except BaseException as e:  # reported by the check below
+                errors.append((r, repr(e)))
+
+        ts = [threading.Thread(target=worker, args=(r,), name=f"mr-rank{r}")
+              for r in range(len(ctxs))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout + 60)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in ts),
+              f"multirank: rank errors {errors}")
+        return out, wall
+
+    def matrix(nranks, r):
+        p, q = MR_GRIDS[nranks]
+        return TwoDimBlockCyclic(N, N, NB, NB, p=p, q=q, myrank=r, name="A",
+                                 dtype=np.float32).from_array(h.S)
+
+    def assemble(mats):
+        out = np.zeros((N, N), np.float32)
+        for A in mats:
+            for (i, j) in A.local_tiles():
+                out[i * NB:(i + 1) * NB, j * NB:(j + 1) * NB] = np.asarray(
+                    A.data_of(i, j).newest_copy().payload)
+        return out
+
+    def host_bytes(A, r, tp=None):
+        """The bytes rank r stages from its own host memory: its lower home
+        tiles, and with the PTG's trtri the NEW tiles of its trtri tasks."""
+        out = tile_bytes * sum(1 for i in range(nt) for j in range(i + 1)
+                               if A.rank_of(i, j) == r)
+        if tp is not None and "trtri" in tp.ptg.classes:
+            shape, dtype = tp.new_tile_spec("trtri", "I")
+            out += (sum(1 for k in range(nt - 1) if A.rank_of(k, k) == r)
+                    * int(np.prod(shape)) * np.dtype(dtype).itemsize)
+        return out
+
+    def b1b2():
+        return {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+                for fn in (kernels.matmul_update, kernels.matmul)}
+
+    def gates(label, factor, want, trtri):
+        check(torch.equal(torch.from_numpy(factor), torch.from_numpy(want)),
+              f"multirank {label}: the factor differs from the one-rank dynamic factor")
+        L = torch.from_numpy(factor).to(dev).double().tril()
+        recon = ((L @ L.mT - S64).abs().max() / s_max).item()
+        del L
+        check(recon < 1e-3, f"multirank {label}: ||LL^T-S||max/||S||max {recon} >= 1e-3")
+        return recon
+
+    def expected_counts(trtri):
+        n_upd = nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
+        n_mm = nt * (nt - 1) // 2 if trtri else 0
+        exp = {fn.__name__: dict(dict.fromkeys(fn.launches_by_mode, 0), total=0)
+               for fn in (kernels.matmul_update, kernels.matmul)}
+        exp["matmul_update"].update(f32=n_upd, total=n_upd)
+        exp["matmul"].update(f32=n_mm, total=n_mm)
+        return exp
+
+    def rank_fields(ces, cuda_devs, tasks):
+        rds = [ce.remote_dep for ce in ces]
+        return dict(
+            tasks_by_rank=tasks,
+            activations_sent=[int(rd.stats["activations_sent"]) for rd in rds],
+            activations_recv=[int(rd.stats["activations_recv"]) for rd in rds],
+            dtd_sent=[int(rd.stats["dtd_sent"]) for rd in rds],
+            eager_sent=[int(rd.stats["eager_sent"]) for rd in rds],
+            eager_bytes=[int(rd.stats["eager_bytes"]) for rd in rds],
+            rdv_pulls=[int(rd.stats["rdv_pulls"]) for rd in rds],
+            parked=[int(rd.stats["parked"] + rd.stats["dtd_parked"]) for rd in rds],
+            frames_sent=[int(ce.stats["frames_sent"]) for ce in ces],
+            frames_coalesced=[int(ce.stats["frames_coalesced"]) for ce in ces],
+            bytes_in=[int(d.stats["bytes_in"]) for d in cuda_devs],
+            bytes_d2d=[int(d.stats["bytes_d2d"]) for d in cuda_devs],
+            mem_budget=[int(d.mem_budget) for d in cuda_devs])
+
+    def placements(tp, r):
+        return [(name, loc) for name, pc in tp.ptg.classes.items()
+                for loc in pc.param_space(tp.constants)
+                if pc.rank_of(loc, tp.constants) == r]
+
+    def run_dpotrf(label, nranks, kw, mode="ptg", termdet=None):
+        """One distributed dpotrf; returns the fields of its line."""
+        ces, ctxs, cuda_devs = mesh(nranks)
+        trtri = kw.get("use_trtri", False)
+        mats = [matrix(nranks, r) for r in range(nranks)]
+        pools = [None] * nranks
+
+        def per_rank(r, ctx):
+            A = mats[r]
+            if mode == "dtd":
+                d = pools[r] = DTDTaskpool(ctx, name=f"dtd_{label}")
+                insert_dpotrf(d, A, use_cpu=False, **kw)
+                d.flush_all()
+                ok = d.wait(timeout=600)
+                d.close()
+                return ok
+            tp = pools[r] = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(
+                NT=A.mt, A=A, termdet=termdet)
+            tp.name = f"dpotrf_{label}"
+            ctx.add_taskpool(tp)
+            return tp.wait(timeout=600)
+
+        try:
+            kernels.reset_counts()
+            gc.collect()
+            per, wall = drive(ctxs, per_rank)
+            counts = b1b2()
+            tasks = [int(d.stats["executed_tasks"]) for d in cuda_devs]
+            fields = rank_fields(ces, cuda_devs, tasks)
+            if termdet is not None:
+                tdms = [tp.tdm for tp in pools]
+                check(all(isinstance(t, TermDetFourCounter) for t in tdms)
+                      and all(t.is_terminated(tp) for t, tp in zip(tdms, pools)),
+                      f"multirank {label}: a pool did not terminate by the wave")
+                fields.update(termdet_waves=tdms[0]._wave_id,
+                              termdet_dedicated_sent=[t.dedicated_sent for t in tdms],
+                              termdet_waves_suppressed=tdms[0].waves_suppressed)
+        finally:
+            for c in ctxs:
+                c.fini()  # writes every rank's dirty home tiles back
+        check(all(ok for ok, _t in per), f"multirank {label}: a rank's pool failed "
+              f"({[getattr(tp, 'fail_reason', None) for tp in pools]})")
+        ntasks = dpotrf_task_count(nt, use_trtri=trtri)
+        check(sum(tasks) == ntasks and all(n > 0 for n in tasks),
+              f"multirank {label}: device tasks by rank {tasks}, expected {ntasks} in all")
+        check(counts == expected_counts(trtri),
+              f"multirank {label}: launches {counts}, expected {expected_counts(trtri)}")
+        for r in range(nranks):
+            own = host_bytes(mats[r], r, pools[r] if mode == "ptg" else None)
+            check(fields["bytes_in"][r] == own,
+                  f"multirank {label} rank {r}: bytes_in {fields['bytes_in'][r]}, "
+                  f"expected its own tiles' {own}: a cross-rank tile came through "
+                  "the host")
+            check(fields["bytes_d2d"][r] > 0,
+                  f"multirank {label} rank {r}: no tile landed device-to-device")
+            check((fields["activations_sent"][r] if mode == "ptg"
+                   else fields["dtd_sent"][r]) > 0,
+                  f"multirank {label} rank {r}: sent nothing")
+        recon = gates(label, assemble(mats), h.mr_factor["kernels_trtri" if trtri
+                                                          else "kernels"], trtri)
+        by_rank = [{"matmul_update": sum(1 for c, locs in placements(pools[r], r)
+                                         if c in ("syrk", "gemm")),
+                    "matmul": sum(1 for c, locs in placements(pools[r], r)
+                                  if c == "trsm") if trtri else 0}
+                   for r in range(nranks)] if mode == "ptg" else None
+        h.launches[f"multirank_{label}"] = counts
+        one_rank = h.mr_wall["kernels_trtri" if trtri else "kernels"]
+        say("multirank", run=label, mode=mode, nranks=nranks, grid=list(MR_GRIDS[nranks]),
+            N=N, nb=NB, variant="kernels_trtri" if trtri else "kernels",
+            termdet=termdet or "local", wall_s=wall,
+            rank_wall_s=[t for _ok, t in per],
+            host_ms_per_task=[1e3 * t / max(1, n) for (_ok, t), n in zip(per, tasks)],
+            one_rank_wall_s=one_rank, wall_ratio=wall / one_rank, tasks=ntasks,
+            launches=counts, launches_by_rank=by_rank, recon_err=recon,
+            equal_one_rank=True, card=card, **fields)
+
+    run_dpotrf("ptg4_kernels", 4, dict(use_kernels=True))
+    run_dpotrf("ptg4_kernels_trtri", 4, dict(use_kernels=True, use_trtri=True))
+    run_dpotrf("ptg2_kernels", 2, dict(use_kernels=True))
+    run_dpotrf("dtd4_kernels", 4, dict(use_kernels=True), mode="dtd")
+    run_dpotrf("ptg4_fourcounter", 4, dict(use_kernels=True), termdet="fourcounter")
+
+    # -- the array program at 4 ranks -----------------------------------------
+    rng = np.random.default_rng(ARR_SEED)
+    G = rng.standard_normal((ARR_N, ARR_N), dtype=np.float32)
+    H = np.eye(ARR_N, dtype=np.float32) * ARR_N
+    rhs = rng.standard_normal((ARR_N, ARR_NRHS), dtype=np.float32)
+    ces, ctxs, cuda_devs = mesh(4)
+    outs = [None] * 4
+
+    def array_rank(r, ctx):
+        dist = pa.BlockCyclic(*MR_GRIDS[4])
+        A = pa.from_numpy(G, ARR_NB, dist=dist, myrank=r)
+        C = (A @ A.T + pa.from_numpy(H, ARR_NB, dist=dist, myrank=r)).cholesky()
+        x = C.solve(pa.from_numpy(rhs, ARR_NB, dist=dist, myrank=r))
+        x.compute(ctx, others=[C], use_cpu=False, timeout=600)
+        outs[r] = (C, x)
+        return True
+
+    try:
+        kernels.reset_counts()
+        gc.collect()
+        per, wall = drive(ctxs, array_rank)
+        moved = {k: n for k, n in kernels.launch_counts().items() if n}
+        tasks = [int(d.stats["executed_tasks"]) for d in cuda_devs]
+        fields = rank_fields(ces, cuda_devs, tasks)
+    finally:
+        for c in ctxs:
+            c.fini()
+    check(not moved, f"multirank array: hand-written kernels launched: {moved}")
+    check(all(n > 0 for n in tasks), f"multirank array: device tasks by rank {tasks}")
+    for which, k in (("C", 0), ("x", 1)):
+        full = np.zeros_like(h.arr_out[which])
+        for r in range(4):
+            coll = outs[r][k]._node.coll
+            local = outs[r][k].to_numpy()
+            for (i, j) in coll.local_tiles():
+                hh, ww = coll.tile_shape(i, j)
+                sl = np.s_[i * ARR_NB:i * ARR_NB + hh, j * ARR_NB:j * ARR_NB + ww]
+                full[sl] = local[sl]
+        check(torch.equal(torch.from_numpy(full), torch.from_numpy(h.arr_out[which])),
+              f"multirank array: {which} differs from the one-rank array phase's")
+    say("multirank", run="array4", mode="array", nranks=4, grid=list(MR_GRIDS[4]),
+        N=ARR_N, nb=ARR_NB, wall_s=wall, rank_wall_s=[t for _ok, t in per],
+        host_ms_per_task=[1e3 * t / max(1, n) for (_ok, t), n in zip(per, tasks)],
+        one_rank_wall_s=h.arr_out["wall"], wall_ratio=wall / h.arr_out["wall"],
+        tasks=sum(tasks), launches=moved, equal_one_rank=True, card=card, **fields)
+    del outs, G, H, rhs
+    gc.collect()
+
+    # -- a body raising on rank 3: every rank fails, the contexts stay usable --
+    ces, ctxs, cuda_devs = mesh(4)
+    mats = [matrix(4, r) for r in range(4)]
+
+    def boom(T, k):
+        raise RuntimeError("multirank abort: injected failure on rank 3")
+
+    def abort_rank(r, ctx):
+        g = cholesky_ptg(use_cuda=True, use_cpu=False, use_kernels=True)
+        if r == 3:
+            g.classes["potrf"].bodies = {DEV_CPU: boom}
+        tp = g.taskpool(NT=mats[r].mt, A=mats[r])
+        tp.name = "dpotrf_abort"
+        t0 = time.perf_counter()
+        ctx.add_taskpool(tp)
+        ok = tp.wait(timeout=MR_ABORT_S)
+        return ok, time.perf_counter() - t0, tp.fail_reason
+
+    n_small = N // 4  # a leading block: SPD as every leading block is
+    S_small = np.ascontiguousarray(h.S[:n_small, :n_small])
+
+    def after_rank(r, ctx):
+        A = TwoDimBlockCyclic(n_small, n_small, NB, NB, p=2, q=2, myrank=r, name="A",
+                              dtype=np.float32).from_array(S_small)
+        tp = cholesky_ptg(use_cuda=True, use_cpu=False, use_kernels=True).taskpool(
+            NT=A.mt, A=A)
+        tp.name = "dpotrf_after_abort"
+        ctx.add_taskpool(tp)
+        return tp.wait(timeout=300), A
+
+    try:
+        per, wall = drive(ctxs, abort_rank, timeout=MR_ABORT_S)
+        after, wall_after = drive(ctxs, after_rank, timeout=300)
+    finally:
+        for c in ctxs:
+            c.fini()
+    results = [res for res, _t in per]
+    check(all(ok is False and t < MR_ABORT_S for ok, t, _why in results),
+          f"multirank abort: rank results {[(ok, t) for ok, t, _w in results]}")
+    check(all(ok for (ok, _A), _t in after), "multirank abort: a context failed the "
+          "follow-up pool")
+    small = np.zeros((n_small, n_small), np.float32)
+    for (_ok, A), _t in after:
+        for (i, j) in A.local_tiles():
+            small[i * NB:(i + 1) * NB, j * NB:(j + 1) * NB] = np.asarray(
+                A.data_of(i, j).newest_copy().payload)
+    L = torch.from_numpy(small).to(dev).double().tril()
+    S_s = S64[:n_small, :n_small]
+    recon_small = ((L @ L.mT - S_s).abs().max() / S_s.abs().max()).item()
+    check(recon_small < 1e-3, f"multirank after abort: recon {recon_small} >= 1e-3")
+    say("multirank", run="abort4", mode="ptg", nranks=4, grid=list(MR_GRIDS[4]), N=N,
+        nb=NB, wall_s=wall, rank_fail_s=[t for _ok, t, _w in results],
+        fail_reasons=[w for _ok, _t, w in results], limit_s=MR_ABORT_S,
+        after_wall_s=wall_after, after_N=n_small, after_recon_err=recon_small, card=card)
+    del L, S_s, S64, mats
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("multirank_phase", seconds=time.perf_counter() - t_phase, card=card)
 
 TUNE_BLOCKS = (256, 512)
 TUNE_NB = (256, 512, 1024)
@@ -4302,11 +4665,21 @@ def main() -> int:
         np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
         launches=launches, dyn_factor=dyn_factor, b5_launches=profiling_b5)
     serve_phase(serve)
+    mr_factor = {k: dyn_factor[k] for k in ("kernels", "kernels_trtri")}
     del dyn_factor
 
     # -- the array front end: one mixed program through every runtime ------
+    arr_out = {}
     array_phase(types.SimpleNamespace(
-        np=np, torch=torch, dev=dev, card=card, say=say, check=check))
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, arr_out=arr_out))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the cross-rank core: 2 and 4 ranks on the one card ------------------
+    multirank_phase(types.SimpleNamespace(
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
+        launches=launches, mr_factor=mr_factor, mr_wall=dyn_wall, arr_out=arr_out))
+    del mr_factor, arr_out
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -12,8 +12,8 @@ Events come from the PINS sites the runtime fires
 (:mod:`parsec_tpu_torch.profiling.pins`: ``DEP_DECREMENT``,
 ``DATA_VERSION_BUMP``, ``ARENA_ALLOC``/``RECYCLE``, ``NATIVE_TASK_DONE``,
 the staging pipeline's ``HB_STAGE_IN``/``HB_WB_ENQUEUE``/``HB_WB_COMMIT``,
-and ``HB_FRAME_SEND``/``DELIVER``, which the comm layer will fire, ROADMAP
-A.8).  The checker builds one vector clock per thread; cross-thread edges
+and ``HB_FRAME_SEND``/``DELIVER``, which the in-process comm fabric
+fires).  The checker builds one vector clock per thread; cross-thread edges
 are:
 
 * ``dep_edge`` (``RELEASE_DEPS_END``): producer -> released successor,

@@ -11,7 +11,8 @@ lazy and the problem sizes are tiny — the verifier's checks are
 size-generic, so NT=4-class instances exercise every guard branch
 without enumerating production spaces.  The ``examples/jdf`` files are
 read as data.  The entries whose graphs need a layer the port has not
-yet (the ring-attention and distributed graphs, ROADMAP A.8) keep their
+yet (the ring-attention graphs, ROADMAP A.8c; the distributed segmented
+Cholesky, A.8b) keep their
 names and raise ``NotImplementedError`` naming that item when built.  The
 array front end's canonical programs lint as generated, the 2-rank
 ``array.dist`` with its forwarding readers included (lowering a grid
@@ -167,10 +168,10 @@ GRAPHS: Dict[str, Callable[[], Tuple]] = {
     "ops.segmented_chol": _ops_segmented_chol,
     "ops.segmented_lu": _ops_segmented_lu,
     "ops.segmented_qr": _ops_segmented_qr,
-    "ops.segmented_chol_dist": _waiting("ops.segmented_chol_dist", "A.8"),
+    "ops.segmented_chol_dist": _waiting("ops.segmented_chol_dist", "A.8b"),
     "ops.attention_flash": _ops_attention_flash,
-    "ops.attention_ring": _waiting("ops.attention_ring", "A.8"),
-    "ops.attention_ring_bcast": _waiting("ops.attention_ring_bcast", "A.8"),
+    "ops.attention_ring": _waiting("ops.attention_ring", "A.8c"),
+    "ops.attention_ring_bcast": _waiting("ops.attention_ring_bcast", "A.8c"),
     "array.mixed": _array("mixed"),
     "array.chain": _array("chain"),
     "array.dist": _array("dist"),

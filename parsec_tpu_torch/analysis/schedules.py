@@ -1,23 +1,23 @@
 """Deterministic schedule explorer — seeded interleaving fuzzing.
 
-The port of :mod:`parsec_tpu.analysis.schedules`, at one rank.  One
-passing run only proves ONE schedule of the concurrent runtime correct.
-This harness re-runs a workload under *seeded perturbations* of the
-runtime ordering degrees of freedom the protocol is supposed to tolerate:
+The port of :mod:`parsec_tpu.analysis.schedules`.  One passing run only
+proves ONE schedule of the concurrent runtime correct.  This harness
+re-runs a workload under *seeded perturbations* of the runtime ordering
+degrees of freedom the protocol is supposed to tolerate:
 
 * **ready-queue pop order** — the ``rnd`` scheduler with MCA
   ``sched_rnd_seed`` (PCT-style priority fuzzing: any ready task may run
   next; the native pump seeds its pop order from the same parameter);
 * **completion timing** — a seeded jitter subscriber on ``EXEC_END``
   delays completions by random sub-millisecond amounts, shifting every
-  release/writeback race window.
+  release/writeback race window;
+* **frame delivery** (``nranks > 1``) — an :class:`ExplorerFabric` wraps
+  the inproc inboxes so frames deliver out of order and may be deferred
+  for a few progress cycles (bounded, so liveness is preserved and
+  termination detection still sees the truth: a deferred frame *is* a
+  frame in flight).
 
-The reference's third degree of freedom, frame delivery order across
-ranks (``ExplorerFabric`` over the in-process fabric), needs the comm
-layer: ``nranks > 1`` and :class:`ExplorerFabric` raise naming ROADMAP
-A.8.
-
-Every exploration must (a) quiesce, (b) produce bit-identical results
+Every exploration must (a) quiesce on every rank, (b) produce bit-identical results
 (``snapshot``), and (c) pass a clean hb-check (:mod:`.hb`).  A failing
 seed replays deterministically::
 
@@ -30,12 +30,13 @@ Usage::
         A = TiledMatrix(...).from_array(SPD)
         return cholesky_ptg(use_kernels=True).taskpool(NT=A.mt, A=A), A
 
-    res = explore(build, nranks=1, seeds=range(4))
-    assert res.identical and not res.race_findings()
+    res = explore(build, nranks=1, seeds=range(4))   # or nranks=2 with
+    assert res.identical                               # TwoDimBlockCyclic and not res.race_findings()
 """
 
 from __future__ import annotations
 
+import queue
 import random
 import threading
 import time
@@ -50,16 +51,84 @@ __all__ = ["ExplorerFabric", "ExplorationError", "ExplorationResult",
            "explore", "tile_digest"]
 
 
+class _PerturbedInbox:
+    """Drop-in for the fabric's ``SimpleQueue`` inboxes: frames come out
+    in a seeded-random order, each optionally deferred for up to
+    ``max_delay`` pop attempts.  Bounded deferral keeps liveness: every
+    empty-handed pop spends deferral budget, so a frame can stall only a
+    finite number of progress cycles."""
+
+    def __init__(self, rng: random.Random, delay_prob: float,
+                 max_delay: int):
+        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._rng = rng
+        self._delay_prob = delay_prob
+        self._max_delay = max_delay
+        self._buf: List[List[Any]] = []  # [frame, defers_left]
+        self._mu = threading.Lock()
+
+    def put(self, item) -> None:
+        self._q.put(item)
+
+    def get_nowait(self):
+        with self._mu:
+            while True:
+                try:
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                defers = self._rng.randint(0, self._max_delay) \
+                    if self._rng.random() < self._delay_prob else 0
+                self._buf.append([item, defers])
+            if not self._buf:
+                raise queue.Empty
+            eligible = [i for i, (_f, d) in enumerate(self._buf) if d == 0]
+            if not eligible:
+                for e in self._buf:  # spend budget: guaranteed progress
+                    e[1] -= 1
+                raise queue.Empty
+            idx = self._rng.choice(eligible)
+            return self._buf.pop(idx)[0]
+
+    def qsize(self) -> int:
+        with self._mu:
+            return len(self._buf) + self._q.qsize()
+
+    def pending(self) -> int:
+        """Frames held by the perturbation — still logically in flight."""
+        return self.qsize()
+
+    def peek_pending(self) -> List[Any]:
+        """Snapshot of every in-flight frame (delivery order NOT implied).
+        Inspection hook for protocol pins — e.g. "termination detection
+        never declares quiescence while an application frame is in
+        flight" (tests/runtime/test_termdet_explorer.py)."""
+        with self._mu:
+            while True:
+                try:
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                self._buf.append([item, 0])
+            return [f for f, _d in self._buf]
+
+
 class ExplorerFabric:
-    """The reference's perturbed in-process fabric (frames reordered and
-    deferred under a seeded RNG): it needs the comm layer, which is not
-    ported yet."""
+    """An :class:`~parsec_tpu_torch.comm.inproc.InprocFabric` whose
+    inboxes reorder and defer deliveries under a per-rank seeded RNG."""
 
     def __new__(cls, nranks: int, seed: int = 0, *, delay_prob: float = 0.3,
                 max_delay: int = 3):
-        raise NotImplementedError(
-            "ExplorerFabric (the multi-rank schedule explorer) needs the "
-            "in-process comm fabric, which is not ported yet (ROADMAP A.8)")
+        from ..comm.inproc import InprocFabric
+
+        fab = InprocFabric(nranks)
+        fab.inboxes = [
+            _PerturbedInbox(random.Random((seed << 8) ^ r), delay_prob,
+                            max_delay)
+            for r in range(nranks)
+        ]
+        fab.explorer_seed = seed
+        return fab
 
 
 class ExplorationError(AssertionError):
@@ -194,9 +263,9 @@ def explore(
     serving shape) once per seed under that seed's perturbations, on a
     ``Context(nb_cores, scheduler="rnd")`` made for the seed (its devices
     as any Context's: the card, or the torch CPU device under
-    ``device_cuda_torch_device=cpu``).  ``delay_prob``/``max_delay``
-    perturb frame delivery, which needs more than one rank: ``nranks``
-    other than 1 raises naming ROADMAP A.8.
+    ``device_cuda_torch_device=cpu``), one context a rank over an
+    :class:`ExplorerFabric` when ``nranks > 1``, whose
+    ``delay_prob``/``max_delay`` perturb frame delivery.
 
     ``snapshot(users) -> digest`` defines cross-seed identity (default:
     :func:`tile_digest` of every user object).  With ``assert_clean``
@@ -207,11 +276,6 @@ def explore(
     from .. import Context
     from ..utils import mca_param
 
-    if nranks != 1:
-        raise NotImplementedError(
-            f"explore(nranks={nranks}): the multi-rank schedule explorer "
-            "needs the in-process comm fabric, which is not ported yet "
-            "(ROADMAP A.8)")
     if snapshot is None:
         snapshot = lambda users: [tile_digest(u) for u in users]  # noqa: E731
 
@@ -224,7 +288,15 @@ def explore(
         mca_param.params.set("sched", "rnd_seed", seed)
         t0 = time.perf_counter()
         try:
-            ctxs = [Context(nb_cores=nb_cores, scheduler="rnd")]
+            if nranks == 1:
+                ctxs = [Context(nb_cores=nb_cores, scheduler="rnd")]
+            else:
+                fabric = ExplorerFabric(nranks, seed, delay_prob=delay_prob,
+                                        max_delay=max_delay)
+                ces = fabric.endpoints()
+                ctxs = [Context(nb_cores=nb_cores, scheduler="rnd", rank=r,
+                                nranks=nranks, comm=ces[r])
+                        for r in range(nranks)]
             users: List[Any] = [None] * nranks
             oks: List[Any] = [False] * nranks
             errs: List[Tuple[int, BaseException]] = []

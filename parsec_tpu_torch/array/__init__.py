@@ -25,9 +25,11 @@ The taskpool runs on the dynamic path, through the native pump
         x.compute(ctx, others=[C])    # ONE taskpool for the whole chain
     print(x.to_numpy())
 
-Running a multi-rank grid, its cross-rank reductions and a
-geometry-changing ``redistribute`` wait for the distributed layer
-(ROADMAP A.8) and raise ``NotImplementedError`` naming it.
+A multi-rank grid runs SPMD: every rank builds the same program over its
+own ``myrank`` and computes it on its rank of a multi-rank context.  Its
+native execution, its cross-rank reductions and a geometry-changing
+``redistribute`` wait for ROADMAP A.8b and raise ``NotImplementedError``
+naming it.
 """
 
 from .dist import Block1D, BlockCyclic, Distribution, Replicated

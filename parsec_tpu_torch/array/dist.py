@@ -12,8 +12,8 @@ land in; ``same_placement()`` is the alignment predicate the lowerer
 uses to decide whether a consumer may read a collection tile directly
 (owner-local memory reference) or must route it through a forwarding
 reader task.  A p x q grid is built and lowered at one process — ranks
-are only arithmetic there — but running it waits for the distributed
-layer (ROADMAP A.8).
+are only arithmetic there — and runs with one context a rank over the
+comm layer (:mod:`parsec_tpu_torch.comm`).
 """
 
 from __future__ import annotations

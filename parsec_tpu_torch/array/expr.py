@@ -22,7 +22,7 @@ bfloat16 where that package exists; the host tiles are then bfloat16
 torch CPU tensors, and ``to_numpy`` returns float32, which holds every
 bfloat16 value exactly.  bfloat16 programs run on the device bodies.
 
-What waits for the distributed layer (ROADMAP A.8) raises
+What waits for the collectives and redistribution (ROADMAP A.8b) raises
 ``NotImplementedError`` before any runtime work: a geometry-changing
 ``redistribute`` (``datadist.redistribute``) and the cross-rank allreduce
 of ``sum``/``norm`` on a multi-rank grid.
@@ -257,7 +257,7 @@ class DistArray:
         Different tile geometry (``mb``/``nb`` given and differing) goes
         through ``datadist.redistribute``, which comes with the
         distributed layer: it raises ``NotImplementedError`` (ROADMAP
-        A.8) before any runtime work."""
+        A.8b) before any runtime work."""
         n = self._node
         new_mb = int(mb) if mb is not None else n.mb
         new_nb = int(nb) if nb is not None else n.nb
@@ -277,7 +277,7 @@ class DistArray:
         raise NotImplementedError(
             f"redistribute from ({n.mb}, {n.nb}) tiles to ({new_mb}, {new_nb}) "
             "runs through datadist.redistribute, which is not ported yet "
-            "(ROADMAP A.8)")
+            "(ROADMAP A.8b)")
 
     # -- reductions (terminal: they run the graph) ------------------------
     def sum(self, context, *, timeout: Optional[float] = 600,
@@ -285,7 +285,7 @@ class DistArray:
         """Global element sum — per-tile partials inside the fused
         taskpool (host f64 accumulators: a device tile is staged home
         first), then the fold on the host.  The cross-rank combine of a
-        multi-rank grid waits for the collectives (ROADMAP A.8)."""
+        multi-rank grid waits for the collectives (ROADMAP A.8b)."""
         return self._reduce(context, "sum", timeout=timeout,
                             use_cpu=use_cpu, use_cuda=use_cuda)
 
@@ -302,7 +302,7 @@ class DistArray:
         if not n.dist.replicated and n.dist.nodes > 1:
             raise NotImplementedError(
                 f"array {op} over a {n.dist.nodes}-rank grid needs the "
-                "cross-rank allreduce, which is not ported yet (ROADMAP A.8)")
+                "cross-rank allreduce, which is not ported yet (ROADMAP A.8b)")
         red = Node("reduce", [n], (n.mt, n.nt), 1, 1, np.float64, n.dist,
                    n.myrank, reduce_op=op)
         prog = lower([red], name=f"array_{op}", use_cpu=use_cpu,

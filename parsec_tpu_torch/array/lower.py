@@ -52,9 +52,10 @@ functional, and the final write-back aliases its home tile into a no-op
 (on the card the flow's device copy IS the home tile's, resident until
 eviction or detach writes it home).
 
-One rank: a p x q grid lowers (its readers included) and verifies, but
-``taskpool``, ``run`` and ``run_native`` of a multi-rank program raise
-``NotImplementedError`` naming ROADMAP A.8, the distributed layer.
+A p x q grid lowers (its readers included), verifies, and runs SPMD
+(``taskpool(ctx)``/``run(ctx)`` on each rank of a multi-rank context);
+``run_native`` of a multi-rank program raises ``NotImplementedError``
+naming ROADMAP A.8b (the distributed native executor).
 """
 
 from __future__ import annotations
@@ -737,22 +738,23 @@ class ArrayProgram:
     def nranks(self) -> int:
         return self._lw.nranks
 
-    def _one_rank(self, what: str) -> None:
-        if self.nranks != 1:
-            raise NotImplementedError(
-                f"{what} of array program {self.ptg.name!r}: its grid spans "
-                f"{self.nranks} ranks, and multi-rank execution is not "
-                "ported yet (ROADMAP A.8)")
-
     def taskpool(self, context=None, **overrides):
-        """Instantiate the program's taskpool.  One rank: ``context`` is
-        the reference's signature, which names the mesh whose sequence
-        number suffixes a multi-rank pool's name (ROADMAP A.8)."""
-        self._one_rank("taskpool()")
+        """Instantiate the program's taskpool.  Pass the ``context`` it
+        will attach to on a MULTI-RANK mesh: remote activations are routed
+        by POOL NAME, so two same-named pools live back-to-back on a
+        rank-skewed mesh can cross-talk.  With a context, the name is
+        suffixed with the mesh endpoint's SPMD-consistent sequence number
+        (every rank draws the same value for the same program in the same
+        order), making each program's pool name unique per mesh."""
         _count("taskpools_built")
         merged = dict(self._lw.constants)
         merged.update(overrides)
-        return self.ptg.taskpool(**merged)
+        tp = self.ptg.taskpool(**merged)
+        ce = getattr(context, "comm", None)
+        if (context is not None and getattr(context, "nranks", 1) > 1
+                and ce is not None):
+            tp.name = f"{tp.name}@{ce.sequence(('array', tp.name))}"
+        return tp
 
     def verify(self, **kw):
         """Lint the generated graph (``PTG.verify`` under the program's
@@ -760,7 +762,11 @@ class ArrayProgram:
         return self.ptg.verify(self._lw.constants, **kw)
 
     def run(self, context, *, timeout: Optional[float] = 600):
-        self._one_rank("run()")
+        nr = getattr(context, "nranks", 1)
+        if self.nranks not in (1, nr):
+            raise ValueError(
+                f"array program is distributed over {self.nranks} ranks "
+                f"but the context has {nr}")
         tp = self.taskpool(context)
         context.add_taskpool(tp)
         if not tp.wait(timeout=timeout):
@@ -774,7 +780,11 @@ class ArrayProgram:
         """Execute on the native engine: CPU bodies by default,
         ``native_device=True`` every task through the CUDA device module
         driven by the native pump (:meth:`PTGTaskpool.run_native`)."""
-        self._one_rank("run_native()")
+        if self.nranks != 1:
+            raise NotImplementedError(
+                f"run_native() of array program {self.ptg.name!r}: its grid "
+                f"spans {self.nranks} ranks, and the distributed native "
+                "executor (native_dist) is not ported yet (ROADMAP A.8b)")
         tp = self.taskpool()
         tp.run_native(nthreads=nthreads, native_device=native_device,
                       device=device)

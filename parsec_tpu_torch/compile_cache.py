@@ -31,8 +31,9 @@ kernel libraries in ``parsec_tpu_torch/_build/`` (``tools cache``).
   (:meth:`ProgramCache.clear_memory`).
 
 Not ported: the disk store of programs (nothing serializes) and the
-cross-rank broadcast of serialized programs, which needs ``comm/``
-(ROADMAP A.8): a multi-rank cache raises.
+cross-rank broadcast of serialized programs (ROADMAP A.8b):
+``ProgramCache(nranks>1)`` raises, and each rank of a multi-rank context
+keeps a rank-local cache.
 """
 
 from __future__ import annotations
@@ -276,7 +277,7 @@ class ProgramCache:
         if nranks > 1:
             raise NotImplementedError(
                 "a multi-rank program cache shares programs over the comm "
-                "engine, which is not ported yet (ROADMAP A.8)")
+                "engine, which is not ported yet (ROADMAP A.8b)")
         self.rank = rank
         self.nranks = nranks
         self.stats: collections.Counter = collections.Counter()
@@ -356,7 +357,7 @@ def default_cache() -> ProgramCache:
 
 
 def for_context(context) -> ProgramCache:
-    """A context's own program cache (a multi-rank one raises: its
-    broadcast is ROADMAP A.8)."""
-    return ProgramCache(rank=getattr(context, "rank", 0),
-                        nranks=getattr(context, "nranks", 1))
+    """A context's own program cache.  A rank of a multi-rank context
+    gets a rank-local one: its programs are never shared with the other
+    ranks (the cross-rank program broadcast is ROADMAP A.8b)."""
+    return ProgramCache(rank=getattr(context, "rank", 0))

@@ -34,8 +34,12 @@ diagnosis) and ``PARSEC_TPU_SLO=1`` (the SLO plane; a
 :class:`~parsec_tpu_torch.serve.RuntimeService` installs one unless it is
 ``0``).  :meth:`Context.fini` stops and joins them first.
 
-Single-rank only: comm engines are not ported yet; asking for one raises
-``NotImplementedError`` naming ROADMAP A.8.
+Multi-rank: ``Context(rank=r, nranks=n, comm=ce)`` with ``ce`` one
+endpoint of a :class:`~parsec_tpu_torch.comm.InprocFabric` (the TCP
+backend is ROADMAP A.8b).  Every rank is a full context; taskpools of the
+same name on every rank are one logical pool, their cross-rank edges
+carried by :mod:`~parsec_tpu_torch.comm.remote_dep`.  Every rank's CUDA
+module binds ``cuda:<rank % device_count>``.
 """
 
 from __future__ import annotations
@@ -88,10 +92,6 @@ class Context:
         nranks: int = 1,
         comm=None,
     ):
-        if comm is not None or nranks != 1:
-            raise NotImplementedError(
-                "multi-rank contexts (comm engines) are not ported yet "
-                "(ROADMAP A.8)")
         # opt-in runtime checkers, installed BEFORE any runtime lock or
         # thread exists so they observe the whole context lifetime
         if os.environ.get("PARSEC_TPU_HBCHECK", "0") not in ("", "0"):
@@ -113,7 +113,7 @@ class Context:
         self.nb_workers = max(1, int(nb_cores))
         self.rank = rank
         self.nranks = nranks
-        self.comm = None
+        self.comm = comm  # comm engine (None = single process)
         self.cuda_device = cuda_device
 
         # the program cache (captured programs in this process), made
@@ -176,6 +176,8 @@ class Context:
         debug.verbose(3, "core", "context up: %d workers, sched=%s, devices=%s",
                       self.nb_workers, self.scheduler.mca_name,
                       [d.name for d in self.devices])
+        if self.comm is not None:
+            self.comm.attach_context(self)
         #: the serving plane (a RuntimeService hangs itself here)
         self.serve = None
         self._install_live_planes()
@@ -234,14 +236,57 @@ class Context:
     # ------------------------------------------------------------------
     def add_taskpool(self, tp: Taskpool) -> None:
         """Reference ``parsec_context_add_taskpool`` (scheduling.c:832):
-        register, run the startup hook, enqueue the initially-ready
-        tasks."""
+        register, notify the comm layer, run the startup hook, enqueue the
+        initially-ready tasks."""
+        # Distributed termdet monitors (fourcounter) bind to the comm
+        # engine and are driven from the idle loop (_progress_comm); one
+        # distributed monitor per CE at a time — the TERMDET tag and
+        # piggyback channel are single-slot.  The slot decision happens
+        # FIRST, before the pool is registered anywhere: a refusal must
+        # not leave a half-registration, and a tdm swap must happen before
+        # attached() counts into it or the comm layer can deliver for it.
+        if self.comm is not None:
+            tdm = tp.tdm
+            if hasattr(tdm, "bind") and getattr(tdm, "ce", None) is None:
+                with self._cv:  # atomic slot claim across adder threads
+                    claimed = getattr(self.comm, "_termdet_bound",
+                                      None) is None
+                    if claimed:
+                        self.comm._termdet_bound = tdm
+                if claimed:
+                    tdm.bind(self.comm)
+                elif getattr(tp, "auto_count", False):
+                    # an UNBOUND fourcounter monitor has no wave driver and
+                    # can never declare termination, and dynamic discovery
+                    # (DTD) NEEDS it to see in-flight remote activations
+                    raise RuntimeError(
+                        f"taskpool {tp.name}: comm engine already "
+                        "carries a distributed termdet monitor and "
+                        "this pool's task count is dynamically "
+                        "discovered — one fourcounter pool at a time "
+                        "(wait for the bound pool to finish first)")
+                else:
+                    # front ends that keep their own accounting (PTG:
+                    # pre-counted local tasks + write-back runtime
+                    # actions) are correct under local termdet
+                    from .termdet import TermDetLocal
+
+                    debug.warning(
+                        "taskpool %s: comm engine already carries a "
+                        "distributed termdet monitor; falling back to "
+                        "local termdet (one fourcounter pool at a time)",
+                        tp.name)
+                    fresh = TermDetLocal()
+                    fresh.monitor_taskpool(tp, tp._termination_detected)
+                    tp.tdm = fresh
         with self._cv:
             self._taskpools[tp.taskpool_id] = tp
             self._active_taskpools += 1
         tp.attached(self)
         if tp.on_enqueue is not None:
             tp.on_enqueue(tp)
+        if self.comm is not None:
+            self.comm.new_taskpool(tp)
         # hold a runtime action across ready+startup so an empty-looking pool
         # cannot declare termination before its startup tasks are accounted
         tp.tdm.taskpool_addto_runtime_actions(tp, 1)
@@ -290,6 +335,7 @@ class Context:
 
     def test(self) -> bool:
         """Non-blocking: True when no active taskpools remain."""
+        self._progress_comm()
         with self._cv:
             return self._active_taskpools == 0
 
@@ -325,6 +371,7 @@ class Context:
                     backoff = 1e-6
                     self._run_task(es, task)
                     continue
+                self._progress_comm()
                 with self._cv:
                     if done():
                         return True
@@ -383,7 +430,9 @@ class Context:
         immediately, exactly like a device submit failure (reference
         hook-ERROR is fatal, ``scheduling.c:512``): ``wait()`` returns
         False at once, the pool leaves the active set, and its remaining
-        queued tasks are discarded by ``_next_task``."""
+        queued tasks are discarded by ``_next_task``.  With nranks > 1
+        the failure is broadcast (``fail_pool_for_context``) so healthy
+        peer ranks abort at once instead of waiting out their timeout."""
         es.stats["executed"] += 1
         prev_trace = jobtrace.current()
         jobtrace.set_current(task.taskpool.trace_id)
@@ -395,7 +444,9 @@ class Context:
             debug.error("worker %d: task %r raised: %s", es.worker_id, task, e)
             traceback.print_exc()
             why = f"task {task!r} body raised: {type(e).__name__}: {e}"
-            task.taskpool.fail(why)
+            from ..comm.remote_dep import fail_pool_for_context
+
+            fail_pool_for_context(self, task.taskpool, why)
             # the incident's artifact: the flight recorder's last events
             # (a no-op unless PARSEC_TPU_FLIGHT installed one; never raises)
             from ..profiling import flight as _flight
@@ -418,8 +469,13 @@ class Context:
         return getattr(self._tls, "es", None)
 
     def _progress_comm(self) -> None:
-        """Drive the comm engine: a no-op at one rank, the only kind of
-        context the port builds (comm engines are ROADMAP A.8)."""
+        """Drive the comm engine (deliver what arrived) and the bound
+        distributed termdet monitor's wave (rank 0, rate-limited)."""
+        if self.comm is not None:
+            self.comm.progress_nonblocking()
+            tdm = getattr(self.comm, "_termdet_bound", None)
+            if tdm is not None:
+                tdm.idle_progress()
 
     def help_execute_one(self) -> bool:
         """Execute one ready task on the calling thread if safely possible
@@ -494,6 +550,8 @@ class Context:
         for t in self._threads:
             t.join(timeout=5)
         self._threads.clear()
+        if self.comm is not None:
+            self.comm.detach_context(self)
         from ..device import device as devmod
 
         try:

@@ -13,8 +13,9 @@ The ``local`` module (default; reference
 zero after the taskpool is marked ready.  ``user_trigger`` (reference
 ``termdet/user_trigger``) holds termination until the application calls
 ``tp.tdm.trigger(tp)``; at one rank it is ``local`` plus that gate.  The
-distributed ``fourcounter`` wave algorithm, and ``user_trigger``'s signal
-across ranks, come with the distributed layer (ROADMAP A.8).
+distributed ``fourcounter`` wave algorithm lives in
+:mod:`parsec_tpu_torch.comm.termdet_fourcounter`; ``user_trigger``'s
+signal across ranks is not ported yet (ROADMAP A.8b).
 """
 
 from __future__ import annotations
@@ -164,7 +165,7 @@ class TermDetUserTrigger(TermDetLocal):
         if ctx is not None and getattr(ctx, "nranks", 1) > 1:
             raise NotImplementedError(
                 "user_trigger termination across ranks needs the "
-                "distributed layer, which is not ported yet (ROADMAP A.8)")
+                "distributed layer, which is not ported yet (ROADMAP A.8b)")
         fire = False
         with self._lock:
             self._triggered = True

@@ -3,7 +3,7 @@ arenas (:mod:`.arena`), datatypes (:mod:`.datatype`) and checkpoints
 (:mod:`.checkpoint`).
 
 The reshape layer of :mod:`parsec_tpu.data` is not ported yet (ROADMAP
-A.8).
+A.8b).
 """
 
 from .data import Coherency, Data, DataCopy, data_create, host_array

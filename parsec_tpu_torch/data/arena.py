@@ -198,7 +198,7 @@ class ByteBudget:
     buffer they hold, and the measured ``peak`` is reported against the
     limit.  The meter records — it never blocks: admission control is the
     caller's bounding mechanism (the memory-bounded redistribution rounds
-    that use it come with the distributed layer, ROADMAP A.8)."""
+    that use it come with redistribution, ROADMAP A.8b)."""
 
     __slots__ = ("limit", "now", "peak", "_lock")
 

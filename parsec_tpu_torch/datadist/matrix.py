@@ -8,9 +8,9 @@ row rank = (m / kp) % P, col rank = (n / kq) % Q) with its symmetric
 variant (``sym_two_dim_rectangle_cyclic.c``), and the band composites
 that route a band around the diagonal to a sub-distribution of its own
 (``{sym_,}two_dim_rectangle_cyclic_band.{c,h}``).  The owner math covers
-any P×Q grid, but only one rank runs: ``from_array``/``to_array`` move the
-tiles this rank owns.  Multi-rank use comes with the distributed layer
-(ROADMAP A.8).  The distributed vector (``vector_two_dim_cyclic``) and the
+any P×Q grid; ``from_array``/``to_array`` move the tiles this rank owns,
+and each rank of a multi-rank context holds its own
+(``myrank``).  The distributed vector (``vector_two_dim_cyclic``) and the
 rank-table placement (``two_dim_tabular``) complete the set.
 
 Host tiles are numpy arrays, exactly as in the JAX package, so both

@@ -8,7 +8,7 @@ application (``apply.jdf`` + ``apply_wrapper.c``), reductions
 (``map_operator.c``).  Same capabilities here, as DTD taskpools of host
 bodies: a tile whose newest version lives on the CUDA module is staged to
 the host before its body runs.  One rank: a collection distributed over
-several ranks raises, naming ROADMAP A.8 (the reference folds such tiles
+several ranks raises, naming ROADMAP A.8b (the reference folds such tiles
 in through the DTD shadow-task protocol).
 
 Each operation inserts one module-level body per kind, with the user's
@@ -34,7 +34,7 @@ def _check_one_rank(A: TiledMatrix, what: str) -> None:
         raise NotImplementedError(
             f"{what}: {A.name} is distributed over {A.nodes} ranks; "
             "multi-rank tiled-matrix operations need the distributed "
-            "layer, which is not ported yet (ROADMAP A.8)")
+            "layer, which is not ported yet (ROADMAP A.8b)")
 
 
 def _apply_body(t, op, i, j):

@@ -1418,8 +1418,12 @@ class CudaDevice(Device):
     def _copy_in(self, srcs: List[Any]) -> List[Tuple[torch.Tensor, str]]:
         """The device copies of staging sources and the counter each moves:
         host tiles (ndarrays, or torch CPU tensors — numpy has no bfloat16)
-        in one :meth:`_h2d_batch`, a tensor at another device index
-        device-to-device."""
+        in one :meth:`_h2d_batch`, a CUDA tensor device-to-device — a
+        cross-rank arrival is one (the in-process fabric's clone, made on
+        the sender's compute stream).  The copy's stream first waits on the
+        source's ready event, so it never reads the clone before the
+        sender's stream wrote it, and ``record_stream`` keeps the caching
+        allocator from reusing the source's block before the copy ends."""
         host = [i for i, src in enumerate(srcs)
                 if not (isinstance(src, torch.Tensor) and src.device.type != "cpu")]
         out: List[Any] = [None] * len(srcs)
@@ -1427,7 +1431,12 @@ class CudaDevice(Device):
             out[i] = (arr, "bytes_in")
         for i, src in enumerate(srcs):
             if out[i] is None:
+                stream = torch.cuda.current_stream(self.tdev)
+                ready = ready_event(src)
+                if ready is not None:
+                    stream.wait_event(ready)
                 out[i] = (src.to(self.tdev, copy=True), "bytes_d2d")
+                src.record_stream(stream)
         return out
 
     def _stage_in(self, data: Data) -> Any:

@@ -8,8 +8,8 @@ level batching: ``batch_levels=True``) and supertask fusion
 (:mod:`.fusion`).  :class:`~.native_exec.NativeServeExecutor` runs several
 pools as wdrr tenants of one native graph.
 
-The collective tasks and the distributed executors of
-:mod:`parsec_tpu.dsl` are not ported yet (ROADMAP A.8).
+The collective tasks and the distributed native executor of
+:mod:`parsec_tpu.dsl` are not ported yet (ROADMAP A.8b).
 """
 
 from .cuda_graph import GraphExecutor

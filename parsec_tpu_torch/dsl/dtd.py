@@ -11,6 +11,15 @@ so the DAG in flight stays bounded (window/threshold MCA knobs); task
 classes are found-or-created from the body+signature
 (``insert_function.c:193,942,2387``).
 
+Multi-rank: every rank runs the same insert sequence (SPMD, reference
+semantics); a task whose affinity tile is remote becomes a *shadow task*
+that only advances the per-tile version (epoch) tracking.  Producer ranks
+insert send tasks, consumer ranks insert recv tasks — matched pairs keyed
+by (tile, epoch), carried over the comm engine's ``TAG_DTD`` channel.  A
+tile version on the card crosses as a clone made on the card and lands in
+the consumer's host slot as a CUDA tensor, which the consumer's CUDA
+module stages device-to-device.
+
 Device chores: ``insert_task({DEV_CPU: f, DEV_CUDA: g}, ...)`` gives a
 task a numpy CPU incarnation and a torch CUDA one; the device selector
 picks per task, and a CUDA chore runs through the CUDA device module
@@ -22,13 +31,11 @@ failed CUDA chore fails the pool; it never falls back to the CPU body.
 Differences from the reference, by design:
 
 * WAR hazards are broken by renaming (a fresh writer buffer, reference
-  ``overlap_strategies.c``), as the JAX package does at one rank.
+  ``overlap_strategies.c``) at one rank, and serialized as dependencies
+  across ranks, as the JAX package does.
 * Bodies may mutate numpy payloads in place (reference semantics) **or**
   return replacement arrays (functional style, required for device
   chores): a non-None return rebinds the writable flows in order.
-* One rank only: the multi-rank shadow-task protocol (send and receive
-  tasks keyed by tile epoch, :meth:`DTDTaskpool.dtd_incoming`) raises
-  ``NotImplementedError`` naming ROADMAP A.8.
 
 Usage::
 
@@ -55,7 +62,8 @@ import torch
 from ..core.lifecycle import AccessMode, HookReturn, DEV_CPU
 from ..core.task import Chore, Flow, Task, TaskClass
 from ..core.taskpool import Taskpool
-from ..data.data import Data
+from ..comm.payload import is_device_array
+from ..data.data import Data, host_array
 from ..utils import mca_param
 from .ptg import stage_to_cpu
 
@@ -69,9 +77,6 @@ ATOMIC_WRITE = AccessMode.ATOMIC_WRITE
 AFFINITY = AccessMode.AFFINITY
 DONT_TRACK = AccessMode.DONT_TRACK
 
-_MULTIRANK = ("multi-rank DTD (shadow tasks, send/receive tasks keyed by "
-              "tile epoch) is not ported yet (ROADMAP A.8)")
-
 
 class _TileState:
     """Per-Data dependency tracking (reference dtd tile,
@@ -83,7 +88,7 @@ class _TileState:
     old buffer while the writer proceeds on a fresh one."""
 
     __slots__ = ("lock", "last_writer", "readers", "atomic", "data", "current",
-                 "renames")
+                 "renames", "epoch", "writer_rank", "have_local", "sent")
 
     def __init__(self, data: Optional[Data] = None) -> None:
         self.lock = threading.Lock()
@@ -95,6 +100,17 @@ class _TileState:
         self.data = data
         self.current: Optional[Data] = data
         self.renames = 0
+        # -- multi-rank (shadow-task protocol) fields --------------------
+        #: logical version counter, advanced by every exclusive write; all
+        #: ranks compute the same sequence from the SPMD insert stream
+        self.epoch = 0
+        #: rank that produced (owns) the current epoch's content
+        self.writer_rank = 0
+        #: True when the current epoch's content is materialized locally
+        #: (we produced it, we hold the home tile, or a recv deposited it)
+        self.have_local = True
+        #: (epoch, dst_rank) versions already shipped from this rank
+        self.sent: set = set()
 
 
 class _DTDTaskState:
@@ -164,12 +180,17 @@ class DTDTaskpool(Taskpool):
             "dtd", "war_rename", True,
             help="break WAR hazards by renaming (fresh writer buffer) instead of serializing")
         self._rename_tc: Optional[TaskClass] = None
+        # -- multi-rank state (shadow-task protocol) ---------------------
+        #: (wire_key, epoch) -> {"payload": arr|None, "task": recv Task|None}
+        self._recv: Dict[Tuple[Any, int], Dict[str, Any]] = {}
+        self._recv_lock = threading.Lock()
+        self._send_tc: Optional[TaskClass] = None
+        self._recv_tc: Optional[TaskClass] = None
+        self._comm_seq = 0
         if context is not None and auto_add:
             context.add_taskpool(self)
 
     def attached(self, context) -> None:
-        if getattr(context, "nranks", 1) > 1:
-            raise NotImplementedError(_MULTIRANK)
         super().attached(context)
         # hold the "insertion open" runtime action so local termdet cannot
         # fire while the user may still insert (released by close()).
@@ -294,12 +315,32 @@ class DTDTaskpool(Taskpool):
     # -----------------------------------------------------------------
     # insertion & dependency inference
     # -----------------------------------------------------------------
+    @staticmethod
+    def _rank_of_data(data: Data) -> Optional[int]:
+        dc = data.collection
+        if dc is None or dc.nodes <= 1:
+            return None
+        key = data.key if isinstance(data.key, tuple) else (data.key,)
+        return dc.rank_of(*key)
+
+    @staticmethod
+    def _wire_key(data: Data) -> Any:
+        """Rank-stable tile identity: (collection name, canonical key)."""
+        dc = data.collection
+        return (dc.name, data.key) if dc is not None else None
+
     def _tile_state(self, data: Data) -> _TileState:
         with self._tiles_lock:
             st = self._tiles.get(data.data_id)
             if st is None:
                 st = self._tiles[data.data_id] = _TileState(data)
+                if self.context is not None and self.context.nranks > 1:
+                    owner = self._rank_of_data(data)
+                    owner = self.context.rank if owner is None else owner
+                    st.writer_rank = owner
+                    st.have_local = owner == self.context.rank
             return st
+
 
     def insert_task(
         self,
@@ -307,7 +348,7 @@ class DTDTaskpool(Taskpool):
         *args: Any,
         priority: int = 0,
         name: Optional[str] = None,
-    ) -> Task:
+    ) -> Optional[Task]:
         """Reference ``parsec_dtd_insert_task`` (insert_function.h:281).
 
         ``body`` is a CPU body, or a dict of bodies by device type
@@ -318,7 +359,9 @@ class DTDTaskpool(Taskpool):
             (numpy on the CPU, zeroed on the device)
           * ``(value, VALUE)`` or bare value — captured by value
 
-        Returns the inserted :class:`Task`.
+        Returns the inserted :class:`Task`, or ``None`` when the task's
+        affinity places it on another rank (shadow insertion — the
+        reference's remote tasks are likewise not handed back).
         """
         if not self._open:
             raise RuntimeError("taskpool closed for insertion")
@@ -329,9 +372,12 @@ class DTDTaskpool(Taskpool):
         if self.context is None:
             raise RuntimeError("DTD taskpool must be attached to a context before insertion")
         bodies = body if isinstance(body, dict) else {DEV_CPU: body}
+        nranks = self.context.nranks
+        myrank = self.context.rank
 
         specs: List[Tuple[str, Any, AccessMode]] = []
         modes: List[AccessMode] = []
+        affinity_data: Optional[Data] = None
         for a in args:
             if isinstance(a, tuple) and len(a) == 2 and isinstance(a[1], AccessMode):
                 val, mode = a
@@ -348,7 +394,32 @@ class DTDTaskpool(Taskpool):
                 mode = VALUE
             else:
                 specs.append(("data", val, mode))
+                if mode & AFFINITY and affinity_data is None:
+                    affinity_data = val
             modes.append(mode)
+
+        # rank placement (owner computes, reference PARSEC_AFFINITY flag):
+        # the task executes on the rank owning the AFFINITY-tagged tile
+        # (fallback: the first collection-backed tracked tile). Every rank
+        # runs the same insert sequence; remote tasks are *shadow* tasks —
+        # tracked for dependency/version inference, never executed locally.
+        exec_rank = myrank
+        if nranks > 1:
+            pdata = affinity_data
+            if pdata is None:
+                pdata = next(
+                    (d for (k, d, m) in specs
+                     if k in ("data", "ctl") and not (m & DONT_TRACK)
+                     and d.collection is not None and d.collection.nodes > 1),
+                    None)
+            if pdata is not None:
+                r = self._rank_of_data(pdata)
+                if r is not None:
+                    exec_rank = r
+
+        if nranks > 1 and exec_rank != myrank:
+            self._track_shadow(specs, exec_rank)
+            return None
 
         tc = self._class_of(bodies, tuple(modes), name)
         task = Task(self, tc, (self._inserted,), priority)
@@ -358,8 +429,11 @@ class DTDTaskpool(Taskpool):
         task.on_complete = self._task_retired
 
         # dependency inference per tracked data argument (CTL args track
-        # like readers: they order after the last writer)
-        rename_on = bool(self._war_rename)
+        # like readers: they order after the last writer). Multi-rank runs
+        # serialize WAR hazards (renaming is a single-rank optimization:
+        # cross-rank consistency is keyed by tile epoch, which must map
+        # 1:1 onto the home buffer).
+        rename_on = bool(self._war_rename) and nranks == 1
         for i, (kind, data, mode) in enumerate(specs):
             if kind not in ("data", "ctl") or (mode & DONT_TRACK):
                 continue
@@ -369,17 +443,26 @@ class DTDTaskpool(Taskpool):
             with st.lock:
                 st.readers = [r for r in st.readers if not r.user.completed]
                 st.atomic = [w for w in st.atomic if not w.user.completed]
+                if nranks > 1:
+                    # content of the current epoch must be materialized
+                    # locally before any consuming local task can run
+                    needs_in = bool(mode & (AccessMode.IN | AccessMode.ATOMIC_WRITE)) \
+                        or not (mode & AccessMode.OUT)
+                    if needs_in and not st.have_local:
+                        self._ensure_recv_locked(st, st.epoch)
                 buf = st.current if st.current is not None else data
                 last = [st.last_writer] if st.last_writer is not None else []
-                if mode & AccessMode.ATOMIC_WRITE:
+                if (mode & AccessMode.ATOMIC_WRITE) and nranks == 1:
                     # commutative writer: after readers + exclusive writer,
                     # unordered among atomic peers
                     for p in st.readers + last:
                         if p is not task:
                             self._add_edge(p, task, state)
                     st.atomic.append(task)
-                elif mode & AccessMode.OUT:
-                    # exclusive writer (OUT/INOUT)
+                elif mode & (AccessMode.OUT | AccessMode.ATOMIC_WRITE):
+                    # exclusive writer (OUT/INOUT; multi-rank also routes
+                    # ATOMIC_WRITE here — commutativity is a local
+                    # optimization, cross-rank epochs need a total order)
                     pending = [r for r in st.readers + st.atomic if r is not task]
                     if rename_on and kind == "data" and pending:
                         # WAR hazard: rename (overlap_strategies.c) — the
@@ -408,6 +491,10 @@ class DTDTaskpool(Taskpool):
                         st.last_writer = task
                         st.readers = []
                         st.atomic = []
+                    if nranks > 1:
+                        st.epoch += 1
+                        st.writer_rank = myrank
+                        st.have_local = True
                 else:  # reader: after exclusive writer + atomic writers
                     for p in st.atomic + last:
                         if p is not task:
@@ -476,10 +563,179 @@ class DTDTaskpool(Taskpool):
             self.context.schedule([t], es=self.context.current_es())
         return t
 
+    # -----------------------------------------------------------------
+    # multi-rank shadow-task protocol
+    #
+    # Reference: dtd remote tasks (insert_function.c — tasks whose
+    # affinity rank is remote still walk the tile lists so every rank
+    # infers matching communication from the same SPMD insert stream).
+    # Cross-rank consistency is keyed by (tile, epoch): the producing
+    # rank inserts a *send task* per consuming rank (ordered after the
+    # local producer like a reader), the consuming rank inserts a *recv
+    # task* (ordered after local buffer users like a writer — the
+    # deposit overwrites the local buffer). Local tile lists only ever
+    # hold local tasks; no cross-rank WAR edges are needed because each
+    # rank mutates its own copy of the tile.
+    # -----------------------------------------------------------------
+    def _track_shadow(self, specs, exec_rank: int) -> None:
+        """Bookkeeping for a task that executes on another rank."""
+        myrank = self.context.rank
+        for kind, data, mode in specs:
+            if kind not in ("data", "ctl") or (mode & DONT_TRACK):
+                continue
+            st = self._tile_state(data)
+            is_excl = bool(mode & (AccessMode.OUT | AccessMode.ATOMIC_WRITE))
+            needs_in = bool(mode & (AccessMode.IN | AccessMode.ATOMIC_WRITE)) or not is_excl
+            with st.lock:
+                if needs_in and st.writer_rank == myrank:
+                    self._insert_send_locked(st, st.epoch, exec_rank)
+                if is_excl:
+                    st.epoch += 1
+                    st.writer_rank = exec_rank
+                    st.have_local = False
+                    # local reader/writer lists are kept: they encode WAR
+                    # on the *local* buffer, consumed by the next local
+                    # producer (_ensure_recv_locked or a local writer)
+
+    def _comm_task(self, tc: TaskClass, body_args, preds: List[Task],
+                   extra_pending: int = 0) -> Task:
+        """Insert an internal communication task (send/recv); counted and
+        retired like any inserted task so wait()/termdet see it."""
+        self._comm_seq += 1
+        t = Task(self, tc, (tc.name, self._comm_seq), priority=1 << 20)
+        t.body_args = body_args
+        state = _DTDTaskState()
+        state.pending += extra_pending
+        t.user = state
+        t.on_complete = self._task_retired
+        for p in preds:
+            self._add_edge(p, t, state)
+        with self._quiesce:
+            self._inserted += 1
+        ready = False
+        with state.lock:
+            state.pending -= 1  # release the insertion-in-progress dep
+            ready = state.pending == 0
+        if ready:
+            self.context.schedule([t], es=self.context.current_es())
+        return t
+
+    def _send_class(self) -> TaskClass:
+        if self._send_tc is None:
+            def send_hook(es, t):
+                data, wkey, epoch, dst = t.body_args
+                # snapshot: the send retires (releasing its WAR edge) before
+                # the wire serializes / the remote GET arrives — the next
+                # local writer must not be able to mutate the shipped bytes.
+                # A version on the card stays there: a device-capable fabric
+                # clones it on the card inside send_dtd, queued behind its
+                # producer (never a host bounce); anything else is copied
+                # to a private host array
+                comm = self.context.comm
+                newest = data.newest_copy()
+                if newest is None:
+                    raise RuntimeError(f"{data!r} has no valid copy to send")
+                arr = newest.payload
+                if not (is_device_array(arr)
+                        and getattr(comm, "device_payloads", False)):
+                    arr = host_array(arr)
+                comm.remote_dep.send_dtd(self, wkey, epoch, arr, dst)
+                return HookReturn.DONE
+
+            tc = TaskClass("dtd_send", chores=[Chore(DEV_CPU, send_hook)])
+            tc.release_deps = self._release_deps
+            self._send_tc = tc
+            self.add_task_class(tc)
+        return self._send_tc
+
+    def _recv_class(self) -> TaskClass:
+        if self._recv_tc is None:
+            def recv_hook(es, t):
+                data, wkey, epoch = t.body_args
+                with self._recv_lock:
+                    entry = self._recv.pop((wkey, epoch))
+                buf = entry["payload"]
+                # a CUDA arrival (the fabric's clone, this rank's alone)
+                # lands as-is for the CUDA module's device-to-device
+                # stage-in; a host one is copied out of its landing buffer
+                if not is_device_array(buf):
+                    buf = host_array(buf)
+                c = data.get_copy(0)
+                if c is None:
+                    data.attach_copy(0, buf)
+                else:
+                    c.payload = buf
+                data.version_bump(0)
+                return HookReturn.DONE
+
+            tc = TaskClass("dtd_recv", chores=[Chore(DEV_CPU, recv_hook)])
+            tc.release_deps = self._release_deps
+            self._recv_tc = tc
+            self.add_task_class(tc)
+        return self._recv_tc
+
+    def _insert_send_locked(self, st: _TileState, epoch: int, dst: int) -> None:
+        """Ship (tile, epoch) to rank dst once; ordered after the local
+        producer like a reader (tile lock held)."""
+        if (epoch, dst) in st.sent:
+            return
+        st.sent.add((epoch, dst))
+        wkey = self._wire_key(st.data)
+        if wkey is None:
+            raise RuntimeError(
+                f"{st.data!r}: cross-rank DTD flow needs a collection-backed tile")
+        preds = list(st.atomic)
+        if st.last_writer is not None:
+            preds.append(st.last_writer)
+        t = self._comm_task(self._send_class(), (st.data, wkey, epoch, dst), preds)
+        st.readers.append(t)
+
+    def _ensure_recv_locked(self, st: _TileState, epoch: int) -> Task:
+        """Create the recv task that deposits (tile, epoch) into the local
+        buffer; it becomes the tile's local producer (tile lock held)."""
+        wkey = self._wire_key(st.data)
+        if wkey is None:
+            raise RuntimeError(
+                f"{st.data!r}: cross-rank DTD flow needs a collection-backed tile")
+        with self._recv_lock:
+            entry = self._recv.get((wkey, epoch))
+            if entry is None:
+                entry = self._recv[(wkey, epoch)] = {"payload": None, "task": None}
+            arrived = entry["payload"] is not None
+            # WAR: the deposit overwrites the local buffer — order after
+            # every local task still using it
+            preds = st.readers + st.atomic
+            if st.last_writer is not None:
+                preds.append(st.last_writer)
+            t = self._comm_task(self._recv_class(), (st.data, wkey, epoch),
+                                preds, extra_pending=0 if arrived else 1)
+            entry["task"] = t
+        st.last_writer = t
+        st.readers = []
+        st.atomic = []
+        st.have_local = True
+        return t
+
     def dtd_incoming(self, wkey, epoch: int, payload) -> None:
-        """The comm engine's delivery of a remote tile version (reference
-        AM deliver): multi-rank only."""
-        raise NotImplementedError(_MULTIRANK)
+        """AM deliver (runs on the comm/progress thread): park or release."""
+        task = None
+        with self._recv_lock:
+            entry = self._recv.get((wkey, epoch))
+            if entry is None:
+                self._recv[(wkey, epoch)] = {"payload": payload, "task": None}
+            else:
+                entry["payload"] = payload
+                task = entry["task"]
+        if task is not None:
+            state: _DTDTaskState = task.user
+            with state.lock:
+                state.pending -= 1
+                ready = state.pending == 0
+            if ready:
+                self.context.schedule([task])
+        with self._quiesce:
+            self._quiesce.notify_all()
+
 
     @staticmethod
     def _add_edge(pred: Task, succ: Task, succ_state: "_DTDTaskState") -> None:
@@ -533,6 +789,8 @@ class DTDTaskpool(Taskpool):
                 if self._inserted - self._retired <= self.threshold:
                     return
             if not self.context.help_execute_one():
+                # the backlog may be recv tasks blocked on remote arrivals:
+                # drain the comm engine or a full window deadlocks the rank
                 self.context._progress_comm()
                 with self._quiesce:
                     self._quiesce.wait(0.001)
@@ -557,6 +815,7 @@ class DTDTaskpool(Taskpool):
             if self.context is not None and self.context.help_execute_one():
                 continue
             if self.context is not None:
+                # drive the comm engine: pending recv tasks need arrivals
                 self.context._progress_comm()
             with self._quiesce:
                 if self._retired >= self._inserted:
@@ -564,11 +823,30 @@ class DTDTaskpool(Taskpool):
                 self._quiesce.wait(0.001)
 
     def data_flush(self, data: Data) -> None:
-        """Bring the final version of ``data`` home (reference
-        ``parsec_dtd_data_flush``, insert_function.h:351-360): materialize
-        the newest version on the CPU device — copying it back from a
-        rename buffer if WAR renaming redirected the tile, or from the
-        device that wrote it last — and drop tracking state."""
+        """Push the final version of ``data`` home to its owner rank
+        (reference ``parsec_dtd_data_flush``, insert_function.h:351-360).
+
+        Single-rank: materialize the newest version on the CPU device —
+        copying it back from a rename buffer if WAR renaming redirected the
+        tile, or from the device that wrote it last — and drop tracking
+        state. Multi-rank: asynchronous like the
+        reference — inserts the home-bound send on the producing rank and
+        the matching recv on the owner; completed by ``wait()``. All ranks
+        must flush the same tiles (SPMD, as they inserted)."""
+        if self.context is not None and self.context.nranks > 1:
+            with self._tiles_lock:
+                st = self._tiles.get(data.data_id)
+            if st is None:
+                return
+            myrank = self.context.rank
+            owner = self._rank_of_data(data)
+            owner = myrank if owner is None else owner
+            with st.lock:
+                if st.writer_rank == myrank and owner != myrank:
+                    self._insert_send_locked(st, st.epoch, owner)
+                elif owner == myrank and not st.have_local:
+                    self._ensure_recv_locked(st, st.epoch)
+            return
         with self._tiles_lock:
             st = self._tiles.get(data.data_id)
         cur = st.current if st is not None and st.current is not None else data
@@ -582,15 +860,28 @@ class DTDTaskpool(Taskpool):
     def flush_all(self, collection=None) -> None:
         """Reference ``parsec_dtd_data_flush_all``: flush every tracked tile
         home (of one collection, or all)."""
-        self.wait()
+        multirank = self.context is not None and self.context.nranks > 1
+        if not multirank:
+            self.wait()
         with self._tiles_lock:
             states = list(self._tiles.values())
+        flushed = []
         for st in states:
             if st.data is None:
                 continue
             if collection is not None and st.data.collection is not collection:
                 continue
             self.data_flush(st.data)
+            flushed.append(st)
+        if multirank:
+            self.wait()
+            myrank = self.context.rank
+            for st in flushed:
+                owner = self._rank_of_data(st.data)
+                if owner is None or owner == myrank:
+                    stage_to_cpu(st.data)  # materialize home tiles on CPU
+                with self._tiles_lock:
+                    self._tiles.pop(st.data.data_id, None)
 
     def close(self) -> None:
         """End insertion; after this, ``context.wait()`` can terminate the

@@ -514,7 +514,8 @@ class NativeExecutor:
         if srckey[0] == "remote":
             raise RuntimeError(
                 f"flow source {srckey[1]}/{srckey[2]} is on another rank; "
-                "distributed native execution is not ported yet (ROADMAP A.8)")
+                "distributed native execution (native_dist) is not ported "
+                "yet (ROADMAP A.8b)")
         consts = self.taskpool.constants
         if srckey[0] == "data":
             _, cname, key = srckey
@@ -745,7 +746,8 @@ class NativeExecutor:
         if srckey[0] == "remote":
             raise RuntimeError(
                 f"flow source {srckey[1]}/{srckey[2]} is on another rank; "
-                "distributed native execution is not ported yet (ROADMAP A.8)")
+                "distributed native execution (native_dist) is not ported "
+                "yet (ROADMAP A.8b)")
         if srckey[0] == "data":
             _, cname, key = srckey
             return self.taskpool.constants[cname].data_of(*key)

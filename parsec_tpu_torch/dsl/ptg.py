@@ -47,10 +47,14 @@ fused regions dispatch as one supertask each.
 Ahead-of-time verification (:meth:`PTG.verify`, and ``PARSEC_TPU_LINT``
 at attach) runs the graph linter of :mod:`parsec_tpu_torch.analysis`.
 
-What the port leaves out, each raising ``NotImplementedError`` naming its
-ROADMAP item when reached: remote successors and write-backs (A.8), and a
-reshape property block on an incoming dep (A.8; on a ``<- NEW`` dep the
-block names the new tile's shape and dtype).
+Across ranks (a context with a comm engine), a rank enumerates only its
+local tasks; remote successors get one aggregated activation per rank and
+a final value of a remote home tile goes home through a write-back
+(:mod:`parsec_tpu_torch.comm.remote_dep`), each pre-counted by its
+receiver.  What the port leaves out raises ``NotImplementedError`` naming
+its ROADMAP item when reached: a reshape property block on an incoming
+dep (A.8b; on a ``<- NEW`` dep the block names the new tile's shape and
+dtype).
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ from ..core.deps import DenseDepTracker, DepTracker
 from ..core.lifecycle import AccessMode, HookReturn, DEV_CPU, DEV_CUDA
 from ..core.task import Chore, Flow, Task, TaskClass
 from ..core.taskpool import Taskpool
-from ..data.data import Data, data_create, host_array
+from ..data.data import Data, data_create, host_array, land_into_home
 from ..data.datarepo import DataRepo
 from ..utils import mca_param
 
@@ -830,37 +834,37 @@ class PTGTaskpool(Taskpool):
                 "(expected 'hash' or 'dense')")
         return DenseDepTracker() if mode == "dense" else DepTracker()
 
-    def _local_space(self, pc: PTGTaskClass) -> List[Tuple]:
-        """The class's local tasks (every task: one rank), recording its
-        parameter box on the way."""
+    def _local_space(self, pc: PTGTaskClass,
+                     rank: Optional[int] = None) -> List[Tuple]:
+        """The class's tasks placed on ``rank`` (default: this context's),
+        recording the whole class's parameter box on the way."""
+        if rank is None:
+            rank = self.context.rank if self.context else 0
         cached = self._local_cache.get(pc.name)
         if cached is None:
             cached = []
             lo = hi = None
             for loc in pc.param_space(self.constants):
-                if pc.rank_of(loc, self.constants) != 0:
-                    raise NotImplementedError(
-                        f"{pc.name}{loc} is placed on rank "
-                        f"{pc.rank_of(loc, self.constants)}: distributed "
-                        "taskpools are not ported yet (ROADMAP A.8)")
                 if lo is None:
                     lo, hi = list(loc), list(loc)
                 else:
                     for i, v in enumerate(loc):
                         lo[i] = min(lo[i], v)
                         hi[i] = max(hi[i], v)
-                cached.append(loc)
+                if pc.rank_of(loc, self.constants) == rank:
+                    cached.append(loc)
             if lo is not None:
                 self._class_box[pc.name] = tuple(
                     (int(a), int(b)) for a, b in zip(lo, hi))
             self._local_cache[pc.name] = cached
         return cached
 
-    def _count_local(self) -> int:
-        """Enumerate every class's local tasks, register the dense boxes,
-        and return the exact local task count."""
+    def _count_local(self, rank: int) -> int:
+        """Enumerate every class's tasks on ``rank``, register the dense
+        boxes, and return the exact local task count."""
         self._local_cache.clear()
-        n = sum(len(self._local_space(pc)) for pc in self.ptg.classes.values())
+        n = sum(len(self._local_space(pc, rank))
+                for pc in self.ptg.classes.values())
         if isinstance(self.deps, DenseDepTracker):
             for name, box in self._class_box.items():
                 self.deps.register_class(name, box)
@@ -897,7 +901,7 @@ class PTGTaskpool(Taskpool):
             # release (a counter split between the hash fallback and the
             # dense array never reaches its goal), and the same
             # enumeration yields the exact local count: scan up front
-            self.tdm.taskpool_set_nb_tasks(self, self._count_local())
+            self.tdm.taskpool_set_nb_tasks(self, self._count_local(context.rank))
             self._counted = True
         else:
             # hash mode: no pre-scan — the chunked startup pass counts
@@ -906,6 +910,13 @@ class PTGTaskpool(Taskpool):
             # so the transiently-small count cannot quiesce)
             self.tdm.taskpool_set_nb_tasks(self, 0)
             self._counted = False
+        if context.nranks > 1:
+            # the final values remote tasks write into tiles this rank
+            # owns: each arrival is one pre-counted runtime action, so
+            # the pool cannot quiesce before the data lands
+            n_wb = self._count_expected_writebacks(context.rank)
+            if n_wb:
+                self.tdm.taskpool_addto_runtime_actions(self, n_wb)
         super().attached(context)
 
     def _maybe_lint(self) -> None:
@@ -1000,10 +1011,7 @@ class PTGTaskpool(Taskpool):
             undefined = claimed = 0
             for loc in pc.param_space(self.constants):
                 if pc.rank_of(loc, self.constants) != myrank:
-                    raise NotImplementedError(
-                        f"{pc.name}{loc} is placed on rank "
-                        f"{pc.rank_of(loc, self.constants)}: distributed "
-                        "taskpools are not ported yet (ROADMAP A.8)")
+                    continue
                 cached.append(loc)
                 pending += 1
                 if pc.goal_of(loc, self.constants, self._exists_memo) == 0:
@@ -1106,7 +1114,7 @@ class PTGTaskpool(Taskpool):
                         and _props_spec(dep.props, self.constants) != (None, None)):
                     raise NotImplementedError(
                         f"{pc.name}.{f.name}: dep {dep.src!r} asks for a "
-                        "reshape, which is not ported yet (ROADMAP A.8)")
+                        "reshape, which is not ported yet (ROADMAP A.8b)")
                 data = self._resolve_input(pc, f, target, env, task)
                 specs.append(("data", data, f.mode))
                 task.data_in[f.index] = data.newest_copy() if data is not None else None
@@ -1190,15 +1198,18 @@ class PTGTaskpool(Taskpool):
                 for f in pc.flows:
                     if f.mode != CTL:
                         flow_data[f.index] = task.body_args[f.index][1]
-            return self._release_deps_core(pc, task.locals, flow_data)
+            return self._release_deps_core(pc, task.locals, flow_data,
+                                           task.priority)
 
         return release_deps
 
     def _release_deps_core(self, pc: PTGTaskClass, locals_: Tuple,
                            flow_data: List[Optional[Data]],
+                           priority: int = 0,
                            origin_region=None) -> List[Task]:
         """Successor release for one (possibly fused) completed task:
-        write-backs, repo deposits and dependency-counter decrements.
+        write-backs, repo deposits, remote activations and
+        dependency-counter decrements.
         ``flow_data[f.index]`` is the Data behind each non-CTL flow.
         ``origin_region`` (a member-tid set) is the supertask's release:
         successors inside the producer's own region ran inside the fused
@@ -1211,6 +1222,11 @@ class PTGTaskpool(Taskpool):
         nb_consumers = 0
         myrank = self.context.rank if self.context else 0
         succ_list: List[Tuple[PTGTaskClass, Tuple]] = []
+        # per-destination-rank output masks + one payload per flow: ONE
+        # aggregated activation per rank, however many successors live
+        # there (reference parsec_remote_deps_t, remote_dep.h:132)
+        rank_masks: Dict[int, int] = {}
+        flow_payloads: Dict[int, Any] = {}
         for f in pc.flows:
             data = None
             if f.mode != CTL:
@@ -1221,6 +1237,9 @@ class PTGTaskpool(Taskpool):
                     continue
                 if isinstance(t, _DataRef):
                     if f.mode != CTL:
+                        # CTL flows carry no data: never written back, and
+                        # _count_expected_writebacks skips them too (count
+                        # and send must agree or the owner never quiesces)
                         self._write_back(t, env, data)
                     continue
                 succ_pc = self.ptg.classes[t.class_name]
@@ -1232,12 +1251,17 @@ class PTGTaskpool(Taskpool):
                     if origin_region is not None \
                             and (t.class_name, locs) in origin_region:
                         continue  # intra-region edge: ran in the fused body
-                    if succ_pc.rank_of(locs, self.constants) != myrank:
-                        raise NotImplementedError(
-                            f"{pc.name}{locals_}: successor "
-                            f"{t.class_name}{locs} lives on another rank; "
-                            "remote activations are not ported yet "
-                            "(ROADMAP A.8)")
+                    rank = succ_pc.rank_of(locs, self.constants)
+                    if rank != myrank:
+                        rank_masks[rank] = rank_masks.get(rank, 0) | (1 << f.index)
+                        if (f.mode != CTL and data is not None
+                                and f.index not in flow_payloads):
+                            src = data.newest_copy()
+                            if src is not None:
+                                # the raw payload (a CUDA tensor stays
+                                # one: the fabric clones it on the card)
+                                flow_payloads[f.index] = src.payload
+                        continue
                     if f.mode != CTL:
                         if entry is None:
                             entry = repo.lookup_and_create(locals_)
@@ -1246,6 +1270,27 @@ class PTGTaskpool(Taskpool):
                     succ_list.append((succ_pc, locs))
         if entry is not None:
             repo.set_usage_limit(locals_, nb_consumers)
+        # remote successors: one aggregated activation per rank, routed
+        # down the broadcast topology (reference
+        # parsec_remote_dep_activate + propagate, SURVEY.md §3.4)
+        if rank_masks:
+            comm = self.context.comm if self.context else None
+            if comm is None:
+                raise RuntimeError(
+                    f"task {pc.name}{locals_} has remote successors on "
+                    f"ranks {sorted(rank_masks)} but the context has no "
+                    "comm engine")
+            if not getattr(comm, "device_payloads", False):
+                # serializing transport: overlap the D2H copies of every
+                # device-resident flow, then convert once each
+                from ..comm.payload import prefetch_to_host, to_wire
+
+                prefetch_to_host(flow_payloads.values())
+                flow_payloads = {k: to_wire(v)
+                                 for k, v in flow_payloads.items()}
+            comm.remote_dep.send_activations(
+                self, pc.name, locals_, rank_masks, flow_payloads,
+                priority=priority)
         ready: List[Task] = []
         for succ_pc, locs in succ_list:
             if fusion is not None:
@@ -1274,11 +1319,24 @@ class PTGTaskpool(Taskpool):
     def _write_back(self, t: _DataRef, env, data: Optional[Data]) -> None:
         """Final value of a flow into its home tile's host copy — unless
         the flow IS its home tile (the usual case: its device copy stays
-        resident and dirty until eviction or detach writes it home)."""
+        resident and dirty until eviction or detach writes it home).  A
+        home tile on another rank gets the value through a write-back
+        its owner pre-counted."""
+        dc = self.constants[t.collection_name]
+        key = t.key(env)
+        if self.context is not None and self.context.nranks > 1:
+            owner = dc.rank_of(*key)
+            if owner != self.context.rank:
+                # a flow that resolved to no data still sends a
+                # payload-less retire so the owner's count drains
+                src = data.newest_copy() if data is not None else None
+                self.context.comm.remote_dep.send_writeback(
+                    self, t.collection_name, key,
+                    src.payload if src is not None else None, owner)
+                return
         if data is None:
             return
-        dc = self.constants[t.collection_name]
-        home = dc.data_of(*t.key(env))
+        home = dc.data_of(*key)
         if home is data:
             return  # flow aliases its home tile
         src = data.newest_copy()
@@ -1291,6 +1349,125 @@ class PTGTaskpool(Taskpool):
         else:
             np.copyto(dst.payload, buf)
         home.version_bump(0)
+
+
+    def incoming_writeback(self, cname: str, key: Tuple, payload) -> None:
+        """Receiver half of the cross-rank final write-back: store the
+        arrived value into the home tile and retire one expected-arrival
+        runtime action (armed in :meth:`attached`).  ``payload=None`` is a
+        pure retire: the producer's flow resolved to no data, but the
+        arrival was pre-counted so it must still drain the counter."""
+        if payload is not None:
+            land_into_home(self.constants[cname].data_of(*key), payload)
+        self.tdm.taskpool_addto_runtime_actions(self, -1)
+
+    def _count_expected_writebacks(self, rank: int) -> int:
+        """How many remote tasks write their final flow value into a tile
+        ``rank`` owns — each is one pre-counted termdet runtime action."""
+        n = 0
+        for pc in self.ptg.classes.values():
+            # static pre-filter: only deps that CAN resolve to a data
+            # reference matter here
+            wb_deps = [
+                (f, dep)
+                for f in pc.flows if f.mode != CTL
+                for dep in f.deps_out
+                if isinstance(dep.then, _DataRef)
+                or isinstance(getattr(dep, "otherwise", None), _DataRef)
+            ]
+            if not wb_deps:
+                continue
+            for loc in pc.param_space(self.constants):
+                if pc.rank_of(loc, self.constants) == rank:
+                    continue  # local task: local write-back
+                env = pc.env_of(loc, self.constants)
+                for _f, dep in wb_deps:
+                    t = dep.target(env)
+                    if isinstance(t, _DataRef):
+                        dc = self.constants[t.collection_name]
+                        if dc.rank_of(*t.key(env)) == rank:
+                            n += 1
+        return n
+
+    def incoming_activation(self, *, src_class: str, src_locals: Tuple,
+                            mask: int, flow_data: Dict[int, Any]) -> None:
+        """Receiver half of the aggregated activation protocol (reference
+        ``remote_dep_release_incoming``): re-derive which of MY tasks the
+        masked output flows of ``(src_class, src_locals)`` release — the
+        receiver runs iterate_successors itself, so successor lists never
+        travel the wire — deposit the arrived flow payloads in the
+        producer-class repo (usage-limited to the local consumer count,
+        like the local release path), and decrement dependency counters.
+        Like the reference, dynamic guards reading body-mutated state must
+        be rank-local or producer and consumer can disagree."""
+        pc = self.ptg.classes[src_class]
+        env = pc.env_of(src_locals, self.constants)
+        myrank = self.context.rank if self.context else 0
+        repo = self.repos[src_class]
+        entry = None
+        nb_consumers = 0
+        ready: List[Task] = []
+        for f in pc.flows:
+            if not (mask >> f.index) & 1:
+                continue
+            payload = flow_data.get(f.index)
+            deposited = False
+            for dep in f.deps_out:
+                t = dep.target(env)
+                if t is None or isinstance(t, (_NoneRef, _NewRef, _DataRef)):
+                    continue  # write-backs are the producer's business
+                succ_pc = self.ptg.classes[t.class_name]
+                for locs in _expand_args(t.args, env):
+                    if len(locs) != len(succ_pc.param_names):
+                        continue
+                    if not succ_pc.valid(locs, self.constants):
+                        continue
+                    if succ_pc.rank_of(locs, self.constants) != myrank:
+                        continue
+                    if f.mode != CTL and payload is not None:
+                        if not deposited:
+                            if entry is None:
+                                entry = repo.lookup_and_create(src_locals)
+                            if entry.copies[f.index] is None:
+                                entry.copies[f.index] = self._deposit_payload(
+                                    (src_class, src_locals, f.index), payload)
+                            deposited = True
+                        nb_consumers += 1
+                    if self._fusion is not None:
+                        ext = self._fusion.ext_goal(t.class_name, locs)
+                        if ext is not None:
+                            # remote producers are always external to a
+                            # (rank-local) fused region
+                            became, _ = self.deps.release_counter(
+                                (t.class_name, locs), ext)
+                            if became and (ext != 0 or self._claim_source(
+                                    t.class_name, locs)):
+                                _, supertask = self._fusion.route_ready(
+                                    t.class_name, locs)
+                                if supertask is not None:
+                                    ready.append(supertask)
+                            continue
+                    goal = succ_pc.goal_of(locs, self.constants, self._exists_memo)
+                    became, _ = self.deps.release_counter(
+                        (t.class_name, locs), goal)
+                    if became and (goal != 0
+                                   or self._claim_source(t.class_name, locs)):
+                        ready.append(self._make_task(succ_pc, locs))
+        if entry is not None:
+            repo.set_usage_limit(src_locals, nb_consumers)
+        if ready and self.context is not None:
+            self.context.schedule(ready, es=self.context.current_es())
+
+    def _deposit_payload(self, key, payload) -> Data:
+        """Land an arrived flow payload as the host-slot copy of a fresh
+        Data, AS-IS.  A CUDA tensor (the fabric's clone on the card) stays
+        one: a device consumer's stage-in copies it device-to-device
+        (``bytes_d2d``, behind the clone's ready event) INSIDE the device
+        module, where residency accounting lives; a CPU consumer's
+        :func:`stage_to_cpu` turns it into a host array lazily.  Landing
+        it eagerly here would bounce it through the host from the comm
+        thread and bypass the budget."""
+        return data_create(key, payload=payload)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@ panel and segmented Cholesky, LU and QR), the flash-attention and
 5-point-stencil taskpools, their tile bodies and hand-written kernels.
 
 The ring-attention graphs of :mod:`parsec_tpu.ops` are not ported yet
-(ROADMAP A.8).
+(ROADMAP A.8c).
 """
 
 from .attention import (

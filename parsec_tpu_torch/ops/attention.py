@@ -18,7 +18,7 @@ dynamic runtime, :func:`run_flash_attention_native` through the native
 engine's pump.  Not ported yet, each raising ``NotImplementedError``: the
 distributed ring-attention graphs (:func:`ring_attention_ptg`,
 :func:`ring_attention_builder`, :func:`run_ring_attention_graph`, ROADMAP
-A.8).  ``"auto"`` block sizes read the autotuner's winners for the
+A.8c).  ``"auto"`` block sizes read the autotuner's winners for the
 sequence length and the card (:func:`..tuning.autotune_attention`), else
 ``min(128, S)``, as the reference's.
 
@@ -68,7 +68,7 @@ class PlaneCollection(DataCollection):
     (batch, head) pair, ``j`` a sequence-block index.  ``init(g, j)``
     builds the tile (a torch CPU tensor is kept as it is, anything else
     becomes an ndarray).  Single rank: the reference's ``rank_of``
-    placement serves the ring graphs (ROADMAP A.8)."""
+    placement serves the ring graphs (ROADMAP A.8c)."""
 
     def __init__(self, name: str, init: Callable[[int, int], object]):
         super().__init__(name)
@@ -426,18 +426,18 @@ def run_flash_attention_native(q, k, v, *, device=None, fusion=None,
 
 
 def ring_attention_ptg(*args, **kw):
-    """Not ported yet: distributed ring attention is ROADMAP A.8."""
+    """Not ported yet: distributed ring attention is ROADMAP A.8c."""
     raise NotImplementedError("ring_attention_ptg: remote dependencies are "
-                              "not ported yet (ROADMAP A.8)")
+                              "not ported yet (ROADMAP A.8c)")
 
 
 def ring_attention_builder(*args, **kw):
-    """Not ported yet: distributed ring attention is ROADMAP A.8."""
+    """Not ported yet: distributed ring attention is ROADMAP A.8c."""
     raise NotImplementedError("ring_attention_builder: remote dependencies "
-                              "are not ported yet (ROADMAP A.8)")
+                              "are not ported yet (ROADMAP A.8c)")
 
 
 def run_ring_attention_graph(*args, **kw):
-    """Not ported yet: distributed ring attention is ROADMAP A.8."""
+    """Not ported yet: distributed ring attention is ROADMAP A.8c."""
     raise NotImplementedError("run_ring_attention_graph: multi-rank runs are "
-                              "not ported yet (ROADMAP A.8)")
+                              "not ported yet (ROADMAP A.8c)")

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.lifecycle import AccessMode, DEV_CPU, DEV_CUDA
+from ..data.collection import LocalCollection
 from ..data.data import data_create
 from ..dsl.ptg import PTG
 from . import tiles
@@ -30,6 +31,7 @@ from . import tiles
 IN = AccessMode.IN
 OUT = AccessMode.OUT
 INOUT = AccessMode.INOUT
+AFFINITY = AccessMode.AFFINITY
 
 
 def cholesky_ptg(*, use_cuda: bool = True, use_cpu: bool = True,
@@ -151,7 +153,11 @@ def insert_dpotrf(dtd, A, *, use_cpu: bool = True, use_kernels: bool = False,
     and return the number of tasks inserted.  Each class has a CUDA body
     and, with ``use_cpu``, a CPU body: the bodies, options and priorities
     of :func:`cholesky_ptg`.  With ``use_trtri`` each ``trtri(k)`` writes
-    a fresh inverse tile (OUT), read by the column's trsms."""
+    a fresh inverse tile (OUT), read by the column's trsms.  Each task is
+    placed by the tile it writes (``AFFINITY``; ``trtri`` by the diagonal
+    tile it reads), the owner-computes placement of :func:`cholesky_ptg`,
+    so across ranks every rank inserts the same stream and runs its
+    share."""
     if bf16_updates and not use_kernels:
         raise ValueError("bf16_updates requires use_kernels")
 
@@ -172,27 +178,36 @@ def insert_dpotrf(dtd, A, *, use_cpu: bool = True, use_kernels: bool = False,
     gemm = bodies(tiles.gemm_update_cpu, gemm_dev)
     nt = A.mt
     n = 0
+    invs = None
+    if use_trtri and A.nodes > 1:
+        # across ranks an inverse crosses the wire, which keys tiles by
+        # collection: the inverses form one, placed with their diagonal tile
+        invs = LocalCollection(
+            "dpotrf_inv", nodes=A.nodes, myrank=A.myrank,
+            init=lambda k: np.zeros(A.tile_shape(k, k), A.default_dtype))
+        invs.rank_of = lambda k: A.rank_of(k, k)
     for k in range(nt):
         T = A.data_of(k, k)
-        dtd.insert_task(potrf, (T, INOUT), priority=(nt - k) * 1000, name="potrf")
+        dtd.insert_task(potrf, (T, INOUT | AFFINITY), priority=(nt - k) * 1000, name="potrf")
         n += 1
         if use_trtri and k < nt - 1:
-            inv = data_create(("inv", k), payload=np.zeros(A.tile_shape(k, k),
-                                                           A.default_dtype))
-            dtd.insert_task(trtri, (T, IN), (inv, OUT),
+            inv = (invs.data_of(k) if invs is not None else
+                   data_create(("inv", k), payload=np.zeros(A.tile_shape(k, k),
+                                                            A.default_dtype)))
+            dtd.insert_task(trtri, (T, IN | AFFINITY), (inv, OUT),
                             priority=(nt - k) * 1000 - 1, name="trtri")
             n += 1
         for m in range(k + 1, nt):
             dtd.insert_task(trsm, (inv if use_trtri else T, IN),
-                            (A.data_of(m, k), INOUT),
+                            (A.data_of(m, k), INOUT | AFFINITY),
                             priority=(nt - m) * 100, name="trsm")
             n += 1
         for m in range(k + 1, nt):
-            dtd.insert_task(syrk, (A.data_of(m, m), INOUT), (A.data_of(m, k), IN),
+            dtd.insert_task(syrk, (A.data_of(m, m), INOUT | AFFINITY), (A.data_of(m, k), IN),
                             priority=(nt - m) * 100 + 10, name="syrk")
             n += 1
             for j in range(k + 1, m):
-                dtd.insert_task(gemm, (A.data_of(m, j), INOUT),
+                dtd.insert_task(gemm, (A.data_of(m, j), INOUT | AFFINITY),
                                 (A.data_of(m, k), IN), (A.data_of(j, k), IN),
                                 priority=(nt - m) * 10, name="gemm")
                 n += 1

@@ -44,7 +44,7 @@ INOUT = AccessMode.INOUT
 class StencilBuffers(DataCollection):
     """Double-buffered tile grid: keys are (parity, i, j); parity 0 holds
     the initial state, parity 1 is scratch.  Single rank: the reference's
-    ``rank_of`` placement serves its distributed runs (ROADMAP A.8)."""
+    ``rank_of`` placement serves its distributed runs (ROADMAP A.8c)."""
 
     def __init__(self, grid: np.ndarray, mt: int, nt: int, *, name: str = "A"):
         super().__init__(name)

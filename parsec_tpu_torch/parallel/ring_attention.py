@@ -3,7 +3,7 @@
 The port of ``attention_reference`` from
 :mod:`parsec_tpu.parallel.ring_attention`.  ``ring_attention`` itself (the
 ``shard_map`` loop over a sequence-parallel mesh) is not ported yet
-(ROADMAP A.10).
+(ROADMAP A.8c).
 """
 
 from __future__ import annotations

@@ -184,8 +184,8 @@ class RankTraceSet:
     """Per-rank binary trace streams over one process (the virtual-mesh
     harness shape: N ranks as N Contexts in-process).  One
     :class:`BinaryTrace` per rank; every PINS event routes to the firing
-    rank's OWN trace (the port runs one rank a process: ``nranks > 1``
-    raises until the comm layer is ported, ROADMAP A.8) — task lifecycle by the worker's context rank,
+    rank's OWN trace (``nranks > 1`` raises until the cross-rank readers
+    are ported, ROADMAP A.8a part 2) — task lifecycle by the worker's context rank,
     comm-protocol and transport events by the ``rank`` field the comm
     layer stamps on payloads.  This is what makes per-rank overlap and
     the critical-path analyzer possible: rank r's comm events land next
@@ -211,8 +211,9 @@ class RankTraceSet:
     (:mod:`.flight`) passes a bounded ring here.
 
     The comm and collective callbacks are subscribed as the reference
-    subscribes them; nothing fires their sites before the comm layer is
-    ported (ROADMAP A.8).  The serving plane fires the job sites.
+    subscribes them; the comm layer fires the comm sites, and nothing
+    fires the collective ones before the collectives are ported (ROADMAP
+    A.8b).  The serving plane fires the job sites.
 
     ``lean=True`` drops the highest-frequency/lowest-value subscribers —
     the select-latency/steals instrumentation (which fires on every
@@ -230,9 +231,8 @@ class RankTraceSet:
                  trace_factory=None, lean: bool = False):
         if nranks > 1:
             raise NotImplementedError(
-                f"RankTraceSet(nranks={nranks}): several ranks in one "
-                "process need the comm layer, which is not ported yet "
-                "(ROADMAP A.8)")
+                f"RankTraceSet(nranks={nranks}): the per-rank trace set "
+                "over several ranks is not ported yet (ROADMAP A.8a part 2)")
         if trace_factory is None:
             trace_factory = lambda rank: BinaryTrace(rank=rank)  # noqa: E731
         self.nranks = nranks

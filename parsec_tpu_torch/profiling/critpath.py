@@ -10,11 +10,11 @@ every microsecond on the chain to one bucket —
   host gaps;
 * **comm**    — the part of the pre-task gap covered by transport
   activity on the SAME rank track (``ce_recv`` / ``ce_send`` spans; the
-  comm layer records them, ROADMAP A.8);
+  per-rank trace set records them beyond one rank, ROADMAP A.8a part 2);
 * **compile** — the part covered by ``compile`` spans (a CUDA-graph
   capture that missed the program cache);
 * **coll**    — the part covered by runtime-collective spans (``coll``,
-  ROADMAP A.8);
+  ROADMAP A.8b);
 * **transfer** — the part covered by the staging pipeline's
   ``stage_in`` / ``writeback`` spans;
 * **host gap** — the rest: scheduler select, release bookkeeping,
@@ -43,7 +43,7 @@ COMM_SPAN_NAMES = ("ce_recv", "ce_send")
 #: attribution (a GraphExecutor capture that missed the cache fires them)
 COMPILE_SPAN_NAMES = ("compile",)
 #: runtime-collective span names that count as collective time in gap
-#: attribution (the comm layer fires them, ROADMAP A.8)
+#: attribution (the collectives fire them, ROADMAP A.8b)
 COLL_SPAN_NAMES = ("coll",)
 #: staging-pipeline span names that count as host<->device transfer
 #: time in gap attribution (device/staging.py fires them around

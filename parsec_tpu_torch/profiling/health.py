@@ -36,10 +36,11 @@ SDE counters that monitors read while the runtime runs
   wedged committer, breached SLOs) — and in strict mode fails the stalled
   pools with the report attached.
 
-The comm layer's parts — the comm and collective summaries, rank
+The multi-rank parts — the comm and collective summaries, rank
 heartbeats, clock re-sync and the rendezvous, collective, fourcounter and
-silent-rank findings — come with it (ROADMAP A.8): a context carries no
-comm engine, so the summaries read None.
+silent-rank findings — are not ported yet (ROADMAP A.8a part 2; the
+collectives' with A.8b): the summaries read None, and a watchdog on a
+context with a comm engine raises.
 
 Env wiring (read by ``Context.__init__``): ``PARSEC_TPU_HEALTH=1``
 (ephemeral port) or ``=<port>`` starts a :class:`HealthServer`;
@@ -70,14 +71,14 @@ __all__ = ["HealthServer", "Watchdog", "StallReport",
 # ---------------------------------------------------------------------------
 
 def _comm_summary(ctx) -> Optional[Dict[str, Any]]:
-    """The comm engine's counters: None — a context carries no comm engine
-    until the comm layer is ported (ROADMAP A.8)."""
+    """The comm engine's counters: None — the health plane's comm
+    summary is not ported yet (ROADMAP A.8a part 2)."""
     return None
 
 
 def _coll_summary(ctx) -> Optional[Dict[str, Any]]:
-    """The collective endpoint's counters: None without a comm engine
-    (ROADMAP A.8)."""
+    """The collective endpoint's counters: None until the collectives
+    are ported (ROADMAP A.8b)."""
     return None
 
 
@@ -429,7 +430,7 @@ def prometheus_text(ctx) -> str:
     _line(out, "parsec_arena_bytes_high_water", r, a["bytes_hw"])
     _line(out, "parsec_arena_buffers_in_use", r, a["used"])
 
-    # the comm layer's families (parsec_comm_*) come with it (ROADMAP A.8)
+    # the comm families (parsec_comm_*) come with ROADMAP A.8a part 2
 
     out.append("# TYPE parsec_device_wave_occupancy gauge")
     for d in doc["devices"]:
@@ -693,7 +694,7 @@ class Watchdog:
     runtime moves: tasks retired per pool (+ per-worker executed counts),
     device tasks, body starts, termdet counter transitions and the
     write-back committer's drain (frames delivered and rank heartbeats
-    join with the comm layer, ROADMAP A.8).
+    join with ROADMAP A.8a part 2).
     While at least one taskpool is attached and non-terminated, a frozen
     epoch for ``window`` seconds is a stall: the watchdog emits a
     :class:`StallReport` (and in strict mode fails the stalled pools
@@ -706,11 +707,11 @@ class Watchdog:
                  poll: Optional[float] = None, strict: bool = False,
                  on_stall: Optional[Callable[[StallReport], None]] = None):
         # rank heartbeats and the periodic clock re-sync ride the comm
-        # engine's control channel (ROADMAP A.8): a context carries none
+        # engine's control channel, which the watchdog does not use yet
         if getattr(context, "comm", None) is not None:
             raise NotImplementedError(
-                "watchdog heartbeats and clock re-sync need the comm layer "
-                "(ROADMAP A.8)")
+                "watchdog heartbeats and clock re-sync over the comm engine "
+                "are not ported yet (ROADMAP A.8a part 2)")
         self.context = context
         if window is None:
             window = float(mca_param.register(
@@ -775,8 +776,8 @@ class Watchdog:
         executed = sum(es.stats["executed"] for es in ctx.streams)
         dev = sum(int(d.stats.get("executed_tasks", 0))
                   for d in ctx.devices)
-        # delivered application frames join the epoch with the comm
-        # layer (ROADMAP A.8)
+        # delivered application frames join the epoch with ROADMAP A.8a
+        # part 2
         frames = 0
         pools = tuple(sorted(
             (tp.taskpool_id, tp.nb_retired,
@@ -859,8 +860,8 @@ class Watchdog:
     def _fail_pools(self, pools: List[Any], report: StallReport) -> None:
         if getattr(self.context, "nranks", 1) > 1:
             raise NotImplementedError(
-                "failing stalled pools across ranks needs the comm layer "
-                "(ROADMAP A.8)")
+                "failing stalled pools across ranks is not ported yet "
+                "(ROADMAP A.8a part 2)")
         why = ("watchdog: stalled for >= %gs with no progress; %s"
                % (self.window, report.render()))
         for tp in pools:
@@ -977,8 +978,7 @@ class Watchdog:
                     f"them)"))
 
         # rendezvous pulls (OBS003), collectives (OBS007), the fourcounter
-        # (OBS005) and silent ranks (OBS004) come with the comm layer
-        # (ROADMAP A.8)
+        # (OBS005) and silent ranks (OBS004) come with ROADMAP A.8a part 2
 
         # scheduler backlog frozen?
         backlog = int(ctx.scheduler.pending_estimate())

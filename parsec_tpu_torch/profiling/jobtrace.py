@@ -15,7 +15,8 @@ id, info = ``PHASE_*``); :func:`job_of_event` resolves one event.
 ``args.trace_id`` and ``profiling.critpath --job`` slices on it.  The
 port records ``job_map`` instants for tasks whose pool carries a trace
 id and the serving plane's ``job_phase`` instants; the ``jobwire_*`` /
-``jobcoll`` events come with the comm layer (ROADMAP A.8).
+``jobcoll`` events come with the per-rank traces (ROADMAP A.8a part 2)
+and the collectives (A.8b).
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ one timeline.  Here:
 
 * :func:`clock_handshake` — the pool-start clock-offset handshake over
   the comm engine.  At one rank it returns 0 (the rank is its own
-  reference); beyond one rank it needs the comm layer (ROADMAP A.8);
+  reference); beyond one rank it is not ported yet (ROADMAP A.8a
+  part 2);
 * :func:`merge_traces` — read per-rank ``.pbt`` dumps (or Chrome JSON),
   place every rank's events on one global timeline
   (``epoch_ns - clock_offset_ns + ts``), and emit ONE Chrome/Perfetto
@@ -109,14 +110,14 @@ def clock_handshake(ce, *, pings: int = 8, timeout: float = 10.0) -> int:
     """Collective clock-alignment handshake at pool start: this rank's
     estimated monotonic offset to rank 0 in ns (``local - rank0``).  At
     one rank there is no peer and the offset is 0, as in the reference;
-    a mesh of several ranks needs the comm engine's ping/pong over
-    ``TAG_CTL``, which is not ported yet (ROADMAP A.8)."""
+    a mesh of several ranks needs the ping/pong over ``TAG_CTL``, which
+    is not ported yet (ROADMAP A.8a part 2)."""
     nranks = getattr(ce, "nranks", 1)
     if nranks <= 1:
         return 0
     raise NotImplementedError(
-        f"clock_handshake over {nranks} ranks needs the comm engine, "
-        "which is not ported yet (ROADMAP A.8)")
+        f"clock_handshake over {nranks} ranks is not ported yet "
+        "(ROADMAP A.8a part 2)")
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,11 @@
 The port of :mod:`parsec_tpu.profiling.overlap`: the scope records one
 binary trace per rank (:class:`~parsec_tpu_torch.profiling.binary.
 RankTraceSet`) and computes each rank's fraction of comm events that
-land inside its own exec spans.  The port runs one rank a process, and
-nothing fires comm events before the comm layer is ported (ROADMAP
-A.8): at one rank the scope reports ``n_comm_events == 0`` and an
-overlap of 0, and still yields the rank's busy time, its dump and (with
-``trace_dir``) a merged trace.  ``nranks > 1`` raises naming A.8.
+land inside its own exec spans.  At one rank no comm event fires: the
+scope reports ``n_comm_events == 0`` and an overlap of 0, and still
+yields the rank's busy time, its dump and (with ``trace_dir``) a merged
+trace.  ``nranks > 1`` raises naming ROADMAP A.8a part 2 (the cross-rank
+readers).
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ def measure_overlap(stats: Dict, *, nranks: int = 1,
 
     if nranks > 1:
         raise NotImplementedError(
-            f"measure_overlap(nranks={nranks}) needs the comm layer, "
-            "which is not ported yet (ROADMAP A.8)")
+            f"measure_overlap(nranks={nranks}) needs the per-rank trace "
+            "set, which is not ported yet (ROADMAP A.8a part 2)")
 
     ts = traces if traces is not None else RankTraceSet(nranks)
     ts.install()

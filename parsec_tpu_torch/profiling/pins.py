@@ -7,9 +7,11 @@ the site (the reference gates with an enable mask, ``pins.h:161-171``).
 
 The port declares every site of :mod:`parsec_tpu.profiling.pins`, so a
 subscriber (the binary tracer's :class:`~.binary.RankTraceSet`) wires
-itself as the reference's does.  Not every site has a firing site yet:
-the comm, collective and activation sites wait for the comm layer
-(ROADMAP A.8), and ``DATA_FLUSH_*`` has none in the reference either.
+itself as the reference's does.  The comm layer
+(:mod:`parsec_tpu_torch.comm`) fires the comm-protocol, transport and
+frame sites.  Not every site has a firing site yet: the collective sites
+wait for the collectives (ROADMAP A.8b), and ``ACTIVATE_CB_*`` and
+``DATA_FLUSH_*`` have none in the reference either.
 The serving plane (:mod:`parsec_tpu_torch.serve`) fires the job sites.
 """
 
@@ -36,17 +38,16 @@ COMPLETE_EXEC_BEGIN = "complete_exec_begin"
 COMPLETE_EXEC_END = "complete_exec_end"
 SCHEDULE_BEGIN = "schedule_begin"
 SCHEDULE_END = "schedule_end"
-# remote-activation callback and data flush: named for subscribers; the
-# activation site fires with the comm layer (ROADMAP A.8), the flush
-# sites have no firing site in the reference either
+# remote-activation callback and data flush: named for subscribers; no
+# site fires them, in the reference either
 ACTIVATE_CB_BEGIN = "activate_cb_begin"
 ACTIVATE_CB_END = "activate_cb_end"
 DATA_FLUSH_BEGIN = "data_flush_begin"
 DATA_FLUSH_END = "data_flush_end"
 # comm-thread sites: protocol instants ({"rank", "dst"|"peer", "bytes",
 # "trace", "proto"}) and one begin/end span per frame crossing the
-# transport ({"rank", "peer", "bytes", "tag", "qdepth"}).  Nothing fires
-# them before the comm layer is ported (ROADMAP A.8)
+# transport ({"rank", "peer", "bytes", "tag", "qdepth"}): comm/remote_dep
+# fires the instants, comm/inproc the spans
 COMM_ACTIVATE = "comm_activate"
 COMM_DATA_CTL = "comm_data_ctl"
 COMM_DATA_PLD = "comm_data_pld"
@@ -55,8 +56,8 @@ COMM_SEND_END = "comm_send_end"
 COMM_RECV_BEGIN = "comm_recv_begin"
 COMM_RECV_END = "comm_recv_end"
 # collective spans, one begin/end per op ({"rank","id","kind","bytes",
-# "nranks"}) and one COLL_SEG instant per landed segment: the comm layer
-# fires them (ROADMAP A.8)
+# "nranks"}) and one COLL_SEG instant per landed segment: the collectives
+# fire them (ROADMAP A.8b)
 COLL_BEGIN = "coll_begin"
 COLL_END = "coll_end"
 COLL_SEG = "coll_seg"
@@ -106,7 +107,7 @@ ARENA_ALLOC = "arena_alloc"              # {"arena","slot"}
 ARENA_RECYCLE = "arena_recycle"          # {"arena","slot"}
 # comm frames (cross-rank happens-before edges): a frame handed to the
 # transport and the same frame delivered on its peer.  The hb recorder
-# subscribes to both; the comm layer fires them (ROADMAP A.8)
+# subscribes to both; comm/inproc fires them
 HB_FRAME_SEND = "hb_frame_send"          # {"frame","peer"}
 HB_FRAME_DELIVER = "hb_frame_deliver"    # {"frame","peer"}
 # one ASYNC completion entered the native engine (NativeGraph.task_done,

@@ -20,8 +20,9 @@ off the same state):
   against the mesh median, **OBS010**.
 
 The collective-segment (COLL pins) and comm round-trip observers are
-subscribed but stay unfired until the comm layer is ported (ROADMAP A.8),
-and peer digests arrive only on its heartbeats.  Exported through the
+subscribed; the collective sites stay unfired until the collectives are
+ported (ROADMAP A.8b), and peer digests arrive only on the watchdog's
+heartbeats (ROADMAP A.8a part 2).  Exported through the
 health plane: histogram families on ``/metrics``, a ``slo`` section in
 ``/status``, and the findings in the watchdog's report.  Enable standalone
 with ``PARSEC_TPU_SLO=1`` (a ``RuntimeService`` installs one on its

@@ -44,8 +44,8 @@ Chrome/Perfetto JSON.
 * ``autotune`` — the timed nb / attention-block / wave-batch searches of
   :mod:`..tuning`, on the card unless ``--device cpu``.
 
-``check-comms`` is registered and raises: the comm-protocol events it
-counts come with the comm layer (ROADMAP A.8).  The live planes:
+``check-comms`` is registered and raises: its reader of the
+comm-protocol events is not ported yet (ROADMAP A.8a part 2).  The live planes:
 
 * ``flightdump`` — snapshot the flight recorder through a live health
   endpoint's ``/flightdump`` (or the recorders of this process into a
@@ -362,11 +362,11 @@ def cmd_to_csv(args) -> int:
 
 def cmd_check_comms(args) -> int:
     """The comm-protocol validator (reference ``check-comms.py``): its
-    MPI_ACTIVATE / MPI_DATA_CTL / MPI_DATA_PLD events come with the comm
-    layer."""
+    MPI_ACTIVATE / MPI_DATA_CTL / MPI_DATA_PLD events come from the
+    per-rank trace set over several ranks."""
     raise NotImplementedError(
-        "check-comms counts comm-protocol events, which the comm layer "
-        "records; it is not ported yet (ROADMAP A.8)")
+        "check-comms reads the per-rank comm-protocol traces, which are "
+        "not ported yet (ROADMAP A.8a part 2)")
 
 
 def cmd_merge(args) -> int:
@@ -798,7 +798,7 @@ def main(argv=None) -> int:
     pc.add_argument("-o", "--out")
     pc.set_defaults(fn=cmd_to_csv)
     pk = sub.add_parser("check-comms", help="comm protocol validator "
-                        "(needs the comm layer, ROADMAP A.8)")
+                        "(not ported yet, ROADMAP A.8a part 2)")
     pk.add_argument("trace")
     pk.add_argument("--expect", action="append",
                     help="NAME:nb=N or NAME:lensum=BYTES")

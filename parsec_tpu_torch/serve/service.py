@@ -33,7 +33,9 @@ a :class:`RuntimeService` wraps one
   for the per-tenant critical path, and the SLO plane
   (:mod:`parsec_tpu_torch.profiling.slo`) observes every job.
 
-Single rank: a context of more ranks raises naming ROADMAP A.8.
+Across ranks: a cancel fails the pool on every rank
+(:func:`~parsec_tpu_torch.comm.remote_dep.fail_pool_for_context`, the
+comm layer's abort broadcast); an admission failure fails it locally.
 """
 
 from __future__ import annotations
@@ -73,18 +75,6 @@ def compose_priority(tenant_weight: int, job_priority: int,
     return ((int(tenant_weight) * 2 * JOB_PRIORITY_SPAN
              + int(job_priority)) * TASK_PRIORITY_SPAN
             + int(task_priority))
-
-
-def _fail_pool(context, tp: Taskpool, why: str) -> bool:
-    """Fail one pool through the runtime's own failure path (the path a
-    raising body takes); co-resident pools keep running.  True on the
-    terminating transition.  A pool spread over ranks would need the
-    comm layer's broadcast abort (ROADMAP A.8)."""
-    if getattr(context, "nranks", 1) > 1:
-        raise NotImplementedError(
-            "failing a pool across ranks needs the comm layer "
-            "(ROADMAP A.8)")
-    return tp.fail(why)
 
 
 class AdmissionError(RuntimeError):
@@ -582,7 +572,7 @@ class RuntimeService:
                 # already past the cv loop is blocked in taskpool.wait()
                 # and only the pool's _terminated event wakes it
                 why = f"admission failed: add_taskpool raised: {e!r}"
-                _fail_pool(self.context, h.taskpool, why)
+                h.taskpool.fail(why)
                 self._job_transition(h)
                 debug.error("serve: admitting job #%d failed: %s",
                             h.job_id, e)
@@ -663,7 +653,8 @@ class RuntimeService:
     def cancel(self, h: JobHandle, reason: str = "") -> bool:
         """Cancel one job.  Queued jobs leave the queue; a running
         job's pool is aborted through the runtime's existing fail path
-        (``_fail_pool`` — the same discipline a raising body uses), so
+        (``fail_pool_for_context`` — the same discipline a raising body
+        uses, broadcast to every rank of a multi-rank context), so
         co-resident pools are untouched.  True if this call changed the
         job's fate."""
         why = f"cancelled by service: {reason or 'client request'}"
@@ -685,7 +676,9 @@ class RuntimeService:
             # failure whose message merely CONTAINS "cancelled" must
             # still count as a failure)
             h._cancel_requested = True
-        changed = _fail_pool(self.context, h.taskpool, why)
+        from ..comm.remote_dep import fail_pool_for_context
+
+        changed = fail_pool_for_context(self.context, h.taskpool, why)
         self._job_transition(h)
         return changed
 

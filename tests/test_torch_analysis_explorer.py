@@ -9,8 +9,8 @@ values as the JAX package's explorer and the numpy references), and a
 schedule-dependent pool failing loudly.  Beyond those: the dpotrf with
 the B1 kernel chores on the CUDA module bound to the torch CPU device
 (its digests are those of its newest copies, torch tensors), the digest
-of a tensor payload, and the multi-rank explorer raising naming ROADMAP
-A.8.  Every explorer run has its own time limit.  The reference's
+of a tensor payload, and the two-rank explorer over the perturbed
+in-process fabric.  Every explorer run has its own time limit.  The reference's
 200-seed sweep stays ``slow``, as it is there.
 """
 
@@ -256,11 +256,38 @@ def test_explorer_detects_schedule_dependent_results(cpu_device):
                                 timeout=60, snapshot=lambda users: tuple(users[0])))
 
 
-def test_multi_rank_explorer_waits_for_the_comm_layer():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        explore(_build_dpotrf, nranks=2, seeds=range(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        ExplorerFabric(2, seed=0)
+def _build_dpotrf_2ranks(pkg):
+    def build(rank, ctx):
+        if pkg == "port":
+            from parsec_tpu_torch.datadist import TwoDimBlockCyclic
+            from parsec_tpu_torch.ops.cholesky import cholesky_ptg as chol
+
+            make = lambda: chol(use_cuda=False)  # noqa: E731
+        else:
+            from parsec_tpu.datadist import TwoDimBlockCyclic
+            from parsec_tpu.ops.cholesky import cholesky_ptg as chol
+
+            make = lambda: chol(use_tpu=False)  # noqa: E731
+        A = TwoDimBlockCyclic(N, N, NB, NB, p=2, q=1, myrank=rank, name="A")
+        A.from_array(SPD)
+        return make().taskpool(NT=A.mt, A=A), A
+    return build
+
+
+def test_multi_rank_explorer_waits_for_the_comm_layer(cpu_device):
+    """The comm layer is ported (ROADMAP A.8a): the explorer runs two
+    ranks over an :class:`ExplorerFabric` (frames reordered and deferred
+    per seed), every seed quiesces with bit-identical tiles and a clean
+    hb-check, and the tiles equal the JAX package's explorer's."""
+    fab = ExplorerFabric(2, seed=5)
+    assert fab.nranks == 2 and fab.explorer_seed == 5
+    assert all(hasattr(ib, "peek_pending") for ib in fab.inboxes)
+    res = _within(lambda: explore(_build_dpotrf_2ranks("port"), nranks=2,
+                                  seeds=range(3), timeout=90))
+    assert res.identical and res.race_findings() == [] and not res.errors
+    ref = _within(lambda: ref_schedules.explore(
+        _build_dpotrf_2ranks("ref"), nranks=2, seeds=range(1), timeout=90))
+    assert res.digests[0] == ref.digests[0]
 
 
 def test_tile_digest_of_tensor_payloads():

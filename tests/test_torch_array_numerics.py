@@ -10,7 +10,7 @@ port's device bodies run on the CUDA module bound to the torch CPU device
 device bodies on JAX's CPU backend at the reference test's tolerances:
 1e-10 in float64, 2e-3 in float32, rtol 0.1 / atol 0.5 for bfloat16.  The
 reference's 2- and 4-rank cases are one test here, which asserts that
-every multi-rank entry raises naming ROADMAP A.8.
+the multi-rank entries that wait for ROADMAP A.8b raise naming it.
 """
 
 import numpy as np
@@ -250,9 +250,11 @@ def test_compute_is_idempotent_and_reusable():
 @pytest.mark.parametrize("nranks,q", [(2, 1), (4, 2)])
 def test_multi_rank_programs_raise_naming_a8(nranks, q):
     """The reference's 2- and 4-rank programs lower (ranks are only
-    arithmetic) but every multi-rank entry raises naming ROADMAP A.8
-    before any runtime work: run, run_native, taskpool, the cross-rank
-    reduction."""
+    arithmetic) and, since ROADMAP A.8a, run on a multi-rank context
+    (test_torch_array_multirank.py).  What stays unported raises naming
+    ROADMAP A.8b before any runtime work: ``run_native`` of a multi-rank
+    program and the cross-rank reduction; a one-rank context refuses a
+    multi-rank program."""
     rng = np.random.default_rng(29)
     n, nb = 32, 8
     G, _ = _spd(n, rng)
@@ -266,10 +268,12 @@ def test_multi_rank_programs_raise_naming_a8(nranks, q):
     assert prog.nranks == nranks and prog.verify() == []
     built = pa.counters()["taskpools_built"]
     with _port_ctx(False) as ctx:
-        for call in (lambda: prog.run(ctx), prog.run_native, prog.taskpool,
-                     lambda: prog.taskpool(ctx), lambda: A.sum(ctx),
+        for call in (prog.run_native, lambda: A.sum(ctx)):
+            with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
+                call()
+        for call in (lambda: prog.run(ctx),
                      lambda: x.compute(ctx, use_cuda=False)):
-            with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+            with pytest.raises(ValueError, match=f"over {nranks} ranks"):
                 call()
         assert ctx._active_taskpools == 0
     assert pa.counters()["taskpools_built"] == built

@@ -11,15 +11,16 @@ same case.
   program digest and cache key — on the card, the program-cache hit;
 * redistribute (``tests/array/test_redistribute.py:15-37``): the
   single-rank lazy copy, its composition into one pool, and the
-  geometry change raising naming ROADMAP A.8;
+  geometry change raising naming ROADMAP A.8b;
 * serving and observability (``test_serve.py``,
   ``test_array_observability.py``): a tenant job, two tenants
   co-resident, the ``PARSEC::ARRAY::*`` SDE gauges, ``/metrics`` and
   ``/status``, the gauges' rows in OPERATIONS.md, ``label_of("arr_*")``,
   and a traced run's ``array`` row in critpath's ``per_label``;
 * the one-rank schedule explorer (``test_explorer.py``) over 4 seeds,
-  bit-identical across seeds and right against the numpy factor;
-  ``nranks=2`` raises naming ROADMAP A.8.
+  bit-identical across seeds and right against the numpy factor, and
+  at 2 ranks over the perturbed in-process fabric, equal to the JAX
+  package's.
 """
 
 import json
@@ -465,8 +466,44 @@ def test_mixed_array_program_explorer_4_seeds(cpu_device):
             atol=1e-10, err_msg=f"tile {(i, j)}")
 
 
-def test_explorer_beyond_one_rank_raises_naming_a8():
-    from parsec_tpu_torch.analysis.schedules import explore
+def _build_explore_2ranks(pkg):
+    def build(rank, ctx):
+        p = pa if pkg == "port" else ref_pa
+        dist = p.Block1D(2)
+        A = p.from_numpy(G_EX, NB, dist=dist, myrank=rank)
+        B = p.from_numpy(H_EX, NB, dist=dist, myrank=rank)
+        b = p.from_numpy(RHS_EX, NB, 2, dist=dist, myrank=rank)
+        C = (A @ A.T + B).cholesky()
+        x = C.solve(b)
+        prog = (pa.lower([x, C], use_cuda=False) if pkg == "port"
+                else ref_pa.lower([x, C], use_tpu=False))
+        prog.finalize()
+        return prog.taskpool(ctx), [C._node.coll, x._node.coll]
+    return build
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        explore(_build_explore, nranks=2, seeds=range(1))
+
+def test_explorer_beyond_one_rank_raises_naming_a8(cpu_device):
+    """Beyond one rank since ROADMAP A.8a (the reference's
+    ``tests/array/test_explorer.py`` at 2 ranks): every seed quiesces on
+    both ranks with bit-identical tiles, rank 0's factor is right, and
+    the tiles equal the JAX package's explorer's."""
+    from parsec_tpu.analysis.schedules import explore as ref_explore
+    from parsec_tpu.analysis.schedules import tile_digest as ref_digest
+    from parsec_tpu_torch.analysis.schedules import explore, tile_digest
+
+    res = _within(lambda: explore(
+        _build_explore_2ranks("port"), nranks=2, seeds=range(3), timeout=180,
+        snapshot=lambda users: [tile_digest(c) for ranks in users for c in ranks]))
+    assert len(res.seeds) == 3 and not res.errors
+    L = np.tril(np.linalg.cholesky(G_EX @ G_EX.T + H_EX))
+    c0 = res.digests[0][0]  # rank 0's C collection
+    assert c0, "rank 0 produced no factor tiles"
+    for (i, j), (shape, dtype, raw) in c0.items():
+        np.testing.assert_allclose(
+            np.frombuffer(raw, dtype).reshape(shape),
+            L[i * NB:i * NB + shape[0], j * NB:j * NB + shape[1]],
+            atol=1e-10, err_msg=f"tile {(i, j)}")
+    ref = _within(lambda: ref_explore(
+        _build_explore_2ranks("ref"), nranks=2, seeds=range(1), timeout=180,
+        snapshot=lambda users: [ref_digest(c) for ranks in users for c in ranks]))
+    assert res.digests[0] == ref.digests[0]

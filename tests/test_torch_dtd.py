@@ -15,7 +15,8 @@ versions, and dpotrf inserted through DTD (B1 f32/bf16, B2 with trtri)
 with an insertion window below the task count, held to the reference's
 ``cholesky_ptg(use_pallas=True)`` in Pallas interpret mode at
 ``tests/test_torch_cholesky.py``'s tolerances and ``torch.equal`` to the
-port's own ``cholesky_ptg``.  Multi-rank DTD raises, naming ROADMAP A.8.
+port's own ``cholesky_ptg``.  Multi-rank DTD runs in
+``test_torch_dtd_multirank.py``; here, an early tile version's parking.
 """
 
 import threading
@@ -507,16 +508,18 @@ def test_untied_many_tasks_fewer_workers():
 
 
 # ---------------------------------------------------------------------------
-# multi-rank: refused
+# multi-rank: the shadow-task protocol's parking of early arrivals
 # ---------------------------------------------------------------------------
 
 def test_multirank_dtd_raises_naming_a8():
-    tp = port_dsl.DTDTaskpool(None)
-    stub = types.SimpleNamespace(nranks=2, rank=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        tp.attached(stub)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        tp.dtd_incoming(("A", (0, 0)), 1, np.zeros(1))
+    """Multi-rank DTD is ported (ROADMAP A.8a; the runs are in
+    test_torch_dtd_multirank.py): a tile version that arrives before its
+    recv task exists is parked under (tile, epoch), as the JAX package
+    parks it, and its payload is the delivered one, not a copy."""
+    key, arr = ("A", (0, 0)), np.arange(3.0)
+    for tp in (port_dsl.DTDTaskpool(None), ref_dsl.DTDTaskpool(None)):
+        tp.dtd_incoming(key, 1, arr)
+        assert tp._recv == {(key, 1): {"payload": arr, "task": None}}
 
 
 # ---------------------------------------------------------------------------

@@ -323,6 +323,66 @@ def test_array_front_end_loads_neither_jax_nor_the_jax_package(tmp_path):
     assert "ARRAY LOADED []" in proc.stdout
 
 
+COMM_SCRIPT = textwrap.dedent("""
+    import sys, threading
+    import numpy as np
+    import parsec_tpu_torch
+    from parsec_tpu_torch import comm
+    from parsec_tpu_torch.comm import payload, termdet_fourcounter  # noqa
+    from parsec_tpu_torch.datadist import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl.dtd import DTDTaskpool
+    from parsec_tpu_torch.ops import cholesky_ptg, insert_dpotrf
+
+    rng = np.random.default_rng(0)
+    m = rng.standard_normal((64, 64)).astype(np.float32)
+    spd = m @ m.T + 64 * np.eye(64, dtype=np.float32)
+    for mode in ("ptg", "dtd"):
+        ces = comm.InprocFabric(2).endpoints()
+        ctxs = [parsec_tpu_torch.Context(nb_cores=2, rank=r, nranks=2,
+                                         comm=ces[r], cuda_device="cpu")
+                for r in range(2)]
+        mats, oks = {}, {}
+
+        def run(r):
+            A = mats[r] = TwoDimBlockCyclic(64, 64, 16, 16, p=1, q=2,
+                                            myrank=r, name="A",
+                                            dtype=np.float32).from_array(spd)
+            if mode == "ptg":
+                tp = cholesky_ptg(use_cpu=False, use_kernels=True).taskpool(
+                    NT=A.mt, A=A)
+                ctxs[r].add_taskpool(tp)
+                oks[r] = tp.wait(timeout=60)
+            else:
+                d = DTDTaskpool(ctxs[r], name="d")
+                insert_dpotrf(d, A, use_cpu=False, use_kernels=True)
+                d.flush_all()
+                d.close()
+                oks[r] = True
+
+        ts = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+        [t.start() for t in ts]
+        [t.join(120) for t in ts]
+        for c in ctxs:
+            c.fini()
+        assert oks == {0: True, 1: True}, oks
+        assert all(c.comm.remote_dep.stats["eager_sent"] > 0 for c in ctxs)
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "parsec_tpu"))
+    print("COMM LOADED", bad)
+""")
+
+
+def test_comm_layer_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """Importing parsec_tpu_torch.comm and running a 2-rank PTG and DTD
+    dpotrf over the in-process fabric (B1 chores on the CUDA module bound
+    to the torch CPU device) load neither JAX nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", COMM_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "COMM LOADED []" in proc.stdout
+
+
 def test_chip_smoke_fails_without_the_repo_and_without_a_gpu(tmp_path):
     """chip_smoke.py copied alone into a directory, and run from the
     checkout on a machine without a GPU: both exit non-zero and print no

@@ -427,10 +427,32 @@ def test_device_body():
 
 
 def test_multirank_chain_refused():
-    """The reference distributes the chain over 2 ranks; the port's
-    contexts are single-rank until ROADMAP A.8."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"], nranks=2, rank=0)
+    """The chain JDF distributed over 2 ranks (the reference's
+    ``test_multirank_chain``; refused until ROADMAP A.8a): affinity
+    mydata(k) alternates ranks, activations ride the comm engine, and the
+    final value lands home on both packages alike."""
+    from test_torch_multirank import PORT as MR_PORT, REF as MR_REF, run_ranks
+
+    NB = 7
+    out = {}
+    for name, P, comp, LC in (("ref", MR_REF, ref_jdf.compile_jdf,
+                               RefLocalCollection),
+                              ("port", MR_PORT, jdf.compile_jdf,
+                               LocalCollection)):
+        finals = {}
+
+        def build(rank, ctx, comp=comp, LC=LC, finals=finals):
+            dc = LC("mydata", shape=(1,), nodes=2, myrank=rank,
+                    init=lambda k: np.zeros(1))
+            dc.rank_of = lambda *key: (key[0] if key else 0) % 2
+            finals[rank] = dc
+            return comp(CHAIN, "chain").new(mydata=dc, NB=NB)
+
+        run_ranks(P, 2, build)
+        out[name] = np.asarray(
+            finals[NB % 2].data_of(NB).newest_copy().payload)
+    np.testing.assert_allclose(out["port"], (NB + 1) * 2.0)
+    np.testing.assert_array_equal(out["port"], out["ref"])
 
 
 def test_python_operators_survive_comment_stripping():

@@ -173,8 +173,17 @@ def test_unported_features_raise(feature, monkeypatch):
         assert ctx.watchdog is None
         return
     if feature == "comm":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"], nranks=2, rank=0)
+        # ported since A.8a: a rank's context attaches its comm engine
+        from parsec_tpu_torch.comm import InprocFabric
+
+        ce = InprocFabric(2).endpoints()[1]
+        ctx = parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"], nranks=2,
+                                       rank=1, comm=ce)
+        try:
+            assert ctx.comm is ce and ce.context is ctx
+            assert ce.remote_dep.ce is ce
+        finally:
+            ctx.fini()
         return
     ptg = PTG("p")
     s = ptg.task_class("s", k="0 .. 1")
