@@ -282,7 +282,27 @@ every rank's ``bytes_in`` exactly its own home tiles and its
 program at 4 ranks, C and x ``torch.equal`` to the array phase's; a body
 raising on rank 3 failing every rank within 60 s, each context then
 running a fresh 4-rank dpotrf.  Its runs' B1/B2 launches join the
-``kernels`` line.
+``kernels`` line.  The PTG runs go through ``parsec_tpu_torch.multirank.
+run_multirank_perf``, the harness every multi-rank consumer shares.
+
+The cross-rank readers (``multirank_obs`` lines, the end of the
+``multirank`` phase): (a) the 4-rank ``kernels`` dpotrf through
+``run_multirank_perf(4, ..., overlap=True, trace_dir=chip_scratch/...)``:
+the factor ``torch.equal`` to the one-rank dynamic factor, B1 +680, each
+rank's ``.pbt`` event count, the merged trace's four tracks, the clock
+handshake's offsets and round trips, the per-rank overlap (host comm
+instants against host submit spans) and critpath's split of each rank's
+chain, and of its whole window, into exec and, outside exec, comm, coll,
+compile, transfer and the rest; (b) the same
+dpotrf with a strict ``Watchdog`` and a ``HealthServer`` on every rank (a
+0.1 s poll, the window from ``runtime_watchdog_window``, the clock re-sync
+every 0.5 s): no finding, every rank hears every peer, ranks 1-3 each
+record a re-sync sample, and each rank's ``/metrics`` shows the
+``parsec_comm_*`` families with ``wire_bytes`` equal to its engine's
+bytes; (c) the distributed segmented Cholesky at 4 ranks, N=8192 nb=512
+f32: err < 1e-3 against numpy's float64 factor, NT + NT(NT-1)/2 tasks,
+``bytes_d2d`` > 0; (d) ``NativeGraph.run_noop`` over the dpotrf DAG's
+shape (816 tasks), its tasks/s beside the pump's host ms a task.
 
 Every run of the CUDA device module must end with no synchronous
 write-back fallback (``wb_sync_fallbacks == 0``) and no wave that fell
@@ -973,8 +993,9 @@ def analysis_phase(h):
     Lint: ``PTG.verify`` of ``cholesky_ptg`` ``kernels`` and
     ``kernels_trtri`` over the path's TiledMatrix (no error finding), and
     ``tools lint --all`` over the registry (every buildable graph clean,
-    the array front end's canonical programs among them, each graph that
-    waits for A.8 reported as waiting).  Checked
+    the array front end's canonical programs and the distributed
+    segmented Cholesky among them; the two ring-attention graphs, which
+    wait for A.8c, reported as waiting).  Checked
     runs, under ``PARSEC_TPU_LINT=strict``, ``PARSEC_TPU_HBCHECK=strict``
     and ``PARSEC_TPU_LOCKDEP=1`` (restored after): the dynamic ``kernels``
     and ``kernels_trtri`` and the pump's ``kernels`` at stage depth 2 (the
@@ -1036,7 +1057,8 @@ def analysis_phase(h):
     waiting = [ln.split(":")[0] for ln in out if ": waiting: " in ln]
     check(rc == 0 and " 0 error(s), 0 warning(s)" in summary,
           f"tools lint --all: rc {rc}, {summary}")
-    check(len(waiting) == 3 and all("ROADMAP A.8" in ln for ln in out if ": waiting: " in ln),
+    check(waiting == ["ops.attention_ring", "ops.attention_ring_bcast"]
+          and all("ROADMAP A.8" in ln for ln in out if ": waiting: " in ln),
           f"tools lint --all: waiting {waiting}")
     say("analysis_lint", graph="registry --all", summary=summary,
         clean=sum(ln.endswith("OK") or ": OK (" in ln for ln in out),
@@ -2893,6 +2915,11 @@ def array_phase(h):
 MR_GRIDS = {4: (2, 2), 2: (1, 2)}
 MR_CORES = 2
 MR_ABORT_S = 60.0
+# the watched run: the watchdog's poll (its heartbeat period) and the clock
+# re-sync interval; the stall window stays runtime_watchdog_window's
+MR_POLL_S, MR_RESYNC_S = 0.1, 0.5
+# engine workers of the no-op dispatch runs over the dpotrf DAG
+MR_NOOP_THREADS = (1, 2, 8)
 
 
 def multirank_phase(h):
@@ -2934,11 +2961,15 @@ def multirank_phase(h):
     from parsec_tpu_torch.comm.termdet_fourcounter import TermDetFourCounter
     from parsec_tpu_torch.datadist import TwoDimBlockCyclic
     from parsec_tpu_torch.dsl.dtd import DTDTaskpool
+    from parsec_tpu_torch.multirank import run_multirank_perf
     from parsec_tpu_torch.ops import cholesky_ptg, dpotrf_task_count, insert_dpotrf, kernels
+
+    import urllib.request
 
     t_phase = time.perf_counter()
     nt = N // NB
     tile_bytes = NB * NB * 4
+    h.mr_walls = {}
     S64 = torch.from_numpy(h.S).to(dev).double()
     s_max = S64.abs().max().item()
 
@@ -2946,11 +2977,7 @@ def multirank_phase(h):
         ces = InprocFabric(nranks).endpoints()
         ctxs = [Context(nb_cores=MR_CORES, rank=r, nranks=nranks, comm=ces[r])
                 for r in range(nranks)]
-        cuda_devs = [next(d for d in c.devices if d.mca_name == "cuda") for c in ctxs]
-        for r, d in enumerate(cuda_devs):
-            check(d.tdev.type == dev.type and d.tdev.index in (None, 0),
-                  f"multirank rank {r}: CUDA module bound to {d.tdev}")
-        return ces, ctxs, cuda_devs
+        return ces, ctxs, [cuda_of(c, r) for r, c in enumerate(ctxs)]
 
     def drive(ctxs, per_rank, timeout=600.0):
         """Run ``per_rank(r, ctx)`` on one thread a rank, all started
@@ -3047,32 +3074,50 @@ def multirank_phase(h):
                 for loc in pc.param_space(tp.constants)
                 if pc.rank_of(loc, tp.constants) == r]
 
+    def cuda_of(ctx, r):
+        d = next(d for d in ctx.devices if d.mca_name == "cuda")
+        check(d.tdev.type == dev.type and d.tdev.index in (None, 0),
+              f"multirank rank {r}: CUDA module bound to {d.tdev}")
+        return d
+
+    def ptg_pool(label, A, kw, termdet=None):
+        tp = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(
+            NT=A.mt, A=A, termdet=termdet)
+        tp.name = f"dpotrf_{label}"
+        return tp
+
+    def harness_run(label, nranks, mats, pools, kw, termdet=None, **opts):
+        """A PTG dpotrf through the shared harness: one Context a rank,
+        each finalized (its dirty home tiles written back) before the
+        harness returns; returns the harness's stats and each rank's comm
+        engine and CUDA module."""
+        ces, cuda_devs = [None] * nranks, [None] * nranks
+
+        def build(r, ctx):
+            ces[r], cuda_devs[r] = ctx.comm, cuda_of(ctx, r)
+            pools[r] = ptg_pool(label, mats[r], kw, termdet)
+            return pools[r], mats[r]
+
+        try:
+            _users, st = run_multirank_perf(nranks, build, nb_cores=MR_CORES,
+                                            timeout=600, **opts)
+        except RuntimeError as e:
+            raise RuntimeError(f"check failed: multirank {label}: a rank's pool failed "
+                               f"({[getattr(tp, 'fail_reason', None) for tp in pools]}): "
+                               f"{e}") from e
+        torch.cuda.synchronize()
+        return st, ces, cuda_devs
+
     def run_dpotrf(label, nranks, kw, mode="ptg", termdet=None):
         """One distributed dpotrf; returns the fields of its line."""
-        ces, ctxs, cuda_devs = mesh(nranks)
         trtri = kw.get("use_trtri", False)
         mats = [matrix(nranks, r) for r in range(nranks)]
         pools = [None] * nranks
-
-        def per_rank(r, ctx):
-            A = mats[r]
-            if mode == "dtd":
-                d = pools[r] = DTDTaskpool(ctx, name=f"dtd_{label}")
-                insert_dpotrf(d, A, use_cpu=False, **kw)
-                d.flush_all()
-                ok = d.wait(timeout=600)
-                d.close()
-                return ok
-            tp = pools[r] = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(
-                NT=A.mt, A=A, termdet=termdet)
-            tp.name = f"dpotrf_{label}"
-            ctx.add_taskpool(tp)
-            return tp.wait(timeout=600)
-
-        try:
-            kernels.reset_counts()
-            gc.collect()
-            per, wall = drive(ctxs, per_rank)
+        kernels.reset_counts()
+        gc.collect()
+        if mode == "ptg":
+            st, ces, cuda_devs = harness_run(label, nranks, mats, pools, kw, termdet)
+            per, wall = [(True, t) for t in st["rank_wall_s"]], st["wall_s"]
             counts = b1b2()
             tasks = [int(d.stats["executed_tasks"]) for d in cuda_devs]
             fields = rank_fields(ces, cuda_devs, tasks)
@@ -3084,9 +3129,25 @@ def multirank_phase(h):
                 fields.update(termdet_waves=tdms[0]._wave_id,
                               termdet_dedicated_sent=[t.dedicated_sent for t in tdms],
                               termdet_waves_suppressed=tdms[0].waves_suppressed)
-        finally:
-            for c in ctxs:
-                c.fini()  # writes every rank's dirty home tiles back
+        else:
+            ces, ctxs, cuda_devs = mesh(nranks)
+
+            def per_rank(r, ctx):
+                d = pools[r] = DTDTaskpool(ctx, name=f"dtd_{label}")
+                insert_dpotrf(d, mats[r], use_cpu=False, **kw)
+                d.flush_all()
+                ok = d.wait(timeout=600)
+                d.close()
+                return ok
+
+            try:
+                per, wall = drive(ctxs, per_rank)
+                counts = b1b2()
+                tasks = [int(d.stats["executed_tasks"]) for d in cuda_devs]
+                fields = rank_fields(ces, cuda_devs, tasks)
+            finally:
+                for c in ctxs:
+                    c.fini()  # writes every rank's dirty home tiles back
         check(all(ok for ok, _t in per), f"multirank {label}: a rank's pool failed "
               f"({[getattr(tp, 'fail_reason', None) for tp in pools]})")
         ntasks = dpotrf_task_count(nt, use_trtri=trtri)
@@ -3113,6 +3174,7 @@ def multirank_phase(h):
                                   if c == "trsm") if trtri else 0}
                    for r in range(nranks)] if mode == "ptg" else None
         h.launches[f"multirank_{label}"] = counts
+        h.mr_walls[label] = wall
         one_rank = h.mr_wall["kernels_trtri" if trtri else "kernels"]
         say("multirank", run=label, mode=mode, nranks=nranks, grid=list(MR_GRIDS[nranks]),
             N=N, nb=NB, variant="kernels_trtri" if trtri else "kernels",
@@ -3231,10 +3293,206 @@ def multirank_phase(h):
         nb=NB, wall_s=wall, rank_fail_s=[t for _ok, t, _w in results],
         fail_reasons=[w for _ok, _t, w in results], limit_s=MR_ABORT_S,
         after_wall_s=wall_after, after_N=n_small, after_recon_err=recon_small, card=card)
-    del L, S_s, S64, mats
+    del L, S_s, mats
     gc.collect()
     torch.cuda.empty_cache()
     say("multirank_phase", seconds=time.perf_counter() - t_phase, card=card)
+
+    # -- the cross-rank readers -------------------------------------------------
+    t_obs = time.perf_counter()
+    from parsec_tpu_torch import mca_param, native
+    from parsec_tpu_torch.ops.segmented_chol_dist import run_dist_segmented_cholesky
+    from parsec_tpu_torch.profiling import critpath
+    from parsec_tpu_torch.profiling.health import HealthServer, Watchdog
+
+    # (a) a traced 4-rank dpotrf: per-rank traces, the handshake, the merge
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_scratch",
+                             "multirank_obs")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    mats = [matrix(4, r) for r in range(4)]
+    pools = [None] * 4
+    kernels.reset_counts()
+    gc.collect()
+    st, ces, cuda_devs = harness_run("traced4", 4, mats, pools, dict(use_kernels=True),
+                                     overlap=True, trace_dir=trace_dir)
+    counts = b1b2()
+    check(counts == expected_counts(False),
+          f"multirank_obs traced: launches {counts}, expected {expected_counts(False)}")
+    recon = gates("traced4", assemble(mats), h.mr_factor["kernels"], False)
+    h.launches["multirank_traced4"] = counts
+    del mats
+    pbt_events = []
+    for r in range(4):
+        with open(os.path.join(trace_dir, f"rank{r}.pbt"), "rb") as f:
+            check(f.read(8) == b"PBTRACE1", f"multirank_obs: rank{r}.pbt is not a trace")
+            pbt_events.append(int(np.frombuffer(f.read(8), "<i8")[0]))
+    check(st["trace_ranks"] == 4 and all(n > 0 for n in pbt_events),
+          f"multirank_obs: {st['trace_ranks']} merged tracks, events {pbt_events}")
+    t0 = time.perf_counter()
+    with open(st["merged_trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    per = critpath.analyze_ranks(events)
+    mesh_rep = critpath.analyze(events)
+    analyze_s = time.perf_counter() - t0
+    check(sorted(per) == [0, 1, 2, 3], f"multirank_obs: critpath ranks {sorted(per)}")
+    tasks = [int(d.stats["executed_tasks"]) for d in cuda_devs]
+    split = {r: dict(chain_tasks=p["n_tasks"], chain_wall_ms=p["wall_us"] / 1e3,
+                     **{k[:-3] + "_ms": v / 1e3 for k, v in p["buckets"].items()},
+                     **{("window_ms" if k == "window_us" else f"window_{k[:-3]}_ms"):
+                        v / 1e3 for k, v in p["window"].items() if k.endswith("_us")},
+                     exec_spans=p["window"]["exec_spans"])
+             for r, p in per.items()}
+    del events
+    say("multirank_obs", run="traced4", nranks=4, N=N, nb=NB, wall_s=st["wall_s"],
+        rank_wall_s=st["rank_wall_s"], untraced_wall_s=h.mr_walls["ptg4_kernels"],
+        traced_over_untraced=st["wall_s"] / h.mr_walls["ptg4_kernels"],
+        host_ms_per_task=[1e3 * t / max(1, n) for t, n in zip(st["rank_wall_s"], tasks)],
+        tasks_by_rank=tasks, launches=counts, recon_err=recon, equal_one_rank=True,
+        pbt_events=pbt_events, pbt_bytes=[os.path.getsize(os.path.join(
+            trace_dir, f"rank{r}.pbt")) for r in range(4)],
+        merged_tracks=st["trace_ranks"], merged_bytes=os.path.getsize(st["merged_trace"]),
+        clock_offsets_ns=st["clock_offsets_ns"], handshake_rtt_ns=st["handshake_rtt_ns"],
+        overlap_per_rank=st["overlap_per_rank"], overlap_fraction=st["overlap_fraction"],
+        overlap_union=st["overlap_union"], n_comm_events=st["n_comm_events"],
+        mesh_chain_tasks=mesh_rep["n_tasks"],
+        mesh_chain_ms={k[:-3]: v / 1e3 for k, v in mesh_rep["buckets"].items()},
+        critpath_by_rank=split, analyze_s=analyze_s, wire_bytes=st["wire_bytes"],
+        eager_hit_rate=st["eager_hit_rate"], card=card)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    gc.collect()
+
+    # (b) a watched run: a strict watchdog and a health exporter on every rank
+    ces, ctxs, cuda_devs = mesh(4)
+    mats = [matrix(4, r) for r in range(4)]
+    wds, servers, scraped = [], [], []
+    try:
+        with mca(mca_param, "runtime", "clock_resync_interval", MR_RESYNC_S):
+            for ctx in ctxs:
+                ctx.watchdog = Watchdog(ctx, poll=MR_POLL_S, strict=True).start()
+                wds.append(ctx.watchdog)
+                servers.append(HealthServer(ctx).start())
+
+        def watched_rank(r, ctx):
+            tp = ptg_pool("watched4", mats[r], dict(use_kernels=True))
+            ctx.add_taskpool(tp)
+            return tp.wait(timeout=600)
+
+        kernels.reset_counts()
+        per, wall = drive(ctxs, watched_rank)
+        counts = b1b2()
+        check(all(ok for ok, _t in per), "multirank_obs watched: a rank's pool failed")
+        check(counts == expected_counts(False), f"multirank_obs watched: launches {counts}")
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 10.0 and not all(
+                all(wd.heartbeats.get(p, 0) >= 1 for p in range(4) if p != r)
+                and (r == 0 or wd.resync_samples) for r, wd in enumerate(wds)):
+            time.sleep(0.02)
+        heard = [{p: wd.heartbeats.get(p, 0) for p in range(4) if p != r}
+                 for r, wd in enumerate(wds)]
+        samples = [list(wd.resync_samples) for wd in wds]
+        check(all(n >= 1 for hb in heard for n in hb.values()),
+              f"multirank_obs watched: heartbeats received {heard}")
+        check(all(samples[r] for r in range(1, 4)),
+              f"multirank_obs watched: re-sync samples {[len(x) for x in samples]}")
+        check(not any(wd.stalled or wd.last_report is not None for wd in wds),
+              "multirank_obs watched: a watchdog reported a stall on a healthy run")
+        findings = [[f.code for f in wd.diagnose().findings] for wd in wds]
+        check(not any(findings), f"multirank_obs watched: findings {findings}")
+        for r, (ce, hs) in enumerate(zip(ces, servers)):
+            text = urllib.request.urlopen(hs.url + "/metrics", timeout=10).read().decode()
+            fams = {}
+            for ln in text.splitlines():
+                if ln.startswith("parsec_comm_") and f'{{rank="{r}"}}' in ln:
+                    name, _, val = ln.partition(" ")
+                    fams[name.split("{")[0]] = float(val)
+            want = int(ce.stats.get("am_bytes", 0)) + int(ce.stats.get("get_bytes", 0))
+            check(set(fams) >= {"parsec_comm_wire_bytes_total", "parsec_comm_frames_sent_total",
+                                "parsec_comm_eager_hit_rate", "parsec_comm_rdv_pulls_inflight",
+                                "parsec_comm_eager_bytes_total", "parsec_comm_rdv_bytes_total"},
+                  f"multirank_obs watched rank {r}: /metrics comm families {sorted(fams)}")
+            check(fams["parsec_comm_wire_bytes_total"] == want > 0,
+                  f"multirank_obs watched rank {r}: wire_bytes "
+                  f"{fams['parsec_comm_wire_bytes_total']} != the engine's {want}")
+            scraped.append(fams)
+    finally:
+        for wd in wds:
+            wd.stop()
+        for hs in servers:
+            hs.stop()
+        for c in ctxs:
+            c.fini()
+    recon = gates("watched4", assemble(mats), h.mr_factor["kernels"], False)
+    h.launches["multirank_watched4"] = counts
+    say("multirank_obs", run="watched4", nranks=4, N=N, nb=NB, wall_s=wall,
+        rank_wall_s=[t for _ok, t in per], untraced_wall_s=h.mr_walls["ptg4_kernels"],
+        watched_over_unwatched=wall / h.mr_walls["ptg4_kernels"], launches=counts,
+        recon_err=recon, equal_one_rank=True, window_s=wds[0].window, poll_s=MR_POLL_S,
+        resync_interval_s=MR_RESYNC_S, heartbeats=heard,
+        resync_samples=[len(x) for x in samples],
+        resync_offset_ns=[[x["offset_ns"] for x in xs] for xs in samples],
+        resync_rtt_ns=[[x["rtt_ns"] for x in xs] for xs in samples],
+        findings=findings, metrics_comm=scraped,
+        wire_bytes=[f["parsec_comm_wire_bytes_total"] for f in scraped],
+        wire_bytes_total=sum(f["parsec_comm_wire_bytes_total"] for f in scraped),
+        eager_bytes_total=sum(f["parsec_comm_eager_bytes_total"] for f in scraped),
+        card=card)
+    del mats
+    gc.collect()
+
+    # (c) the distributed segmented Cholesky at the dpotrf's size
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    err, sst = run_dist_segmented_cholesky(4, N, NB, nb_cores=MR_CORES, timeout=600)
+    seg_s = time.perf_counter() - t0
+    moved = {k: n for k, n in kernels.launch_counts().items() if n}
+    nt_seg = N // NB
+    check(err < 1e-3, f"multirank_obs segmented: err {err} >= 1e-3")
+    check(sst["executed_tasks"] == nt_seg + nt_seg * (nt_seg - 1) // 2,
+          f"multirank_obs segmented: {sst['executed_tasks']} tasks")
+    check(sst["bytes_d2d"] > 0, "multirank_obs segmented: no panel landed device-to-device")
+    check(not moved, f"multirank_obs segmented: hand-written kernels launched: {moved}")
+    say("multirank_obs", run="segchol4", nranks=4, N=N, nb=NB, err=err,
+        wall_s=sst["wall_s"], call_s=seg_s, rank_wall_s=sst["rank_wall_s"],
+        tasks=sst["executed_tasks"], gflops=sst["gflops"], activations=sst["activations"],
+        bytes_d2d=sst["bytes_d2d"], wire_bytes=sst["wire_bytes"],
+        eager_hit_rate=sst["eager_hit_rate"], card=card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the engine's dispatch ceiling on the dpotrf DAG's shape
+    A = TwoDimBlockCyclic(N, N, NB, NB, p=1, q=1, myrank=0, name="A", dtype=np.float32)
+    cap = cholesky_ptg(use_cuda=True, use_cpu=False, use_kernels=True).taskpool(
+        NT=A.mt, A=A).capture()
+    rates = []
+    for threads in MR_NOOP_THREADS:
+        g = native.NativeGraph()
+        try:
+            tids = list(cap.nodes)
+            index = {tid: g.add_task(priority=cap.nodes[tid].priority) for tid in tids}
+            for tid in tids:
+                for (_f, succ, _sf) in cap.nodes[tid].out_edges:
+                    g.add_dep(index[tid], index[succ])
+            for tid in tids:
+                g.commit(index[tid])
+            g.seal()
+            t0 = time.perf_counter()
+            ran = g.run_noop(threads)
+            dt = time.perf_counter() - t0
+        finally:
+            g.close()
+        check(ran == dpotrf_task_count(nt), f"multirank_obs run_noop: ran {ran}")
+        rates.append(dict(nthreads=threads, tasks=ran, seconds=dt, tasks_per_s=ran / dt,
+                          us_per_task=1e6 * dt / ran))
+    say("multirank_obs", run="noop", tasks=dpotrf_task_count(nt), rates=rates,
+        pump_host_ms_per_task=h.pump_ms_per_task,
+        dynamic_host_ms_per_task=1e3 * h.mr_wall["kernels"] / dpotrf_task_count(nt),
+        traced4_host_ms_per_task=max(1e3 * t / max(1, n)
+                                     for t, n in zip(st["rank_wall_s"], tasks)),
+        card=card)
+    del A, cap, S64
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("multirank_obs_phase", seconds=time.perf_counter() - t_obs, card=card)
 
 TUNE_BLOCKS = (256, 512)
 TUNE_NB = (256, 512, 1024)
@@ -4407,6 +4665,7 @@ def main() -> int:
         check(recon < recon_tol, f"{label}: ||LL^T-S||max/||S||max {recon} >= {recon_tol}")
         return last, recon
 
+    pump_ms_per_task = []  # the pump's kernels dpotrf at depth 1, for the no-op line
     for name, kw, recon_tol in variants[:2]:
         for rep, depth in enumerate(STAGE_DEPTHS):
             with mca(mca_param, "runtime", "stage_depth", depth):
@@ -4418,6 +4677,8 @@ def main() -> int:
                   f"{label}: {stats['prefetched_batches']} prefetched batches")
             launches[f"native_{name}_{rep}"] = counts
             depth_walls.add(f"dpotrf {name} pump", depth, wall)
+            if name == "kernels" and depth == 1:
+                pump_ms_per_task.append(wall / ran * 1e3)
             # wall_s is ex.run() alone; the dynamic wall also holds its
             # startup enumeration, so set-up + run is the window that
             # compares with it (the dynamic run at the default depth 1)
@@ -4678,7 +4939,8 @@ def main() -> int:
     # -- the cross-rank core: 2 and 4 ranks on the one card ------------------
     multirank_phase(types.SimpleNamespace(
         np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
-        launches=launches, mr_factor=mr_factor, mr_wall=dyn_wall, arr_out=arr_out))
+        launches=launches, mr_factor=mr_factor, mr_wall=dyn_wall, arr_out=arr_out,
+        pump_ms_per_task=pump_ms_per_task))
     del mr_factor, arr_out
     gc.collect()
     torch.cuda.empty_cache()

@@ -11,8 +11,7 @@ lazy and the problem sizes are tiny — the verifier's checks are
 size-generic, so NT=4-class instances exercise every guard branch
 without enumerating production spaces.  The ``examples/jdf`` files are
 read as data.  The entries whose graphs need a layer the port has not
-yet (the ring-attention graphs, ROADMAP A.8c; the distributed segmented
-Cholesky, A.8b) keep their
+yet (the ring-attention graphs, ROADMAP A.8c) keep their
 names and raise ``NotImplementedError`` naming that item when built.  The
 array front end's canonical programs lint as generated, the 2-rank
 ``array.dist`` with its forwarding readers included (lowering a grid
@@ -127,6 +126,13 @@ def _ops_attention_flash():
          "SQ": 12, **_attn_planes()}
 
 
+def _ops_segmented_chol_dist():
+    from ..ops.segmented_chol_dist import dist_segmented_cholesky_ptg
+
+    return dist_segmented_cholesky_ptg(8, 4), \
+        {"NT": 2, "C": _local("C"), "TILE_SHAPE": (8, 4)}
+
+
 def _waiting(what: str, item: str):
     def build():
         raise NotImplementedError(
@@ -168,7 +174,7 @@ GRAPHS: Dict[str, Callable[[], Tuple]] = {
     "ops.segmented_chol": _ops_segmented_chol,
     "ops.segmented_lu": _ops_segmented_lu,
     "ops.segmented_qr": _ops_segmented_qr,
-    "ops.segmented_chol_dist": _waiting("ops.segmented_chol_dist", "A.8b"),
+    "ops.segmented_chol_dist": _ops_segmented_chol_dist,
     "ops.attention_flash": _ops_attention_flash,
     "ops.attention_ring": _waiting("ops.attention_ring", "A.8c"),
     "ops.attention_ring_bcast": _waiting("ops.attention_ring_bcast", "A.8c"),

@@ -75,6 +75,7 @@ class TaskClass:
         chores: Sequence[Chore] = (),
         *,
         nb_parameters: int = 0,
+        dependencies_goal: int = 0,
         task_class_id: Optional[int] = None,
     ):
         self.name = name
@@ -85,6 +86,10 @@ class TaskClass:
                 f.index = i
         self.chores: List[Chore] = list(chores)
         self.nb_parameters = nb_parameters
+        #: number of input dependencies a task must see released before it
+        #: becomes ready (counter-mode tracking); front-ends may instead use
+        #: per-task goals via the dep tracker.
+        self.dependencies_goal = dependencies_goal
 
         # vtable slots (all optional):
         self.make_key: Callable[[Tuple], Any] = lambda locals_: locals_

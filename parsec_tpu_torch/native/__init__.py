@@ -37,7 +37,14 @@ replays against its model.  :meth:`NativeGraph.sched_config` takes the
 pump's policy (``prio`` or the per-tenant ``wdrr`` of the serve executor,
 with :meth:`NativeGraph.set_task_tenant` and
 :meth:`NativeGraph.set_tenant_weight`), and :meth:`NativeGraph.reset`
-rewinds a quiesced graph for a same-shaped rerun.
+rewinds a quiesced graph for a same-shaped rerun, and
+:meth:`NativeGraph.run_noop` runs a graph with a native no-op body (the
+engine's dispatch ceiling, no interpreter in the loop).
+
+:func:`build_tsan_library` compiles the same sources with
+``-fsanitize=thread`` into ``_build/libparsec_core_tsan.so`` (never loaded
+here: a TSan library needs the sanitizer runtime preloaded); run it with
+``TSAN_OPTIONS=suppressions=<tsan_suppressions_path()>``.
 """
 
 from __future__ import annotations
@@ -59,15 +66,19 @@ _PKG = os.path.dirname(_HERE)
 SRC_DIR = abi.SRC_DIR
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libparsec_core.so"
+TSAN_LIB_NAME = "libparsec_core_tsan.so"
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def build_library(src_dir: str = SRC_DIR, build_dir: str = BUILD_DIR,
-                  timeout: int = 300) -> str:
+                  timeout: int = 300, *, lib_name: str = LIB_NAME,
+                  extra_flags=()) -> str:
     """Compile ``src_dir``'s engine sources into ``build_dir`` unless the
     library there is newer than every source; returns its path.
+    ``lib_name`` / ``extra_flags`` name and flag another flavor of the
+    same sources (:func:`build_tsan_library`).
 
     Concurrent builds (test workers, several processes on one host)
     each compile into a temp file of their own and publish it with an
@@ -79,14 +90,14 @@ def build_library(src_dir: str = SRC_DIR, build_dir: str = BUILD_DIR,
     if missing:
         raise RuntimeError(
             f"native engine sources missing under {src_dir}: {missing}")
-    out_path = os.path.join(build_dir, LIB_NAME)
+    out_path = os.path.join(build_dir, lib_name)
     if os.path.exists(out_path) and os.path.getmtime(out_path) >= max(
             os.path.getmtime(p) for p in srcs):
         return out_path
     os.makedirs(build_dir, exist_ok=True)
     tmp = f"{out_path}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = ["g++", "-O2", "-std=c++17", "-fPIC", "-shared", "-pthread",
-           "-o", tmp, *srcs]
+           *extra_flags, "-o", tmp, *srcs]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=timeout)
@@ -100,6 +111,23 @@ def build_library(src_dir: str = SRC_DIR, build_dir: str = BUILD_DIR,
             f"{proc.stderr[-4000:]}")
     os.replace(tmp, out_path)
     return out_path
+
+
+def build_tsan_library(timeout: int = 300) -> str:
+    """Compile the ThreadSanitizer flavor of the engine (the CI smoke leg:
+    the TSan build of the async engine still compiles) into
+    ``_build/libparsec_core_tsan.so``, beside the default flavor and never
+    over it; returns the path.  Raises RuntimeError with the compiler's
+    output when the toolchain lacks ``-fsanitize=thread`` or the sources
+    fail under it.  Does NOT load the library into this process."""
+    return build_library(SRC_DIR, BUILD_DIR, timeout, lib_name=TSAN_LIB_NAME,
+                         extra_flags=("-g", "-fsanitize=thread"))
+
+
+def tsan_suppressions_path() -> str:
+    """The shared suppressions file for the TSan flavor (pass as
+    ``TSAN_OPTIONS=suppressions=<path>``)."""
+    return os.path.join(os.path.dirname(SRC_DIR), "tsan.supp")
 
 
 def load(src_dir: Optional[str] = None,
@@ -229,6 +257,15 @@ class NativeGraph:
 
     def seal(self) -> None:
         self._lib.pz_graph_seal(self._g)
+
+    def run_noop(self, nthreads: int = 2) -> int:
+        """Dispatch-bound run with a NATIVE no-op body (no interpreter in
+        the loop): the engine's pure scheduling throughput.  Returns the
+        executed count; raises when the graph did not quiesce."""
+        n = self._lib.pz_graph_run_noop(self._g, nthreads)
+        if n < 0:
+            raise RuntimeError("graph did not quiesce")
+        return n
 
     def run(self, body: Callable[[int, int], None], nthreads: int = 2) -> int:
         """Execute until quiescence on ``nthreads`` native workers; returns

@@ -405,12 +405,13 @@ def run_flash_attention(context, q, k, v, *, timeout: float = 600,
     return assemble()
 
 
-def run_flash_attention_native(q, k, v, *, device=None, fusion=None,
-                               **kw) -> torch.Tensor:
+def run_flash_attention_native(q, k, v, *, nthreads: int = 4, device=None,
+                               fusion=None, **kw) -> torch.Tensor:
     """The same graph through the native C++ engine's pump: every step on
     the CUDA device module (the GPU, unless ``device=`` or
     ``PARSEC_MCA_device_cuda_torch_device=cpu`` says otherwise), with
     scheduling and successor release never entering the interpreter;
+    ``nthreads`` is the engine's worker count (``PTGTaskpool.run_native``);
     ``fusion`` (None: the ``runtime_fusion`` MCA param) dispatches each
     fused carry chain as one chore.  Returns the ``[B, Sq, H, D]`` output
     as a torch CPU tensor."""
@@ -421,7 +422,8 @@ def run_flash_attention_native(q, k, v, *, device=None, fusion=None,
                 "(device chores only, runs to quiescence); use "
                 "run_flash_attention for CPU bodies or timeouts")
     tp, assemble = build_flash_attention(q, k, v, use_cpu=False, **kw)
-    tp.run_native(native_device=True, device=device, fusion=fusion)
+    tp.run_native(nthreads=nthreads, native_device=True, device=device,
+                  fusion=fusion)
     return assemble()
 
 

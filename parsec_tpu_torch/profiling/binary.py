@@ -184,8 +184,7 @@ class RankTraceSet:
     """Per-rank binary trace streams over one process (the virtual-mesh
     harness shape: N ranks as N Contexts in-process).  One
     :class:`BinaryTrace` per rank; every PINS event routes to the firing
-    rank's OWN trace (``nranks > 1`` raises until the cross-rank readers
-    are ported, ROADMAP A.8a part 2) — task lifecycle by the worker's context rank,
+    rank's OWN trace — task lifecycle by the worker's context rank,
     comm-protocol and transport events by the ``rank`` field the comm
     layer stamps on payloads.  This is what makes per-rank overlap and
     the critical-path analyzer possible: rank r's comm events land next
@@ -211,9 +210,10 @@ class RankTraceSet:
     (:mod:`.flight`) passes a bounded ring here.
 
     The comm and collective callbacks are subscribed as the reference
-    subscribes them; the comm layer fires the comm sites, and nothing
-    fires the collective ones before the collectives are ported (ROADMAP
-    A.8b).  The serving plane fires the job sites.
+    subscribes them; the comm layer fires the comm sites (a payload's
+    ``jobwire_*`` instants carry its pool's trace id), and nothing fires
+    the collective ones before the collectives are ported (ROADMAP A.8b).
+    The serving plane fires the job sites.
 
     ``lean=True`` drops the highest-frequency/lowest-value subscribers —
     the select-latency/steals instrumentation (which fires on every
@@ -229,10 +229,6 @@ class RankTraceSet:
 
     def __init__(self, nranks: int = 1, base_rank: int = 0,
                  trace_factory=None, lean: bool = False):
-        if nranks > 1:
-            raise NotImplementedError(
-                f"RankTraceSet(nranks={nranks}): the per-rank trace set "
-                "over several ranks is not ported yet (ROADMAP A.8a part 2)")
         if trace_factory is None:
             trace_factory = lambda rank: BinaryTrace(rank=rank)  # noqa: E731
         self.nranks = nranks

@@ -9,8 +9,8 @@ every microsecond on the chain to one bucket —
   kernel's run on the device: the device work of a chain overlaps its
   host gaps;
 * **comm**    — the part of the pre-task gap covered by transport
-  activity on the SAME rank track (``ce_recv`` / ``ce_send`` spans; the
-  per-rank trace set records them beyond one rank, ROADMAP A.8a part 2);
+  activity on the SAME rank track (``ce_recv`` / ``ce_send`` spans the
+  per-rank trace set records from each rank's comm engine);
 * **compile** — the part covered by ``compile`` spans (a CUDA-graph
   capture that missed the program cache);
 * **coll**    — the part covered by runtime-collective spans (``coll``,
@@ -25,9 +25,15 @@ Inputs are Chrome-trace events in the conventions of
 token in ``args.event_id``; ``dep_edge`` instants carry producer token
 in ``args.event_id`` and successor token in ``args.info``;
 ``class:<name>`` instants map tokens to task classes.  Edges are
-INTRA-RANK (``pid``).  On the dynamic path a ``dep_edge`` is a release
-(the predecessor whose completion made the successor ready); the native
-pump publishes every edge of its captured DAG once before its run.
+INTRA-RANK (``pid``): a remote release has no producer task on the
+receiving rank, so a cross-rank dependency shows as transport spans in
+the gap before the released task — the comm bucket.  On a merged
+multi-rank trace :func:`analyze` walks the chain inside the rank that
+finishes last; :func:`analyze_ranks` walks each rank track's own chain
+and splits its gap into comm, coll, compile, transfer and the rest.  On
+the dynamic path a ``dep_edge`` is a release (the predecessor whose
+completion made the successor ready); the native pump publishes every
+edge of its captured DAG once before its run.
 
 CLI: ``python -m parsec_tpu_torch.profiling.tools critpath trace.pbt``.
 """
@@ -485,6 +491,119 @@ def _find_stragglers(tasks: Dict[Tuple[Any, int], dict],
              "factor": round(ratio, 2)}
             for cls, pid, mean, med, ratio in mesh_stragglers(
                 by_class, factor, min_samples)]
+
+
+def analyze_ranks(events: List[dict], **kw) -> Dict[Any, dict]:
+    """:func:`analyze` on each rank track (``pid``) of a merged trace
+    alone: ``{rank: {"wall_us", "n_tasks", "coverage", "buckets",
+    "window"}}`` for every rank that executed a task.  Each rank's chain
+    is walked over its own edges and its own comm/coll/compile/transfer
+    spans, so a rank's host gap reads against its own wire time, not the
+    mesh's; ``window`` splits the rank's whole window the same way
+    (:func:`_rank_window`).  A remote release has no producer task on the
+    receiving rank, so a chain on a rank ends at the first task a peer's
+    activation made ready: on a block-cyclic grid the window is the
+    rank's fuller picture."""
+    by_pid: Dict[Any, List[dict]] = defaultdict(list)
+    for e in events:
+        if e.get("ph") != "M":
+            by_pid[e.get("pid")].append(e)
+    out: Dict[Any, dict] = {}
+    for pid in sorted(by_pid, key=lambda p: (not isinstance(p, int), str(p))):
+        rep = analyze(by_pid[pid], **kw)
+        if rep["n_tasks"]:
+            out[pid] = {k: rep[k] for k in ("wall_us", "n_tasks",
+                                           "coverage", "buckets")}
+            out[pid]["window"] = _rank_window(
+                by_pid[pid], **{k: v for k, v in kw.items() if k in (
+                    "exec_name", "comm_names", "compile_names",
+                    "coll_names", "transfer_names")})
+    return out
+
+
+def _rank_window(events: List[dict], exec_name: str = "exec",
+                 comm_names: Sequence[str] = COMM_SPAN_NAMES,
+                 compile_names: Sequence[str] = COMPILE_SPAN_NAMES,
+                 coll_names: Sequence[str] = COLL_SPAN_NAMES,
+                 transfer_names: Sequence[str] = TRANSFER_SPAN_NAMES
+                 ) -> Dict[str, float]:
+    """One rank's whole window (first exec begin to last exec end) split
+    like a chain's gap: the union of its exec spans, then the time outside
+    them covered by its transport, collective, compile and transfer spans
+    (each capped by what the earlier ones left, as :func:`analyze` caps
+    a gap), and the rest (select, release bookkeeping, waits on the
+    interpreter).  Spans pair as :func:`analyze` pairs them.  Returns
+    ``{"window_us", "exec_us", "comm_us", "coll_us", "compile_us",
+    "transfer_us", "rest_us", "exec_spans"}``."""
+    kinds = {exec_name: "exec"}
+    kinds.update({n: "comm" for n in comm_names})
+    kinds.update({n: "compile" for n in compile_names})
+    kinds.update({n: "coll" for n in coll_names})
+    kinds.update({n: "transfer" for n in transfer_names})
+    opened: Dict[Tuple[Any, Any, str], float] = {}
+    iv: Dict[str, List[Tuple[float, float]]] = defaultdict(list)
+    for e in sorted(events, key=lambda e: e.get("ts", 0.0)):
+        name, ph = e.get("name"), e.get("ph")
+        kind = kinds.get(name)
+        if kind is None or ph not in ("B", "E"):
+            continue
+        args = e.get("args", {}) or {}
+        if kind == "exec":
+            key = (e.get("tid"), args.get("event_id"), name)
+        elif kind in ("coll", "transfer"):
+            key = (None, args.get("event_id"), name)
+        else:
+            key = (e.get("tid"), None, name)
+        if ph == "B":
+            opened[key] = e["ts"]
+        else:
+            b = opened.pop(key, None)
+            if b is not None:
+                iv[kind].append((b, e["ts"]))
+    out = {"window_us": 0.0, "exec_us": 0.0, "comm_us": 0.0, "coll_us": 0.0,
+           "compile_us": 0.0, "transfer_us": 0.0, "rest_us": 0.0,
+           "exec_spans": len(iv["exec"])}
+    if not iv["exec"]:
+        return out
+    lo = min(b for b, _ in iv["exec"])
+    hi = max(e for _, e in iv["exec"])
+    covered = _merge_intervals(iv["exec"])
+    out["window_us"] = hi - lo
+    out["exec_us"] = sum(e - b for b, e in covered)
+    for kind in ("comm", "coll", "compile", "transfer"):
+        spans = _merge_intervals([(max(b, lo), min(e, hi)) for b, e in iv[kind]
+                                  if e > lo and b < hi])
+        # each kind gets only what exec and the earlier kinds left
+        out[f"{kind}_us"] = sum((e - b) - _overlap(b, e, covered)
+                                for b, e in spans)
+        covered = _merge_intervals(covered + spans)
+    out["rest_us"] = max(0.0, out["window_us"] - sum(
+        out[k] for k in ("exec_us", "comm_us", "coll_us", "compile_us",
+                         "transfer_us")))
+    return out
+
+
+def render_ranks(per_rank: Dict[Any, dict]) -> str:
+    """One line a rank of :func:`analyze_ranks`: its chain's wall, and
+    its compute and gap buckets in ms."""
+    lines = ["per rank (each rank's own chain, ms):"]
+    for pid, rep in per_rank.items():
+        b = rep["buckets"]
+        lines.append(
+            f"  rank {pid}: {rep['n_tasks']} tasks, wall "
+            f"{rep['wall_us'] / 1e3:.3f}; " + ", ".join(
+                f"{k[:-3]} {b.get(k, 0.0) / 1e3:.3f}"
+                for k in ("compute_us", "comm_us", "coll_us", "compile_us",
+                          "transfer_us", "host_gap_us")))
+        w = rep.get("window")
+        if w:
+            lines.append(
+                f"    window {w['window_us'] / 1e3:.3f}: exec "
+                f"{w['exec_us'] / 1e3:.3f}, outside exec: " + ", ".join(
+                    f"{k} {w[k + '_us'] / 1e3:.3f}"
+                    for k in ("comm", "coll", "compile", "transfer",
+                              "rest")))
+    return "\n".join(lines)
 
 
 def render(report: dict) -> str:

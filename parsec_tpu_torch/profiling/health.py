@@ -28,19 +28,21 @@ SDE counters that monitors read while the runtime runs
   ``parsec_tpu_torch/OPERATIONS.md``) into the SDE registry.
 
 * :class:`Watchdog` — a per-context progress-epoch monitor: it samples
-  tasks retired and executed, device tasks, body starts and the
-  write-back committer's drain, and when no epoch advances for
-  ``runtime_watchdog_window`` seconds while a taskpool is live, emits a
-  structured hang diagnosis (``OBS0xx`` findings: the stalled tenant
-  (OBS008), pending dep counters per class, ready tasks not retiring, a
-  wedged committer, breached SLOs) — and in strict mode fails the stalled
-  pools with the report attached.
+  tasks retired and executed, device tasks, body starts, delivered
+  application frames and the write-back committer's drain, gossips rank
+  heartbeats over ``TAG_CTL`` (with a periodic clock re-sync to rank 0),
+  and when no epoch advances for ``runtime_watchdog_window`` seconds
+  while a taskpool is live, emits a structured hang diagnosis (``OBS0xx``
+  findings: the stalled tenant (OBS008), pending dep counters per class,
+  ready tasks not retiring, a wedged committer, breached SLOs, rendezvous
+  pulls in flight (OBS003), the silent ranks (OBS004) and the fourcounter
+  state (OBS005)) — and in strict mode fails the stalled pools on every
+  rank with the report attached.
 
-The multi-rank parts — the comm and collective summaries, rank
-heartbeats, clock re-sync and the rendezvous, collective, fourcounter and
-silent-rank findings — are not ported yet (ROADMAP A.8a part 2; the
-collectives' with A.8b): the summaries read None, and a watchdog on a
-context with a comm engine raises.
+The comm summary feeds the ``parsec_comm_*`` families and the
+``PARSEC::COMM::*`` gauges.  The collectives' summary, families and
+finding (OBS007) wait for the collectives (ROADMAP A.8b): the summary
+reads None and OBS007 stays registered and unfired.
 
 Env wiring (read by ``Context.__init__``): ``PARSEC_TPU_HEALTH=1``
 (ephemeral port) or ``=<port>`` starts a :class:`HealthServer`;
@@ -71,9 +73,27 @@ __all__ = ["HealthServer", "Watchdog", "StallReport",
 # ---------------------------------------------------------------------------
 
 def _comm_summary(ctx) -> Optional[Dict[str, Any]]:
-    """The comm engine's counters: None — the health plane's comm
-    summary is not ported yet (ROADMAP A.8a part 2)."""
-    return None
+    """The comm engine's counters (``parsec_comm_*`` on /metrics, the
+    ``PARSEC::COMM::*`` SDE gauges); None on a context without one.
+    ``wire_bytes`` counts active-message bytes plus the one-sided pulls
+    an engine serves outside its frames (the in-process fabric's
+    registration table)."""
+    ce = getattr(ctx, "comm", None)
+    if ce is None:
+        return None
+    stats = getattr(ce, "stats", {})
+    wire_bytes = int(stats.get("am_bytes", 0))
+    if not getattr(ce, "pull_bytes_in_frames", False):
+        wire_bytes += int(stats.get("get_bytes", 0))
+    out: Dict[str, Any] = {
+        "wire_bytes": wire_bytes,
+        "frames_sent": int(stats.get("frames_sent", 0)),
+    }
+    rd = getattr(ce, "remote_dep", None)
+    if rd is not None and hasattr(rd, "protocol_stats"):
+        out.update(rd.protocol_stats())
+        out["rdv_pulls_inflight"] = rd.rdv_pulls_in_flight()
+    return out
 
 
 def _coll_summary(ctx) -> Optional[Dict[str, Any]]:
@@ -430,7 +450,19 @@ def prometheus_text(ctx) -> str:
     _line(out, "parsec_arena_bytes_high_water", r, a["bytes_hw"])
     _line(out, "parsec_arena_buffers_in_use", r, a["used"])
 
-    # the comm families (parsec_comm_*) come with ROADMAP A.8a part 2
+    c = doc["comm"]
+    if c is not None:
+        out.append("# TYPE parsec_comm_wire_bytes_total counter")
+        _line(out, "parsec_comm_wire_bytes_total", r, c["wire_bytes"])
+        _line(out, "parsec_comm_frames_sent_total", r, c["frames_sent"])
+        if "eager_hit_rate" in c:
+            _line(out, "parsec_comm_eager_hit_rate", r,
+                  c["eager_hit_rate"])
+            _line(out, "parsec_comm_rdv_pulls_inflight", r,
+                  c["rdv_pulls_inflight"])
+            _line(out, "parsec_comm_eager_bytes_total", r,
+                  c["eager_bytes"])
+            _line(out, "parsec_comm_rdv_bytes_total", r, c["rdv_bytes"])
 
     out.append("# TYPE parsec_device_wave_occupancy gauge")
     for d in doc["devices"]:
@@ -688,13 +720,18 @@ class StallReport:
 
 
 class Watchdog:
-    """Per-context progress-epoch monitor.
+    """Per-context progress-epoch monitor with rank heartbeats.
 
     The *progress epoch* is a tuple of everything that moves when the
     runtime moves: tasks retired per pool (+ per-worker executed counts),
-    device tasks, body starts, termdet counter transitions and the
-    write-back committer's drain (frames delivered and rank heartbeats
-    join with ROADMAP A.8a part 2).
+    device tasks, body starts, application frames delivered at the comm
+    engine, termdet counter transitions and the write-back committer's
+    drain.  On a context with a comm engine each tick sends a heartbeat
+    to every peer (carrying the SLO plane's exec digest), re-syncs the
+    clock to rank 0 every ``runtime_clock_resync_interval`` seconds, and
+    then progresses the engine once: the in-process fabric delivers only
+    when a thread waits on it, and a heartbeat must land between pools
+    too.
     While at least one taskpool is attached and non-terminated, a frozen
     epoch for ``window`` seconds is a stall: the watchdog emits a
     :class:`StallReport` (and in strict mode fails the stalled pools
@@ -706,12 +743,6 @@ class Watchdog:
     def __init__(self, context, window: Optional[float] = None,
                  poll: Optional[float] = None, strict: bool = False,
                  on_stall: Optional[Callable[[StallReport], None]] = None):
-        # rank heartbeats and the periodic clock re-sync ride the comm
-        # engine's control channel, which the watchdog does not use yet
-        if getattr(context, "comm", None) is not None:
-            raise NotImplementedError(
-                "watchdog heartbeats and clock re-sync over the comm engine "
-                "are not ported yet (ROADMAP A.8a part 2)")
         self.context = context
         if window is None:
             window = float(mca_param.register(
@@ -763,8 +794,151 @@ class Watchdog:
                            (_pins.EXEC_END, _on_exec_end)]
         for site, cb in self._pins_subs:
             _pins.subscribe(site, cb)
-        #: latest clock-sync estimate against rank 0 (comm layer only)
+        # periodic clock re-sync (piggybacked on the heartbeat channel):
+        # the pool-start handshake runs once, but a serving mesh stays up
+        # for hours and drifts — every `clock_resync_interval` this rank
+        # re-estimates its offset to rank 0 (one ping/pong, midpoint
+        # method) and records the sample for merge's piecewise-linear
+        # correction; the latest (offset, drift-rate) pair stays readable
+        # as `clock_sync`
+        self.resync_interval = float(mca_param.register(
+            "runtime", "clock_resync_interval", 60.0,
+            help="seconds between watchdog clock re-sync ping/pongs to "
+                 "rank 0 (piggybacked on the TAG_CTL heartbeat channel; "
+                 "0 disables).  Samples feed the piecewise-linear trace "
+                 "alignment in profiling.merge"))
+        self._t_resync = float("-inf")
+        self._resync_seq = 0
+        self._resync_acked = 0
+        #: latest (offset_ns, drift_ns_per_s, rtt_ns) estimate vs rank 0
         self.clock_sync: Optional[Dict[str, float]] = None
+        #: re-sync samples this watchdog recorded (each a dict of
+        #: t_ns, offset_ns, rtt_ns), in arrival order
+        self.resync_samples: List[Dict[str, int]] = []
+        #: heartbeats received, per peer rank
+        self.heartbeats: Dict[int, int] = {}
+        self._last_sync: Optional[tuple] = None  # (t_mono_ns, offset_ns)
+        self._hb_engine = None
+        ce = getattr(context, "comm", None)
+        if ce is not None and getattr(ce, "nranks", 1) > 1:
+            ce.register_ctl("hb", self._on_heartbeat)
+            ce.register_ctl("clk2", self._on_resync)
+            self._hb_engine = ce
+            # a new watchdog = a new mesh for this rank (it is built at
+            # Context init, before any pool-start handshake): a previous
+            # mesh's clock-sync samples — offsets against a rank 0 that
+            # no longer exists — must not pollute this mesh's piecewise
+            # trace alignment
+            from .merge import reset_sync_points_for
+
+            reset_sync_points_for(context.rank)
+
+    # -- heartbeats -------------------------------------------------------
+    def _on_heartbeat(self, src_rank: int, msg: dict) -> None:
+        self.last_heard[src_rank] = time.time()
+        self.heartbeats[src_rank] = self.heartbeats.get(src_rank, 0) + 1
+        # straggler gossip: peers piggyback their per-class exec digest
+        # {cls: (count, mean_s)} — folded into this rank's SLO plane so
+        # every rank can compare any rank against the mesh median
+        digest = msg.get("exec")
+        slo = getattr(self.context, "slo", None)
+        if digest and slo is not None:
+            slo.note_peer_digest(src_rank, digest)
+
+    def _send_heartbeats(self) -> None:
+        ce = self._hb_engine
+        if ce is None:
+            return
+        from ..comm.engine import TAG_CTL
+
+        msg = {"op": "hb", "rank": ce.rank, "t": time.time()}
+        slo = getattr(self.context, "slo", None)
+        if slo is not None:
+            digest = slo.exec_digest()
+            if digest:
+                msg["exec"] = {c: [n, m] for c, (n, m) in digest.items()}
+        for dst in range(ce.nranks):
+            if dst == ce.rank:
+                continue
+            try:
+                ce.send_am(TAG_CTL, dst, msg)
+            except Exception as e:
+                debug.verbose(3, "health",
+                              "heartbeat to rank %d failed: %s", dst, e)
+
+    # -- clock re-sync ----------------------------------------------------
+    def _on_resync(self, src_rank: int, msg: dict) -> None:
+        from ..comm.engine import TAG_CTL
+
+        ce = self._hb_engine
+        if ce is None:
+            return
+        if msg.get("ph") == "ping":
+            # rank 0 answers with its own clock (Cristian midpoint)
+            try:
+                ce.send_am(TAG_CTL, src_rank, {
+                    "op": "clk2", "ph": "pong", "seq": msg.get("seq"),
+                    "t0": msg.get("t0"), "t_ref": time.monotonic_ns()})
+            except Exception as e:
+                debug.verbose(3, "health", "resync pong failed: %s", e)
+            return
+        # a pong answers this rank's newest ping or an older one: on the
+        # in-process fabric each hop waits for a tick's progress, so the
+        # next ping may leave before the previous pong lands.  The pong
+        # echoes its own t0, so a late one only measures a longer rtt;
+        # one older than the last accepted is dropped
+        seq = msg.get("seq")
+        if msg.get("ph") != "pong" or not isinstance(seq, int) \
+                or seq <= self._resync_acked:
+            return
+        self._resync_acked = seq
+        t1 = time.monotonic_ns()
+        t0 = int(msg["t0"])
+        rtt_ns = t1 - t0
+        offset = (t0 + t1) // 2 - int(msg["t_ref"])
+        from .merge import record_sync_point
+
+        record_sync_point(self.context.rank, t1, offset)
+        self.resync_samples.append(
+            {"t_ns": t1, "offset_ns": offset, "rtt_ns": rtt_ns})
+        prev = self._last_sync
+        self._last_sync = (t1, offset)
+        drift = 0.0
+        if prev is not None and t1 > prev[0]:
+            drift = (offset - prev[1]) / ((t1 - prev[0]) / 1e9)
+        self.clock_sync = {"offset_ns": float(offset),
+                           "drift_ns_per_s": round(drift, 3),
+                           "rtt_ns": float(rtt_ns)}
+        slo = getattr(self.context, "slo", None)
+        if slo is not None:
+            slo.observe_rtt(rtt_ns / 1e9)
+        # the live trace sink follows along: a flight-recorder dump cut
+        # long after pool start still aligns on the CURRENT offset
+        fr = getattr(self.context, "flight", None)
+        if fr is not None:
+            try:
+                fr.set_clock_offset(self.context.rank, offset)
+            except Exception as e:
+                debug.verbose(3, "health", "flight offset failed: %s", e)
+
+    def _maybe_resync(self) -> None:
+        ce = self._hb_engine
+        if (ce is None or self.context.rank == 0
+                or self.resync_interval <= 0):
+            return
+        now = time.monotonic()
+        if now - self._t_resync < self.resync_interval:
+            return
+        self._t_resync = now
+        self._resync_seq += 1
+        from ..comm.engine import TAG_CTL
+
+        try:
+            ce.send_am(TAG_CTL, 0, {"op": "clk2", "ph": "ping",
+                                    "seq": self._resync_seq,
+                                    "t0": time.monotonic_ns()})
+        except Exception as e:
+            debug.verbose(3, "health", "resync ping failed: %s", e)
 
     # -- epoch ------------------------------------------------------------
     def _active_pools(self) -> List[Any]:
@@ -776,9 +950,23 @@ class Watchdog:
         executed = sum(es.stats["executed"] for es in ctx.streams)
         dev = sum(int(d.stats.get("executed_tasks", 0))
                   for d in ctx.devices)
-        # delivered application frames join the epoch with ROADMAP A.8a
-        # part 2
         frames = 0
+        ce = getattr(ctx, "comm", None)
+        if ce is not None:
+            from ..comm.engine import TAG_CTL, TAG_TERMDET
+
+            # APPLICATION frames only: our own heartbeats and the
+            # termdet probe traffic ride the same engine — counting
+            # them would keep the epoch moving on a wedged mesh and
+            # the stall would never be declared.  Exact keys, not a
+            # suffix match: am_recv_13 must not be mistaken for tag 3.
+            skip = {f"{pre}_{tag}" for pre in ("am_recv", "am_sent")
+                    for tag in (TAG_CTL, TAG_TERMDET)}
+            stats = getattr(ce, "stats", {})
+            frames = sum(
+                int(v) for k, v in dict(stats).items()
+                if str(k).startswith(("am_recv", "am_sent"))
+                and str(k) not in skip)
         pools = tuple(sorted(
             (tp.taskpool_id, tp.nb_retired,
              int(getattr(tp.tdm, "_nb_tasks", -1) or 0),
@@ -819,6 +1007,17 @@ class Watchdog:
         for site, cb in getattr(self, "_pins_subs", ()):
             _pins.unsubscribe(site, cb)
         self._pins_subs = []
+        # symmetric teardown of the heartbeat channel: a stopped
+        # watchdog must not stay reachable (and alive) through the
+        # engine's CTL dispatcher
+        ce = self._hb_engine
+        if ce is not None:
+            ops = getattr(ce, "_ctl_ops", None)
+            if ops is not None and ops.get("hb") == self._on_heartbeat:
+                ops.pop("hb", None)
+            if ops is not None and ops.get("clk2") == self._on_resync:
+                ops.pop("clk2", None)
+            self._hb_engine = None
 
     def _run(self) -> None:
         while not self._stop.wait(self.poll):
@@ -828,6 +1027,10 @@ class Watchdog:
                 debug.warning("watchdog tick raised: %s", e)
 
     def _tick(self) -> None:
+        self._send_heartbeats()
+        self._maybe_resync()
+        if self._hb_engine is not None:
+            self._hb_engine.progress_nonblocking()
         epoch = self._epoch()
         now = time.monotonic()
         if epoch != self._last_epoch:
@@ -858,15 +1061,15 @@ class Watchdog:
             self._fail_pools(pools, report)
 
     def _fail_pools(self, pools: List[Any], report: StallReport) -> None:
-        if getattr(self.context, "nranks", 1) > 1:
-            raise NotImplementedError(
-                "failing stalled pools across ranks is not ported yet "
-                "(ROADMAP A.8a part 2)")
+        """Fail the stalled pools here and, through the comm layer's
+        abort broadcast, on every other rank of the mesh."""
+        from ..comm.remote_dep import fail_pool_for_context
+
         why = ("watchdog: stalled for >= %gs with no progress; %s"
                % (self.window, report.render()))
         for tp in pools:
             try:
-                tp.fail(why)
+                fail_pool_for_context(self.context, tp, why)
             except Exception as e:
                 debug.warning("watchdog could not fail pool %s: %s",
                               getattr(tp, "name", tp), e)
@@ -977,8 +1180,19 @@ class Watchdog:
                     f"(lost activation, or startup never enumerated "
                     f"them)"))
 
-        # rendezvous pulls (OBS003), collectives (OBS007), the fourcounter
-        # (OBS005) and silent ranks (OBS004) come with ROADMAP A.8a part 2
+        ce = getattr(ctx, "comm", None)
+        rd = getattr(ce, "remote_dep", None) if ce is not None else None
+        if rd is not None:
+            inflight = rd.rdv_pulls_in_flight()
+            if inflight:
+                findings.append(Finding(
+                    "OBS003",
+                    f"rank {ctx.rank}: {inflight} rendezvous pull(s) in "
+                    f"flight ({int(rd.stats['rdv_chunks_req'])} chunks "
+                    f"requested, {int(rd.stats['rdv_bytes'])} bytes "
+                    f"landed)", count=inflight))
+        # wedged collectives (OBS007) are reported once the collectives
+        # are ported (ROADMAP A.8b)
 
         # scheduler backlog frozen?
         backlog = int(ctx.scheduler.pending_estimate())
@@ -987,6 +1201,39 @@ class Watchdog:
                 "OBS006",
                 f"rank {ctx.rank}: {backlog} ready task(s) queued but "
                 f"none retiring", count=backlog))
+
+        # fourcounter state
+        tdm = getattr(ce, "_termdet_bound", None) if ce is not None \
+            else None
+        if tdm is not None:
+            busy, s, r = tdm._local_state()
+            findings.append(Finding(
+                "OBS005",
+                f"fourcounter: local busy={busy} sent={s} recv={r}, "
+                f"wave={getattr(tdm, '_wave_id', 0)}, "
+                f"waves_suppressed={getattr(tdm, 'waves_suppressed', 0)},"
+                f" peer_states="
+                f"{dict(getattr(tdm, '_peer_states', {}) or {})}"))
+
+        # silent ranks
+        if ce is not None and getattr(ce, "nranks", 1) > 1:
+            now = time.time()
+            started_ago = time.monotonic() - self.t_started
+            for peer in range(ce.nranks):
+                if peer == ce.rank:
+                    continue
+                heard = self.last_heard.get(peer)
+                if heard is None:
+                    if started_ago >= self.window:
+                        findings.append(Finding(
+                            "OBS004",
+                            f"rank {peer}: never heard from since the "
+                            f"watchdog started {started_ago:.1f}s ago"))
+                elif now - heard >= self.window:
+                    findings.append(Finding(
+                        "OBS004",
+                        f"rank {peer}: last heartbeat "
+                        f"{now - heard:.1f}s ago"))
 
         # wedged async write-back committer (OBS011): deferred commits
         # pending but the drain counter is static (the epoch tuple

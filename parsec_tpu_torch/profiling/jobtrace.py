@@ -14,9 +14,11 @@ id, info = ``PHASE_*``); :func:`job_of_event` resolves one event.
 ``profiling.merge`` annotates every job-attributable event with
 ``args.trace_id`` and ``profiling.critpath --job`` slices on it.  The
 port records ``job_map`` instants for tasks whose pool carries a trace
-id and the serving plane's ``job_phase`` instants; the ``jobwire_*`` /
-``jobcoll`` events come with the per-rank traces (ROADMAP A.8a part 2)
-and the collectives (A.8b).
+id, the serving plane's ``job_phase`` instants, and, on a multi-rank
+mesh, the ``jobwire_send`` / ``jobwire_eager`` / ``jobwire_rdv`` instants
+of the wire (event_id = the payload's trace id, which activation frames,
+rendezvous descriptors and DTD shipments carry).  ``jobcoll`` events come
+with the collectives (ROADMAP A.8b).
 """
 
 from __future__ import annotations

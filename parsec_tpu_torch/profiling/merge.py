@@ -5,10 +5,12 @@ dumps one binary ``.prof`` per rank and the offline tools
 (``dbpreader.c`` multi-file mode, ``profile2h5 --merge``) stitch them into
 one timeline.  Here:
 
-* :func:`clock_handshake` — the pool-start clock-offset handshake over
-  the comm engine.  At one rank it returns 0 (the rank is its own
-  reference); beyond one rank it is not ported yet (ROADMAP A.8a
-  part 2);
+* :func:`clock_handshake` — the pool-start handshake: every rank
+  estimates its monotonic-clock offset to rank 0 over the comm engine
+  (ping/pong on ``TAG_CTL``, midpoint method, best-of-N by minimum RTT —
+  the classic Cristian estimate).  In-process ranks share the clock and
+  measure ~0; :func:`last_handshake` keeps each rank's best sample and
+  its round-trip time;
 * :func:`merge_traces` — read per-rank ``.pbt`` dumps (or Chrome JSON),
   place every rank's events on one global timeline
   (``epoch_ns - clock_offset_ns + ts``), and emit ONE Chrome/Perfetto
@@ -27,7 +29,10 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from ..utils import debug
 
 #: alignment tolerance the tests pin: same-process ranks must land
 #: within this of each other after epoch alignment (python-side epoch
@@ -82,6 +87,7 @@ def sync_points_for(rank: int) -> List[Tuple[int, int]]:
 def reset_sync_points() -> None:
     with _sync_lock:
         _sync_points.clear()
+        _handshakes.clear()
 
 
 def _offset_at(points: List[Tuple[int, int]], t_ns: float) -> float:
@@ -106,18 +112,128 @@ def _offset_at(points: List[Tuple[int, int]], t_ns: float) -> float:
     return o1 + (t_ns - t1) * rate
 
 
+#: rank -> the last handshake's best sample ``{"offset_ns", "rtt_ns",
+#: "pings"}`` (what a run prints beside its merged trace)
+_handshakes: Dict[int, Dict[str, int]] = {}
+
+
+def last_handshake(rank: int) -> Optional[Dict[str, int]]:
+    """The best (minimum round-trip) sample of ``rank``'s last
+    :func:`clock_handshake`: offset and round-trip time in ns, and the
+    pings it took; None before its first handshake or on rank 0."""
+    with _sync_lock:
+        got = _handshakes.get(int(rank))
+        return dict(got) if got is not None else None
+
+
 def clock_handshake(ce, *, pings: int = 8, timeout: float = 10.0) -> int:
-    """Collective clock-alignment handshake at pool start: this rank's
-    estimated monotonic offset to rank 0 in ns (``local - rank0``).  At
-    one rank there is no peer and the offset is 0, as in the reference;
-    a mesh of several ranks needs the ping/pong over ``TAG_CTL``, which
-    is not ported yet (ROADMAP A.8a part 2)."""
+    """Collective clock-alignment handshake at pool start: every rank
+    calls this concurrently; returns this rank's estimated monotonic
+    offset to rank 0 in ns (``local - rank0``; 0 on rank 0).
+
+    Protocol (over ``TAG_CTL`` active messages): each rank != 0 sends
+    ``pings`` pings, rank 0's handler answers each with its own clock,
+    and the sample with the smallest round-trip wins (offset error is
+    bounded by rtt/2).  Rank 0 progresses until every peer reports done.
+    Every waiting rank progresses its engine itself: the in-process
+    fabric moves only when a thread waits on it, and no pool runs yet.
+    A timed-out handshake degrades loudly to offset 0 — tracing must
+    never fail the run it observes."""
+    from ..comm.engine import TAG_CTL
+
     nranks = getattr(ce, "nranks", 1)
     if nranks <= 1:
         return 0
-    raise NotImplementedError(
-        f"clock_handshake over {nranks} ranks is not ported yet "
-        "(ROADMAP A.8a part 2)")
+    rank = getattr(ce, "rank", 0)
+    state: Dict[str, Any] = {"pong": None, "done": 0}
+    cv = threading.Condition()
+
+    def on_ctl(src: int, msg: dict) -> None:
+        op = msg.get("op")
+        if op == "clk_ping":
+            ce.send_am(TAG_CTL, src, {
+                "op": "clk_pong", "seq": msg["seq"], "t0": msg["t0"],
+                "t_ref": time.monotonic_ns()})
+        elif op == "clk_pong":
+            with cv:
+                state["pong"] = msg
+                cv.notify_all()
+        elif op == "clk_done":
+            with cv:
+                state["done"] += 1
+                cv.notify_all()
+
+    # share TAG_CTL through the engine's op multiplexer: the watchdog's
+    # heartbeat channel (profiling.health) lives on the same tag
+    if hasattr(ce, "register_ctl"):
+        for op in ("clk_ping", "clk_pong", "clk_done"):
+            ce.register_ctl(op, on_ctl)
+    else:  # bare test doubles without the CommEngine base
+        ce.register_am(TAG_CTL, on_ctl)
+    deadline = time.monotonic() + timeout
+    if rank == 0:
+        # serve pings until every peer confirmed its estimate
+        while True:
+            ce.progress_nonblocking()
+            with cv:
+                if state["done"] >= nranks - 1:
+                    return 0
+                cv.wait(0.001)
+            if time.monotonic() > deadline:
+                debug.warning(
+                    "clock handshake: rank 0 timed out with %d/%d peers "
+                    "done; offsets default to 0",
+                    state["done"], nranks - 1)
+                return 0
+    best: Optional[Tuple[int, int]] = None  # (rtt_ns, offset_ns)
+    for i in range(pings):
+        with cv:
+            state["pong"] = None
+        ce.send_am(TAG_CTL, 0,
+                   {"op": "clk_ping", "seq": i, "t0": time.monotonic_ns()})
+        # a ping racing ahead of rank 0's handler registration can be
+        # dropped (inproc warns on unregistered tags): resend until the
+        # pong lands; rtt/offset use the ECHOED t0, so a pong matching a
+        # superseded ping just measures a large rtt and loses best-of-N
+        resend_at = time.monotonic() + 0.05
+        pong = None
+        while pong is None:
+            ce.progress_nonblocking()
+            with cv:
+                p = state["pong"]
+                if p is not None and p["seq"] == i:
+                    pong = p
+                else:
+                    cv.wait(0.0005)
+            now = time.monotonic()
+            if pong is None and now > resend_at:
+                ce.send_am(TAG_CTL, 0, {"op": "clk_ping", "seq": i,
+                                        "t0": time.monotonic_ns()})
+                resend_at = now + 0.05
+            if now > deadline:
+                debug.warning("clock handshake: rank %d timed out at "
+                              "ping %d; offset defaults to 0", rank, i)
+                ce.send_am(TAG_CTL, 0, {"op": "clk_done", "rank": rank})
+                return best[1] if best is not None else 0
+        t1 = time.monotonic_ns()
+        t0 = pong["t0"]
+        rtt = t1 - t0
+        off = (t0 + t1) // 2 - pong["t_ref"]
+        if best is None or rtt < best[0]:
+            best = (rtt, off)
+    ce.send_am(TAG_CTL, 0, {"op": "clk_done", "rank": rank})
+    if best is not None:
+        # first clock-sync sample of a NEW mesh for this rank: the
+        # previous mesh's series (offsets against a rank 0 that no
+        # longer exists) is dropped, the watchdog's periodic
+        # re-handshake appends later ones and merge interpolates
+        reset_sync_points_for(rank)
+        record_sync_point(rank, time.monotonic_ns(), best[1])
+        with _sync_lock:
+            _handshakes[int(rank)] = {"offset_ns": int(best[1]),
+                                      "rtt_ns": int(best[0]),
+                                      "pings": int(pings)}
+    return best[1] if best is not None else 0
 
 
 # ---------------------------------------------------------------------------

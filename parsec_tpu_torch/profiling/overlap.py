@@ -3,11 +3,16 @@
 The port of :mod:`parsec_tpu.profiling.overlap`: the scope records one
 binary trace per rank (:class:`~parsec_tpu_torch.profiling.binary.
 RankTraceSet`) and computes each rank's fraction of comm events that
-land inside its own exec spans.  At one rank no comm event fires: the
-scope reports ``n_comm_events == 0`` and an overlap of 0, and still
-yields the rank's busy time, its dump and (with ``trace_dir``) a merged
-trace.  ``nranks > 1`` raises naming ROADMAP A.8a part 2 (the cross-rank
-readers).
+land inside its own exec spans, never the union over the mesh (which
+reads near 1 whenever any rank computes).  At one rank no comm event
+fires: the scope reports ``n_comm_events == 0`` and an overlap of 0, and
+still yields the rank's busy time, its dump and (with ``trace_dir``) a
+merged trace.
+
+On the card a rank's ``exec`` span is the host's submit of the task
+(its staging, launch and epilog enqueue; ``CudaDevice.fires_exec_pins``),
+not the kernel's run on the device: the fraction is host comm against
+host submit, not wire against kernel.
 """
 
 from __future__ import annotations
@@ -37,15 +42,12 @@ def measure_overlap(stats: Dict, *, nranks: int = 1,
       ``stats["trace_ranks"]`` tracks).
 
     Pass a pre-built installed-or-not :class:`RankTraceSet` via
-    ``traces`` to keep its dumps.  Raises when the native engine cannot
-    be built (there is no fallback)."""
+    ``traces`` to keep its dumps, or to coordinate them with a clock
+    handshake (:func:`parsec_tpu_torch.multirank.run_multirank_perf`
+    does).  Raises when the native engine cannot be built (there is no
+    fallback)."""
     from .binary import RankTraceSet, to_chrome_events
     from .tools import comm_overlap_fraction
-
-    if nranks > 1:
-        raise NotImplementedError(
-            f"measure_overlap(nranks={nranks}) needs the per-rank trace "
-            "set, which is not ported yet (ROADMAP A.8a part 2)")
 
     ts = traces if traces is not None else RankTraceSet(nranks)
     ts.install()

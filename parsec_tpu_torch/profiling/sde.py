@@ -28,8 +28,8 @@ PENDING_TASKS = "PARSEC::SCHEDULER::PENDING_TASKS"
 # the reference's serving-side gauge set: the names are part of the
 # monitoring contract, so the port declares them all.  The health plane
 # (profiling.health.register_context_gauges) registers them per context;
-# the comm counters read zero until A.8a part 2, the collective ones
-# until A.8b
+# the comm counters read the context's comm engine (zero without one),
+# the collective ones zero until the collectives are ported (A.8b)
 READY_TASKS = "PARSEC::SCHEDULER::READY_TASKS"
 COMM_WIRE_BYTES = "PARSEC::COMM::WIRE_BYTES"
 COMM_EAGER_HIT_RATE = "PARSEC::COMM::EAGER_HIT_RATE"

@@ -21,8 +21,8 @@ off the same state):
 
 The collective-segment (COLL pins) and comm round-trip observers are
 subscribed; the collective sites stay unfired until the collectives are
-ported (ROADMAP A.8b), and peer digests arrive only on the watchdog's
-heartbeats (ROADMAP A.8a part 2).  Exported through the
+ported (ROADMAP A.8b).  Peer digests arrive on the watchdog's heartbeats
+and round-trip times on its clock re-syncs.  Exported through the
 health plane: histogram families on ``/metrics``, a ``slo`` section in
 ``/status``, and the findings in the watchdog's report.  Enable standalone
 with ``PARSEC_TPU_SLO=1`` (a ``RuntimeService`` installs one on its

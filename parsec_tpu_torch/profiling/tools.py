@@ -16,6 +16,7 @@ Chrome/Perfetto JSON.
 * ``critpath`` — reconstruct the task-dependency critical path from a
   trace and attribute its wall time to compute / comm / coll / compile /
   transfer / host-gap buckets per task class (:mod:`.critpath`);
+  ``--per-rank`` adds each rank track's own chain and window split;
 * ``hbcheck`` — vector-clock happens-before race detection over ``.pbt``
   dumps (:mod:`..analysis.hb`);
 * ``check`` — the aggregate gate: graph lint over every registered
@@ -44,8 +45,10 @@ Chrome/Perfetto JSON.
 * ``autotune`` — the timed nb / attention-block / wave-batch searches of
   :mod:`..tuning`, on the card unless ``--device cpu``.
 
-``check-comms`` is registered and raises: its reader of the
-comm-protocol events is not ported yet (ROADMAP A.8a part 2).  The live planes:
+``check-comms`` is the comm-protocol validator of the reference's
+``tests/profiling/check-comms.py``: exact counts and byte sums of the
+MPI_ACTIVATE / MPI_DATA_CTL / MPI_DATA_PLD events a
+:class:`~.trace.CommProfiler` trace carries.  The live planes:
 
 * ``flightdump`` — snapshot the flight recorder through a live health
   endpoint's ``/flightdump`` (or the recorders of this process into a
@@ -361,12 +364,41 @@ def cmd_to_csv(args) -> int:
 
 
 def cmd_check_comms(args) -> int:
-    """The comm-protocol validator (reference ``check-comms.py``): its
-    MPI_ACTIVATE / MPI_DATA_CTL / MPI_DATA_PLD events come from the
-    per-rank trace set over several ranks."""
-    raise NotImplementedError(
-        "check-comms reads the per-rank comm-protocol traces, which are "
-        "not ported yet (ROADMAP A.8a part 2)")
+    """Exact-count validator (the reference's check-comms.py asserts e.g.
+    MPI_ACTIVATE nb=100 lensum=12000 for the bandwidth test): per event
+    name, the number of spans and the sum of their ``msg_size`` (or
+    ``bytes``) argument, each ``--expect`` held exactly."""
+    doc = load(args.trace)
+    spans = _spans(doc.get("traceEvents", []))
+    stats: Dict[str, Dict[str, float]] = defaultdict(lambda: {"nb": 0, "lensum": 0})
+    for s in spans:
+        st = stats[s["name"]]
+        st["nb"] += 1
+        st["lensum"] += float(s["args"].get("msg_size", s["args"].get("bytes", 0)) or 0)
+    failures = []
+    for exp in args.expect or []:
+        name, _, kv = exp.partition(":")
+        key, _, val = kv.partition("=")
+        if key not in ("nb", "lensum") or not val:
+            print(f"bad --expect {exp!r}: want NAME:nb=N or NAME:lensum=BYTES",
+                  file=sys.stderr)
+            return 2
+        try:
+            want = float(val)
+        except ValueError:
+            print(f"bad --expect {exp!r}: {val!r} is not a number",
+                  file=sys.stderr)
+            return 2
+        got = stats[name][key]
+        if got != want:
+            failures.append(f"{name}: expected {key}={val}, got {got:g}")
+    for name in sorted(stats):
+        st = stats[name]
+        print(f"{name}: nb={int(st['nb'])} lensum={int(st['lensum'])}")
+    if failures:
+        print("FAIL: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    return 0
 
 
 def cmd_merge(args) -> int:
@@ -392,13 +424,23 @@ def cmd_critpath(args) -> int:
     from . import critpath
 
     doc = load(args.trace)
-    report = critpath.analyze(doc.get("traceEvents", []),
-                              exec_name=args.exec_name,
+    events = doc.get("traceEvents", [])
+    report = critpath.analyze(events, exec_name=args.exec_name,
                               job=args.job or None)
+    # --per-rank: each rank track's own chain beside the mesh's (the
+    # chain above is walked inside the last rank to finish)
+    per_rank = critpath.analyze_ranks(
+        events, exec_name=args.exec_name, job=args.job or None) \
+        if args.per_rank else None
     if args.json:
+        if per_rank is not None:
+            report = dict(report, per_rank={str(k): v
+                                            for k, v in per_rank.items()})
         print(json.dumps(report))
     else:
         print(critpath.render(report))
+        if per_rank is not None:
+            print(critpath.render_ranks(per_rank))
     return 0 if report["n_tasks"] else 1
 
 
@@ -797,8 +839,7 @@ def main(argv=None) -> int:
     pc.add_argument("trace")
     pc.add_argument("-o", "--out")
     pc.set_defaults(fn=cmd_to_csv)
-    pk = sub.add_parser("check-comms", help="comm protocol validator "
-                        "(not ported yet, ROADMAP A.8a part 2)")
+    pk = sub.add_parser("check-comms", help="comm protocol validator")
     pk.add_argument("trace")
     pk.add_argument("--expect", action="append",
                     help="NAME:nb=N or NAME:lensum=BYTES")
@@ -826,6 +867,9 @@ def main(argv=None) -> int:
                     "by tools merge): only that "
                     "job's tasks enter the chain walk, and the report "
                     "gains a queue/admit/run/drain phase attribution")
+    pp.add_argument("--per-rank", action="store_true",
+                    help="also walk each rank track's own chain and split "
+                    "its window into exec, comm and the rest")
     pp.set_defaults(fn=cmd_critpath)
     ph = sub.add_parser(
         "hbcheck", help="happens-before race check over binary .pbt "

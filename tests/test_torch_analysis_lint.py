@@ -555,8 +555,7 @@ def test_env_lint_ignore_keeps_strict_usable(monkeypatch):
 # ---------------------------------------------------------------------------
 
 #: registry graphs that wait for another layer, with its ROADMAP item
-WAITING = {"ops.attention_ring": "A.8", "ops.attention_ring_bcast": "A.8",
-           "ops.segmented_chol_dist": "A.8"}
+WAITING = {"ops.attention_ring": "A.8", "ops.attention_ring_bcast": "A.8"}
 
 
 def test_registry_names_are_the_references():

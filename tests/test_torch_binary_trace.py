@@ -201,9 +201,52 @@ def test_tracer_failures_raise(tmp_path):
     assert nt.total_events == 0
 
 
-def test_a_rank_set_beyond_one_rank_waits_for_the_comm_layer():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        binary.RankTraceSet(nranks=2)
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_a_rank_set_routes_each_rank_to_its_own_trace(pkg, tmp_path):
+    """``RankTraceSet(nranks=2)`` over a 2-rank round-robin chain: every
+    rank's exec spans land in ITS dump (the tasks it owns), the comm
+    sites' instants and transport spans too, and both packages record the
+    same per-rank event counts for the protocol's deterministic events."""
+    from test_torch_multirank import PORT, REF, run_ranks
+
+    P = PORT if pkg == "port" else REF
+    bmod = binary if pkg == "port" else ref_binary
+    K, nranks = 6, 2
+
+    def build(r, ctx):
+        dc = P["LC"]("D", shape=(4,), nodes=nranks, myrank=r,
+                     init=lambda k: np.zeros(4))
+        dc.rank_of = lambda *key: dc.data_key(*key) % nranks
+        g = P["ptg"].PTG("chain")
+        step = g.task_class("step", k=f"0 .. {K - 1}")
+        step.affinity("D(k)")
+        step.flow("X", P["ptg"].INOUT, "<- (k == 0) ? D(0) : X step(k-1)",
+                  f"-> (k < {K - 1}) ? X step(k+1) : D(k)")
+        step.body(cpu=lambda X, k: X.__iadd__(1.0))
+        return g.taskpool(D=dc)
+
+    ts = bmod.RankTraceSet(nranks).install()
+    try:
+        run_ranks(P, nranks, build)
+    finally:
+        ts.uninstall()
+    paths = ts.dump(str(tmp_path))
+    ts.close()
+    assert [p.rsplit("/", 1)[1] for p in paths] == ["rank0.pbt", "rank1.pbt"]
+    counts = []
+    for r, p in enumerate(paths):
+        evs = bmod.to_chrome_events(p)
+        assert {e["pid"] for e in evs} == {r}
+        c = collections.Counter((e["name"], e["ph"]) for e in evs)
+        # step(k) on rank k % 2: three exec spans a rank
+        assert c[("exec", "B")] == c[("exec", "E")] == K // nranks
+        counts.append({k: c[k] for k in (("comm_send", "i"), ("comm_recv", "i"),
+                                         ("ce_send", "B"), ("ce_recv", "B"))})
+    # every hop but the last crosses ranks: one activation sent, one
+    # payload landed a hop, split by the rank that fired it
+    assert sum(c[("comm_send", "i")] for c in counts) == K - 1
+    assert sum(c[("comm_recv", "i")] for c in counts) == K - 1
+    assert all(c[("ce_send", "B")] > 0 and c[("ce_recv", "B")] > 0 for c in counts)
 
 
 def _chain_pool(n=10):

@@ -117,6 +117,17 @@ def test_user_trigger_is_never_auto_selected_and_resets():
     assert not td.is_terminated(tp) and not td._triggered
 
 
+def test_task_class_takes_dependencies_goal():
+    """``TaskClass(..., dependencies_goal=)`` is stored as the reference
+    stores it (ROADMAP C.9); the default is 0 on both."""
+    from parsec_tpu.core.task import TaskClass as RefTaskClass
+    from parsec_tpu_torch.core.task import TaskClass
+
+    mine, theirs = TaskClass("x", dependencies_goal=2), RefTaskClass("x", dependencies_goal=2)
+    assert mine.dependencies_goal == theirs.dependencies_goal == 2
+    assert TaskClass("y").dependencies_goal == RefTaskClass("y").dependencies_goal == 0
+
+
 def test_user_trigger_refuses_more_than_one_rank():
     tp = Taskpool("z", termdet="user_trigger")
     tp.context = type("Ctx", (), {"nranks": 2})()

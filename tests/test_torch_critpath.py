@@ -322,12 +322,44 @@ def test_critpath_on_a_real_dynamic_trace(tmp_path):
     assert stats["overlap_per_rank"] == [None]
 
 
-def test_measure_overlap_beyond_one_rank_waits_for_the_comm_layer():
-    from parsec_tpu_torch.profiling.overlap import measure_overlap
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_measure_overlap_beyond_one_rank(pkg, tmp_path):
+    """``measure_overlap(nranks=2)`` around a 2-rank 2x1 dpotrf: one
+    overlap fraction a rank (each rank's comm instants against its OWN
+    exec spans), a merged trace with two tracks, and per-rank chains that
+    ``analyze_ranks`` splits on each track.  The comm-event count is the
+    protocol's, the same on both packages."""
+    import parsec_tpu.profiling.overlap as ref_overlap
+    from parsec_tpu_torch.profiling import overlap
+    from test_torch_multirank import PORT, REF, run_ranks
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        with measure_overlap({}, nranks=2):
-            pass
+    P = PORT if pkg == "port" else REF
+    mod = overlap if pkg == "port" else ref_overlap
+    n, nb, nranks = 32, 8, 2
+    S = np.random.default_rng(3).standard_normal((n, n))
+    S = S @ S.T + n * np.eye(n)
+
+    def build(r, ctx):
+        A = P["BC"](n, n, nb, nb, p=2, q=1, myrank=r, name="A")
+        A.from_array(S)
+        return P["chol"]().taskpool(NT=A.mt, A=A)
+
+    stats = {}
+    with mod.measure_overlap(stats, nranks=nranks, trace_dir=str(tmp_path)):
+        run_ranks(P, nranks, build)
+    assert stats["trace_ranks"] == nranks
+    assert len(stats["overlap_per_rank"]) == nranks
+    assert all(f is not None and 0.0 <= f <= 1.0 for f in stats["overlap_per_rank"])
+    assert stats["overlap_min"] <= stats["overlap_fraction"] <= 1.0
+    assert stats["n_comm_events"] > 0 and stats["busy_us"] > 0
+    with open(stats["merged_trace"]) as f:
+        doc = json.load(f)
+    per = critpath.analyze_ranks(doc["traceEvents"])
+    assert sorted(per) == [0, 1]
+    for rep in per.values():
+        w = rep["window"]
+        assert rep["n_tasks"] >= 1 and w["exec_spans"] >= rep["n_tasks"]
+        assert w["exec_us"] + w["comm_us"] <= w["window_us"] + 1e-6
 
 
 def test_fused_run_trace_reports_dispatch_saved(tmp_path):

@@ -9,9 +9,10 @@ OBS006) and failed in strict mode, on-demand diagnosis.  Documents are
 compared key by key with the reference's over the same scenario.
 
 Mirrors ``tests/profiling/test_health.py``, ``test_watchdog.py`` and
-``tests/serve/test_observability.py`` at one rank (the 2-rank scrape, the
-heartbeats and the silent-rank finding wait for the comm layer, ROADMAP
-A.8).  Stalls are waited for through the watchdog's ``on_stall`` event,
+``tests/serve/test_observability.py`` at one rank; the multi-rank cases
+(the 2-rank scrape, heartbeats, the clock re-sync, the silent-rank and
+fourcounter findings) are in ``test_torch_multirank_obs.py``.  Stalls are
+waited for through the watchdog's ``on_stall`` event,
 scrapes while a run is live through a gated first task."""
 
 import io
@@ -569,10 +570,25 @@ def test_diagnose_on_demand_names_pending_counters():
         ctx.fini()
 
 
-def test_watchdog_refuses_a_comm_engine():
-    class _Ctx:
-        comm = object()
-        rank = 0
+def test_watchdog_takes_a_comm_engine_channel():
+    """A watchdog on a 2-rank context registers its heartbeat and re-sync
+    ops on the engine's ``TAG_CTL`` multiplexer, as the reference's does,
+    and ``stop()`` takes exactly those two ops back off it."""
+    from parsec_tpu import Context as RefContext
+    from parsec_tpu import comm as ref_comm
+    from parsec_tpu_torch import comm
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        Watchdog(_Ctx())
+    for Ctx, fab, kw in ((parsec_tpu_torch.Context, comm.InprocFabric, {"devices": ["cpu"]}),
+                         (RefContext, ref_comm.InprocFabric, {})):
+        ces = fab(2).endpoints()
+        ctx = Ctx(nb_cores=1, rank=1, nranks=2, comm=ces[1], **kw)
+        try:
+            before = set(getattr(ces[1], "_ctl_ops", {}) or {})
+            wd = (Watchdog if Ctx is not RefContext else ref_health.Watchdog)(
+                ctx, window=60.0, poll=30.0)
+            assert {"hb", "clk2"} <= set(ces[1]._ctl_ops) - before
+            assert wd.last_heard == {} and wd.clock_sync is None
+            wd.stop()
+            assert set(ces[1]._ctl_ops) == before
+        finally:
+            ctx.fini()

@@ -16,7 +16,10 @@ planes: a RuntimeService with the flight recorder, the health exporter
 plane switched on, scraped, and read by ``serve-status``, ``top``,
 ``flightdump`` and the monitor, beside the native serve executor and a
 rebound device executor.  A fifth lowers and runs array programs
-(``parsec_tpu_torch.array``).  ``chip_smoke.py`` alone in a directory, or
+(``parsec_tpu_torch.array``), a sixth the comm layer, and a seventh the
+cross-rank readers (a traced, watched 4-rank dpotrf through
+``run_multirank_perf``, the distributed segmented Cholesky, the engine's
+no-op run).  ``chip_smoke.py`` alone in a directory, or
 on a machine without a GPU, exits non-zero and prints no result."""
 
 import os
@@ -381,6 +384,65 @@ def test_comm_layer_loads_neither_jax_nor_the_jax_package(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "COMM LOADED []" in proc.stdout
+
+
+READERS_SCRIPT = textwrap.dedent("""
+    import json, sys, tempfile
+    import numpy as np
+    from parsec_tpu_torch import native
+    from parsec_tpu_torch.datadist import TwoDimBlockCyclic
+    from parsec_tpu_torch.multirank import run_multirank_perf
+    from parsec_tpu_torch.ops import cholesky_ptg
+    from parsec_tpu_torch.ops.segmented_chol_dist import run_dist_segmented_cholesky
+    from parsec_tpu_torch.profiling import critpath, health, merge
+    from parsec_tpu_torch.profiling.tools import main as tools
+
+    rng = np.random.default_rng(0)
+    m = rng.standard_normal((64, 64)).astype(np.float32)
+    spd = m @ m.T + 64 * np.eye(64, dtype=np.float32)
+    wds, summ = [], []
+
+    def build(r, ctx):
+        wds.append(health.Watchdog(ctx, window=30.0, poll=0.05, strict=True).start())
+        A = TwoDimBlockCyclic(64, 64, 16, 16, p=2, q=2, myrank=r, name="A",
+                              dtype=np.float32).from_array(spd)
+        return cholesky_ptg(use_cpu=False, use_kernels=True).taskpool(
+            NT=A.mt, A=A), ctx
+
+    d = tempfile.mkdtemp()
+    ctxs, stats = run_multirank_perf(4, build, trace_dir=d, cuda_device="cpu")
+    for wd in wds:
+        wd.stop()
+    assert not any(wd.stalled for wd in wds)
+    assert all(health._comm_summary(c)["wire_bytes"] > 0 for c in ctxs)
+    doc = json.load(open(stats["merged_trace"]))
+    assert sorted(critpath.analyze_ranks(doc["traceEvents"])) == [0, 1, 2, 3]
+    assert tools(["critpath", stats["merged_trace"], "--per-rank"]) == 0
+    assert merge.last_handshake(1) is not None
+    err, st = run_dist_segmented_cholesky(4, 128, 32, cuda_device="cpu")
+    assert err < 1e-3 and st["executed_tasks"] == 4 + 6
+    g = native.NativeGraph()
+    ids = [g.add_task(0, i) for i in range(100)]
+    for t in ids:
+        g.commit(t)
+    g.seal()
+    assert g.run_noop(2) == 100
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "parsec_tpu"))
+    print("READERS LOADED", bad)
+""")
+
+
+def test_cross_rank_readers_load_neither_jax_nor_the_jax_package(tmp_path):
+    """A traced, watched 4-rank dpotrf through ``run_multirank_perf`` (the
+    clock handshake, the per-rank traces, the merge, per-rank critpath,
+    the comm summary), the distributed segmented Cholesky and the engine's
+    no-op run load neither JAX nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", READERS_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "READERS LOADED []" in proc.stdout
 
 
 def test_chip_smoke_fails_without_the_repo_and_without_a_gpu(tmp_path):

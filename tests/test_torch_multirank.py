@@ -33,6 +33,7 @@ torch = pytest.importorskip("torch")
 import parsec_tpu  # noqa: E402
 import parsec_tpu_torch  # noqa: E402
 from parsec_tpu import comm as ref_comm  # noqa: E402
+from parsec_tpu import multirank as ref_multirank  # noqa: E402
 from parsec_tpu.data import LocalCollection as RefLocalCollection  # noqa: E402
 from parsec_tpu.datadist import TwoDimBlockCyclic as RefBC  # noqa: E402
 from parsec_tpu.dsl import ptg as ref_ptg  # noqa: E402
@@ -40,6 +41,7 @@ from parsec_tpu.ops import cholesky_ptg as ref_cholesky_ptg  # noqa: E402
 from parsec_tpu.ops.qr import qr_ptg as ref_qr_ptg  # noqa: E402
 from parsec_tpu.utils import mca_param as ref_mca  # noqa: E402
 from parsec_tpu_torch import comm as port_comm  # noqa: E402
+from parsec_tpu_torch import multirank as port_multirank  # noqa: E402
 from parsec_tpu_torch.core.lifecycle import DEV_CUDA  # noqa: E402
 from parsec_tpu_torch.data import LocalCollection  # noqa: E402
 from parsec_tpu_torch.datadist import TwoDimBlockCyclic  # noqa: E402
@@ -64,37 +66,15 @@ BOTH = pytest.mark.parametrize("P", [REF, PORT], ids=["ref", "port"])
 def run_ranks(P, nranks, build, *, nb_cores=2, timeout=60, ctx_kw=None):
     """Spin up ``nranks`` contexts of package ``P`` over one in-process
     fabric; per rank ``build(rank, ctx) -> taskpool``; run all of them to
-    completion in parallel threads (the reference's ``run_ranks``).
-    Returns the contexts, finalized."""
-    fabric = P["comm"].InprocFabric(nranks)
-    ces = fabric.endpoints()
+    completion in parallel threads through the package's shared harness,
+    ``run_multirank_perf`` (the reference's ``run_ranks`` shape).  Raises
+    on a rank error or a pool that did not quiesce.  Returns the
+    contexts, finalized."""
     kw = dict(P["ctx_kw"] if ctx_kw is None else ctx_kw)
-    ctxs = [P["Context"](nb_cores=nb_cores, rank=r, nranks=nranks,
-                         comm=ces[r], **kw) for r in range(nranks)]
-    results = [None] * nranks
-    errors = []
-
-    def worker(r):
-        try:
-            tp = build(r, ctxs[r])
-            ctxs[r].add_taskpool(tp)
-            results[r] = tp.wait(timeout=timeout)
-        except Exception as e:  # pragma: no cover - reported below
-            import traceback
-
-            traceback.print_exc()
-            errors.append((r, e))
-
-    threads = [threading.Thread(target=worker, args=(r,))
-               for r in range(nranks)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=timeout + 30)
-    for c in ctxs:
-        c.fini()
-    assert not errors, errors
-    assert all(results), f"ranks incomplete: {results}"
+    mr = port_multirank if P["Context"] is parsec_tpu_torch.Context else ref_multirank
+    ctxs, _stats = mr.run_multirank_perf(
+        nranks, lambda r, ctx: (build(r, ctx), ctx), nb_cores=nb_cores,
+        timeout=timeout, **kw)
     return ctxs
 
 

@@ -6,8 +6,9 @@ On the same dumps — a traced dpotrf of the port on the native pump and
 on the dynamic path, a dump the JAX package wrote, and the reference's
 Chrome JSON cases — every command prints the same output and exits with
 the same code as the reference's.  ``check`` (graph lint, ABI, model,
-doc drift, tidy, hbcheck) passes on the tree; ``check-comms`` waits for
-the comm layer.  The reference's single-rank merge cases (epoch
+doc drift, tidy, hbcheck) passes on the tree; ``check-comms`` prints the
+reference's table and exit codes, and the clock handshake runs over an
+in-process fabric.  The reference's single-rank merge cases (epoch
 alignment, a clock offset, job stitching of a standalone pool) run on
 the port's tracer, and both packages merge the dumps to one document.
 """
@@ -148,11 +149,30 @@ def test_check_gate_passes_on_the_tree(dumps, capsys):
     assert "check: 6 section(s), 0 error(s)" in out
 
 
-def test_check_comms_waits_for_the_comm_layer(tmp_path):
+def test_check_comms_equals_the_reference(tmp_path, capsys):
+    """``check-comms`` over one Chrome trace of MPI_* spans: the same
+    table, failures and exit codes as the reference's, for met, missed
+    and malformed expectations."""
+    evs = []
+    for i, (name, nbytes) in enumerate([("MPI_ACTIVATE", 20)] * 4
+                                       + [("MPI_DATA_PLD", 4096)] * 3
+                                       + [("MPI_DATA_CTL", 0)]):
+        for ph, ts in (("B", 10.0 * i), ("E", 10.0 * i + 5)):
+            evs.append({"name": name, "ph": ph, "ts": ts, "pid": 0, "tid": "c",
+                        "args": {"bytes": nbytes}})
     p = tmp_path / "comm.json"
-    p.write_text(json.dumps({"traceEvents": []}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        tools(["check-comms", str(p), "--expect", "MPI_ACTIVATE:nb=4"])
+    p.write_text(json.dumps({"traceEvents": evs}))
+    cases = [["--expect", "MPI_ACTIVATE:nb=4", "--expect", "MPI_DATA_PLD:lensum=12288"],
+             ["--expect", "MPI_ACTIVATE:nb=5"],
+             ["--expect", "MPI_ACTIVATE:count=4"],
+             ["--expect", "MPI_DATA_PLD:lensum=x"]]
+    for extra in cases:
+        rc = tools(["check-comms", str(p), *extra])
+        mine = capsys.readouterr()
+        ref_rc = ref_tools(["check-comms", str(p), *extra])
+        theirs = capsys.readouterr()
+        assert (rc, mine.out, mine.err) == (ref_rc, theirs.out, theirs.err)
+    assert [tools(["check-comms", str(p), *c]) for c in cases] == [0, 1, 2, 2]
 
 
 @pytest.mark.parametrize("cmd", ["flightdump", "serve-status", "top"])
@@ -333,15 +353,35 @@ def test_clock_sync_points_piecewise_correction_equals_the_reference(tmp_path):
 
 
 def test_clock_handshake_at_one_rank_and_beyond():
+    """At one rank both packages return 0 with no engine traffic; over a
+    3-rank in-process fabric every rank's offset to rank 0 is within half
+    its best round trip (+ the merge tolerance) of 0 — the ranks share
+    one clock — and ``last_handshake`` keeps the sample that won."""
+    from parsec_tpu import comm as ref_comm
+    from parsec_tpu_torch import comm
+
     class One:
         nranks, rank = 1, 0
 
-    class Two:
-        nranks, rank = 2, 0
-
     assert merge.clock_handshake(One()) == ref_merge.clock_handshake(One()) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        merge.clock_handshake(Two())
+    for mod, fab in ((merge, comm.InprocFabric), (ref_merge, ref_comm.InprocFabric)):
+        ces = fab(3).endpoints()
+        offs = [None] * 3
+        ts = [threading.Thread(target=lambda r=r: offs.__setitem__(
+            r, mod.clock_handshake(ces[r], pings=4))) for r in range(3)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(30)
+        assert offs[0] == 0 and all(isinstance(o, int) for o in offs)
+        if mod is merge:
+            for r in (1, 2):
+                shake = merge.last_handshake(r)
+                assert shake["offset_ns"] == offs[r] and shake["pings"] == 4
+                assert 0 < shake["rtt_ns"] < 10e9
+                assert abs(offs[r]) <= shake["rtt_ns"] / 2 + merge.ALIGN_TOLERANCE_US * 1e3
+                assert merge.sync_points_for(r)[-1][1] == offs[r]
+            assert merge.last_handshake(0) is None
 
 
 def test_standalone_pool_tasks_are_job_tagged(tmp_path):
