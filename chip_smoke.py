@@ -304,6 +304,26 @@ f32: err < 1e-3 against numpy's float64 factor, NT + NT(NT-1)/2 tasks,
 ``bytes_d2d`` > 0; (d) ``NativeGraph.run_noop`` over the dpotrf DAG's
 shape (816 tasks), its tasks/s beside the pump's host ms a task.
 
+The collectives, reshape and redistribution (``coll`` phase, after the
+cross-rank readers; ``coll_phase``): 4 ranks over one ``InprocFabric``,
+every rank's CUDA module on ``cuda:0``.  (a) allreduce ``sum`` (ring, rd,
+gather) and ``max`` (ring), a reduce-scatter, an allgather and a bcast of
+64 MiB CUDA tensors a rank: every result ``torch.equal`` across ranks and
+to the same collective over host tensors, within 1e-5 of float64, a CUDA
+tensor, the torch combines (``jit_reduces``) as the algorithm makes them;
+(b) ``CollectiveTask.allreduce`` between two chores on the card; (c) the
+4-rank dpotrf (B1 +680, its launches join the ``kernels`` line) left on
+the card and redistributed to a 1x4 grid of 1024 x 1024 tiles through
+``dtd``, through ``coll`` under a 32 MiB budget and through a misaligned
+window, every tile ``torch.equal`` to the one-rank factor's and the peak
+extra bytes within the budget; (d) the array phase's matrix at 4 ranks
+redistributed, then ``sum`` and ``norm`` within 1e-9 of float64; (e) a
+``[type=bfloat16]`` dep on a CUDA tile, at one rank and on a remote read,
+cast on the card (``bytes_out`` 0); (f) a traced allreduce (one ``coll``
+span, one ``coll_seg`` instant a landed segment, each rank) and one rank
+3 withholds (ranks 0-2 time out within their bound, OBS007 names it; rank
+3 joins late, every rank holds the sum, a fresh allreduce follows).
+
 Every run of the CUDA device module must end with no synchronous
 write-back fallback (``wb_sync_fallbacks == 0``) and no wave that fell
 back to per-task dispatch (``wave_fallbacks == 0``).  Kernel launches
@@ -322,6 +342,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -2922,6 +2943,57 @@ MR_POLL_S, MR_RESYNC_S = 0.1, 0.5
 MR_NOOP_THREADS = (1, 2, 8)
 
 
+def rank_cuda_module(h, ctx, r, label):
+    """Rank r's CUDA module, checked to be bound to ``cuda:0``."""
+    d = next(d for d in ctx.devices if d.mca_name == "cuda")
+    h.check(d.tdev.type == h.dev.type and d.tdev.index in (None, 0),
+            f"{label} rank {r}: CUDA module bound to {d.tdev}")
+    return d
+
+
+def rank_mesh(h, nranks, label):
+    """``nranks`` ranks in one process: one ``Context(rank=r, nranks=n,
+    comm=ces[r])`` a rank over one ``InprocFabric``; returns the engines,
+    the contexts and their CUDA modules."""
+    from parsec_tpu_torch import Context
+    from parsec_tpu_torch.comm import InprocFabric
+
+    ces = InprocFabric(nranks).endpoints()
+    ctxs = [Context(nb_cores=MR_CORES, rank=r, nranks=nranks, comm=ces[r])
+            for r in range(nranks)]
+    return ces, ctxs, [rank_cuda_module(h, c, r, label) for r, c in enumerate(ctxs)]
+
+
+def drive_ranks(h, items, per_rank, label, timeout=600.0):
+    """Run ``per_rank(r, items[r])`` on one thread a rank, all started
+    together; returns each rank's (result, seconds from the common start)
+    and the whole run's wall (to the card's idle)."""
+    import threading
+
+    out = [None] * len(items)
+    errors = []
+    t0 = time.perf_counter()
+
+    def worker(r):
+        try:
+            res = per_rank(r, items[r])
+            out[r] = (res, time.perf_counter() - t0)
+        except BaseException as e:  # reported by the check below
+            errors.append((r, repr(e)))
+
+    ts = [threading.Thread(target=worker, args=(r,), name=f"{label}-rank{r}")
+          for r in range(len(items))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout + 60)
+    h.torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h.check(not errors and not any(t.is_alive() for t in ts),
+            f"{label}: rank errors {errors}")
+    return out, wall
+
+
 def multirank_phase(h):
     """The cross-rank core (``parsec_tpu_torch.comm``) on the card: N ranks
     in one process, each a full ``Context(rank=r, nranks=N, comm=ces[r])``
@@ -2953,11 +3025,8 @@ def multirank_phase(h):
 
     One ``multirank`` line a run."""
     np, torch, dev, card, say, check = h.np, h.torch, h.dev, h.card, h.say, h.check
-    import threading
-
-    from parsec_tpu_torch import Context, DEV_CPU
+    from parsec_tpu_torch import DEV_CPU
     from parsec_tpu_torch import array as pa
-    from parsec_tpu_torch.comm import InprocFabric
     from parsec_tpu_torch.comm.termdet_fourcounter import TermDetFourCounter
     from parsec_tpu_torch.datadist import TwoDimBlockCyclic
     from parsec_tpu_torch.dsl.dtd import DTDTaskpool
@@ -2973,38 +3042,9 @@ def multirank_phase(h):
     S64 = torch.from_numpy(h.S).to(dev).double()
     s_max = S64.abs().max().item()
 
-    def mesh(nranks):
-        ces = InprocFabric(nranks).endpoints()
-        ctxs = [Context(nb_cores=MR_CORES, rank=r, nranks=nranks, comm=ces[r])
-                for r in range(nranks)]
-        return ces, ctxs, [cuda_of(c, r) for r, c in enumerate(ctxs)]
-
-    def drive(ctxs, per_rank, timeout=600.0):
-        """Run ``per_rank(r, ctx)`` on one thread a rank, all started
-        together; returns each rank's (result, seconds from the common
-        start) and the whole run's wall (to the card's idle)."""
-        out = [None] * len(ctxs)
-        errors = []
-        t0 = time.perf_counter()
-
-        def worker(r):
-            try:
-                res = per_rank(r, ctxs[r])
-                out[r] = (res, time.perf_counter() - t0)
-            except BaseException as e:  # reported by the check below
-                errors.append((r, repr(e)))
-
-        ts = [threading.Thread(target=worker, args=(r,), name=f"mr-rank{r}")
-              for r in range(len(ctxs))]
-        for t in ts:
-            t.start()
-        for t in ts:
-            t.join(timeout + 60)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check(not errors and not any(t.is_alive() for t in ts),
-              f"multirank: rank errors {errors}")
-        return out, wall
+    mesh = functools.partial(rank_mesh, h, label="multirank")
+    drive = functools.partial(drive_ranks, h, label="multirank")
+    cuda_of = functools.partial(rank_cuda_module, h, label="multirank")
 
     def matrix(nranks, r):
         p, q = MR_GRIDS[nranks]
@@ -3073,12 +3113,6 @@ def multirank_phase(h):
         return [(name, loc) for name, pc in tp.ptg.classes.items()
                 for loc in pc.param_space(tp.constants)
                 if pc.rank_of(loc, tp.constants) == r]
-
-    def cuda_of(ctx, r):
-        d = next(d for d in ctx.devices if d.mca_name == "cuda")
-        check(d.tdev.type == dev.type and d.tdev.index in (None, 0),
-              f"multirank rank {r}: CUDA module bound to {d.tdev}")
-        return d
 
     def ptg_pool(label, A, kw, termdet=None):
         tp = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(
@@ -3493,6 +3527,506 @@ def multirank_phase(h):
     gc.collect()
     torch.cuda.empty_cache()
     say("multirank_obs_phase", seconds=time.perf_counter() - t_obs, card=card)
+
+
+#: the collectives phase: the contributions' shape (4096 x 4096 f32 =
+#: 64 MiB a rank; the allgather's blocks are a quarter of it), their seed,
+#: the DTD CollectiveTask tile, the redistribution targets' tiling and
+#: budget, the misaligned window, and the bf16 reshape tile
+COLL_SHAPE = (4096, 4096)
+COLL_SEED = 22
+COLL_TILE = 2048
+COLL_TARGET_NB = 1024
+COLL_BUDGET = 32 << 20
+COLL_WINDOW = dict(ia=100, ja=100, ib=37, jb=37, m=5000, n=5000)
+COLL_RESHAPE_N = 2048
+# a rank's wait on the wedged allreduce, and the slack over it allowed
+COLL_WEDGE_WAIT_S, COLL_WEDGE_SLACK_S = 1.0, 5.0
+
+
+def coll_phase(h):
+    """The collectives, reshape and redistribution (``comm.coll``,
+    ``dsl.CollectiveTask``, ``data.reshape``, ``datadist.redistribute``)
+    on the card: 4 ranks in one process, each a full ``Context`` over one
+    ``InprocFabric(4)``, every rank's CUDA module on ``cuda:0``, a thread a
+    rank.  One ``coll`` line a run:
+
+    (a) collectives on CUDA tensors, 64 MiB a rank (4096 x 4096 f32, seeded
+        on the card): allreduce ``sum`` under ring, rd and gather, ``max``
+        under ring, a reduce-scatter, an allgather of 16 MiB blocks and a
+        64 MiB bcast from rank 2.  Every rank's result ``torch.equal`` to
+        every other's (the reduce-scatter's partitions to their slices),
+        each ``torch.equal`` to the same collective over host tensors of
+        the same values, within 1e-5 relative of a float64 sum, a CUDA
+        tensor on ``cuda:0``, ``jit_reduces`` the combines the algorithm
+        makes (ring N-1 a rank, rd log2 N, gather N-1 at the root);
+    (b) ``CollectiveTask.allreduce`` between a produce and a consume chore
+        on the card, 2048 x 2048 f32 a rank: every pool terminates, every
+        consumed tile ``torch.equal`` to the host allreduce of the produced
+        tiles;
+    (c) the 4-rank ``kernels`` dpotrf (N=8192 nb=512, 2x2; B1 +680) left
+        on the card, redistributed to a 1x4 grid at 1024 x 1024 tiles
+        through ``dtd``, through ``coll`` under a 32 MiB budget and through
+        a misaligned ``coll`` window: every target tile ``torch.equal`` to
+        the one-rank factor's slice, ``peak_extra_bytes`` <= the budget;
+    (d) the array phase's N=8192 matrix on a 2x2 grid redistributed to
+        1024 x 1024 tiles, then ``sum`` and ``norm``: equal on every rank,
+        within 1e-9 relative of the float64 host values;
+    (e) a PTG whose consumer reads the producer's CUDA tile through a
+        ``[type=bfloat16]`` dep, at one rank and on a remote read at 2
+        ranks: the payload ``torch.equal`` to ``.to(torch.bfloat16)`` of
+        the producer's tile, and the consumer's module moved no byte off
+        the card (``bytes_out`` 0: the cast ran on the card);
+    (f) a traced 4-rank allreduce (each rank's ``.pbt``: one ``coll``
+        span, one ``coll_seg`` instant a landed segment), then an
+        allreduce rank 3 withholds: ranks 0-2's ``wait`` returns False
+        within its bound, OBS007 names the op on each, rank 3 joins late
+        and every rank holds the sum, and each context runs a small
+        allreduce right afterwards."""
+    np, torch, dev, card, say, check = h.np, h.torch, h.dev, h.card, h.say, h.check
+    import importlib
+
+    from parsec_tpu_torch import Context, DEV_CUDA
+    from parsec_tpu_torch import array as pa
+    from parsec_tpu_torch.comm import InprocFabric
+    from parsec_tpu_torch.datadist import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl import PTG, CollectiveTask
+    from parsec_tpu_torch.dsl.dtd import AFFINITY, IN, INOUT, DTDTaskpool
+    from parsec_tpu_torch.ops import cholesky_ptg, kernels
+    from parsec_tpu_torch.profiling import merge
+    from parsec_tpu_torch.profiling.binary import RankTraceSet
+    from parsec_tpu_torch.profiling.health import Watchdog
+
+    redist = importlib.import_module("parsec_tpu_torch.datadist.redistribute")
+    t_phase = time.perf_counter()
+    nr = 4
+
+    mesh = functools.partial(rank_mesh, h, label="coll")
+
+    def drive(items, per_rank, timeout=600.0):
+        """``drive_ranks``: each rank's result and the wall."""
+        out, wall = drive_ranks(h, items, per_rank, label="coll", timeout=timeout)
+        return [res for res, _t in out], wall
+
+    def waited(label, hd, timeout=600):
+        """A collective's result once ``hd`` completed within ``timeout``."""
+        check(hd.wait(timeout=timeout), f"coll {label}: timed out")
+        return hd.result()
+
+    def host_collective(call, contribs):
+        """The same collective over host tensors of the same values, on a
+        fresh fabric: each rank's result."""
+        ces = InprocFabric(len(contribs)).endpoints()
+        for ce in ces:
+            _ = ce.coll
+        out, _wall = drive(ces, lambda r, ce: waited("host run", call(ce, contribs[r])))
+        return out
+
+    # -- (a) collectives on CUDA tensors --------------------------------------
+    ces, ctxs, cuda_devs = mesh(nr)
+    try:
+        gen = torch.Generator(device=dev)
+        contribs = []
+        for r in range(nr):
+            gen.manual_seed(COLL_SEED + r)
+            contribs.append(torch.randn(COLL_SHAPE, generator=gen, device=dev))
+        nbytes = contribs[0].numel() * 4
+        quarter = COLL_SHAPE[0] // nr
+        runs = [
+            ("allreduce_ring_sum", "allreduce", dict(algo="ring"), 2 * (nr - 1) / nr,
+             [nr - 1] * nr),
+            ("allreduce_rd_sum", "allreduce", dict(algo="rd"), 2 * (nr - 1) / nr, [2] * nr),
+            ("allreduce_gather_sum", "allreduce", dict(algo="gather"), 2 * (nr - 1) / nr,
+             [nr - 1] + [0] * (nr - 1)),
+            ("allreduce_ring_max", "allreduce", dict(algo="ring", op="max"),
+             2 * (nr - 1) / nr, [nr - 1] * nr),
+            ("reduce_scatter", "reduce_scatter", {}, (nr - 1) / nr, [nr - 1] * nr),
+            ("allgather", "allgather", {}, (nr - 1) / nr, [0] * nr),
+            ("bcast_root2", "bcast", dict(root=2), 1.0, [0] * nr),
+        ]
+        wide = sum(c.double() for c in contribs)
+        wide_max = torch.stack(contribs).amax(0).double()
+        for label, kind, kw, factor, want_reduces in runs:
+            if kind == "allgather":
+                mine = [c[:quarter] for c in contribs]
+            elif kind == "bcast":
+                mine = [c if r == 2 else torch.zeros_like(c) for r, c in enumerate(contribs)]
+            else:
+                mine = contribs
+
+            def call(ce, x, kind=kind, kw=kw):
+                return getattr(ce.coll, kind)(x, **kw)
+
+            before = [dict(ce.coll.stats) for ce in ces]
+            gc.collect()
+            outs, wall = drive(ces, lambda r, ce: waited(label, call(ce, mine[r])))
+            delta = [{k: int(ce.coll.stats.get(k, 0) - b.get(k, 0))
+                      for k in ("jit_reduces", "bytes_landed", "seg_done", "bytes_d2h",
+                                "bytes_h2d")}
+                     for ce, b in zip(ces, before)]
+            hosts = host_collective(call, [x.cpu() for x in mine])
+            for r in range(nr):
+                check(isinstance(outs[r], torch.Tensor) and outs[r].device == mine[r].device,
+                      f"coll {label}: rank {r}'s result is not on {mine[r].device}")
+                check(torch.equal(outs[r].cpu(), hosts[r]),
+                      f"coll {label}: rank {r} differs from the host run")
+            if kind == "reduce_scatter":
+                flat = wide.reshape(-1)
+                bounds = [k * flat.numel() // nr for k in range(nr + 1)]
+                whole = torch.cat([o for o in outs])
+                ref = flat
+            elif kind == "allgather":
+                whole = outs[0]
+                ref = torch.cat(mine).double()
+            elif kind == "bcast":
+                whole = outs[0]
+                ref = contribs[2].double()
+            else:
+                whole = outs[0]
+                ref = wide_max if kw.get("op") == "max" else wide
+            if kind != "reduce_scatter":
+                check(all(torch.equal(o, outs[0]) for o in outs),
+                      f"coll {label}: the ranks' results differ")
+            else:
+                check(all(o.numel() == bounds[r + 1] - bounds[r] for r, o in enumerate(outs)),
+                      f"coll {label}: partition sizes {[o.numel() for o in outs]}")
+            rel = ((whole.double().reshape(-1) - ref.reshape(-1)).abs().max()
+                   / ref.abs().max()).item()
+            check(rel <= 1e-5, f"coll {label}: {rel} from the float64 reference")
+            got_reduces = [d["jit_reduces"] for d in delta]
+            check(got_reduces == want_reduces,
+                  f"coll {label}: jit_reduces {got_reduces}, expected {want_reduces}")
+            # nbytes: the full buffer (the allgather's result), as NCCL's
+            # algbw/busbw count it
+            say("coll", run=label, kind=kind, nranks=nr, nbytes=nbytes,
+                contribution_bytes=mine[0].numel() * 4, wall_s=wall,
+                algbw_GBps=nbytes / wall / 1e9, busbw_factor=factor,
+                busbw_GBps=factor * nbytes / wall / 1e9,
+                bytes_landed=[d["bytes_landed"] for d in delta],
+                segments=[d["seg_done"] for d in delta],
+                bytes_d2h=[d["bytes_d2h"] for d in delta],
+                bytes_h2d=[d["bytes_h2d"] for d in delta],
+                jit_reduces=got_reduces, rel_err_vs_f64=rel,
+                equal_host_run=True, result_device=str(outs[0].device), card=card)
+            del outs, hosts, whole
+        del contribs, wide, wide_max
+
+        # -- (b) CollectiveTask.allreduce between two chores on the card ----
+        rng = np.random.default_rng(COLL_SEED)
+        Xg = rng.standard_normal((COLL_TILE, nr * COLL_TILE), dtype=np.float32)
+        produced, consumed = [None] * nr, [None] * nr
+
+        def produce(t):
+            return t * 2.0 + 1.0
+
+        def consume_of(r):
+            def consume(t):
+                consumed[r] = t.clone()
+                return ()  # a read-only chore: no writable flow
+            return consume
+
+        def noop(t):
+            return ()
+
+        def ctask_rank(r, ctx):
+            X = TwoDimBlockCyclic(COLL_TILE, nr * COLL_TILE, COLL_TILE, COLL_TILE, p=1, q=nr,
+                                  myrank=r, name="X", dtype=np.float32).from_array(Xg)
+            tiles = {k: X.data_of(0, k) for k in range(nr)}
+            tp = DTDTaskpool(ctx, name="coll_ctask")
+            for k in range(nr):
+                tp.insert_task({DEV_CUDA: produce}, (tiles[k], INOUT | AFFINITY),
+                               name="produce")
+            CollectiveTask.allreduce(tp, tiles)
+            for k in range(nr):
+                tp.insert_task({DEV_CUDA: consume_of(r) if k == r else noop},
+                               (tiles[k], IN | AFFINITY), name="consume")
+            ok = tp.wait(timeout=600)
+            tp.close()
+            return ok
+
+        _outs, wall = drive(ctxs, ctask_rank)
+        check(all(_outs), f"coll ctask: pools terminated {_outs}")
+        for r in range(nr):
+            produced[r] = torch.from_numpy(Xg[:, r * COLL_TILE:(r + 1) * COLL_TILE]).to(dev) * 2.0 + 1.0
+        want = host_collective(lambda ce, x: ce.coll.allreduce(x), [p.cpu() for p in produced])
+        check(all(c is not None and c.device.type == dev.type for c in consumed),
+              "coll ctask: a consume chore did not run on the card")
+        check(all(torch.equal(consumed[r].cpu(), want[r]) for r in range(nr)),
+              "coll ctask: a consumed tile differs from the allreduce of the produced tiles")
+        say("coll", run="ctask_allreduce", nranks=nr, tile=[COLL_TILE, COLL_TILE],
+            wall_s=wall, pools_terminated=True, consumed_equal=True,
+            device_tasks=[int(d.stats["executed_tasks"]) for d in cuda_devs], card=card)
+        del produced, consumed, want, Xg
+
+        # -- (f) a traced allreduce, then one rank 3 withholds ---------------
+        trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_scratch",
+                                 "coll_obs")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        os.makedirs(trace_dir)
+        gen.manual_seed(COLL_SEED)
+        obs_in = [torch.randn(1024, 1024, generator=gen, device=dev) for _ in range(nr)]
+        seg0 = [int(ce.coll.stats["seg_done"]) for ce in ces]
+        traces = RankTraceSet(nr).install()
+        try:
+            outs, wall = drive(ces, lambda r, ce: waited("traced", ce.coll.allreduce(obs_in[r])))
+            paths = traces.dump(trace_dir)
+        finally:
+            traces.uninstall()
+            traces.close()
+        segs = [int(ce.coll.stats["seg_done"]) - s for ce, s in zip(ces, seg0)]
+        events = merge.merge_traces(paths)["traceEvents"]
+        spans = [[e["ph"] for e in events if e["name"] == "coll" and e["pid"] == r]
+                 for r in range(nr)]
+        seg_instants = [sum(1 for e in events if e["name"] == "coll_seg" and e["pid"] == r)
+                        for r in range(nr)]
+        tokens = {e["args"]["event_id"] for e in events if e["name"] == "coll"}
+        check(all(sorted(s) == ["B", "E"] for s in spans) and len(tokens) == 1,
+              f"coll traced: coll spans by rank {spans}, tokens {tokens}")
+        check(seg_instants == segs and all(n > 0 for n in segs),
+              f"coll traced: coll_seg instants {seg_instants}, landed segments {segs}")
+        check(all(torch.equal(o, outs[0]) for o in outs), "coll traced: results differ")
+        pbt_bytes = [os.path.getsize(p) for p in paths]
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        say("coll", run="traced_allreduce", nranks=nr, nbytes=obs_in[0].numel() * 4,
+            wall_s=wall, coll_spans=[len(s) // 2 for s in spans], coll_seg_instants=seg_instants,
+            segments=segs, pbt_bytes=pbt_bytes, card=card)
+        del events, outs
+
+        cid = ("coll_phase", "wedge")
+        wedged = [None] * nr
+
+        def wedge_rank(r, ce):
+            if r == nr - 1:
+                return None  # rank 3 withholds its contribution
+            wedged[r] = ce.coll.allreduce(obs_in[r], cid=cid)
+            t0 = time.perf_counter()
+            ok = wedged[r].wait(timeout=COLL_WEDGE_WAIT_S)
+            return ok, time.perf_counter() - t0
+
+        waits, _wall = drive(ces, wedge_rank)
+        check(all(w[0] is False and w[1] < COLL_WEDGE_WAIT_S + COLL_WEDGE_SLACK_S
+                  for w in waits[:nr - 1]),
+              f"coll wedge: ranks 0-2's waits {waits[:nr - 1]}")
+        obs = []
+        for r in range(nr - 1):
+            wd = Watchdog(ctxs[r], window=3600.0, poll=3600.0)
+            try:
+                found = [f.message for f in wd.diagnose().findings if f.code == "OBS007"]
+            finally:
+                wd.stop()
+            check(len(found) == 1 and "allreduce[ring]" in found[0] and "wedge" in found[0]
+                  and "step " in found[0], f"coll wedge: rank {r}'s OBS007 {found}")
+            obs.append(found[0])
+        late = ces[nr - 1].coll.allreduce(obs_in[nr - 1], cid=cid)
+        joined, wall_join = drive(ces, lambda r, ce: waited(
+            "wedge", late if r == nr - 1 else wedged[r]))
+        want = host_collective(lambda ce, x: ce.coll.allreduce(x), [x.cpu() for x in obs_in])
+        check(all(torch.equal(joined[r].cpu(), want[r]) for r in range(nr)),
+              "coll wedge: the late-joined allreduce differs from the host run")
+        check(all(ce.coll.ops_in_flight() == [] for ce in ces), "coll wedge: ops left in flight")
+        after, wall_after = drive(ces, lambda r, ce: waited(
+            "after wedge", ce.coll.allreduce(torch.full((1024,), float(r + 1), device=dev)),
+            timeout=60))
+        check(all(torch.equal(a, torch.full((1024,), 10.0, device=dev)) for a in after),
+              "coll after wedge: the follow-up allreduce is wrong")
+        say("coll", run="wedged_allreduce", nranks=nr, withheld_by=nr - 1,
+            wait_limit_s=COLL_WEDGE_WAIT_S, waits_s=[w[1] for w in waits[:nr - 1]],
+            obs007=obs, late_join_wall_s=wall_join, after_wall_s=wall_after, card=card)
+        del obs_in, joined, after, want
+    finally:
+        for c in ctxs:
+            c.fini()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) redistribute the 4-rank dpotrf factor, left on the card ----------
+    ces, ctxs, _devs = mesh(nr)
+    factor = h.mr_factor["kernels"]
+    try:
+        mats = [TwoDimBlockCyclic(N, N, NB, NB, p=2, q=2, myrank=r, name="A",
+                                  dtype=np.float32).from_array(h.S) for r in range(nr)]
+
+        def dpotrf_rank(r, ctx):
+            tp = cholesky_ptg(use_cuda=True, use_cpu=False, use_kernels=True).taskpool(
+                NT=mats[r].mt, A=mats[r])
+            tp.name = "dpotrf_coll"
+            ctx.add_taskpool(tp)
+            return tp.wait(timeout=600)
+
+        kernels.reset_counts()
+        oks, wall = drive(ctxs, dpotrf_rank)
+        check(all(oks), "coll dpotrf: a rank's pool failed")
+        counts = {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+                  for fn in (kernels.matmul_update, kernels.matmul)}
+        nt = N // NB
+        n_upd = nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
+        check(counts["matmul_update"]["f32"] == counts["matmul_update"]["total"] == n_upd
+              and counts["matmul"]["total"] == 0, f"coll dpotrf: launches {counts}")
+        h.launches["coll_dpotrf4"] = counts
+        on_card = [sum(1 for k in m.local_tiles()
+                       if m.data_of(*k).newest_copy().device_index != 0)
+                   for m in mats]
+        check(all(n > 0 for n in on_card), f"coll dpotrf: tiles on the card {on_card}")
+        say("coll", run="dpotrf4_source", nranks=nr, N=N, nb=NB, wall_s=wall,
+            launches=counts, tiles_on_card=on_card, card=card)
+
+        def target(label):
+            return [TwoDimBlockCyclic(N, N, COLL_TARGET_NB, COLL_TARGET_NB, p=1, q=nr,
+                                      myrank=r, name=f"T_{label}", dtype=np.float32)
+                    for r in range(nr)]
+
+        whole = torch.from_numpy(factor)
+        for label, kw in (("dtd", dict(algo="dtd")),
+                          ("coll", dict(algo="coll", mem_budget=COLL_BUDGET)),
+                          ("coll_misaligned", dict(algo="coll", mem_budget=COLL_BUDGET,
+                                                   **COLL_WINDOW))):
+            T = target(label)
+            pools = [None] * nr
+
+            def redist_rank(r, ctx):
+                pools[r] = redist.redistribute(ctx, mats[r], T[r], **kw)
+                ok = pools[r].wait(timeout=600)
+                pools[r].close()
+                return ok
+
+            gc.collect()
+            oks, wall = drive(ctxs, redist_rank)
+            check(all(oks), f"coll redistribute {label}: a rank's pool failed")
+            if "m" in kw:
+                want = torch.zeros(N, N)
+                w = COLL_WINDOW
+                want[w["ib"]:w["ib"] + w["m"], w["jb"]:w["jb"] + w["n"]] = \
+                    whole[w["ia"]:w["ia"] + w["m"], w["ja"]:w["ja"] + w["n"]]
+            else:
+                want = whole
+            bad = []
+            for r in range(nr):
+                for (i, j) in T[r].local_tiles():
+                    got = T[r].data_of(i, j).newest_copy().payload
+                    sl = want[i * COLL_TARGET_NB:(i + 1) * COLL_TARGET_NB,
+                              j * COLL_TARGET_NB:(j + 1) * COLL_TARGET_NB]
+                    if not torch.equal(torch.as_tensor(got).cpu(), sl):
+                        bad.append((r, i, j))
+            check(not bad, f"coll redistribute {label}: target tiles differ {bad[:8]}")
+            peaks = [p.user.get("peak_extra_bytes") for p in pools]
+            if kw["algo"] == "coll":
+                check(all(0 < pk <= COLL_BUDGET for pk in peaks),
+                      f"coll redistribute {label}: peak extra bytes {peaks} over "
+                      f"{COLL_BUDGET}")
+            say("coll", run=f"redistribute_{label}", nranks=nr, N=N, from_nb=NB,
+                to_nb=COLL_TARGET_NB, grid=[1, nr], window=kw.get("m") and COLL_WINDOW,
+                algo=pools[0].user["algo"], wall_s=wall, budget=kw.get("mem_budget"),
+                peak_extra_bytes=peaks,
+                bytes_landed=[int(ce.coll.stats["bytes_landed"]) for ce in ces],
+                equal_one_rank=True, card=card)
+            del T, pools, want
+
+        # -- (d) the array at 4 ranks: a geometry change, sum, norm --------
+        rng = np.random.default_rng(ARR_SEED)
+        G = rng.standard_normal((ARR_N, ARR_N), dtype=np.float32)
+        G64 = torch.from_numpy(G).to(dev).double()
+        s64, n64 = G64.sum().item(), torch.linalg.norm(G64).item()
+        del G64
+
+        def array_rank(r, ctx):
+            # one leaf name on every rank, as each process of an SPMD run
+            # draws it (the in-process ranks share one leaf counter)
+            A = pa.from_numpy(G, ARR_NB, dist=pa.BlockCyclic(2, 2), myrank=r, name="A_coll")
+            t0 = time.perf_counter()
+            R = A.redistribute(pa.BlockCyclic(2, 2), mb=COLL_TARGET_NB, nb=COLL_TARGET_NB,
+                               context=ctx)
+            t1 = time.perf_counter()
+            s = R.sum(ctx)
+            nrm = R.norm(ctx)
+            t2 = time.perf_counter()
+            coll = R._node.coll
+            bad = [(i, j) for (i, j) in coll.local_tiles()
+                   if not torch.equal(torch.as_tensor(coll.data_of(i, j).newest_copy().payload),
+                                      torch.from_numpy(G[i * COLL_TARGET_NB:(i + 1) * COLL_TARGET_NB,
+                                                         j * COLL_TARGET_NB:(j + 1) * COLL_TARGET_NB]))]
+            return s, nrm, bad, t1 - t0, t2 - t1
+
+        gc.collect()
+        res, wall = drive(ctxs, array_rank)
+        check(all(not b for _s, _n, b, _t, _u in res), f"coll array: tiles differ {res}")
+        check(all(x[0] == res[0][0] and x[1] == res[0][1] for x in res),
+              f"coll array: sum/norm differ across ranks {[x[:2] for x in res]}")
+        s, nrm = res[0][0], res[0][1]
+        check(abs(s - s64) <= TOL_ARR_REDUCE * abs(s64) and abs(nrm - n64) <= TOL_ARR_REDUCE * n64,
+              f"coll array: sum {s} / norm {nrm} against float64 {s64} / {n64}")
+        say("coll", run="array4_redistribute_sum_norm", nranks=nr, N=ARR_N, from_nb=ARR_NB,
+            to_nb=COLL_TARGET_NB, wall_s=wall, redistribute_s=[x[3] for x in res],
+            sum_norm_s=[x[4] for x in res], sum=s, norm=nrm, sum_f64=s64, norm_f64=n64,
+            sum_rel_err=abs(s - s64) / abs(s64), norm_rel_err=abs(nrm - n64) / n64,
+            tol=TOL_ARR_REDUCE, card=card)
+        del G, res, mats
+    finally:
+        for c in ctxs:
+            c.fini()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (e) a [type=bfloat16] dep on the card: one rank, a remote read -------
+    n_e = COLL_RESHAPE_N
+    rng = np.random.default_rng(COLL_SEED + 7)
+    Y = rng.standard_normal((n_e, 2 * n_e), dtype=np.float32)
+    want = (torch.from_numpy(Y[:, :n_e]).to(dev) * 2.0 + 1.0).to(torch.bfloat16)
+
+    def reshape_ptg(nranks, r, seen):
+        D = TwoDimBlockCyclic(n_e, 2 * n_e, n_e, n_e, p=1, q=nranks, myrank=r, name="D",
+                              dtype=np.float32).from_array(Y)
+        g = PTG("coll_reshape")
+        prod = g.task_class("prod")
+        prod.affinity("D(0, 0)")
+        prod.flow("X", INOUT, "<- D(0, 0)", "-> X cons()")
+        prod.body(cuda=lambda X: X * 2.0 + 1.0)
+        cons = g.task_class("cons")
+        cons.affinity(f"D(0, {nranks - 1})")
+        cons.flow("X", IN, "<- X prod() [type=bfloat16]")
+        cons.flow("Z", INOUT, f"<- D(0, {nranks - 1})", f"-> D(0, {nranks - 1})")
+
+        def cbody(X, Z):
+            seen["X"] = X.clone()
+            return Z
+
+        cons.body(cuda=cbody)
+        return g.taskpool(D=D, bfloat16=torch.bfloat16)
+
+    lines = []
+    for nranks in (1, 2):
+        seen = {}
+        if nranks == 1:
+            ctxs1 = [Context(nb_cores=MR_CORES)]
+            devs1 = [rank_cuda_module(h, ctxs1[0], 0, "coll")]
+        else:
+            _ces, ctxs1, devs1 = mesh(nranks)
+        try:
+            def e_rank(r, ctx):
+                tp = reshape_ptg(nranks, r, seen)
+                ctx.add_taskpool(tp)
+                return tp.wait(timeout=600)
+
+            oks, wall = drive(ctxs1, e_rank)
+            check(all(oks), f"coll reshape {nranks} rank(s): a pool failed")
+            cons_dev = devs1[nranks - 1]
+            out_bytes = int(cons_dev.stats["bytes_out"])
+            x = seen.get("X")
+            check(x is not None and x.device.type == dev.type and x.dtype == torch.bfloat16
+                  and torch.equal(x, want),
+                  f"coll reshape {nranks} rank(s): the consumer's bf16 tile differs")
+            check(out_bytes == 0, f"coll reshape {nranks} rank(s): the consumer's module "
+                  f"moved {out_bytes} bytes off the card")
+            lines.append(dict(nranks=nranks, wall_s=wall, consumer_bytes_out=out_bytes,
+                              consumer_bytes_d2d=int(cons_dev.stats["bytes_d2d"]),
+                              consumer_bytes_in=int(cons_dev.stats["bytes_in"])))
+        finally:
+            for c in ctxs1:
+                c.fini()
+    say("coll", run="reshape_bf16", n=n_e, runs=lines, equal_to_cast=True, card=card)
+    del Y, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("coll_phase", seconds=time.perf_counter() - t_phase, card=card)
 
 TUNE_BLOCKS = (256, 512)
 TUNE_NB = (256, 512, 1024)
@@ -4941,6 +5475,13 @@ def main() -> int:
         np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
         launches=launches, mr_factor=mr_factor, mr_wall=dyn_wall, arr_out=arr_out,
         pump_ms_per_task=pump_ms_per_task))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- collectives, reshape and redistribution at 4 ranks ------------------
+    coll_phase(types.SimpleNamespace(
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
+        launches=launches, mr_factor=mr_factor))
     del mr_factor, arr_out
     gc.collect()
     torch.cuda.empty_cache()

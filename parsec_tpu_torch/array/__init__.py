@@ -26,10 +26,11 @@ The taskpool runs on the dynamic path, through the native pump
     print(x.to_numpy())
 
 A multi-rank grid runs SPMD: every rank builds the same program over its
-own ``myrank`` and computes it on its rank of a multi-rank context.  Its
-native execution, its cross-rank reductions and a geometry-changing
-``redistribute`` wait for ROADMAP A.8b and raise ``NotImplementedError``
-naming it.
+own ``myrank`` and computes it on its rank of a multi-rank context; its
+``sum``/``norm`` allreduce across ranks, and a geometry-changing
+``redistribute`` runs through ``datadist.redistribute``.  Its native
+execution waits for ROADMAP A.8b part 2 and raises
+``NotImplementedError`` naming it.
 """
 
 from .dist import Block1D, BlockCyclic, Distribution, Replicated

@@ -22,10 +22,11 @@ bfloat16 where that package exists; the host tiles are then bfloat16
 torch CPU tensors, and ``to_numpy`` returns float32, which holds every
 bfloat16 value exactly.  bfloat16 programs run on the device bodies.
 
-What waits for the collectives and redistribution (ROADMAP A.8b) raises
-``NotImplementedError`` before any runtime work: a geometry-changing
-``redistribute`` (``datadist.redistribute``) and the cross-rank allreduce
-of ``sum``/``norm`` on a multi-rank grid.
+A geometry-changing ``redistribute`` runs eagerly through
+``datadist.redistribute`` (its data path chosen by
+``resolve_redistribute_algo``), and ``sum``/``norm`` over a multi-rank
+grid allreduce the per-rank partials through the comm engine's
+collectives.
 """
 
 from __future__ import annotations
@@ -254,10 +255,12 @@ class DistArray:
 
         Same tile geometry: a LAZY copy node — placement changes become
         ordinary cross-rank flow edges inside the fused taskpool.
-        Different tile geometry (``mb``/``nb`` given and differing) goes
-        through ``datadist.redistribute``, which comes with the
-        distributed layer: it raises ``NotImplementedError`` (ROADMAP
-        A.8b) before any runtime work."""
+        Different tile geometry (``mb``/``nb`` given and differing): an
+        EAGER redistribution through ``datadist.redistribute`` (this
+        array is computed first, then copied into a freshly tiled
+        collection; ``algo``/``mem_budget`` pick and bound its data path
+        through the shared ``resolve_redistribute_algo``) — needs
+        ``context=`` and returns a leaf."""
         n = self._node
         new_mb = int(mb) if mb is not None else n.mb
         new_nb = int(nb) if nb is not None else n.nb
@@ -274,24 +277,37 @@ class DistArray:
                     "datadist path)")
             return DistArray(Node("redist", [n], n.shape, n.mb, n.nb,
                                   n.dtype, dist, n.myrank, uplo=n.uplo))
-        raise NotImplementedError(
-            f"redistribute from ({n.mb}, {n.nb}) tiles to ({new_mb}, {new_nb}) "
-            "runs through datadist.redistribute, which is not ported yet "
-            "(ROADMAP A.8b)")
+        # geometry change: the memory-bounded datadist path (eager)
+        if context is None:
+            raise ValueError(
+                "redistribute with a tile-geometry change runs through "
+                "datadist.redistribute and needs context=")
+        from ..datadist.redistribute import redistribute as _redist
+
+        self.compute(context)
+        T = dist.build(n.shape[0], n.shape[1], new_mb, new_nb,
+                       dtype=n.dtype, name=f"{n.coll.name}_rd",
+                       myrank=n.myrank)
+        tp = _redist(context, n.coll, T, algo=algo, mem_budget=mem_budget)
+        if not tp.wait(timeout=600):
+            raise RuntimeError("redistribute taskpool did not quiesce")
+        out = Node("leaf", [], n.shape, new_mb, new_nb, n.dtype, dist,
+                   n.myrank, coll=T, uplo=n.uplo)
+        return DistArray(out)
 
     # -- reductions (terminal: they run the graph) ------------------------
     def sum(self, context, *, timeout: Optional[float] = 600,
             use_cpu: bool = True, use_cuda: bool = True) -> float:
         """Global element sum — per-tile partials inside the fused
         taskpool (host f64 accumulators: a device tile is staged home
-        first), then the fold on the host.  The cross-rank combine of a
-        multi-rank grid waits for the collectives (ROADMAP A.8b)."""
+        first), per-rank fold on the host, cross-rank combine riding the
+        comm engine's allreduce (``CollManager``)."""
         return self._reduce(context, "sum", timeout=timeout,
                             use_cpu=use_cpu, use_cuda=use_cuda)
 
     def norm(self, context, *, timeout: Optional[float] = 600,
              use_cpu: bool = True, use_cuda: bool = True) -> float:
-        """Frobenius norm (sqrt of the summed squares)."""
+        """Frobenius norm (sqrt of the allreduced square sum)."""
         return math.sqrt(self._reduce(context, "sumsq", timeout=timeout,
                                       use_cpu=use_cpu, use_cuda=use_cuda))
 
@@ -299,10 +315,6 @@ class DistArray:
         from .lower import lower
 
         n = self._node
-        if not n.dist.replicated and n.dist.nodes > 1:
-            raise NotImplementedError(
-                f"array {op} over a {n.dist.nodes}-rank grid needs the "
-                "cross-rank allreduce, which is not ported yet (ROADMAP A.8b)")
         red = Node("reduce", [n], (n.mt, n.nt), 1, 1, np.float64, n.dist,
                    n.myrank, reduce_op=op)
         prog = lower([red], name=f"array_{op}", use_cpu=use_cpu,
@@ -317,6 +329,13 @@ class DistArray:
             c = P.data_of(*key).newest_copy()
             if c is not None and c.payload is not None:
                 local += float(np.asarray(c.payload).ravel()[0])
+        nranks = getattr(context, "nranks", 1)
+        if nranks > 1 and context.comm is not None:
+            h = context.comm.coll_allreduce(
+                np.asarray([local], np.float64))
+            if not h.wait(timeout=timeout):
+                raise RuntimeError(f"array {op}: allreduce timed out")
+            local = float(np.asarray(h.result()).ravel()[0])
         return local
 
     # -- execution --------------------------------------------------------

@@ -55,7 +55,7 @@ eviction or detach writes it home).
 A p x q grid lowers (its readers included), verifies, and runs SPMD
 (``taskpool(ctx)``/``run(ctx)`` on each rank of a multi-rank context);
 ``run_native`` of a multi-rank program raises ``NotImplementedError``
-naming ROADMAP A.8b (the distributed native executor).
+naming ROADMAP A.8b part 2 (the distributed native executor).
 """
 
 from __future__ import annotations
@@ -753,7 +753,7 @@ class ArrayProgram:
         ce = getattr(context, "comm", None)
         if (context is not None and getattr(context, "nranks", 1) > 1
                 and ce is not None):
-            tp.name = f"{tp.name}@{ce.sequence(('array', tp.name))}"
+            tp.name = f"{tp.name}@{ce.coll.sequence(('array', tp.name))}"
         return tp
 
     def verify(self, **kw):
@@ -784,7 +784,7 @@ class ArrayProgram:
             raise NotImplementedError(
                 f"run_native() of array program {self.ptg.name!r}: its grid "
                 f"spans {self.nranks} ranks, and the distributed native "
-                "executor (native_dist) is not ported yet (ROADMAP A.8b)")
+                "executor (native_dist) is not ported yet (ROADMAP A.8b part 2)")
         tp = self.taskpool()
         tp.run_native(nthreads=nthreads, native_device=native_device,
                       device=device)

@@ -1,9 +1,9 @@
 """Communication layer (reference L3): CE vtable, the in-process fabric,
-the remote-dep protocol and the four-counter termination detector.
+the remote-dep protocol, the four-counter termination detector and the
+runtime collectives (:mod:`.coll`).
 
 What is not ported yet raises ``NotImplementedError`` naming ROADMAP A.8b
-when it is reached: the collectives (``CollManager``, ``CollOp``,
-``RedistOp``, ``CollError``), the TCP backend (``TCPComm``,
+part 2 when it is reached: the TCP backend (``TCPComm``,
 ``endpoint_from_env``) and the multi-process launcher (``launch``).
 """
 
@@ -17,19 +17,15 @@ from .engine import (
     TAG_PUT,
     TAG_TERMDET,
 )
+from .coll import CollError, CollManager, CollOp, RedistOp
 from .inproc import InprocComm, InprocFabric
 from .remote_dep import RemoteDepManager, fail_pool_for_context
 from .termdet_fourcounter import TermDetFourCounter
 
-#: names of the reference's comm package that wait for ROADMAP A.8b
+#: names of the reference's comm package that wait for ROADMAP A.8b part 2
 _A8B = {
-    "CollError": "collectives (comm.coll)",
-    "CollManager": "collectives (comm.coll)",
-    "CollOp": "collectives (comm.coll)",
-    "RedistOp": "redistribution (comm.coll)",
     "TCPComm": "the TCP backend (comm.tcp)",
     "endpoint_from_env": "the TCP backend (comm.tcp)",
-    "coll": "collectives (comm.coll)",
     "tcp": "the TCP backend (comm.tcp)",
     "launch": "the multi-process launcher (comm.launch)",
 }
@@ -38,12 +34,17 @@ _A8B = {
 def __getattr__(name: str):
     what = _A8B.get(name)
     if what is not None:
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP A.8b)")
+        raise NotImplementedError(
+            f"{what} is not ported yet (ROADMAP A.8b part 2)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [
+    "CollError",
+    "CollManager",
+    "CollOp",
     "CommEngine",
+    "RedistOp",
     "InprocComm",
     "InprocFabric",
     "RemoteDepManager",

@@ -10,8 +10,10 @@ funnelled, single comm thread); here the backends are:
 * ``inproc``  — N ranks inside one process (threads + queues), the test
   fabric and the one-card multi-rank path (the reference tests
   "multi-node" as multi-process on one node — same idea one level down);
-* the TCP backend and the collectives (``coll``) are not ported yet
-  (ROADMAP A.8b): reaching them raises ``NotImplementedError``.
+* the TCP backend is not ported yet (ROADMAP A.8b part 2).
+
+Every engine carries the runtime collectives (:mod:`.coll`, ``ce.coll``
+and the ``coll_*`` conveniences).
 
 Payloads are Python objects (tuples, numpy arrays, torch tensors); a wire
 backend would serialize them — the protocol layer (:mod:`.remote_dep`)
@@ -20,7 +22,6 @@ never assumes shared memory except through ``put``/``get``.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import threading
 from typing import Any, Callable, Dict, Optional, TYPE_CHECKING
@@ -113,30 +114,33 @@ class CommEngine(Component):
         from .remote_dep import RemoteDepManager
 
         self.remote_dep = RemoteDepManager(self)
+        # collectives endpoint: created eagerly so the "coll" control op
+        # is registered before any peer's first advert can arrive
+        _ = self.coll
 
-    # -- collectives: not ported yet (ROADMAP A.8b) ------------------------
+    #: lazily-built collectives endpoint (bare engines outside a context
+    #: build it on first touch — do that BEFORE exchanging collectives)
+    _coll_mgr = None
+    _coll_lock = threading.Lock()
+
     @property
     def coll(self):
-        """The per-rank collectives endpoint (reference ``CollManager``)."""
-        raise NotImplementedError(
-            "collectives (comm.coll) are not ported yet (ROADMAP A.8b)")
+        """The per-rank :class:`~parsec_tpu_torch.comm.coll.CollManager`."""
+        mgr = self._coll_mgr
+        if mgr is None:
+            with CommEngine._coll_lock:
+                mgr = self._coll_mgr
+                if mgr is None:
+                    from .coll import CollManager
 
-    #: per-key counters of :meth:`sequence`, made at first use
-    _seq = None
+                    mgr = self._coll_mgr = CollManager(self)
+        return mgr
 
-    def sequence(self, key) -> int:
-        """Monotonic per-key counter (the reference's
-        ``CollManager.sequence``, kept on the engine until the collectives
-        are ported): the SPMD insert stream is identical on every rank, so
-        equal call sites draw equal numbers, and REPEATED call sites (two
-        same-named taskpools) draw DISTINCT ones."""
-        with CommEngine._termdet_lock:
-            if self._seq is None:
-                self._seq = collections.Counter()
-            self._seq[key] += 1
-            return self._seq[key]
-
+    # -- collective conveniences (both backends speak the same ctl-advert
+    # + chunked one-sided pull protocol) ---------------------------------
     def coll_allreduce(self, arr, **kw):
+        """Nonblocking allreduce; see :meth:`coll.CollManager.allreduce`.
+        Returns a handle — ``wait()`` it, read ``result()``."""
         return self.coll.allreduce(arr, **kw)
 
     def coll_reduce_scatter(self, arr, **kw):

@@ -31,7 +31,7 @@ kernel libraries in ``parsec_tpu_torch/_build/`` (``tools cache``).
   (:meth:`ProgramCache.clear_memory`).
 
 Not ported: the disk store of programs (nothing serializes) and the
-cross-rank broadcast of serialized programs (ROADMAP A.8b):
+cross-rank broadcast of serialized programs (ROADMAP A.8b part 2):
 ``ProgramCache(nranks>1)`` raises, and each rank of a multi-rank context
 keeps a rank-local cache.
 """
@@ -277,7 +277,7 @@ class ProgramCache:
         if nranks > 1:
             raise NotImplementedError(
                 "a multi-rank program cache shares programs over the comm "
-                "engine, which is not ported yet (ROADMAP A.8b)")
+                "engine, which is not ported yet (ROADMAP A.8b part 2)")
         self.rank = rank
         self.nranks = nranks
         self.stats: collections.Counter = collections.Counter()
@@ -359,5 +359,5 @@ def default_cache() -> ProgramCache:
 def for_context(context) -> ProgramCache:
     """A context's own program cache.  A rank of a multi-rank context
     gets a rank-local one: its programs are never shared with the other
-    ranks (the cross-rank program broadcast is ROADMAP A.8b)."""
+    ranks (the cross-rank program broadcast is ROADMAP A.8b part 2)."""
     return ProgramCache(rank=getattr(context, "rank", 0))

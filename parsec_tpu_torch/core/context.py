@@ -36,7 +36,7 @@ diagnosis) and ``PARSEC_TPU_SLO=1`` (the SLO plane; a
 
 Multi-rank: ``Context(rank=r, nranks=n, comm=ce)`` with ``ce`` one
 endpoint of a :class:`~parsec_tpu_torch.comm.InprocFabric` (the TCP
-backend is ROADMAP A.8b).  Every rank is a full context; taskpools of the
+backend is ROADMAP A.8b part 2).  Every rank is a full context; taskpools of the
 same name on every rank are one logical pool, their cross-rank edges
 carried by :mod:`~parsec_tpu_torch.comm.remote_dep`.  Every rank's CUDA
 module binds ``cuda:<rank % device_count>``.

@@ -12,10 +12,10 @@ The ``local`` module (default; reference
 ``termdet/local/termdet_local_module.c``) declares termination when both hit
 zero after the taskpool is marked ready.  ``user_trigger`` (reference
 ``termdet/user_trigger``) holds termination until the application calls
-``tp.tdm.trigger(tp)``; at one rank it is ``local`` plus that gate.  The
-distributed ``fourcounter`` wave algorithm lives in
-:mod:`parsec_tpu_torch.comm.termdet_fourcounter`; ``user_trigger``'s
-signal across ranks is not ported yet (ROADMAP A.8b).
+``tp.tdm.trigger(tp)``; it is ``local`` plus that gate, and on a
+multi-rank context each rank triggers its own monitor, as the reference
+does.  The distributed ``fourcounter`` wave algorithm lives in
+:mod:`parsec_tpu_torch.comm.termdet_fourcounter`.
 """
 
 from __future__ import annotations
@@ -159,13 +159,9 @@ class TermDetUserTrigger(TermDetLocal):
         self._triggered = False
 
     def trigger(self, tp) -> None:
-        """The user's termination signal.  At one rank it gates this
-        monitor; carrying it to other ranks needs the comm engine."""
-        ctx = getattr(tp, "context", None)
-        if ctx is not None and getattr(ctx, "nranks", 1) > 1:
-            raise NotImplementedError(
-                "user_trigger termination across ranks needs the "
-                "distributed layer, which is not ported yet (ROADMAP A.8b)")
+        """The user's termination signal.  On a multi-rank context, rank 0
+        triggers and the signal propagates with the normal activation
+        traffic (here: each rank triggers its own monitor)."""
         fire = False
         with self._lock:
             self._triggered = True

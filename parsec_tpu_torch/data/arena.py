@@ -196,9 +196,11 @@ class ByteBudget:
     """Thread-safe extra-memory meter with a declared limit: consumers
     ``acquire``/``release`` the CAPACITY of every staging or landing
     buffer they hold, and the measured ``peak`` is reported against the
-    limit.  The meter records — it never blocks: admission control is the
-    caller's bounding mechanism (the memory-bounded redistribution rounds
-    that use it come with redistribution, ROADMAP A.8b)."""
+    limit (``RedistOp.result()['peak_extra_bytes']``).  The meter records —
+    it never blocks: admission control (one landing batch at a time, one
+    staging batch per ack window) is the caller's bounding mechanism
+    (the memory-bounded redistribution rounds, ``comm.coll.RedistOp``),
+    and a meter that blocked a comm callback would wedge the fabric."""
 
     __slots__ = ("limit", "now", "peak", "_lock")
 

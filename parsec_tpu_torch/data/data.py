@@ -265,6 +265,14 @@ def host_array(payload):
     return np.array(payload, copy=True)
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a tile dtype: a torch dtype as it is (bfloat16
+    tiles are torch tensors), a numpy dtype as torch names it."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
 def land_into_home(home: "Data", payload) -> None:
     """Store a flow's final value into its home tile's host copy and bump
     the version (the write-back of a flow whose chain ends away from its

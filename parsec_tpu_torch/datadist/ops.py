@@ -7,9 +7,11 @@ application (``apply.jdf`` + ``apply_wrapper.c``), reductions
 ``reduce_wrapper.c``) and a generic unary-operator taskpool
 (``map_operator.c``).  Same capabilities here, as DTD taskpools of host
 bodies: a tile whose newest version lives on the CUDA module is staged to
-the host before its body runs.  One rank: a collection distributed over
-several ranks raises, naming ROADMAP A.8b (the reference folds such tiles
-in through the DTD shadow-task protocol).
+the host before its body runs.  Across ranks (one context a rank over a
+fabric), ``apply``/``map``/``reduce_taskpool`` visit the rank's own tiles
+and ``reduce_rows``/``reduce_cols`` fold remote tiles in through the DTD
+shadow-task protocol; a collection spread over a different number of
+ranks than the context's is refused.
 
 Each operation inserts one module-level body per kind, with the user's
 operator and the tile index as values, so its tasks share one task class.
@@ -26,15 +28,21 @@ from ..dsl.dtd import AFFINITY, DTDTaskpool, IN, INOUT
 from .matrix import TiledMatrix
 
 
-def _check_one_rank(A: TiledMatrix, what: str) -> None:
-    """A collection distributed over N > 1 ranks needs N contexts over a
-    fabric: on one rank its remote tiles would be materialized as zeros
-    and folded in, or skipped in silence."""
-    if A.nodes != 1:
-        raise NotImplementedError(
-            f"{what}: {A.name} is distributed over {A.nodes} ranks; "
-            "multi-rank tiled-matrix operations need the distributed "
-            "layer, which is not ported yet (ROADMAP A.8b)")
+def _check_context_ranks(context, A: TiledMatrix, what: str) -> None:
+    """A collection distributed over N ranks needs a context with exactly
+    N ranks: otherwise remote-owned tiles would be lazily materialized as
+    zeros and silently folded in (or the owner rank would not exist and
+    the taskpool would never quiesce)."""
+    nr = getattr(context, "nranks", 1)
+    if A.nodes not in (1, nr):
+        raise ValueError(
+            f"{what}: {A.name} is distributed over {A.nodes} ranks but the "
+            f"context has {nr}; run one context per rank over a fabric")
+
+
+def _local(A: TiledMatrix):
+    """The stored tiles this rank owns."""
+    return [k for k in A.tiles() if A.rank_of(*k) == A.myrank]
 
 
 def _apply_body(t, op, i, j):
@@ -53,9 +61,9 @@ def apply_taskpool(context, A: TiledMatrix,
     replacement tile.  Returns the taskpool (wait on it).  ``uplo`` is
     accepted and ignored, as the reference does: every stored tile is
     visited."""
-    _check_one_rank(A, "apply_taskpool")
+    _check_context_ranks(context, A, "apply_taskpool")
     tp = DTDTaskpool(context, name=f"apply_{A.name}")
-    for (i, j) in A.tiles():
+    for (i, j) in _local(A):
         tp.insert_task(_apply_body, (A.data_of(i, j), INOUT), op, i, j,
                        name="apply")
     return tp
@@ -67,10 +75,10 @@ def map_operator(context, A: TiledMatrix, B: TiledMatrix,
     ``map_operator.c``'s generic operator taskpool)."""
     if (A.mt, A.nt) != (B.mt, B.nt):
         raise ValueError("map_operator needs matching tile grids")
-    _check_one_rank(A, "map_operator")
-    _check_one_rank(B, "map_operator")
+    _check_context_ranks(context, A, "map_operator")
+    _check_context_ranks(context, B, "map_operator")
     tp = DTDTaskpool(context, name=f"map_{A.name}_{B.name}")
-    for (i, j) in A.tiles():
+    for (i, j) in _local(A):
         tp.insert_task(_map_body, (A.data_of(i, j), IN), (B.data_of(i, j), INOUT),
                        op, i, j, name="map")
     return tp
@@ -85,12 +93,12 @@ def _leaf_body(t, tile_reduce, key, values, lock):
 def reduce_taskpool(context, A: TiledMatrix,
                     tile_reduce: Callable[[np.ndarray], Any],
                     combine: Callable[[Any, Any], Any]) -> DTDTaskpool:
-    """Full reduction over every tile: one leaf task a tile, then the
+    """Full reduction over the rank's tiles: one leaf task a tile, then the
     leaves combined pairwise in tile order on the host (reference
     reduce.jdf).  The result is ``tp.result``; the call waits."""
-    _check_one_rank(A, "reduce_taskpool")
+    _check_context_ranks(context, A, "reduce_taskpool")
     tp = DTDTaskpool(context, name=f"reduce_{A.name}")
-    keys = list(A.tiles())
+    keys = _local(A)
     lock = threading.Lock()
     values: Dict[Any, Any] = {}
     for k in keys:
@@ -134,15 +142,23 @@ def reduce_rows(context, A: TiledMatrix,
                 combine_tiles: Callable[[np.ndarray, np.ndarray], Any]) -> list:
     """Row-wise tile reduction: fold each tile row to one tile (reference
     reduce_row.jdf).  Returns the per-row results (None for a row that
-    stores no tile)."""
-    _check_one_rank(A, "reduce_rows")
+    stores no tile).
+
+    Multi-rank: every rank inserts the identical stream; each row's fold
+    executes on the owner of the row's first stored tile (AFFINITY), with
+    remote tiles shipped by the DTD shadow-task protocol — so on each
+    rank the returned list holds results only for the rows it folded
+    (owner-computes), None elsewhere."""
+    _check_context_ranks(context, A, "reduce_rows")
     return _fold(context, A, [[(i, j) for j in range(A.nt) if A.stored(i, j)]
                               for i in range(A.mt)], "reduce_row", combine_tiles)
 
 
 def reduce_cols(context, A: TiledMatrix,
                 combine_tiles: Callable[[np.ndarray, np.ndarray], Any]) -> list:
-    """Column-wise tile reduction (reference reduce_col.jdf)."""
-    _check_one_rank(A, "reduce_cols")
+    """Column-wise tile reduction (reference reduce_col.jdf).  Multi-rank
+    contract as in :func:`reduce_rows` (owner of the column's first
+    stored tile folds it)."""
+    _check_context_ranks(context, A, "reduce_cols")
     return _fold(context, A, [[(i, j) for i in range(A.mt) if A.stored(i, j)]
                               for j in range(A.nt)], "reduce_col", combine_tiles)

@@ -6,12 +6,14 @@ the PTG-to-DTD replay (:mod:`.ptg_to_dtd`), the PTG's whole-DAG capture
 CUDA-graph capture (:mod:`.cuda_graph`, :class:`GraphExecutor`, with
 level batching: ``batch_levels=True``) and supertask fusion
 (:mod:`.fusion`).  :class:`~.native_exec.NativeServeExecutor` runs several
-pools as wdrr tenants of one native graph.
+pools as wdrr tenants of one native graph.  :class:`CollectiveTask`
+inserts collectives as DTD nodes (:mod:`.collective`).
 
-The collective tasks and the distributed native executor of
-:mod:`parsec_tpu.dsl` are not ported yet (ROADMAP A.8b).
+The distributed native executor of :mod:`parsec_tpu.dsl` is not ported
+yet (ROADMAP A.8b part 2).
 """
 
+from .collective import CollectiveTask
 from .cuda_graph import GraphExecutor
 from .dtd import (AFFINITY, ATOMIC_WRITE, CTL, DONT_TRACK, IN, INOUT, OUT,
                   SCRATCH, VALUE, DTDTaskpool)
@@ -21,7 +23,7 @@ from .ptg import PTG, PTGTaskClass, PTGTaskpool
 from .ptg_to_dtd import replay_via_dtd
 
 __all__ = [
-    "GraphExecutor", "PTG", "PTGTaskClass", "PTGTaskpool",
+    "CollectiveTask", "GraphExecutor", "PTG", "PTGTaskClass", "PTGTaskpool",
     "DTDTaskpool", "NativeDTD", "JDF", "compile_jdf", "compile_jdf_file",
     "replay_via_dtd",
     "IN", "OUT", "INOUT", "CTL", "VALUE", "SCRATCH", "ATOMIC_WRITE",

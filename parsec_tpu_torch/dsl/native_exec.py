@@ -515,7 +515,7 @@ class NativeExecutor:
             raise RuntimeError(
                 f"flow source {srckey[1]}/{srckey[2]} is on another rank; "
                 "distributed native execution (native_dist) is not ported "
-                "yet (ROADMAP A.8b)")
+                "yet (ROADMAP A.8b part 2)")
         consts = self.taskpool.constants
         if srckey[0] == "data":
             _, cname, key = srckey
@@ -747,7 +747,7 @@ class NativeExecutor:
             raise RuntimeError(
                 f"flow source {srckey[1]}/{srckey[2]} is on another rank; "
                 "distributed native execution (native_dist) is not ported "
-                "yet (ROADMAP A.8b)")
+                "yet (ROADMAP A.8b part 2)")
         if srckey[0] == "data":
             _, cname, key = srckey
             return self.taskpool.constants[cname].data_of(*key)

@@ -51,10 +51,14 @@ Across ranks (a context with a comm engine), a rank enumerates only its
 local tasks; remote successors get one aggregated activation per rank and
 a final value of a remote home tile goes home through a write-back
 (:mod:`parsec_tpu_torch.comm.remote_dep`), each pre-counted by its
-receiver.  What the port leaves out raises ``NotImplementedError`` naming
-its ROADMAP item when reached: a reshape property block on an incoming
-dep (A.8b; on a ``<- NEW`` dep the block names the new tile's shape and
-dtype).
+receiver.
+
+A ``[type=…]``/``[shape=…]``/``[dtype=…]`` property block on an incoming
+dep of a read-only flow asks for the data in another form: it resolves
+through :func:`~parsec_tpu_torch.data.reshape.get_copy_reshape` (one
+lazy, cached conversion, on the card for a CUDA tile), at one rank and on
+a remote read alike; on a ``<- NEW`` dep the block names the new tile's
+shape and dtype.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ from ..core.task import Chore, Flow, Task, TaskClass
 from ..core.taskpool import Taskpool
 from ..data.data import Data, data_create, host_array, land_into_home
 from ..data.datarepo import DataRepo
+from ..data.reshape import ReshapeSpec, get_copy_reshape, materialize
 from ..utils import mca_param
 
 IN = AccessMode.IN
@@ -722,29 +727,6 @@ class PTG:
         return verify_ptg(self, merged, **kw)
 
 
-def _props_spec(props: Dict[str, str], constants: Dict[str, Any]
-                ) -> Tuple[Optional[Any], Optional[Tuple[int, ...]]]:
-    """(dtype, shape) a dep's property block names, each None when absent
-    (the port's copy of the reference's ``ReshapeSpec.from_props``):
-    ``dtype=float32`` (a numpy dtype name), ``shape=4x8`` (``x``-separated)
-    and ``type=NAME``, looked up in the taskpool constants, whose value is a
-    ``(dtype, shape)`` tuple or a dtype.  A ``[type=NAME]`` naming no
-    constant is a wire-layout tag and names nothing here."""
-    dtype = shape = None
-    v = constants.get(props["type"]) if "type" in props else None
-    if isinstance(v, tuple) and len(v) == 2:
-        dtype, shape = v
-    elif v is not None:
-        dtype = v
-    if "dtype" in props:
-        dtype = props["dtype"]
-    if "shape" in props:
-        shape = tuple(int(x) for x in props["shape"].replace("(", "")
-                      .replace(")", "").split("x"))
-    return (None if dtype is None else np.dtype(dtype),
-            None if shape is None else tuple(int(x) for x in shape))
-
-
 # ---------------------------------------------------------------------------
 # the instantiated taskpool (what jdf2c generates)
 # ---------------------------------------------------------------------------
@@ -1109,13 +1091,22 @@ class PTGTaskpool(Taskpool):
                     continue
                 dt = pc.active_input_dep(f, env)
                 dep, target = dt if dt is not None else (None, None)
-                if (dep is not None and dep.props
-                        and not isinstance(target, _NewRef)
-                        and _props_spec(dep.props, self.constants) != (None, None)):
-                    raise NotImplementedError(
-                        f"{pc.name}.{f.name}: dep {dep.src!r} asks for a "
-                        "reshape, which is not ported yet (ROADMAP A.8b)")
                 data = self._resolve_input(pc, f, target, env, task)
+                if (data is not None and dep is not None and dep.props
+                        and not isinstance(target, _NewRef)):
+                    # dep-level reshape request (reference
+                    # parsec_get_copy_reshape_from_dep, parsec_reshape.c);
+                    # input-side reshape only makes sense for read-only
+                    # flows — a writable flow would divert its writes into
+                    # the converted copy and corrupt the home tile
+                    rspec = ReshapeSpec.from_props(dep.props, self.constants)
+                    if rspec is not None:
+                        if f.mode & AccessMode.OUT:
+                            raise ValueError(
+                                f"{pc.name}.{f.name}: reshape props "
+                                f"{dep.props} on a writable flow are not "
+                                "supported (reads would be diverted)")
+                        data = materialize(get_copy_reshape(data, rspec))
                 specs.append(("data", data, f.mode))
                 task.data_in[f.index] = data.newest_copy() if data is not None else None
             for name in pc.param_names + pc.def_names + pc.body_globals:
@@ -1162,8 +1153,9 @@ class PTGTaskpool(Taskpool):
         """(shape, dtype) for a flow's ``<- NEW`` tile: a ``[shape=…]`` /
         ``[dtype=…]`` / ``[type=NAME]`` property block on the NEW dep wins
         (NAME resolves through the taskpool constants, so shapes may
-        depend on problem parameters; :func:`_props_spec`); otherwise the
-        taskpool-wide ``TILE_SHAPE``/``TILE_DTYPE`` constants."""
+        depend on problem parameters; :meth:`ReshapeSpec.from_props`);
+        otherwise the taskpool-wide ``TILE_SHAPE``/``TILE_DTYPE``
+        constants."""
         shape = self.constants.get("TILE_SHAPE", (1,))
         dtype = self.constants.get("TILE_DTYPE", np.float64)
         pc = self.ptg.classes.get(pc_name)
@@ -1174,9 +1166,10 @@ class PTGTaskpool(Taskpool):
                 # NEW may sit in either branch of a guarded dep
                 if dep.props and (isinstance(dep.then, _NewRef)
                                   or isinstance(dep.otherwise, _NewRef)):
-                    want_dtype, want_shape = _props_spec(dep.props, self.constants)
-                    shape = want_shape or shape
-                    dtype = want_dtype or dtype
+                    rspec = ReshapeSpec.from_props(dep.props, self.constants)
+                    if rspec is not None:
+                        shape = rspec.shape or shape
+                        dtype = rspec.dtype or dtype
             break
         return tuple(shape), dtype
 

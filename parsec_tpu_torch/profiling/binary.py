@@ -211,8 +211,8 @@ class RankTraceSet:
 
     The comm and collective callbacks are subscribed as the reference
     subscribes them; the comm layer fires the comm sites (a payload's
-    ``jobwire_*`` instants carry its pool's trace id), and nothing fires
-    the collective ones before the collectives are ported (ROADMAP A.8b).
+    ``jobwire_*`` instants carry its pool's trace id) and its collectives
+    the collective ones (``coll`` spans, ``coll_seg`` instants).
     The serving plane fires the job sites.
 
     ``lean=True`` drops the highest-frequency/lowest-value subscribers —

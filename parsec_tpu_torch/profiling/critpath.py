@@ -13,8 +13,7 @@ every microsecond on the chain to one bucket —
   per-rank trace set records from each rank's comm engine);
 * **compile** — the part covered by ``compile`` spans (a CUDA-graph
   capture that missed the program cache);
-* **coll**    — the part covered by runtime-collective spans (``coll``,
-  ROADMAP A.8b);
+* **coll**    — the part covered by runtime-collective spans (``coll``);
 * **transfer** — the part covered by the staging pipeline's
   ``stage_in`` / ``writeback`` spans;
 * **host gap** — the rest: scheduler select, release bookkeeping,
@@ -49,7 +48,7 @@ COMM_SPAN_NAMES = ("ce_recv", "ce_send")
 #: attribution (a GraphExecutor capture that missed the cache fires them)
 COMPILE_SPAN_NAMES = ("compile",)
 #: runtime-collective span names that count as collective time in gap
-#: attribution (the collectives fire them, ROADMAP A.8b)
+#: attribution (fired by comm/coll)
 COLL_SPAN_NAMES = ("coll",)
 #: staging-pipeline span names that count as host<->device transfer
 #: time in gap attribution (device/staging.py fires them around

@@ -35,14 +35,13 @@ SDE counters that monitors read while the runtime runs
   while a taskpool is live, emits a structured hang diagnosis (``OBS0xx``
   findings: the stalled tenant (OBS008), pending dep counters per class,
   ready tasks not retiring, a wedged committer, breached SLOs, rendezvous
-  pulls in flight (OBS003), the silent ranks (OBS004) and the fourcounter
-  state (OBS005)) — and in strict mode fails the stalled pools on every
-  rank with the report attached.
+  pulls in flight (OBS003), the silent ranks (OBS004), the fourcounter
+  state (OBS005) and the collectives in flight (OBS007)) — and in strict
+  mode fails the stalled pools on every rank with the report attached.
 
 The comm summary feeds the ``parsec_comm_*`` families and the
-``PARSEC::COMM::*`` gauges.  The collectives' summary, families and
-finding (OBS007) wait for the collectives (ROADMAP A.8b): the summary
-reads None and OBS007 stays registered and unfired.
+``PARSEC::COMM::*`` gauges, the collective endpoint's the
+``parsec_coll_*`` families and the ``PARSEC::COLL::*`` gauges.
 
 Env wiring (read by ``Context.__init__``): ``PARSEC_TPU_HEALTH=1``
 (ephemeral port) or ``=<port>`` starts a :class:`HealthServer`;
@@ -97,9 +96,14 @@ def _comm_summary(ctx) -> Optional[Dict[str, Any]]:
 
 
 def _coll_summary(ctx) -> Optional[Dict[str, Any]]:
-    """The collective endpoint's counters: None until the collectives
-    are ported (ROADMAP A.8b)."""
-    return None
+    """Collective-endpoint counters (``parsec_coll_*`` on /metrics, the
+    ``PARSEC::COLL::*`` SDE gauges).  Reads the manager only if one was
+    already built — a scrape must not instantiate comm machinery."""
+    ce = getattr(ctx, "comm", None)
+    mgr = getattr(ce, "_coll_mgr", None) if ce is not None else None
+    if mgr is None:
+        return None
+    return mgr.summary()
 
 
 def _array_summary() -> Dict[str, Any]:
@@ -503,7 +507,20 @@ def prometheus_text(ctx) -> str:
         _line(out, "parsec_compile_local_only_total", r,
               cc.get("local_only", 0))
 
-    # and so do the collectives' (parsec_coll_*)
+    co = doc.get("coll")
+    if co is not None:
+        out.append("# TYPE parsec_coll_ops_started_total counter")
+        _line(out, "parsec_coll_ops_started_total", r,
+              co.get("ops_started", 0))
+        _line(out, "parsec_coll_ops_done_total", r, co.get("ops_done", 0))
+        _line(out, "parsec_coll_ops_failed_total", r,
+              co.get("ops_failed", 0))
+        _line(out, "parsec_coll_bytes_total", r, co.get("bytes", 0))
+        _line(out, "parsec_coll_segments_total", r, co.get("segments", 0))
+        out.append("# TYPE parsec_coll_segments_inflight gauge")
+        _line(out, "parsec_coll_segments_inflight", r,
+              co.get("segments_inflight", 0))
+        _line(out, "parsec_coll_ops_inflight", r, co.get("ops_inflight", 0))
 
     sv = doc.get("serve")
     if sv is not None:
@@ -1191,8 +1208,17 @@ class Watchdog:
                     f"flight ({int(rd.stats['rdv_chunks_req'])} chunks "
                     f"requested, {int(rd.stats['rdv_bytes'])} bytes "
                     f"landed)", count=inflight))
-        # wedged collectives (OBS007) are reported once the collectives
-        # are ported (ROADMAP A.8b)
+        # wedged collectives: every bound-but-unfinished CollOp, by name
+        # and step position (the op's state() line)
+        coll = getattr(ce, "_coll_mgr", None) if ce is not None else None
+        if coll is not None:
+            lines = coll.ops_in_flight()
+            for line in lines:
+                findings.append(Finding(
+                    "OBS007",
+                    f"rank {ctx.rank}: collective in flight at stall: "
+                    f"{line} ({coll.segments_in_flight()} segment(s) in "
+                    f"flight endpoint-wide)"))
 
         # scheduler backlog frozen?
         backlog = int(ctx.scheduler.pending_estimate())

@@ -17,8 +17,9 @@ port records ``job_map`` instants for tasks whose pool carries a trace
 id, the serving plane's ``job_phase`` instants, and, on a multi-rank
 mesh, the ``jobwire_send`` / ``jobwire_eager`` / ``jobwire_rdv`` instants
 of the wire (event_id = the payload's trace id, which activation frames,
-rendezvous descriptors and DTD shipments carry).  ``jobcoll`` events come
-with the collectives (ROADMAP A.8b).
+rendezvous descriptors and DTD shipments carry), and ``jobcoll`` spans of
+a collective issued from inside a job's body (:mod:`..comm.coll` reads
+:func:`current` at the op's start).
 """
 
 from __future__ import annotations

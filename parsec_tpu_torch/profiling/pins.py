@@ -9,9 +9,9 @@ The port declares every site of :mod:`parsec_tpu.profiling.pins`, so a
 subscriber (the binary tracer's :class:`~.binary.RankTraceSet`) wires
 itself as the reference's does.  The comm layer
 (:mod:`parsec_tpu_torch.comm`) fires the comm-protocol, transport and
-frame sites.  Not every site has a firing site yet: the collective sites
-wait for the collectives (ROADMAP A.8b), and ``ACTIVATE_CB_*`` and
-``DATA_FLUSH_*`` have none in the reference either.
+frame sites, and its collectives (:mod:`parsec_tpu_torch.comm.coll`)
+the collective sites.  ``ACTIVATE_CB_*`` and ``DATA_FLUSH_*`` have no
+firing site, in the reference either.
 The serving plane (:mod:`parsec_tpu_torch.serve`) fires the job sites.
 """
 
@@ -56,8 +56,8 @@ COMM_SEND_END = "comm_send_end"
 COMM_RECV_BEGIN = "comm_recv_begin"
 COMM_RECV_END = "comm_recv_end"
 # collective spans, one begin/end per op ({"rank","id","kind","bytes",
-# "nranks"}) and one COLL_SEG instant per landed segment: the collectives
-# fire them (ROADMAP A.8b)
+# "nranks"}) and one COLL_SEG instant per landed segment: comm/coll fires
+# them
 COLL_BEGIN = "coll_begin"
 COLL_END = "coll_end"
 COLL_SEG = "coll_seg"

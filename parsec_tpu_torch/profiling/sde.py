@@ -29,7 +29,8 @@ PENDING_TASKS = "PARSEC::SCHEDULER::PENDING_TASKS"
 # monitoring contract, so the port declares them all.  The health plane
 # (profiling.health.register_context_gauges) registers them per context;
 # the comm counters read the context's comm engine (zero without one),
-# the collective ones zero until the collectives are ported (A.8b)
+# the collective ones its collective endpoint (zero before its first
+# collective)
 READY_TASKS = "PARSEC::SCHEDULER::READY_TASKS"
 COMM_WIRE_BYTES = "PARSEC::COMM::WIRE_BYTES"
 COMM_EAGER_HIT_RATE = "PARSEC::COMM::EAGER_HIT_RATE"

@@ -19,9 +19,9 @@ off the same state):
   offline ``profiling.critpath`` report) — per-(class, rank) exec digests
   against the mesh median, **OBS010**.
 
-The collective-segment (COLL pins) and comm round-trip observers are
-subscribed; the collective sites stay unfired until the collectives are
-ported (ROADMAP A.8b).  Peer digests arrive on the watchdog's heartbeats
+The collective-segment observer (COLL pins, fired by the collectives:
+``parsec_coll_segment_seconds``) and the comm round-trip observer are
+subscribed.  Peer digests arrive on the watchdog's heartbeats
 and round-trip times on its clock re-syncs.  Exported through the
 health plane: histogram families on ``/metrics``, a ``slo`` section in
 ``/status``, and the findings in the watchdog's report.  Enable standalone

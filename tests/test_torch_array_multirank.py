@@ -14,7 +14,7 @@ the in-process fabric) against the JAX package's: the multi-rank cases of
 * a ``Replicated()`` right-hand side read locally on every rank (one
   reader class only), the result landing on its canonical owner.
 
-The cross-rank ``sum`` (the allreduce) waits for ROADMAP A.8b.
+The cross-rank ``sum`` (the allreduce) is ``tests/test_torch_redistribute.py``'s.
 """
 
 import numpy as np

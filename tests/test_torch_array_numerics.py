@@ -10,7 +10,8 @@ port's device bodies run on the CUDA module bound to the torch CPU device
 device bodies on JAX's CPU backend at the reference test's tolerances:
 1e-10 in float64, 2e-3 in float32, rtol 0.1 / atol 0.5 for bfloat16.  The
 reference's 2- and 4-rank cases are one test here, which asserts that
-the multi-rank entries that wait for ROADMAP A.8b raise naming it.
+``run_native`` of a multi-rank program, which waits for ROADMAP A.8b part
+2, raises naming it.
 """
 
 import numpy as np
@@ -251,10 +252,11 @@ def test_compute_is_idempotent_and_reusable():
 def test_multi_rank_programs_raise_naming_a8(nranks, q):
     """The reference's 2- and 4-rank programs lower (ranks are only
     arithmetic) and, since ROADMAP A.8a, run on a multi-rank context
-    (test_torch_array_multirank.py).  What stays unported raises naming
-    ROADMAP A.8b before any runtime work: ``run_native`` of a multi-rank
-    program and the cross-rank reduction; a one-rank context refuses a
-    multi-rank program."""
+    (test_torch_array_multirank.py).  ``run_native`` of a multi-rank
+    program raises naming ROADMAP A.8b part 2 before any runtime work; a
+    one-rank context refuses a multi-rank program, its reduction
+    included (the cross-rank ``sum`` is
+    ``tests/test_torch_redistribute.py``'s)."""
     rng = np.random.default_rng(29)
     n, nb = 32, 8
     G, _ = _spd(n, rng)
@@ -268,11 +270,11 @@ def test_multi_rank_programs_raise_naming_a8(nranks, q):
     assert prog.nranks == nranks and prog.verify() == []
     built = pa.counters()["taskpools_built"]
     with _port_ctx(False) as ctx:
-        for call in (prog.run_native, lambda: A.sum(ctx)):
-            with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-                call()
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8b part 2"):
+            prog.run_native()
         for call in (lambda: prog.run(ctx),
-                     lambda: x.compute(ctx, use_cuda=False)):
+                     lambda: x.compute(ctx, use_cuda=False),
+                     lambda: A.sum(ctx, use_cuda=False)):
             with pytest.raises(ValueError, match=f"over {nranks} ranks"):
                 call()
         assert ctx._active_taskpools == 0

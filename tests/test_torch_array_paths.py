@@ -11,7 +11,8 @@ same case.
   program digest and cache key — on the card, the program-cache hit;
 * redistribute (``tests/array/test_redistribute.py:15-37``): the
   single-rank lazy copy, its composition into one pool, and the
-  geometry change raising naming ROADMAP A.8b;
+  geometry change through ``datadist.redistribute`` (the rest of that
+  file is ``tests/test_torch_redistribute.py``'s);
 * serving and observability (``test_serve.py``,
   ``test_array_observability.py``): a tenant job, two tenants
   co-resident, the ``PARSEC::ARRAY::*`` SDE gauges, ``/metrics`` and
@@ -273,17 +274,25 @@ def test_lazy_redistribute_composes_into_one_taskpool():
 
 
 def test_geometry_change_waits_for_the_distributed_layer():
+    """A geometry change runs through ``datadist.redistribute`` (the
+    shared resolver picks ``dtd`` on one rank): it needs ``context=``,
+    computes the source once and returns a computed leaf equal to the
+    source, bit for bit, as the reference's does."""
     rng = np.random.default_rng(11)
-    A = pa.from_numpy(rng.standard_normal((24, 24)), 8)
-    built = pa.counters()["taskpools_built"]
-    with _ctx(False) as ctx:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            A.redistribute(pa.BlockCyclic(1, 1), mb=6, nb=6, context=ctx)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    G = rng.standard_normal((24, 24))
+    A = pa.from_numpy(G, 8)
+    with pytest.raises(ValueError, match="needs context"):
         A.redistribute(pa.BlockCyclic(1, 1), mb=6, nb=6)
     with pytest.raises(ValueError, match="positive"):
         A.redistribute(pa.BlockCyclic(1, 1), mb=0)
-    assert pa.counters()["taskpools_built"] == built
+    with _ctx(False) as ctx:
+        R = A.redistribute(pa.BlockCyclic(1, 1), mb=6, nb=6, context=ctx)
+    assert R.computed and (R.mb, R.nb) == (6, 6)
+    assert np.array_equal(R.to_numpy(), G)
+    ref = ref_pa.from_numpy(G, 8)
+    with parsec_tpu.Context(nb_cores=2) as rctx:
+        RR = ref.redistribute(ref_pa.BlockCyclic(1, 1), mb=6, nb=6, context=rctx)
+    assert np.array_equal(R.to_numpy(), RR.to_numpy())
 
 
 # ---------------------------------------------------------------------------

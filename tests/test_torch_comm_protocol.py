@@ -12,8 +12,9 @@ The port's own cases: a bfloat16 torch CPU tile and an F-order tile
 through the rendezvous path (numpy has no bfloat16: the header names the
 torch dtype and the bits travel raw), torch-tensor framing, the
 in-process wire's copies (a receiver's in-place write never reaches the
-sender's tile) and the A.8b names that raise.  The TCP parity case waits
-for the TCP backend (ROADMAP A.8b).
+sender's tile), the collectives' names and the A.8b part 2 names that
+raise.  The TCP parity case waits for the TCP backend (ROADMAP A.8b part
+2).
 """
 
 import threading
@@ -441,7 +442,7 @@ def test_wire_copy_of_numpy_payloads(P):
 
 
 # ---------------------------------------------------------------------------
-# MCA validation, names waiting for A.8b
+# MCA validation, names waiting for A.8b part 2
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,bad", [
@@ -462,11 +463,20 @@ def test_protocol_params_validated_at_construction(P, name, bad):
                                   "CollError", "TCPComm",
                                   "endpoint_from_env", "launch"])
 def test_port_a8b_names_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-        getattr(port_comm, name)
+    """The collectives' names (ROADMAP A.8b part 1) are the reference's
+    classes' names; the TCP backend and the launcher (part 2) still raise
+    naming it.  A one-rank endpoint's allreduce completes at once."""
+    from parsec_tpu import comm as ref_comm
+
+    if name in ("CollManager", "CollOp", "RedistOp", "CollError"):
+        assert getattr(port_comm, name).__name__ == getattr(ref_comm, name).__name__
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8b part 2"):
+            getattr(port_comm, name)
     ce = port_comm.InprocFabric(1).endpoints()[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-        ce.coll_allreduce(np.zeros(1))
+    h = ce.coll_allreduce(np.arange(3.0))
+    assert h.done and h.wait(timeout=5)
+    np.testing.assert_array_equal(h.result(), np.arange(3.0))
 
 
 @BOTH

@@ -188,7 +188,10 @@ def test_reduce_rows_upper_storage_skips_empty():
 
 @pytest.mark.parametrize("op", ["apply", "map", "reduce", "rows", "cols"])
 def test_multirank_matrix_raises_naming_a8(op):
-    """A matrix spread over two ranks needs the distributed layer."""
+    """A matrix spread over two ranks needs a context of two ranks (the
+    reference's ``_check_context_ranks``): on a one-rank context every
+    operation refuses it before inserting a task; the multi-rank runs are
+    ``tests/test_torch_redistribute.py``'s."""
     A = dd.TwoDimBlockCyclic(8, 8, 4, 4, p=2, q=1, myrank=0, name="A")
     with PORT["Context"]() as ctx:
         call = {"apply": lambda: dd.apply_taskpool(ctx, A, lambda t, i, j: t),
@@ -196,8 +199,9 @@ def test_multirank_matrix_raises_naming_a8(op):
                 "reduce": lambda: dd.reduce_taskpool(ctx, A, np.sum, max),
                 "rows": lambda: dd.reduce_rows(ctx, A, max),
                 "cols": lambda: dd.reduce_cols(ctx, A, max)}[op]
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        with pytest.raises(ValueError, match="distributed over 2 ranks"):
             call()
+        assert ctx._active_taskpools == 0
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ rebound device executor.  A fifth lowers and runs array programs
 (``parsec_tpu_torch.array``), a sixth the comm layer, and a seventh the
 cross-rank readers (a traced, watched 4-rank dpotrf through
 ``run_multirank_perf``, the distributed segmented Cholesky, the engine's
-no-op run).  ``chip_smoke.py`` alone in a directory, or
+no-op run), an eighth the collectives, ``CollectiveTask``, redistribution,
+the array's cross-rank ``sum`` and the reshape engine.  ``chip_smoke.py`` alone in a directory, or
 on a machine without a GPU, exits non-zero and prints no result."""
 
 import os
@@ -443,6 +444,82 @@ def test_cross_rank_readers_load_neither_jax_nor_the_jax_package(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "READERS LOADED []" in proc.stdout
+
+
+COLL_SCRIPT = textwrap.dedent("""
+    import importlib, sys, threading
+    import numpy as np
+    import torch
+    import parsec_tpu_torch
+    from parsec_tpu_torch import array as pa
+    from parsec_tpu_torch import comm
+    from parsec_tpu_torch.data.reshape import ReshapeSpec, get_copy_reshape, materialize
+    from parsec_tpu_torch.data import data_create
+    from parsec_tpu_torch.datadist import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl import CollectiveTask
+    from parsec_tpu_torch.dsl.dtd import AFFINITY, INOUT, DTDTaskpool
+    from parsec_tpu_torch.profiling import health
+
+    rd = importlib.import_module("parsec_tpu_torch.datadist.redistribute")
+    ces = comm.InprocFabric(2).endpoints()
+    ctxs = [parsec_tpu_torch.Context(nb_cores=2, rank=r, nranks=2, comm=ces[r],
+                                     cuda_device="cpu") for r in range(2)]
+    G = np.arange(24 * 24, dtype=np.float64).reshape(24, 24)
+    out = {}
+
+    def run(r):
+        ctx, ce = ctxs[r], ces[r]
+        for algo in ("ring", "rd", "gather"):
+            h = ce.coll_allreduce(torch.arange(64.0) + r, algo=algo)
+            assert h.wait(timeout=60)
+            out[(r, algo)] = h.result()
+        h = ce.coll_bcast(np.arange(8.0) if r == 0 else np.zeros(8), root=0)
+        assert h.wait(timeout=60)
+        X = TwoDimBlockCyclic(8, 16, 8, 8, p=1, q=2, myrank=r,
+                              name="X").from_array(np.ones((8, 16)))
+        t = DTDTaskpool(ctx, name="ctask")
+        CollectiveTask.allreduce(t, lambda rank: X.data_of(0, rank))
+        assert t.wait(timeout=60)
+        out[(r, "ctask")] = np.array(X.data_of(0, r).newest_copy().payload)
+        S = TwoDimBlockCyclic(24, 24, 8, 8, p=2, q=1, myrank=r, name="S").from_array(G)
+        T = TwoDimBlockCyclic(24, 24, 6, 12, p=1, q=2, myrank=r, name="T2")
+        tp = rd.redistribute(ctx, S, T, algo="coll", mem_budget=4096)
+        assert tp.wait(timeout=60)
+        A = pa.from_numpy(G, 8, dist=pa.BlockCyclic(2, 1), myrank=r, name="A")
+        out[(r, "sum")] = A.sum(ctx)
+
+    ts = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    [t.start() for t in ts]
+    [t.join(120) for t in ts]
+    assert not any(t.is_alive() for t in ts)
+    assert out[(0, "sum")] == out[(1, "sum")] == G.sum()
+    assert all(np.array_equal(out[(r, "ctask")], np.full((8, 8), 2.0)) for r in range(2))
+    assert all(torch.equal(out[(r, a)], torch.arange(64.0) * 2 + 1)
+               for r in range(2) for a in ("ring", "rd", "gather"))
+    assert health._coll_summary(ctxs[0])["ops_done"] >= 4
+    assert "parsec_coll_ops_done_total" in health.prometheus_text(ctxs[0])
+    r = materialize(get_copy_reshape(data_create("x", payload=np.arange(4.0)),
+                                     ReshapeSpec(dtype="bfloat16")))
+    assert r.newest_copy().payload.dtype == torch.bfloat16
+    for c in ctxs:
+        c.fini()
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "parsec_tpu"))
+    print("COLL LOADED", bad)
+""")
+
+
+def test_collectives_and_redistribution_load_neither_jax_nor_the_jax_package(tmp_path):
+    """The collectives at 2 ranks (ring, rd and gather allreduces of torch
+    tensors, a bcast, a ``CollectiveTask`` in a DTD graph), a collective
+    redistribution, the array's cross-rank ``sum``, the health plane's
+    collective families and a bfloat16 reshape load neither JAX nor the
+    JAX package."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", COLL_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "COLL LOADED []" in proc.stdout
 
 
 def test_chip_smoke_fails_without_the_repo_and_without_a_gpu(tmp_path):

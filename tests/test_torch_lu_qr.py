@@ -382,19 +382,23 @@ def test_new_tile_property_block_on_every_runtime(cpu_device):
 
 def test_reshape_of_incoming_data_still_raises_a8():
     """A property block on a dep that brings data in (not NEW) is a
-    reshape request: not ported yet (ROADMAP A.8)."""
+    reshape request, ported since ROADMAP A.8b part 1: the body reads the
+    converted tile and the home tile keeps its dtype."""
     from parsec_tpu_torch.data import LocalCollection
 
-    D = LocalCollection("D", shape=(2, 2))
+    D = LocalCollection("D", shape=(2, 2), init=lambda k: np.full((2, 2), 1.0 / 3))
     ptg = PTG("reshape")
     tc = ptg.task_class("t", i="0 .. 0")
     tc.flow("X", AccessMode.IN, "<- D(i) [dtype=float32]")
-    tc.body(cpu=lambda X, **_: None)
+    seen = []
+    tc.body(cpu=lambda X, **_: seen.append(np.array(X)))
     tp = ptg.taskpool(D=D)
     with parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"]) as ctx:
         ctx.add_taskpool(tp)
-        assert not tp.wait(timeout=30)
-    assert "A.8" in str(tp.fail_reason)
+        assert tp.wait(timeout=30), tp.fail_reason
+    assert len(seen) == 1 and seen[0].dtype == np.float32
+    np.testing.assert_array_equal(seen[0], np.full((2, 2), 1.0 / 3, np.float32))
+    assert D.data_of(0).newest_copy().payload.dtype == np.float64
 
 
 # -- the untransposed B1/B2 launch counters ------------------------------------

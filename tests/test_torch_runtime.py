@@ -189,17 +189,21 @@ def test_unported_features_raise(feature, monkeypatch):
     s = ptg.task_class("s", k="0 .. 1")
     dep = "<- D(0) [type=F32]" if feature == "reshape" else "<- D(0)"
     s.flow("X", AccessMode.IN, dep)
-    s.body(cpu=lambda X, k: None)
+    seen = []
+    s.body(cpu=lambda X, k: seen.append(X.dtype))
     if feature == "verify":
         # ported since A.9b's first half: the linter answers instead
         assert ptg.verify() == []
         assert ptg.verify({"D": LocalCollection("D", shape=(2,))}) == []
         return
-    tp = ptg.taskpool(D=LocalCollection("D", shape=(2,)), F32=np.float32)
+    # ported since A.8b part 1: the dep's [type=F32] converts the tile
+    D = LocalCollection("D", shape=(2,))
+    tp = ptg.taskpool(D=D, F32=np.float32)
     with parsec_tpu_torch.Context(nb_cores=1, devices=["cpu"]) as ctx:
         ctx.add_taskpool(tp)
-        assert tp.wait(timeout=30) is False  # the raising prepare_input fails it
-    assert "reshape" in tp.fail_reason and "A.8" in tp.fail_reason
+        assert tp.wait(timeout=30), tp.fail_reason
+    assert seen == [np.float32, np.float32]
+    assert D.data_of(0).newest_copy().payload.dtype == np.float64
 
 
 # ml_dtypes: the card's machine lacks it (bfloat16 host tiles are torch
