@@ -324,6 +324,24 @@ span, one ``coll_seg`` instant a landed segment, each rank) and one rank
 3 withholds (ranks 0-2 time out within their bound, OBS007 names it; rank
 3 joins late, every rank holds the sum, a fresh allreduce follows).
 
+The TCP backend and the launcher (``tcp`` phase, after ``coll``;
+``tcp_phase``): the script runs itself as 4 rank processes
+(``parsec_tpu_torch.comm.launch``, ``chip_smoke.py --tcp-rank``, one
+launch), each a ``Context`` over its ``TCPComm`` with its CUDA module on
+``cuda:0`` under a 4096 MB zone budget; the parent hands them S and the
+one-rank factors through ``chip_scratch/tcp/``.  (a) dpotrf ``kernels``
+and ``kernels_trtri`` on a 2x2 grid, every local tile ``torch.equal`` to
+the one-rank factor, B1/B2 launches summed over the ranks equal to one
+rank's mode by mode (they join the ``kernels`` line), activations equal to
+the in-process 4-rank run's, ``bytes_d2d`` 0 and ``bytes_in`` each rank's
+own tiles plus the bytes it pulled (a tile leaves by one D2H and arrives
+by one H2D); (b) a ring ``sum`` allreduce of a 64 MiB CUDA tensor, the
+result a tensor on the card bit-identical on every rank and to the same
+contributions' host run; (c) ``NativeDistExecutor`` on host bodies at
+N=4096, then ``rebind``, each ``torch.equal`` to the parent's one-rank
+host run.  The 4-process dpotrf wall is printed beside the in-process
+4-rank wall of the ``multirank`` phase.
+
 Every run of the CUDA device module must end with no synchronous
 write-back fallback (``wb_sync_fallbacks == 0``) and no wave that fell
 back to per-task dispatch (``wave_fallbacks == 0``).  Kernel launches
@@ -1588,9 +1606,8 @@ SERVE_K, SERVE_DEC_Q, SERVE_INFLIGHT, SERVE_GAP_S = 16, 8, 8, 0.002
 SERVE_WEIGHTS = {"decode": 4, "prefill": 1, "factor": 1}
 SERVE_NATIVE_DECODES = 4
 # the four switches off and on for the observability cost, in turns after
-# the live turn, which is the first run with them on: (on, off, off, on,
-# on, off)
-SERVE_OBS = (False, False, True, True, False)
+# the live turn, which is the first run with them on: (on, off, on, off)
+SERVE_OBS = (False, True, False)
 SERVE_SWITCHES = ("PARSEC_TPU_FLIGHT", "PARSEC_TPU_HEALTH", "PARSEC_TPU_WATCHDOG",
                   "PARSEC_TPU_SLO")
 # the flight ring a thread during the phase: holds a whole served turn
@@ -3037,8 +3054,7 @@ def multirank_phase(h):
 
     t_phase = time.perf_counter()
     nt = N // NB
-    tile_bytes = NB * NB * 4
-    h.mr_walls = {}
+    h.mr_walls, h.mr_acts = {}, {}
     S64 = torch.from_numpy(h.S).to(dev).double()
     s_max = S64.abs().max().item()
 
@@ -3057,17 +3073,6 @@ def multirank_phase(h):
             for (i, j) in A.local_tiles():
                 out[i * NB:(i + 1) * NB, j * NB:(j + 1) * NB] = np.asarray(
                     A.data_of(i, j).newest_copy().payload)
-        return out
-
-    def host_bytes(A, r, tp=None):
-        """The bytes rank r stages from its own host memory: its lower home
-        tiles, and with the PTG's trtri the NEW tiles of its trtri tasks."""
-        out = tile_bytes * sum(1 for i in range(nt) for j in range(i + 1)
-                               if A.rank_of(i, j) == r)
-        if tp is not None and "trtri" in tp.ptg.classes:
-            shape, dtype = tp.new_tile_spec("trtri", "I")
-            out += (sum(1 for k in range(nt - 1) if A.rank_of(k, k) == r)
-                    * int(np.prod(shape)) * np.dtype(dtype).itemsize)
         return out
 
     def b1b2():
@@ -3190,7 +3195,7 @@ def multirank_phase(h):
         check(counts == expected_counts(trtri),
               f"multirank {label}: launches {counts}, expected {expected_counts(trtri)}")
         for r in range(nranks):
-            own = host_bytes(mats[r], r, pools[r] if mode == "ptg" else None)
+            own = dpotrf_home_bytes(mats[r], r, pools[r] if mode == "ptg" else None)
             check(fields["bytes_in"][r] == own,
                   f"multirank {label} rank {r}: bytes_in {fields['bytes_in'][r]}, "
                   f"expected its own tiles' {own}: a cross-rank tile came through "
@@ -3209,6 +3214,8 @@ def multirank_phase(h):
                    for r in range(nranks)] if mode == "ptg" else None
         h.launches[f"multirank_{label}"] = counts
         h.mr_walls[label] = wall
+        h.mr_acts[label] = sum(fields["activations_sent"] if mode == "ptg"
+                               else fields["dtd_sent"])
         one_rank = h.mr_wall["kernels_trtri" if trtri else "kernels"]
         say("multirank", run=label, mode=mode, nranks=nranks, grid=list(MR_GRIDS[nranks]),
             N=N, nb=NB, variant="kernels_trtri" if trtri else "kernels",
@@ -4027,6 +4034,361 @@ def coll_phase(h):
     gc.collect()
     torch.cuda.empty_cache()
     say("coll_phase", seconds=time.perf_counter() - t_phase, card=card)
+
+# -- the TCP backend: 4 rank processes on the one card ------------------------
+
+TCP_NRANKS = 4
+TCP_GRID = (2, 2)
+#: the native-dist dpotrf's order (host bodies): the leading block of S
+TCP_ND_N = 4096
+TCP_ND_THREADS = 2
+#: each rank process's zone budget (the automatic one takes 85% of the
+#: free card, which four processes on one card cannot each take)
+TCP_BUDGET_MB = 4096
+TCP_TIMEOUT_S = 400.0
+TCP_VARIANTS = (("kernels", dict(use_kernels=True)),
+                ("kernels_trtri", dict(use_kernels=True, use_trtri=True)))
+
+
+def tcp_scratch() -> str:
+    """The directory the TCP phase hands its data to the rank processes
+    through (gitignored; removed after the phase)."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_scratch", "tcp")
+
+
+def dpotrf_home_bytes(A, r, tp=None) -> int:
+    """The bytes rank r's CUDA module stages from its own host memory in a
+    dpotrf over the f32 matrix ``A``: its lower home tiles and, with the
+    PTG's trtri (``tp``), the NEW tiles of its trtri tasks."""
+    import numpy as np
+
+    nt = A.mt
+    tile = A.mb * A.nb * np.dtype(np.float32).itemsize
+    out = tile * sum(1 for i in range(nt) for j in range(i + 1) if A.rank_of(i, j) == r)
+    if tp is not None and "trtri" in tp.ptg.classes:
+        shape, dtype = tp.new_tile_spec("trtri", "I")
+        out += (sum(1 for k in range(nt - 1) if A.rank_of(k, k) == r)
+                * int(np.prod(shape)) * np.dtype(dtype).itemsize)
+    return out
+
+
+def tcp_rank_main() -> int:
+    """One rank of the TCP phase (``chip_smoke.py --tcp-rank`` under
+    ``parsec_tpu_torch.comm.launch``): its ``TCPComm`` from the launcher's
+    environment, one ``Context(rank=, nranks=4, comm=ce)`` with its CUDA
+    module on ``cuda:0``.  (a) the dpotrf ``kernels`` and
+    ``kernels_trtri`` at N=8192 nb=512 on a 2x2 grid, every local tile
+    ``torch.equal`` to the one-rank factor, ``bytes_d2d`` 0 and
+    ``bytes_in`` its own home tiles plus the bytes it pulled; (b) a ring
+    ``sum`` allreduce of a 64 MiB f32 CUDA tensor, the result a tensor on
+    the card equal to the same contributions' run over host tensors and
+    within 1e-5 of float64; (c) ``NativeDistExecutor`` on host bodies at
+    N=4096, then ``rebind`` and again, each local tile equal to the
+    one-rank host factor.  Any failed check raises (a non-zero exit); on
+    success the rank prints one JSON line."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from parsec_tpu_torch import Context, native
+    from parsec_tpu_torch.comm import endpoint_from_env
+    from parsec_tpu_torch.datadist import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl.native_dist import NativeDistExecutor
+    from parsec_tpu_torch.ops import cholesky_ptg, kernels
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scratch = os.environ["PARSEC_CHIP_TCP_DIR"]
+    ce = endpoint_from_env()
+    r, nr = ce.rank, ce.nranks
+    kernels.build()
+    native.load()
+    S = np.load(os.path.join(scratch, "S.npy"), mmap_mode="r")
+    ctx = Context(nb_cores=MR_CORES, rank=r, nranks=nr, comm=ce)
+    cuda = next(d for d in ctx.devices if d.mca_name == "cuda")
+    dev = cuda.tdev
+    check(dev.type == "cuda" and dev.index in (None, 0),
+          f"tcp rank {r}: CUDA module bound to {dev}")
+    # warm the solver libraries at tile size, as main does before its
+    # dpotrf runs (handle creation is set-up, not dpotrf time)
+    tile = torch.from_numpy(np.ascontiguousarray(S[:NB, :NB])).to(dev)
+    torch.linalg.cholesky_ex(tile)
+    torch.linalg.solve_triangular(tile, tile, upper=False)
+    torch.cuda.synchronize()
+    del tile
+    out = {"rank": r, "device": str(dev), "mem_budget": int(cuda.mem_budget),
+           "startup_s": time.perf_counter() - t_start}
+    rd = ce.remote_dep
+
+    def host(payload):
+        if isinstance(payload, torch.Tensor):
+            return payload.detach().cpu()
+        return torch.from_numpy(np.ascontiguousarray(payload))
+
+    def equal_tiles(A, want, label):
+        for (i, j) in A.local_tiles():
+            got = host(A.data_of(i, j).newest_copy().payload)
+            sl = np.s_[i * A.mb:(i + 1) * A.mb, j * A.nb:(j + 1) * A.nb]
+            check(torch.equal(got, torch.from_numpy(np.ascontiguousarray(want[sl]))),
+                  f"tcp rank {r} {label}: tile ({i}, {j}) differs from the one-rank factor")
+
+    def delta(after, before, keys):
+        return {k: int(after.get(k, 0) - before.get(k, 0)) for k in keys}
+
+    try:
+        # -- (a) the dpotrf on the card over TCP ------------------------------
+        runs = {}
+        for name, kw in TCP_VARIANTS:
+            p, q = TCP_GRID
+            A = TwoDimBlockCyclic(N, N, NB, NB, p=p, q=q, myrank=r, name="A",
+                                  dtype=np.float32).from_array(S)
+            b_rd, b_ce, b_dev = dict(rd.stats), dict(ce.stats), dict(cuda.stats)
+            kernels.reset_counts()
+            ce.barrier()  # a common start: the ranks' walls compare
+            t0 = time.perf_counter()
+            tp = cholesky_ptg(use_cuda=True, use_cpu=False, **kw).taskpool(NT=A.mt, A=A)
+            tp.name = f"dpotrf_tcp_{name}"
+            ctx.add_taskpool(tp)
+            ok = tp.wait(timeout=600)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            synced = time.perf_counter() - t0
+            check(ok, f"tcp rank {r} {name}: the pool failed ({tp.fail_reason})")
+            counts = {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+                      for fn in (kernels.matmul_update, kernels.matmul)}
+            wire = delta(rd.stats, b_rd, ("activations_sent", "activations_recv",
+                                          "rdv_pulls", "rdv_bytes", "eager_sent",
+                                          "eager_recv", "parked"))
+            frames = delta(ce.stats, b_ce, ("frames_sent", "am_bytes", "get_bytes"))
+            moved = delta(cuda.stats, b_dev, ("bytes_in", "bytes_out", "bytes_d2d",
+                                              "executed_tasks"))
+            own = dpotrf_home_bytes(A, r, tp)
+            check(moved["bytes_d2d"] == 0,
+                  f"tcp rank {r} {name}: bytes_d2d {moved['bytes_d2d']} on a serializing wire")
+            check(moved["bytes_in"] == own + wire["rdv_bytes"],
+                  f"tcp rank {r} {name}: bytes_in {moved['bytes_in']}, expected its own "
+                  f"tiles' {own} + the {wire['rdv_bytes']} bytes it pulled")
+            equal_tiles(A, np.load(os.path.join(scratch, f"{name}.npy"), mmap_mode="r"), name)
+            tasks = moved["executed_tasks"]
+            runs[name] = dict(wall_s=wall, synced_wall_s=synced, tasks=tasks,
+                              host_ms_per_task=1e3 * wall / max(1, tasks), launches=counts,
+                              own_home_bytes=own, **wire, **frames, **moved, equal=True)
+            del A, tp
+            gc.collect()
+        out["dpotrf"] = runs
+
+        # -- (b) a ring allreduce of a 64 MiB CUDA tensor ----------------------
+        gen = torch.Generator(device=dev)
+        contribs = []
+        for k in range(nr):
+            gen.manual_seed(COLL_SEED + k)
+            contribs.append(torch.randn(COLL_SHAPE, generator=gen, device=dev))
+        x = contribs[r]
+        nbytes = x.numel() * x.element_size()
+        b_coll, b_ce = dict(ce.coll.stats), dict(ce.stats)
+        ce.barrier()
+        t0 = time.perf_counter()
+        hd = ce.coll_allreduce(x, op="sum", algo="ring", cid=("tcp_allreduce", 0))
+        check(hd.wait(timeout=300), f"tcp rank {r} allreduce: timed out")
+        res = hd.result()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(isinstance(res, torch.Tensor) and res.device == x.device,
+              f"tcp rank {r} allreduce: the result is not a tensor on {x.device}")
+        coll = delta(ce.coll.stats, b_coll, ("jit_reduces", "bytes_d2h", "bytes_h2d",
+                                             "bytes_landed", "seg_done"))
+        frames = delta(ce.stats, b_ce, ("frames_sent", "am_bytes", "get_bytes"))
+        ce.barrier()
+        t0 = time.perf_counter()
+        hh = ce.coll_allreduce(x.cpu(), op="sum", algo="ring", cid=("tcp_allreduce", 1))
+        check(hh.wait(timeout=300), f"tcp rank {r} host allreduce: timed out")
+        host_wall = time.perf_counter() - t0
+        res_h = res.cpu()
+        check(torch.equal(res_h, hh.result()),
+              f"tcp rank {r} allreduce: differs from the same contributions' host run")
+        wide = sum(c.double() for c in contribs)
+        rel = ((res.double() - wide).abs().max() / wide.abs().max()).item()
+        check(rel <= 1e-5, f"tcp rank {r} allreduce: {rel} from the float64 sum")
+        out["allreduce"] = dict(
+            nbytes=nbytes, wall_s=wall, host_run_wall_s=host_wall,
+            busbw_GBps=2 * (nr - 1) / nr * nbytes / wall / 1e9, rel_err_vs_f64=rel,
+            digest=hashlib.sha256(res_h.numpy().tobytes()).hexdigest(),
+            equal_host_run=True, result_device=str(res.device), **coll, **frames)
+        del contribs, x, res, res_h, wide, hd, hh
+        gc.collect()
+
+        # -- (c) NativeDistExecutor on host bodies, then rebind ----------------
+        Snd = np.ascontiguousarray(S[:TCP_ND_N, :TCP_ND_N])
+        want = np.load(os.path.join(scratch, "native_dist.npy"))
+
+        def nd_pool():
+            A = TwoDimBlockCyclic(TCP_ND_N, TCP_ND_N, NB, NB, p=TCP_GRID[0], q=TCP_GRID[1],
+                                  myrank=r, name="A", dtype=np.float32).from_array(Snd)
+            tp = cholesky_ptg(use_cuda=False, use_cpu=True).taskpool(NT=A.mt, A=A)
+            tp.name = "dpotrf_tcp_native_dist"
+            return A, tp
+
+        nd = []
+        ex = None
+        for rnd in range(2):
+            A, tp = nd_pool()
+            b_rd = dict(rd.stats)
+            ce.barrier()
+            t0 = time.perf_counter()
+            ex = NativeDistExecutor(tp, ce) if ex is None else ex.rebind(tp)
+            setup = time.perf_counter() - t0
+            n_local = ex.run(nthreads=TCP_ND_THREADS)
+            wall = time.perf_counter() - t0
+            equal_tiles(A, want, f"native_dist round {rnd}")
+            nd.append(dict(round=rnd, rebind=rnd > 0, wall_s=wall, setup_s=setup,
+                           local_tasks=n_local, phantoms=ex._n_phantoms, name=ex.name,
+                           **delta(rd.stats, b_rd, ("activations_sent", "activations_recv",
+                                                    "writebacks_sent", "rdv_pulls")),
+                           equal=True))
+        ex.close()
+        out["native_dist"] = nd
+        ce.barrier()
+    finally:
+        ctx.fini()  # closes the endpoint (the FIN handshake)
+    out["rank_s"] = time.perf_counter() - t_start
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def tcp_phase(h):
+    """The TCP backend and the launcher on the card: ``chip_smoke.py``
+    runs itself as 4 rank processes (``comm.launch.launch(4, [__file__,
+    "--tcp-rank"])``, one launch for every part, so CUDA starts once a
+    process), each a full ``Context`` over its ``TCPComm`` with its CUDA
+    module on ``cuda:0`` under a ``TCP_BUDGET_MB`` zone budget
+    (``PARSEC_MCA_device_cuda_mem_budget_mb``).  The parent hands the
+    ranks ``S`` and this call's one-rank ``kernels`` and
+    ``kernels_trtri`` factors, and the one-rank host factor of the
+    native-dist dpotrf it computes, through ``chip_scratch/tcp/`` (removed
+    after).  Each rank runs :func:`tcp_rank_main`; the parent checks every
+    rank's line: (a) the dpotrf's B1/B2 launches summed over the ranks
+    equal the one-rank run's mode by mode, its activations summed equal
+    the in-process 4-rank run's (a protocol invariant), every rank's
+    ``bytes_d2d`` is 0; (b) the allreduce's result is bit-identical on
+    every rank; (c) every native-dist round ran every task once.  One
+    ``tcp`` line a part and a ``tcp`` summary: the walls of (a)-(c), the
+    4-process dpotrf wall (the slowest rank's, from a common barrier to
+    its ``wait``) beside the in-process 4-rank wall of the ``multirank``
+    phase, the summed launches."""
+    np, torch, say, check, card = h.np, h.torch, h.say, h.check, h.card
+    from parsec_tpu_torch.comm.launch import launch
+    from parsec_tpu_torch.datadist import TiledMatrix
+    from parsec_tpu_torch.dsl.native_exec import NativeExecutor
+    from parsec_tpu_torch.ops import cholesky_ptg, dpotrf_task_count
+
+    t_phase = time.perf_counter()
+    scratch = tcp_scratch()
+    os.makedirs(scratch, exist_ok=True)
+    try:
+        np.save(os.path.join(scratch, "S.npy"), h.S)
+        for name, _kw in TCP_VARIANTS:
+            np.save(os.path.join(scratch, f"{name}.npy"), h.mr_factor[name])
+        # the one-rank host factor of the native-dist dpotrf
+        A = TiledMatrix(TCP_ND_N, TCP_ND_N, NB, NB, name="A", dtype=np.float32).from_array(
+            np.ascontiguousarray(h.S[:TCP_ND_N, :TCP_ND_N]))
+        ex = NativeExecutor(cholesky_ptg(use_cuda=False, use_cpu=True).taskpool(NT=A.mt, A=A))
+        t0 = time.perf_counter()
+        ex.run(nthreads=TCP_ND_THREADS)
+        nd_one_rank_s = time.perf_counter() - t0
+        ex.close()
+        np.save(os.path.join(scratch, "native_dist.npy"), A.to_array())
+        del A, ex
+        gc.collect()
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        try:
+            results = launch(TCP_NRANKS, [os.path.abspath(__file__), "--tcp-rank"],
+                             env={"PARSEC_MCA_device_cuda_mem_budget_mb": str(TCP_BUDGET_MB),
+                                  "PARSEC_CHIP_TCP_DIR": scratch},
+                             timeout=TCP_TIMEOUT_S)
+        except RuntimeError as e:
+            raise RuntimeError(f"check failed: tcp: {e}") from None
+        launch_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    ranks = [json.loads(res.stdout.strip().splitlines()[-1]) for res in results]
+    check([o["rank"] for o in ranks] == list(range(TCP_NRANKS)), "tcp: rank lines out of order")
+    nt = N // NB
+
+    summary_launches = {}
+    walls = {}
+    for name, kw in TCP_VARIANTS:
+        runs = [o["dpotrf"][name] for o in ranks]
+        summed = {fn: {m: sum(rr["launches"][fn][m] for rr in runs)
+                       for m in runs[0]["launches"][fn]}
+                  for fn in runs[0]["launches"]}
+        check(summed == h.launches[name],
+              f"tcp {name}: launches summed over the ranks {summed}, one rank's "
+              f"{h.launches[name]}")
+        h.launches[f"tcp_{name}"] = summed
+        summary_launches[name] = {fn: c["total"] for fn, c in summed.items()}
+        acts = sum(rr["activations_sent"] for rr in runs)
+        in_proc = h.mr_acts[f"ptg4_{name}"]
+        check(acts == in_proc, f"tcp {name}: {acts} activations, the in-process 4-rank "
+              f"run's {in_proc}")
+        check(all(rr["bytes_d2d"] == 0 for rr in runs), f"tcp {name}: bytes_d2d on the wire")
+        check(all(rr["bytes_in"] == rr["own_home_bytes"] + rr["rdv_bytes"] for rr in runs),
+              f"tcp {name}: a rank's bytes_in is not its own tiles plus its pulls")
+        tasks = [rr["tasks"] for rr in runs]
+        ntasks = dpotrf_task_count(nt, use_trtri=kw.get("use_trtri", False))
+        check(sum(tasks) == ntasks and all(n > 0 for n in tasks),
+              f"tcp {name}: device tasks by rank {tasks}, expected {ntasks} in all")
+        wall = max(rr["wall_s"] for rr in runs)
+        walls[name] = wall
+        in_proc_wall = h.mr_walls[f"ptg4_{name}"]
+        fields = {k: [rr[k] for rr in runs] for k in (
+            "wall_s", "synced_wall_s", "host_ms_per_task", "tasks", "activations_sent",
+            "activations_recv", "rdv_pulls", "rdv_bytes", "frames_sent", "am_bytes",
+            "get_bytes", "bytes_in", "bytes_out", "bytes_d2d", "own_home_bytes")}
+        say("tcp", run=f"dpotrf_{name}", nranks=TCP_NRANKS, grid=list(TCP_GRID), N=N, nb=NB,
+            processes_wall_s=wall, in_process_wall_s=in_proc_wall,
+            processes_over_in_process=wall / in_proc_wall, one_rank_wall_s=h.mr_wall[name],
+            activations=acts, in_process_activations=in_proc, launches=summed,
+            equal_one_rank=True, rank_fields=fields, card=card)
+    digests = [o["allreduce"]["digest"] for o in ranks]
+    check(len(set(digests)) == 1, f"tcp allreduce: the ranks' results differ ({digests})")
+    ar = [o["allreduce"] for o in ranks]
+    ar_wall = max(a["wall_s"] for a in ar)
+    say("tcp", run="allreduce_ring_sum", nranks=TCP_NRANKS, nbytes=ar[0]["nbytes"],
+        wall_s=ar_wall, busbw_GBps=2 * (TCP_NRANKS - 1) / TCP_NRANKS * ar[0]["nbytes"]
+        / ar_wall / 1e9, rank_busbw_GBps=[a["busbw_GBps"] for a in ar],
+        host_run_wall_s=[a["host_run_wall_s"] for a in ar],
+        rel_err_vs_f64=max(a["rel_err_vs_f64"] for a in ar), equal_across_ranks=True,
+        equal_host_run=True, result_device=ar[0]["result_device"],
+        **{k: [a[k] for a in ar] for k in ("jit_reduces", "bytes_d2h", "bytes_h2d",
+                                           "bytes_landed", "seg_done", "frames_sent",
+                                           "am_bytes", "get_bytes")}, card=card)
+    nd_walls = []
+    nd_tasks = dpotrf_task_count(TCP_ND_N // NB)
+    for rnd in range(2):
+        rows = [o["native_dist"][rnd] for o in ranks]
+        check(sum(rw["local_tasks"] for rw in rows) == nd_tasks,
+              f"tcp native_dist round {rnd}: local tasks {[rw['local_tasks'] for rw in rows]}, "
+              f"expected {nd_tasks} in all")
+        nd_walls.append(max(rw["wall_s"] for rw in rows))
+        say("tcp", run="native_dist", path="host bodies", round=rnd, rebind=rnd > 0,
+            N=TCP_ND_N, nb=NB, processes_wall_s=nd_walls[-1],
+            one_rank_host_wall_s=nd_one_rank_s, equal_one_rank_host=True,
+            rank_wall_s=[rw["wall_s"] for rw in rows],
+            **{k: [rw[k] for rw in rows] for k in ("setup_s", "local_tasks", "phantoms",
+                                                   "activations_sent", "writebacks_sent",
+                                                   "name")}, card=card)
+    say("tcp", run="summary", nranks=TCP_NRANKS, setup_s=setup_s, launch_s=launch_s,
+        rank_startup_s=[o["startup_s"] for o in ranks],
+        rank_s=[o["rank_s"] for o in ranks],
+        dpotrf_processes_wall_s=walls,
+        dpotrf_in_process_wall_s={n: h.mr_walls[f"ptg4_{n}"] for n, _ in TCP_VARIANTS},
+        allreduce_wall_s=ar_wall, native_dist_wall_s=nd_walls, launches=summary_launches,
+        seconds=time.perf_counter() - t_phase, card=card)
+
 
 TUNE_BLOCKS = (256, 512)
 TUNE_NB = (256, 512, 1024)
@@ -5471,10 +5833,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the cross-rank core: 2 and 4 ranks on the one card ------------------
-    multirank_phase(types.SimpleNamespace(
+    mr = types.SimpleNamespace(
         np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
         launches=launches, mr_factor=mr_factor, mr_wall=dyn_wall, arr_out=arr_out,
-        pump_ms_per_task=pump_ms_per_task))
+        pump_ms_per_task=pump_ms_per_task)
+    multirank_phase(mr)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5482,7 +5845,14 @@ def main() -> int:
     coll_phase(types.SimpleNamespace(
         np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
         launches=launches, mr_factor=mr_factor))
-    del mr_factor, arr_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the TCP backend: 4 rank processes over loopback on the one card -----
+    tcp_phase(types.SimpleNamespace(
+        np=np, torch=torch, card=card, say=say, check=check, S=S, launches=launches,
+        mr_factor=mr_factor, mr_wall=dyn_wall, mr_walls=mr.mr_walls, mr_acts=mr.mr_acts))
+    del mr_factor, arr_out, mr
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6467,4 +6837,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tcp_rank_main() if "--tcp-rank" in sys.argv[1:] else main())

@@ -28,9 +28,9 @@ The taskpool runs on the dynamic path, through the native pump
 A multi-rank grid runs SPMD: every rank builds the same program over its
 own ``myrank`` and computes it on its rank of a multi-rank context; its
 ``sum``/``norm`` allreduce across ranks, and a geometry-changing
-``redistribute`` runs through ``datadist.redistribute``.  Its native
-execution waits for ROADMAP A.8b part 2 and raises
-``NotImplementedError`` naming it.
+``redistribute`` runs through ``datadist.redistribute``.  Its
+``run_native`` raises ``ValueError``: the native engine executes
+single-rank programs.
 """
 
 from .dist import Block1D, BlockCyclic, Distribution, Replicated

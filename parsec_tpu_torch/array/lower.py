@@ -54,8 +54,9 @@ eviction or detach writes it home).
 
 A p x q grid lowers (its readers included), verifies, and runs SPMD
 (``taskpool(ctx)``/``run(ctx)`` on each rank of a multi-rank context);
-``run_native`` of a multi-rank program raises ``NotImplementedError``
-naming ROADMAP A.8b part 2 (the distributed native executor).
+``run_native`` executes single-rank programs: a multi-rank program's
+raises ``ValueError``, as the reference's does (the distributed native
+executor, :mod:`..dsl.native_dist`, runs a PTG, not an array program).
 """
 
 from __future__ import annotations
@@ -779,12 +780,10 @@ class ArrayProgram:
                    device=None):
         """Execute on the native engine: CPU bodies by default,
         ``native_device=True`` every task through the CUDA device module
-        driven by the native pump (:meth:`PTGTaskpool.run_native`)."""
+        driven by the native pump (:meth:`PTGTaskpool.run_native`).
+        Single-rank programs only: a multi-rank grid raises ``ValueError``."""
         if self.nranks != 1:
-            raise NotImplementedError(
-                f"run_native() of array program {self.ptg.name!r}: its grid "
-                f"spans {self.nranks} ranks, and the distributed native "
-                "executor (native_dist) is not ported yet (ROADMAP A.8b part 2)")
+            raise ValueError("run_native executes single-rank programs")
         tp = self.taskpool()
         tp.run_native(nthreads=nthreads, native_device=native_device,
                       device=device)

@@ -10,7 +10,8 @@ funnelled, single comm thread); here the backends are:
 * ``inproc``  — N ranks inside one process (threads + queues), the test
   fabric and the one-card multi-rank path (the reference tests
   "multi-node" as multi-process on one node — same idea one level down);
-* the TCP backend is not ported yet (ROADMAP A.8b part 2).
+* ``tcp``     — one rank a process over TCP sockets, a funnelled comm
+  thread owning them (:mod:`.tcp`; :mod:`.launch` starts the ranks).
 
 Every engine carries the runtime collectives (:mod:`.coll`, ``ce.coll``
 and the ``coll_*`` conveniences).

@@ -30,10 +30,12 @@ kernel libraries in ``parsec_tpu_torch/_build/`` (``tools cache``).
   out-of-memory relief drops the programs no live user holds
   (:meth:`ProgramCache.clear_memory`).
 
-Not ported: the disk store of programs (nothing serializes) and the
-cross-rank broadcast of serialized programs (ROADMAP A.8b part 2):
-``ProgramCache(nranks>1)`` raises, and each rank of a multi-rank context
-keeps a rank-local cache.
+Not ported: the disk store of programs and the cross-rank broadcast of
+serialized programs — a captured CUDA graph does not serialize.  A
+multi-rank cache (``ProgramCache(rank=, nranks=, ce=)``, what
+:func:`for_context` builds for a rank of a multi-rank context) keeps every
+program rank-local (``stats["local_only"]``): an N-rank mesh captures a
+program N times, where the reference compiles it once and ships it.
 """
 
 from __future__ import annotations
@@ -270,16 +272,17 @@ class ProgramCache:
     stores a program its caller built (``stats["captures"]``, and
     ``stats["local_only"]``: every program stays in this process, a CUDA
     graph does not serialize).  Beyond ``mem_entries`` programs the least
-    recently used goes; a user holding it keeps it working."""
+    recently used goes; a user holding it keeps it working.
 
-    def __init__(self, *, rank: int = 0, nranks: int = 1,
+    ``rank``/``nranks``/``ce`` place the cache on a rank of a mesh (``ce``
+    its comm engine).  Nothing crosses that engine: every program stays
+    rank-local, so each rank captures its own."""
+
+    def __init__(self, *, rank: int = 0, nranks: int = 1, ce=None,
                  mem_entries: Optional[int] = None):
-        if nranks > 1:
-            raise NotImplementedError(
-                "a multi-rank program cache shares programs over the comm "
-                "engine, which is not ported yet (ROADMAP A.8b part 2)")
         self.rank = rank
         self.nranks = nranks
+        self.ce = ce
         self.stats: collections.Counter = collections.Counter()
         if mem_entries is None:
             mem_entries = int(mca_param.register(
@@ -357,7 +360,10 @@ def default_cache() -> ProgramCache:
 
 
 def for_context(context) -> ProgramCache:
-    """A context's own program cache.  A rank of a multi-rank context
-    gets a rank-local one: its programs are never shared with the other
-    ranks (the cross-rank program broadcast is ROADMAP A.8b part 2)."""
-    return ProgramCache(rank=getattr(context, "rank", 0))
+    """A context's own program cache (rank-aware, given the context's comm
+    engine when a multi-rank one is present).  A rank's programs are
+    never shared with the other ranks: a CUDA graph does not serialize."""
+    ce = getattr(context, "comm", None)
+    nranks = getattr(context, "nranks", 1)
+    return ProgramCache(rank=getattr(context, "rank", 0), nranks=nranks,
+                        ce=ce if nranks > 1 else None)

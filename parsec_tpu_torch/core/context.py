@@ -35,8 +35,10 @@ diagnosis) and ``PARSEC_TPU_SLO=1`` (the SLO plane; a
 ``0``).  :meth:`Context.fini` stops and joins them first.
 
 Multi-rank: ``Context(rank=r, nranks=n, comm=ce)`` with ``ce`` one
-endpoint of a :class:`~parsec_tpu_torch.comm.InprocFabric` (the TCP
-backend is ROADMAP A.8b part 2).  Every rank is a full context; taskpools of the
+endpoint of a :class:`~parsec_tpu_torch.comm.InprocFabric` (N ranks in one
+process) or this process's :class:`~parsec_tpu_torch.comm.TCPComm` (one
+rank a process, :func:`~parsec_tpu_torch.comm.endpoint_from_env` under
+the launcher).  Every rank is a full context; taskpools of the
 same name on every rank are one logical pool, their cross-rank edges
 carried by :mod:`~parsec_tpu_torch.comm.remote_dep`.  Every rank's CUDA
 module binds ``cuda:<rank % device_count>``.

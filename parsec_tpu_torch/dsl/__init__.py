@@ -8,9 +8,9 @@ level batching: ``batch_levels=True``) and supertask fusion
 (:mod:`.fusion`).  :class:`~.native_exec.NativeServeExecutor` runs several
 pools as wdrr tenants of one native graph.  :class:`CollectiveTask`
 inserts collectives as DTD nodes (:mod:`.collective`).
-
-The distributed native executor of :mod:`parsec_tpu.dsl` is not ported
-yet (ROADMAP A.8b part 2).
+:class:`~.native_dist.NativeDistExecutor` runs one rank's partition of a
+PTG on the native engine, its cross-rank edges over the comm engine
+(:mod:`.native_dist`).
 """
 
 from .collective import CollectiveTask

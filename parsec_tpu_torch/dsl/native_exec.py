@@ -77,7 +77,7 @@ from ..core.task import Chore, Task, TaskClass
 from ..profiling import pins
 from ..utils import mca_param
 from .fusion import FusedPlan, fusion_max_tasks, fusion_mode, partition, region_room
-from .graph import capture, source_tile
+from .graph import TaskGraph, capture, source_tile
 from .ptg import CTL, PTGTaskpool, _wrap_device_body
 
 
@@ -421,10 +421,15 @@ class NativeExecutor:
 
     :meth:`rebind` aims the executor at a same-shaped pool and reruns the
     captured graph: nothing is captured again.
+
+    ``graph`` (a :class:`~.graph.TaskGraph` of ``tp``, e.g.
+    ``tp.capture()``) is used instead of capturing one; the distributed
+    executor (:mod:`.native_dist`) hands in its rank's filtered capture.
     """
 
-    def __init__(self, tp: PTGTaskpool, *, native_device: bool = False,
-                 device=None, fusion: Optional[str] = None,
+    def __init__(self, tp: PTGTaskpool, *, graph: Optional[TaskGraph] = None,
+                 native_device: bool = False, device=None,
+                 fusion: Optional[str] = None,
                  _shared_graph=None, _tenant: int = 0):
         from .. import native
 
@@ -471,7 +476,7 @@ class NativeExecutor:
             if self.device is None:
                 self.device = self._make_device()
             self._pool_shim = _NativePoolShim(f"native:{tp.ptg.name}")
-        self.graph = capture(tp, ranks=[0])
+        self.graph = graph if graph is not None else capture(tp, ranks=[0])
         self._new_tiles: Dict[Tuple, np.ndarray] = {}
         self._new_data: Dict[Tuple, Any] = {}
         #: per native node (user tag = index): its CPU body, or in pump
@@ -512,10 +517,13 @@ class NativeExecutor:
     # -- tile resolution (CPU regime) --------------------------------------
     def _payload(self, srckey: Tuple):
         if srckey[0] == "remote":
+            # a flow chain that leaves the captured partition: this
+            # single-rank executor cannot resolve it (a zeros tile would
+            # corrupt the numerics) — distributed captures go through
+            # dsl.native_dist.NativeDistExecutor
             raise RuntimeError(
                 f"flow source {srckey[1]}/{srckey[2]} is on another rank; "
-                "distributed native execution (native_dist) is not ported "
-                "yet (ROADMAP A.8b part 2)")
+                "use NativeDistExecutor for rank-filtered captures")
         consts = self.taskpool.constants
         if srckey[0] == "data":
             _, cname, key = srckey
@@ -746,8 +754,7 @@ class NativeExecutor:
         if srckey[0] == "remote":
             raise RuntimeError(
                 f"flow source {srckey[1]}/{srckey[2]} is on another rank; "
-                "distributed native execution (native_dist) is not ported "
-                "yet (ROADMAP A.8b part 2)")
+                "use NativeDistExecutor for rank-filtered captures")
         if srckey[0] == "data":
             _, cname, key = srckey
             return self.taskpool.constants[cname].data_of(*key)

@@ -205,6 +205,10 @@ class RankTraceSet:
     * ``comm_send`` / ``comm_recv`` protocol instants (activation sent /
       payload landed — the events the overlap metric counts).
 
+    In a TCP (multi-process) launch each process is one rank: build the
+    set with ``nranks=1`` and ``base_rank=<this rank>``; merge the
+    per-process dumps offline.
+
     ``trace_factory(rank) -> trace`` swaps the per-rank sink: the default
     is the native :class:`BinaryTrace`; the flight recorder
     (:mod:`.flight`) passes a bounded ring here.

@@ -10,8 +10,9 @@ port's device bodies run on the CUDA module bound to the torch CPU device
 device bodies on JAX's CPU backend at the reference test's tolerances:
 1e-10 in float64, 2e-3 in float32, rtol 0.1 / atol 0.5 for bfloat16.  The
 reference's 2- and 4-rank cases are one test here, which asserts that
-``run_native`` of a multi-rank program, which waits for ROADMAP A.8b part
-2, raises naming it.
+``run_native`` of a multi-rank program raises the reference's
+``ValueError`` in both packages (the native engine runs single-rank
+array programs).
 """
 
 import numpy as np
@@ -253,9 +254,9 @@ def test_multi_rank_programs_raise_naming_a8(nranks, q):
     """The reference's 2- and 4-rank programs lower (ranks are only
     arithmetic) and, since ROADMAP A.8a, run on a multi-rank context
     (test_torch_array_multirank.py).  ``run_native`` of a multi-rank
-    program raises naming ROADMAP A.8b part 2 before any runtime work; a
-    one-rank context refuses a multi-rank program, its reduction
-    included (the cross-rank ``sum`` is
+    program raises the reference's ``ValueError`` before any runtime
+    work, in both packages; a one-rank context refuses a multi-rank
+    program, its reduction included (the cross-rank ``sum`` is
     ``tests/test_torch_redistribute.py``'s)."""
     rng = np.random.default_rng(29)
     n, nb = 32, 8
@@ -268,9 +269,19 @@ def test_multi_rank_programs_raise_naming_a8(nranks, q):
     x = C.solve(b)
     prog = pa.lower([x, C], use_cuda=False)
     assert prog.nranks == nranks and prog.verify() == []
+    ref_dist = ref_pa.BlockCyclic(nranks // q, q)
+    rA = ref_pa.from_numpy(G, nb, dist=ref_dist, myrank=0)
+    rB = ref_pa.from_numpy(np.eye(n) * n, nb, dist=ref_dist, myrank=0)
+    rb = ref_pa.from_numpy(np.zeros((n, 2)), nb, 2, dist=ref_dist, myrank=0)
+    ref_C = (rA @ rA.T + rB).cholesky()
+    ref_x = ref_C.solve(rb)
     built = pa.counters()["taskpools_built"]
+    msg = "run_native executes single-rank programs"
+    ref_prog = ref_pa.lower([ref_x, ref_C], use_tpu=False)
+    with pytest.raises(ValueError, match=msg):
+        ref_prog.run_native()
     with _port_ctx(False) as ctx:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8b part 2"):
+        with pytest.raises(ValueError, match=msg):
             prog.run_native()
         for call in (lambda: prog.run(ctx),
                      lambda: x.compute(ctx, use_cuda=False),

@@ -12,9 +12,8 @@ The port's own cases: a bfloat16 torch CPU tile and an F-order tile
 through the rendezvous path (numpy has no bfloat16: the header names the
 torch dtype and the bits travel raw), torch-tensor framing, the
 in-process wire's copies (a receiver's in-place write never reaches the
-sender's tile), the collectives' names and the A.8b part 2 names that
-raise.  The TCP parity case waits for the TCP backend (ROADMAP A.8b part
-2).
+sender's tile), and the names of the collectives, the TCP backend and
+the launcher.  The TCP cases are ``tests/test_torch_tcp.py``'s.
 """
 
 import threading
@@ -442,7 +441,7 @@ def test_wire_copy_of_numpy_payloads(P):
 
 
 # ---------------------------------------------------------------------------
-# MCA validation, names waiting for A.8b part 2
+# MCA validation, the comm package's names
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,bad", [
@@ -463,16 +462,15 @@ def test_protocol_params_validated_at_construction(P, name, bad):
                                   "CollError", "TCPComm",
                                   "endpoint_from_env", "launch"])
 def test_port_a8b_names_raise(name):
-    """The collectives' names (ROADMAP A.8b part 1) are the reference's
-    classes' names; the TCP backend and the launcher (part 2) still raise
-    naming it.  A one-rank endpoint's allreduce completes at once."""
+    """The names of ROADMAP A.8b — the collectives (part 1), the TCP
+    backend and the launcher (part 2) — are the reference's, and none
+    raises since part 2.  A one-rank endpoint's allreduce completes at
+    once."""
     from parsec_tpu import comm as ref_comm
+    from parsec_tpu.comm import launch as ref_launch
 
-    if name in ("CollManager", "CollOp", "RedistOp", "CollError"):
-        assert getattr(port_comm, name).__name__ == getattr(ref_comm, name).__name__
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8b part 2"):
-            getattr(port_comm, name)
+    ref = ref_launch.launch if name == "launch" else getattr(ref_comm, name)
+    assert getattr(port_comm, name).__name__ == ref.__name__
     ce = port_comm.InprocFabric(1).endpoints()[0]
     h = ce.coll_allreduce(np.arange(3.0))
     assert h.done and h.wait(timeout=5)

@@ -8,7 +8,8 @@ package's executable cache.
 * what the port adds: the LRU bound and ``clear_memory`` (all, or only
   the programs no live user holds) on a cache driven with a stand-in
   builder; ``cache_root`` under the three values of
-  ``PARSEC_TPU_COMPILE_CACHE``; a multi-rank cache raising (ROADMAP A.8);
+  ``PARSEC_TPU_COMPILE_CACHE``; a multi-rank cache that keeps every
+  program rank-local (``local_only``: a CUDA graph does not serialize);
 * parity: ``code_fingerprint`` gives the same digest in both packages for
   plain functions with int, str, tuple and ndarray closures;
 * ``GraphExecutor.program_digest`` (the key of a whole-DAG capture) on
@@ -237,14 +238,63 @@ def test_mem_entries_param_and_the_process_cache():
 
 
 def test_multi_rank_cache_raises_naming_a8():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        cc.ProgramCache(nranks=2)
+    """A multi-rank cache constructs, as the reference's does, and keeps
+    its programs rank-local: a put counts ``local_only`` and nothing
+    crosses the engine it was given."""
+    ce = object()
+    mesh = cc.ProgramCache(rank=1, nranks=2, ce=ce)
+    assert (mesh.rank, mesh.nranks, mesh.ce) == (1, 2, ce)
+    mesh.put("fp", cc.Program())
+    assert mesh.get("fp") is not None
+    assert mesh.snapshot()["local_only"] == mesh.snapshot()["captures"] == 1
     ctx = Context(nb_cores=1, cuda_device="cpu")
     try:
         assert isinstance(ctx.compile_cache, cc.ProgramCache)
         assert ctx.compile_cache is not cc.default_cache()
     finally:
         ctx.fini()
+
+
+def test_mesh_caches_capture_once_a_rank():
+    """A 4-rank mesh of caches (``ProgramCache(rank=, nranks=4, ce=)`` on
+    the in-process fabric, as ``for_context`` builds them for a multi-rank
+    context): every rank looks the same program up under the same
+    fingerprint, captures it ONCE, and the results are equal; nothing
+    crosses the fabric.  This diverges from the reference's
+    ``tests/runtime/test_compile_bcast.py``, where one rank compiles and
+    broadcasts the serialized program to the other ranks (one compile a
+    mesh): a captured CUDA graph does not serialize, so each rank of the
+    port captures its own (four captures a mesh) and ``stats["local_only"]``
+    counts each."""
+    from parsec_tpu_torch.comm import InprocFabric
+
+    n = 4
+    ces = InprocFabric(n).endpoints()
+    caches = [cc.ProgramCache(rank=r, nranks=n, ce=ces[r]) for r in range(n)]
+    x = torch.arange(64.0).reshape(8, 8) / 64
+    fps, outs = [], []
+    for cache in caches:
+        build = _Builder()
+        fps.append(cc.fingerprint(("body", cc.code_fingerprint(_body)), cc.argsig((x,)),
+                                  backend="cpu"))
+        prog = cache.get(fps[-1])
+        assert prog is None
+        outs.append(_body(x))
+        cache.put(fps[-1], build())
+        assert cache.get(fps[-1]) is not None
+        assert (cache.stats["misses"], cache.stats["captures"], cache.stats["local_only"],
+                cache.stats["hits_mem"]) == (1, 1, 1, 1)
+    assert len(set(fps)) == 1
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert sum(c.stats["captures"] for c in caches) == n
+    assert all(ce.stats["frames_sent"] == 0 for ce in ces)
+    for r, ce in enumerate(ces):
+        ctx = Context(nb_cores=1, cuda_device="cpu", rank=r, nranks=n, comm=ce)
+        try:
+            assert (ctx.compile_cache.rank, ctx.compile_cache.nranks,
+                    ctx.compile_cache.ce) == (r, n, ce)
+        finally:
+            ctx.fini()
 
 
 @pytest.mark.parametrize("value", [None, "0", "", "  ", "DIR"])
