@@ -342,6 +342,28 @@ N=4096, then ``rebind``, each ``torch.equal`` to the parent's one-rank
 host run.  The 4-process dpotrf wall is printed beside the in-process
 4-rank wall of the ``multirank`` phase.
 
+The SPMD layer and the ring graphs (``parallel`` phase, after ``tcp``;
+``parallel_phase``): one process drives a mesh of 4 positions on
+``cuda:0``, a thread a position (``parallel.make_mesh((4, 1),
+devices=[dev] * 4)``).  (a) ``ring_attention`` at the prefill's width
+(B=1, S=4096, H=32, D=128: four 1024-row blocks), causal f32 and bf16
+with ``use_kernels`` (16 batched B5 launches of 32 members each, counted;
+the f32 run twice, ``torch.equal``), f32 without, and non-causal f32
+with, each within 2e-5 (bf16 5e-2) of ``attention_reference`` in
+float64; (b) ``run_ring_attention_graph`` over 4 in-process ranks, every
+rank's CUDA module on ``cuda:0``: causal f32 (640 tasks, 512 single B5
+launches) ``torch.equal`` to (a)'s f32 ``use_kernels`` output, and the
+``bcast`` variant non-causal within 2e-5 of the oracle and of (a); each
+rank's wire bytes exactly the other ranks' K and V planes; (c)
+``ulysses_attention``; (d) on a 2x2 mesh ``spmd_cholesky`` of S (N=8192,
+nb=512) within the dpotrf gate beside the unsharded run, ``summa_gemm``
+and (4x1) ``ring_gemm`` at 8192^2 against ``torch.matmul``, and
+``spmd_stencil_5pt`` on 8192^2 x 20 steps against the plain stencil; (e)
+a position that raises: the call raises within 5 s, the next call
+passes; then B5 at the ring's block, single f32 and batched f32 and bf16
+over 32 members, against their plain versions, timed, with their bounds.
+Its B5 launches join the kernel table.
+
 Every run of the CUDA device module must end with no synchronous
 write-back fallback (``wb_sync_fallbacks == 0``) and no wave that fell
 back to per-task dispatch (``wave_fallbacks == 0``).  Kernel launches
@@ -1033,8 +1055,8 @@ def analysis_phase(h):
     ``kernels_trtri`` over the path's TiledMatrix (no error finding), and
     ``tools lint --all`` over the registry (every buildable graph clean,
     the array front end's canonical programs and the distributed
-    segmented Cholesky among them; the two ring-attention graphs, which
-    wait for A.8c, reported as waiting).  Checked
+    segmented Cholesky and the two ring-attention graphs among them, each
+    reported OK).  Checked
     runs, under ``PARSEC_TPU_LINT=strict``, ``PARSEC_TPU_HBCHECK=strict``
     and ``PARSEC_TPU_LOCKDEP=1`` (restored after): the dynamic ``kernels``
     and ``kernels_trtri`` and the pump's ``kernels`` at stage depth 2 (the
@@ -1093,15 +1115,15 @@ def analysis_phase(h):
     seconds = time.perf_counter() - t0
     out = buf.getvalue().splitlines()
     summary = out[-1] if out else ""
-    waiting = [ln.split(":")[0] for ln in out if ": waiting: " in ln]
+    from parsec_tpu_torch.analysis import registry
+
+    clean = [ln.split(":")[0] for ln in out if ln.endswith(": OK") or ": OK (" in ln]
     check(rc == 0 and " 0 error(s), 0 warning(s)" in summary,
           f"tools lint --all: rc {rc}, {summary}")
-    check(waiting == ["ops.attention_ring", "ops.attention_ring_bcast"]
-          and all("ROADMAP A.8" in ln for ln in out if ": waiting: " in ln),
-          f"tools lint --all: waiting {waiting}")
-    say("analysis_lint", graph="registry --all", summary=summary,
-        clean=sum(ln.endswith("OK") or ": OK (" in ln for ln in out),
-        waiting=waiting, seconds=seconds, card=card)
+    check(sorted(clean) == sorted(registry.names()),
+          f"tools lint --all: OK for {clean}, the registry {registry.names()}")
+    say("analysis_lint", graph="registry --all", summary=summary, clean=len(clean),
+        seconds=seconds, card=card)
 
     # -- checked runs: each right after the same run unchecked ------------
     def dynamic(kw):
@@ -1605,9 +1627,10 @@ def profiling_phase(h):
 SERVE_K, SERVE_DEC_Q, SERVE_INFLIGHT, SERVE_GAP_S = 16, 8, 8, 0.002
 SERVE_WEIGHTS = {"decode": 4, "prefill": 1, "factor": 1}
 SERVE_NATIVE_DECODES = 4
-# the four switches off and on for the observability cost, in turns after
-# the live turn, which is the first run with them on: (on, off, on, off)
-SERVE_OBS = (False, True, False)
+# the four switches off for the observability cost, one turn after the live
+# turn, which is the run with them on: (on, off) — one pair keeps the whole
+# call inside its time limit on a slower host
+SERVE_OBS = (False,)
 SERVE_SWITCHES = ("PARSEC_TPU_FLIGHT", "PARSEC_TPU_HEALTH", "PARSEC_TPU_WATCHDOG",
                   "PARSEC_TPU_SLO")
 # the flight ring a thread during the phase: holds a whole served turn
@@ -4390,6 +4413,327 @@ def tcp_phase(h):
         seconds=time.perf_counter() - t_phase, card=card)
 
 
+# the SPMD layer and the ring graphs: 4 positions / ranks on the one card,
+# at the attention path's width (B=1, S=4096, H=32, D=128: four 1024-row
+# sequence blocks)
+PAR_R = 4
+PAR_GRID = (2, 2)
+PAR_SEED = 24
+PAR_STENCIL_STEPS = 20
+PAR_FAIL_S = 5.0
+TOL_PAR_GEMM = 1e-5
+
+
+def parallel_phase(h):
+    """The SPMD layer (``parsec_tpu_torch.parallel``) and the ring-attention
+    graphs on the card, every mesh position a thread on ``cuda:0``.  (a)
+    ``ring_attention`` on a 4-position ring at the prefill's width, causal:
+    f32 with ``use_kernels`` (twice, ``torch.equal``), bf16 with
+    ``use_kernels`` — each 4 positions x 4 steps = 16 batched B5 launches
+    of B·H = 32 members — and f32 without; non-causal f32 with
+    ``use_kernels``; each within 2e-5 (bf16 5e-2) of ``attention_reference``
+    in float64.  (b) ``run_ring_attention_graph`` at 4 in-process ranks,
+    every rank's CUDA module on ``cuda:0``: causal f32 (640 tasks, 512
+    single B5 launches) ``torch.equal`` to (a)'s f32 ``use_kernels``
+    output (the same B5 updates in the same ``(r + s) % R`` order), and
+    the ``bcast`` variant non-causal within 2e-5 of the oracle and of
+    (a)'s non-causal run; each rank's wire bytes (every rank receives
+    the other ranks' K and V planes once).  (c)
+    ``ulysses_attention`` within 2e-5.  (d) on a 2x2 mesh:
+    ``spmd_cholesky`` of the dpotrf path's S (N=8192, nb=512, f32) within
+    the dpotrf gate, beside the unsharded run; ``summa_gemm`` and, on the
+    4x1 ring, ``ring_gemm`` at 8192^2 within ``TOL_PAR_GEMM`` of
+    ``torch.matmul``; ``spmd_stencil_5pt`` on 8192^2 x 20 steps within
+    1e-5 of the plain stencil.  (e) a position that raises: the call
+    raises within ``PAR_FAIL_S`` and the next call passes.  Then B5 at
+    the ring's block (1024 x 1024 x 128), single f32 and batched f32 and
+    bf16 over 32 members, each against its plain version, timed, with its
+    bound.  Returns the B5 launches for the kernel table and the three
+    rows at the ring's block."""
+    np, torch, dev, card, say, check = h.np, h.torch, h.dev, h.card, h.say, h.check
+    from torch.func import vmap
+
+    from parsec_tpu_torch import parallel
+    from parsec_tpu_torch.comm import InprocFabric
+    from parsec_tpu_torch.ops import kernels, run_ring_attention_graph
+    from parsec_tpu_torch.parallel import collectives
+    from parsec_tpu_torch.parallel.shard_map import P, shard_map
+
+    t_phase = time.perf_counter()
+    b5 = kernels.flash_attention_block
+    R, G, sb = PAR_R, ATTN_B * ATTN_H, ATTN_S // PAR_R
+    ring = parallel.make_mesh((R, 1), axes=("sp", "u"), devices=[dev] * R)
+    grid = parallel.make_mesh(PAR_GRID, devices=[dev] * (PAR_GRID[0] * PAR_GRID[1]))
+    check(all(d == dev for d in ring.devices.flat) and ring.shape == {"sp": R, "u": 1},
+          f"parallel: ring mesh {ring}")
+    rng = np.random.default_rng(PAR_SEED)
+    q_np, k_np, v_np = (rng.standard_normal((ATTN_B, ATTN_S, ATTN_H, ATTN_D))
+                        .astype(np.float32) for _ in range(3))
+    q, k, v = (torch.from_numpy(a).to(dev) for a in (q_np, k_np, v_np))
+
+    def counts():
+        return dict(b5.launches_by_mode, total=b5.launches, members=b5.members)
+
+    def gate(out, ref, tol):
+        """max(|out - ref| - tol*|ref|) (<= tol: allclose at rtol = atol =
+        tol) and the max abs difference, in float64 on the card."""
+        diff = (out.to(dev).double() - ref).abs()
+        return (diff - tol * ref.abs()).max().item(), diff.max().item()
+
+    oracle = {}
+
+    def ref_of(dtype, causal):
+        key = (dtype, causal)
+        if key not in oracle:
+            oracle[key] = parallel.attention_reference(
+                *(t.to(dtype).double() for t in (q, k, v)), causal=causal)
+        return oracle[key]
+
+    # -- (a) the SPMD ring --------------------------------------------------
+    spmd_out, launches, single, batched = {}, {}, {}, {}
+    runs = [("f32_kernels", torch.float32, True, True),
+            ("f32_kernels_rerun", torch.float32, True, True),
+            ("bf16_kernels", torch.bfloat16, True, True),
+            ("f32_einsum", torch.float32, True, False),
+            ("f32_kernels_noncausal", torch.float32, False, True)]
+    for label, dt, causal, use_kernels in runs:
+        qi, ki, vi = (t.to(dt) for t in (q, k, v))
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = parallel.ring_attention(qi, ki, vi, ring, axis="sp", causal=causal,
+                                      use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        mode = "bf16_b" if dt == torch.bfloat16 else "f32_b"
+        want = R * R if use_kernels else 0
+        check(c["total"] == want and c[mode] == want and c["members"] == want * G,
+              f"parallel spmd {label}: B5 launches {c}, expected {want} {mode} of {G} members")
+        check(tuple(out.shape) == tuple(q.shape) and out.dtype == dt and out.device == dev
+              and bool(torch.isfinite(out).all()),
+              f"parallel spmd {label}: output {tuple(out.shape)} {out.dtype} {out.device}")
+        tol = TOL_ATTN_BF16 if dt == torch.bfloat16 else TOL_ATTN_F32
+        g, err = gate(out, ref_of(dt, causal), tol)
+        check(g <= tol, f"parallel spmd {label}: |out - ref| - {tol}|ref| reaches {g}")
+        if label == "f32_kernels_rerun":
+            check(torch.equal(out, spmd_out["f32_kernels"]),
+                  "parallel spmd: a rerun differs from the first run")
+        spmd_out[label] = out
+        if use_kernels:
+            batched[f"parallel_spmd_{label}"] = {"flash_attention_block": c}
+        launches[f"spmd_{label}"] = c["total"]
+        say("parallel_spmd", run=label, positions=R, B=ATTN_B, S=ATTN_S, H=ATTN_H,
+            D=ATTN_D, dtype=str(dt), causal=causal, use_kernels=use_kernels,
+            launches=c["total"], members=c["members"], wall_s=wall,
+            nominal_gflops=4.0 * G * ATTN_S * ATTN_S * ATTN_D / wall / 1e9,
+            max_abs_err=err, gate=g, tol=tol, card=card)
+        del qi, ki, vi
+
+    # -- (b) the ring PTG at 4 in-process ranks -----------------------------
+    ptg_out = {}
+    for label, variant, causal in (("ring_causal", "ring", True),
+                                   ("bcast_noncausal", "bcast", False)):
+        fabric = InprocFabric(R)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out, stats = run_ring_attention_graph(R, q_np, k_np, v_np, causal=causal,
+                                              variant=variant, use_cpu=False,
+                                              fabric=fabric, timeout=600)
+        wall = time.perf_counter() - t0
+        c = counts()
+        tasks = G * R * (R + 1) + (G * R if variant == "bcast" else 0)
+        check(stats["executed_tasks"] == tasks,
+              f"parallel ptg {label}: {stats['executed_tasks']} tasks, expected {tasks}")
+        check(c["total"] == c["f32"] == G * R * R,
+              f"parallel ptg {label}: B5 launches {c}, expected {G * R * R} f32")
+        # every rank receives every other rank's K and V planes once: the
+        # ring forwards them one hop a step, the bcast variant down its tree
+        rank_wire = [int(fabric.engines[r].stats.get("am_bytes", 0)
+                         + fabric.engines[r].stats.get("get_bytes", 0)) for r in range(R)]
+        plane_bytes = sb * ATTN_D * 4
+        check(stats["activations"] > 0
+              and sum(rank_wire) == R * (R - 1) * G * 2 * plane_bytes
+              and (variant == "bcast" or rank_wire == [(R - 1) * G * 2 * plane_bytes] * R),
+              f"parallel ptg {label}: wire bytes a rank {rank_wire}")
+        g, err = gate(out, ref_of(torch.float32, causal), TOL_ATTN_F32)
+        check(g <= TOL_ATTN_F32, f"parallel ptg {label}: gate {g}")
+        spmd = spmd_out["f32_kernels" if causal else "f32_kernels_noncausal"].cpu()
+        equal = bool(torch.equal(out, spmd))
+        if causal:
+            check(equal, "parallel ptg ring: not torch.equal to the SPMD ring with "
+                  f"use_kernels (max abs diff {(out - spmd).abs().max().item()})")
+        else:
+            g2, _ = gate(out, spmd.to(dev).double(), TOL_ATTN_F32)
+            check(g2 <= TOL_ATTN_F32, f"parallel ptg bcast: gate {g2} against the SPMD ring")
+        ptg_out[label] = out
+        single[f"parallel_ptg_{label}"] = c
+        launches[f"ptg_{label}"] = c["total"]
+        say("parallel_ptg", run=label, variant=variant, causal=causal, ranks=R, tasks=tasks,
+            launches=c["total"], wall_s=wall, tasks_per_s=tasks / wall,
+            host_ms_per_task=1e3 * wall / tasks,
+            rank_wall_s=stats["rank_wall_s"], activations=stats["activations"],
+            bytes_d2d=stats["bytes_d2d"], wire_bytes=stats["wire_bytes"],
+            rank_wire_bytes=rank_wire,
+            eager_hit_rate=stats["eager_hit_rate"], equal_spmd=equal,
+            max_abs_err=err, gate=g, card=card)
+        del out, stats, fabric
+
+    # -- (c) Ulysses --------------------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = parallel.ulysses_attention(q, k, v, ring, axis="sp", causal=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g, err = gate(out, ref_of(torch.float32, True), TOL_ATTN_F32)
+    check(g <= TOL_ATTN_F32 and out.device == dev, f"parallel ulysses: gate {g}")
+    say("parallel_ulysses", positions=R, causal=True, wall_s=wall, max_abs_err=err, gate=g,
+        card=card)
+    del out, q, k, v, spmd_out, ptg_out
+    oracle.clear()
+    torch.cuda.empty_cache()
+
+    # -- (d) the dense SPMD kernels on a 2x2 mesh ---------------------------
+    S = torch.from_numpy(h.S).to(dev)
+    S64 = S.double()
+    chol = {}
+    for label, mesh in (("unsharded", None), ("sharded_2x2", grid)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Lf = parallel.spmd_cholesky(S, NB, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        L = Lf.tril()
+        Ld = L.double()
+        recon = ((Ld @ Ld.mT - S64).abs().max() / S64.abs().max()).item()
+        check(recon < 1e-3 and L.device == dev and L.dtype == torch.float32,
+              f"parallel spmd_cholesky {label}: ||LL^T - S||/||S|| = {recon}")
+        chol[label] = L
+        say("parallel_dense", run=f"spmd_cholesky_{label}", N=N, nb=NB, wall_s=wall,
+            gflops=N ** 3 / 3 / wall / 1e9, recon_err=recon, card=card)
+        del Lf, Ld
+    diff = (chol["sharded_2x2"] - chol["unsharded"]).abs().max().item()
+    say("parallel_dense", run="spmd_cholesky_sharded_vs_unsharded", max_abs_diff=diff,
+        card=card)
+    del chol, S64, L
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(PAR_SEED)
+    A = torch.randn((N, N), generator=gen, device=dev)
+    Bm = torch.randn((N, N), generator=gen, device=dev)
+    ref = A @ Bm
+    for label, fn in (("summa_gemm_2x2", lambda: parallel.summa_gemm(A, Bm, grid)),
+                      ("ring_gemm_4x1", lambda: parallel.ring_gemm(A, Bm, ring, axis="sp"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        err = ((C.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
+        check(err < TOL_PAR_GEMM and C.device == dev, f"parallel {label}: error {err}")
+        say("parallel_dense", run=label, N=N, wall_s=wall, tflops=2 * N ** 3 / wall / 1e12,
+            rel_err=err, tol=TOL_PAR_GEMM, card=card)
+        del C
+    del A, Bm, ref
+    g0 = torch.randn((N, N), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = parallel.spmd_stencil_5pt(g0, PAR_STENCIL_STEPS, grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    plain = kernels.stencil_5pt_fused_plain(g0, PAR_STENCIL_STEPS)
+    err = (out - plain).abs().max().item()
+    check(err <= TOL_STENCIL_PATH and out.device == dev, f"parallel spmd_stencil: error {err}")
+    say("parallel_dense", run="spmd_stencil_2x2", N=N, steps=PAR_STENCIL_STEPS, wall_s=wall,
+        gcells_per_s=N * N * PAR_STENCIL_STEPS / wall / 1e9, max_abs_err=err,
+        equal_plain=bool(torch.equal(out, plain)), card=card)
+    del g0, out, plain, S
+    torch.cuda.empty_cache()
+
+    # -- (e) a position that raises ------------------------------------------
+    x = torch.arange(float(R), device=dev).reshape(R, 1)
+
+    def bad(t):
+        if collectives.my_index("sp") == 2:
+            raise ValueError("position 2 fails")
+        return collectives.allreduce_sum(t, "sp")
+
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        shard_map(bad, ring, P("sp", None), P("sp", None))(x)
+    except ValueError as e:
+        raised = str(e)
+    fail_s = time.perf_counter() - t0
+    check(raised == "position 2 fails" and fail_s < PAR_FAIL_S,
+          f"parallel: a failing position gave {raised!r} after {fail_s} s")
+    after = shard_map(lambda t: collectives.allreduce_sum(t, "sp"), ring, P("sp", None),
+                      P("sp", None))(x)
+    check(after.cpu().ravel().tolist() == [float(sum(range(R)))] * R,
+          f"parallel: the call after a failure gave {after.ravel().tolist()}")
+    say("parallel_abort", raised=raised, seconds=fail_s, next_call_ok=True, card=card)
+
+    # -- B5 at the ring's block ---------------------------------------------
+    rows = []
+    q_off, k_off = sb, 0  # a block below the diagonal: every pair computed
+    pairs = h.attn_pairs(sb, sb, q_off, k_off, True)
+    kw = dict(causal=True, scale=ATTN_D ** -0.5)
+    for label, dt, n_mem in (("f32", torch.float32, 1), ("f32_b", torch.float32, G),
+                             ("bf16_b", torch.bfloat16, G)):
+        gen.manual_seed(PAR_SEED + n_mem)
+        qb, kb, vb = (torch.randn((n_mem, sb, ATTN_D), generator=gen, device=dev).to(dt)
+                      for _ in range(3))
+        acc = torch.randn((n_mem, sb, ATTN_D), generator=gen, device=dev)
+        m = torch.randn((n_mem, sb, 1), generator=gen, device=dev)
+        l = torch.randn((n_mem, sb, 1), generator=gen, device=dev).abs()
+        args = (qb, kb, vb, acc, m, l)
+        if n_mem == 1:
+            run = lambda: b5(*(t[0] for t in args), q_off, k_off, **kw)  # noqa: E731
+            plain = lambda: kernels.flash_attention_block_plain(  # noqa: E731
+                *(t[0] for t in args), q_off, k_off, **kw)
+        else:
+            run = lambda: vmap(lambda *a: b5(*a, q_off, k_off, **kw))(*args)  # noqa: E731
+            plain = lambda: kernels.flash_attention_block_plain(  # noqa: E731
+                *args, q_off, k_off, **kw)
+        out, out2, ref = run(), run(), plain()
+        torch.cuda.synchronize()
+        err = h.carry_err(out, ref)
+        same = all(torch.equal(a, b) for a, b in zip(out, out2))
+        one_by_one = None
+        if n_mem > 1:
+            ones = [b5(*(t[i] for t in args), q_off, k_off, **kw) for i in range(n_mem)]
+            one_by_one = all(torch.equal(out[j][i], ones[i][j])
+                             for i in range(n_mem) for j in range(3))
+        check(err < TOL_ATTN and same and one_by_one in (None, True),
+              f"flash_attention_block[{label}] at the ring's block: error {err}, two "
+              f"launches equal {same}, equal one by one {one_by_one}")
+        isz = qb.element_size()
+        nbytes = n_mem * ((3 * sb * ATTN_D) * isz + 2 * sb * ATTN_D * 4 + 4 * sb * 4)
+        flops, op_type = ((6 * ATTN_D * pairs * n_mem, "bf16") if dt == torch.bfloat16
+                          else (3 * 4 * ATTN_D * pairs * n_mem, "tf32"))
+        bound_ms, bound_by = h.bound(flops, nbytes, op_type)
+        n_launch = sum(cs[label] for cs in single.values()) if n_mem == 1 else \
+            sum(cs["flash_attention_block"][label] for cs in batched.values())
+        row = {"name": f"flash_attention_block[{label}_ring]", "route": "cuda",
+               "shape": ([n_mem] if n_mem > 1 else []) + [sb, sb, ATTN_D],
+               "source": "parsec_tpu_torch/csrc/attention.cu",
+               "replaces": "parsec_tpu/ops/pallas_kernels.py:283",
+               "launches": n_launch, "max_abs_err": err,
+               "ms": h.time_ms(run, 10), "plain_ms": h.time_ms(plain, 3),
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+               "library_call": "none"}
+        if n_mem > 1:
+            row["members"] = n_mem
+            row["one_by_one_ms"] = h.time_ms(
+                lambda: [b5(*(t[i] for t in args), q_off, k_off, **kw) for i in range(n_mem)], 3)
+        rows.append(row)
+        say("kernel", **row)
+        del qb, kb, vb, acc, m, l, args, out, out2, ref
+    torch.cuda.empty_cache()
+    say("parallel", launches=launches, seconds=time.perf_counter() - t_phase, card=card)
+    return {"single": single, "batched": batched, "rows": rows}
+
+
 TUNE_BLOCKS = (256, 512)
 TUNE_NB = (256, 512, 1024)
 
@@ -5856,6 +6200,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- the SPMD layer and the ring graphs: 4 positions on the one card -----
+    par = parallel_phase(types.SimpleNamespace(
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
+        time_ms=time_ms, bound=bound, carry_err=carry_err, attn_pairs=attn_pairs))
+    batched_launches.update(par["batched"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- device-module phase: the CUDA module's GPU-only paths ----------------
     # event-polled completion (cuda_eager_complete=0) and eviction with
     # device->host write-back (an 8 MB budget for 10 MB of tiles), on the
@@ -5941,6 +6293,7 @@ def main() -> int:
          dict(causal=True, q_block="auto", kv_block=ATTN_BLOCK), TOL_ATTN_F32),
     ]
     attn_launches = dict(profiling_b5)
+    attn_launches.update(par["single"])  # the ring PTG's single launches
     attn_out, attn_wall = {}, {}
     for name, (q_np, k_np, v_np), dt, kw, tol in attn_runs:
         q_in, k_in, v_in = (torch.from_numpy(a).to(dt) for a in (q_np, k_np, v_np))
@@ -6814,8 +7167,11 @@ def main() -> int:
                 "library_ms": row["library_ms"], "library_call": row["library_call"],
                 "members": row["members"], "one_by_one_ms": row["one_by_one_ms"]}
 
-    # the batched modes the level-batched replays launch (split_b, B5's
-    # bf16 and wide batches run on no batched path: printed above only)
+    # the batched modes the level-batched replays and the SPMD ring launch
+    # (split_b and B5's wide batch run on no batched path: printed above
+    # only); B5's modes at the ring's 1024-row block, a share of the
+    # launches of the rows above, from the parallel phase
+    table += par["rows"]
     table += [
         batched_entry("matmul_update", "f32_b", "f32_b_105", "matmul.cu", "70"),
         batched_entry("matmul_update", "bf16_b", "bf16_b_105", "matmul.cu", "70"),
@@ -6824,6 +7180,7 @@ def main() -> int:
         batched_entry("matmul", "f32_nt_b", "f32_nt_b_65", "matmul.cu", "158"),
         batched_entry("stencil_5pt", "step_b", "step_b_interior_36", "stencil.cu", "219"),
         batched_entry("flash_attention_block", "f32_b", "f32_b_256", "attention.cu", "283"),
+        batched_entry("flash_attention_block", "bf16_b", "bf16_b_256", "attention.cu", "283"),
     ]
     depth_walls.report()
     wave_walls.report()

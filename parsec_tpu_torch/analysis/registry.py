@@ -10,9 +10,7 @@ Each entry is a thunk returning ``(PTG, constants)``: construction is
 lazy and the problem sizes are tiny — the verifier's checks are
 size-generic, so NT=4-class instances exercise every guard branch
 without enumerating production spaces.  The ``examples/jdf`` files are
-read as data.  The entries whose graphs need a layer the port has not
-yet (the ring-attention graphs, ROADMAP A.8c) keep their
-names and raise ``NotImplementedError`` naming that item when built.  The
+read as data.  The
 array front end's canonical programs lint as generated, the 2-rank
 ``array.dist`` with its forwarding readers included (lowering a grid
 needs no second rank).
@@ -104,16 +102,18 @@ def _ops_segmented_qr():
          "R": _local("R")}
 
 
-def _attn_planes(D: int = 4):
+def _attn_planes(G: int, N: int, D: int = 4):
     from ..ops.attention import NEG_BIG, PlaneCollection
 
+    keys = [(g, j) for g in range(G) for j in range(N)]
     inits = {
         "CM": lambda g, j: np.full((4, 1), NEG_BIG, np.float32),
         "CL": lambda g, j: np.zeros((4, 1), np.float32),
     }
     return {
         name: PlaneCollection(
-            name, inits.get(name, lambda g, j: np.zeros((4, D), np.float32)))
+            name, inits.get(name, lambda g, j: np.zeros((4, D), np.float32)),
+            keys=keys)
         for name in ("Q", "K", "V", "O", "CA", "CM", "CL")
     }
 
@@ -123,7 +123,17 @@ def _ops_attention_flash():
 
     return flash_attention_ptg(causal=True, q_block=4, kv_block=4), \
         {"G": 2, "NQ": 3, "NK": 3, "QB": 4, "KVB": 4, "QOFF": 0,
-         "SQ": 12, **_attn_planes()}
+         "SQ": 12, **_attn_planes(2, 3)}
+
+
+def _ops_attention_ring(variant: str):
+    def build():
+        from ..ops.attention import ring_attention_ptg
+
+        return ring_attention_ptg(causal=(variant == "ring"), q_block=4,
+                                  kv_block=4, variant=variant), \
+            {"G": 2, "R": 3, **_attn_planes(2, 3)}
+    return build
 
 
 def _ops_segmented_chol_dist():
@@ -131,14 +141,6 @@ def _ops_segmented_chol_dist():
 
     return dist_segmented_cholesky_ptg(8, 4), \
         {"NT": 2, "C": _local("C"), "TILE_SHAPE": (8, 4)}
-
-
-def _waiting(what: str, item: str):
-    def build():
-        raise NotImplementedError(
-            f"registry graph {what} needs a layer that is not ported yet "
-            f"(ROADMAP {item})")
-    return build
 
 
 def _array(which: str):
@@ -176,8 +178,8 @@ GRAPHS: Dict[str, Callable[[], Tuple]] = {
     "ops.segmented_qr": _ops_segmented_qr,
     "ops.segmented_chol_dist": _ops_segmented_chol_dist,
     "ops.attention_flash": _ops_attention_flash,
-    "ops.attention_ring": _waiting("ops.attention_ring", "A.8c"),
-    "ops.attention_ring_bcast": _waiting("ops.attention_ring_bcast", "A.8c"),
+    "ops.attention_ring": _ops_attention_ring("ring"),
+    "ops.attention_ring_bcast": _ops_attention_ring("bcast"),
     "array.mixed": _array("mixed"),
     "array.chain": _array("chain"),
     "array.dist": _array("dist"),

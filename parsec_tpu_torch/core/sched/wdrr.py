@@ -1,7 +1,7 @@
 """``wdrr`` — weighted deficit-round-robin over per-tenant ready queues.
 
 The fairness layer of the serving plane (the reference's
-``parsec_tpu.serve``; the port's waits for ROADMAP A.9c): one
+``parsec_tpu.serve``, the port's ``parsec_tpu_torch.serve``): one
 6000-task dpotrf must not starve a stream of 20-task stencil jobs just
 because it got its tasks into the queue first.  Every ready task is
 binned by its taskpool's *tenant* (pools outside a service share one

@@ -1,17 +1,18 @@
 """Operations: the dense factorizations (tiled dpotrf, LU and QR; the
-panel and segmented Cholesky, LU and QR), the flash-attention and
-5-point-stencil taskpools, their tile bodies and hand-written kernels.
-
-The ring-attention graphs of :mod:`parsec_tpu.ops` are not ported yet
-(ROADMAP A.8c).
+panel and segmented Cholesky, LU and QR), the flash-attention, distributed
+ring-attention and 5-point-stencil taskpools, their tile bodies and
+hand-written kernels.
 """
 
 from .attention import (
     attention_task_count,
     build_flash_attention,
     flash_attention_ptg,
+    ring_attention_builder,
+    ring_attention_ptg,
     run_flash_attention,
     run_flash_attention_native,
+    run_ring_attention_graph,
 )
 from .cholesky import cholesky_ptg, dpotrf_task_count, insert_dpotrf, run_cholesky
 from .lu import lu_ptg, lu_task_count, run_lu
@@ -28,6 +29,9 @@ __all__ = [
     "flash_attention_ptg",
     "run_flash_attention",
     "run_flash_attention_native",
+    "ring_attention_ptg",
+    "ring_attention_builder",
+    "run_ring_attention_graph",
     "cholesky_ptg",
     "insert_dpotrf",
     "dpotrf_task_count",

@@ -1,25 +1,33 @@
-"""Attention as a task graph: single-rank blockwise flash attention.
+"""Attention as a task graph: blockwise flash attention and distributed
+ring attention.
 
-The port of the single-rank part of :mod:`parsec_tpu.ops.attention`.
-:func:`flash_attention_ptg` has task class ``attn_step(g, i, s)``, which
-threads the online-softmax carry ``(acc, m, l)`` of query block ``i``
-(group ``g`` = one (batch, head) plane) through the KV blocks ``s``.  Its
-CUDA chore is the hand-written kernel
+The port of :mod:`parsec_tpu.ops.attention`.
+
+* :func:`flash_attention_ptg` — single-rank blockwise flash attention:
+  task class ``attn_step(g, i, s)`` threads the online-softmax carry
+  ``(acc, m, l)`` of query block ``i`` (group ``g`` = one (batch, head)
+  plane) through the KV blocks ``s``; ``attn_out(g, i)`` normalises
+  ``acc / l`` into the output block.
+* :func:`ring_attention_ptg` — distributed ring attention: each rank owns
+  one query block and one resident K/V block; per step ``s`` rank ``r``
+  computes against K/V block ``(r + s) % R`` and forwards it one
+  neighbour hop (``variant="ring"``, the rotation is ordinary remote
+  dependencies on the comm engine's wire), or takes each block from its
+  owner's broadcast (``variant="bcast"``).
+
+A step's CUDA chore is the hand-written kernel
 :func:`parsec_tpu_torch.ops.kernels.flash_attention_block` (B5), its CPU
-chore the same update in numpy.  ``attn_out(g, i)`` normalises
-``acc / l`` into the output block.
+chore the same update in numpy.  Host planes are torch CPU tensors, so
+bfloat16 q/k/v need no numpy bfloat16: the CUDA module stages torch host
+tiles as they are, and a CPU chore widens them to float32 numpy.  The
+carries are float32 numpy tiles.
 
-Host planes are torch CPU tensors, so bfloat16 q/k/v need no numpy
-bfloat16: the CUDA module stages torch host tiles as they are, and a CPU
-chore widens them to float32 numpy.  The carries are float32 numpy tiles.
-
-:func:`run_flash_attention` drives the graph through a live context's
-dynamic runtime, :func:`run_flash_attention_native` through the native
-engine's pump.  Not ported yet, each raising ``NotImplementedError``: the
-distributed ring-attention graphs (:func:`ring_attention_ptg`,
-:func:`ring_attention_builder`, :func:`run_ring_attention_graph`, ROADMAP
-A.8c).  ``"auto"`` block sizes read the autotuner's winners for the
-sequence length and the card (:func:`..tuning.autotune_attention`), else
+:func:`run_flash_attention` drives the flash graph through a live
+context's dynamic runtime, :func:`run_flash_attention_native` through the
+native engine's pump, :func:`run_ring_attention_graph` the ring graph over
+in-process ranks (:func:`~parsec_tpu_torch.multirank.run_multirank_perf`).
+``"auto"`` block sizes read the autotuner's winners for the sequence
+length and the card (:func:`..tuning.autotune_attention`), else
 ``min(128, S)``, as the reference's.
 
 The numerics oracle is
@@ -67,12 +75,18 @@ class PlaneCollection(DataCollection):
     """Lazily-materialised planes keyed ``(g, j)`` — group ``g`` is one
     (batch, head) pair, ``j`` a sequence-block index.  ``init(g, j)``
     builds the tile (a torch CPU tensor is kept as it is, anything else
-    becomes an ndarray).  Single rank: the reference's ``rank_of``
-    placement serves the ring graphs (ROADMAP A.8c)."""
+    becomes an ndarray); ``keys`` declares the planes (:meth:`tiles`);
+    ``rank_of`` (optional) distributes block ``j`` (ring attention places
+    block ``j`` on rank ``j``)."""
 
-    def __init__(self, name: str, init: Callable[[int, int], object]):
-        super().__init__(name)
+    def __init__(self, name: str, init: Callable[[int, int], object], *,
+                 keys: Sequence[Tuple[int, int]] = (), nodes: int = 1,
+                 myrank: int = 0,
+                 rank_of: Optional[Callable[[int, int], int]] = None):
+        super().__init__(name, nodes=nodes, myrank=myrank)
         self._init = init
+        self._keys = [tuple(k) for k in keys]
+        self._rank_of = rank_of
         self._store: Dict[Tuple[int, int], Data] = {}
         self._lock = threading.Lock()
 
@@ -81,6 +95,12 @@ class PlaneCollection(DataCollection):
             key = key[0]
         g, j = key
         return (int(g), int(j))
+
+    def rank_of(self, *key) -> int:
+        if self._rank_of is None:
+            return 0
+        g, j = self.data_key(*key)
+        return self._rank_of(g, j)
 
     def data_of(self, *key) -> Data:
         k = self.data_key(*key)
@@ -93,6 +113,16 @@ class PlaneCollection(DataCollection):
                 d = data_create(k, self, payload=tile)
                 self._store[k] = d
             return d
+
+    def tiles(self):
+        return list(self._keys)
+
+    def local_tiles(self):
+        """Declared keys owned by this rank — the explorer's
+        :func:`~parsec_tpu_torch.analysis.schedules.tile_digest` currency."""
+        for key in self._keys:
+            if self.rank_of(*key) == self.myrank:
+                yield key
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +178,29 @@ def _make_step_body_cpu(q_block: int, kv_block: int, causal: bool,
     return attn_step
 
 
+def _make_ring_step_body_cuda(q_block: int, kv_block: int, causal: bool,
+                              scale: float, block_rem: int):
+    def attn_rstep(QB, KB, VB, ACC, M, L, r, ki, **_):
+        # balanced splits: the first block_rem blocks are one row
+        # taller, so block idx starts at idx*base + min(idx, rem)
+        return kernels.flash_attention_block(
+            QB, KB, VB, ACC, M, L, r * q_block + min(r, block_rem),
+            ki * kv_block + min(ki, block_rem), causal=causal, scale=float(scale))
+
+    return attn_rstep
+
+
+def _make_ring_step_body_cpu(q_block: int, kv_block: int, causal: bool,
+                             scale: float, block_rem: int):
+    def attn_rstep(QB, KB, VB, ACC, M, L, **kw):
+        r, ki = kw["r"], kw["ki"]
+        _np_step(QB, KB, VB, ACC, M, L,
+                 r * q_block + min(r, block_rem),
+                 ki * kv_block + min(ki, block_rem), causal, scale)
+
+    return attn_rstep
+
+
 def _attn_out_cuda(ACC, M, L, O, **_):
     return (ACC / L).to(O.dtype)
 
@@ -157,6 +210,14 @@ def _attn_out_cpu(ACC, M, L, O, **_):
         O.copy_(torch.from_numpy(ACC / L))  # rounds to O's dtype
     else:
         O[:] = (ACC / L).astype(O.dtype)
+
+
+def _kvsrc_cuda(KB, VB, **_):
+    return ()  # pure forward: no writable flows
+
+
+def _kvsrc_cpu(KB, VB, **_):
+    pass
 
 
 def _bodies(pc, cuda_body, cpu_body, use_cuda: bool, use_cpu: bool) -> None:
@@ -231,6 +292,108 @@ def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
     out.flow("M", IN, "<- M attn_step(g, i, hz)")
     out.flow("L", IN, "<- L attn_step(g, i, hz)")
     out.flow("O", INOUT, "<- O(g, i)", "-> O(g, i)")
+    _bodies(out, _attn_out_cuda, _attn_out_cpu, use_cuda, use_cpu)
+    return ptg
+
+
+def ring_attention_ptg(*, causal: bool = False, scale: float = 1.0,
+                       q_block: int = 128, kv_block: int = 128,
+                       block_rem: int = 0,
+                       variant: str = "ring",
+                       use_cuda: bool = True, use_cpu: bool = True) -> PTG:
+    """Distributed ring attention over ``R`` ranks: rank ``r`` owns query
+    block ``r`` and (initially) K/V block ``r``; instantiate with
+    ``.taskpool(G=, R=, Q=, K=, V=, O=, CA=, CM=, CL=)`` where the
+    collections place block ``j`` on rank ``j`` (``rank_of``).
+
+    ``variant="ring"``: step ``s`` of rank ``r`` computes against K/V
+    block ``ki = (r + s) % R``, received from neighbour ``(r + 1) % R``'s
+    step ``s-1`` and forwarded to ``(r - 1) % R``'s step ``s+1`` — the
+    rotation is nothing but remote dependencies, so the payloads ride
+    the eager/rendezvous protocol and the transfer of step ``s+1``'s
+    block overlaps step ``s``'s compute.
+
+    ``variant="bcast"``: the carry chain is reindexed by KV block
+    (``attn_bstep(g, r, j)`` consumes block ``j`` directly from its
+    owner's ``attn_kvsrc(g, j)`` forward task, one ranged output dep =
+    the runtime's activation broadcast tree).  Accumulation order is
+    block order on every rank; correct for causal too, but built for
+    the non-causal case where order is free.
+
+    ``block_rem``: with balanced splits of a non-dividing sequence the
+    first ``block_rem`` blocks are one row taller; the step bodies
+    compute global offsets as ``idx*block + min(idx, block_rem)``.
+    Unlike the flash graph, causal ring graphs keep their fully-masked
+    steps: the block must still TRANSIT the rank to reach later
+    consumers on the rotation path, and a masked block's kernel update
+    is exactly the identity on the carry."""
+    if variant not in ("ring", "bcast"):
+        raise ValueError(f"unknown ring-attention variant {variant!r} "
+                         "(expected 'ring' or 'bcast')")
+    ptg = PTG(f"ring_attn_{variant}")
+    cuda_step = _make_ring_step_body_cuda(q_block, kv_block, causal, scale, block_rem)
+    cpu_step = _make_ring_step_body_cpu(q_block, kv_block, causal, scale, block_rem)
+
+    if variant == "ring":
+        st = ptg.task_class("attn_rstep", g="0 .. G-1", r="0 .. R-1",
+                            s="0 .. R-1")
+        st.define("ki", "(r + s) % R")
+        st.affinity("Q(g, r)")
+        st.priority("(R - s) * 10")
+        st.flow("QB", IN, "<- Q(g, r)")
+        # the rotation: K/V blocks hop one neighbour per step.  `s` is the
+        # step index, so the producing neighbour is always its step s-1 —
+        # reciprocity holds under the modular index arithmetic.
+        st.flow("KB", IN,
+                "<- (s == 0) ? K(g, r) : KB attn_rstep(g, (r+1) % R, s-1)",
+                "-> (s < R-1) ? KB attn_rstep(g, (r-1) % R, s+1)")
+        st.flow("VB", IN,
+                "<- (s == 0) ? V(g, r) : VB attn_rstep(g, (r+1) % R, s-1)",
+                "-> (s < R-1) ? VB attn_rstep(g, (r-1) % R, s+1)")
+        for name, coll in (("ACC", "CA"), ("M", "CM"), ("L", "CL")):
+            st.flow(name, INOUT,
+                    f"<- (s == 0) ? {coll}(g, r) "
+                    f": {name} attn_rstep(g, r, s-1)",
+                    f"-> (s < R-1) ? {name} attn_rstep(g, r, s+1) "
+                    f": {name} attn_out(g, r)")
+        _bodies(st, cuda_step, cpu_step, use_cuda, use_cpu)
+        step_name = "attn_rstep"
+    else:
+        # bcast variant: every rank's carry visits KV blocks in block
+        # order j, each block broadcast once by its owner's forward task
+        src = ptg.task_class("attn_kvsrc", g="0 .. G-1", j="0 .. R-1")
+        src.affinity("K(g, j)")
+        src.priority("1000")  # ship KV blocks before anything computes
+        src.flow("KB", IN, "<- K(g, j)",
+                 "-> KB attn_bstep(g, 0 .. R-1, j)")
+        src.flow("VB", IN, "<- V(g, j)",
+                 "-> VB attn_bstep(g, 0 .. R-1, j)")
+        _bodies(src, _kvsrc_cuda, _kvsrc_cpu, use_cuda, use_cpu)
+
+        st = ptg.task_class("attn_bstep", g="0 .. G-1", r="0 .. R-1",
+                            j="0 .. R-1")
+        st.define("ki", "j")
+        st.affinity("Q(g, r)")
+        st.priority("(R - j) * 10")
+        st.flow("QB", IN, "<- Q(g, r)")
+        st.flow("KB", IN, "<- KB attn_kvsrc(g, j)")
+        st.flow("VB", IN, "<- VB attn_kvsrc(g, j)")
+        for name, coll in (("ACC", "CA"), ("M", "CM"), ("L", "CL")):
+            st.flow(name, INOUT,
+                    f"<- (j == 0) ? {coll}(g, r) "
+                    f": {name} attn_bstep(g, r, j-1)",
+                    f"-> (j < R-1) ? {name} attn_bstep(g, r, j+1) "
+                    f": {name} attn_out(g, r)")
+        _bodies(st, cuda_step, cpu_step, use_cuda, use_cpu)
+        step_name = "attn_bstep"
+
+    out = ptg.task_class("attn_out", g="0 .. G-1", r="0 .. R-1")
+    out.affinity("Q(g, r)")
+    out.priority("0")
+    out.flow("ACC", IN, f"<- ACC {step_name}(g, r, R-1)")
+    out.flow("M", IN, f"<- M {step_name}(g, r, R-1)")
+    out.flow("L", IN, f"<- L {step_name}(g, r, R-1)")
+    out.flow("O", INOUT, "<- O(g, r)", "-> O(g, r)")
     _bodies(out, _attn_out_cuda, _attn_out_cpu, use_cuda, use_cpu)
     return ptg
 
@@ -343,10 +506,13 @@ def build_flash_attention(q, k, v, *, causal: bool = False,
             return arr[b, o:o + n, h, :].clone(memory_format=torch.contiguous_format)
         return init
 
-    Qc = PlaneCollection("Q", plane(q, qs))
-    Kc = PlaneCollection("K", plane(k, ks))
-    Vc = PlaneCollection("V", plane(v, ks))
-    Oc = PlaneCollection("O", lambda g, i: torch.zeros((qs[i][1], D), dtype=odt))
+    keys_q = [(g, i) for g in range(G) for i in range(len(qs))]
+    keys_k = [(g, s) for g in range(G) for s in range(len(ks))]
+    Qc = PlaneCollection("Q", plane(q, qs), keys=keys_q)
+    Kc = PlaneCollection("K", plane(k, ks), keys=keys_k)
+    Vc = PlaneCollection("V", plane(v, ks), keys=keys_k)
+    Oc = PlaneCollection("O", lambda g, i: torch.zeros((qs[i][1], D), dtype=odt),
+                         keys=keys_q)
     ca, cm, cl = _carry_inits(D, [n for _, n in qs])
     tp = _flash_ptg_cached(
         causal=causal, scale=scale_v, q_block=qb, kv_block=kvb,
@@ -354,9 +520,9 @@ def build_flash_attention(q, k, v, *, causal: bool = False,
     ).taskpool(G=G, NQ=len(qs), NK=len(ks), QB=qb, KVB=kvb,
                QOFF=q_offset, SQ=Sq,
                Q=Qc, K=Kc, V=Vc, O=Oc,
-               CA=PlaneCollection("CA", ca),
-               CM=PlaneCollection("CM", cm),
-               CL=PlaneCollection("CL", cl))
+               CA=PlaneCollection("CA", ca, keys=keys_q),
+               CM=PlaneCollection("CM", cm, keys=keys_q),
+               CL=PlaneCollection("CL", cl, keys=keys_q))
 
     def assemble() -> torch.Tensor:
         out = torch.zeros((B, Sq, H, D), dtype=odt)
@@ -427,19 +593,107 @@ def run_flash_attention_native(q, k, v, *, nthreads: int = 4, device=None,
     return assemble()
 
 
-def ring_attention_ptg(*args, **kw):
-    """Not ported yet: distributed ring attention is ROADMAP A.8c."""
-    raise NotImplementedError("ring_attention_ptg: remote dependencies are "
-                              "not ported yet (ROADMAP A.8c)")
+def ring_attention_builder(nranks: int, q, k, v, *,
+                           causal: bool = False,
+                           scale: Optional[float] = None,
+                           variant: str = "ring",
+                           use_cuda: bool = True, use_cpu: bool = True):
+    """The per-rank builder of the distributed ring-attention PTG — the
+    ``build(rank, ctx) -> (taskpool, O-collection)`` shape shared by
+    :func:`~parsec_tpu_torch.multirank.run_multirank_perf` and the schedule
+    explorer (:func:`parsec_tpu_torch.analysis.schedules.explore`).
+    ``q``/``k``/``v`` are ``[B, S, H, D]`` numpy arrays or torch tensors
+    (bfloat16 too).  Returns ``(build, assemble)``; call
+    ``assemble(users)`` on the per-rank O collections after quiescence for
+    the ``[B, S, H, D]`` output, a torch CPU tensor in q's dtype."""
+    q, k, v = _host_tensor(q), _host_tensor(k), _host_tensor(v)
+    B, S, H, D = q.shape
+    if tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape):
+        raise ValueError("ring attention needs equal q/k/v shapes")
+    scale_v = scale if scale is not None else 1.0 / math.sqrt(D)
+    # one block per rank, BALANCED: the first S%R ranks get one extra
+    # row (a ceil-sized split can yield fewer blocks than ranks — e.g.
+    # S=9, R=4 — so it cannot cover every S >= R)
+    base, rem = divmod(S, nranks)
+    if base == 0:
+        raise ValueError(f"S={S} < nranks={nranks}: every rank needs at "
+                         "least one sequence row")
+    splits = [(r * base + min(r, rem), base + (1 if r < rem else 0))
+              for r in range(nranks)]
+    G = B * H
+    keys = [(g, r) for g in range(G) for r in range(nranks)]
+    ptg = ring_attention_ptg(causal=causal, scale=scale_v, q_block=base,
+                             kv_block=base, block_rem=rem, variant=variant,
+                             use_cuda=use_cuda, use_cpu=use_cpu)
+    sizes = [n for _, n in splits]
+
+    def plane(arr):
+        def init(g, j):
+            b, h = divmod(g, H)
+            o, n = splits[j]
+            return arr[b, o:o + n, h, :].clone(memory_format=torch.contiguous_format)
+        return init
+
+    def build(r, ctx):
+        owner = dict(keys=keys, nodes=nranks, myrank=r,
+                     rank_of=lambda g, j: j % nranks)
+        Oc = PlaneCollection(
+            "O", lambda g, i: torch.zeros((sizes[i], D), dtype=q.dtype), **owner)
+        ca, cm, cl = _carry_inits(D, sizes)
+        tp = ptg.taskpool(
+            G=G, R=nranks,
+            Q=PlaneCollection("Q", plane(q), **owner),
+            K=PlaneCollection("K", plane(k), **owner),
+            V=PlaneCollection("V", plane(v), **owner),
+            O=Oc,
+            CA=PlaneCollection("CA", ca, **owner),
+            CM=PlaneCollection("CM", cm, **owner),
+            CL=PlaneCollection("CL", cl, **owner))
+        return tp, Oc
+
+    def assemble(users) -> torch.Tensor:
+        out = torch.zeros((B, S, H, D), dtype=q.dtype)
+        for r, oc in enumerate(users):
+            o, n = splits[r]
+            for g in range(G):
+                b, h = divmod(g, H)
+                c = oc.data_of(g, r).newest_copy()
+                out[b, o:o + n, h, :] = _host_tensor(host_array(c.payload))
+        return out
+
+    return build, assemble
 
 
-def ring_attention_builder(*args, **kw):
-    """Not ported yet: distributed ring attention is ROADMAP A.8c."""
-    raise NotImplementedError("ring_attention_builder: remote dependencies "
-                              "are not ported yet (ROADMAP A.8c)")
+def run_ring_attention_graph(nranks: int, q, k, v, *,
+                             causal: bool = False,
+                             scale: Optional[float] = None,
+                             variant: str = "ring",
+                             use_cuda: bool = True, use_cpu: bool = True,
+                             fabric=None, nb_cores: int = 2,
+                             timeout: float = 300,
+                             trace_pins: bool = False,
+                             trace_dir: Optional[str] = None,
+                             devices: Optional[Sequence[str]] = None,
+                             cuda_device: Optional[str] = None):
+    """Drive the distributed ring-attention PTG over ``nranks`` in-process
+    ranks (one Context a rank; the K/V rotation is remote dependencies on
+    the fabric).  ``q``/``k``/``v`` are full ``[B, S, H, D]`` arrays or
+    tensors; block ``r`` of every plane lives on rank ``r``.  Every rank's
+    context binds the card unless ``devices=`` / ``cuda_device=`` (passed
+    to every rank's ``Context``) say otherwise.  Returns ``(out, stats)``
+    — ``out`` a torch CPU tensor, ``stats`` the
+    :func:`~parsec_tpu_torch.multirank.run_multirank_perf` record; with
+    ``trace_pins`` it includes the per-rank comm/compute overlap
+    metrics."""
+    from ..multirank import run_multirank_perf
 
-
-def run_ring_attention_graph(*args, **kw):
-    """Not ported yet: distributed ring attention is ROADMAP A.8c."""
-    raise NotImplementedError("run_ring_attention_graph: multi-rank runs are "
-                              "not ported yet (ROADMAP A.8c)")
+    B, S, H, D = tuple(q.shape)
+    build, assemble = ring_attention_builder(
+        nranks, q, k, v, causal=causal, scale=scale, variant=variant,
+        use_cuda=use_cuda, use_cpu=use_cpu)
+    flops = 4.0 * B * H * S * S * D
+    users, stats = run_multirank_perf(
+        nranks, build, nb_cores=nb_cores, timeout=timeout, fabric=fabric,
+        overlap=trace_pins, flops=flops, trace_dir=trace_dir, devices=devices,
+        cuda_device=cuda_device)
+    return assemble(users), stats

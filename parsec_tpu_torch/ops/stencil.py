@@ -43,17 +43,19 @@ INOUT = AccessMode.INOUT
 
 class StencilBuffers(DataCollection):
     """Double-buffered tile grid: keys are (parity, i, j); parity 0 holds
-    the initial state, parity 1 is scratch.  Single rank: the reference's
-    ``rank_of`` placement serves its distributed runs (ROADMAP A.8c)."""
+    the initial state, parity 1 is scratch.  ``rank_of(i, j)`` (optional)
+    places tile (i, j) of both parities on a rank of a distributed run."""
 
-    def __init__(self, grid: np.ndarray, mt: int, nt: int, *, name: str = "A"):
-        super().__init__(name)
+    def __init__(self, grid: np.ndarray, mt: int, nt: int, *, nodes: int = 1,
+                 myrank: int = 0, rank_of=None, name: str = "A"):
+        super().__init__(name, nodes=nodes, myrank=myrank)
         self.mt, self.nt = mt, nt
         h, w = grid.shape
         check_tiling(h, mt, what="grid rows", op="stencil")
         check_tiling(w, nt, what="grid cols", op="stencil")
         self.th, self.tw = h // mt, w // nt
         self.dtype = grid.dtype
+        self._rank_of = rank_of
         self._store = {}
         self._lock = threading.Lock()
         self._grid0 = grid
@@ -63,6 +65,12 @@ class StencilBuffers(DataCollection):
             key = key[0]
         p, i, j = key
         return (int(p), int(i), int(j))
+
+    def rank_of(self, *key):
+        p, i, j = self.data_key(*key)
+        if self._rank_of is not None:
+            return self._rank_of(i, j)
+        return 0
 
     def data_of(self, *key) -> Data:
         k = self.data_key(*key)

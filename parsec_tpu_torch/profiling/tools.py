@@ -25,8 +25,7 @@ Chrome/Perfetto JSON.
   code;
 * ``lint`` — the ahead-of-time PTG/JDF graph verifier
   (:mod:`..analysis`) over ``.jdf`` files, ``module:callable`` builders
-  and registry names; ``--all`` sweeps :mod:`..analysis.registry`, where
-  the graphs that wait for another layer are reported as waiting;
+  and registry names; ``--all`` sweeps :mod:`..analysis.registry`;
 * ``engine-verify`` — the native engine's ABI contract, the lifecycle
   model checker, the conformance replay of a real pump loop on the
   g++-built library, and the clang-tidy gate
@@ -530,17 +529,13 @@ def _lint_one(target: str, overrides: Dict[str, Any], ignore):
 
 
 def cmd_lint(args) -> int:
-    """Ahead-of-time graph verifier CLI (see parsec_tpu_torch.analysis).
-    A registry graph ``--all`` adds that needs an unported layer is
-    reported as waiting (its ROADMAP item) and does not fail the run; a
-    target named explicitly that cannot be built fails it."""
+    """Ahead-of-time graph verifier CLI (see parsec_tpu_torch.analysis)."""
     from ..analysis import errors_of, registry
     from ..analysis.findings import infos_of
 
     ignore = tuple(c for arg in (args.ignore or [])
                    for c in arg.split(",") if c)
-    explicit = list(args.targets or [])
-    targets = list(explicit)
+    targets = list(args.targets or [])
     if args.all:
         targets.extend(registry.names())
         targets = list(dict.fromkeys(targets))  # explicit + --all overlap
@@ -550,19 +545,11 @@ def cmd_lint(args) -> int:
               file=sys.stderr)
         return 2
     overrides = _parse_defines(args.define)
-    n_err = n_warn = n_info = n_wait = 0
+    n_err = n_warn = n_info = 0
     failed = False
     for target in targets:
         try:
             name, findings, notes = _lint_one(target, overrides, ignore)
-        except NotImplementedError as e:
-            if target in explicit:
-                print(f"{target}: FAILED to build: {e}", file=sys.stderr)
-                failed = True
-            else:
-                print(f"{target}: waiting: {e}")
-                n_wait += 1
-            continue
         except Exception as e:
             print(f"{target}: FAILED to build/parse: "
                   f"{type(e).__name__}: {e}", file=sys.stderr)
@@ -582,7 +569,7 @@ def cmd_lint(args) -> int:
             print(f"{name}: OK"
                   + (f" ({infos} advisory)" if infos else ""))
     print(f"lint: {len(targets)} graph(s), {n_err} error(s), "
-          f"{n_warn} warning(s), {n_info} advisory, {n_wait} waiting")
+          f"{n_warn} warning(s), {n_info} advisory")
     if failed or n_err:
         return 1
     # advisory findings (PTG060 fusion hints) NEVER fail --strict

@@ -554,24 +554,15 @@ def test_env_lint_ignore_keeps_strict_usable(monkeypatch):
 # the in-repo registry (tests/analysis/test_inrepo_graphs.py)
 # ---------------------------------------------------------------------------
 
-#: registry graphs that wait for another layer, with its ROADMAP item
-WAITING = {"ops.attention_ring": "A.8", "ops.attention_ring_bcast": "A.8"}
-
-
 def test_registry_names_are_the_references():
     assert registry.names() == ref_registry.names()
 
 
 @pytest.mark.parametrize("name", registry.names())
 def test_inrepo_graph_lints_clean(name):
-    """Every buildable registry graph verifies to zero error and warning
-    findings and to the reference's findings, fusion hints (PTG060,
-    advisory) included; a graph whose layer is not ported raises naming
-    its ROADMAP item."""
-    if name in WAITING:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {WAITING[name]}"):
-            registry.build(name)
-        return
+    """Every registry graph verifies to zero error and warning findings
+    and to the reference's findings, fusion hints (PTG060, advisory)
+    included."""
     ptg, consts = registry.build(name)
     fs = analysis.verify_ptg(ptg, consts, fusion_hints=True)
     real = [f for f in fs if f.severity != "info"]
@@ -700,20 +691,20 @@ def test_lint_module_builder_without_globals_falls_back_to_static(capsys):
     assert "missing globals" in out and "NT" in out and "OK" in out
 
 
-def test_lint_all_reports_the_waiting_graphs(capsys):
-    """``--all`` lints every buildable registry graph clean and reports
-    the ones that wait for an unported layer, without failing."""
+def test_lint_all_covers_every_registry_graph(capsys):
+    """``--all`` lints every registry graph clean, none left out and none
+    failing, the ring-attention graphs among them."""
     rc = tools.main(["lint", "jdf.chaindata", "--all"])
     out = capsys.readouterr().out
     assert rc == 0
     n = len(registry.names())
     assert f"lint: {n} graph(s), 0 error(s), 0 warning(s)" in out
-    assert f"{len(WAITING)} waiting" in out
-    for name, item in WAITING.items():
-        assert f"{name}: waiting:" in out and f"ROADMAP {item}" in out
-    # named explicitly, a waiting graph fails the run
-    assert tools.main(["lint", "ops.attention_ring"]) == 1
-    assert "FAILED" in capsys.readouterr().err
+    assert "waiting" not in out
+    ok = {ln.split(":")[0] for ln in out.splitlines()
+          if ln.endswith(": OK") or ": OK (" in ln}
+    assert ok == set(registry.names())
+    assert tools.main(["lint", "ops.attention_ring"]) == 0
+    assert "ops.attention_ring: OK" in capsys.readouterr().out
 
 
 def test_jdfc_parse_error_exits_nonzero_without_traceback(jdf_files, capsys):

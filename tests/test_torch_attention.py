@@ -687,15 +687,6 @@ def test_ptg_definitions_are_memoised_and_bounded():
     assert len(attention._PTG_MEMO) == attention._PTG_MEMO_MAX
 
 
-@pytest.mark.parametrize("name,item", [
-    ("ring_attention_ptg", "A.8"),
-    ("ring_attention_builder", "A.8"), ("run_ring_attention_graph", "A.8"),
-])
-def test_unported_entry_points_raise(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(attention, name)(2, None, None, None)
-
-
 def test_attention_reference_float64_and_bf16_inputs():
     """The port's oracle keeps float64 in float64 and takes bfloat16 logits
     to float32, as the reference does."""

@@ -20,7 +20,11 @@ rebound device executor.  A fifth lowers and runs array programs
 cross-rank readers (a traced, watched 4-rank dpotrf through
 ``run_multirank_perf``, the distributed segmented Cholesky, the engine's
 no-op run), an eighth the collectives, ``CollectiveTask``, redistribution,
-the array's cross-rank ``sum`` and the reshape engine.  ``chip_smoke.py`` alone in a directory, or
+the array's cross-rank ``sum`` and the reshape engine, and a ninth the
+SPMD layer (``parsec_tpu_torch.parallel`` on CPU positions: ring
+attention with the B5 wrapper, Ulysses, the SPMD Cholesky, SUMMA, the
+ring GEMM, the SPMD stencil, a broadcast) and the ring-attention graphs
+at 2 ranks.  ``chip_smoke.py`` alone in a directory, or
 on a machine without a GPU, exits non-zero and prints no result."""
 
 import os
@@ -520,6 +524,61 @@ def test_collectives_and_redistribution_load_neither_jax_nor_the_jax_package(tmp
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "COLL LOADED []" in proc.stdout
+
+
+PARALLEL_SCRIPT = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    from parsec_tpu_torch import parallel
+    from parsec_tpu_torch.ops import run_ring_attention_graph
+    from parsec_tpu_torch.parallel import collectives
+    from parsec_tpu_torch.parallel.shard_map import P, shard_map
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 32, 4, 8)).astype(np.float32))
+               for _ in range(3))
+    ring = parallel.make_mesh((4, 1), axes=("sp", "u"), devices=["cpu"] * 4)
+    ref = parallel.attention_reference(q, k, v, causal=True)
+    for use_kernels in (False, True):
+        out = parallel.ring_attention(q, k, v, ring, axis="sp", causal=True,
+                                      use_kernels=use_kernels)
+        assert torch.allclose(out, ref, rtol=2e-5, atol=2e-5)
+    assert torch.allclose(parallel.ulysses_attention(q, k, v, ring, axis="sp", causal=True),
+                          ref, rtol=2e-5, atol=2e-5)
+    out, stats = run_ring_attention_graph(2, q, k, v, causal=True, cuda_device="cpu",
+                                          use_cpu=False)
+    assert torch.allclose(out, ref, rtol=2e-5, atol=2e-5)
+    grid = parallel.make_mesh((2, 2), devices=["cpu"] * 4)
+    m = rng.standard_normal((32, 32))
+    spd = torch.from_numpy(m @ m.T + 32 * np.eye(32))
+    L = parallel.spmd_cholesky(spd, 8, mesh=grid).tril()
+    assert torch.allclose(L @ L.T, spd)
+    a = torch.from_numpy(m)
+    assert torch.allclose(parallel.summa_gemm(a, a, grid), a @ a)
+    assert torch.allclose(parallel.ring_gemm(a, a, ring, axis="sp"), a @ a)
+    g = parallel.spmd_stencil_5pt(torch.ones(16, 16), 2, grid)
+    assert g.shape == (16, 16)
+    x = torch.arange(4.0).reshape(4, 1)
+    b = shard_map(lambda t: collectives.bcast(t, "sp", root=2), ring, P("sp", None),
+                  P("sp", None))(x)
+    assert b.ravel().tolist() == [2.0] * 4
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "parsec_tpu"))
+    print("PARALLEL LOADED", bad)
+""")
+
+
+def test_spmd_layer_and_ring_graphs_load_neither_jax_nor_the_jax_package(tmp_path):
+    """The SPMD layer on CPU positions (ring attention with and without the
+    B5 wrapper, Ulysses, the SPMD Cholesky, SUMMA, the ring GEMM, the SPMD
+    stencil, a broadcast) and the ring-attention graph at 2 ranks load
+    neither JAX nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "PARALLEL LOADED []" in proc.stdout
 
 
 def test_chip_smoke_fails_without_the_repo_and_without_a_gpu(tmp_path):

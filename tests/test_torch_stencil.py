@@ -412,3 +412,66 @@ def test_check_tiling_matches_reference(args):
             return f"ValueError: {e}"
 
     assert outcome(tiles.check_tiling) == outcome(ref_tiles.check_tiling)
+
+
+# -- a distributed stencil: StencilBuffers placed by rank_of -----------------
+
+def _stencil_ranks(pkg, comm, nranks, grid, T, MT, NT, ctx_kw, ptg_kw):
+    """``tests/profiling/test_overlap.py``'s 2-rank stencil (row
+    distribution: the UP/DOWN halos cross ranks every iteration) on one
+    package's in-process fabric; returns the grid assembled from each
+    rank's own tiles."""
+    import threading
+
+    ces = comm.InprocFabric(nranks).endpoints()
+    ctxs = [pkg.Context(nb_cores=2, rank=r, nranks=nranks, comm=ces[r], **ctx_kw)
+            for r in range(nranks)]
+    mod = stencil if pkg is parsec_tpu_torch else ref_stencil
+    bufs, oks = {}, [None] * nranks
+
+    def worker(r):
+        A = mod.StencilBuffers(grid, MT, NT, nodes=nranks, myrank=r,
+                               rank_of=lambda i, j: i % nranks)
+        bufs[r] = A
+        tp = mod.stencil_ptg(use_cpu=True, **ptg_kw).taskpool(T=T, MT=MT, NT=NT, A=A)
+        ctxs[r].add_taskpool(tp)
+        oks[r] = tp.wait(timeout=120)
+
+    ts = [threading.Thread(target=worker, args=(r,)) for r in range(nranks)]
+    try:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=150)
+    finally:
+        for c in ctxs:
+            c.fini()
+    assert all(oks), oks
+    th, tw = grid.shape[0] // MT, grid.shape[1] // NT
+    out = np.zeros_like(grid)
+    for i in range(MT):
+        for j in range(NT):
+            A = bufs[i % nranks]
+            assert A.rank_of(T % 2, i, j) == i % nranks == A.rank_of((T % 2, i, j))
+            c = A.data_of(T % 2, i, j).newest_copy()
+            out[i * th:(i + 1) * th, j * tw:(j + 1) * tw] = np.asarray(c.payload)
+    return out
+
+
+def test_two_rank_stencil_equals_the_reference():
+    """A 2-rank stencil over ``StencilBuffers(..., rank_of=lambda i, j: i %
+    2)`` on host chores is bit-identical to the JAX package's and to the
+    dense oracle's arithmetic."""
+    from parsec_tpu import comm as ref_comm
+    from parsec_tpu_torch import comm
+
+    T, MT, NT, tile = 6, 2, 2, 24
+    grid = np.random.default_rng(5).standard_normal((MT * tile, NT * tile))
+    ours = _stencil_ranks(parsec_tpu_torch, comm, 2, grid, T, MT, NT,
+                          {"devices": ["cpu"]}, {"use_cuda": False})
+    theirs = _stencil_ranks(parsec_tpu, ref_comm, 2, grid, T, MT, NT,
+                            {"devices": ["cpu"]}, {"use_tpu": False})
+    np.testing.assert_array_equal(ours, theirs)
+    np.testing.assert_allclose(ours, stencil.reference_stencil(grid, T), rtol=1e-12)
+    A = stencil.StencilBuffers(grid, MT, NT)
+    assert A.rank_of(0, 1, 1) == 0 and A.nodes == 1 and A.myrank == 0
