@@ -364,6 +364,19 @@ passes; then B5 at the ring's block, single f32 and batched f32 and bf16
 over 32 members, against their plain versions, timed, with their bounds.
 Its B5 launches join the kernel table.
 
+The tutorial examples (``examples`` phase, after ``parallel``;
+``examples_phase``): every module of ``parsec_tpu_torch.examples`` (ex00
+to ex14 and ``dtd/``) through its ``main(device="cuda")`` at its own
+defaults, each with its wall and launches (``examples`` lines): ex10's
+8-position ring with ``use_kernels`` makes 64 batched B5 launches of 16
+members, within 1e-4 of its einsum ring; ex11's kernel chores under a
+``GraphExecutor`` make 10 B1 f32 launches a replay, 20 in the first call;
+ex12 runs its device-body QR and LU.  Then ex08 and ex11 part 1 at
+N=8192 nb=512 on the dpotrf path's S: ex11 without kernels
+``torch.equal`` to ex08, with kernels (680 B1 launches a replay)
+``torch.equal`` to the dynamic ``kernels`` factor and within 1e-3 of the
+run without.  Its B1 and B5 launches join the kernel table.
+
 Every run of the CUDA device module must end with no synchronous
 write-back fallback (``wb_sync_fallbacks == 0``) and no wave that fell
 back to per-task dispatch (``wave_fallbacks == 0``).  Kernel launches
@@ -4734,6 +4747,133 @@ def parallel_phase(h):
     return {"single": single, "batched": batched, "rows": rows}
 
 
+
+#: the tutorial examples of ``parsec_tpu_torch.examples``, in the order
+#: the README lists them
+EXAMPLES = ("ex00_startstop", "ex01_helloworld", "ex02_chain", "ex03_chain_multirank",
+            "ex04_chaindata", "ex05_broadcast", "ex06_raw", "ex07_raw_ctl",
+            "ex08_cuda_graph", "ex09_jdf_graph", "ex10_sequence_parallel",
+            "ex11_kernels_native", "ex12_qr_lu", "ex13_segmented_native_dist",
+            "ex14_round4_features", "dtd.dtd_helloworld", "dtd.dtd_hello_arg",
+            "dtd.dtd_untied")
+TOL_EX_DPOTRF = 1e-3   # the dpotrf path's gate
+TOL_EX_RING = 1e-4     # ex10's own bound
+
+
+def examples_phase(h):
+    """The tutorial examples on the card.  Every example's
+    ``main(device="cuda")`` at its own defaults, timed, with the kernel
+    launches it made: ex10's ring with ``use_kernels`` must make R² = 64
+    batched B5 launches of B·H = 16 members (one a position a step) and
+    agree with its einsum ring within ``TOL_EX_RING``; ex11's kernel
+    chores under a ``GraphExecutor`` must make the dpotrf's syrk and gemm
+    count for NT = 4 in B1 f32 launches a replay, twice in the first call
+    (the warm-up and the replay).  Then ex08 and ex11 part 1 at the main
+    path's width (N=8192, nb=512) on the path's input S: ex11 with
+    ``use_kernels=False`` ``torch.equal`` to ex08 (the same DAG), ex11
+    with kernels ``torch.equal`` to the dynamic path's ``kernels`` factor
+    and within ``TOL_EX_DPOTRF`` of the run without.  Adds each run's
+    B1/B2 launches to ``h.launches`` and returns ex10's batched B5
+    launches for the kernel table (no other example launches B5)."""
+    import importlib
+
+    np, torch, card, say, check = h.np, h.torch, h.card, h.say, h.check
+    from parsec_tpu_torch.ops import dpotrf_task_count, kernels
+
+    t_phase = time.perf_counter()
+    b5 = kernels.flash_attention_block
+    batched, walls = {}, {}
+
+    def n_upd(nt):
+        return nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
+
+    def run(label, name, **kw):
+        mod = importlib.import_module(f"parsec_tpu_torch.examples.{name}")
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        res = mod.main(device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mm = {fn.__name__: dict(fn.launches_by_mode, total=fn.launches)
+              for fn in (kernels.matmul_update, kernels.matmul)}
+        attn = dict(b5.launches_by_mode, total=b5.launches, members=b5.members)
+        h.launches[f"examples_{label}"] = mm
+        if attn["total"]:
+            batched[f"examples_{label}"] = {"flash_attention_block": attn}
+        walls[label] = wall
+        say("examples", example=label, wall_s=wall,
+            launches={"matmul_update": mm["matmul_update"]["total"],
+                      "matmul": mm["matmul"]["total"], "flash_attention_block": attn["total"],
+                      "flash_attention_block_members": attn["members"]},
+            card=card)
+        return res, mm, attn
+
+    for name in EXAMPLES:
+        res, mm, attn = run(name, name)
+        check(isinstance(res, dict) and res, f"examples {name}: returned {type(res)}")
+        if name == "ex10_sequence_parallel":
+            R, G = 8, 2 * 8
+            check(attn["total"] == attn["f32_b"] == R * R and attn["members"] == R * R * G,
+                  f"examples ex10: B5 launches {attn}, expected {R * R} f32_b of {G} members")
+            diff = (res["ring_kernels"] - res["ring"]).abs().max().item()
+            check(res["ring_kernels"].device.type == "cuda" and diff <= TOL_EX_RING
+                  and res["ring_kernels_err"] <= TOL_EX_RING,
+                  f"examples ex10: the B5 ring differs from the einsum ring by {diff}")
+            say("examples_ring", positions=R, members=G, launches=attn["total"],
+                max_abs_diff_einsum=diff, max_abs_err=res["ring_kernels_err"],
+                tol=TOL_EX_RING, card=card)
+        elif name == "ex11_kernels_native":
+            want = n_upd(256 // 64)
+            check(mm["matmul_update"]["total"] == mm["matmul_update"]["f32"] == 2 * want
+                  and res["replay_launches"].get(("matmul_update", "f32")) == want,
+                  f"examples ex11: B1 launches {mm['matmul_update']}, a replay "
+                  f"{res['replay_launches']}, expected {want} a replay")
+        elif name == "ex12_qr_lu":
+            check("R_device" in res, "examples ex12: no device-body run on the card")
+        else:
+            check(attn["total"] == 0, f"examples {name}: B5 launches {attn}")
+
+    # ex08 and ex11 part 1 at the main path's width, on its input
+    nt = N // NB
+    S = h.S
+    full = {}
+    for label, name, kw in (("ex08_full", "ex08_cuda_graph", {}),
+                            ("ex11_full_plain", "ex11_kernels_native",
+                             dict(use_kernels=False, native=False)),
+                            ("ex11_full_kernels", "ex11_kernels_native", dict(native=False))):
+        res, mm, attn = run(label, name, n=N, nb=NB, S=S, **kw)
+        kernel_run = label == "ex11_full_kernels"
+        want = n_upd(nt) if kernel_run else 0
+        check(mm["matmul_update"]["total"] == mm["matmul_update"]["f32"] == 2 * want
+              and mm["matmul"]["total"] == 0 and attn["total"] == 0
+              and res["replay_launches"].get(("matmul_update", "f32"), 0) == want,
+              f"examples {label}: launches {mm}, a replay {res['replay_launches']}, "
+              f"expected {want} B1 f32 a replay")
+        check(res["tasks"] == dpotrf_task_count(nt),
+              f"examples {label}: {res['tasks']} tasks, expected {dpotrf_task_count(nt)}")
+        full[label] = torch.from_numpy(res["factor"])
+        say("examples_full", example=label, N=N, nb=NB, wall_s=walls[label],
+            tasks=res["tasks"], b1_launches=mm["matmul_update"]["total"],
+            b1_per_replay=want, card=card)
+        del res
+    check(torch.equal(full["ex11_full_plain"], full["ex08_full"]),
+          "examples: ex11 without kernels is not torch.equal to ex08")
+    check(torch.equal(full["ex11_full_kernels"], torch.from_numpy(h.kernels_factor)),
+          "examples: ex11's kernel factor is not torch.equal to the dynamic kernels factor")
+    dev = h.dev
+    Lk = full["ex11_full_kernels"].to(dev).double().tril()
+    Lp = full["ex11_full_plain"].to(dev).double().tril()
+    rel = ((Lk - Lp).abs().max() / Lp.abs().max()).item()
+    check(rel < TOL_EX_DPOTRF, f"examples: ex11 with kernels is {rel} from the run without")
+    del Lk, Lp, full
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    say("examples_summary", examples=len(EXAMPLES), kernels_vs_plain_rel=rel,
+        tol=TOL_EX_DPOTRF, walls_s=walls, seconds=seconds, card=card)
+    return batched
+
+
 TUNE_BLOCKS = (256, 512)
 TUNE_NB = (256, 512, 1024)
 
@@ -6196,6 +6336,7 @@ def main() -> int:
     tcp_phase(types.SimpleNamespace(
         np=np, torch=torch, card=card, say=say, check=check, S=S, launches=launches,
         mr_factor=mr_factor, mr_wall=dyn_wall, mr_walls=mr.mr_walls, mr_acts=mr.mr_acts))
+    kernels_factor = mr_factor["kernels"]
     del mr_factor, arr_out, mr
     gc.collect()
     torch.cuda.empty_cache()
@@ -6205,6 +6346,14 @@ def main() -> int:
         np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
         time_ms=time_ms, bound=bound, carry_err=carry_err, attn_pairs=attn_pairs))
     batched_launches.update(par["batched"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the tutorial examples: each on the card, ex08/ex11 at full width ----
+    batched_launches.update(examples_phase(types.SimpleNamespace(
+        np=np, torch=torch, dev=dev, card=card, say=say, check=check, S=S,
+        launches=launches, kernels_factor=kernels_factor)))
+    del kernels_factor
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -2,15 +2,15 @@
 
 The port of :mod:`parsec_tpu.analysis.registry`, with the same names.
 ``tools lint --all`` and the tests sweep this registry, so a dependency
-regression in any shipped graph (ops builders or the ``examples/jdf``
-programs) fails fast — the CI analogue of the reference compiling every
-bundled ``.jdf`` as part of its build.
+regression in any shipped graph (ops builders or the ``.jdf`` programs
+of :mod:`parsec_tpu_torch.examples`) fails fast — the CI analogue of the
+reference compiling every bundled ``.jdf`` as part of its build.
 
 Each entry is a thunk returning ``(PTG, constants)``: construction is
 lazy and the problem sizes are tiny — the verifier's checks are
 size-generic, so NT=4-class instances exercise every guard branch
-without enumerating production spaces.  The ``examples/jdf`` files are
-read as data.  The
+without enumerating production spaces.  The ``.jdf`` files ship with the
+package and are read as data.  The
 array front end's canonical programs lint as generated, the 2-rank
 ``array.dist`` with its forwarding readers included (lowering a grid
 needs no second rank).
@@ -23,9 +23,8 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_JDF_DIR = os.path.join(_REPO_ROOT, "examples", "jdf")
+_JDF_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "examples", "jdf")
 
 
 def _local(name: str, shape=(8, 8)):
@@ -183,23 +182,19 @@ GRAPHS: Dict[str, Callable[[], Tuple]] = {
     "array.mixed": _array("mixed"),
     "array.chain": _array("chain"),
     "array.dist": _array("dist"),
+    "jdf.chaindata": _jdf("chaindata",
+                          lambda: {"NB": 4, "mydata": _local("mydata")}),
+    "jdf.cholesky": _jdf("cholesky",
+                         lambda: {"NT": 4, "A": _tiled(4)}),
+    "jdf.lu": _jdf("lu", lambda: {"NT": 4, "A": _tiled(4)}),
+    "jdf.merge_sort": _jdf(
+        "merge_sort",
+        lambda: {"NT": 4, "H": 2, "dataA": _local("dataA"),
+                 "result": _local("result")}),
+    "jdf.stencil_1d": _jdf(
+        "stencil_1d",
+        lambda: {"NT": 3, "ITER": 3, "descA": _local("descA")}),
 }
-
-if os.path.isdir(_JDF_DIR):  # source checkout: lint the example JDFs too
-    GRAPHS.update({
-        "jdf.chaindata": _jdf("chaindata",
-                              lambda: {"NB": 4, "mydata": _local("mydata")}),
-        "jdf.cholesky": _jdf("cholesky",
-                             lambda: {"NT": 4, "A": _tiled(4)}),
-        "jdf.lu": _jdf("lu", lambda: {"NT": 4, "A": _tiled(4)}),
-        "jdf.merge_sort": _jdf(
-            "merge_sort",
-            lambda: {"NT": 4, "H": 2, "dataA": _local("dataA"),
-                     "result": _local("result")}),
-        "jdf.stencil_1d": _jdf(
-            "stencil_1d",
-            lambda: {"NT": 3, "ITER": 3, "descA": _local("descA")}),
-    })
 
 
 def names():

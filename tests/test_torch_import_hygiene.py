@@ -24,7 +24,8 @@ the array's cross-rank ``sum`` and the reshape engine, and a ninth the
 SPMD layer (``parsec_tpu_torch.parallel`` on CPU positions: ring
 attention with the B5 wrapper, Ulysses, the SPMD Cholesky, SUMMA, the
 ring GEMM, the SPMD stencil, a broadcast) and the ring-attention graphs
-at 2 ranks.  ``chip_smoke.py`` alone in a directory, or
+at 2 ranks, and a tenth runs every tutorial example of
+``parsec_tpu_torch.examples`` on the torch CPU device.  ``chip_smoke.py`` alone in a directory, or
 on a machine without a GPU, exits non-zero and prints no result."""
 
 import os
@@ -580,6 +581,31 @@ def test_spmd_layer_and_ring_graphs_load_neither_jax_nor_the_jax_package(tmp_pat
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "PARALLEL LOADED []" in proc.stdout
 
+
+EXAMPLES_SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    import parsec_tpu_torch.examples as pkg
+
+    mods = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+                  if m.name.rsplit(".", 1)[-1].startswith(("ex", "dtd_")))
+    assert len(mods) == 18, mods
+    for name in mods:
+        importlib.import_module(name).main(device="cpu")
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "parsec_tpu", "examples"))
+    print("EXAMPLES", len(mods), "LOADED", bad)
+""")
+
+
+def test_examples_load_neither_jax_nor_the_jax_package(tmp_path):
+    """Every module of ``parsec_tpu_torch.examples`` imported and its
+    ``main(device="cpu")`` run in one fresh interpreter: neither JAX, nor
+    the JAX package, nor the repo-root ``examples/`` is loaded."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", EXAMPLES_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "EXAMPLES 18 LOADED []" in proc.stdout
 
 def test_chip_smoke_fails_without_the_repo_and_without_a_gpu(tmp_path):
     """chip_smoke.py copied alone into a directory, and run from the
