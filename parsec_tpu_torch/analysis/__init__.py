@@ -20,9 +20,9 @@ Runtime-concurrency layer (``RT0xx`` finding codes):
 * :mod:`.hb` — vector-clock happens-before race checker over the
   runtime's PINS event streams, live (``PARSEC_TPU_HBCHECK=1|strict``)
   and offline over binary ``.pbt`` dumps (``tools hbcheck``);
-* :mod:`.schedules` — deterministic schedule explorer at one rank:
-  seeded pop order and completion timing, with bit-identical-results +
-  clean-hb-check assertions per seed;
+* :mod:`.schedules` — deterministic schedule explorer (two ranks by
+  default): seeded pop order, completion timing and frame delivery, with
+  bit-identical-results + clean-hb-check assertions per seed;
 * :mod:`.lockdep` — lock-order checker for the Python side
   (``PARSEC_TPU_LOCKDEP=1``).
 

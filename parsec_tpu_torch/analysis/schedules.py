@@ -22,16 +22,17 @@ Every exploration must (a) quiesce on every rank, (b) produce bit-identical resu
 seed replays deterministically::
 
     PARSEC_MCA_sched_rnd_seed=<seed>  # the scheduler half
-    explore(build, nranks=1, seeds=[<seed>])    # the whole perturbation
+    explore(build, seeds=[<seed>])    # the whole perturbation
 
 Usage::
 
     def build(rank, ctx):
-        A = TiledMatrix(...).from_array(SPD)
+        A = TwoDimBlockCyclic(..., myrank=rank)
+        A.from_array(SPD)
         return cholesky_ptg(use_kernels=True).taskpool(NT=A.mt, A=A), A
 
-    res = explore(build, nranks=1, seeds=range(4))   # or nranks=2 with
-    assert res.identical                               # TwoDimBlockCyclic and not res.race_findings()
+    res = explore(build, seeds=range(4))   # two ranks, the default;
+    assert res.identical and not res.race_findings()   # nranks=1: one Context
 """
 
 from __future__ import annotations
@@ -246,7 +247,7 @@ def _install_jitter(seed: int, max_jitter_s: float):
 def explore(
     build: Callable[[int, Any], Tuple[Any, Any]],
     *,
-    nranks: int = 1,
+    nranks: int = 2,
     seeds: Iterable[int] = range(8),
     nb_cores: int = 2,
     timeout: float = 120,
@@ -263,8 +264,9 @@ def explore(
     serving shape) once per seed under that seed's perturbations, on a
     ``Context(nb_cores, scheduler="rnd")`` made for the seed (its devices
     as any Context's: the card, or the torch CPU device under
-    ``device_cuda_torch_device=cpu``), one context a rank over an
-    :class:`ExplorerFabric` when ``nranks > 1``, whose
+    ``device_cuda_torch_device=cpu``), one context a rank (two by
+    default, as in the reference) over an :class:`ExplorerFabric` when
+    ``nranks > 1``, whose
     ``delay_prob``/``max_delay`` perturb frame delivery.
 
     ``snapshot(users) -> digest`` defines cross-seed identity (default:

@@ -128,6 +128,7 @@ class Task:
         "counted",
         "data_in",
         "data_out",
+        "repo_entry",
         "retired",
         "body_args",
         "on_complete",
@@ -164,6 +165,7 @@ class Task:
         self.data_in: List[Optional["DataCopy"]] = [None] * len(task_class.flows)
         #: per-flow output DataCopy
         self.data_out: List[Optional["DataCopy"]] = [None] * len(task_class.flows)
+        self.repo_entry = None
         #: set once complete_execution has retired this task (guards
         #: against double-retire in error containment paths)
         self.retired = False

@@ -5,12 +5,13 @@ arenas (:mod:`.arena`), datatypes (:mod:`.datatype`), checkpoints
 
 from .data import Coherency, Data, DataCopy, data_create, host_array
 from .collection import DataCollection, LocalCollection
-from .datarepo import DataRepo
+from .datarepo import DataRepo, RepoEntry
 from .arena import Arena, ArenaRecycleError, ByteBudget, BytePool
 from .reshape import (DataCopyFuture, ReshapeSpec, get_copy_reshape,
                       materialize)
 from .datatype import (Contiguous, Datatype, Vector, type_create_contiguous,
                        type_create_vector, type_of_array)
+from . import checkpoint
 
 __all__ = [
     "Coherency",
@@ -21,6 +22,7 @@ __all__ = [
     "DataCollection",
     "LocalCollection",
     "DataRepo",
+    "RepoEntry",
     "Arena",
     "ArenaRecycleError",
     "ByteBudget",
@@ -35,4 +37,5 @@ __all__ = [
     "type_create_contiguous",
     "type_create_vector",
     "type_of_array",
+    "checkpoint",
 ]

@@ -49,8 +49,6 @@ def _tile_items(dc, owned_only: bool = True) -> Iterable[Tuple[Any, np.ndarray]]
         # tiles this rank never touched and persist them as real state
         if hasattr(dc, "materialized_keys"):
             keys = dc.materialized_keys()
-        elif hasattr(dc, "keys"):
-            keys = dc.keys()
         elif hasattr(dc, "tiles"):
             keys = dc.tiles()
         else:

@@ -91,3 +91,8 @@ class LocalCollection(DataCollection):
     def keys(self):
         with self._lock:
             return list(self._store)
+
+    def materialized_keys(self):
+        """Keys whose Data exists right now (no lazy creation): the
+        checkpoint's replicated-mode enumeration."""
+        return self.keys()

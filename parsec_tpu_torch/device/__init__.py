@@ -11,6 +11,7 @@ from .device import (
     ADVICE_WARMUP,
     CpuDevice,
     Device,
+    select_best_device,
 )
 from .cuda import CudaDevice
 from .template import DEV_TEMPLATE, TemplateDevice
@@ -24,4 +25,5 @@ __all__ = [
     "DEV_TEMPLATE",
     "Device",
     "TemplateDevice",
+    "select_best_device",
 ]

@@ -582,6 +582,14 @@ class CudaDevice(Device):
         #: pipeline depth (runtime_stage_depth): 1 = synchronous transfers
         #: (no prefetch lane, no committer); >= 2 arms both
         self.stage_depth = stage_depth_param()
+        #: the pump's intra-wave split threshold: a lone ready batch is
+        #: re-sliced across the prefetch window only when its prestage
+        #: would move at least this many bytes
+        self.stage_split_bytes = max(0, int(mca_param.register(
+            "runtime", "stage_split_kb", 256,
+            help="min host->device bytes (KB) a ready batch must need "
+                 "staged before the pump re-slices it across the "
+                 "prefetch window (intra-wave double buffering)"))) << 10
         self._committer = None
         #: eviction's bounded wait for an async victim commit before the
         #: synchronous fallback (counted in stats["wb_sync_fallbacks"])

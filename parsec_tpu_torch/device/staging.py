@@ -51,10 +51,6 @@ from ..utils import debug, mca_param
 #: process-wide span ids for STAGE_IN/WRITEBACK begin/end pairing
 _SPAN_SEQ = itertools.count(1)
 
-#: most tiles one committer drain takes (the reference's
-#: ``runtime_wb_batch`` default, which no caller changes)
-_DRAIN_TILES = 32
-
 
 def stage_depth_param() -> int:
     """The pipeline depth knob, shared by the device layer and the native
@@ -178,6 +174,10 @@ class WritebackCommitter:
         self._inflight: Dict[int, Any] = {}
         self._pending_bytes = 0
         self._window = wb_window_bytes()
+        self._batch = max(1, int(mca_param.register(
+            "runtime", "wb_batch", 32,
+            help="max tiles per committer drain batch (one device sync "
+                 "+ coalesced D2H gets per batch)")))
         self._tickets = itertools.count(1)
         self._kick = False
         self._flushing = False
@@ -267,8 +267,8 @@ class WritebackCommitter:
         (or provably stale) on return.  ``detach()`` and the executors'
         ``close()`` call this before host tiles are read.  The caller
         commits what is pending itself, in one batch of copies (the
-        committer's thread takes at most ``_DRAIN_TILES`` a drain), then
-        waits out a drain in flight.  Re-raises a committer failure
+        committer's thread takes at most ``runtime_wb_batch`` a drain),
+        then waits out a drain in flight.  Re-raises a committer failure
         loudly."""
         with self._cv:
             self._raise_if_dead()
@@ -324,7 +324,7 @@ class WritebackCommitter:
                 if self.error is not None or (self._stop and not self._pending):
                     return
                 self._kick = False
-                grab = list(itertools.islice(self._pending.items(), _DRAIN_TILES))
+                grab = list(itertools.islice(self._pending.items(), self._batch))
                 for did, entry in grab:
                     del self._pending[did]
                     self._pending_bytes -= entry[2]

@@ -89,13 +89,11 @@ def _native_sched_mode() -> str:
              "(the legacy ASYNC-chore protocol: two entries per task)"))
 
 
-#: max ready tasks one ``pop_batch`` call returns in pump mode
-_POP_BATCH = 256
-
-#: the intra-wave split threshold: a lone ready batch is re-sliced across
-#: the prefetch window only when its prestage would move at least this
-#: many host->device bytes (the reference's ``runtime_stage_split_kb``)
-_STAGE_SPLIT_BYTES = 256 << 10
+def _drain_batch() -> int:
+    return int(mca_param.register(
+        "runtime", "native_drain", 256,
+        help="pump-mode batch size: max ready tasks per pz_graph_pop_"
+             "batch call (also floors the lifecycle-event drain buffer)"))
 
 
 def _conformance_on() -> bool:
@@ -272,8 +270,8 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
                shims, retire_cb: Callable[[List[Any]], None],
                ev: Optional[_EventDrain] = None) -> int:
     """The zero-interpreter hot loop.  Per batch: ONE ``pop_batch`` returns
-    up to ``_POP_BATCH`` ready native ids, the device dispatches them
-    (completion deferred), rare cross-tile write-backs land, the batch
+    up to ``runtime_native_drain`` ready native ids, the device dispatches
+    them (completion deferred), rare cross-tile write-backs land, the batch
     retires through :func:`..core.scheduling.retire_native` (COMPLETE_EXEC
     pins only), and ONE ``done_batch`` runs every dep decrement, successor
     push and quiescence count natively.  Python cost is O(batches), not
@@ -290,9 +288,10 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
     resident, stage in their own submit: handing them over would only add
     a thread handoff and make the lane's Python contend with the pump for
     the interpreter lock, with nothing to overlap.  When the whole ready
-    frontier fits one pop and its prestage would move at least
-    ``_STAGE_SPLIT_BYTES``, the batch is re-sliced across the free buffers
-    so the window pipelines INTRA-wave.  A prestage failure is non-fatal:
+    frontier fits one pop and its prestage would move at least the
+    device's ``stage_split_bytes`` (``runtime_stage_split_kb``), the batch
+    is re-sliced across the free buffers so the window pipelines
+    INTRA-wave.  A prestage failure is non-fatal:
     the submit path restages the tile and fails loudly if the data is
     truly bad.  ``ev`` republishes the engine's lifecycle events after
     each ``done_batch``.  ``shims`` are the pool shims of the pools the
@@ -307,7 +306,7 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
         from ..device.staging import StageLane
 
         lane = StageLane(dev)
-    chunk = max(1, _POP_BATCH // depth)
+    chunk = max(1, _drain_batch() // depth)
     free = collections.deque((ctypes.c_int64 * chunk)() for _ in range(depth))
     window: collections.deque = collections.deque()  # (buf, n, batch, job)
     done = 0
@@ -328,7 +327,7 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
                 # take (one behind an older batch) or one that may split
                 need = dev.prestage_bytes(batch) if lane is not None and (
                     window or (free and n >= 4)) else 0
-                if (need and need >= _STAGE_SPLIT_BYTES and not window
+                if (need and need >= dev.stage_split_bytes and not window
                         and free and n >= 4):
                     # one wide ready wave with real transfer work to hide:
                     # re-slice it across the free buffers so the lane
@@ -1084,7 +1083,7 @@ class NativeExecutor:
                         pins.fire(pins.SCHEDULE_BEGIN, None, (t,))
         capture: Optional[List[Tuple[int, int, int]]] = \
             [] if self._conformance else None
-        ev = _EventDrain(ng, self._pump_index, _POP_BATCH, capture) if drain else None
+        ev = _EventDrain(ng, self._pump_index, _drain_batch(), capture) if drain else None
         # the progress currency counts logical tasks: a fused supertask
         # retires all its members (the rule of Taskpool.task_done)
         n = _pump_loop(ng, self.device, self._pump_index, self.stats,
@@ -1286,7 +1285,7 @@ class NativeServeExecutor:
                         t = self._pump_index.get(nid)
                         if t is not None:
                             pins.fire(pins.SCHEDULE_BEGIN, None, (t,))
-        ev = _EventDrain(ng, self._pump_index, _POP_BATCH) if drain else None
+        ev = _EventDrain(ng, self._pump_index, _drain_batch()) if drain else None
         tenant_of = self._tenant_of
         log = self.retire_log
         children = self.children

@@ -149,6 +149,7 @@ def stencil_kernel(OLD, UP, DOWN, LEFT, RIGHT, NEW, **_):
     return kernels.stencil_5pt(OLD, up, down, left, right)
 
 
+# use_cuda=True: the port's builders add a card chore by default, as cholesky/lu/qr/attention do
 def stencil_ptg(*, use_cuda: bool = True, use_kernels: bool = False,
                 use_cpu: bool = True) -> PTG:
     """Build the 2D 5-point stencil PTG; instantiate with

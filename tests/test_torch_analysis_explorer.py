@@ -290,6 +290,23 @@ def test_multi_rank_explorer_waits_for_the_comm_layer(cpu_device):
     assert res.digests[0] == ref.digests[0]
 
 
+def test_explore_defaults_to_two_ranks_as_the_reference(cpu_device):
+    """ROADMAP C.10: ``explore(build)`` with no ``nranks`` runs two ranks
+    over an :class:`ExplorerFabric` on both packages (the port defaulted
+    to one), and the two-rank dpotrf lands the reference's digests."""
+    import inspect
+
+    for fn in (explore, ref_schedules.explore):
+        assert inspect.signature(fn).parameters["nranks"].default == 2
+    res = _within(lambda: explore(_build_dpotrf_2ranks("port"), seeds=[0], timeout=90),
+                  limit=120)
+    ref = _within(lambda: ref_schedules.explore(_build_dpotrf_2ranks("ref"), seeds=[0],
+                                                timeout=90), limit=120)
+    assert res.nranks == ref.nranks == 2
+    assert len(res.digests[0]) == 2 and not res.errors
+    assert res.digests[0] == ref.digests[0]
+
+
 def test_tile_digest_of_tensor_payloads():
     """A tensor payload digests as its bytes with the numpy dtype name, so
     a device copy and a host copy of equal values digest equal; bfloat16

@@ -31,7 +31,6 @@ from parsec_tpu_torch import mca_param  # noqa: E402
 from parsec_tpu_torch.analysis import LintError, hb  # noqa: E402
 from parsec_tpu_torch.analysis.hb import HBEvent, HBRecorder, analyze_events  # noqa: E402
 from parsec_tpu_torch.datadist import TiledMatrix  # noqa: E402
-from parsec_tpu_torch.dsl import native_exec  # noqa: E402
 from parsec_tpu_torch.dsl.native_exec import NativeExecutor  # noqa: E402
 from parsec_tpu_torch.ops import cholesky_ptg  # noqa: E402
 from parsec_tpu_torch.profiling import pins  # noqa: E402
@@ -389,14 +388,14 @@ def test_hbcheck_strict_raises_at_fini_on_a_race(live_env):
 
 
 def test_hbcheck_depth2_pump_records_lane_committer_and_drain(
-        live_env, port_param, monkeypatch):
+        live_env, port_param):
     """A checked pump run at stage depth 2 with the transfer lane engaged:
     the prestage, write-back enqueue/commit and the drained native
     decrements, publishes and retires are all recorded, the schedule is
     clean, and the factor is the unchecked run's bit for bit."""
     port_param("device", "cuda_torch_device", "cpu")
     port_param("runtime", "stage_depth", 2)
-    monkeypatch.setattr(native_exec, "_STAGE_SPLIT_BYTES", 1)
+    port_param("runtime", "stage_split_kb", 0)
     tp, A = _dpotrf_pool(N=128, nb=16)
     ex = NativeExecutor(tp, native_device=True)
     try:

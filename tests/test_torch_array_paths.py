@@ -462,7 +462,7 @@ def test_mixed_array_program_explorer_4_seeds(cpu_device):
     from parsec_tpu_torch.analysis.schedules import explore, tile_digest
 
     res = _within(lambda: explore(
-        _build_explore, seeds=range(4), timeout=180,
+        _build_explore, nranks=1, seeds=range(4), timeout=180,
         snapshot=lambda users: [tile_digest(c) for ranks in users for c in ranks]))
     assert len(res.seeds) == 4 and not res.errors
     L = np.tril(np.linalg.cholesky(G_EX @ G_EX.T + H_EX))

@@ -530,7 +530,7 @@ def test_depth2_pump_records_lane_and_committer_spans(tmp_path, port_param, monk
         stop_after_chunk(job)
 
     monkeypatch.setattr(staging._StageJob, "wait", wait_for_the_lane)
-    monkeypatch.setattr(native_exec, "_STAGE_SPLIT_BYTES", 1)
+    port_param("runtime", "stage_split_kb", 0)
     port_param("device", "cuda_torch_device", "cpu")
     port_param("runtime", "stage_depth", 2)
     tp, _ = _port_pool(n=512)

@@ -612,7 +612,7 @@ def test_lane_prestages_a_supertasks_slots(cpu_device, port_param, monkeypatch):
         stop_after_chunk(job)
 
     monkeypatch.setattr(staging._StageJob, "wait", wait_for_the_lane)
-    monkeypatch.setattr(native_exec, "_STAGE_SPLIT_BYTES", 1)
+    port_param("runtime", "stage_split_kb", 0)
     port_param("runtime", "stage_depth", 2)
     port_param("runtime", "fusion_max_tasks", 4)
     out, _, _, dev, stats, ex = _run("stencil", "pump", "auto")

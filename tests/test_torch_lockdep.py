@@ -181,13 +181,13 @@ def test_runtime_under_lockdep_stays_deadlock_consistent(lockdep_env):
     assert lockdep.checker().n_locks > 0
 
 
-def test_pump_depth2_under_lockdep(lockdep_env, cpu_device, monkeypatch):
+def test_pump_depth2_under_lockdep(lockdep_env, cpu_device):
     """The pump at stage depth 2 (transfer lane and write-back committer
     threads) with its locks tracked: no RT010."""
     from parsec_tpu_torch.dsl import native_exec
 
     mca_param.set_param("runtime", "stage_depth", 2)
-    monkeypatch.setattr(native_exec, "_STAGE_SPLIT_BYTES", 1)
+    mca_param.set_param("runtime", "stage_split_kb", 0)
     try:
         chk = lockdep.install()
         A = TiledMatrix(64, 64, 16, 16, dtype=np.float32).from_array(_spd(64))
@@ -200,5 +200,6 @@ def test_pump_depth2_under_lockdep(lockdep_env, cpu_device, monkeypatch):
             ex.close()
     finally:
         mca_param.unset("runtime", "stage_depth")
+        mca_param.unset("runtime", "stage_split_kb")
     assert ex._pump and ex.stats["prefetched_batches"] > 0
     assert chk.findings() == [] and chk.n_locks > 0

@@ -26,6 +26,7 @@ import torch  # noqa: E402
 from parsec_tpu.datadist import TiledMatrix as RefTiledMatrix  # noqa: E402
 from parsec_tpu.dsl import native_exec as ref_native_exec  # noqa: E402
 from parsec_tpu.ops.cholesky import cholesky_ptg as ref_cholesky_ptg  # noqa: E402
+from parsec_tpu.utils import mca_param as ref_mca_param  # noqa: E402
 from parsec_tpu_torch import mca_param  # noqa: E402
 from parsec_tpu_torch.analysis.findings import LintError  # noqa: E402
 from parsec_tpu_torch.data import LocalCollection  # noqa: E402
@@ -191,6 +192,48 @@ def test_serve_executor_retire_order_matches_the_reference(weights, cpu_device):
     assert sorted(port_order) == [0] * 20 + [1] * 20
 
 
+def test_native_drain_sets_the_pop_batch_as_in_the_reference(cpu_device, port_param):
+    """ROADMAP C.13: ``runtime_native_drain`` caps each ``pop_batch`` of the
+    union pump.  Over two dpotrf tenants whose ready frontier reaches 132
+    tasks, the port at 64 retires tenants in the reference's order at 64,
+    and in another order than at the default 256.  The reference runs at
+    the port's default stage depth of 1 (its own is 2, which halves each
+    pop), so both pop batches of 64."""
+    def port_order():
+        sx = NativeServeExecutor([_dpotrf(384, 32, seed=s)[0] for s in (1, 2)])
+        try:
+            sx.run()
+            return [t for t, _, _ in sx.retire_log]
+        finally:
+            sx.close()
+
+    def ref_order():
+        pools = []
+        for s in (1, 2):
+            A = RefTiledMatrix(384, 384, 32, 32, name="A", dtype=np.float32).from_array(
+                _spd(384, s))
+            pools.append(ref_cholesky_ptg(use_tpu=True, use_cpu=False).taskpool(NT=A.mt, A=A))
+        rx = ref_native_exec.NativeServeExecutor(pools)
+        try:
+            rx.run()
+            return [t for t, _, _ in rx.retire_log]
+        finally:
+            rx.close()
+
+    at_default = port_order()
+    port_param("runtime", "native_drain", 64)
+    ref_mca_param.params.set("runtime", "native_drain", 64)
+    ref_mca_param.params.set("runtime", "stage_depth", 1)
+    try:
+        at_64, ref_at_64 = port_order(), ref_order()
+    finally:
+        ref_mca_param.params.unset("runtime", "native_drain")
+        ref_mca_param.params.unset("runtime", "stage_depth")
+    assert sorted(at_64) == [0] * 364 + [1] * 364
+    assert at_64 == ref_at_64
+    assert at_64 != at_default
+
+
 def _device_chain(name, n=12):
     dc = LocalCollection(f"S{name}", shape=(1,),
                          init=lambda k: np.zeros(4, dtype=np.float32))
@@ -203,11 +246,16 @@ def _device_chain(name, n=12):
     return ptg.taskpool(N=n, S=dc), dc
 
 
-def test_serve_fairness_small_tenant_not_starved_under_native_pop(cpu_device):
+@pytest.mark.parametrize("drain", [None, 64])
+def test_serve_fairness_small_tenant_not_starved_under_native_pop(drain, cpu_device,
+                                                                  port_param):
     """Four 12-task chains beside a 5984-task dpotrf in one native graph:
     with the wdrr deficits in the engine, each chain's last retire comes
     early in the union's retire order (starvation would put it at the
-    tail, after the whole backlog)."""
+    tail, after the whole backlog).  At the default pop batch and at the
+    reference test's ``runtime_native_drain`` of 64."""
+    if drain is not None:
+        port_param("runtime", "native_drain", drain)
     big, _ = _dpotrf(1024, 32, seed=5, dtype=np.float64)
     smalls = [_device_chain(f"c{i}") for i in range(4)]
     sx = NativeServeExecutor([big] + [tp for tp, _ in smalls])

@@ -55,7 +55,6 @@ from parsec_tpu_torch.device import ADVICE_PREFETCH, ADVICE_WARMUP  # noqa: E402
 from parsec_tpu_torch.device import cuda as cuda_mod  # noqa: E402
 from parsec_tpu_torch.device import staging  # noqa: E402
 from parsec_tpu_torch.dsl import PTG  # noqa: E402
-from parsec_tpu_torch.dsl import native_exec  # noqa: E402
 from parsec_tpu_torch.dsl.native_exec import NativeExecutor  # noqa: E402
 from parsec_tpu_torch.ops import attention, cholesky_ptg, stencil  # noqa: E402
 from parsec_tpu_torch.profiling import pins  # noqa: E402
@@ -97,12 +96,12 @@ def depth2(port_param):
 
 
 @pytest.fixture
-def eager_lane(monkeypatch):
+def eager_lane(port_param):
     """Re-slice every first-touch ready wave of four tasks or more, so that
     its later slices go through the transfer lane at these small sizes (at
-    the default threshold a wave must stage 256 KiB; the oldest batch
-    always stages in its own submit)."""
-    monkeypatch.setattr(native_exec, "_STAGE_SPLIT_BYTES", 1)
+    the default ``runtime_stage_split_kb`` a wave must stage 256 KiB; the
+    oldest batch always stages in its own submit)."""
+    port_param("runtime", "stage_split_kb", 0)
 
 
 def _ctx():
@@ -263,18 +262,18 @@ def test_committer_failure_is_sticky_and_loud(impl):
 
 def test_committer_wait_for_takes_the_victim_first():
     """An eviction's ``wait_for`` moves its victim to the head of the
-    queue: one drain of ``_DRAIN_TILES`` lands it, however many tiles were
-    enqueued before it, and (with no watermark, the port's default) the
-    rest stay pending."""
+    queue: one drain of ``runtime_wb_batch`` tiles lands it, however many
+    tiles were enqueued before it, and (with no watermark, the port's
+    default) the rest stay pending."""
     dev, com = _committer("port")
-    n = staging._DRAIN_TILES + 8
+    n = com._batch + 8
     try:
         tiles = [_dirty("port", f"q{i}", float(i)) for i in range(n)]
         for d in tiles:
             com.enqueue(d)
         assert com.wait_for(tiles[-1].data_id, timeout=30.0)
         assert dev.commits[0] == (tiles[-1].data_id, 2)
-        assert com.pending() == n - staging._DRAIN_TILES
+        assert com.pending() == n - com._batch
         com.flush()
         assert com.stats["committed"] == n
     finally:
@@ -666,23 +665,120 @@ def test_default_window_commits_only_final_versions(cpu_device, port_param):
     assert counts[2] == counts[1] and counts[1][0] > 0
 
 
-def test_pump_resplits_a_wide_ready_wave(cpu_device, port_param, monkeypatch):
+def test_pump_resplits_a_wide_ready_wave(cpu_device, port_param):
     """Each of the small stencil's ready waves fits one pop.  Under the
-    default threshold (its few KB are too few) no wave is re-sliced and
-    each stages in its own submit: nothing goes to the lane.  With a
-    threshold of one byte the waves with tiles to stage are re-sliced
+    default ``runtime_stage_split_kb`` (its few KB are too few) no wave is
+    re-sliced and each stages in its own submit: nothing goes to the lane.
+    With a threshold of 0 KB the waves with tiles to stage are re-sliced
     across the window and the lane prestages the later slice while the
     first is dispatched: one more retired batch than pops for each, the
     same result."""
     _out, stats, _dev, _armed = _pump_stats(2, port_param)
     assert stats["prefetched_batches"] == 0
     assert stats["done_batches"] == stats["pop_batches"]
-    monkeypatch.setattr(native_exec, "_STAGE_SPLIT_BYTES", 1)
+    port_param("runtime", "stage_split_kb", 0)
     out, stats, _dev, _armed = _pump_stats(2, port_param)
     assert stats["prefetched_batches"] > 0
     assert stats["done_batches"] == stats["pop_batches"] + stats["prefetched_batches"]
     assert stats["pumped_tasks"] == _ST["T"] * _ST["MT"] * _ST["NT"]
     np.testing.assert_array_equal(out, _baseline("stencil", "pump", 1))
+
+
+@pytest.fixture
+def ref_param():
+    """Set the JAX package's MCA params for one test; unset them after."""
+    touched = []
+
+    def set_(framework, name, value):
+        ref_mca_param.params.set(framework, name, value)
+        touched.append((framework, name))
+
+    yield set_
+    for framework, name in touched:
+        ref_mca_param.params.unset(framework, name)
+
+
+def _wave_pool(pkg, nt=8, n=16):
+    """One ready wave: ``nt`` independent ``X + 1`` tasks on the n x n f64
+    tiles A(k) (2 KiB each at n = 16), built with either package."""
+    if pkg == "port":
+        dc, ptg = _add_pool(nt, n, lambda X, k: X + 1.0)
+        return ptg.taskpool(A=dc), dc
+    from parsec_tpu import AccessMode as RefAccessMode
+    from parsec_tpu.data import LocalCollection as RefLocalCollection
+    from parsec_tpu.dsl import PTG as RefPTG
+
+    dc = RefLocalCollection("A", shape=(n, n))
+    ptg = RefPTG("addk")
+    t = ptg.task_class("t", k=f"0 .. {nt - 1}")
+    t.affinity("A(k)")
+    t.flow("X", RefAccessMode.INOUT, "<- A(k)", "-> A(k)")
+    t.body(tpu=lambda X, k: X + 1.0)
+    return ptg.taskpool(A=dc), dc
+
+
+def _wave_run(pkg, on_quiesce=None):
+    """The wave through each package's pump at stage depth 2 (the port's
+    is set by the caller; 2 is the reference's default); ``on_quiesce``
+    sees the device after the run, before ``close`` flushes it."""
+    tp, dc = _wave_pool(pkg)
+    make = NativeExecutor if pkg == "port" else ref_native_exec.NativeExecutor
+    ex = make(tp, native_device=True)
+    try:
+        ex.run()
+        seen = on_quiesce(ex.device) if on_quiesce is not None else None
+    finally:
+        ex.close()
+    for k in range(8):
+        np.testing.assert_array_equal(np.asarray(dc.data_of(k).newest_copy().payload),
+                                      np.ones((16, 16)))
+    return dict(ex.stats), seen
+
+
+def test_stage_split_kb_resplits_the_wave_as_in_the_reference(cpu_device, port_param,
+                                                              ref_param, depth2):
+    """ROADMAP C.13: ``runtime_stage_split_kb`` is the re-slice threshold on
+    both packages.  The 16 KiB wave stays one batch under the default
+    256 KB and is re-sliced across the depth-2 window at 1 KB: one more
+    retired batch than pops, on the port as on the reference."""
+    resliced = {}
+    for kb in (None, 1):
+        if kb is not None:
+            port_param("runtime", "stage_split_kb", kb)
+            ref_param("runtime", "stage_split_kb", kb)
+        for pkg in ("port", "reference"):
+            stats, _ = _wave_run(pkg)
+            assert stats["pop_batches"] == 1
+            resliced[pkg, kb] = stats["done_batches"] - stats["pop_batches"]
+    assert resliced == {("port", None): 0, ("reference", None): 0,
+                        ("port", 1): 1, ("reference", 1): 1}
+
+
+def test_wb_batch_caps_a_committer_drain_as_in_the_reference(cpu_device, port_param,
+                                                             ref_param, depth2):
+    """ROADMAP C.13: ``runtime_wb_batch`` caps the tiles one committer drain
+    takes on both packages.  After the wave, its 8 dirty tiles wait in the
+    committer (below either package's watermark); one kick (eviction's
+    call) makes the committer's thread take one drain: all 8 at the
+    default of 32, 3 at 3.  ``close`` flushes the rest home."""
+    def one_drain(dev):
+        com = dev._committer
+        assert com.pending() == 8 and com.stats["committed"] == 0
+        com.kick()
+        deadline = time.monotonic() + 30
+        while com.pending() == 8 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        return com.stats["committed"], com.pending()
+
+    drained = {}
+    for batch in (None, 3):
+        if batch is not None:
+            port_param("runtime", "wb_batch", batch)
+            ref_param("runtime", "wb_batch", batch)
+        for pkg in ("port", "reference"):
+            drained[pkg, batch] = _wave_run(pkg, one_drain)[1]
+    assert drained == {("port", None): (8, 0), ("reference", None): (8, 0),
+                       ("port", 3): (3, 5), ("reference", 3): (3, 5)}
 
 
 def test_staging_spans_and_hb_edges_fire(cpu_device, port_param, eager_lane):

@@ -332,6 +332,20 @@ def _run_port(grid, mt, nt, iters, ctx_kw, **kw):
     return out, on_cuda
 
 
+def test_default_stencil_adds_a_card_chore_unlike_the_reference():
+    """ROADMAP C.11, a deliberate divergence: ``stencil_ptg()`` defaults to
+    ``use_cuda=True``, as the port's other builders put a card chore in by
+    default; the reference's ``use_tpu=False`` gives host chores only."""
+    grid = np.zeros((8, 8))
+
+    def chores(mod):
+        tp = mod.stencil_ptg().taskpool(T=1, MT=2, NT=2, A=mod.StencilBuffers(grid, 2, 2))
+        return [[ch.device_type for ch in tc.chores] for tc in tp.task_classes.values()]
+
+    assert chores(stencil) == [["cpu", "cuda"]]
+    assert chores(ref_stencil) == [["cpu"]]
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("iters,mt,nt", [(1, 4, 3), (2, 4, 3), (5, 4, 3), (3, 1, 1)])
 def test_host_stencil_bit_identical_to_reference(dtype, iters, mt, nt):
