@@ -101,7 +101,7 @@ from ..profiling import pins
 from ..utils import debug, mca_param, register_component
 from ..data.data import Coherency, Data, host_array, ready_event, set_ready_event
 from .device import ADVICE_PREFETCH, ADVICE_WARMUP, Device
-from .staging import _SPAN_SEQ, stage_depth_param
+from .staging import stage_depth_param
 
 
 def resolve_torch_device(context) -> torch.device:
@@ -181,10 +181,12 @@ class _PinnedRing:
     the free list only once its copy's event has completed; :meth:`get`
     waits for the oldest busy buffer rather than grow past the capacity
     (a single request larger than the capacity is served alone and trimmed
-    when it comes back).  ``allocated``/``peak`` count the pinned bytes.
-    Busy buffers are kept in hand-back order and reclaimed from the front
-    until the first whose copy is still running, and each buffer caches its
-    typed views (:meth:`view`), so a reused buffer costs no torch call."""
+    when it comes back), by ``wait(event)`` (the device modules pass their
+    timed :meth:`CudaDevice._card_wait`).  ``allocated``/``peak`` count the
+    pinned bytes.  Busy buffers are kept in hand-back order and reclaimed
+    from the front until the first whose copy is still running, and each
+    buffer caches its typed views (:meth:`view`), so a reused buffer costs
+    no torch call."""
 
     def __init__(self, capacity: int):
         self.capacity = capacity
@@ -195,7 +197,7 @@ class _PinnedRing:
         self.peak = 0
         self._lock = threading.Lock()
 
-    def get(self, nbytes: int) -> torch.Tensor:
+    def get(self, nbytes: int, wait=lambda event: event.synchronize()) -> torch.Tensor:
         with self._lock:
             while True:
                 self._reclaim()
@@ -208,7 +210,7 @@ class _PinnedRing:
                     continue
                 if not self._busy:
                     break  # over capacity with nothing in flight: serve it
-                self._busy[0][1].synchronize()
+                wait(self._busy[0][1])
             buf = _pinned_empty(nbytes)
             self._views[id(buf)] = {}
             self.allocated += nbytes
@@ -448,10 +450,6 @@ class _InFlight:
     def ready(self) -> bool:
         return self.event is None or self.event.query()
 
-    def wait(self) -> None:
-        if self.event is not None:
-            self.event.synchronize()
-
 
 @register_component("device")
 class CudaDevice(Device):
@@ -529,6 +527,14 @@ class CudaDevice(Device):
         #: seconds the transfer lane spent prestaging and the committer
         #: draining (set at detach)
         self.stats["prestage_s"] = self.stats["wb_drain_s"] = 0.0
+        #: host seconds of every thread that moves tiles: copying host
+        #: tiles into staging buffers (:meth:`_h2d_batch`), blocked on the
+        #: card (:meth:`_card_wait`, and how many times), and the
+        #: write-back's host copies and commits (:meth:`_d2h_chunk`,
+        #: :meth:`_writeback_batch`)
+        self.stats["stage_copy_s"] = self.stats["card_wait_s"] = 0.0
+        self.stats["wb_copy_s"] = 0.0
+        self.stats["card_waits"] = 0
         #: wave batching: chunks dispatched as waves and their tasks,
         #: graphs captured, their capture seconds and bytes, bytes copied
         #: into and out of replayed graphs, and waves that failed before
@@ -544,6 +550,10 @@ class CudaDevice(Device):
         self.stats["fused_submits"] = self.stats["fused_tasks"] = 0
         self.stats["wave_capture_s"] = 0.0
         self._stats_lock = threading.Lock()
+        #: the job whose work this module does (``pins.new_job``), handed
+        #: in by the executor that runs it: every span the module opens
+        #: carries it, on the lane's and the committer's threads too
+        self.job = 0
 
         #: reference gpu_device->mutex collapses to a boolean, flipped
         #: under _lock together with the pending-queue append, closing the
@@ -624,6 +634,29 @@ class CudaDevice(Device):
             for key, n in counts.items():
                 self.stats[key] += n
 
+    def _span(self, name: str, **fields):
+        """``pins.span(name)`` of this module's job and rank."""
+        return pins.span(name, job=self.job, rank=getattr(self.context, "rank", 0),
+                         **fields)
+
+    @contextlib.contextmanager
+    def _host_copy(self, name: str, nbytes: int, tiles: int):
+        """The ``stage_copy`` or ``wb_copy`` span around the block, its
+        seconds added to ``stats[name + "_s"]``."""
+        t0 = time.perf_counter()
+        with self._span(name, bytes=nbytes, tiles=tiles):
+            yield
+        self._bump(**{f"{name}_s": time.perf_counter() - t0})
+
+    def _card_wait(self, event) -> None:
+        """Block the host until ``event``, recorded on one of the card's
+        streams, has completed: a ``card_wait`` span, timed into
+        ``stats["card_wait_s"]`` and counted in ``stats["card_waits"]``."""
+        t0 = time.perf_counter()
+        with self._span("card_wait"):
+            event.synchronize()
+        self._bump(card_wait_s=time.perf_counter() - t0, card_waits=1)
+
     @property
     def pinned_bytes(self) -> Tuple[int, int]:
         """(allocated, peak) bytes of pinned host memory the card's copy
@@ -684,7 +717,9 @@ class CudaDevice(Device):
                     return
             if not progressed and self._inflight:
                 # nothing completed this spin: block on the oldest event
-                self._inflight[0].wait()
+                event = self._inflight[0].event
+                if event is not None:
+                    self._card_wait(event)
 
     def _submit_one(self, task: Task, es, complete: bool = True) -> None:
         """Per-task submit with the retry/fail-loudly discipline.
@@ -801,6 +836,7 @@ class CudaDevice(Device):
     def _submit_single(self, task: Task, es, complete: bool, exec_pins: bool) -> None:
         if exec_pins:
             task.prof["wave"] = 0
+            task.prof["job"] = self.job
             pins.fire(pins.EXEC_BEGIN, es, task)
         self._submit_one(task, es, complete)
         if exec_pins:
@@ -915,6 +951,7 @@ class CudaDevice(Device):
                 if exec_pins:
                     for t in grp:
                         t.prof["wave"] = cnt
+                        t.prof["job"] = self.job
                         pins.fire(pins.EXEC_BEGIN, es, t)
                 try:
                     return gst, self._run_chunk(body, (sig, cnt),
@@ -1269,7 +1306,10 @@ class CudaDevice(Device):
         the kernels already queued; the chunk's copy event becomes each
         tile's ready event, which the compute stream waits on before a body
         reads the tile (:meth:`_await_copy`, which also records the block's
-        use on the compute stream)."""
+        use on the compute stream).  The host's copies — into the pinned
+        buffers, of a read-only array, or the torch CPU device's clones — are
+        ``stage_copy`` spans, a wait for a free pinned buffer a
+        ``card_wait``."""
         srcs = []
         for host in hosts:
             if isinstance(host, torch.Tensor):
@@ -1277,21 +1317,26 @@ class CudaDevice(Device):
                 continue
             host = np.asarray(host)
             if not host.flags.writeable:
-                host = host.copy()  # torch.from_numpy wants a writable array
+                # torch.from_numpy wants a writable array
+                with self._host_copy("stage_copy", host.nbytes, 1):
+                    host = host.copy()
             srcs.append(torch.from_numpy(host))
         self._bump(h2d_copies=len(srcs))
         if not self.is_cuda:
-            return [t.clone() for t in srcs]
+            with self._host_copy("stage_copy", sum(t.nbytes for t in srcs), len(srcs)):
+                return [t.clone() for t in srcs]
         with torch.cuda.stream(self.h2d_stream):
             dsts = [torch.empty(t.shape, dtype=t.dtype, device=self.tdev) for t in srcs]
         moving = [i for i, t in enumerate(srcs) if t.nbytes]
         for chunk in _capacity_chunks([srcs[i].nbytes for i in moving],
                                       self._pinned.capacity):
             chunk = [moving[k] for k in chunk]
-            bufs = [self._pinned.get(srcs[j].nbytes) for j in chunk]
+            bufs = [self._pinned.get(srcs[j].nbytes, self._card_wait) for j in chunk]
             staging = [self._pinned.view(b, srcs[j].dtype, srcs[j].shape)
                        for b, j in zip(bufs, chunk)]
-            torch._foreach_copy_(staging, [srcs[j] for j in chunk])
+            with self._host_copy("stage_copy", sum(srcs[j].nbytes for j in chunk),
+                                 len(chunk)):
+                torch._foreach_copy_(staging, [srcs[j] for j in chunk])
             event = torch.cuda.Event()
             with torch.cuda.stream(self.h2d_stream):
                 torch._foreach_copy_([dsts[j] for j in chunk], staging, non_blocking=True)
@@ -1307,12 +1352,15 @@ class CudaDevice(Device):
         a torch CPU tensor for bfloat16): per chunk of at most the ring's
         capacity, one ``_foreach_copy_`` into pinned buffers on the D2H
         stream after a wait on each distinct ready event (or, for a tensor
-        without one, on the compute stream), one event wait, then fresh
-        host copies.  The caller holds the payloads until this returns, so
-        no D2H read is in flight when one is freed."""
+        without one, on the compute stream), one event wait (a
+        ``card_wait``), then fresh host copies (a ``wb_copy``, as are the
+        torch CPU device's).  The caller holds the payloads until this
+        returns, so no D2H read is in flight when one is freed."""
         self._bump(d2h_copies=len(payloads))
         if not self.is_cuda:
-            return [host_array(p) for p in payloads]
+            nbytes = sum(int(getattr(p, "nbytes", 0)) for p in payloads)
+            with self._host_copy("wb_copy", nbytes, len(payloads)):
+                return [host_array(p) for p in payloads]
         hosts: List[Any] = [None] * len(payloads)
         moving = []
         for i, p in enumerate(payloads):
@@ -1329,7 +1377,7 @@ class CudaDevice(Device):
 
     def _d2h_chunk(self, payloads: List[torch.Tensor]) -> List[Any]:
         s = self.d2h_stream
-        bufs = [self._pinned.get(int(p.nbytes)) for p in payloads]
+        bufs = [self._pinned.get(int(p.nbytes), self._card_wait) for p in payloads]
         pinned = [self._pinned.view(b, p.dtype, p.shape) for b, p in zip(bufs, payloads)]
         events = {id(e): e for e in map(ready_event, payloads) if e is not None}
         done = torch.cuda.Event()
@@ -1341,9 +1389,11 @@ class CudaDevice(Device):
                 s.wait_event(event)
             torch._foreach_copy_(pinned, payloads, non_blocking=True)
             done.record(s)
-        done.synchronize()
+        self._card_wait(done)
         # fresh host copies (torch's CPU copy runs on the intra-op threads)
-        hosts = [v.clone() for v in pinned]
+        nbytes = sum(int(p.nbytes) for p in payloads)
+        with self._host_copy("wb_copy", nbytes, len(payloads)):
+            hosts = [v.clone() for v in pinned]
         self._pinned.put(bufs, done)
         return [h if h.dtype == torch.bfloat16 else h.numpy() for h in hosts]
 
@@ -1550,22 +1600,17 @@ class CudaDevice(Device):
         datas = self._collect_stage_tiles(tasks)
         sizes = [self._stage_nbytes(d) for d in datas]
         moving = [d for d, n in zip(datas, sizes) if n]
-        span = pins.active(pins.STAGE_IN_BEGIN)
-        if span:
-            info = {"rank": getattr(self.context, "rank", 0),
-                    "id": next(_SPAN_SEQ), "tiles": len(moving), "bytes": 0}
-            pins.fire(pins.STAGE_IN_BEGIN, None, info)
-        moved = staged = 0
-        for chunk in _capacity_chunks([n for n in sizes if n], _LANE_CHUNK_BYTES):
-            if stop is not None and stop.is_set():
-                break
-            moved += self._stage_in_batch([moving[i] for i in chunk])
-            staged += len(chunk)
-        seconds = time.perf_counter() - t0
-        self._bump(prefetched_tiles=staged, prestage_s=seconds)
-        if span:
-            info = dict(info, bytes=moved, seconds=seconds)
-            pins.fire(pins.STAGE_IN_END, None, info)
+        with self._span("stage_in", tiles=len(moving), bytes=0) as info:
+            moved = staged = 0
+            for chunk in _capacity_chunks([n for n in sizes if n], _LANE_CHUNK_BYTES):
+                if stop is not None and stop.is_set():
+                    break
+                moved += self._stage_in_batch([moving[i] for i in chunk])
+                staged += len(chunk)
+            seconds = time.perf_counter() - t0
+            self._bump(prefetched_tiles=staged, prestage_s=seconds)
+            if info is not None:
+                info.update(bytes=moved, seconds=seconds)
         if pins.active(pins.HB_STAGE_IN):
             for task in tasks:
                 pins.fire(pins.HB_STAGE_IN, None, {"task": task})
@@ -1748,22 +1793,18 @@ class CudaDevice(Device):
                 snaps.append((d, snap[0], snap[1]))
         if not snaps:
             return 0
-        span = pins.active(pins.WRITEBACK_BEGIN)
-        if span:
-            info = {"rank": getattr(self.context, "rank", 0),
-                    "id": next(_SPAN_SEQ), "tiles": len(snaps),
-                    "bytes": sum(int(getattr(p, "nbytes", 0)) for (_d, p, _v) in snaps)}
-            pins.fire(pins.WRITEBACK_BEGIN, None, info)
-            t0 = time.perf_counter()
-        hosts = self._d2h_batch([p for (_d, p, _v) in snaps])
-        committed = 0
-        for (data, _p, version), host in zip(snaps, hosts):
-            if self._commit_host(data, version, host):
-                committed += 1
-        self._bump(wb_batches=1)
-        if span:
-            info = dict(info, seconds=time.perf_counter() - t0)
-            pins.fire(pins.WRITEBACK_END, None, info)
+        t0 = time.perf_counter()
+        nbytes = sum(int(getattr(p, "nbytes", 0)) for (_d, p, _v) in snaps)
+        with self._span("writeback", tiles=len(snaps), bytes=nbytes) as info:
+            hosts = self._d2h_batch([p for (_d, p, _v) in snaps])
+            committed = 0
+            with self._host_copy("wb_copy", nbytes, len(snaps)):
+                for (data, _p, version), host in zip(snaps, hosts):
+                    if self._commit_host(data, version, host):
+                        committed += 1
+            self._bump(wb_batches=1)
+            if info is not None:
+                info["seconds"] = time.perf_counter() - t0
         return committed
 
     def _lru_touch(self, data: Data, *, dirty: bool) -> None:

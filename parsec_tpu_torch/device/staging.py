@@ -48,9 +48,6 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 from ..profiling import pins
 from ..utils import debug, mca_param
 
-#: process-wide span ids for STAGE_IN/WRITEBACK begin/end pairing
-_SPAN_SEQ = itertools.count(1)
-
 
 def stage_depth_param() -> int:
     """The pipeline depth knob, shared by the device layer and the native
@@ -377,24 +374,20 @@ class WritebackCommitter:
             tickets.extend(tks)
         if not snaps:
             return
-        span = pins.active(pins.WRITEBACK_BEGIN)
-        if span:
-            info = {"rank": getattr(dev.context, "rank", 0),
-                    "id": next(_SPAN_SEQ), "tiles": len(snaps),
-                    "bytes": sum(int(getattr(p, "nbytes", 0)) for (_d, p, _v) in snaps)}
-            pins.fire(pins.WRITEBACK_BEGIN, None, info)
-            t0 = time.perf_counter()
-        hosts = dev._d2h_batch([p for (_d, p, _v) in snaps])
-        for (data, _payload, version), host in zip(snaps, hosts):
-            if dev._commit_host(data, version, host):
-                self.stats["committed"] += 1
-            else:
-                self.stats["dropped_stale"] += 1
-        if pins.active(pins.HB_WB_COMMIT) and tickets:
-            pins.fire(pins.HB_WB_COMMIT, None, {"tickets": tickets})
-        if span:
-            info = dict(info, seconds=time.perf_counter() - t0)
-            pins.fire(pins.WRITEBACK_END, None, info)
+        t0 = time.perf_counter()
+        nbytes = sum(int(getattr(p, "nbytes", 0)) for (_d, p, _v) in snaps)
+        with pins.span("writeback", job=dev.job, rank=getattr(dev.context, "rank", 0),
+                       tiles=len(snaps), bytes=nbytes) as info:
+            hosts = dev._d2h_batch([p for (_d, p, _v) in snaps])
+            for (data, _payload, version), host in zip(snaps, hosts):
+                if dev._commit_host(data, version, host):
+                    self.stats["committed"] += 1
+                else:
+                    self.stats["dropped_stale"] += 1
+            if pins.active(pins.HB_WB_COMMIT) and tickets:
+                pins.fire(pins.HB_WB_COMMIT, None, {"tickets": tickets})
+            if info is not None:
+                info["seconds"] = time.perf_counter() - t0
         self.stats["batches"] += 1
 
     def close(self, flush: bool = True) -> None:

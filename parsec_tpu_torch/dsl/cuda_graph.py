@@ -617,7 +617,7 @@ class GraphExecutor:
             span = pins.active(pins.COMPILE_BEGIN) or pins.active(pins.COMPILE_END)
             payload = {"rank": getattr(getattr(self.taskpool, "context", None), "rank", 0),
                        "fp": fp, "key": f"graph:{self.program_digest}",
-                       "trace": jobtrace.current()}
+                       "trace": jobtrace.current(), "job": pins.current_job()}
             if span:
                 pins.fire(pins.COMPILE_BEGIN, None, dict(payload))
             try:

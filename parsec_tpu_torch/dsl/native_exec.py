@@ -296,7 +296,11 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
     truly bad.  ``ev`` republishes the engine's lifecycle events after
     each ``done_batch``.  ``shims`` are the pool shims of the pools the
     graph holds (one, or the serve executor's N): a failed one ends the
-    run."""
+    run.
+
+    Each batch's phases are spans of the device's job (``pop``,
+    ``lane_wait``, ``submit``, ``retire``) and seconds in ``stats``
+    (``pop_s``, ``lane_wait_s``, ``submit_s``, ``retire_s``)."""
     from ..core import scheduling
     from ..data.data import land_into_home
 
@@ -310,48 +314,52 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
     free = collections.deque((ctypes.c_int64 * chunk)() for _ in range(depth))
     window: collections.deque = collections.deque()  # (buf, n, batch, job)
     done = 0
+    job_id = dev.job
     try:
         while True:
             # fill the prefetch window: pop ready batches and hand the
             # stage-ins of those behind the oldest to the lane
-            while free and len(window) < depth:
-                buf = free.popleft()
-                n = ng.pop_batch(buf)
-                if n == 0:
-                    free.appendleft(buf)
-                    break
-                stats["pop_batches"] += 1
-                stats["pumped_tasks"] += n
-                batch = [pump_index[buf[i]] for i in range(n)]
-                # the bytes to stage matter only to a batch the lane may
-                # take (one behind an older batch) or one that may split
-                need = dev.prestage_bytes(batch) if lane is not None and (
-                    window or (free and n >= 4)) else 0
-                if (need and need >= dev.stage_split_bytes and not window
-                        and free and n >= 4):
-                    # one wide ready wave with real transfer work to hide:
-                    # re-slice it across the free buffers so the lane
-                    # prestages slot k+1 while slot k computes
-                    ids = [buf[i] for i in range(n)]
-                    bufs = [buf] + [free.popleft() for _ in range(len(free))]
-                    per = -(-n // len(bufs))
-                    off = 0
-                    for b in bufs:
-                        k = min(per, n - off)
-                        if k <= 0:
-                            free.append(b)
-                            continue
-                        for i in range(k):
-                            b[i] = ids[off + i]
-                        sub = batch[off:off + k]
-                        off += k
-                        job = lane.stage(sub) if window else None
-                        stats["prefetched_batches"] += job is not None
-                        window.append((b, k, sub, job))
-                    continue
-                job = lane.stage(batch) if need and window else None
-                stats["prefetched_batches"] += job is not None
-                window.append((buf, n, batch, job))
+            t_pop = time.perf_counter()
+            with pins.span("pop", job=job_id):
+                while free and len(window) < depth:
+                    buf = free.popleft()
+                    n = ng.pop_batch(buf)
+                    if n == 0:
+                        free.appendleft(buf)
+                        break
+                    stats["pop_batches"] += 1
+                    stats["pumped_tasks"] += n
+                    batch = [pump_index[buf[i]] for i in range(n)]
+                    # the bytes to stage matter only to a batch the lane may
+                    # take (one behind an older batch) or one that may split
+                    need = dev.prestage_bytes(batch) if lane is not None and (
+                        window or (free and n >= 4)) else 0
+                    if (need and need >= dev.stage_split_bytes and not window
+                            and free and n >= 4):
+                        # one wide ready wave with real transfer work to hide:
+                        # re-slice it across the free buffers so the lane
+                        # prestages slot k+1 while slot k computes
+                        ids = [buf[i] for i in range(n)]
+                        bufs = [buf] + [free.popleft() for _ in range(len(free))]
+                        per = -(-n // len(bufs))
+                        off = 0
+                        for b in bufs:
+                            k = min(per, n - off)
+                            if k <= 0:
+                                free.append(b)
+                                continue
+                            for i in range(k):
+                                b[i] = ids[off + i]
+                            sub = batch[off:off + k]
+                            off += k
+                            job = lane.stage(sub) if window else None
+                            stats["prefetched_batches"] += job is not None
+                            window.append((b, k, sub, job))
+                        continue
+                    job = lane.stage(batch) if need and window else None
+                    stats["prefetched_batches"] += job is not None
+                    window.append((buf, n, batch, job))
+            stats["pop_s"] += time.perf_counter() - t_pop
             if not window:
                 why = _pump_failure(shims)
                 if why is not None:
@@ -367,23 +375,26 @@ def _pump_loop(ng, dev, pump_index: Dict[int, Any], stats: Dict[str, int],
             if job is not None:
                 # stops the lane after its chunk in flight (and logs a
                 # prestage error): the submit stages what is left
-                job.wait()
+                with pins.span("lane_wait", job=job_id):
+                    job.wait()
             t1 = time.perf_counter()
-            dev.submit_batch(batch)
+            with pins.span("submit", job=job_id):
+                dev.submit_batch(batch)
             t2 = time.perf_counter()
-            why = _pump_failure(shims)
-            if why is not None:
-                raise RuntimeError(f"native device run failed: {why}")
-            for t in batch:
-                for (src, home) in t._wbs:
-                    land_into_home(home, src.newest_copy().payload)
-            scheduling.retire_native(batch, dev)
-            done += ng.done_batch(buf, n)
-            stats["done_batches"] += 1
-            free.append(buf)
-            retire_cb(batch)
-            if ev is not None:
-                stats["events_drained"] += ev.drain()
+            with pins.span("retire", job=job_id):
+                why = _pump_failure(shims)
+                if why is not None:
+                    raise RuntimeError(f"native device run failed: {why}")
+                for t in batch:
+                    for (src, home) in t._wbs:
+                        land_into_home(home, src.newest_copy().payload)
+                scheduling.retire_native(batch, dev)
+                done += ng.done_batch(buf, n)
+                stats["done_batches"] += 1
+                free.append(buf)
+                retire_cb(batch)
+                if ev is not None:
+                    stats["events_drained"] += ev.drain()
             # seconds the pump thread spent waiting on the lane, in the
             # device's dispatch and in retirement: O(batches) clock reads
             stats["lane_wait_s"] += t1 - t0
@@ -424,6 +435,12 @@ class NativeExecutor:
     ``graph`` (a :class:`~.graph.TaskGraph` of ``tp``, e.g.
     ``tp.capture()``) is used instead of capturing one; the distributed
     executor (:mod:`.native_dist`) hands in its rank's filtered capture.
+
+    ``job`` is the run's job id (:func:`..profiling.pins.new_job`): the
+    taskpool's, minted when it was built, else a fresh one.  The executor
+    hands it to its device module, and every span of the run carries it:
+    ``capture``, ``native_build``, ``pump`` (with the pump's per-batch
+    spans inside) and ``close``.
     """
 
     def __init__(self, tp: PTGTaskpool, *, graph: Optional[TaskGraph] = None,
@@ -437,15 +454,20 @@ class NativeExecutor:
         self.taskpool = tp
         self.native_device = bool(native_device)
         self.device = device
+        self.job = getattr(tp, "job", 0) or pins.new_job()
         #: control-plane counters.  ``trampoline_entries`` counts every
         #: interpreter entry through the native workers' trampoline (the
         #: CPU regime and the legacy protocol: one per task);
         #: ``completion_callbacks`` the legacy protocol's per-device-task
-        #: completion callbacks.  In pump mode both MUST stay 0.
+        #: completion callbacks.  In pump mode both MUST stay 0.  The
+        #: ``*_s`` keys are host seconds: the TaskGraph capture and the
+        #: native build, and the pump thread's per-batch phases
+        #: (:func:`_pump_loop`)
         self.stats: Dict[str, int] = {
             "trampoline_entries": 0, "completion_callbacks": 0,
             "pop_batches": 0, "done_batches": 0, "pumped_tasks": 0,
             "prefetched_batches": 0, "events_drained": 0,
+            "graph_capture_s": 0.0, "native_build_s": 0.0, "pop_s": 0.0,
             "lane_wait_s": 0.0, "submit_s": 0.0, "retire_s": 0.0}
         self._stats_lock = threading.Lock()
         #: serve mode (:class:`NativeServeExecutor`): build into ITS shared
@@ -475,7 +497,12 @@ class NativeExecutor:
             if self.device is None:
                 self.device = self._make_device()
             self._pool_shim = _NativePoolShim(f"native:{tp.ptg.name}")
-        self.graph = graph if graph is not None else capture(tp, ranks=[0])
+        if graph is None:
+            t0 = time.perf_counter()
+            with pins.span("capture", job=self.job):
+                graph = capture(tp, ranks=[0])
+            self.stats["graph_capture_s"] += time.perf_counter() - t0
+        self.graph = graph
         self._new_tiles: Dict[Tuple, np.ndarray] = {}
         self._new_data: Dict[Tuple, Any] = {}
         #: per native node (user tag = index): its CPU body, or in pump
@@ -497,7 +524,10 @@ class NativeExecutor:
                 for m in r.members:
                     self._region_of[m] = r
         self._ng = None
-        self._build()
+        t0 = time.perf_counter()
+        with pins.span("native_build", job=self.job):
+            self._build()
+        self.stats["native_build_s"] += time.perf_counter() - t0
         if self._plans:
             self.device.set_aside(region_room(self._plans))
 
@@ -970,8 +1000,11 @@ class NativeExecutor:
         self._apply_vpmap(nthreads)
         if pins.active(pins.RELEASE_DEPS_END):
             self._emit_trace_edges()
+        if self.device is not None:
+            self.device.job = self.job
         if self._pump:
-            n = self._run_pump()
+            with pins.span("pump", job=self.job):
+                n = self._run_pump()
         elif self.native_device:
             n = self._run_legacy(nthreads)
         else:
@@ -1128,15 +1161,19 @@ class NativeExecutor:
         if self.device is not None:
             self.device.detach()  # the previous pool's tiles land home
         self.taskpool = tp
+        self.job = getattr(tp, "job", 0) or pins.new_job()
         self._new_tiles.clear()
         self._new_data.clear()
         self.__dict__.pop("_chore_cache", None)
-        self._ng.reset()
-        if self.native_device:
-            self._rebuild_device_tasks()
-        # (the CPU regime's bodies read self.taskpool at run time)
-        for nid in dict.fromkeys(self._index.values()):
-            self._ng.commit(nid)
+        t0 = time.perf_counter()
+        with pins.span("native_build", job=self.job):
+            self._ng.reset()
+            if self.native_device:
+                self._rebuild_device_tasks()
+            # (the CPU regime's bodies read self.taskpool at run time)
+            for nid in dict.fromkeys(self._index.values()):
+                self._ng.commit(nid)
+        self.stats["native_build_s"] += time.perf_counter() - t0
         return self
 
     def _rebuild_device_tasks(self) -> None:
@@ -1197,12 +1234,14 @@ class NativeExecutor:
         if self._shared_graph is not None:
             self._ng = None
             return
-        ng = self._ng
-        if ng is not None:
-            self._ng = None
-            ng.close()
-        if self.device is not None:
-            self.device.detach()
+        with pins.span("close", job=self.job):
+            ng = self._ng
+            if ng is not None:
+                self._ng = None
+                ng.close()
+            if self.device is not None:
+                self.device.job = self.job
+                self.device.detach()
 
 
 class NativeServeExecutor:
@@ -1221,7 +1260,8 @@ class NativeServeExecutor:
     commit pass's root pushes land in weighted bins.  :meth:`run` returns
     the per-pool logical task counts; :attr:`retire_log` holds ``(pool
     index, retire position, seconds since the pump started)`` for every
-    retired native task."""
+    retired native task.  The union run is one job (``job``): its ``pump``
+    and ``close`` spans carry it, each pool's capture and build its own."""
 
     def __init__(self, pools: List[PTGTaskpool], *, device=None,
                  weights=None, seed: int = -1):
@@ -1235,10 +1275,12 @@ class NativeServeExecutor:
         # BEFORE any child builds: the commit pass's pushes must land in
         # the configured wdrr bins
         self.ng.sched_config(policy="wdrr", quantum=_wdrr_quantum(), seed=seed)
+        self.job = pins.new_job()
         self.stats: Dict[str, Any] = {
             "trampoline_entries": 0, "completion_callbacks": 0,
             "pop_batches": 0, "done_batches": 0, "pumped_tasks": 0,
             "prefetched_batches": 0, "events_drained": 0,
+            "graph_capture_s": 0.0, "native_build_s": 0.0, "pop_s": 0.0,
             "lane_wait_s": 0.0, "submit_s": 0.0, "retire_s": 0.0}
         self.children: List[NativeExecutor] = []
         self.retire_log: List[Tuple[int, int, float]] = []
@@ -1264,6 +1306,8 @@ class NativeServeExecutor:
             self._pump_index.update(ch._pump_index)
             for nid in ch._pump_index:
                 self._tenant_of[nid] = i
+            for key in ("graph_capture_s", "native_build_s"):
+                self.stats[key] += ch.stats[key]
             # the union pump owns the counters
             ch.stats = self.stats
 
@@ -1304,8 +1348,10 @@ class NativeServeExecutor:
                 if k:  # each pool's progress currency, one call a pool
                     children[i].taskpool.task_done_batch(k)
 
-        n = _pump_loop(ng, self.device, self._pump_index, self.stats,
-                       [ch._pool_shim for ch in children], retire_cb, ev)
+        self.device.job = self.job
+        with pins.span("pump", job=self.job):
+            n = _pump_loop(ng, self.device, self._pump_index, self.stats,
+                           [ch._pool_shim for ch in children], retire_cb, ev)
         expected = sum(len(ch._bodies) for ch in children)
         if n != expected:
             raise RuntimeError(f"native serve pump retired {n}/{expected} tasks")
@@ -1314,14 +1360,16 @@ class NativeServeExecutor:
     def close(self) -> None:
         """Release the shared graph and flush the device's dirty tiles
         home (a failed flush raises, as :meth:`NativeExecutor.close`)."""
-        for ch in self.children:
-            ch.close()  # a child owns neither the graph nor the device
-        ng = self.ng
-        if ng is not None:
-            self.ng = None
-            ng.close()
-        if self.device is not None:
-            self.device.detach()
+        with pins.span("close", job=self.job):
+            for ch in self.children:
+                ch.close()  # a child owns neither the graph nor the device
+            ng = self.ng
+            if ng is not None:
+                self.ng = None
+                ng.close()
+            if self.device is not None:
+                self.device.job = self.job
+                self.device.detach()
 
 
 def run_native(tp, *, nthreads: int = 4, native_device: bool = False,

@@ -79,6 +79,7 @@ from ..core.taskpool import Taskpool
 from ..data.data import Data, data_create, host_array, land_into_home
 from ..data.datarepo import DataRepo
 from ..data.reshape import ReshapeSpec, get_copy_reshape, materialize
+from ..profiling import pins
 from ..utils import mca_param
 
 IN = AccessMode.IN
@@ -674,10 +675,18 @@ class PTG:
 
     def taskpool(self, termdet: Optional[str] = None,
                  **constants: Any) -> "PTGTaskpool":
+        """A pool of this PTG over ``constants``.  The pool's ``job`` is a
+        fresh job id (:func:`..profiling.pins.new_job`), or the job of a
+        span open on this thread (a front end building the pool inside its
+        own ``taskpool`` span); its construction is a ``taskpool`` span."""
         merged = dict(self.constants)
         merged.update(constants)
         self.instantiated = True
-        return PTGTaskpool(self, merged, termdet=termdet)
+        job = pins.current_job() or pins.new_job()
+        with pins.span("taskpool", job=job):
+            tp = PTGTaskpool(self, merged, termdet=termdet)
+        tp.job = job
+        return tp
 
     def verify(self, globals_: Optional[Dict[str, Any]] = None, *,
                level: str = "full", ignore: Sequence[str] = (),

@@ -49,6 +49,7 @@ from ..core.lifecycle import AccessMode
 from ..data.collection import DataCollection
 from ..data.data import Data, data_create, host_array
 from ..dsl.ptg import PTG
+from ..profiling import pins
 from . import kernels
 
 IN = AccessMode.IN
@@ -75,7 +76,8 @@ class PlaneCollection(DataCollection):
     """Lazily-materialised planes keyed ``(g, j)`` — group ``g`` is one
     (batch, head) pair, ``j`` a sequence-block index.  ``init(g, j)``
     builds the tile (a torch CPU tensor is kept as it is, anything else
-    becomes an ndarray); ``keys`` declares the planes (:meth:`tiles`);
+    becomes an ndarray) on its first :meth:`data_of`, a ``materialize``
+    span of the job open there; ``keys`` declares the planes (:meth:`tiles`);
     ``rank_of`` (optional) distributes block ``j`` (ring attention places
     block ``j`` on rank ``j``)."""
 
@@ -107,9 +109,12 @@ class PlaneCollection(DataCollection):
         with self._lock:
             d = self._store.get(k)
             if d is None:
-                tile = self._init(*k)
-                if not isinstance(tile, torch.Tensor):
-                    tile = np.asarray(tile)
+                with pins.span("materialize", tiles=1) as info:
+                    tile = self._init(*k)
+                    if not isinstance(tile, torch.Tensor):
+                        tile = np.asarray(tile)
+                    if info is not None:
+                        info["bytes"] = tile.nbytes
                 d = data_create(k, self, payload=tile)
                 self._store[k] = d
             return d
@@ -473,7 +478,17 @@ def build_flash_attention(q, k, v, *, causal: bool = False,
     mask; it defaults to ``Sk - Sq`` (decode semantics: the queries are
     the tail of the KV sequence).  q, k and v may differ in dtype; the
     steps compute in float32 unless all three are bfloat16.
-    ``out_dtype`` (a torch dtype) defaults to q's."""
+    ``out_dtype`` (a torch dtype) defaults to q's.
+
+    The build is the job's ``taskpool`` span, ``assemble()`` its
+    ``assemble`` span (:mod:`..profiling.pins`)."""
+    with pins.span("taskpool", job=pins.current_job() or pins.new_job()):
+        return _build_flash_attention(q, k, v, causal, scale, q_block, kv_block,
+                                      q_offset, use_cuda, use_cpu, out_dtype)
+
+
+def _build_flash_attention(q, k, v, causal, scale, q_block, kv_block, q_offset,
+                           use_cuda, use_cpu, out_dtype):
     q, k, v = _host_tensor(q), _host_tensor(k), _host_tensor(v)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -525,12 +540,14 @@ def build_flash_attention(q, k, v, *, causal: bool = False,
                CL=PlaneCollection("CL", cl, keys=keys_q))
 
     def assemble() -> torch.Tensor:
-        out = torch.zeros((B, Sq, H, D), dtype=odt)
-        for g in range(G):
-            b, h = divmod(g, H)
-            for i, (o, n) in enumerate(qs):
-                c = Oc.data_of(g, i).newest_copy()
-                out[b, o:o + n, h, :] = _host_tensor(host_array(c.payload))
+        with pins.span("assemble", job=tp.job, bytes=B * Sq * H * D * odt.itemsize,
+                       tiles=G * len(qs)):
+            out = torch.zeros((B, Sq, H, D), dtype=odt)
+            for g in range(G):
+                b, h = divmod(g, H)
+                for i, (o, n) in enumerate(qs):
+                    c = Oc.data_of(g, i).newest_copy()
+                    out[b, o:o + n, h, :] = _host_tensor(host_array(c.payload))
         return out
 
     return tp, assemble

@@ -1,7 +1,9 @@
 """Observability layer (reference L7): PINS hooks, the JSON and binary
 tracers, the DOT grapher, the live properties dictionary, SDE counters,
-alperf, job trace ids, and the offline trace tools (:mod:`.tools`:
-``info``, ``to-csv``, ``merge``, ``critpath``, ``hbcheck``, ``check``).
+alperf, job trace ids, the offline trace tools (:mod:`.tools`:
+``info``, ``to-csv``, ``merge``, ``critpath``, ``hbcheck``, ``check``), and
+the sink that puts a job's spans on the ``torch.profiler`` timeline
+(:class:`~.torch_spans.ProfilerSpans`).
 
 The port of :mod:`parsec_tpu.profiling`, with its live planes: the health
 exporter and the stall watchdog (:mod:`.health`), the flight recorder
@@ -21,7 +23,7 @@ from .sde import SDEModule
 __all__ = ["pins", "Trace", "TaskProfiler", "CommProfiler", "DotGrapher",
            "dictionary", "sde", "SDEModule", "AlperfModule",
            "BinaryTrace", "BinaryTaskProfiler", "RankTraceSet",
-           "HealthServer", "Watchdog", "FlightRecorder"]
+           "HealthServer", "Watchdog", "FlightRecorder", "ProfilerSpans"]
 
 
 def __getattr__(name):
@@ -39,4 +41,8 @@ def __getattr__(name):
         from .flight import FlightRecorder
 
         return FlightRecorder
+    if name == "ProfilerSpans":
+        from .torch_spans import ProfilerSpans
+
+        return ProfilerSpans
     raise AttributeError(name)

@@ -556,9 +556,10 @@ def test_depth2_pump_records_lane_and_committer_spans(tmp_path, port_param, monk
 
 def test_graph_executor_fires_a_compile_span_on_a_cold_capture_only(monkeypatch):
     """A GraphExecutor capture that misses the program cache is one
-    COMPILE_BEGIN/END pair with the reference's payload keys; a same-shaped
-    executor that hits the cache fires nothing.  The card's capture is
-    stubbed (the torch CPU device cannot capture a CUDA graph)."""
+    COMPILE_BEGIN/END pair with the reference's payload keys and the job of
+    the span open on its thread (0: none); a same-shaped executor that hits
+    the cache fires nothing.  The card's capture is stubbed (the torch CPU
+    device cannot capture a CUDA graph)."""
     import torch
 
     from parsec_tpu_torch import compile_cache
@@ -585,8 +586,9 @@ def test_graph_executor_fires_a_compile_span_on_a_cold_capture_only(monkeypatch)
         assert not cold.cache_hit
         assert [ph for ph, _ in seen] == ["B", "E"]
         (_, b), (_, e) = seen
-        assert list(b) == ["rank", "fp", "key", "trace"]
-        assert list(e) == ["rank", "fp", "key", "trace", "kind", "seconds"]
+        assert list(b) == ["rank", "fp", "key", "trace", "job"]
+        assert list(e) == ["rank", "fp", "key", "trace", "job", "kind", "seconds"]
+        assert b["job"] == 0
         assert e["kind"] == "miss" and b["fp"] == e["fp"] and e["seconds"] >= 0
         hit = GraphExecutor(_port_pool(seed=1)[0], device="cpu")
         hit._build([torch.ones(2)])

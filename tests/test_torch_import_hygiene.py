@@ -176,6 +176,7 @@ TRACE_SCRIPT = textwrap.dedent("""
     from parsec_tpu_torch.profiling.checkers import IteratorsChecker
     from parsec_tpu_torch.profiling.overlap import measure_overlap
     from parsec_tpu_torch.profiling.tools import main as tools
+    from parsec_tpu_torch.profiling.torch_spans import ProfilerSpans
 
     rng = np.random.default_rng(0)
     m = rng.standard_normal((64, 64)).astype(np.float32)
@@ -183,7 +184,8 @@ TRACE_SCRIPT = textwrap.dedent("""
         m @ m.T + 64 * np.eye(64, dtype=np.float32))
     mca_param.set_param("device", "cuda_torch_device", "cpu")
     d = tempfile.mkdtemp()
-    mods = [TaskProfiler().install(), DotGrapher().install(), IteratorsChecker().install()]
+    mods = [TaskProfiler().install(), DotGrapher().install(), IteratorsChecker().install(),
+            ProfilerSpans().install()]
     sde_mod, alperf = SDEModule(), AlperfModule()
     stats = {}
     with measure_overlap(stats, trace_dir=d):

@@ -487,13 +487,18 @@ def test_pins_site_names_are_the_references(name):
 
 
 def test_pins_sites_are_all_the_references():
+    """Every site of the reference, under its name, and beyond them only
+    the port's own: the BEGIN and END of a job's spans (``pins.SPANS``)."""
     assert len(NEW_SITES) == 19
     ref = {n: getattr(ref_pins, n) for n in dir(ref_pins)
            if n.isupper() and isinstance(getattr(ref_pins, n), str)}
     mine = {n: getattr(pins, n) for n in dir(pins)
             if n.isupper() and isinstance(getattr(pins, n), str)}
-    assert mine == ref
-    assert set(pins.ALL_SITES) == set(ref_pins.ALL_SITES)
+    spans = {s for pair in pins.SPANS.values() for s in pair}
+    own = {n: v for n, v in mine.items() if n not in ref}
+    assert {n: v for n, v in mine.items() if n in ref} == ref
+    assert own and set(own.values()) <= spans
+    assert set(pins.ALL_SITES) == set(ref_pins.ALL_SITES) | set(own.values())
 
 
 def test_binary_tracer_subscribes_every_site_the_reference_does():

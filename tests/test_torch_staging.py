@@ -118,11 +118,13 @@ def _spd(n, dtype=np.float32, seed=0):
 
 class _StubDev:
     """The exact surface the committer drives: name for the thread,
-    data_index for the dirty-copy lookup, snapshot/D2H/commit halves."""
+    data_index for the dirty-copy lookup, the job its spans carry (the
+    port's), snapshot/D2H/commit halves."""
 
     name = "stub"
     data_index = 1
     context = None
+    job = 0
 
     def __init__(self):
         self.commits = []  # (data_id, version) in commit order
