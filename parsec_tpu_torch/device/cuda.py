@@ -519,10 +519,12 @@ class CudaDevice(Device):
         else:
             self.stream = self.h2d_stream = self.d2h_stream = None
             self._pinned = _PinnedRing(_PINNED_RING_BYTES)  # pins nothing
+        #: ``wo_placeholders``: write-only flows given device-side zeros
+        #: instead of an H2D (:meth:`_out_placeholder`)
         for key in ("h2d_copies", "d2h_copies", "prefetched_tiles",
                     "stage_batched_tiles", "wb_batches",
                     "wb_sync_fallbacks", "wb_committed", "wb_dropped_stale",
-                    "wb_capacity_waits", "wb_drains"):
+                    "wb_capacity_waits", "wb_drains", "wo_placeholders"):
             self.stats[key] = 0
         #: seconds the transfer lane spent prestaging and the committer
         #: draining (set at detach)
@@ -1407,6 +1409,7 @@ class CudaDevice(Device):
             return self._stage_in(data)  # shape unknown: fall back
         if not isinstance(dtype, torch.dtype):
             dtype = _torch_dtype(dtype)
+        self._bump(wo_placeholders=1)
         return torch.zeros(tuple(shape), dtype=dtype, device=self.tdev)
 
     def _as_device_tensor(self, x) -> torch.Tensor:

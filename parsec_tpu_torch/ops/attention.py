@@ -53,6 +53,7 @@ from ..profiling import pins
 from . import kernels
 
 IN = AccessMode.IN
+OUT = AccessMode.OUT
 INOUT = AccessMode.INOUT
 
 #: finite "-inf" used to initialise the running max ``m`` (keeps ``exp()``
@@ -79,18 +80,29 @@ class PlaneCollection(DataCollection):
     becomes an ndarray) on its first :meth:`data_of`, a ``materialize``
     span of the job open there; ``keys`` declares the planes (:meth:`tiles`);
     ``rank_of`` (optional) distributes block ``j`` (ring attention places
-    block ``j`` on rank ``j``)."""
+    block ``j`` on rank ``j``).  ``blank``: the init returns uninitialised
+    tiles (``torch.empty``), the home of a write-only flow.
+
+    ``stats`` counts what the inits handed out: ``view_tiles`` (views of
+    memory the init did not make — the caller's), ``blank_tiles``, and
+    ``copied_tiles`` with their ``copied_bytes`` (tiles an init copied or
+    filled).  The ``materialize`` span's ``bytes`` is a tile's copied
+    bytes: 0 for a view or a blank tile."""
 
     def __init__(self, name: str, init: Callable[[int, int], object], *,
                  keys: Sequence[Tuple[int, int]] = (), nodes: int = 1,
                  myrank: int = 0,
-                 rank_of: Optional[Callable[[int, int], int]] = None):
+                 rank_of: Optional[Callable[[int, int], int]] = None,
+                 blank: bool = False):
         super().__init__(name, nodes=nodes, myrank=myrank)
         self._init = init
         self._keys = [tuple(k) for k in keys]
         self._rank_of = rank_of
+        self._blank = blank
         self._store: Dict[Tuple[int, int], Data] = {}
         self._lock = threading.Lock()
+        self.stats = {"view_tiles": 0, "blank_tiles": 0, "copied_tiles": 0,
+                      "copied_bytes": 0}
 
     def data_key(self, *key):
         if len(key) == 1 and isinstance(key[0], tuple):
@@ -113,11 +125,25 @@ class PlaneCollection(DataCollection):
                     tile = self._init(*k)
                     if not isinstance(tile, torch.Tensor):
                         tile = np.asarray(tile)
+                    copied = self._count(tile)
                     if info is not None:
-                        info["bytes"] = tile.nbytes
+                        info["bytes"] = copied
                 d = data_create(k, self, payload=tile)
                 self._store[k] = d
             return d
+
+    def _count(self, tile) -> int:
+        """Count ``tile`` in :attr:`stats`; returns its copied bytes."""
+        base = tile._base if isinstance(tile, torch.Tensor) else tile.base
+        if base is not None:
+            self.stats["view_tiles"] += 1
+            return 0
+        if self._blank:
+            self.stats["blank_tiles"] += 1
+            return 0
+        self.stats["copied_tiles"] += 1
+        self.stats["copied_bytes"] += int(tile.nbytes)
+        return int(tile.nbytes)
 
     def tiles(self):
         return list(self._keys)
@@ -257,7 +283,8 @@ def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
     """Single-rank blockwise flash attention.  Instantiate with
     ``.taskpool(G=, NQ=, NK=, QB=, KVB=, QOFF=, SQ=, Q=, K=, V=, O=,
     CA=, CM=, CL=)`` where the collections are keyed ``(g, block)``:
-    ``Q(g, i)``/``O(g, i)`` are ``(sq_i, D)`` query/output blocks,
+    ``Q(g, i)``/``O(g, i)`` are ``(sq_i, D)`` query/output blocks (O
+    write-only: its home tile is never read),
     ``K(g, s)``/``V(g, s)`` are ``(sk_s, D)`` KV blocks, and
     ``CA``/``CM``/``CL`` hold the per-query-block carry initials
     (zeros, ``NEG_BIG``, zeros); the scalar constants repeat the block
@@ -296,7 +323,9 @@ def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
     out.flow("ACC", IN, "<- ACC attn_step(g, i, hz)")
     out.flow("M", IN, "<- M attn_step(g, i, hz)")
     out.flow("L", IN, "<- L attn_step(g, i, hz)")
-    out.flow("O", INOUT, "<- O(g, i)", "-> O(g, i)")
+    # write-only: both bodies overwrite O whole, so its home is never
+    # staged in (the device module hands the CUDA body device-side zeros)
+    out.flow("O", OUT, "<- O(g, i)", "-> O(g, i)")
     _bodies(out, _attn_out_cuda, _attn_out_cpu, use_cuda, use_cpu)
     return ptg
 
@@ -480,6 +509,12 @@ def build_flash_attention(q, k, v, *, causal: bool = False,
     steps compute in float32 unless all three are bfloat16.
     ``out_dtype`` (a torch dtype) defaults to q's.
 
+    The Q, K and V planes are views of ``q``, ``k`` and ``v`` (of their
+    host form: a tensor on the card is brought home, a non-contiguous
+    numpy array made contiguous, once and whole): the caller must not
+    write them until the pool has run.  The output planes are write-only,
+    uninitialised until their ``attn_out`` task writes them.
+
     The build is the job's ``taskpool`` span, ``assemble()`` its
     ``assemble`` span (:mod:`..profiling.pins`)."""
     with pins.span("taskpool", job=pins.current_job() or pins.new_job()):
@@ -515,10 +550,12 @@ def _build_flash_attention(q, k, v, causal, scale, q_block, kv_block, q_offset,
     odt = out_dtype if out_dtype is not None else q.dtype
 
     def plane(arr, splits):
+        # a strided view of the caller's tensor, never a copy: staging
+        # gathers it straight into its pinned buffer
         def init(g, j):
             b, h = divmod(g, H)
             o, n = splits[j]
-            return arr[b, o:o + n, h, :].clone(memory_format=torch.contiguous_format)
+            return arr[b, o:o + n, h, :]
         return init
 
     keys_q = [(g, i) for g in range(G) for i in range(len(qs))]
@@ -526,8 +563,8 @@ def _build_flash_attention(q, k, v, causal, scale, q_block, kv_block, q_offset,
     Qc = PlaneCollection("Q", plane(q, qs), keys=keys_q)
     Kc = PlaneCollection("K", plane(k, ks), keys=keys_k)
     Vc = PlaneCollection("V", plane(v, ks), keys=keys_k)
-    Oc = PlaneCollection("O", lambda g, i: torch.zeros((qs[i][1], D), dtype=odt),
-                         keys=keys_q)
+    Oc = PlaneCollection("O", lambda g, i: torch.empty((qs[i][1], D), dtype=odt),
+                         keys=keys_q, blank=True)
     ca, cm, cl = _carry_inits(D, [n for _, n in qs])
     tp = _flash_ptg_cached(
         causal=causal, scale=scale_v, q_block=qb, kv_block=kvb,
@@ -542,7 +579,9 @@ def _build_flash_attention(q, k, v, causal, scale, q_block, kv_block, q_offset,
     def assemble() -> torch.Tensor:
         with pins.span("assemble", job=tp.job, bytes=B * Sq * H * D * odt.itemsize,
                        tiles=G * len(qs)):
-            out = torch.zeros((B, Sq, H, D), dtype=odt)
+            # the splits cover [0, Sq) for every (b, h): the tiles write
+            # every element
+            out = torch.empty((B, Sq, H, D), dtype=odt)
             for g in range(G):
                 b, h = divmod(g, H)
                 for i, (o, n) in enumerate(qs):

@@ -178,8 +178,12 @@ def test_plans_and_scan_segments_match_reference(case, scan):
         rp = ref_fusion.FusedPlan(theirs, rg, rr, scan=scan)
         assert p._scan_segments == rp._scan_segments
         looped += p._scan_segments is not None
+        # the port's flash graph writes O without reading it: its O slots
+        # are write-only where the reference's read and write
+        want_modes = [m & ~int(AccessMode.IN) if key[:2] == ("data", "O") else m
+                      for key, m in zip(rp.slot_keys, rp.slot_modes)]
         assert (p.slot_keys, p.slot_modes, p.out_slots, p.slot_writer) == \
-            (rp.slot_keys, rp.slot_modes, rp.out_slots, rp.slot_writer)
+            (rp.slot_keys, want_modes, rp.out_slots, rp.slot_writer)
         assert p.member_flow_slots == rp.member_flow_slots
         assert p.priority == rp.priority and p.name == rp.name
         assert p.body_fn._fused_n == rp.body_fn._fused_n == len(r.members)

@@ -28,6 +28,7 @@ from parsec_tpu_torch.datadist import TiledMatrix
 from parsec_tpu_torch.device import staging
 from parsec_tpu_torch.dsl.native_exec import NativeExecutor
 from parsec_tpu_torch.ops import build_flash_attention, cholesky_ptg
+from parsec_tpu_torch.ops.attention import PlaneCollection
 from parsec_tpu_torch.profiling import pins
 from parsec_tpu_torch.profiling.torch_spans import ProfilerSpans
 
@@ -59,7 +60,8 @@ FIRED = {
                 "assemble"},
 }
 
-#: the spans that move data carry its bytes and tiles
+#: the spans that move data carry its bytes and tiles; a ``materialize``
+#: span's bytes are the tile's copied bytes, 0 for a view or a blank tile
 MOVING = ("materialize", "stage_copy", "wb_copy", "writeback", "assemble")
 
 
@@ -173,6 +175,7 @@ def test_spans_carry_the_job_and_their_parent(job, cpu_device, recorder):
     tp, ex, _wall = JOBS[job]()
     assert tp.job == ex.job == ex.device.job > 0
     ends = {p["id"]: p for _n, ph, _t, p in recorder.events if ph == "end"}
+    made = 0
     for name, p, up in _parents(recorder.events):
         assert {"rank", "id", "job", "parent"} <= set(p), (name, p)
         assert p["job"] == ex.job, (name, p)
@@ -180,7 +183,14 @@ def test_spans_carry_the_job_and_their_parent(job, cpu_device, recorder):
         assert (up[0] if up else None) in PARENTS[name], (name, up)
         if name in MOVING:  # known by the END
             end = ends[p["id"]]
-            assert end["bytes"] > 0 and end["tiles"] > 0, (name, end)
+            if name == "materialize":
+                made += end["bytes"]
+                assert end["bytes"] >= 0 and end["tiles"] == 1, (name, end)
+            else:
+                assert end["bytes"] > 0 and end["tiles"] > 0, (name, end)
+    copied = sum(dc.stats["copied_bytes"] for dc in tp.constants.values()
+                 if isinstance(dc, PlaneCollection))
+    assert made == copied and (job == "dpotrf" or copied > 0)
 
 
 @pytest.mark.parametrize("job", sorted(JOBS))
