@@ -15,10 +15,14 @@
    ``flash_attention_block`` (B5) in f32 and bf16 at the attention path's
    blocks (the prefill's full and diagonal blocks, the decode step's
    ragged 96 x 416 tail) and at a ragged (100, 300) with head dimensions
-   37, 64 and 256, causal and not (every head-dimension template and the
+   37, 64 and 256, causal and not (every equal-width template and the
    predicated copies), the wide kernel at (100, 300) and (512, 512) with
    D = 320 and 512, a float16 and a mixed-dtype case (the f32 engine on
-   float32 copies); ``stencil_5pt`` (B3) in f32, f64, f16 and bf16 at its
+   float32 copies), and latent attention's q/k 192 against v 128 (the bf16
+   ``<192, 128>`` template: the 512 block causal and not, the MLA cell's
+   8192 blocks — below the diagonal, the diagonal and not causal — the
+   ragged (100, 300) causal and not, and 165 / 99 on the same template),
+   held to 1e-4 of each tensor's largest magnitude (at least 1); ``stencil_5pt`` (B3) in f32, f64, f16 and bf16 at its
    tile, ragged and at an unaligned shape (the scalar variant), timed
    L2-warm and L2-cold; ``stencil_5pt_fused`` (B4) in each mode (smem:
    512^2, 999^2 (a ragged last strip) and 2048^2 f32, 1024^2 f64 and f16;
@@ -40,7 +44,8 @@
    ``torch.matmul``); B1 ``split_f32`` with B not transposed and B2 f32
    with B not transposed also at their callers' shapes (a segmented-LU
    strip, 15872 x 4096 x 512; tiled QR's tsmqr, (1024 x 1024) x
-   (1024 x 512)); then the batch axis: B1 (f32, bf16, split_f32 and f32
+   (1024 x 512)), and B2 bf16 at latent attention's ``kv_up`` (8192 x 128
+   x 512); then the batch axis: B1 (f32, bf16, split_f32 and f32
    with B not transposed at dpotrf's largest gemm group, 105 x 512^3, and
    the last at the tiled LU's, 225), B2 (f32 at dpotrf trtri's trsm group
    of 15 sharing one inverse, f32 with B not transposed at tiled QR's
@@ -48,12 +53,18 @@
    step, halos strided slices of stacked neighbours, and a top-edge group
    sharing one zero halo row) and B5 (f32 and bf16 at the prefill's
    largest level, 256 x (512 x 512 x 128), each member's q offset its own,
-   three fully masked; the wide kernel at 8 x D = 512), each one launch
+   three fully masked; the wide kernel at 8 x D = 512; bf16 at 192 / 128,
+   256 members), each one launch
    through ``torch.func.vmap`` as a level-batched replay makes it,
    ``torch.equal`` to its members launched one by one, within the
    kernel's tolerance of its batched plain version (B3 bit for bit), the
    masked members' carries exact, timed beside the members launched one
-   by one, with its bound;
+   by one, with its bound; then one latent-attention prefill job through
+   the pump (``build_mla_attention``, 16 heads, 16384 tokens in the MLA
+   cell's 8192-blocks): its tasks, B5 and B2 launches, task-made tiles
+   (none staged in) and ``bytes_in`` against the graph's counts, its
+   output against ``parsec_tpu_torch/reference/mla.py`` a head at a time
+   by the MLA cell's comparison and limit;
 4. dpotrf path: tiled dpotrf at N=8192 nb=512 float32 through
    ``Context`` / ``add_taskpool`` / ``wait`` with every task on the CUDA
    device module — hand kernels for the updates, then the ``use_trtri``
@@ -416,9 +427,22 @@ SHAPES = (TILE, RAGGED, TINY, UNALIGNED)
 # the B1/B2 modes the dense factorizations give callers, each timed at its
 # caller's shape beside the tile rows: split_f32 at a segmented-LU strip
 # (the first trailing strip at N=16384 nb=512, strip 4096) and B2 at
-# tiled QR's tsmqr ((2nb x 2nb) Q^T times the stacked (2nb x nb) tiles)
+# tiled QR's tsmqr ((2nb x 2nb) Q^T times the stacked (2nb x nb) tiles),
+# and B2 bf16 at latent attention's kv_up
+#
+# latent attention (DeepSeek-V2-Lite's config.json, ops/mla.py): q/k 192
+# (128 + 64 rotary) against v 128, latent 512, 16 heads, in the benchmark
+# MLA cell's 8192-row blocks; the pump run is one job at MLA_S tokens
+MLA_D, MLA_DV, MLA_L, MLA_H, MLA_BLOCK, MLA_S = 192, 128, 512, 16, 8192, 16384
+# the MLA cell's configuration (its YaRN scaling gives the softmax scale)
+# and its limits file (the pump job is judged by the cell's own limit)
+MLA_CONFIG = os.path.join("benchmark", "configs", "prefill_deepseek-v2-lite.json")
+MLA_LIMITS = os.path.join("benchmark", "limits", "prefill_deepseek-v2-lite.s65536-b8192.json")
 CALLER_SHAPES = {("matmul_update", "split_nt"): (15872, 4096, 512),
-                 ("matmul", "f32_nt"): (1024, 512, 1024)}
+                 ("matmul", "f32_nt"): (1024, 512, 1024),
+                 # latent attention's kv_up: an 8192-token latent block
+                 # times one head's 128 key (or value) rows of kv_b_proj
+                 ("matmul", "bf16"): (MLA_BLOCK, MLA_DV, MLA_L)}
 TOL_F32, TOL_BF16, TOL_SPLIT_F64 = 1e-4, 1e-3, 1e-5
 # B2 with bfloat16 output rounds the f32 sum once: one bf16 ulp at the
 # largest element
@@ -5365,12 +5389,35 @@ def main() -> int:
                     0, 0),
                    ("mixed_d320_causal", 100, 300, 320, (f32, bf16, torch.float16), True,
                     250, 0)]
+    # latent attention's step, the bf16 engine's <192, 128> template (a
+    # ninth field: v's width): the 512 block causal and not, the MLA cell's
+    # 8192 blocks (the full block below the diagonal, the diagonal, and not
+    # causal), the ragged (100, 300) causal and not, and narrower widths on
+    # the same template (predicated copies: 330- and 198-byte rows)
+    attn_cases += [
+        ("bf16_mla", ATTN_BLOCK, ATTN_BLOCK, MLA_D, bf16, False, 0, 0, MLA_DV),
+        ("bf16_mla_causal_diag", ATTN_BLOCK, ATTN_BLOCK, MLA_D, bf16, True, 0, 0, MLA_DV),
+        ("bf16_mla_8192_full", MLA_BLOCK, MLA_BLOCK, MLA_D, bf16, True, MLA_BLOCK, 0, MLA_DV),
+        ("bf16_mla_8192_causal_diag", MLA_BLOCK, MLA_BLOCK, MLA_D, bf16, True, 0, 0, MLA_DV),
+        ("bf16_mla_8192", MLA_BLOCK, MLA_BLOCK, MLA_D, bf16, False, 0, 0, MLA_DV),
+        ("bf16_mla_ragged", 100, 300, MLA_D, bf16, False, 0, 0, MLA_DV),
+        ("bf16_mla_ragged_causal", 100, 300, MLA_D, bf16, True, 250, 0, MLA_DV),
+        ("bf16_mla_d165_dv99_causal", 100, 300, 165, bf16, True, 250, 0, 99),
+    ]
     f64_gated = ("f32", "f32_causal_diag")
 
     def max_err(out, ref):
         return max((o.double() - r.double()).abs().max().item() for o, r in zip(out, ref))
 
-    def carry_err(out, ref):
+    def scaled_err(out, ref):
+        """max_err with each tensor's distance over its largest magnitude
+        (at least 1): at 8192 keys l reaches the hundreds, where float32
+        itself rounds by ~1e-5 a term (tests/test_torch_mla.py's card case
+        holds the kernel so)."""
+        return max((o.double() - r.double()).abs().max().item()
+                   / max(1.0, r.double().abs().max().item()) for o, r in zip(out, ref))
+
+    def carry_err(out, ref, err=max_err):
         """Distance of the kernel's carry from the plain version's as the
         carries they are: (acc, m, l) and (acc e^-d, m + d, l e^-d) are the
         same carry, so acc and l are taken to the plain version's running
@@ -5380,16 +5427,18 @@ def main() -> int:
         acc_k, m_k, l_k = (t.double() for t in out)
         acc_p, m_p, l_p = (t.double() for t in ref)
         shift = torch.exp(m_k - m_p)
-        return max_err((acc_k * shift, m_k, l_k * shift), (acc_p, m_p, l_p))
+        return err((acc_k * shift, m_k, l_k * shift), (acc_p, m_p, l_p))
 
     failures = []
-    for label, sq, sk, d, dt, causal, q_off, k_off in attn_cases:
+    for label, sq, sk, d, dt, causal, q_off, k_off, *dv in attn_cases:
         seed += 1
+        dv = dv[0] if dv else d
         dts = dt if isinstance(dt, tuple) else (dt,) * 3
-        q, k, v = (rand((n, d), seed + off, t)
-                   for n, off, t in zip((sq, sk, sk), (0, 1000, 2000), dts))
-        mode = kernels._attention_mode(*dts, d)
-        acc = rand((sq, d), seed + 3000)
+        q, k, v = (rand((n, w), seed + off, t)
+                   for n, w, off, t in zip((sq, sk, sk), (d, d, dv), (0, 1000, 2000), dts))
+        mode = kernels._attention_mode(*dts, d, dv)
+        gate = scaled_err if dv != d else max_err
+        acc = rand((sq, dv), seed + 3000)
         m = rand((sq, 1), seed + 4000)
         l = rand((sq, 1), seed + 5000).abs()
         kw = dict(causal=causal, scale=d ** -0.5)
@@ -5399,11 +5448,12 @@ def main() -> int:
         out, out2, ref = run(), run(), plain()
         r64 = kernels.flash_attention_block_plain(*args, **kw, compute_dtype=torch.float64)
         torch.cuda.synchronize()
-        row = {"shape": [sq, sk, d], "causal": causal, "q_off": q_off, "kernel": mode,
-               "k_off": k_off, "tol": TOL_ATTN,
+        row = {"shape": [sq, sk, d] + ([dv] if dv != d else []), "causal": causal,
+               "q_off": q_off, "kernel": mode, "k_off": k_off, "tol": TOL_ATTN,
+               "gate": "scaled" if gate is scaled_err else "abs",
                "max_abs_err": max((o - r).abs().max().item() for o, r in zip(out, ref)),
-               "carry_err": carry_err(out, ref),
-               "err_vs_f64": max_err(out, r64), "plain_err_vs_f64": max_err(ref, r64),
+               "carry_err": carry_err(out, ref, gate),
+               "err_vs_f64": gate(out, r64), "plain_err_vs_f64": gate(ref, r64),
                "bit_identical": all(torch.equal(a, b) for a, b in zip(out, out2))}
         if not all(bool(torch.isfinite(o).all()) for o in out):
             failures.append(f"{label}: non-finite output")
@@ -5431,13 +5481,16 @@ def main() -> int:
         # on the CUDA cores, its logits once per 128-column slab beside it
         pairs = attn_pairs(sq, sk, q_off, k_off, causal)
         nbytes = (q.numel() * q.element_size() + k.numel() * k.element_size()
-                  + v.numel() * v.element_size() + 2 * sq * d * 4 + 4 * sq * 4)
+                  + v.numel() * v.element_size() + 2 * sq * dv * 4 + 4 * sq * 4)
         if mode.endswith("_wide"):
             row["bound_ms"], row["bound_by"] = bound(4 * d * pairs, nbytes, "f32")
             row["bound_design_ms"], _ = bound(
                 2 * d * pairs * (1 + -(-d // 128)), nbytes, "f32")
         elif mode == "bf16":
-            row["bound_ms"], row["bound_by"] = bound(6 * d * pairs, nbytes, "bf16")
+            # one pass of q.k over d, two of p.v over dv; the useful
+            # 2 (d + dv) a pair beside it
+            row["bound_ms"], row["bound_by"] = bound((2 * d + 4 * dv) * pairs, nbytes, "bf16")
+            row["bound_useful_ms"], _ = bound(2 * (d + dv) * pairs, nbytes, "bf16")
         else:
             row["bound_ms"], row["bound_by"] = bound(3 * 4 * d * pairs, nbytes, "tf32")
             row["bound_fp32_ms"], _ = bound(4 * d * pairs, nbytes, "f32")
@@ -5447,10 +5500,12 @@ def main() -> int:
     # the exact no-op, in both dtypes: a fully masked block met while the
     # carry is still at its -1e30/0/0 init leaves acc = 0, l = 0 and m
     # bit-identical
-    for name, dt, d in (("f32", f32, ATTN_D), ("bf16", bf16, ATTN_D), ("f32_d512", f32, 512),
-                        ("bf16_d512", bf16, 512)):
-        q, k, v = (rand((ATTN_BLOCK, d), seed + off, dt) for off in (6000, 7000, 8000))
-        acc0 = torch.zeros((ATTN_BLOCK, d), device=dev)
+    for name, dt, d, dv in (("f32", f32, ATTN_D, ATTN_D), ("bf16", bf16, ATTN_D, ATTN_D),
+                            ("f32_d512", f32, 512, 512), ("bf16_d512", bf16, 512, 512),
+                            ("bf16_mla", bf16, MLA_D, MLA_DV)):
+        q, k, v = (rand((ATTN_BLOCK, w), seed + off, dt)
+                   for w, off in ((d, 6000), (d, 7000), (dv, 8000)))
+        acc0 = torch.zeros((ATTN_BLOCK, dv), device=dev)
         m0 = torch.full((ATTN_BLOCK, 1), -1e30, device=dev)
         l0 = torch.zeros((ATTN_BLOCK, 1), device=dev)
         acc1, m1, l1 = kernels.flash_attention_block(q, k, v, acc0, m0, l0, 0,
@@ -5727,17 +5782,20 @@ def main() -> int:
     # one key block, each member's q offset its own (read on the card from
     # an int64 tensor), k and v stacked; members whose query rows all lie
     # before the key block are fully masked and must keep their carry
-    # exactly.  The wide kernel (D = 512) at a small batch.
-    for label, n_mem, d, dt in (("f32", 256, ATTN_D, f32), ("bf16", 256, ATTN_D, bf16),
-                                ("f32_wide", 8, 512, f32)):
+    # exactly.  The wide kernel (D = 512) at a small batch; latent
+    # attention's 192 / 128 (the <192, 128, batched> build) at the bf16 size.
+    for label, n_mem, d, dv, dt in (("f32", 256, ATTN_D, ATTN_D, f32),
+                                    ("bf16", 256, ATTN_D, ATTN_D, bf16),
+                                    ("f32_wide", 8, 512, 512, f32),
+                                    ("bf16_mla", 256, MLA_D, MLA_DV, bf16)):
         seed += 1
         sq = sk = ATTN_BLOCK
         k_off = 3 * ATTN_BLOCK
         q_offs = [(j % (ATTN_S // ATTN_BLOCK)) * ATTN_BLOCK for j in range(n_mem)]
         q_off_t = torch.tensor(q_offs, dtype=torch.int64, device=dev)
-        q, k, v = (rand((n_mem, n, d), seed + off, dt)
-                   for n, off in ((sq, 0), (sk, 1000), (sk, 2000)))
-        acc = rand((n_mem, sq, d), seed + 3000)
+        q, k, v = (rand((n_mem, n, w), seed + off, dt)
+                   for n, w, off in ((sq, d, 0), (sk, d, 1000), (sk, dv, 2000)))
+        acc = rand((n_mem, sq, dv), seed + 3000)
         m = rand((n_mem, sq, 1), seed + 4000)
         l = rand((n_mem, sq, 1), seed + 5000).abs()
         kw = dict(causal=True, scale=d ** -0.5)
@@ -5761,16 +5819,92 @@ def main() -> int:
                             "carry changed")
         del out_b
         pairs = sum(attn_pairs(sq, sk, qo, k_off, True) for qo in q_offs)
-        nbytes = n_mem * ((q[0].numel() + 2 * k[0].numel()) * q.element_size()
-                          + 2 * sq * d * 4 + 4 * sq * 4)
+        nbytes = n_mem * ((q[0].numel() + k[0].numel() + v[0].numel()) * q.element_size()
+                          + 2 * sq * dv * 4 + 4 * sq * 4)
         flops, op_type = ((4 * d * pairs, "f32") if label.endswith("_wide") else
-                          (6 * d * pairs, "bf16") if label == "bf16" else
+                          ((2 * d + 4 * dv) * pairs, "bf16") if label.startswith("bf16") else
                           (3 * 4 * d * pairs, "tf32"))
         batched_row(("flash_attention_block", f"{label}_b_{n_mem}"), n_mem, run_b, one,
                     plain_b, carry_err, TOL_ATTN, flops, nbytes, op_type,
-                    shape=[sq, sk, d], masked_members=len(masked), masked_exact=exact)
+                    shape=[sq, sk, d] + ([dv] if dv != d else []),
+                    masked_members=len(masked), masked_exact=exact)
         del q, k, v, acc, m, l, args
     check(not failures, "B5 batched launches:\n  " + "\n  ".join(failures))
+    torch.cuda.empty_cache()
+
+    # -- latent attention through the pump: one causal prefill job ----------
+    # build_mla_attention under NativeExecutor(native_device=True), as the
+    # benchmark's MLA cell runs it, at MLA_S tokens in the cell's blocks:
+    # kv_up's B2 and the steps' 192 / 128 B5 launches counted against the
+    # graph's tasks, the task-made K and V tiles homed on the card and none
+    # staged in, and the output judged a head at a time against the plain
+    # reference (float32 on the card) by the MLA cell's comparison and limit
+    def mla_pump(seed):
+        from parsec_tpu_torch.ops import build_mla_attention, mla_attention_task_count
+        from parsec_tpu_torch.reference.mla import mla_attention, softmax_scale
+        here = os.path.dirname(os.path.abspath(__file__))
+        with open(os.path.join(here, MLA_CONFIG)) as f:
+            cfg = json.load(f)
+        with open(os.path.join(here, MLA_LIMITS)) as f:
+            limit = json.load(f)["out_err"]["limit"]
+        dn, dr = cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"]
+        check((dn + dr, cfg["v_head_dim"], cfg["kv_lora_rank"], cfg["num_attention_heads"])
+              == (MLA_D, MLA_DV, MLA_L, MLA_H), f"{MLA_CONFIG}: widths differ from this script's")
+        scale = softmax_scale(dn, dr, cfg["rope_scaling"])
+        rows_h = dn + MLA_DV  # a head's rows of kv_b_proj
+        inputs = (rand((1, MLA_S, MLA_H, MLA_D), seed, bf16),
+                  rand((1, MLA_S, MLA_L), seed + 1000, bf16),
+                  rand((1, MLA_S, dr), seed + 2000, bf16),
+                  (rand((MLA_H * rows_h, MLA_L), seed + 3000) * MLA_L ** -0.5).to(bf16))
+        host = tuple(t.cpu() for t in inputs)
+        mm, b5 = kernels.matmul, kernels.flash_attention_block
+        before = dict(mm.launches_by_mode), dict(b5.launches_by_mode)
+        t0 = time.perf_counter()
+        tp, assemble = build_mla_attention(*host, scale=scale, causal=True, q_block=MLA_BLOCK,
+                                           kv_block=MLA_BLOCK, use_cpu=False)
+        ex = NativeExecutor(tp, native_device=True)
+        ran = ex.run()
+        ex.close()
+        out = assemble()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = ex.device.stats
+        run = {"b2": {k: n - before[0][k] for k, n in mm.launches_by_mode.items()
+                      if n != before[0][k]},
+               "b5": {k: n - before[1][k] for k, n in b5.launches_by_mode.items()
+                      if n != before[1][k]}}
+        nk = -(-MLA_S // MLA_BLOCK)
+        n_up, n_steps = MLA_H * nk, MLA_H * nk * (nk + 1) // 2
+        worst = 0.0
+        for h in range(MLA_H):
+            ref = mla_attention(inputs[0][:, :, h:h + 1], inputs[1], inputs[2],
+                                inputs[3][h * rows_h:(h + 1) * rows_h], scale, True)
+            got = out[:, :, h:h + 1].to(dev, torch.float32)
+            worst = max(worst, ((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item())
+            del ref, got
+        # q, the latent and rotary blocks and the weights once each, and
+        # the carries' initials
+        bytes_in = ((MLA_S * MLA_H * MLA_D + MLA_S * (MLA_L + dr) + MLA_H * rows_h * MLA_L) * 2
+                    + MLA_H * MLA_S * (MLA_DV + 2) * 4)
+        say("mla_pump", S=MLA_S, heads=MLA_H, block=MLA_BLOCK, tasks=ran,
+            b5_launches=run["b5"], b2_launches=run["b2"], scratch_tiles=st["scratch_tiles"],
+            scratch_bytes=st["scratch_bytes"], scratch_h2d_bytes=st["scratch_h2d_bytes"],
+            bytes_in=st["bytes_in"], out_err=worst, limit=limit, wall_s=wall)
+        want = mla_attention_task_count(1, MLA_S, MLA_H, MLA_BLOCK, MLA_BLOCK, causal=True)
+        check(ran == want, f"mla pump: {ran} tasks, want {want}")
+        check(run["b5"] == {"bf16": n_steps} and run["b2"] == {"bf16": 2 * n_up},
+              f"mla pump: launches B5 {run['b5']}, B2 {run['b2']}; want bf16 "
+              f"{n_steps} and {2 * n_up}")
+        check(st["scratch_tiles"] == 2 * n_up and st["scratch_h2d_bytes"] == 0
+              and st["scratch_bytes"] == MLA_H * MLA_S * (MLA_D + MLA_DV) * 2,
+              f"mla pump: task-made tiles {st['scratch_tiles']}, {st['scratch_bytes']} B, "
+              f"{st['scratch_h2d_bytes']} B staged in")
+        check(st["bytes_in"] == bytes_in, f"mla pump: bytes_in {st['bytes_in']}, want {bytes_in}")
+        check(worst < limit, f"mla pump: out_err {worst} >= the cell's limit {limit}")
+        return run
+
+    seed += 1
+    mla_run = mla_pump(seed)
     torch.cuda.empty_cache()
 
     # -- main path: dpotrf N=8192 nb=512 on the CUDA device module ----------
@@ -7297,7 +7431,13 @@ def main() -> int:
         # the f32 mode at the serve phase's decode shape (8 x 512 x 128):
         # the decode jobs' launches, a share of the f32 row's
         entry("flash_attention_block", "f32_decode", serve.serve_decode_launches,
-              "attention.cu", "283", ("flash_attention_block", "f32_decode_8x512"))
+              "attention.cu", "283", ("flash_attention_block", "f32_decode_8x512")),
+        # latent attention's step and expansion at the MLA cell's block:
+        # the launches of the kernel phase's pump job
+        entry("flash_attention_block", "bf16_mla", mla_run["b5"]["bf16"], "attention.cu",
+              "283", ("flash_attention_block", "bf16_mla_8192_full")),
+        entry("matmul", "bf16_kv_up", mla_run["b2"]["bf16"], line="158",
+              key=("matmul", "bf16", CALLER_SHAPES[("matmul", "bf16")])),
     ]
 
     def batched_entry(name, mode, key, source, line):

@@ -10,8 +10,12 @@
 //   l'   = l * corr + rowsum(p)
 //   acc' = acc * corr + p @ v
 //
-// for q (Sq, D), k and v (Sk, D) in f32 or bf16, and an f32 carry acc
-// (Sq, D), m and l (Sq, 1).
+// for q and k (Sq, Dqk) and (Sk, Dqk), v (Sk, Dv), in f32 or bf16, and an
+// f32 carry acc (Sq, Dv), m and l (Sq, 1).  The two widths are one head
+// dimension D in multi-head attention; latent attention (MLA) has
+// Dqk = 192 (128 of its own and 64 of the shared rotary key) against Dv =
+// 128, and q.k^T runs over the one width, p.v over the other, neither
+// padded to the other.
 //
 // What it computes, not how the TPU did it: the Pallas kernel keeps a whole
 // (bq, Sk) logits tile in VMEM and reduces it at once.  Here one block of
@@ -78,6 +82,17 @@
 // accumulator per warp in registers and a K/V chunk per stage in shared
 // memory, and neither fits at D = 512.
 //
+// Widths.  The engine is instantiated at (Dqk, Dv) = (64, 64), (128, 128)
+// and (256, 256), each serving any equal pair up to it (columns past the
+// run-time width are zero-filled in shared memory), and in bf16 at (192,
+// 128) for unequal pairs with Dqk <= 192 and Dv <= 128: the bf16 MLA step.
+// At (192, 128) a block holds q (16 x 200), three stages of k (64 x 200)
+// and v (64 x 136) and the carry, 144,256 bytes, one block an SM as at
+// (128, 128); its accumulator is (128, 128)'s, and q.k^T takes 12 k16
+// steps where (128, 128) takes 8.  Other unequal pairs, and unequal pairs
+// in f32 or on the wide kernel, are refused (cudaErrorInvalidValue; the
+// Python wrapper raises a ValueError first).
+//
 // Batch axis (both kernels).  One launch may run `batch` independent
 // updates (a level of a whole-DAG replay: one group of prefill steps,
 // ROADMAP A.4c): grid z is the member, each operand steps by its own batch
@@ -126,23 +141,25 @@ __device__ __forceinline__ long long member_off(const long long* offs, long long
   return offs ? offs[blockIdx.z * step] : scalar;
 }
 
-template <typename T, int DMAX>
+template <typename T, int DQK, int DV>
 struct Traits {
   static constexpr bool F32 = std::is_same<T, float>::value;
+  static_assert(!F32 || DQK == DV, "the f32 engine takes equal widths");
   // shared-memory element: f32 values, or bf16 bits
   using Bits = std::conditional_t<F32, float, uint16_t>;
   // keys per chunk and per warp slice: 64 and 16; f32 at D = 256 takes 32
   // and 8, so that two stages fit
-  static constexpr int BKC = F32 && DMAX == 256 ? 32 : 64;
+  static constexpr int BKC = F32 && DQK == 256 ? 32 : 64;
   static constexpr int KW = BKC / WARPS;
   static constexpr int KSTEP = F32 ? 8 : 16;  // k depth of one mma
   // row pitches in elements, chosen so that every fragment load is free of
   // bank conflicts: 8-byte q/k loads (f32) and ldmatrix rows (bf16) want a
-  // pitch of 8 words mod 32, the f32 v loads one of 4
-  static constexpr int QP = DMAX + 8;
-  static constexpr int KP = DMAX + 8;
-  static constexpr int VP = F32 ? DMAX + 4 : DMAX + 8;
-  static constexpr int CP = DMAX + 8;         // combine tile (f32)
+  // pitch of 8 words mod 32, the f32 v loads one of 4.  q and k are Dqk
+  // wide; v, the carry and the combine tile Dv
+  static constexpr int QP = DQK + 8;
+  static constexpr int KP = DQK + 8;
+  static constexpr int VP = F32 ? DV + 4 : DV + 8;
+  static constexpr int CP = DV + 8;           // carry and combine tiles (f32)
   static constexpr int ESZ = sizeof(Bits);
   static constexpr int Q_BYTES = (F32 ? 2 : 1) * BQ * QP * ESZ;  // f32: hi and lo
   // the incoming carry of the block's rows, fetched with chunk 0: acc
@@ -152,7 +169,7 @@ struct Traits {
   static constexpr int STAGE_BYTES = K_BYTES + BKC * VP * ESZ;
   // chunks in flight: load c+1 and c+2 while c is multiplied; f32 at
   // D = 256 keeps two stages to fit
-  static constexpr int STAGES = F32 && DMAX == 256 ? 2 : 3;
+  static constexpr int STAGES = F32 && DQK == 256 ? 2 : 3;
   static constexpr int SMEM = Q_BYTES + CARRY_BYTES + STAGES * STAGE_BYTES;
   // the combine reuses the stages: partial accumulators, m_w, l_w and the
   // WARPS + 1 factors of each row
@@ -286,21 +303,21 @@ __device__ __forceinline__ void load_tile(Bits* dst, const Bits* __restrict__ sr
 // from device memory.  A single update takes the other instantiation, where
 // the member offsets fold away and the code is the unbatched kernel's own
 // (the offsets cost it registers and spills otherwise)
-template <typename T, int DMAX, bool BATCHED>
+template <typename T, int DQK, int DV, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
-flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
+flash_block_kernel(int sq, int sk, int d, int dv, const void* __restrict__ qv,
                    const void* __restrict__ kv, const void* __restrict__ vv,
                    const float* __restrict__ acc_b, const float* __restrict__ m_b,
                    const float* __restrict__ l_b, float* __restrict__ acc_ob,
                    float* __restrict__ m_ob, float* __restrict__ l_ob, long long q_off0,
-                   long long k_off0, int causal, float scale, int vec_q, int vec_kv,
-                   int vec_acc, Batch bt) {
-  using Tr = Traits<T, DMAX>;
+                   long long k_off0, int causal, float scale, int vec_q, int vec_k,
+                   int vec_v, int vec_acc, Batch bt) {
+  using Tr = Traits<T, DQK, DV>;
   using Bits = typename Tr::Bits;
   constexpr int BKC = Tr::BKC, KW = Tr::KW, KSTEP = Tr::KSTEP, STAGES = Tr::STAGES;
   constexpr int QP = Tr::QP, KP = Tr::KP, VP = Tr::VP, CP = Tr::CP;
   constexpr int NJ = KW / 8;    // n8 tiles of keys in a warp slice
-  constexpr int NT = DMAX / 8;  // n8 tiles of the accumulator
+  constexpr int NT = DV / 8;    // n8 tiles of the accumulator
 
   extern __shared__ __align__(16) uint8_t smem[];
   float* carry = reinterpret_cast<float*>(smem + Tr::Q_BYTES);  // acc_in, m_in, l_in
@@ -337,7 +354,7 @@ flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
 
   // the first STAGES - 1 chunks in flight; with chunk 0, the incoming carry
   // (read only by the combine) and q in bf16
-  load_tile<float, BQ, DMAX, CP>(carry, acc_in, row0, sq, d, vec_acc, tid);
+  load_tile<float, BQ, DV, CP>(carry, acc_in, row0, sq, dv, vec_acc, tid);
   if (tid < 2 * BQ) {
     const int r = tid % BQ;
     const bool ok = row0 + r < sq;
@@ -345,12 +362,12 @@ flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
     cp_async4(smem_u32(carry + BQ * CP + tid), ok ? src + row0 + r : src, ok ? 4 : 0);
   }
   if constexpr (!Tr::F32)
-    load_tile<Bits, BQ, DMAX, QP>(reinterpret_cast<Bits*>(smem), q, row0, sq, d, vec_q, tid);
+    load_tile<Bits, BQ, DQK, QP>(reinterpret_cast<Bits*>(smem), q, row0, sq, d, vec_q, tid);
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
     if (p < nchunks) {
-      load_tile<Bits, BKC, DMAX, KP>(k_stage(p), k, p * BKC, sk, d, vec_kv, tid);
-      load_tile<Bits, BKC, DMAX, VP>(v_stage(p), v, p * BKC, sk, d, vec_kv, tid);
+      load_tile<Bits, BKC, DQK, KP>(k_stage(p), k, p * BKC, sk, d, vec_k, tid);
+      load_tile<Bits, BKC, DV, VP>(v_stage(p), v, p * BKC, sk, dv, vec_v, tid);
     }
     cp_async_commit();
   }
@@ -359,8 +376,8 @@ flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
     uint32_t* qh = reinterpret_cast<uint32_t*>(smem);
     uint32_t* ql = qh + BQ * QP;
 #pragma unroll
-    for (int i = tid; i < BQ * DMAX; i += THREADS) {
-      const int r = i / DMAX, c = i % DMAX;
+    for (int i = tid; i < BQ * DQK; i += THREADS) {
+      const int r = i / DQK, c = i % DQK;
       const float x = row0 + r < sq && c < d ? q[int64_t(row0 + r) * d + c] : 0.f;
       split_tf32(x, qh[r * QP + c], ql[r * QP + c]);
     }
@@ -383,8 +400,8 @@ flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
     if (c + STAGES - 1 < nchunks) {  // into chunk c - 1's stage
       const int nst = st == 0 ? STAGES - 1 : st - 1;
       const int kn = kc + (STAGES - 1) * BKC;
-      load_tile<Bits, BKC, DMAX, KP>(k_stage(nst), k, kn, sk, d, vec_kv, tid);
-      load_tile<Bits, BKC, DMAX, VP>(v_stage(nst), v, kn, sk, d, vec_kv, tid);
+      load_tile<Bits, BKC, DQK, KP>(k_stage(nst), k, kn, sk, d, vec_k, tid);
+      load_tile<Bits, BKC, DV, VP>(v_stage(nst), v, kn, sk, dv, vec_v, tid);
     }
     cp_async_commit();
 
@@ -404,7 +421,7 @@ flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
       const uint32_t* qh = reinterpret_cast<const uint32_t*>(smem);
       const uint32_t* ql = qh + BQ * QP;
 #pragma unroll
-      for (int kk = 0; kk < DMAX; kk += KSTEP) {
+      for (int kk = 0; kk < DQK; kk += KSTEP) {
         const int col = kk + 2 * t;  // slots t and t + 4 hold columns 2t and 2t + 1
         const uint2 h0 = *reinterpret_cast<const uint2*>(qh + g * QP + col);
         const uint2 h1 = *reinterpret_cast<const uint2*>(qh + (g + 8) * QP + col);
@@ -433,7 +450,7 @@ flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
       const uint32_t qa = smem_u32(qs + (lane & 15) * QP + (lane >> 4) * 8);
       const uint32_t ka = smem_u32(kb + ((lane & 7) + (lane >> 4) * 8) * KP + ((lane >> 3) & 1) * 8);
 #pragma unroll
-      for (int kk = 0; kk < DMAX; kk += KSTEP) {
+      for (int kk = 0; kk < DQK; kk += KSTEP) {
         uint32_t a[4], b[4];
         ldsm_x4(a, qa + kk * 2);
         ldsm_x4(b, ka + kk * 2);
@@ -578,13 +595,13 @@ flash_block_kernel(int sq, int sk, int d, const void* __restrict__ qv,
   }
   __syncthreads();
 #pragma unroll 4
-  for (int i = tid; i < BQ * DMAX; i += THREADS) {
-    const int r = i / DMAX, col = i % DMAX;
-    if (row0 + r >= sq || col >= d) continue;
+  for (int i = tid; i < BQ * DV; i += THREADS) {
+    const int r = i / DV, col = i % DV;
+    if (row0 + r >= sq || col >= dv) continue;
     float a = carry[r * CP + col] * fac[r];
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) a += cacc[(w * BQ + r) * CP + col] * fac[(w + 1) * BQ + r];
-    acc_out[int64_t(row0 + r) * d + col] = a;
+    acc_out[int64_t(row0 + r) * dv + col] = a;
   }
 }
 
@@ -594,13 +611,13 @@ __host__ inline bool aligned16(const void* p, long long stride, size_t size) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (stride * (long long)size) % 16 == 0;
 }
 
-template <typename T, int DMAX, bool BATCHED>
-cudaError_t launch(int batch, int sq, int sk, int d, const void* q, const void* k, const void* v,
-                   const float* acc, const float* m, const float* l, float* acc_o, float* m_o,
-                   float* l_o, long long q_off, long long k_off, int causal, float scale,
-                   const Batch& bt, cudaStream_t stream) {
-  constexpr int smem = Traits<T, DMAX>::SMEM;
-  auto kern = flash_block_kernel<T, DMAX, BATCHED>;
+template <typename T, int DQK, int DV, bool BATCHED>
+cudaError_t launch(int batch, int sq, int sk, int d, int dv, const void* q, const void* k,
+                   const void* v, const float* acc, const float* m, const float* l, float* acc_o,
+                   float* m_o, float* l_o, long long q_off, long long k_off, int causal,
+                   float scale, const Batch& bt, cudaStream_t stream) {
+  constexpr int smem = Traits<T, DQK, DV>::SMEM;
+  auto kern = flash_block_kernel<T, DQK, DV, BATCHED>;
   // dynamic shared memory above the 48 KB default: opted in once per
   // instantiation (a thread-safe static), for the device current at the
   // first launch -- the port drives one device
@@ -609,12 +626,15 @@ cudaError_t launch(int batch, int sq, int sk, int d, const void* q, const void* 
   if (opted != cudaSuccess) return opted;
   // 16-byte copies where the row pitch and the base are 16-byte multiples
   const bool pitch16 = size_t(d) * sizeof(T) % 16 == 0;
+  const bool pitch16v = size_t(dv) * sizeof(T) % 16 == 0;
   const int vec_q = pitch16 && aligned16(q, bt.q, sizeof(T));
-  const int vec_kv = pitch16 && aligned16(k, bt.k, sizeof(T)) && aligned16(v, bt.v, sizeof(T));
-  const int vec_acc = d % 4 == 0 && aligned16(acc, bt.acc, 4);
+  const int vec_k = pitch16 && aligned16(k, bt.k, sizeof(T));
+  const int vec_v = pitch16v && aligned16(v, bt.v, sizeof(T));
+  const int vec_acc = dv % 4 == 0 && aligned16(acc, bt.acc, 4);
   const dim3 grid((sq + BQ - 1) / BQ, 1, batch);
-  kern<<<grid, THREADS, smem, stream>>>(sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
-                                        k_off, causal, scale, vec_q, vec_kv, vec_acc, bt);
+  kern<<<grid, THREADS, smem, stream>>>(sq, sk, d, dv, q, k, v, acc, m, l, acc_o, m_o, l_o,
+                                        q_off, k_off, causal, scale, vec_q, vec_k, vec_v,
+                                        vec_acc, bt);
   return cudaGetLastError();
 }
 
@@ -860,42 +880,52 @@ cudaError_t launch_wide(int batch, int sq, int sk, int d, const void* q, const v
   return cudaGetLastError();
 }
 
+// the instantiation of the widths (d, dv); see "Widths" at the top
 template <typename T, bool BATCHED>
-cudaError_t dispatch_d(int batch, int sq, int sk, int d, const void* q, const void* k,
+cudaError_t dispatch_d(int batch, int sq, int sk, int d, int dv, const void* q, const void* k,
                        const void* v, const float* acc, const float* m, const float* l,
                        float* acc_o, float* m_o, float* l_o, long long q_off, long long k_off,
                        int causal, float scale, const Batch& bt, cudaStream_t stream) {
+  if (d != dv) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (d <= 192 && dv <= 128)
+        return launch<T, 192, 128, BATCHED>(batch, sq, sk, d, dv, q, k, v, acc, m, l, acc_o,
+                                            m_o, l_o, q_off, k_off, causal, scale, bt, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (d <= 64)
-    return launch<T, 64, BATCHED>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
-                                  k_off, causal, scale, bt, stream);
+    return launch<T, 64, 64, BATCHED>(batch, sq, sk, d, d, q, k, v, acc, m, l, acc_o, m_o, l_o,
+                                      q_off, k_off, causal, scale, bt, stream);
   if (d <= 128)
-    return launch<T, 128, BATCHED>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o,
-                                   q_off, k_off, causal, scale, bt, stream);
+    return launch<T, 128, 128, BATCHED>(batch, sq, sk, d, d, q, k, v, acc, m, l, acc_o, m_o,
+                                        l_o, q_off, k_off, causal, scale, bt, stream);
   if (d <= D_ENGINE)
-    return launch<T, 256, BATCHED>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o,
-                                   q_off, k_off, causal, scale, bt, stream);
+    return launch<T, 256, 256, BATCHED>(batch, sq, sk, d, d, q, k, v, acc, m, l, acc_o, m_o,
+                                        l_o, q_off, k_off, causal, scale, bt, stream);
   return launch_wide<T, BATCHED>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
                                  k_off, causal, scale, bt, stream);
 }
 
 template <typename T>
-cudaError_t dispatch_b(int batch, int sq, int sk, int d, const void* q, const void* k,
+cudaError_t dispatch_b(int batch, int sq, int sk, int d, int dv, const void* q, const void* k,
                        const void* v, const float* acc, const float* m, const float* l,
                        float* acc_o, float* m_o, float* l_o, long long q_off, long long k_off,
                        int causal, float scale, const Batch& bt, cudaStream_t stream) {
   if (batch > 1 || bt.q_off || bt.k_off)
-    return dispatch_d<T, true>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
+    return dispatch_d<T, true>(batch, sq, sk, d, dv, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
                                k_off, causal, scale, bt, stream);
-  return dispatch_d<T, false>(batch, sq, sk, d, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
+  return dispatch_d<T, false>(batch, sq, sk, d, dv, q, k, v, acc, m, l, acc_o, m_o, l_o, q_off,
                               k_off, causal, scale, bt, stream);
 }
 
 }  // namespace
 
-// `batch` members.  strides: the members' element strides of q, k, v, acc,
-// m, l, acc_o, m_o and l_o (null: batch 1).  q_offs / k_offs: device int64
-// offsets, member z's at [z * step] (null: the scalar q_off / k_off).
-extern "C" int ptt_flash_attention_block(int bf16, int batch, int sq, int sk, int d,
+// `batch` members; q and k are d wide, v and acc dv wide.  strides: the
+// members' element strides of q, k, v, acc, m, l, acc_o, m_o and l_o (null:
+// batch 1).  q_offs / k_offs: device int64 offsets, member z's at
+// [z * step] (null: the scalar q_off / k_off).
+extern "C" int ptt_flash_attention_block(int bf16, int batch, int sq, int sk, int d, int dv,
                                          const void* q, const void* k, const void* v,
                                          const void* acc, const void* m, const void* l,
                                          void* acc_o, void* m_o, void* l_o, long long q_off,
@@ -903,7 +933,7 @@ extern "C" int ptt_flash_attention_block(int bf16, int batch, int sq, int sk, in
                                          const long long* strides, const void* q_offs,
                                          long long q_step, const void* k_offs, long long k_step,
                                          void* stream) {
-  if (sq < 0 || sk < 0 || d <= 0 || batch < 1 || batch > MAX_BATCH)
+  if (sq < 0 || sk < 0 || d <= 0 || dv <= 0 || batch < 1 || batch > MAX_BATCH)
     return (int)cudaErrorInvalidValue;
   if (sq == 0) return 0;
   Batch bt{0, 0, 0, 0, 0, 0, 0, 0, 0, static_cast<const long long*>(q_offs), q_step,
@@ -921,8 +951,8 @@ extern "C" int ptt_flash_attention_block(int bf16, int batch, int sq, int sk, in
   auto mo = static_cast<float*>(m_o);
   auto lo = static_cast<float*>(l_o);
   if (bf16)
-    return (int)dispatch_b<__nv_bfloat16>(batch, sq, sk, d, q, k, v, a, mi, li, ao, mo, lo,
+    return (int)dispatch_b<__nv_bfloat16>(batch, sq, sk, d, dv, q, k, v, a, mi, li, ao, mo, lo,
                                           q_off, k_off, causal, scale, bt, s);
-  return (int)dispatch_b<float>(batch, sq, sk, d, q, k, v, a, mi, li, ao, mo, lo, q_off, k_off,
-                                causal, scale, bt, s);
+  return (int)dispatch_b<float>(batch, sq, sk, d, dv, q, k, v, a, mi, li, ao, mo, lo, q_off,
+                                k_off, causal, scale, bt, s);
 }

@@ -207,6 +207,47 @@ class Data:
         return f"Data(key={self.key}, copies={list(self.copies)})"
 
 
+class ScratchData(Data):
+    """A task-made tile: the data of a ``<- NEW`` flow that no collection
+    holds, made by its producer and read by its successors (the native
+    executor's device path, :meth:`..dsl.native_exec.NativeExecutor.
+    _data_for`).  It starts with no copy anywhere; ``shape`` and ``dtype``
+    are its flow's ``new_tile_spec``.  A device module gives it its first
+    home on the card (``torch.empty`` for a producer that writes it
+    whole, device zeros for one that reads it first), never fills it on
+    the host nor stages it in, and drops it instead of writing it back
+    when it detaches; only an eviction takes it home.  A host body that
+    touches it first gets host zeros (:meth:`host_zeros`)."""
+
+    __slots__ = ()
+
+    def host_zeros(self):
+        """Attach and return a host copy of zeros (the first touch of a
+        host body)."""
+        c = self.attach_copy(0, new_tile(self.shape, self.dtype))
+        return c.payload
+
+
+def _tile_dtype(dtype) -> Any:
+    """A dtype in the port's tile form: ``torch.bfloat16`` for any
+    bfloat16 (the torch dtype, the name ``"bfloat16"``), else a numpy
+    dtype (a torch dtype maps to its numpy counterpart)."""
+    if dtype is torch.bfloat16 or getattr(dtype, "name", dtype) == "bfloat16":
+        return torch.bfloat16
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+def new_tile(shape, dtype):
+    """A zero tile of ``shape`` in the tile dtype ``dtype`` on the host:
+    an ndarray, or a torch CPU tensor for bfloat16 (numpy has none)."""
+    dt = _tile_dtype(dtype)
+    if dt is torch.bfloat16:
+        return torch.zeros(tuple(shape), dtype=dt)
+    return np.zeros(shape, dt)
+
+
 def set_ready_event(tensor: torch.Tensor, event) -> None:
     """Record that ``tensor``'s value is complete once ``event`` (a
     ``torch.cuda.Event`` recorded after the copy or the body that produced

@@ -33,19 +33,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .data import (Coherency, Data, DataCopy, ready_event, set_ready_event,
+from .data import (Coherency, Data, DataCopy, _tile_dtype, ready_event, set_ready_event,
                    torch_dtype)
-
-
-def _tile_dtype(dtype) -> Any:
-    """A dtype in the port's tile form: ``torch.bfloat16`` for any
-    bfloat16 (the torch dtype, the name ``"bfloat16"``), else a numpy
-    dtype (a torch dtype maps to its numpy counterpart)."""
-    if dtype is torch.bfloat16 or getattr(dtype, "name", dtype) == "bfloat16":
-        return torch.bfloat16
-    if isinstance(dtype, torch.dtype):
-        return torch.empty(0, dtype=dtype).numpy().dtype
-    return np.dtype(dtype)
 
 
 class DataCopyFuture:

@@ -99,7 +99,8 @@ from ..core.lifecycle import AccessMode, HookReturn, DEV_CUDA
 from ..core.task import Task
 from ..profiling import pins
 from ..utils import debug, mca_param, register_component
-from ..data.data import Coherency, Data, host_array, ready_event, set_ready_event
+from ..data.data import (Coherency, Data, ScratchData, host_array, ready_event,
+                         set_ready_event, torch_dtype)
 from .device import ADVICE_PREFETCH, ADVICE_WARMUP, Device
 from .staging import stage_depth_param
 
@@ -520,11 +521,17 @@ class CudaDevice(Device):
             self.stream = self.h2d_stream = self.d2h_stream = None
             self._pinned = _PinnedRing(_PINNED_RING_BYTES)  # pins nothing
         #: ``wo_placeholders``: write-only flows given device-side zeros
-        #: instead of an H2D (:meth:`_out_placeholder`)
+        #: instead of an H2D (:meth:`_out_placeholder`).  Task-made tiles
+        #: (:class:`~..data.data.ScratchData`): ``scratch_tiles`` whose
+        #: first version was written on this device (their home there) and
+        #: its ``scratch_bytes``, and
+        #: ``scratch_h2d_bytes``, their bytes staged in (an evicted one
+        #: coming back: 0 unless memory ran short)
         for key in ("h2d_copies", "d2h_copies", "prefetched_tiles",
                     "stage_batched_tiles", "wb_batches",
                     "wb_sync_fallbacks", "wb_committed", "wb_dropped_stale",
-                    "wb_capacity_waits", "wb_drains", "wo_placeholders"):
+                    "wb_capacity_waits", "wb_drains", "wo_placeholders",
+                    "scratch_tiles", "scratch_bytes", "scratch_h2d_bytes"):
             self.stats[key] = 0
         #: seconds the transfer lane spent prestaging and the committer
         #: draining (set at detach)
@@ -1400,7 +1407,12 @@ class CudaDevice(Device):
         return [h if h.dtype == torch.bfloat16 else h.numpy() for h in hosts]
 
     def _out_placeholder(self, data: Data) -> Any:
-        """Device-side zeros standing in for a write-only tile."""
+        """Device-side zeros standing in for a write-only tile; for a
+        task-made tile, ``torch.empty`` of its declared shape and dtype,
+        which its producer writes whole and returns as its home."""
+        if isinstance(data, ScratchData):
+            return torch.empty(tuple(data.shape), dtype=torch_dtype(data.dtype),
+                               device=self.tdev)
         newest = data.newest_copy()
         p = getattr(newest, "payload", None)
         shape = data.shape if data.shape is not None else getattr(p, "shape", None)
@@ -1411,6 +1423,15 @@ class CudaDevice(Device):
             dtype = _torch_dtype(dtype)
         self._bump(wo_placeholders=1)
         return torch.zeros(tuple(shape), dtype=dtype, device=self.tdev)
+
+    @staticmethod
+    def _moved(data: Data, counter: str, nbytes: int) -> Dict[str, int]:
+        """The counters a stage-in of ``nbytes`` of ``data`` moves:
+        ``counter``'s, and a task-made tile's host bytes in
+        ``scratch_h2d_bytes`` too."""
+        if counter == "bytes_in" and isinstance(data, ScratchData):
+            return {counter: nbytes, "scratch_h2d_bytes": nbytes}
+        return {counter: nbytes}
 
     def _as_device_tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -1467,6 +1488,15 @@ class CudaDevice(Device):
                 and mine.version >= newest.version and mine.payload is not None:
             self._lru_touch(data, dirty=mine.coherency is Coherency.OWNED)
             return None
+        if newest is None and isinstance(data, ScratchData):
+            # a task-made tile read before any write: zeros made here, as
+            # the host would have made them
+            arr = torch.zeros(tuple(data.shape), dtype=torch_dtype(data.dtype),
+                              device=self.tdev)
+            self._mem_realloc(data, int(arr.nbytes))
+            data.attach_copy(self.data_index, arr)
+            self._lru_touch(data, dirty=True)
+            return None
         if newest is None:
             raise RuntimeError(f"{data!r}: no valid copy to stage in")
         # re-staging over a stale device copy replaces its slot
@@ -1508,7 +1538,7 @@ class CudaDevice(Device):
                 return data.get_copy(self.data_index).payload
             src, version = plan
             [(arr, counter)] = self._copy_in([src])
-            self._bump(**{counter: int(src.nbytes)})
+            self._bump(**self._moved(data, counter, int(src.nbytes)))
             c = data.attach_copy(self.data_index, arr)
             c.version = version
             self._lru_touch(data, dirty=False)
@@ -1566,7 +1596,7 @@ class CudaDevice(Device):
                         continue  # superseded while in flight: drop ours
                     c = data.attach_copy(self.data_index, arr)
                     c.version = version
-                self._bump(**{counter: int(src.nbytes)})
+                self._bump(**self._moved(data, counter, int(src.nbytes)))
                 self._lru_touch(data, dirty=False)
                 moved += int(src.nbytes)
         self._bump(stage_batched_tiles=len(plans))
@@ -1870,6 +1900,9 @@ class CudaDevice(Device):
                         f"{getattr(arr, 'device', None)} for flow "
                         f"{pos}; expected a tensor on {self.tdev}")
                 c = data.get_copy(self.data_index)
+                if isinstance(data, ScratchData) and (c is None or c.version == 0):
+                    # a task-made tile's first version: its home on the card
+                    self._bump(scratch_tiles=1, scratch_bytes=int(arr.nbytes))
                 if c is None:
                     c = data.attach_copy(self.data_index, arr)
                 else:
@@ -1889,7 +1922,8 @@ class CudaDevice(Device):
             # once.  A sticky committer error re-raises here and fails the
             # pool through _submit_one.
             for (_pos, data) in inflight.out_specs:
-                com.enqueue(data)
+                if not isinstance(data, ScratchData):  # no home to go to
+                    com.enqueue(data)
 
     # ------------------------------------------------------------------
     def data_advise(self, data: Data, advice: int) -> None:
@@ -1958,7 +1992,11 @@ class CudaDevice(Device):
                            wb_drains=com.stats["batches"],
                            wb_drain_s=com.stats["drain_s"])
         with self._res_lock:
-            self._writeback_batch(list(self._lru_dirty.values()))
+            dirty = list(self._lru_dirty.values())
+            self._writeback_batch([d for d in dirty if not isinstance(d, ScratchData)])
+            for d in dirty + list(self._lru_clean.values()):
+                if isinstance(d, ScratchData):
+                    self._drop_copy(d, evicted=False)  # task-made: no home
             self._lru_dirty.clear()
             self._lru_clean.clear()
             for (off, _nb) in self._offsets.values():

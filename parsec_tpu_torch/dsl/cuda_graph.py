@@ -346,7 +346,7 @@ class GraphExecutor:
             elif src[0] == "data":
                 v = env[(src[1], tuple(src[2]))]
             elif src[0] == "new":
-                shape, dtype = self.taskpool.new_tile_spec(step.tid[0], fname)
+                shape, dtype = self.taskpool.new_tile_spec(step.tid[0], fname, step.tid[1])
                 v = torch.zeros(shape, dtype=_torch_dtype(dtype), device=self.device)
             else:
                 v = vals[(src[1], src[2])]
@@ -565,7 +565,8 @@ class GraphExecutor:
                            step.flow_inputs, step.writable, step.write_backs)).encode())
             for fname, src in step.flow_inputs:
                 if src is not None and src[0] == "new":
-                    h.update(repr(("new", fname, tp.new_tile_spec(step.tid[0], fname))).encode())
+                    h.update(repr(("new", fname, tp.new_tile_spec(step.tid[0], fname,
+                                                                  step.tid[1]))).encode())
         h.update(repr(("io", self.input_keys, self.output_keys)).encode())
         h.update(repr(("batch_levels", self.batch_levels)).encode())
         return h.hexdigest()[:32]

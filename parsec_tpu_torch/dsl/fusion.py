@@ -71,6 +71,7 @@ from .. import tuning
 from ..compile_cache import _scrub, body_fingerprint
 from ..core.lifecycle import AccessMode, DEV_CPU, HookReturn
 from ..core.task import Chore, Flow, Task, TaskClass
+from ..data.data import _tile_dtype, torch_dtype
 from ..utils import debug, mca_param
 from .graph import TaskGraph, source_tile
 from .ptg import _NewRef, _accel_hook
@@ -558,8 +559,8 @@ class FusedPlan:
                             "payload", None)
                 total += 0 if p is None else int(p.nbytes)
             elif key[0] == "new":
-                shape, dtype = tp.new_tile_spec(key[1][0], key[2])
-                total += int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+                shape, dtype = tp.new_tile_spec(key[1][0], key[2], key[1][1])
+                total += int(np.prod(shape, dtype=np.int64)) * torch_dtype(dtype).itemsize
             # a remote source is not on this rank's card
         return total
 
@@ -582,8 +583,8 @@ class FusedPlan:
             p = getattr(c, "payload", None)
             return None if p is None else (tuple(p.shape), str(p.dtype))
         if key[0] == "new":
-            shape, dtype = tp.new_tile_spec(key[1][0], key[2])
-            return (tuple(shape), str(np.dtype(dtype)))
+            shape, dtype = tp.new_tile_spec(key[1][0], key[2], key[1][1])
+            return (tuple(shape), str(_tile_dtype(dtype)))
         return None  # an external producer's value: shape unknown here
 
     def _plan_scan(self, scan_mode: str):

@@ -74,6 +74,7 @@ import numpy as np
 
 from ..core.lifecycle import AccessMode, HookReturn, DEV_CPU
 from ..core.task import Chore, Task, TaskClass
+from ..data.data import new_tile
 from ..profiling import pins
 from ..utils import mca_param
 from .fusion import FusedPlan, fusion_max_tasks, fusion_mode, partition, region_room
@@ -564,9 +565,9 @@ class NativeExecutor:
         t = self._new_tiles.get(srckey)
         if t is None:
             # ("new", producer tid, flow): NEW shape resolved by the taskpool
-            _, (pc_name, _locs), fname = srckey
-            shape, dtype = self.taskpool.new_tile_spec(pc_name, fname)
-            t = self._new_tiles[srckey] = np.zeros(shape, dtype)
+            _, (pc_name, locs), fname = srckey
+            shape, dtype = self.taskpool.new_tile_spec(pc_name, fname, locs)
+            t = self._new_tiles[srckey] = new_tile(shape, dtype)
         return t
 
     def _build(self) -> None:
@@ -775,10 +776,12 @@ class NativeExecutor:
 
     def _data_for(self, srckey: Tuple):
         """Data object behind a resolved flow chain (the device-path
-        sibling of :meth:`_payload`).  A NEW tile starts as host zeros of
-        its ``new_tile_spec``; the device body's output rebinds its device
-        copy, so the host buffer is staged once and never written."""
-        from ..data.data import data_create
+        sibling of :meth:`_payload`).  A NEW tile is a task-made tile
+        (:class:`~..data.data.ScratchData`) of its ``new_tile_spec``, with
+        no copy anywhere: the device module gives it its home on the card
+        at its producer's first write, and never stages it in nor writes
+        it back."""
+        from ..data.data import ScratchData
 
         if srckey[0] == "remote":
             raise RuntimeError(
@@ -789,11 +792,10 @@ class NativeExecutor:
             return self.taskpool.constants[cname].data_of(*key)
         d = self._new_data.get(srckey)
         if d is None:
-            _, (pc_name, _locs), fname = srckey
-            shape, dtype = self.taskpool.new_tile_spec(pc_name, fname)
-            d = self._new_data[srckey] = data_create(
-                ("native_new",) + tuple(srckey[1:]),
-                payload=np.zeros(shape, dtype))
+            _, (pc_name, locs), fname = srckey
+            shape, dtype = self.taskpool.new_tile_spec(pc_name, fname, locs)
+            d = self._new_data[srckey] = ScratchData(
+                ("native_new",) + tuple(srckey[1:]), shape=shape, dtype=dtype)
         return d
 
     def _scalars_of(self, pc, locs) -> Dict[str, Any]:

@@ -76,7 +76,8 @@ from ..core.deps import DenseDepTracker, DepTracker
 from ..core.lifecycle import AccessMode, HookReturn, DEV_CPU, DEV_CUDA
 from ..core.task import Chore, Flow, Task, TaskClass
 from ..core.taskpool import Taskpool
-from ..data.data import Data, data_create, host_array, land_into_home
+from ..data.data import (Data, ScratchData, data_create, host_array, land_into_home,
+                         new_tile)
 from ..data.datarepo import DataRepo
 from ..data.reshape import ReshapeSpec, get_copy_reshape, materialize
 from ..profiling import pins
@@ -1158,13 +1159,18 @@ class PTGTaskpool(Taskpool):
                 f"data for flow {target.flow_name!r}")
         return data
 
-    def new_tile_spec(self, pc_name: str, flow_name: str) -> Tuple[Tuple, Any]:
+    def new_tile_spec(self, pc_name: str, flow_name: str,
+                      locals_: Optional[Tuple] = None) -> Tuple[Tuple, Any]:
         """(shape, dtype) for a flow's ``<- NEW`` tile: a ``[shape=…]`` /
         ``[dtype=…]`` / ``[type=NAME]`` property block on the NEW dep wins
         (NAME resolves through the taskpool constants, so shapes may
         depend on problem parameters; :meth:`ReshapeSpec.from_props`);
         otherwise the taskpool-wide ``TILE_SHAPE``/``TILE_DTYPE``
-        constants."""
+        constants.  A NAME whose constant is a function is called with the
+        producing task's parameters ``locals_`` and gives that task's
+        tile (a ``ReshapeSpec``, a ``(dtype, shape)`` pair or a dtype): a
+        ragged last block's tile is shorter.  The dtype may be
+        ``torch.bfloat16``."""
         shape = self.constants.get("TILE_SHAPE", (1,))
         dtype = self.constants.get("TILE_DTYPE", np.float64)
         pc = self.ptg.classes.get(pc_name)
@@ -1175,7 +1181,15 @@ class PTGTaskpool(Taskpool):
                 # NEW may sit in either branch of a guarded dep
                 if dep.props and (isinstance(dep.then, _NewRef)
                                   or isinstance(dep.otherwise, _NewRef)):
-                    rspec = ReshapeSpec.from_props(dep.props, self.constants)
+                    consts = self.constants
+                    made = consts.get(dep.props.get("type"))
+                    if callable(made) and not isinstance(made, type):
+                        if locals_ is None:
+                            raise ValueError(
+                                f"{pc_name}.{flow_name}: the NEW tile's [type=...] is "
+                                "a function of the producer's parameters; pass them")
+                        consts = {dep.props["type"]: made(*locals_)}
+                    rspec = ReshapeSpec.from_props(dep.props, consts)
                     if rspec is not None:
                         shape = rspec.shape or shape
                         dtype = rspec.dtype or dtype
@@ -1187,8 +1201,8 @@ class PTGTaskpool(Taskpool):
         with self._new_lock:
             d = self._new_tiles.get(key)
             if d is None:
-                shape, dtype = self.new_tile_spec(pc.name, f.name)
-                d = data_create(key, payload=np.zeros(shape, dtype))
+                shape, dtype = self.new_tile_spec(pc.name, f.name, tuple(locals_))
+                d = data_create(key, payload=new_tile(shape, dtype))
                 self._new_tiles[key] = d
             return d
 
@@ -1484,6 +1498,8 @@ def stage_to_cpu(data: Data) -> np.ndarray:
     ``np.asarray`` would fail on a CUDA tensor and alias a torch CPU one."""
     newest = data.newest_copy()
     if newest is None:
+        if isinstance(data, ScratchData):
+            return data.host_zeros()  # a task-made tile's first touch
         raise RuntimeError(f"{data!r} has no valid copy")
     if newest.device_index == 0 and isinstance(newest.payload, np.ndarray):
         return newest.payload

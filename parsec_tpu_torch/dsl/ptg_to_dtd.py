@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core.lifecycle import DEV_CPU
-from ..data.data import Data, data_create
+from ..data.data import Data, data_create, new_tile
 from .dtd import CTL as DTD_CTL, DTDTaskpool, IN, INOUT, OUT, VALUE
 from .graph import capture, source_tile
 from .ptg import CTL, PTGTaskpool, _expand_args
@@ -64,9 +64,9 @@ def replay_via_dtd(
         if d is None:
             # ("new", producer tid, flow): per-flow NEW shape (dep
             # [type=...] props) resolved by the taskpool
-            _, (pc_name, _locs), fname = srckey
-            shape, dtype = ptg_tp.new_tile_spec(pc_name, fname)
-            d = data_create(srckey, payload=np.zeros(shape, dtype))
+            _, (pc_name, locs), fname = srckey
+            shape, dtype = ptg_tp.new_tile_spec(pc_name, fname, locs)
+            d = data_create(srckey, payload=new_tile(shape, dtype))
             tiles[srckey] = d
         return d
 

@@ -1,7 +1,7 @@
 """Operations: the dense factorizations (tiled dpotrf, LU and QR; the
-panel and segmented Cholesky, LU and QR), the flash-attention, distributed
-ring-attention and 5-point-stencil taskpools, their tile bodies and
-hand-written kernels.
+panel and segmented Cholesky, LU and QR), the flash-attention, latent
+(MLA) attention, distributed ring-attention and 5-point-stencil
+taskpools, their tile bodies and hand-written kernels.
 """
 
 from .attention import (
@@ -16,6 +16,7 @@ from .attention import (
 )
 from .cholesky import cholesky_ptg, dpotrf_task_count, insert_dpotrf, run_cholesky
 from .lu import lu_ptg, lu_task_count, run_lu
+from .mla import build_mla_attention, mla_attention_ptg, mla_attention_task_count
 from .panel_chol import PanelCholesky, WholeCholesky
 from .qr import qr_constants, qr_ptg, qr_task_count, run_qr
 from .segmented_chol import SegmentedCholesky, n_segments, segmented_cholesky_ptg
@@ -32,6 +33,9 @@ __all__ = [
     "ring_attention_ptg",
     "ring_attention_builder",
     "run_ring_attention_graph",
+    "mla_attention_ptg",
+    "build_mla_attention",
+    "mla_attention_task_count",
     "cholesky_ptg",
     "insert_dpotrf",
     "dpotrf_task_count",

@@ -276,26 +276,15 @@ def _bodies(pc, cuda_body, cpu_body, use_cuda: bool, use_cpu: bool) -> None:
 _CAUSAL_HZ = "min(NK-1, (QOFF + min((i+1)*QB, SQ) - 1) // KVB)"
 
 
-def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
-                        q_block: int = 128, kv_block: int = 128,
-                        q_offset: int = 0,
-                        use_cuda: bool = True, use_cpu: bool = True) -> PTG:
-    """Single-rank blockwise flash attention.  Instantiate with
-    ``.taskpool(G=, NQ=, NK=, QB=, KVB=, QOFF=, SQ=, Q=, K=, V=, O=,
-    CA=, CM=, CL=)`` where the collections are keyed ``(g, block)``:
-    ``Q(g, i)``/``O(g, i)`` are ``(sq_i, D)`` query/output blocks (O
-    write-only: its home tile is never read),
-    ``K(g, s)``/``V(g, s)`` are ``(sk_s, D)`` KV blocks, and
-    ``CA``/``CM``/``CL`` hold the per-query-block carry initials
-    (zeros, ``NEG_BIG``, zeros); the scalar constants repeat the block
-    geometry (``QB``/``KVB`` block sizes, ``QOFF`` global query offset,
-    ``SQ`` query length) so the causal step range can stop at each
-    block's horizon.  ``q_offset`` shifts the global query positions
-    (decode: queries live at the tail of the KV sequence).
-    :func:`build_flash_attention` assembles all of this from
-    ``[B, S, H, D]`` tensors."""
-    ptg = PTG("flash_attn")
-
+def _flash_chain(ptg: PTG, *, causal: bool, scale: float, q_block: int,
+                 kv_block: int, q_offset: int, use_cuda: bool, use_cpu: bool,
+                 kv_deps: Tuple[str, str] = ("<- K(g, s)", "<- V(g, s)")) -> None:
+    """Add the flash graph's carry chain to ``ptg``: ``attn_step(g, i, s)``
+    threading the carry of query block ``i`` through the KV blocks ``s``
+    up to its horizon, and ``attn_out(g, i)``.  ``kv_deps`` are the input
+    deps of the steps' ``KB`` and ``VB`` flows: the K/V collections'
+    blocks (:func:`flash_attention_ptg`), or the tiles a task made
+    (latent attention's ``kv_up``, :mod:`.mla`)."""
     # hz = last kv step of query block i: causal graphs stop the carry
     # chain at the diagonal block instead of dispatching no-op tasks
     st = ptg.task_class("attn_step", g="0 .. G-1", i="0 .. NQ-1")
@@ -304,8 +293,8 @@ def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
     st.affinity("Q(g, i)")
     st.priority("NK - s")  # drain each carry chain front-first
     st.flow("QB", IN, "<- Q(g, i)")
-    st.flow("KB", IN, "<- K(g, s)")
-    st.flow("VB", IN, "<- V(g, s)")
+    st.flow("KB", IN, kv_deps[0])
+    st.flow("VB", IN, kv_deps[1])
     for name, coll in (("ACC", "CA"), ("M", "CM"), ("L", "CL")):
         st.flow(name, INOUT,
                 f"<- (s == 0) ? {coll}(g, i) : {name} attn_step(g, i, s-1)",
@@ -327,6 +316,29 @@ def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
     # staged in (the device module hands the CUDA body device-side zeros)
     out.flow("O", OUT, "<- O(g, i)", "-> O(g, i)")
     _bodies(out, _attn_out_cuda, _attn_out_cpu, use_cuda, use_cpu)
+
+
+def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
+                        q_block: int = 128, kv_block: int = 128,
+                        q_offset: int = 0,
+                        use_cuda: bool = True, use_cpu: bool = True) -> PTG:
+    """Single-rank blockwise flash attention.  Instantiate with
+    ``.taskpool(G=, NQ=, NK=, QB=, KVB=, QOFF=, SQ=, Q=, K=, V=, O=,
+    CA=, CM=, CL=)`` where the collections are keyed ``(g, block)``:
+    ``Q(g, i)``/``O(g, i)`` are ``(sq_i, D)`` query/output blocks (O
+    write-only: its home tile is never read),
+    ``K(g, s)``/``V(g, s)`` are ``(sk_s, D)`` KV blocks, and
+    ``CA``/``CM``/``CL`` hold the per-query-block carry initials
+    (zeros, ``NEG_BIG``, zeros); the scalar constants repeat the block
+    geometry (``QB``/``KVB`` block sizes, ``QOFF`` global query offset,
+    ``SQ`` query length) so the causal step range can stop at each
+    block's horizon.  ``q_offset`` shifts the global query positions
+    (decode: queries live at the tail of the KV sequence).
+    :func:`build_flash_attention` assembles all of this from
+    ``[B, S, H, D]`` tensors."""
+    ptg = PTG("flash_attn")
+    _flash_chain(ptg, causal=causal, scale=scale, q_block=q_block, kv_block=kv_block,
+                 q_offset=q_offset, use_cuda=use_cuda, use_cpu=use_cpu)
     return ptg
 
 
@@ -457,12 +469,14 @@ _PTG_MEMO_MAX = 32
 _PTG_MEMO_LOCK = threading.Lock()
 
 
-def _flash_ptg_cached(**kw) -> PTG:
-    key = tuple(sorted(kw.items()))
+def _ptg_cached(build: Callable[..., PTG], **kw) -> PTG:
+    """``build(**kw)``, memoised by the building function and every argument (the
+    flash graph's and latent attention's, :mod:`.mla`)."""
+    key = (build.__name__,) + tuple(sorted(kw.items()))
     with _PTG_MEMO_LOCK:
         p = _PTG_MEMO.get(key)
         if p is None:
-            p = _PTG_MEMO[key] = flash_attention_ptg(**kw)
+            p = _PTG_MEMO[key] = build(**kw)
         _PTG_MEMO.move_to_end(key)
         while len(_PTG_MEMO) > _PTG_MEMO_MAX:
             _PTG_MEMO.popitem(last=False)
@@ -566,7 +580,8 @@ def _build_flash_attention(q, k, v, causal, scale, q_block, kv_block, q_offset,
     Oc = PlaneCollection("O", lambda g, i: torch.empty((qs[i][1], D), dtype=odt),
                          keys=keys_q, blank=True)
     ca, cm, cl = _carry_inits(D, [n for _, n in qs])
-    tp = _flash_ptg_cached(
+    tp = _ptg_cached(
+        flash_attention_ptg,
         causal=causal, scale=scale_v, q_block=qb, kv_block=kvb,
         q_offset=q_offset, use_cuda=use_cuda, use_cpu=use_cpu,
     ).taskpool(G=G, NQ=len(qs), NK=len(ks), QB=qb, KVB=kvb,
@@ -576,20 +591,26 @@ def _build_flash_attention(q, k, v, causal, scale, q_block, kv_block, q_offset,
                CM=PlaneCollection("CM", cm, keys=keys_q),
                CL=PlaneCollection("CL", cl, keys=keys_q))
 
-    def assemble() -> torch.Tensor:
-        with pins.span("assemble", job=tp.job, bytes=B * Sq * H * D * odt.itemsize,
-                       tiles=G * len(qs)):
-            # the splits cover [0, Sq) for every (b, h): the tiles write
-            # every element
-            out = torch.empty((B, Sq, H, D), dtype=odt)
-            for g in range(G):
-                b, h = divmod(g, H)
-                for i, (o, n) in enumerate(qs):
-                    c = Oc.data_of(g, i).newest_copy()
-                    out[b, o:o + n, h, :] = _host_tensor(host_array(c.payload))
-        return out
+    return tp, lambda: _assemble(Oc, tp.job, (B, Sq, H, D), qs, odt)
 
-    return tp, assemble
+
+def _assemble(Oc: PlaneCollection, job: int, shape: Tuple[int, int, int, int],
+              qs: Sequence[Tuple[int, int]], odt: torch.dtype) -> torch.Tensor:
+    """The ``[B, S, H, D]`` output of a pool that quiesced, read from its
+    O planes (keyed ``(b * H + h, i)``, query blocks ``qs``) into one torch
+    CPU tensor: the job's ``assemble`` span."""
+    B, S, H, D = shape
+    with pins.span("assemble", job=job, bytes=B * S * H * D * odt.itemsize,
+                   tiles=B * H * len(qs)):
+        # the splits cover [0, S) for every (b, h): the tiles write every
+        # element
+        out = torch.empty(shape, dtype=odt)
+        for g in range(B * H):
+            b, h = divmod(g, H)
+            for i, (o, n) in enumerate(qs):
+                c = Oc.data_of(g, i).newest_copy()
+                out[b, o:o + n, h, :] = _host_tensor(host_array(c.payload))
+    return out
 
 
 def attention_task_count(B: int, Sq: int, Sk: int, H: int,

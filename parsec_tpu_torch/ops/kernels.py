@@ -185,9 +185,9 @@ def _library() -> ctypes.CDLL:
             lib.ptt_matmul.argtypes = [i, i, i, i, i, i, p, p, p, *mm_cfg, p, p]
             lib.ptt_matmul.restype = i
             ll, f = ctypes.c_longlong, ctypes.c_float
-            lib.ptt_flash_attention_block.argtypes = [i, i, i, i, i, p, p, p, p, p, p,
-                                                      p, p, p, ll, ll, i, f, p, p, ll, p, ll,
-                                                      p]
+            lib.ptt_flash_attention_block.argtypes = [i, i, i, i, i, i, p, p, p, p, p,
+                                                      p, p, p, p, ll, ll, i, f, p, p, ll, p,
+                                                      ll, p]
             lib.ptt_flash_attention_block.restype = i
             lib.ptt_stencil_5pt.argtypes = [i, i, i, i, i, p, p, p, p, ll, p, ll, p, p, p]
             lib.ptt_stencil_5pt.restype = i
@@ -517,21 +517,31 @@ def matmul_plain(A: torch.Tensor, B: torch.Tensor, *,
 
 
 def matmul(A: torch.Tensor, B: torch.Tensor, *,
-           transpose_b: bool = True) -> torch.Tensor:
+           transpose_b: bool = True, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``A @ B.T`` (or ``A @ B``) as one kernel, zero-initialised
-    accumulation in f32, output in A's dtype (float32 or bfloat16).  Under
-    ``torch.func.vmap`` one batched launch runs every member."""
+    accumulation in f32, output in A's dtype (float32 or bfloat16), written
+    into ``out`` (a contiguous ``(m, n)`` tensor of A's dtype and device)
+    where given.  Under ``torch.func.vmap`` one batched launch runs every
+    member (``out`` is not taken there)."""
     if _vmapping():
+        if out is not None:
+            raise ValueError("matmul: out is not taken under vmap")
         return _matmul_op(A, B, bool(transpose_b))
-    return _matmul(A, B, transpose_b)
+    return _matmul(A, B, transpose_b, out)
 
 
-def _matmul(A, B, transpose_b) -> torch.Tensor:
+def _matmul(A, B, transpose_b, out=None) -> torch.Tensor:
     m, n, k = _check("matmul", A, B, transpose_b)
+    if out is not None and (tuple(out.shape) != (m, n) or out.dtype != A.dtype
+                            or out.device != A.device or not out.is_contiguous()):
+        raise ValueError(f"matmul: out must be a contiguous ({m}, {n}) {A.dtype} tensor "
+                         f"on {A.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
     _count(matmul, "calls")
     if A.device.type == "cpu":
-        return matmul_plain(A, B, transpose_b=transpose_b)
-    out = torch.empty((m, n), dtype=A.dtype, device=A.device)
+        res = matmul_plain(A, B, transpose_b=transpose_b)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty((m, n), dtype=A.dtype, device=A.device)
     if m == 0 or n == 0:
         return out
     mode = _mm_launch(out, None, A, B, alpha=1.0, transpose_b=transpose_b,
@@ -863,24 +873,38 @@ stencil_5pt_fused.launches_by_mode = dict.fromkeys(("smem", "global"), 0)
 #: slabs, one block per 128 output columns); up to it, on the mma.sync
 #: engine, whose per-thread accumulator tile is sized for it
 ATTENTION_ENGINE_D = 256
+#: the widest (q/k, v) pair of unequal widths the engine takes: bf16 only,
+#: one instantiation, latent attention's 192 / 128 step
+_ATTENTION_SPLIT_D = (192, 128)
 _ATTENTION_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
 
 def _attention_mode(q_dtype: torch.dtype, k_dtype: torch.dtype,
-                    v_dtype: torch.dtype, d: int) -> str:
+                    v_dtype: torch.dtype, d: int, dv: Optional[int] = None) -> str:
     """The kernel one B5 launch runs, a pure function of the operand
-    dtypes and the head dimension (so the CPU tests can check it):
-    ``bf16`` when q, k and v are all bfloat16, else ``f32`` (float16,
-    float64 and mixed operands are widened or narrowed to float32 copies
-    first, the reference's ``astype(float32)``); ``_wide`` for ``d`` above
-    :data:`ATTENTION_ENGINE_D`."""
+    dtypes and the widths (so the CPU tests can check it): ``bf16`` when
+    q, k and v are all bfloat16, else ``f32`` (float16, float64 and mixed
+    operands are widened or narrowed to float32 copies first, the
+    reference's ``astype(float32)``); ``_wide`` for ``d`` above
+    :data:`ATTENTION_ENGINE_D`.  ``dv`` (None: ``d``) is v's width: where
+    it differs from q's and k's, only the bf16 engine runs, at ``d <=
+    192`` and ``dv <= 128``; any other unequal pair raises ValueError
+    (no width is padded to the other)."""
     bf16 = q_dtype == k_dtype == v_dtype == torch.bfloat16
+    if dv is not None and dv != d:
+        dqk_max, dv_max = _ATTENTION_SPLIT_D
+        if not bf16 or d > dqk_max or dv > dv_max:
+            raise ValueError(
+                f"flash_attention_block: q/k width {d} and v width {dv} differ; unequal "
+                f"widths run only with all-bfloat16 operands at q/k <= {dqk_max} and "
+                f"v <= {dv_max} (got {q_dtype}, {k_dtype}, {v_dtype})")
+        return "bf16"
     return ("bf16" if bf16 else "f32") + ("_wide" if d > ATTENTION_ENGINE_D else "")
 
 
 def _check_attention(q, k, v, acc, m, l):
     """Validation of one flash-attention block update; returns
-    ``(sq, sk, d)``."""
+    ``(sq, sk, d, dv)``: q and k are ``d`` wide, v and acc ``dv``."""
     name = "flash_attention_block"
     tensors = dict(q=q, k=k, v=v, acc=acc, m=m, l=l)
     for label, t in tensors.items():
@@ -899,18 +923,19 @@ def _check_attention(q, k, v, acc, m, l):
             raise TypeError(f"{name}: {label} must be a float16, bfloat16, float32 "
                             f"or float64 tensor, got {t.dtype}")
     sq, d = q.shape
-    sk = k.shape[0]
-    if d < 1:
-        raise ValueError(f"{name}: head dimension must be positive, got {d}")
-    if tuple(k.shape) != (sk, d) or tuple(v.shape) != (sk, d):
-        raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} "
-                         f"must both be ({sk}, {d})")
-    for label, t, shape in (("acc", acc, (sq, d)), ("m", m, (sq, 1)),
+    sk, dv = k.shape[0], v.shape[-1]
+    if d < 1 or dv < 1:
+        raise ValueError(f"{name}: head dimensions must be positive, got q/k {d}, v {dv}")
+    if tuple(k.shape) != (sk, d) or tuple(v.shape) != (sk, dv):
+        raise ValueError(f"{name}: k {tuple(k.shape)} must be ({sk}, {d}) and v "
+                         f"{tuple(v.shape)} ({sk}, v width)")
+    for label, t, shape in (("acc", acc, (sq, dv)), ("m", m, (sq, 1)),
                             ("l", l, (sq, 1))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {label} must be float32 of shape {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
-    return int(sq), int(sk), int(d)
+    _attention_mode(q.dtype, k.dtype, v.dtype, int(d), int(dv))  # unequal widths: raises
+    return int(sq), int(sk), int(d), int(dv)
 
 
 def _position(off):
@@ -928,7 +953,9 @@ def flash_attention_block_plain(q, k, v, acc, m, l, q_off, k_off, *,
     kernel's arithmetic on the whole block at once, in f32
     (``compute_dtype=torch.float64`` gives the float64 update the f32
     kernel's accuracy is held against).  Takes a leading batch dimension
-    on any operand, with the offsets an int or a tensor of the members'."""
+    on any operand, with the offsets an int or a tensor of the members'.
+    q and k may be wider than v (latent attention's 192 against 128): the
+    logits run over q's width, ``acc`` is v's."""
     sq, sk = q.shape[-2], k.shape[-2]
     q, k, v, acc, m, l = (t.to(compute_dtype) for t in (q, k, v, acc, m, l))
     if sk == 0:
@@ -950,9 +977,11 @@ def flash_attention_block(q, k, v, acc, m, l, q_off, k_off, *,
     """One online-softmax block update ``(q, k, v, acc, m, l) -> (acc, m,
     l)`` as one kernel.
 
-    ``q`` is ``(Sq, D)``, ``k``/``v`` are ``(Sk, D)``, each float16,
-    bfloat16, float32 or float64; the carry ``acc`` is ``(Sq, D)`` and
-    ``m``/``l`` ``(Sq, 1)``, float32.  ``q_off``/``k_off`` are the global
+    ``q`` is ``(Sq, D)``, ``k`` ``(Sk, D)`` and ``v`` ``(Sk, Dv)``, each
+    float16, bfloat16, float32 or float64; the carry ``acc`` is ``(Sq,
+    Dv)`` and ``m``/``l`` ``(Sq, 1)``, float32.  ``Dv`` is ``D`` but in
+    latent attention, whose 192 / 128 step runs on the bf16 engine; other
+    unequal widths raise ValueError (:func:`_attention_mode`).  ``q_off``/``k_off`` are the global
     sequence positions of the two blocks' first rows, for the causal mask
     (masked logits are ``-inf``).  All-bfloat16 operands run the bf16
     engine; any other operands run the f32 engine, on float32 copies where
@@ -984,7 +1013,7 @@ def _flash_launch(n_members: int, mode: str, q, k, v, acc, m, l, outs, q_off: in
     member z's offsets from ``q_offs``/``k_offs`` (int64 on the device, one
     value for all or one a member) where given, else the ints."""
     sq, d = q.shape[-2:]
-    sk = k.shape[-2]
+    sk, dv = k.shape[-2], v.shape[-1]
     offs = []
     for t in (q_offs, k_offs):
         if t is None:
@@ -999,7 +1028,7 @@ def _flash_launch(n_members: int, mode: str, q, k, v, acc, m, l, outs, q_off: in
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.ptt_flash_attention_block(
-            int(mode.startswith("bf16")), n_members, sq, sk, d, q.data_ptr(), k.data_ptr(),
+            int(mode.startswith("bf16")), n_members, sq, sk, d, dv, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             *(o.data_ptr() for o in outs), q_off, k_off, int(bool(causal)), float(scale),
             ctypes.addressof(arr), *offs, stream)
@@ -1009,12 +1038,12 @@ def _flash_launch(n_members: int, mode: str, q, k, v, acc, m, l, outs, q_off: in
 
 
 def _flash_attention_block(q, k, v, acc, m, l, q_off: int, k_off: int, causal, scale):
-    sq, sk, d = _check_attention(q, k, v, acc, m, l)
+    sq, sk, d, dv = _check_attention(q, k, v, acc, m, l)
     _count(flash_attention_block, "calls")
     if q.device.type == "cpu":
         return flash_attention_block_plain(q, k, v, acc, m, l, q_off, k_off,
                                            causal=causal, scale=scale)
-    mode = _attention_mode(q.dtype, k.dtype, v.dtype, d)
+    mode = _attention_mode(q.dtype, k.dtype, v.dtype, d, dv)
     if not mode.startswith("bf16"):
         q, k, v = q.float(), k.float(), v.float()  # no copy for float32
     outs = (torch.empty_like(acc), torch.empty_like(m), torch.empty_like(l))
@@ -1038,7 +1067,7 @@ def _flash_batched(n_members: int, q, k, v, acc, m, l, q_offs, q_off: int, k_off
     the members' (or one shared) or an int."""
     q, k, v, acc, m, l = (_members_rowmajor(t) for t in (q, k, v, acc, m, l))
     _check_batch("flash_attention_block", n_members, q, k, v, acc, m, l)
-    sq, sk, d = _check_attention(*(_member(t) for t in (q, k, v, acc, m, l)))
+    sq, sk, d, dv = _check_attention(*(_member(t) for t in (q, k, v, acc, m, l)))
     _count(flash_attention_block, "calls")
     q_offs, k_offs = _offsets(q_offs), _offsets(k_offs)
     if q.device.type == "cpu":
@@ -1046,11 +1075,11 @@ def _flash_batched(n_members: int, q, k, v, acc, m, l, q_offs, q_off: int, k_off
             q, k, v, acc, m, l, q_off if q_offs is None else q_offs,
             k_off if k_offs is None else k_offs, causal=causal, scale=scale)
         return tuple(o.expand(n_members, *o.shape[-2:]) for o in outs)
-    mode = _attention_mode(q.dtype, k.dtype, v.dtype, d)
+    mode = _attention_mode(q.dtype, k.dtype, v.dtype, d, dv)
     if not mode.startswith("bf16"):
         q, k, v = q.float(), k.float(), v.float()
     outs = tuple(torch.empty((n_members, sq, c), dtype=torch.float32, device=q.device)
-                 for c in (d, 1, 1))
+                 for c in (dv, 1, 1))
     if sq == 0:
         return outs
     _flash_launch(n_members, mode, q, k, v, acc, m, l, outs, q_off, k_off, causal, scale,

@@ -136,6 +136,8 @@ CLOSE_BEGIN = "close_begin"                # the executor's close
 CLOSE_END = "close_end"
 ASSEMBLE_BEGIN = "assemble_begin"          # an output assembled on the host
 ASSEMBLE_END = "assemble_end"
+KV_UP_BEGIN = "kv_up_begin"                # a latent attention's K/V expansion
+KV_UP_END = "kv_up_end"
 # happens-before edges of the staging pipeline: HB_STAGE_IN fires on the
 # transfer thread after a task's inputs are prestaged ({"task": task});
 # HB_WB_ENQUEUE on the thread that committed the epilog ({"ticket",
@@ -177,6 +179,7 @@ SPANS: Dict[str, Tuple[str, str]] = {
     "wb_copy": (WB_COPY_BEGIN, WB_COPY_END),
     "close": (CLOSE_BEGIN, CLOSE_END),
     "assemble": (ASSEMBLE_BEGIN, ASSEMBLE_END),
+    "kv_up": (KV_UP_BEGIN, KV_UP_END),
     "stage_in": (STAGE_IN_BEGIN, STAGE_IN_END),
     "writeback": (WRITEBACK_BEGIN, WRITEBACK_END),
     "compile": (COMPILE_BEGIN, COMPILE_END),

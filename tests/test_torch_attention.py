@@ -676,14 +676,15 @@ def test_auto_blocks_take_the_empty_store_default(tmp_path, monkeypatch):
 
 def test_ptg_definitions_are_memoised_and_bounded():
     attention._PTG_MEMO.clear()
-    a = attention._flash_ptg_cached(causal=True, scale=0.5, q_block=8, kv_block=8,
-                                    q_offset=0, use_cuda=True, use_cpu=True)
-    b = attention._flash_ptg_cached(causal=True, scale=0.5, q_block=8, kv_block=8,
-                                    q_offset=0, use_cuda=True, use_cpu=True)
+    build = attention.flash_attention_ptg
+    a = attention._ptg_cached(build, causal=True, scale=0.5, q_block=8, kv_block=8,
+                              q_offset=0, use_cuda=True, use_cpu=True)
+    b = attention._ptg_cached(build, causal=True, scale=0.5, q_block=8, kv_block=8,
+                              q_offset=0, use_cuda=True, use_cpu=True)
     assert a is b
     for off in range(attention._PTG_MEMO_MAX + 5):
-        attention._flash_ptg_cached(causal=True, scale=0.5, q_block=8, kv_block=8,
-                                    q_offset=off + 1, use_cuda=True, use_cpu=True)
+        attention._ptg_cached(build, causal=True, scale=0.5, q_block=8, kv_block=8,
+                              q_offset=off + 1, use_cuda=True, use_cpu=True)
     assert len(attention._PTG_MEMO) == attention._PTG_MEMO_MAX
 
 
