@@ -5882,10 +5882,9 @@ def main() -> int:
             got = out[:, :, h:h + 1].to(dev, torch.float32)
             worst = max(worst, ((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item())
             del ref, got
-        # q, the latent and rotary blocks and the weights once each, and
-        # the carries' initials
-        bytes_in = ((MLA_S * MLA_H * MLA_D + MLA_S * (MLA_L + dr) + MLA_H * rows_h * MLA_L) * 2
-                    + MLA_H * MLA_S * (MLA_DV + 2) * 4)
+        # q, the latent and rotary blocks and the weights once each; the
+        # carries are made on the card
+        bytes_in = (MLA_S * MLA_H * MLA_D + MLA_S * (MLA_L + dr) + MLA_H * rows_h * MLA_L) * 2
         say("mla_pump", S=MLA_S, heads=MLA_H, block=MLA_BLOCK, tasks=ran,
             b5_launches=run["b5"], b2_launches=run["b2"], scratch_tiles=st["scratch_tiles"],
             scratch_bytes=st["scratch_bytes"], scratch_h2d_bytes=st["scratch_h2d_bytes"],
@@ -5895,8 +5894,10 @@ def main() -> int:
         check(run["b5"] == {"bf16": n_steps} and run["b2"] == {"bf16": 2 * n_up},
               f"mla pump: launches B5 {run['b5']}, B2 {run['b2']}; want bf16 "
               f"{n_steps} and {2 * n_up}")
-        check(st["scratch_tiles"] == 2 * n_up and st["scratch_h2d_bytes"] == 0
-              and st["scratch_bytes"] == MLA_H * MLA_S * (MLA_D + MLA_DV) * 2,
+        # kv_up's K and V tiles, and each chain's acc, m and l
+        check(st["scratch_tiles"] == 2 * n_up + 3 * MLA_H * nk and st["scratch_h2d_bytes"] == 0
+              and st["scratch_bytes"] == MLA_H * MLA_S * ((MLA_D + MLA_DV) * 2
+                                                          + (MLA_DV + 2) * 4),
               f"mla pump: task-made tiles {st['scratch_tiles']}, {st['scratch_bytes']} B, "
               f"{st['scratch_h2d_bytes']} B staged in")
         check(st["bytes_in"] == bytes_in, f"mla pump: bytes_in {st['bytes_in']}, want {bytes_in}")

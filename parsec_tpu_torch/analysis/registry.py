@@ -101,7 +101,9 @@ def _ops_segmented_qr():
          "R": _local("R")}
 
 
-def _attn_planes(G: int, N: int, D: int = 4):
+def _attn_planes(G: int, N: int, D: int = 4, carries: bool = True):
+    """Q, K, V and O planes of 4-row blocks, and with ``carries`` the ring
+    graphs' carry collections ``CA``/``CM``/``CL``."""
     from ..ops.attention import NEG_BIG, PlaneCollection
 
     keys = [(g, j) for g in range(G) for j in range(N)]
@@ -109,20 +111,22 @@ def _attn_planes(G: int, N: int, D: int = 4):
         "CM": lambda g, j: np.full((4, 1), NEG_BIG, np.float32),
         "CL": lambda g, j: np.zeros((4, 1), np.float32),
     }
+    names = ("Q", "K", "V", "O") + (("CA", "CM", "CL") if carries else ())
     return {
         name: PlaneCollection(
             name, inits.get(name, lambda g, j: np.zeros((4, D), np.float32)),
             keys=keys)
-        for name in ("Q", "K", "V", "O", "CA", "CM", "CL")
+        for name in names
     }
 
 
 def _ops_attention_flash():
-    from ..ops.attention import flash_attention_ptg
+    from ..ops.attention import _carry_tile_types, flash_attention_ptg
 
+    # the flash graph's carries are task-made: tile types, no collections
     return flash_attention_ptg(causal=True, q_block=4, kv_block=4), \
         {"G": 2, "NQ": 3, "NK": 3, "QB": 4, "KVB": 4, "QOFF": 0,
-         "SQ": 12, **_attn_planes(2, 3)}
+         "SQ": 12, **_attn_planes(2, 3, carries=False), **_carry_tile_types(4, [4] * 3)}
 
 
 def _ops_attention_ring(variant: str):

@@ -20,7 +20,9 @@ A step's CUDA chore is the hand-written kernel
 chore the same update in numpy.  Host planes are torch CPU tensors, so
 bfloat16 q/k/v need no numpy bfloat16: the CUDA module stages torch host
 tiles as they are, and a CPU chore widens them to float32 numpy.  The
-carries are float32 numpy tiles.
+carries are float32: in the flash graph, tiles its tasks make (no
+collection holds them; a chain's first step starts them), in the ring
+graphs numpy tiles of collections.
 
 :func:`run_flash_attention` drives the flash graph through a live
 context's dynamic runtime, :func:`run_flash_attention_native` through the
@@ -168,11 +170,23 @@ def _f32(x) -> np.ndarray:
     return x.astype(np.float32)
 
 
+def _start_carry(ACC, M, L) -> None:
+    """Set a chain's carry to its start, in the tiles the first step was
+    given (on their own device): ``acc = 0``, ``m = NEG_BIG``, ``l = 0``.
+    The tiles are task-made, so whatever a path made them as (device or
+    host zeros, a replayed graph's buffer) is written over."""
+    ACC[...] = 0
+    M[...] = NEG_BIG
+    L[...] = 0
+
+
 def _make_step_body_cuda(q_block: int, kv_block: int, causal: bool,
                          scale: float, q_offset: int):
     # the step reads i and s (its block offsets), not g: same-offset steps
     # of every group share one wave signature
     def attn_step(QB, KB, VB, ACC, M, L, i, s, **_):
+        if s == 0:
+            _start_carry(ACC, M, L)
         return kernels.flash_attention_block(
             QB, KB, VB, ACC, M, L, q_offset + i * q_block, s * kv_block,
             causal=causal, scale=float(scale))
@@ -203,6 +217,8 @@ def _make_step_body_cpu(q_block: int, kv_block: int, causal: bool,
                         scale: float, q_offset: int):
     def attn_step(QB, KB, VB, ACC, M, L, **kw):
         i, s = kw["i"], kw["s"]
+        if s == 0:
+            _start_carry(ACC, M, L)
         _np_step(QB, KB, VB, ACC, M, L, q_offset + i * q_block,
                  s * kv_block, causal, scale)
 
@@ -295,9 +311,11 @@ def _flash_chain(ptg: PTG, *, causal: bool, scale: float, q_block: int,
     st.flow("QB", IN, "<- Q(g, i)")
     st.flow("KB", IN, kv_deps[0])
     st.flow("VB", IN, kv_deps[1])
-    for name, coll in (("ACC", "CA"), ("M", "CM"), ("L", "CL")):
+    # the carries are task-made: the s == 0 step starts them in its body
+    for name, tile in (("ACC", "ACCTILE"), ("M", "ROWTILE"), ("L", "ROWTILE")):
         st.flow(name, INOUT,
-                f"<- (s == 0) ? {coll}(g, i) : {name} attn_step(g, i, s-1)",
+                f"<- (s == 0) ? NEW [type={tile}]",
+                f"<- (s > 0) ? {name} attn_step(g, i, s-1)",
                 f"-> (s < hz) ? {name} attn_step(g, i, s+1) "
                 f": {name} attn_out(g, i)")
     _bodies(st,
@@ -324,16 +342,19 @@ def flash_attention_ptg(*, causal: bool = False, scale: float = 1.0,
                         use_cuda: bool = True, use_cpu: bool = True) -> PTG:
     """Single-rank blockwise flash attention.  Instantiate with
     ``.taskpool(G=, NQ=, NK=, QB=, KVB=, QOFF=, SQ=, Q=, K=, V=, O=,
-    CA=, CM=, CL=)`` where the collections are keyed ``(g, block)``:
+    ACCTILE=, ROWTILE=)`` where the collections are keyed ``(g, block)``:
     ``Q(g, i)``/``O(g, i)`` are ``(sq_i, D)`` query/output blocks (O
     write-only: its home tile is never read),
-    ``K(g, s)``/``V(g, s)`` are ``(sk_s, D)`` KV blocks, and
-    ``CA``/``CM``/``CL`` hold the per-query-block carry initials
-    (zeros, ``NEG_BIG``, zeros); the scalar constants repeat the block
-    geometry (``QB``/``KVB`` block sizes, ``QOFF`` global query offset,
-    ``SQ`` query length) so the causal step range can stop at each
-    block's horizon.  ``q_offset`` shifts the global query positions
-    (decode: queries live at the tail of the KV sequence).
+    ``K(g, s)``/``V(g, s)`` are ``(sk_s, D)`` KV blocks; the scalar
+    constants repeat the block geometry (``QB``/``KVB`` block sizes,
+    ``QOFF`` global query offset, ``SQ`` query length) so the causal step
+    range can stop at each block's horizon.  The carries ``(acc, m, l)``
+    are task-made tiles that no collection holds (``<- NEW`` at ``s ==
+    0``, started by that step's body): ``ACCTILE(g, i, s)`` gives
+    ``acc``'s type, ``(float32, (sq_i, D))``, and ``ROWTILE(g, i, s)``
+    ``m``'s and ``l``'s, ``(float32, (sq_i, 1))``
+    (:func:`_carry_tile_types`).  ``q_offset`` shifts the global query
+    positions (decode: queries live at the tail of the KV sequence).
     :func:`build_flash_attention` assembles all of this from
     ``[B, S, H, D]`` tensors."""
     ptg = PTG("flash_attn")
@@ -483,8 +504,18 @@ def _ptg_cached(build: Callable[..., PTG], **kw) -> PTG:
         return p
 
 
+def _carry_tile_types(D: int, q_sizes: Sequence[int]) -> Dict[str, Callable]:
+    """The flash chain's ``ACCTILE`` and ``ROWTILE`` taskpool constants:
+    the ``(dtype, shape)`` of step ``(g, i, s)``'s task-made carries, a
+    ``(q_sizes[i], D)`` acc and ``(q_sizes[i], 1)`` m and l, float32 (a
+    ragged last query block's are shorter)."""
+    return {"ACCTILE": lambda g, i, s: (np.float32, (q_sizes[i], D)),
+            "ROWTILE": lambda g, i, s: (np.float32, (q_sizes[i], 1))}
+
+
 def _carry_inits(D: int, q_sizes: Sequence[int]):
-    """(CA, CM, CL) init callables for the per-query-block carries."""
+    """(CA, CM, CL) init callables for the ring graphs' per-query-block
+    carries."""
     def ca(g, i):
         return np.zeros((q_sizes[i], D), np.float32)
 
@@ -579,17 +610,13 @@ def _build_flash_attention(q, k, v, causal, scale, q_block, kv_block, q_offset,
     Vc = PlaneCollection("V", plane(v, ks), keys=keys_k)
     Oc = PlaneCollection("O", lambda g, i: torch.empty((qs[i][1], D), dtype=odt),
                          keys=keys_q, blank=True)
-    ca, cm, cl = _carry_inits(D, [n for _, n in qs])
     tp = _ptg_cached(
         flash_attention_ptg,
         causal=causal, scale=scale_v, q_block=qb, kv_block=kvb,
         q_offset=q_offset, use_cuda=use_cuda, use_cpu=use_cpu,
     ).taskpool(G=G, NQ=len(qs), NK=len(ks), QB=qb, KVB=kvb,
                QOFF=q_offset, SQ=Sq,
-               Q=Qc, K=Kc, V=Vc, O=Oc,
-               CA=PlaneCollection("CA", ca, keys=keys_q),
-               CM=PlaneCollection("CM", cm, keys=keys_q),
-               CL=PlaneCollection("CL", cl, keys=keys_q))
+               Q=Qc, K=Kc, V=Vc, O=Oc, **_carry_tile_types(D, [n for _, n in qs]))
 
     return tp, lambda: _assemble(Oc, tp.job, (B, Sq, H, D), qs, odt)
 

@@ -43,7 +43,7 @@ import torch
 from ..dsl.ptg import PTG
 from ..profiling import pins
 from . import kernels
-from .attention import (IN, OUT, PlaneCollection, _assemble, _bodies, _carry_inits, _f32,
+from .attention import (IN, OUT, PlaneCollection, _assemble, _bodies, _carry_tile_types, _f32,
                         _flash_chain, _host_tensor, _ptg_cached, attention_task_count,
                         block_splits)
 
@@ -87,16 +87,18 @@ def mla_attention_ptg(*, causal: bool = False, scale: float = 1.0,
                       q_block: int = 128, kv_block: int = 128, d_nope: int = 128,
                       use_cuda: bool = True, use_cpu: bool = True) -> PTG:
     """Latent attention's prefill graph.  Instantiate with ``.taskpool(G=,
-    H=, NQ=, NK=, QB=, KVB=, QOFF=0, SQ=, Q=, CKV=, KPE=, WKV=, O=, CA=,
-    CM=, CL=, KTILE=, VTILE=)``: ``Q(g, i)``/``O(g, i)`` are the ``(sq_i,
-    Dqk)`` query and ``(sq_i, Dv)`` output blocks of group ``g = b * H +
-    h`` (O write-only), ``CKV(b, s)``/``KPE(b, s)`` the ``(sk_s, L)``
-    latent and ``(sk_s, R)`` rotary blocks of batch ``b``, ``WKV(h, 0)``
-    head ``h``'s ``(Dn + Dv, L)`` rows of ``kv_b_proj`` (``Dn = d_nope``),
-    ``CA``/``CM``/``CL`` the carries' initials; ``KTILE(g, s)`` and
-    ``VTILE(g, s)`` give each ``kv_up`` task's K and V tile as ``(dtype,
-    shape)``.  :func:`build_mla_attention` assembles it all from the
-    caller's tensors."""
+    H=, NQ=, NK=, QB=, KVB=, QOFF=0, SQ=, Q=, CKV=, KPE=, WKV=, O=,
+    KTILE=, VTILE=, ACCTILE=, ROWTILE=)``: ``Q(g, i)``/``O(g, i)`` are the
+    ``(sq_i, Dqk)`` query and ``(sq_i, Dv)`` output blocks of group ``g =
+    b * H + h`` (O write-only), ``CKV(b, s)``/``KPE(b, s)`` the ``(sk_s,
+    L)`` latent and ``(sk_s, R)`` rotary blocks of batch ``b``, ``WKV(h,
+    0)`` head ``h``'s ``(Dn + Dv, L)`` rows of ``kv_b_proj`` (``Dn =
+    d_nope``); ``KTILE(g, s)`` and ``VTILE(g, s)`` give each ``kv_up``
+    task's K and V tile as ``(dtype, shape)``, ``ACCTILE(g, i, s)`` and
+    ``ROWTILE(g, i, s)`` the task-made carries' (float32 ``(sq_i, Dv)``
+    and ``(sq_i, 1)``, :func:`.attention._carry_tile_types`).
+    :func:`build_mla_attention` assembles it all from the caller's
+    tensors."""
     ptg = PTG("mla_attn")
     up = ptg.task_class("kv_up", g="0 .. G-1", s="0 .. NK-1")
     up.define("b", "g // H")
@@ -186,7 +188,6 @@ def _build_mla_attention(q, c_kv, k_pe, w_kv_b, scale, causal, q_block, kv_block
     keys_b = [(b, s) for b in range(B) for s in range(len(ks))]
     Oc = PlaneCollection("O", lambda g, i: torch.empty((qs[i][1], dv), dtype=odt),
                          keys=keys_q, blank=True)
-    ca, cm, cl = _carry_inits(dv, [n for _, n in qs])
     tp = _ptg_cached(
         mla_attention_ptg, causal=bool(causal), scale=float(scale), q_block=int(q_block),
         kv_block=int(kv_block), d_nope=dn, use_cuda=use_cuda, use_cpu=use_cpu,
@@ -198,11 +199,9 @@ def _build_mla_attention(q, c_kv, k_pe, w_kv_b, scale, causal, q_block, kv_block
                WKV=PlaneCollection("WKV", lambda h, _j: w_kv_b[h * (dn + dv):(h + 1) * (dn + dv)],
                                    keys=[(h, 0) for h in range(H)]),
                O=Oc,
-               CA=PlaneCollection("CA", ca, keys=keys_q),
-               CM=PlaneCollection("CM", cm, keys=keys_q),
-               CL=PlaneCollection("CL", cl, keys=keys_q),
                KTILE=lambda g, s: (dt, (ks[s][1], dqk)),
-               VTILE=lambda g, s: (dt, (ks[s][1], dv)))
+               VTILE=lambda g, s: (dt, (ks[s][1], dv)),
+               **_carry_tile_types(dv, [n for _, n in qs]))
     return tp, lambda: _assemble(Oc, tp.job, (B, S, H, dv), qs, odt)
 
 

@@ -134,6 +134,20 @@ _CASES = {
 _graphs = {}
 
 
+#: the reference's flash graph reads its carries' initials from these
+#: collections; the port's carries are task-made tiles of each chain's
+#: first step (ROADMAP C, "The flash graph's carries")
+_CARRIES = {"CA": "ACC", "CM": "M", "CL": "L"}
+
+
+def _as_port(key):
+    """The reference's slot key in the port's terms: a carry collection's
+    tile ``(g, i)`` is ``attn_step(g, i, 0)``'s task-made tile."""
+    if key is None or key[0] != "data" or key[1] not in _CARRIES:
+        return key
+    return ("new", ("attn_step", tuple(key[2]) + (0,)), _CARRIES[key[1]])
+
+
 def _captured(case):
     """(port pool, port graph, reference pool, reference graph), captured
     once per case."""
@@ -179,12 +193,15 @@ def test_plans_and_scan_segments_match_reference(case, scan):
         assert p._scan_segments == rp._scan_segments
         looped += p._scan_segments is not None
         # the port's flash graph writes O without reading it: its O slots
-        # are write-only where the reference's read and write
+        # are write-only where the reference's read and write; its carries
+        # are task-made where the reference's come from collections
         want_modes = [m & ~int(AccessMode.IN) if key[:2] == ("data", "O") else m
                       for key, m in zip(rp.slot_keys, rp.slot_modes)]
+        want_keys = [_as_port(key) for key in rp.slot_keys]
         assert (p.slot_keys, p.slot_modes, p.out_slots, p.slot_writer) == \
-            (rp.slot_keys, want_modes, rp.out_slots, rp.slot_writer)
-        assert p.member_flow_slots == rp.member_flow_slots
+            (want_keys, want_modes, rp.out_slots, rp.slot_writer)
+        assert p.member_flow_slots == [{f: _as_port(key) for f, key in slots.items()}
+                                       for slots in rp.member_flow_slots]
         assert p.priority == rp.priority and p.name == rp.name
         assert p.body_fn._fused_n == rp.body_fn._fused_n == len(r.members)
     if case.startswith("attn"):

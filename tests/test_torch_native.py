@@ -132,9 +132,26 @@ _CAPTURE_CASES = {
 }
 
 
-def _graph_view(g):
-    return {tid: (n.priority, n.rank, n.in_edges, n.remote_out,
-                  list(n.out_edges), dict(n.flow_sources), list(n.write_backs))
+#: the reference's flash graph reads its carries' initials from these
+#: collections; the port's carries are task-made tiles of each chain's
+#: first step (ROADMAP C, "The flash graph's carries")
+_CARRIES = {"CA": "ACC", "CM": "M", "CL": "L"}
+
+
+def _as_port(src, short=False):
+    """The reference's flow source ``src`` in the port's terms: a carry
+    collection's tile ``(g, i)`` is ``attn_step(g, i, 0)``'s task-made tile
+    (``short``: a captured node's ``("new",)``)."""
+    if src is None or src[0] != "data" or src[1] not in _CARRIES:
+        return src
+    return ("new",) if short else ("new", ("attn_step", tuple(src[2]) + (0,)),
+                                   _CARRIES[src[1]])
+
+
+def _graph_view(g, reference=False):
+    return {tid: (n.priority, n.rank, n.in_edges, n.remote_out, list(n.out_edges),
+                  {f: _as_port(src, short=True) if reference else src
+                   for f, src in n.flow_sources.items()}, list(n.write_backs))
             for tid, n in g.nodes.items()}
 
 
@@ -144,13 +161,16 @@ def test_capture_matches_reference(case):
     mine = mine_tp.capture()
     theirs = ref_graph.capture(theirs_tp)
     assert list(mine.nodes) == list(theirs.nodes)  # same set, same order
-    assert _graph_view(mine) == _graph_view(theirs)
+    assert _graph_view(mine) == _graph_view(theirs, reference=True)
     assert mine.global_ranks == theirs.global_ranks
     assert graph.find_cycle(mine) == []
     for tid, node in mine.nodes.items():
         for fname in node.flow_sources:
             assert graph.source_tile(mine, tid, fname) == \
-                ref_graph.source_tile(theirs, tid, fname)
+                _as_port(ref_graph.source_tile(theirs, tid, fname))
+    if case.startswith("attention"):
+        assert any(src == ("new",) for n in mine.nodes.values()
+                   for src in n.flow_sources.values())
 
 
 def test_find_cycle_names_a_cycle():

@@ -190,7 +190,9 @@ def test_spans_carry_the_job_and_their_parent(job, cpu_device, recorder):
                 assert end["bytes"] > 0 and end["tiles"] > 0, (name, end)
     copied = sum(dc.stats["copied_bytes"] for dc in tp.constants.values()
                  if isinstance(dc, PlaneCollection))
-    assert made == copied and (job == "dpotrf" or copied > 0)
+    # no job copies a host tile: the prefill's planes are views of the
+    # caller's tensors, its O tiles blank and its carries task-made
+    assert made == copied == 0
 
 
 @pytest.mark.parametrize("job", sorted(JOBS))
